@@ -9,7 +9,8 @@ setup(
     description=(
         "TPU-native symbolic-execution security analyzer for EVM bytecode"
     ),
-    packages=find_packages(include=["mythril_tpu", "mythril_tpu.*"]),
+    packages=find_packages(include=["mythril_tpu", "mythril_tpu.*",
+                                    "mythril_tpu_torch*"]),
     package_data={"mythril_tpu.support": ["assets/*.txt"]},
     include_package_data=True,
     python_requires=">=3.9",
