@@ -33,7 +33,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-#: H100 SXM peaks (the on-chip-measurement guide's table): HBM bytes/s,
+#: H100 SXM peaks (NVIDIA's datasheet): HBM bytes/s,
 #: and the float32 non-tensor rate, which 32-bit integer ALU work is
 #: counted against
 PEAK_BYTES = 3.35e12
