@@ -29,6 +29,13 @@
 // MR overlay records, the S storage keys), and writes a few words; a
 // fork copies the whole ~25 KB row. The lane loop is one thread per
 // lane with no cross-lane traffic except the scan and the fork copies.
+//
+// K0 sym_init replaces mythril_tpu/ops/symstep.py:250
+// _init_sym_lanes_dev: every plane of a fresh batch written in place
+// (zeros, status DEAD, fentry/last_jump -1, the gas limit, the free-slot
+// stack n-1..0). One launch, a block per 64 KB of a plane, 16-byte
+// stores.
+// Bound: bytes (each plane written once, nothing read).
 #include "common.cuh"
 #include "bv256.cuh"
 
@@ -804,7 +811,63 @@ __global__ void k_fork(Sym s, int32_t* ctl, ForkStash fs) {
   }
 }
 
+// K0: plane f of the batch is ip.bytes[f] bytes at ip.p[f]; its 32-bit
+// words get ip.val[f] (u8 planes always 0), or with ip.desc[f] the
+// descending stack len-1, ..., 0. Block b writes INIT_CHUNK bytes of
+// the plane f with first[f] <= b < first[f + 1]: one launch sized to
+// the bytes, so small planes cost one block each.
+constexpr long long INIT_CHUNK = 65536;
+
+struct InitPlan {
+  void* p[SYM_NFIELDS];
+  long long bytes[SYM_NFIELDS];
+  int32_t val[SYM_NFIELDS];
+  int32_t desc[SYM_NFIELDS];
+  int32_t first[SYM_NFIELDS + 1];
+};
+
+__global__ void k_init(InitPlan ip) {
+  int b = blockIdx.x, f = 0;
+  while (f + 1 < SYM_NFIELDS && ip.first[f + 1] <= b) ++f;
+  char* base = (char*)ip.p[f];
+  long long lo = (long long)(b - ip.first[f]) * INIT_CHUNK;
+  long long hi = min(lo + INIT_CHUNK, ip.bytes[f]);
+  int32_t v = ip.val[f];
+  if (ip.desc[f]) {
+    long long nw = ip.bytes[f] >> 2;
+    for (long long i = (lo >> 2) + threadIdx.x; i < (hi >> 2); i += blockDim.x)
+      ((int32_t*)base)[i] = (int32_t)(nw - 1 - i);
+    return;
+  }
+  // 16-byte stores where the plane is aligned, then words, then the
+  // bytes of a u8 plane's tail
+  long long e16 = ((uintptr_t)base & 15) == 0 ? hi >> 4 : lo >> 4;
+  int4 v4 = make_int4(v, v, v, v);
+  for (long long i = (lo >> 4) + threadIdx.x; i < e16; i += blockDim.x) ((int4*)base)[i] = v4;
+  for (long long i = 4 * e16 + threadIdx.x; i < (hi >> 2); i += blockDim.x)
+    ((int32_t*)base)[i] = v;
+  for (long long i = 4 * (hi >> 2) + threadIdx.x; i < hi; i += blockDim.x) base[i] = 0;
+}
+
 }  // namespace
+
+// K0. bytes, vals, desc: host arrays of SYM_NFIELDS entries, in field
+// order (see k_init).
+MTT_EXPORT int sym_init(void** planes, const long long* bytes, const int* vals,
+                        const int* desc, void* stream) {
+  InitPlan ip;
+  ip.first[0] = 0;
+  for (int f = 0; f < SYM_NFIELDS; ++f) {
+    ip.p[f] = planes[f];
+    ip.bytes[f] = bytes[f];
+    ip.val[f] = vals[f];
+    ip.desc[f] = desc[f];
+    ip.first[f + 1] = ip.first[f] + (int)((bytes[f] + INIT_CHUNK - 1) / INIT_CHUNK);
+  }
+  if (ip.first[SYM_NFIELDS] > 0)
+    k_init<<<ip.first[SYM_NFIELDS], 256, 0, (cudaStream_t)stream>>>(ip);
+  return (int)cudaGetLastError();
+}
 
 MTT_EXPORT int sym_count_running(void** planes, const int* dims, void* ctl, void* stream) {
   Sym s = make_sym(planes, dims);

@@ -809,6 +809,7 @@ class LaneEngine:
         self.step_budget = step_budget
         self.device = resolve(device)
         self.lane_kwargs = lane_kwargs
+        self.plain = plain
         self.ops = PLAIN if plain else DISPATCH
         self.exec_table = symstep.SYM_EXECUTABLE.copy()
         self.taint_table = np.zeros(256, bool)
@@ -821,7 +822,7 @@ class LaneEngine:
 
     def _acquire_state(self) -> SymLaneState:
         return symstep.init_sym_lanes(self.n_lanes, device=self.device,
-                                      **self.lane_kwargs)
+                                      plain=self.plain, **self.lane_kwargs)
 
     def _retire_floors(self, counts, lanes_sel):
         lk = self.lane_kwargs

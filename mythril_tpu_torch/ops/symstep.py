@@ -188,55 +188,88 @@ NO_COPY = frozenset((
     "free_slots", "free_count", "step_no"))
 
 
+def _plane_shapes(n, stack_depth, memory_bytes, mem_records,
+                  storage_slots, calldata_bytes, dlog_records):
+    """{field: shape} of a batch of n lanes (dtypes: ``U8_FIELDS`` are
+    uint8, every other plane int32)."""
+    d, m, mr, s, c, r = (stack_depth, memory_bytes, mem_records,
+                         storage_slots, calldata_bytes, dlog_records)
+    shapes = dict.fromkeys(FIELDS, (n,))
+    shapes.update(
+        stack=(n, d, 8), ssid=(n, d), memory=(n, m), mkind=(n, m),
+        mlog_off=(n, mr), mlog_len=(n, mr), mlog_sid=(n, mr),
+        skeys=(n, s, 8), svals=(n, s, 8), calldata=(n, c),
+        env=(n, N_ENV, 8), env_sid=(n, N_ENV),
+        dlog_sid=(n, r, 3), dlog_val=(n, r, 3, 8),
+        flog_count=(), free_count=(), step_no=())
+    for f in ("sval_sid", "s_written", "s_read", "skey_sid", "s_wstep"):
+        shapes[f] = (n, s)
+    for f in ("dlog_op", "dlog_pc", "dlog_step", "dlog_fentry"):
+        shapes[f] = (n, r)
+    return shapes
+
+
+def _init_values(n, gas_limit):
+    """{field: value} of the planes a fresh batch does not zero;
+    ``free_slots`` is the stack n-1, ..., 0 (slot 0 on top)."""
+    return {"fentry": -1, "last_jump": -1,
+            "gas_limit": int(i32(torch.tensor(gas_limit))),
+            "status": DEAD, "free_count": n}
+
+
 def init_sym_lanes(n_lanes: int, stack_depth: int = 64,
                    memory_bytes: int = 4096, mem_records: int = 64,
                    storage_slots: int = 64, calldata_bytes: int = 512,
                    dlog_records: int = 64, pc_records: int = 64,
                    gas_limit: int = 8_000_000,
-                   device=None) -> SymLaneState:
+                   device=None, plain: bool = False) -> SymLaneState:
     """A zeroed batch with every lane DEAD and every slot on the free
     stack, on ``device`` (``cuda`` unless the caller names another).
-    ``pc_records`` is accepted for the JAX signature and unused, as
-    there."""
+    On the card the planes are written by kernel K0 (``init_kernel``),
+    on the CPU (or with ``plain``) by PyTorch fills. ``pc_records`` is
+    accepted for the JAX signature and unused, as there."""
     from ..support.devices import resolve
 
     dev = resolve(device)
-    n = n_lanes
-    i32_ = torch.int32
+    shapes = _plane_shapes(n_lanes, stack_depth, memory_bytes, mem_records,
+                           storage_slots, calldata_bytes, dlog_records)
+    values = _init_values(n_lanes, gas_limit)
 
-    def z(*shape, dtype=i32_):
-        return torch.zeros(shape, dtype=dtype, device=dev)
+    def plane(f, fill):
+        dtype = torch.uint8 if f in U8_FIELDS else torch.int32
+        if not fill:
+            return torch.empty(shapes[f], dtype=dtype, device=dev)
+        if f == "free_slots":
+            return torch.arange(n_lanes - 1, -1, -1, dtype=dtype,
+                                device=dev)
+        return torch.full(shapes[f], values.get(f, 0), dtype=dtype,
+                          device=dev)
 
-    def full(shape, v):
-        return torch.full(shape, v, dtype=i32_, device=dev)
+    fill = plain or dev.type == "cpu"
+    st = SymLaneState(**{f: plane(f, fill) for f in FIELDS})
+    if not fill:
+        init_kernel(st, gas_limit)
+    return st
 
-    u8 = torch.uint8
-    return SymLaneState(
-        pc=z(n), sp=z(n), depth=z(n), group=z(n), fentry=full((n,), -1),
-        last_jump=full((n,), -1), stack=z(n, stack_depth, 8),
-        ssid=z(n, stack_depth), memory=z(n, memory_bytes, dtype=u8),
-        mkind=z(n, memory_bytes, dtype=u8), msize=z(n),
-        mlog_off=z(n, mem_records), mlog_len=z(n, mem_records),
-        mlog_sid=z(n, mem_records), mlog_count=z(n),
-        skeys=z(n, storage_slots, 8), svals=z(n, storage_slots, 8),
-        sval_sid=z(n, storage_slots), s_written=z(n, storage_slots),
-        s_read=z(n, storage_slots), skey_sid=z(n, storage_slots),
-        s_wstep=z(n, storage_slots), s_mode=z(n), scount=z(n),
-        sbase=z(n), calldata=z(n, calldata_bytes, dtype=u8),
-        cd_size=z(n), cd_sym=z(n), cd_size_sid=z(n),
-        env=z(n, N_ENV, 8), env_sid=z(n, N_ENV), min_gas=z(n),
-        max_gas=z(n), gas_limit=full((n,), i32(torch.tensor(gas_limit)).item()),
-        status=full((n,), DEAD), steps=z(n),
-        dlog_op=z(n, dlog_records), dlog_pc=z(n, dlog_records),
-        dlog_step=z(n, dlog_records), dlog_fentry=z(n, dlog_records),
-        dlog_sid=z(n, dlog_records, 3), dlog_val=z(n, dlog_records, 3, 8),
-        dlog_count=z(n), flog_parent=z(n), flog_child=z(n),
-        flog_step=z(n), flog_pc=z(n), flog_sid=z(n), flog_gmin=z(n),
-        flog_gmax=z(n), flog_fentry=z(n), flog_dest=z(n),
-        flog_count=z(), free_slots=torch.arange(
-            n - 1, -1, -1, dtype=i32_, device=dev),
-        free_count=full((), n), step_no=z(),
-    )
+
+def init_kernel(st: SymLaneState, gas_limit: int = 8_000_000) -> None:
+    """Kernel K0 (``csrc/symstep.cu`` ``sym_init``): write every plane
+    of a CUDA batch in place as ``init_sym_lanes`` makes it, whatever
+    the planes held."""
+    from .. import _build
+
+    lib = _k1()
+    planes, _ = state_args(st)
+    values = _init_values(st.pc.shape[0], gas_limit)
+    nbytes = (ctypes.c_longlong * len(FIELDS))(*(
+        getattr(st, f).numel() * getattr(st, f).element_size()
+        for f in FIELDS))
+    vals = _build.int_array([values.get(f, 0) for f in FIELDS])
+    desc = _build.int_array([f == "free_slots" for f in FIELDS])
+    rc = lib.sym_init(planes, nbytes, vals, desc,
+                      _build.stream(st.device))
+    _build.LAUNCHES["sym_init"] += 1
+    _build.check(lib, rc, "sym_init")
 
 
 def lane_bytes(**lane_kwargs) -> int:
@@ -947,6 +980,8 @@ _STEP_SIGS = {
                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
     "sym_count_running": [ctypes.c_void_p, ctypes.c_void_p,
                           ctypes.c_void_p, ctypes.c_void_p],
+    "sym_init": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_void_p],
 }
 
 
@@ -980,10 +1015,12 @@ def state_args(st: SymLaneState):
 
 
 def sym_run_kernel(code: CompiledCode, st: SymLaneState, max_steps: int,
-                   exec_table=None, taint_table=None, visited=None):
-    """``sym_run`` on the card through kernel K1 (``csrc/symstep.cu``).
-    Updates the state's planes in place (the JAX run donates its state)
-    and returns (state, visited)."""
+                   exec_table=None, taint_table=None, visited=None,
+                   sync_every: int = SYNC_EVERY):
+    """``sym_run`` on the card through kernel K1 (``csrc/symstep.cu``),
+    reading the running count back every ``sync_every`` steps. Updates
+    the state's planes in place (the JAX run donates its state) and
+    returns (state, visited)."""
     from .. import _build
 
     dev = st.pc.device
@@ -1007,14 +1044,13 @@ def sym_run_kernel(code: CompiledCode, st: SymLaneState, max_steps: int,
     _build.check(lib, rc, "sym_count_running")
     done = 0
     while done < max_steps:
-        k = min(SYNC_EVERY, max_steps - done)
+        k = min(sync_every, max_steps - done)
         rc = lib.sym_run_steps(
             planes, dims, _build.ptr(packed), code.size, _build.ptr(optab),
             _build.ptr(ctl), _build.ptr(scratch), k, MAX_FORKS_PER_STEP,
             None if vis is None else _build.ptr(vis),
             0 if vis is None else vis.shape[0], stream)
         _build.LAUNCHES["sym_step"] += k
-        _build.LAUNCHES["bv256"] += k  # K1 inlines csrc/bv256.cuh
         _build.check(lib, rc, "sym_run_steps")
         done += k
         if int(ctl[0]) == 0:

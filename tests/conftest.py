@@ -30,9 +30,6 @@ def pytest_configure(config):
         "markers",
         "slow: excluded from the tier-1 `-m 'not slow'` budget run "
         "(multi-process daemon lifecycles and similar long tails)")
-    config.addinivalue_line(
-        "markers",
-        "cuda: needs a CUDA card (the port's kernels); skips without one")
 
 
 @pytest.fixture(autouse=True)

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of mythril_tpu_torch/ and not
-chip_smoke.py imports JAX or the JAX package, and the copies it keeps of
-the JAX package's tables and constants are equal to the originals."""
+"""The port stands alone: no module of mythril_tpu_torch/, not
+chip_smoke.py and not tools/prof_torch_port.py imports JAX or the JAX
+package, and the copies the port keeps of the JAX package's tables and
+constants are equal to the originals."""
 
 import ast
 import os
@@ -22,7 +23,8 @@ PKG = os.path.join(ROOT, "mythril_tpu_torch")
 
 
 def _port_sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "tools", "prof_torch_port.py")]
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)

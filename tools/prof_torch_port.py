@@ -1,27 +1,31 @@
-"""Profile the port's main path on the card: where the device time goes.
+"""Profile the PyTorch port's main path on the card: where the device
+time goes.
 
-    python3 -m mythril_tpu_torch.profile [--k 12] [--lanes 4096]
-                                         [--sync-every 8]
+    python3 tools/prof_torch_port.py [--k 12] [--lanes 4096]
 
 Runs ``LaneEngine.explore`` on ``build_symbolic_contract(k)`` once to
 warm up (kernel builds, allocator), once timed on the host clock, then
 once under ``torch.profiler``, and prints the card, both wall times, the
 device time summed over kernels, the device busy share of the profiled
-wall, and the kernels by device time. ``--sync-every`` sets how many K1
-steps are enqueued between reads of the device's running count
-(``ops.symstep.SYNC_EVERY``).
+wall, and the kernels by device time.
 """
 
 import argparse
+import os
 import subprocess
+import sys
 import time
 
 import torch
 
-from .laser import lane_engine as le
-from .ops import symstep
-from .support.contracts import build_symbolic_contract
-from .support.devices import resolve
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from mythril_tpu_torch.laser import lane_engine as le  # noqa: E402
+from mythril_tpu_torch.support.contracts import (  # noqa: E402
+    build_symbolic_contract,
+)
+from mythril_tpu_torch.support.devices import resolve  # noqa: E402
 
 
 def _explore(dev, k, lanes):
@@ -34,9 +38,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--k", type=int, default=12)
     ap.add_argument("--lanes", type=int, default=4096)
-    ap.add_argument("--sync-every", type=int, default=symstep.SYNC_EVERY)
     args = ap.parse_args(argv)
-    symstep.SYNC_EVERY = args.sync_every
     dev = resolve()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -60,7 +62,7 @@ def main(argv=None) -> int:
     rows.sort(key=lambda e: -e.self_device_time_total)
     dev_us = sum(e.self_device_time_total for e in rows)
     print(f"card: {card}")
-    print(f"k={args.k} lanes={args.lanes} sync_every={args.sync_every}: "
+    print(f"k={args.k} lanes={args.lanes}: "
           f"{res['paths']} paths, {len(res['windows'])} windows, wall "
           f"{plain_wall * 1e3:.3f} ms ({wall * 1e3:.3f} ms under the "
           f"profiler)")
