@@ -21,12 +21,32 @@ Phases (any failure exits non-zero and prints no result):
    all 4096 paths retire and the fork tables hold 4095 forks;
 4. the wide run: k=17 at 131072 lanes with the kernels, all paths
    retired;
-5. the report: a ``kernels`` JSON line (launches on the main path, error,
-   times, bounds), the card's name and power limit, and the result line.
+5. the screens' kernels K5-K8, bit for bit against the plain versions:
+   on the all-opcode wave (``screen_waves.layered_sets`` replicated to
+   8192 states: every opcode and backward rule, checked present) from
+   its init tables and from two seeded random tables, with its whole
+   screen; then at the shapes of the 8192-system wave of the JAX
+   package's ``bench_prefilter`` with call, device and plain times and
+   byte bounds; and one sweep's changed flag against the plain
+   comparison on each;
+6. the screen path: ``models/pruner._screen_interval`` over that wave
+   with propagation on (K6-K8) and off (K5): 2731 kept each time,
+   ``device_screened`` up by 8192, no device failure, keep masks, sweep
+   counts and harvested facts equal to the plain versions', and each
+   run's kernels launched; one more profiled screen each way gives the
+   device's busy share and the kernels' device time on the path;
+7. the propagation mix (8192 sets): propagation refutes the bit
+   conflicts and unit chains the interval pass keeps;
+8. the report: a ``kernels`` JSON line (launches on each kernel's path,
+   error, times, bounds), the card's name and power limit, and the
+   result line.
 
 ``ms`` is a wrapper call on CUDA events, the host's argument packing
 and launch gaps included; ``device_ms`` is the device time of the same
-call's kernels and copies from torch.profiler.
+call: for K0-K4 and bv256 its kernels and copies in torch.profiler, for
+K5-K8 CUDA events around the call queued behind a spin kernel
+(``queued_ms``), on the inputs its bound is counted from. The run
+fails where a device time is below its bound.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -427,7 +447,13 @@ def check_window(dev, report):
     for name, (kern, plain, nb) in escalations.items():
         k_ms = cuda_ms(kern, reps=3, setup=lambda: clone_state(s_k))
         p_ms = cuda_ms(plain, reps=1, setup=lambda: clone_state(s_k))
-        d_ms = device_ms(kern, setup=lambda: clone_state(s_k))
+        if name == "gather_full_flog":
+            # a few microseconds a launch: three profiled calls record no
+            # device event, so profile 50 calls of it (it reads the state
+            # and writes a table of its own, so no copy is needed)
+            d_ms = device_ms(lambda: kern(s_k), reps=50)
+        else:
+            d_ms = device_ms(kern, setup=lambda: clone_state(s_k))
         bms, by = bound_ms(nb)
         log(f"{name}: {k_ms:.4f} ms kernel ({d_ms} ms on the device), "
             f"{p_ms:.2f} ms plain, bound {bms} ms ({by})")
@@ -513,6 +539,495 @@ def compare_runs(r1, r2):
         raise AssertionError("main path: visited differs")
 
 
+# ---------------------------------------------------------------------------
+# phases 5-7: the feasibility screens (K5-K8)
+# ---------------------------------------------------------------------------
+
+#: the screen path's wave: bench_prefilter's 8192 fork-sibling systems,
+#: of which the i % 3 == 0 ones (2731) are feasible
+SCREEN_N, SCREEN_KEEP = 8192, 2731
+
+
+def screen_wave(dev):
+    from mythril_tpu_torch.ops import intervals as I
+    from mythril_tpu_torch.ops import propagate as P
+    from mythril_tpu_torch.support.screen_waves import prefilter_wave
+
+    systems, keep = prefilter_wave(SCREEN_N)
+    enc = I.linearize(systems)
+    plan = P.build_plan(enc)
+    return systems, keep, enc, plan, P.plan_to_device(plan, dev)
+
+
+def layered_wave(dev):
+    """The all-opcode wave (``screen_waves.layered_sets``) replicated to
+    8192 states; fails unless its levels hold every opcode and its
+    backward rounds every rule of ``propagate._BACK_ROLES``."""
+    from mythril_tpu_torch.ops import intervals as I
+    from mythril_tpu_torch.ops import propagate as P
+    from mythril_tpu_torch.support.screen_waves import layered_sets
+
+    sets = layered_sets() * (SCREEN_N // 8)
+    enc = I.linearize(sets)
+    core = P.plan_to_device(P.build_plan(enc), dev)
+    n_t = core["init_lo"].shape[0]
+    ops = set()
+    for lvl in core["levels"]:
+        ops |= set(lvl["op"].tolist())
+    rules = {(o, r) for rs in core["back"] for rnd in rs
+             for t, o, r in zip(rnd["tgt"].tolist(), rnd["op"].tolist(),
+                                rnd["role"].tolist()) if t < n_t}
+    want = {(o, r) for o, roles in P._BACK_ROLES.items() for r in roles}
+    if ops != set(range(26)) or not want <= rules:
+        raise AssertionError(f"all-opcode wave: opcodes {sorted(ops)}, "
+                             f"rules missing {sorted(want - rules)}")
+    return sets, enc, core
+
+
+def random_tables(core, seed):
+    """Product tables of the plan's shape filled from a seed: each
+    numeric row that is not a constant holds a random value x within
+    the row's width, as an interval around x (a third of the states
+    each: bits of x cleared and set at random, the point x, an aligned
+    range of up to 2^30 around x) and a random part of x's bits as
+    known; each bool row is may-be-both, only-true or only-false. Every
+    abstraction holds x, so the rows are consistent."""
+    import torch
+
+    dev = core["init_lo"].device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_s, n_t = core["seed_idx"].shape[0], core["init_lo"].shape[0]
+
+    def rnd(*shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape or (n_s, n_t, 8),
+                             dtype=torch.int32, device=dev, generator=g)
+
+    ilo, ihi, ik0, ik1 = (core[k] for k in ("init_lo", "init_hi", "init_k0",
+                                            "init_k1"))
+    width = ~ik0
+    x = rnd() & width
+    low = torch.zeros_like(x)
+    low[..., 0] = (1 << torch.randint(0, 31, (n_s, n_t), device=dev,
+                                      generator=g, dtype=torch.int32)) - 1
+    mode = torch.randint(0, 3, (n_s, 1, 1), device=dev, generator=g)
+    lo = torch.where(mode == 0, x & rnd(),
+                     torch.where(mode == 1, x, x & ~low))
+    hi = torch.where(mode == 0, x | (rnd() & width),
+                     torch.where(mode == 1, x, (x | low) & width))
+    k1 = torch.where(mode == 1, x, x & rnd())
+    k0 = torch.where(mode == 1, ~x, (~x & width & rnd()) | ik0)
+    point = torch.all(ilo == ihi, dim=-1)
+    vary = ((core["numeric"] != 0) & ~point)[None, :, None]
+    tabs = [torch.where(vary, new, init.expand_as(new)).contiguous()
+            for new, init in ((lo, ilo), (hi, ihi), (k0, ik0), (k1, ik1))]
+    v = torch.randint(0, 4, (n_s, n_t), device=dev, generator=g)
+    isbool = (core["isbool"] != 0)[None, :]
+    tabs[0][..., 0] = torch.where(isbool, (v != 2).int(), tabs[0][..., 0])
+    tabs[1][..., 0] = torch.where(isbool, (v != 3).int(), tabs[1][..., 0])
+    return tuple(tabs)
+
+
+def _reads(op):
+    """Argument slots a level node of opcode ``op`` reads."""
+    from mythril_tpu_torch.ops import intervals as I
+
+    if op in (I.BNOT, I.NEG, I.COPY, I.SEXT, I.EXTRACT, I.BNOT1):
+        return 1
+    return 3 if op in (I.ITE, I.BITE) else 2
+
+
+def _level_rows(level):
+    """(argument rows read, node rows) of a level's real nodes: the
+    kernels skip NOP and pad rows; EXTRACT's second and third slots are
+    immediates."""
+    from mythril_tpu_torch.ops import intervals as I
+
+    ops, args = level["op"].tolist(), level["args"].tolist()
+    node = level["node"].tolist()
+    nodes = [j for j, o in enumerate(ops) if o]
+    read = {args[j][k] for j in nodes for k in range(_reads(ops[j]))
+            if not (ops[j] == I.EXTRACT and k)}
+    return read, {node[j] for j in nodes}
+
+
+def _round_rows(rnd, n_rows):
+    """Rows a backward round's real entries read: each parent and target,
+    the condition of an ITE parent, both arguments of a binary one."""
+    from mythril_tpu_torch.ops import intervals as I
+
+    unary = (I.BNOT, I.COPY, I.EXTRACT, I.BNOT1)
+    cols = [rnd[k].tolist() for k in ("parent", "a", "b", "tgt", "op")]
+    rows = set()
+    for p, a, b, t, o in zip(*cols):
+        if t < n_rows:
+            rows |= {p, t} | ({a} if o == I.ITE else set()) \
+                | (set() if o in unary or o == I.ITE else {a, b})
+    return rows
+
+
+def clone_all(tabs):
+    return tuple(t.clone() for t in tabs)
+
+
+#: cycles of the spin kernel that holds the card while the host enqueues
+#: a timed call (about 10 ms on an H100)
+SPIN_CYCLES = 20_000_000
+
+
+def queued_ms(fn, setup, reps=3):
+    """Device milliseconds of one call fn(setup()), the mean over reps
+    calls each on a fresh input: before each, a 256 MiB write evicts the
+    L2 and a spin kernel keeps the card busy while the host enqueues
+    [event, call, event], so the host's launch time is not in the
+    events' interval."""
+    import torch
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fn(setup())
+    out = []
+    for _ in range(reps):
+        x = setup()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
+        a.record()
+        fn(x)
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return sum(out) / reps
+
+
+def changed_bytes(before, after):
+    """Bytes of the 32-bit limbs that differ between two tuples of
+    tables: what an in-place pass must store."""
+    return 4 * sum(int((x != y).sum()) for x, y in zip(before, after))
+
+
+def check_tables(name, core, start, interval_start, accs=None):
+    """K5-K8 on one plan, chained from ``start`` (product tables) and
+    ``interval_start`` (interval tables): every kernel call bit for bit
+    against its plain version on the same input. K5 and K6 run each
+    forward level, K8's exchange follows, K7 runs each backward round
+    from the last level down, K8's verdicts close; K8's init and one
+    sweep's changed flag against the plain comparison come first.
+
+    With ``accs`` (name -> dict), every call is also timed: ``ms`` (a
+    call on CUDA events, the host's launch included), ``device_ms``
+    (``queued_ms``) and ``plain_ms``, all on fresh copies of the checked
+    call's input; and the bytes the function must move on that input
+    are counted: the rows it reads, once each (numeric rows 32 bytes per
+    table, bool rows the 4-byte limb 0 of lo and hi), and the limbs that
+    its call changed; K8's init writes the four tables whole, and its
+    verdicts read each state's rows up to the first row in conflict (all
+    of them in a state without one), then the assertion slots of a state
+    that has none."""
+    import torch
+
+    from mythril_tpu_torch.ops import intervals as I
+    from mythril_tpu_torch.ops import propagate as P
+
+    n_s, n_t = core["seed_idx"].shape[0], core["init_lo"].shape[0]
+    numeric = core["numeric"] != 0
+    isbool = core["isbool"] != 0
+    row_iv = torch.where(isbool, 8, 64).tolist()
+    row_pr = torch.where(isbool, 8, 128).tolist()
+    flag = torch.zeros(1, dtype=torch.int32, device=start[0].device)
+    err = dict.fromkeys(("interval_level", "prop_fwd_level",
+                         "prop_back_round", "prop_tables"), 0)
+
+    def call(key, what, kern, plain, x, nbytes=None):
+        """Run kern and plain on copies of x, require equal outputs,
+        time the pair when accs is given; returns the kernel's
+        output."""
+        a, b = clone_all(x), clone_all(x)
+        out_k, out_p = kern(a), plain(b)
+        out_k, out_p = (a, b) if out_k is None else (out_k, out_p)
+        torch.cuda.synchronize()
+        err[key] = max(err[key], same_outputs(out_k, out_p, f"{name}: {what}"))
+        if accs is not None:
+            acc = accs[key]
+            acc["ms"] += cuda_ms(kern, reps=3, setup=lambda: clone_all(x))
+            acc["device_ms"] += queued_ms(kern, lambda: clone_all(x))
+            acc["plain_ms"] += cuda_ms(plain, reps=1,
+                                       setup=lambda: clone_all(x))
+            acc["bytes"] += nbytes(x, out_k)
+        return out_k
+
+    # K8 init; the changed flag of one kernel sweep
+    call("prop_tables", "K8 prop_init", lambda _: P.init_tables_kernel(core),
+         lambda _: P.init_tables_plain(core), (),
+         lambda _x, _o: 4 * n_s * n_t * 32 + 4 * n_t * 32
+         + 4 * core["seed_idx"].numel()
+         + 64 * int(((core["seed_idx"] >= 0)
+                     & (core["seed_idx"] < n_t)).sum())
+         + 5 * core["assert_idx"].numel())
+    a, b = clone_all(start), clone_all(start)
+    flag.zero_()
+    P.sweep(core, a, flag)
+    P.sweep(core, b, plain=True)
+    torch.cuda.synchronize()
+    same_outputs(a, b, f"{name}: one sweep")
+    if bool(flag.item()) != P.changed_plain(start, b):
+        raise AssertionError(f"{name}: the changed flag differs from the "
+                             f"tables")
+    del a, b
+
+    iv, tabs = interval_start, start
+    for li, lvl in enumerate(core["levels"]):
+        reads, nodes = _level_rows(lvl)
+        iv = call("interval_level", f"K5 interval_level {li}",
+                  lambda x, lv=lvl: I.eval_level_kernel(lv, *x),
+                  lambda x, lv=lvl: I.eval_level_plain(lv, *x), iv,
+                  lambda x, o, r=reads: n_s * sum(row_iv[i] for i in r)
+                  + changed_bytes(x, o))
+        tabs = call("prop_fwd_level", f"K6 prop_fwd_level {li}",
+                    lambda x, lv=lvl: P.fwd_level_kernel(lv, x, flag),
+                    lambda x, lv=lvl: P.fwd_level_plain(lv, x), tabs,
+                    lambda x, o, r=reads | nodes: n_s * sum(
+                        row_pr[i] for i in r) + changed_bytes(x, o))
+    tabs = call("prop_tables", "K8 prop_exchange",
+                lambda x: P.exchange_kernel(x, core["numeric"], flag),
+                lambda x: P.exchange_plain(x, core["numeric"]), tabs,
+                lambda x, o: n_s * int(numeric.sum()) * 128
+                + changed_bytes(x, o))
+    for li in range(len(core["back"]) - 1, -1, -1):
+        for ri, rnd in enumerate(core["back"][li]):
+            rows = _round_rows(rnd, n_t)
+            tabs = call("prop_back_round", f"K7 prop_back_round {li}.{ri}",
+                        lambda x, r=rnd: P.back_round_kernel(r, x, flag),
+                        lambda x, r=rnd: P.back_round_plain(r, x), tabs,
+                        lambda x, o, rows=rows: n_s * sum(
+                            row_pr[i] for i in rows) + changed_bytes(x, o))
+
+    def verdict_bytes(x, out):
+        cost = torch.where(numeric, 128, torch.where(isbool, 8, 0))
+        upto = torch.cumsum(cost, 0)
+        first = torch.cat([
+            torch.where(c.any(1), c.int().argmax(1), n_t - 1)
+            for c in (P.conflict_rows(core, x, s)
+                      for s in I.state_chunks(n_s, n_t))])
+        clean = out[1] == 0
+        slots = core["assert_idx"].shape[1]
+        live = int((core["assert_mask"] != 0)[clean].sum())
+        return (int(upto[first].sum()) + int(clean.sum()) * slots * 5
+                + 4 * live + 2 * n_s + 2 * n_t)
+
+    call("prop_tables", "K8 prop_verdicts",
+         lambda x: P.verdicts_kernel(core, x),
+         lambda x: P.verdicts_plain(core, x), tabs, verdict_bytes)
+    return err
+
+
+def check_screens(dev, report, wave):
+    """K5-K8 against their plain versions on the card: on the all-opcode
+    wave (every opcode and backward rule) from its init tables and from
+    seeded random tables, then at the 8192-system wave's shapes from its
+    init tables, timed and with byte bounds; on both waves the whole
+    screen (keep masks, sweeps, facts) with the kernels equals the
+    plain versions'."""
+    import torch
+
+    from mythril_tpu_torch.ops import intervals as I
+    from mythril_tpu_torch.ops import propagate as P
+
+    sets, l_enc, l_core = layered_wave(dev)
+    init = P.init_tables_kernel(l_core)
+    errs = [check_tables("all-opcode wave", l_core, init, init[:2])]
+    for seed in (SEED, SEED + 1):
+        rnd = random_tables(l_core, seed)
+        errs.append(check_tables(f"all-opcode wave, random tables {seed}",
+                                 l_core, rnd, rnd[:2]))
+    got, want = P.screen(sets, dev), P.screen(sets, dev, plain=True)
+    iv, iv_plain = (I.eval_feasible(l_enc, dev),
+                    I.eval_feasible(l_enc, dev, plain=True))
+    if (list(got.keep) != list(want.keep) or got.sweeps != want.sweeps
+            or _facts_key(got.facts) != _facts_key(want.facts)
+            or list(iv) != list(iv_plain)):
+        raise AssertionError("all-opcode wave: the screen differs from "
+                             "the plain versions")
+    log(f"all-opcode wave: {len(sets)} states x {l_core['init_lo'].shape[0]}"
+        f" rows, 26 opcodes, every backward rule; K5-K8 equal to the plain "
+        f"versions from its init tables and from random tables (seeds "
+        f"{SEED}, {SEED + 1}); screen keeps {int(got.keep.sum())} "
+        f"(interval pass {int(iv.sum())}), {got.sweeps} sweeps, as plain")
+
+    systems, keep, enc, plan, core = wave
+    n_t = core["init_lo"].shape[0]
+    log(f"screen wave: {SCREEN_N} systems, {enc.n_nodes} nodes in {n_t} "
+        f"rows, levels {[lv['op'].shape[0] for lv in core['levels']]}, "
+        f"rounds {[[r['op'].shape[0] for r in rs] for rs in core['back']]}")
+    accs = {k: dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bytes=0)
+            for k in errs[0]}
+    start = P.init_tables_kernel(core)
+    seeded = I.seed_tables(core["init_lo"], core["init_hi"],
+                           core["seed_idx"], core["seed_lo"],
+                           core["seed_hi"])
+    errs.append(check_tables("screen wave", core, start, seeded, accs))
+    del start, seeded
+    torch.cuda.empty_cache()
+    for name, acc in accs.items():
+        bms, by = bound_ms(acc["bytes"])
+        report[name] = dict(max_abs_err=max(e[name] for e in errs),
+                            ms=acc["ms"], plain_ms=acc["plain_ms"],
+                            device_ms=acc["device_ms"], bound_ms=bms,
+                            bound_by=by)
+        log(f"{name}: {acc['ms']:.4f} ms calls, {acc['device_ms']:.4f} ms "
+            f"device, {acc['plain_ms']:.1f} ms plain, bound {bms:.6f} ms "
+            f"({by}, {acc['bytes']} bytes)")
+
+
+def _facts_key(facts):
+    return {s: (sorted(map(repr, f)),
+                sorted((repr(v), lo, hi) for v, lo, hi in b.values()))
+            for s, (f, b) in facts.items()}
+
+
+#: the screens' kernels by their symbols in a profile
+SCREEN_SYMBOLS = ("level_kernel<false>", "level_kernel<true>", "back_kernel",
+                  "init_kernel", "exchange_kernel", "verdicts_kernel")
+
+
+def screen_path(dev, wave, card):
+    """The pruner's screen over the 8192-system wave, with propagation
+    on (K6-K8) and off (K5). Returns the launches of each run; one more
+    profiled screen each way gives the device's busy share and each
+    screen kernel's device time on the path (logged for the breakdown
+    of where the path's time goes)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mythril_tpu_torch import _build
+    from mythril_tpu_torch.models import pruner
+    from mythril_tpu_torch.ops import intervals as I
+    from mythril_tpu_torch.ops import propagate as P
+    from mythril_tpu_torch.smt.solver.solver_statistics import (
+        SolverStatistics,
+    )
+
+    systems, keep, enc, plan, core = wave
+    if sum(keep) != SCREEN_KEEP:
+        raise AssertionError("the wave's expected keep count")
+
+    def ident(s):
+        return s
+
+    launches, sym_ms = {}, {}
+    for prop in (True, False):
+        P.FORCE = None if prop else False
+        tag = "propagation on" if prop else "propagation off"
+        pruner._screen_interval(systems, ident)  # warm: allocator, libs
+        stats0 = dict(pruner.STATS)
+        ss0 = SolverStatistics().counters()
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kept = pruner._screen_interval(systems, ident)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[prop] = dict(_build.LAUNCHES)
+        ss1 = SolverStatistics().counters()
+        delta = {k: pruner.STATS[k] - stats0[k] for k in stats0}
+        if len(kept) != SCREEN_KEEP:
+            raise AssertionError(f"screen path ({tag}): kept {len(kept)}")
+        if delta["device_screened"] != SCREEN_N or pruner.STATS[
+                "device_failures"]:
+            raise AssertionError(f"screen path ({tag}): {delta}, "
+                                 f"{pruner.STATS['device_failures']} "
+                                 f"device failures")
+        kept_ids = {id(s) for s in kept}
+        mask = [id(s) in kept_ids for s in systems]
+        if prop:
+            want = P.screen(systems, dev, plain=True)
+            got = P.screen(systems, dev)
+            sweeps = ss1["propagate_sweeps"] - ss0["propagate_sweeps"]
+            facts = ss1["facts_harvested"] - ss0["facts_harvested"]
+            n_facts = sum(len(f) for f, _ in want.facts.values())
+            if (mask != list(want.keep) or sweeps != want.sweeps
+                    or facts != n_facts or list(got.keep) != mask
+                    or got.sweeps != want.sweeps
+                    or _facts_key(got.facts) != _facts_key(want.facts)):
+                raise AssertionError("screen path (propagation on) differs "
+                                     "from the plain versions")
+            detail = f"{sweeps} sweeps, {facts} facts harvested"
+            need = ("prop_fwd_level", "prop_back_round", "prop_tables")
+        else:
+            want = I.eval_feasible(I.linearize(systems), dev, plain=True)
+            if mask != list(want):
+                raise AssertionError("screen path (propagation off) differs "
+                                     "from the plain version")
+            detail = "forward interval pass"
+            need = ("interval_level",)
+        missing = [k for k in need if launches[prop][k] <= 0]
+        if missing:
+            raise AssertionError(f"screen path ({tag}) never launched "
+                                 f"{missing}")
+        # the device's busy share of one more call, and its kernels'
+        # device time (a session that misses them is run again, up to 3)
+        syms = SCREEN_SYMBOLS[1:] if prop else SCREEN_SYMBOLS[:1]
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                pruner._screen_interval(systems, ident)
+                torch.cuda.synchronize()
+                pwall = time.perf_counter() - t1
+            rows = [e for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            got = {sym: sum(e.self_device_time_total for e in rows
+                            if sym in e.key) / 1e3 for sym in syms}
+            if all(got.values()):
+                sym_ms.update(got)
+                break
+        dev_s = sum(e.self_device_time_total for e in rows) / 1e6
+        log(f"screen path ({tag}): kept {len(kept)} of {SCREEN_N}, "
+            f"device_screened +{delta['device_screened']}, 0 device "
+            f"failures, {detail}; {wall:.3f} s, {SCREEN_N / wall:.1f} "
+            f"systems/s; device busy {dev_s:.4f} of {pwall:.3f} s under the "
+            f"profiler (share {dev_s / pwall:.4f}); launches "
+            f"{ {k: v for k, v in launches[prop].items() if v} } on {card}")
+    P.FORCE = None
+    missing = set(SCREEN_SYMBOLS) - set(sym_ms)
+    log("screen kernels' device ms in the profiled screens: " + (", ".join(
+        f"{k} {v:.4f}" for k, v in sym_ms.items()) or "none recorded")
+        + f" ({sweeps} sweeps)"
+        + (f"; no device time recorded for {sorted(missing)}"
+           if missing else ""))
+    return launches
+
+
+def screen_mix(dev):
+    """The propagation mix (8192 sets): propagation refutes the bit
+    conflicts and unit chains that the interval pass keeps; kernels and
+    plain versions agree."""
+    from mythril_tpu_torch.ops import intervals as I
+    from mythril_tpu_torch.ops import propagate as P
+    from mythril_tpu_torch.support.screen_waves import propagation_mix
+
+    sets, keep = propagation_mix(SCREEN_N)
+    t0 = time.perf_counter()
+    got = P.screen(sets, dev)
+    wall = time.perf_counter() - t0
+    want = P.screen(sets, dev, plain=True)
+    iv = I.prefilter_feasible(sets, dev)
+    iv_plain = I.eval_feasible(I.linearize(sets), dev, plain=True)
+    if (list(got.keep) != list(want.keep) or got.sweeps != want.sweeps
+            or _facts_key(got.facts) != _facts_key(want.facts)
+            or list(iv) != list(iv_plain)):
+        raise AssertionError("propagation mix: kernels differ from plain")
+    if list(got.keep) != keep or not iv.all():
+        raise AssertionError("propagation mix: kept "
+                             f"{int(got.keep.sum())}, interval pass kept "
+                             f"{int(iv.sum())}")
+    log(f"propagation mix: {SCREEN_N} sets, interval pass keeps "
+        f"{int(iv.sum())}, propagation keeps {int(got.keep.sum())} "
+        f"({int(iv.sum() - got.keep.sum())} refuted only by propagation), "
+        f"{got.sweeps} sweeps, "
+        f"{sum(len(f) for f, _ in got.facts.values())} facts; {wall:.3f} s")
+
+
 #: the kernels the main path launches: (name, source, TPU kernel)
 ROWS = [
     ("sym_init", "mythril_tpu_torch/csrc/symstep.cu",
@@ -525,6 +1040,19 @@ ROWS = [
      "mythril_tpu/laser/lane_engine.py:689"),
     ("window_epilogue", "mythril_tpu_torch/csrc/window.cu",
      "mythril_tpu/laser/lane_engine.py:1196"),
+]
+
+#: the kernels of the screen path, with the run (propagation on or off)
+#: that launches them
+SCREEN_ROWS = [
+    ("interval_level", "mythril_tpu_torch/csrc/screen.cu",
+     "mythril_tpu/ops/intervals.py:611", False),
+    ("prop_fwd_level", "mythril_tpu_torch/csrc/screen.cu",
+     "mythril_tpu/ops/propagate.py:340", True),
+    ("prop_back_round", "mythril_tpu_torch/csrc/screen.cu",
+     "mythril_tpu/ops/propagate.py:463", True),
+    ("prop_tables", "mythril_tpu_torch/csrc/screen.cu",
+     "mythril_tpu/ops/propagate.py:699", True),
 ]
 
 
@@ -587,10 +1115,16 @@ def main() -> int:
         f"{len(res_w['windows'])} windows, {res_w['paths']} paths, "
         f"{wall_w:.3f} s, {res_w['paths'] / wall_w:.1f} paths/s on {card}")
 
-    def entry(name, source, replaces):
+    wave = screen_wave(dev)
+    check_screens(dev, report, wave)
+    screen_launches = screen_path(dev, wave, card)
+    screen_mix(dev)
+
+    def entry(name, source, replaces, counts=None):
         r = report[name]
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[name],
+                "replaces": replaces,
+                "launches": (counts or launches)[name],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "device_ms": r["device_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -601,9 +1135,17 @@ def main() -> int:
     # times and its own (zero) main-path count
     inlined = dict(entry("bv256", "mythril_tpu_torch/csrc/bv256.cuh",
                          "mythril_tpu/ops/bv256.py:93"),
-                   inlined_in="sym_step")
-    log(json.dumps({"kernels": [entry(*row) for row in ROWS],
-                    "inlined": [inlined]}))
+                   inlined_in="sym_step, interval_level, prop_fwd_level, "
+                   "prop_back_round")
+    rows = [entry(*row) for row in ROWS] + [
+        entry(name, src, rep, screen_launches[prop])
+        for name, src, rep, prop in SCREEN_ROWS]
+    fast = [r["name"] for r in rows + [inlined]
+            if r["device_ms"] is not None and r["device_ms"] < r["bound_ms"]]
+    if fast:
+        raise AssertionError(f"device time below the bound for {fast}: "
+                             f"the byte or operation count is wrong")
+    log(json.dumps({"kernels": rows, "inlined": [inlined]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,11 +28,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: launches per kernel (see module docstring); chip_smoke.py resets and
-#: reads it around the main path. "bv256" counts only its test launch
-#: ``bv256_apply``: K1 inlines ``csrc/bv256.cuh``, so on the main path
-#: its word ops run inside the "sym_step" launches.
+#: reads it around each path it drives. "bv256" counts only its test
+#: launch ``bv256_apply``: K1 and K5-K7 inline ``csrc/bv256.cuh``.
+#: "prop_tables" counts K8's three entries (init, exchange, verdicts).
 LAUNCHES = {"bv256": 0, "sym_init": 0, "sym_step": 0,
-            "window_prologue": 0, "window_dedup": 0, "window_epilogue": 0}
+            "window_prologue": 0, "window_dedup": 0, "window_epilogue": 0,
+            "interval_level": 0, "prop_fwd_level": 0, "prop_back_round": 0,
+            "prop_tables": 0}
 
 _LOCK = threading.Lock()
 _LIBS = {}

@@ -1,5 +1,5 @@
-"""Carry lane state and compiled code between the JAX package and the
-port, as numpy.
+"""Carry lane state, compiled code and screen encodings between the JAX
+package and the port, as numpy.
 
 A JAX ``SymLaneState`` reaches here as ``{field: numpy array}`` (the
 caller takes ``np.asarray`` of each plane) and a ``CompiledCode`` as its
@@ -11,6 +11,8 @@ is exact. The tests feed both packages the same inputs through these.
 import numpy as np
 import torch
 
+from .ops.intervals import EncodedDAG
+from .ops.propagate import Plan
 from .ops.stepper import CompiledCode
 from .ops.symstep import FIELDS, U8_FIELDS, U32_FIELDS, SymLaneState
 from .support.devices import resolve
@@ -55,3 +57,39 @@ def code_from_numpy(packed, size: int, device=None) -> CompiledCode:
 def code_to_numpy(cc: CompiledCode):
     """(packed int32 numpy array, size)."""
     return cc.packed.detach().cpu().numpy(), cc.size
+
+
+_ENC_ARRAYS = ("init_lo", "init_hi", "seed_idx", "seed_lo", "seed_hi",
+               "dead", "assert_idx", "assert_mask")
+
+
+def _numpy_tree(x):
+    """Nested dicts/tuples/lists of array-likes -> the same of numpy
+    arrays (tuples of op codes, ints and strings pass through)."""
+    if isinstance(x, dict):
+        return {k: _numpy_tree(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        if all(isinstance(v, (int, np.integer)) for v in x):
+            return tuple(int(v) for v in x)
+        return type(x)(_numpy_tree(v) for v in x)
+    if isinstance(x, (int, str)):
+        return x
+    return np.array(x)
+
+
+def encoded_from_numpy(fields: dict) -> EncodedDAG:
+    """A JAX ``EncodedDAG``'s fields ({name: array}, ``levels`` as its
+    list of level dicts, ``n_nodes``, ``n_real`` and optionally
+    ``host``) -> the port's ``EncodedDAG`` holding the same numpy
+    arrays."""
+    f = _numpy_tree({k: v for k, v in fields.items() if k != "host"})
+    return EncodedDAG(
+        int(f["n_nodes"]), list(f["levels"]),
+        *[f[k] for k in _ENC_ARRAYS], n_real=int(f["n_real"]),
+        host=fields.get("host"))
+
+
+def plan_from_numpy(arrays: dict, statics) -> Plan:
+    """A JAX propagate ``Plan``'s arrays and statics -> the port's
+    ``Plan`` holding the same numpy arrays."""
+    return Plan(_numpy_tree(arrays), statics)

@@ -75,22 +75,36 @@ def bool_to_word(m: torch.Tensor) -> torch.Tensor:
 # add / sub
 # ---------------------------------------------------------------------------
 
+_POW2 = {}
+
+
+def _limb_weights(device):
+    """1, 2, 4, ... 128: a sum of +-1 flags weighted by these has the
+    sign of its most significant nonzero flag."""
+    key = str(device)
+    if key not in _POW2:
+        _POW2[key] = 1 << torch.arange(NLIMBS, device=device, dtype=I64)
+    return _POW2[key]
+
+
+def _carries(up, down, device):
+    """Carry into each limb of a limb-wise sum: a limb that overflows
+    (``up``) sends a carry, one that cannot absorb one (``down``) stops
+    it, any other passes the incoming carry on."""
+    v = (up.to(I64) - down.to(I64)) * _limb_weights(device)
+    run = torch.cumsum(v, dim=-1) > 0
+    return torch.cat([torch.zeros_like(run[..., :1]), run[..., :-1]],
+                     dim=-1).to(I64)
+
+
 def add(a, b):
-    out, carry = [], _zeros_like_lane(a)
-    for i in range(NLIMBS):
-        s = a[..., i] + b[..., i] + carry
-        out.append(s & M32)
-        carry = s >> 32
-    return torch.stack(out, dim=-1)
+    s = a + b
+    return (s + _carries(s > M32, s < M32, s.device)) & M32
 
 
 def sub(a, b):
-    out, borrow = [], _zeros_like_lane(a)
-    for i in range(NLIMBS):
-        d = a[..., i] - b[..., i] - borrow
-        out.append(d & M32)
-        borrow = (d < 0).to(I64)
-    return torch.stack(out, dim=-1)
+    d = a - b
+    return (d - _carries(d < 0, d > 0, d.device)) & M32
 
 
 def neg(a):
@@ -110,13 +124,8 @@ def eq(a, b):
 
 
 def ult(a, b):
-    lt = torch.zeros(a.shape[:-1], dtype=torch.bool, device=a.device)
-    done = torch.zeros_like(lt)
-    for i in range(NLIMBS - 1, -1, -1):
-        ne = a[..., i] != b[..., i]
-        lt = torch.where(~done & ne, a[..., i] < b[..., i], lt)
-        done = done | ne
-    return lt
+    v = ((a < b).to(I64) - (a > b).to(I64)) * _limb_weights(a.device)
+    return v.sum(dim=-1) > 0
 
 
 def ugt(a, b):

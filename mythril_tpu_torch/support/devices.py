@@ -65,3 +65,24 @@ def default_lanes(lane_bytes: int, device=None) -> int:
     while lanes > 1 and lanes > cap:
         lanes //= 2
     return lanes
+
+
+def default_tpu_lanes() -> int:
+    """Lane width of the ``auto`` ``tpu_lanes`` setting:
+    ``DEFAULT_LANES``. Unlike the JAX package, a missing card does not
+    turn the device screens off: the screen's first device call
+    raises in ``resolve`` instead."""
+    return DEFAULT_LANES
+
+
+def effective_tpu_lanes() -> int:
+    """``args.tpu_lanes`` with the auto sentinel (<0) resolved, and
+    cached back onto the args so every later reader sees the same
+    resolution."""
+    from .support_args import args
+
+    lanes = args.tpu_lanes
+    if lanes is None or lanes < 0:
+        lanes = default_tpu_lanes()
+        args.tpu_lanes = lanes
+    return lanes

@@ -54,7 +54,56 @@ def test_no_jax_and_no_jax_package(path):
 
 def test_the_scan_sees_the_package():
     names = {os.path.relpath(p, PKG) for p in _port_sources()}
-    assert {"ops/symstep.py", "laser/lane_engine.py", "_build.py"} <= names
+    assert {"ops/symstep.py", "laser/lane_engine.py", "_build.py",
+            "ops/intervals.py", "ops/propagate.py", "smt/terms.py",
+            "smt/interval.py", "smt/solver/solver_statistics.py",
+            "models/pruner.py", "support/telemetry/spans.py",
+            "support/screen_waves.py"} <= names
+
+
+def _source(*parts):
+    with open(os.path.join(*parts), encoding="utf-8") as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("rel", ["smt/terms.py", "smt/interval.py",
+                                 "support/support_args.py"])
+def test_verbatim_copies_equal_their_originals(rel):
+    """The term DAG, the host interval domain and the analysis flags are
+    copies of the JAX package's modules, modulo the package name."""
+    mine = _source(PKG, rel).replace("mythril_tpu_torch", "mythril_tpu")
+    assert mine == _source(ROOT, "mythril_tpu", rel)
+
+
+def test_copied_singleton_and_counters_match():
+    from mythril_tpu.smt.solver.solver_statistics import SolverStatistics
+    from mythril_tpu.support.support_utils import Singleton
+    from mythril_tpu_torch.smt.solver import solver_statistics
+    from mythril_tpu_torch.support import support_utils
+
+    def body(cls):
+        import inspect
+
+        return inspect.getsource(cls).split('"""', 2)[2]
+
+    assert body(support_utils.Singleton) == body(Singleton)
+    mine = solver_statistics.SolverStatistics().counters()
+    theirs = SolverStatistics().batch_counters()
+    assert set(mine) <= set(theirs)
+    assert set(mine) == {"propagate_kills", "propagate_sweeps",
+                         "facts_harvested", "static_facts_seeded"}
+    fresh = SolverStatistics.__new__(SolverStatistics)
+    SolverStatistics.__init__(fresh)
+    assert all(getattr(fresh, k) == 0 for k in mine)
+
+
+def test_screen_kernel_opcodes_follow_the_python_numbering():
+    from mythril_tpu_torch.ops import intervals
+
+    src = _source(PKG, "csrc", "screen.cu")
+    enum = re.search(r"enum \{\s*(NOP = 0,.*?)\};", src, re.S).group(1)
+    names = [x.strip().split(" ")[0] for x in enum.split(",") if x.strip()]
+    assert [getattr(intervals, n) for n in names] == list(range(26))
 
 
 def test_copied_tables_equal_the_originals():
