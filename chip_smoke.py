@@ -1,27 +1,51 @@
 #!/usr/bin/env python3
 """Build the port's CUDA kernels, hold each against its plain PyTorch
-version on the card, and drive the port's main path.
+version on the card, and drive the port's paths: ``myth analyze`` end
+to end, the symbolic path at full width, the window merge, the device
+loop alone and the solver's screens.
 
 Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --analyze FIXTURE STATS`` is the per-fixture
+process the corpus phase starts.)
+
 Phases (any failure exits non-zero and prints no result):
 
-1. build every ``mythril_tpu_torch/csrc/*.cu`` (in parallel), print the
-   card's name and power limit and the compiler's register/spill lines;
+1. build every ``mythril_tpu_torch/csrc/*.cu`` (in parallel) and the
+   native solver library (``make``), print the card's name and power
+   limit and the compiler's register/spill lines;
 2. kernel checks, bit for bit against the plain versions on the card:
    ``bv256_apply`` for every op on seeded random and edge words; K0 over
    a 4096-lane batch whose planes hold junk; K1 over 64 steps of a seeded
    4096-lane state (and the cost of the host's running-count read); K2-K4
-   through one ``window_exec`` and its three escalations;
-3. the main path: ``LaneEngine`` at its defaults (4096 lanes, window
-   256) on the k=12 symbolic-branch contract, run with the kernels and
-   again with the plain versions; every window's outputs must agree,
-   all 4096 paths retire and the fork tables hold 4095 forks;
-4. the wide run: k=17 at 131072 lanes with the kernels, all paths
-   retired;
-5. the screens' kernels K5-K8, bit for bit against the plain versions:
+   through one ``window_exec`` and its three escalations; K9 on the k=12
+   main path's state after its first window with that window's
+   resolution pairs, and on two seeded random 4096-lane states;
+3. the symbolic path: every path of the k=12 contract through the
+   port's ``SymExecWrapper`` at 4096 lanes (the main path of K0-K4:
+   launch counts reset before it and read after); its open states must
+   equal the host-only run's;
+4. the corpus: ``python -m mythril_tpu_torch analyze`` of the 18 vendored
+   fixtures (each its own process, four at a time, with the flags of
+   ``tests/compare_lane_host.py``); every canonical issue list must
+   equal the JAX package's (``tests/torch_data/lane_issues.json``:
+   40 issues), no analysis may raise, on each fixture the engine must
+   run the JAX engine's windows, forks and device steps (the
+   reference's run stats), or a window where the JAX engine's sweep
+   failed and went on on the host, the screens must screen on the
+   device, with no device failure;
+5. the SHA3 resume (a 33-byte hash resumed in place) and the spill
+   regime (64 paths through 8 lanes), each equal to the host-only run;
+   the merge path: ``bench.py``'s window-merge rig (the diamond
+   contract, 64 lanes, 32-step windows) with the merge on and off:
+   lanes merge and subsume, K9 launches (its main path), the issues
+   are identical;
+6. the device loop alone (``support/device_loop.DeviceLoop``, raw
+   seeds): k=12 at 4096 lanes with the kernels and with the plain
+   versions, every window's outputs equal; the wide run, k=17 at 131072 lanes;
+7. the screens' kernels K5-K8, bit for bit against the plain versions:
    on the all-opcode wave (``screen_waves.layered_sets`` replicated to
    8192 states: every opcode and backward rule, checked present) from
    its init tables and from two seeded random tables, with its whole
@@ -29,22 +53,22 @@ Phases (any failure exits non-zero and prints no result):
    package's ``bench_prefilter`` with call, device and plain times and
    byte bounds; and one sweep's changed flag against the plain
    comparison on each;
-6. the screen path: ``models/pruner._screen_interval`` over that wave
+8. the screen path: ``models/pruner._screen_interval`` over that wave
    with propagation on (K6-K8) and off (K5): 2731 kept each time,
    ``device_screened`` up by 8192, no device failure, keep masks, sweep
    counts and harvested facts equal to the plain versions', and each
    run's kernels launched; one more profiled screen each way gives the
    device's busy share and the kernels' device time on the path;
-7. the propagation mix (8192 sets): propagation refutes the bit
+9. the propagation mix (8192 sets): propagation refutes the bit
    conflicts and unit chains the interval pass keeps;
-8. the report: a ``kernels`` JSON line (launches on each kernel's path,
-   error, times, bounds), the card's name and power limit, and the
-   result line.
+10. the report: a ``kernels`` JSON line (launches on each kernel's path,
+    error, times, bounds), the card's name and power limit, and the
+    result line.
 
 ``ms`` is a wrapper call on CUDA events, the host's argument packing
 and launch gaps included; ``device_ms`` is the device time of the same
-call: for K0-K4 and bv256 its kernels and copies in torch.profiler, for
-K5-K8 CUDA events around the call queued behind a spin kernel
+call: for K0-K4, K9 and bv256 its kernels and copies in torch.profiler,
+for K5-K8 CUDA events around the call queued behind a spin kernel
 (``queued_ms``), on the inputs its bound is counted from. The run
 fails where a device time is below its bound.
 
@@ -53,6 +77,7 @@ It imports nothing of JAX and nothing of the JAX package.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -269,6 +294,7 @@ def seeded_state(dev, n_seeds):
     from mythril_tpu_torch.laser import lane_engine as le
     from mythril_tpu_torch.ops import symstep
     from mythril_tpu_torch.ops.stepper import compile_code
+    from mythril_tpu_torch.support import device_loop
     from mythril_tpu_torch.support.contracts import build_coverage_contract
 
     rng = np.random.default_rng(SEED)
@@ -277,7 +303,7 @@ def seeded_state(dev, n_seeds):
     objs = le.ObjectTable()
     seeds = []
     for i in range(n_seeds):
-        s = le.tx_entry_seed(objs, i + 1, st.calldata.shape[1])
+        s = device_loop.tx_entry_seed(objs, i + 1, st.calldata.shape[1])
         if i % 2 == 0:
             s["cd_sym"], s["cd_size_sid"], s["cd_size"] = 0, 0, 64
             s["calldata"][31] = (i // 2) % 10
@@ -494,18 +520,18 @@ def prologue_bytes(st, i32b, k, pv):
 
 
 # ---------------------------------------------------------------------------
-# phases 3 and 4: the main path and the wide run
+# the device loop alone: kernels against the plain versions, the wide run
 # ---------------------------------------------------------------------------
 
 def explore(dev, n_lanes, k, plain=False):
     import torch
 
-    from mythril_tpu_torch.laser import lane_engine as le
+    from mythril_tpu_torch.support import device_loop
     from mythril_tpu_torch.support.contracts import build_symbolic_contract
 
     code, paths = build_symbolic_contract(k)
-    eng = le.LaneEngine(n_lanes=n_lanes, device=dev, plain=plain)
-    seed = le.tx_entry_seed(eng.objects, 1, 512)
+    eng = device_loop.DeviceLoop(n_lanes=n_lanes, device=dev, plain=plain)
+    seed = device_loop.tx_entry_seed(eng.objects, 1, 512)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = eng.explore(code, [seed])
@@ -920,7 +946,7 @@ def screen_path(dev, wave, card):
         tag = "propagation on" if prop else "propagation off"
         pruner._screen_interval(systems, ident)  # warm: allocator, libs
         stats0 = dict(pruner.STATS)
-        ss0 = SolverStatistics().counters()
+        ss0 = SolverStatistics().batch_counters()
         _build.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -928,7 +954,7 @@ def screen_path(dev, wave, card):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches[prop] = dict(_build.LAUNCHES)
-        ss1 = SolverStatistics().counters()
+        ss1 = SolverStatistics().batch_counters()
         delta = {k: pruner.STATS[k] - stats0[k] for k in stats0}
         if len(kept) != SCREEN_KEEP:
             raise AssertionError(f"screen path ({tag}): kept {len(kept)}")
@@ -1028,6 +1054,427 @@ def screen_mix(dev):
         f"{sum(len(f) for f, _ in got.facts.values())} facts; {wall:.3f} s")
 
 
+# ---------------------------------------------------------------------------
+# the host bridge: K9, the analyzer end to end
+# ---------------------------------------------------------------------------
+
+def main_path_state(dev):
+    """The k=12 main path's 4096-lane state after its first window (one
+    fresh transaction entry, window 256), and that window's resolution
+    pairs: each canonical record gets the next object id, as the
+    engine's drain assigns them."""
+    import numpy as np
+    import torch
+
+    from mythril_tpu_torch.laser import lane_engine as le
+    from mythril_tpu_torch.ops import symstep
+    from mythril_tpu_torch.ops.stepper import compile_code
+    from mythril_tpu_torch.support import device_loop
+    from mythril_tpu_torch.support.contracts import build_symbolic_contract
+
+    n = MAIN_LANES
+    code, _ = build_symbolic_contract(MAIN_K)
+    cc = compile_code(code, device=dev)
+    st = symstep.init_sym_lanes(n, device=dev)
+    objs = le.ObjectTable()
+    seed = device_loop.tx_entry_seed(objs, 1, st.calldata.shape[1])
+    free = list(range(n - 1, -1, -1))
+    entries = [(free.pop(), seed)]
+    i32b, u8b, k, pv = le.pack_window(n, symstep.N_ENV, {}, entries, free,
+                                      [], {}, st.calldata.shape[1])
+    vis = torch.zeros(cc.packed.shape[0], dtype=torch.bool, device=dev)
+    st, _, out = le.window_exec(
+        st, cc, torch.from_numpy(i32b).to(dev), torch.from_numpy(u8b).to(dev),
+        symstep.SYM_EXECUTABLE, None, le.DEFAULT_WINDOW, k,
+        le.DEFAULT_STEP_BUDGET, pv, vis, 1)
+    ucount = int(out[1][2])
+    utab = out[2] if ucount <= out[2].shape[0] else \
+        le._unique_table_big(st, 1 << (ucount - 1).bit_length())[0]
+    utab = utab[:ucount].cpu().numpy()
+    d = st.dlog_op.shape[1]
+    pairs = np.full((le.PROV_BUCKET, 2), n * d, np.int32)
+    for j, row in enumerate(utab):
+        pairs[j] = (int(row[0]) * d + int(row[1]), objs.add(j))
+    return st, torch.from_numpy(pairs).to(dev), ucount
+
+
+def random_merge_state(dev, seed):
+    """A seeded random 4096-lane state at the engine's default plane
+    sizes for K9: sid planes mixing concrete (0), object ids, provisional
+    ids of resolved and unresolved slots and int32 min; full storage
+    tables with write stamps drawn from four values (ties); random
+    memory kinds, stack heights and record counts. Returns (state,
+    resolution pairs: 3000 real, then padding, then out-of-range and
+    negative slots)."""
+    import torch
+
+    from mythril_tpu_torch.ops import symstep
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    st = symstep.init_sym_lanes(MAIN_LANES, device=dev)
+    n, d = MAIN_LANES, st.dlog_op.shape[1]
+
+    def ints(lo, hi, shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int64).to(dtype)
+
+    planes = {}
+    for f in symstep.FIELDS:
+        t = getattr(st, f)
+        if t.dtype == torch.uint8:
+            planes[f] = ints(0, 256, t.shape, torch.uint8)
+        else:
+            planes[f] = ints(-2 ** 31, 2 ** 31, t.shape)
+    for f in ("ssid", "mlog_sid", "skey_sid", "sval_sid"):
+        shape = planes[f].shape
+        kind = ints(0, 5, shape)
+        vals = torch.where(kind == 1, ints(1, 5000, shape), 0)
+        vals = torch.where(kind == 2, -(ints(0, n * d, shape) + 1), vals)
+        vals = torch.where(kind == 3, torch.full_like(vals, -(n * d + 5)),
+                           vals)
+        planes[f] = torch.where(kind == 4,
+                                torch.full_like(vals, -2 ** 31), vals)
+    s = st.skeys.shape[1]
+    planes["mkind"] = ints(0, 4, planes["mkind"].shape, torch.uint8)
+    planes["sp"] = ints(0, st.stack.shape[1] + 1, (n,))
+    planes["mlog_count"] = ints(0, st.mlog_off.shape[1] + 1, (n,))
+    full = torch.full((n,), s, dtype=torch.int32, device=dev)
+    planes["scount"] = torch.where(ints(0, 2, (n,)) == 0, full,
+                                   ints(0, s + 1, (n,)))
+    planes["s_written"] = ints(0, 2, planes["s_written"].shape)
+    planes["s_wstep"] = ints(0, 4, planes["s_wstep"].shape)
+    pairs = torch.full((8192, 2), n * d, dtype=torch.int32, device=dev)
+    slots = torch.randperm(n * d, generator=g, device=dev)[:3000]
+    pairs[:3000, 0] = slots.to(torch.int32)
+    pairs[:3000, 1] = ints(1, 1 << 20, (3000,))
+    pairs[3000:3003, 0] = torch.tensor([-1, n * d + 7, -n * d],
+                                       dtype=torch.int32, device=dev)
+    return st.replace(**planes), pairs
+
+
+def merge_bytes(st, pairs):
+    """K9's byte bound on these inputs: the planes it must read (the
+    lane scalars, sid and kind planes, overlay and storage tables; the
+    stack limbs of live concrete slots, the memory bytes of concrete
+    kinds, the key and value limbs of live concrete storage slots), the
+    resolution pairs, and 16 bytes per lane written."""
+    import torch
+
+    from mythril_tpu_torch.laser import lane_engine as le
+
+    n, d = st.stack.shape[:2]
+    m, mr, s_ = st.memory.shape[1], st.mlog_off.shape[1], st.skeys.shape[1]
+    r = st.dlog_op.shape[1]
+    prov = le.prov_table(st, pairs)
+
+    def resolved(plane):
+        return le._lookup(prov, plane, r)
+
+    live = torch.arange(d, device=st.device)[None, :] < st.sp[:, None]
+    conc_slots = int((live & (resolved(st.ssid) == 0)).sum())
+    conc_mem = int(((st.mkind != 0) & (st.mkind != 3)).sum())
+    srow = torch.arange(s_, device=st.device)[None, :] < st.scount[:, None]
+    conc_k = int((srow & (resolved(st.skey_sid) == 0)).sum())
+    conc_v = int((srow & (resolved(st.sval_sid) == 0)).sum())
+    per_lane = 4 * 16 + 4 * d + m + 4 * 3 * mr + 4 * 5 * s_
+    return (n * per_lane + 32 * (conc_slots + conc_k + conc_v) + conc_mem
+            + 8 * pairs.shape[0] + 16 * n)
+
+
+def check_merge_fp(dev, report):
+    """K9 against its plain version, bit for bit, on the main path's
+    state after a window and on a seeded random state; times on the
+    main path's state."""
+    from mythril_tpu_torch.laser import lane_engine as le
+
+    st, pairs, ucount = main_path_state(dev)
+    err = max_err(le.merge_fingerprint_kernel(st, pairs),
+                  le.merge_fingerprint_plain(st, pairs))
+    if err:
+        raise AssertionError(f"K9 merge_fingerprint: main path state "
+                             f"differs (max {err})")
+    for seed in (SEED, SEED + 1):
+        rs, rp = random_merge_state(dev, seed)
+        e = max_err(le.merge_fingerprint_kernel(rs, rp),
+                    le.merge_fingerprint_plain(rs, rp))
+        if e:
+            raise AssertionError(f"K9 merge_fingerprint: random state "
+                                 f"{seed} differs (max {e})")
+    k_ms = cuda_ms(lambda: le.merge_fingerprint_kernel(st, pairs), reps=5)
+    d_ms = device_ms(lambda: le.merge_fingerprint_kernel(st, pairs))
+    p_ms = cuda_ms(lambda: le.merge_fingerprint_plain(st, pairs), reps=1)
+    nbytes = merge_bytes(st, pairs)
+    bms, by = bound_ms(nbytes)
+    report["merge_fingerprint"] = dict(max_abs_err=err, ms=k_ms,
+                                       plain_ms=p_ms, device_ms=d_ms,
+                                       bound_ms=bms, bound_by=by)
+    log(f"K9 merge_fingerprint: equal on the main path's state after a "
+        f"window ({ucount} records resolved) and on 2 random states; "
+        f"{k_ms:.4f} ms kernel ({d_ms} ms on the device), {p_ms:.1f} ms "
+        f"plain, bound {bms:.6f} ms ({nbytes} bytes)")
+
+
+def symbolic_path(dev, card):
+    """The end-to-end symbolic path at full width: every path of the
+    k=12 contract through the port's SymExecWrapper at 4096 lanes (fork,
+    SSTORE, the SHA3 tail; every path parks at its STOP and is
+    materialized for the host). The launch counts are
+    reset just before it and read just after. Fails unless it finds the
+    open states the host-only run (``host_open``) finds."""
+    import torch
+
+    from mythril_tpu_torch import _build
+    from mythril_tpu_torch.laser import lane_engine as le
+    from mythril_tpu_torch.support import runs
+    from mythril_tpu_torch.support.contracts import build_symbolic_contract
+
+    code, paths = build_symbolic_contract(MAIN_K)
+    # pin the width to the workload's fork scale, as bench_symbolic does
+    le.PATH_HISTORY[code] = paths
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    n_open, stats, wall = runs.explore(code, MAIN_LANES)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    missing = [name for name, *_ in ROWS if launches[name] <= 0]
+    if missing:
+        raise AssertionError(f"symbolic path never launched {missing}")
+    if not stats.get("windows") or not stats.get("device_steps"):
+        raise AssertionError(f"symbolic path: the engine ran no window "
+                             f"({stats})")
+    log(f"symbolic path k={MAIN_K} at {MAIN_LANES} lanes: {n_open} open "
+        f"states, {stats['windows']} windows, {stats['forks']} forks, "
+        f"{stats['parked']} lanes materialized, {stats['resumed']} SHA3 "
+        f"resumes, {stats['device_steps']} device steps, {wall:.3f} s, "
+        f"{paths / wall:.1f} paths/s on {card}")
+    return n_open, launches
+
+
+def resume_and_spill(card):
+    """Two host-bridge paths the symbolic path does not take, each held
+    to the host-only run: a lane parked at a 33-byte SHA3 is resumed in
+    place (``build_sha3_resume_contract`` at 16 lanes), and the spill
+    regime (the k=6 contract's 64 paths through an 8-lane engine, every
+    detector: over-budget forks park to the host, their descendants
+    re-enter the device mid-path)."""
+    from mythril_tpu_torch.laser import lane_engine as le
+    from mythril_tpu_torch.support import runs
+    from mythril_tpu_torch.support.contracts import (
+        build_sha3_resume_contract, build_symbolic_contract,
+    )
+
+    code = build_sha3_resume_contract()
+    lane, stats, _ = runs.explore(code, 16)
+    host, _, _ = runs.explore(code, 0)
+    if lane != host or not stats.get("resumed"):
+        raise AssertionError(f"SHA3 resume: {lane} open states, host "
+                             f"{host}; {stats.get('resumed')} resumed")
+    code, _ = build_symbolic_contract(6)
+    old = le.FORCE_WIDTH
+    le.FORCE_WIDTH = 8
+    try:
+        report, sstats, wall = runs.analyze(code.hex(), tpu_lanes=8)
+    finally:
+        le.FORCE_WIDTH = old
+    host_report, _, _ = runs.analyze(code.hex(), tpu_lanes=0)
+
+    def issues(r):
+        return sorted((i.swc_id, i.address, i.title)
+                      for i in r.issues.values())
+
+    if issues(report) != issues(host_report) or not sstats.get("reseeded"):
+        raise AssertionError(f"spill regime: issues {issues(report)}, host "
+                             f"{issues(host_report)}; {sstats}")
+    log(f"SHA3 resume: {stats['resumed']} lanes resumed in place, {lane} "
+        f"open states as on the host; spill regime: 64 paths through 8 "
+        f"lanes, {sstats['reseeded']} mid-path re-seeds, "
+        f"{sstats['windows']} windows, {len(issues(report))} issues as on "
+        f"the host, {wall:.2f} s on {card}")
+
+
+def merge_path(card):
+    """The window merge on bench.py's rig (the diamond contract, 64
+    lanes, 32-step windows, every detector) with the merge on and off.
+    Fails unless lanes merge and subsume, K9 launched, and the issue
+    sets are identical. Returns K9's launch count of the merge-on run."""
+    from mythril_tpu_torch import _build
+    from mythril_tpu_torch.support import runs
+    from mythril_tpu_torch.support.contracts import build_diamond_contract
+
+    code = build_diamond_contract(k=6, dup_levels=2)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    on = runs.merge_run(code, True)
+    wall = time.perf_counter() - t0
+    k9 = _build.LAUNCHES["merge_fingerprint"]
+    off = runs.merge_run(code, False)
+    c = on["counters"]
+    if not (c["lanes_merged"] > 0 and c["lanes_subsumed"] > 0 and k9 > 0):
+        raise AssertionError(f"merge path: {c}, K9 launched {k9} times")
+    if on["issues"] != off["issues"]:
+        raise AssertionError(f"merge path: issues {on['issues']} with the "
+                             f"merge, {off['issues']} without")
+    log(f"merge path: {c['lanes_merged']} lanes merged, "
+        f"{c['lanes_subsumed']} subsumed in {c['merge_rounds']} rounds, "
+        f"K9 launched {k9} times, {len(on['issues'])} issues as with the "
+        f"merge off; {on['engine']['windows']} windows, {wall:.2f} s on "
+        f"{card}")
+    return k9
+
+
+CORPUS_WORKERS = 4
+
+
+def corpus_start():
+    """Start ``myth analyze`` of the 18 fixtures through the port, each
+    in its own process (``--analyze``), at most CORPUS_WORKERS at once;
+    returns the pool's handle for ``corpus_finish``."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mythril_tpu_torch.support.lane_compare import INPUTS
+
+    names = sorted(p.name for p in INPUTS.glob("*.sol.o"))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
+
+    def one(name):
+        stats = os.path.join(tmp, name + ".json")
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+             "--analyze", name, stats], capture_output=True, text=True,
+            cwd=HERE, timeout=900)
+        return name, run, stats, time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(CORPUS_WORKERS)
+    return pool, [pool.submit(one, n) for n in names], tmp
+
+
+def corpus_finish(handle, card):
+    """Wait for the corpus and hold it against the JAX package's
+    reference lists (tests/torch_data/lane_issues.json), fixture by
+    fixture. Fails on any difference, on a run that printed an error
+    or whose analysis raised, on a fixture where the port's engine ran
+    other windows, forks or device steps than the JAX engine's (the
+    reference's run stats) or, where a JAX sweep failed and went on on
+    the host, no window, unless the engine ran windows, forks and
+    device steps and the device screens screened, or on a device
+    failure."""
+    from mythril_tpu_torch.support.lane_compare import canon
+
+    pool, futs, tmp = handle
+    with open(os.path.join(HERE, "tests", "torch_data",
+                           "lane_issues.json")) as f:
+        ref = json.load(f)
+    tot = {"windows": 0, "forks": 0, "device_steps": 0, "merged": 0}
+    screened = failures = n_got = n_want = 0
+    launches = {}
+    bad, unlike = [], []
+    try:
+        for fut in futs:
+            name, run, stats_path, wall = fut.result()
+            if run.returncode != 0 or not os.path.exists(stats_path):
+                raise AssertionError(f"corpus {name}: exit "
+                                     f"{run.returncode}\n"
+                                     f"{run.stderr[-3000:]}")
+            rep = json.loads(run.stdout)
+            if rep.get("error") or not rep.get("success", True):
+                raise AssertionError(f"corpus {name}: {rep.get('error')}")
+            with open(stats_path) as f:
+                st = json.load(f)
+            if st["exceptions"]:
+                raise AssertionError(f"corpus {name}: the analysis raised\n"
+                                     f"{st['exceptions'][0][-3000:]}")
+            got, want = canon(rep), ref[name]["issues"]
+            n_got, n_want = n_got + len(got), n_want + len(want)
+            rs = st["run_stats"]
+            for key in ("windows", "forks", "device_steps"):
+                tot[key] += rs.get(key, 0)
+            tot["merged"] += rs.get("lanes_merged", 0) \
+                + rs.get("lanes_subsumed", 0)
+            screened += st["pruner"]["device_screened"]
+            failures += st["pruner"]["device_failures"]
+            for k, v in st["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            if got != want:
+                bad.append(name)
+            keys = ("windows", "forks", "device_steps")
+            mine = [rs.get(k, 0) for k in keys]
+            jax = [ref[name]["run_stats"].get(k, 0) for k in keys]
+            if ref[name]["engine_failures"]:
+                # the JAX sweep raised and its states ran on the host
+                same = mine[0] > 0
+                how = "JAX engine failed, the port's ran"
+            else:
+                same = mine == jax
+                how = "as the JAX engine's" if same else "NOT as JAX's"
+            if not same:
+                unlike.append((name, mine, jax))
+            log(f"  corpus {name:30s} {len(got)}/{len(want)} issues "
+                f"{'equal' if got == want else 'DIFFER'}, {wall:.1f} s, "
+                f"{mine[0]} windows, {mine[1]} forks, {mine[2]} device "
+                f"steps ({how})")
+    finally:
+        pool.shutdown(wait=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if bad:
+        raise AssertionError(f"corpus: issues differ on {bad}")
+    if unlike:
+        raise AssertionError(f"corpus: windows, forks, device steps "
+                             f"differ from the JAX engine's (name, port, "
+                             f"JAX): {unlike}")
+    if not (tot["windows"] and tot["forks"] and tot["device_steps"]):
+        raise AssertionError(f"corpus: the lane engine did not run ({tot})")
+    if screened <= 0 or failures:
+        raise AssertionError(f"corpus: device_screened {screened}, "
+                             f"device_failures {failures}")
+    log(f"corpus: {n_got} = {n_want} issues over {len(futs)} fixtures; "
+        f"{tot['windows']} windows, {tot['forks']} forks, "
+        f"{tot['device_steps']} device steps, {tot['merged']} lanes merged "
+        f"or subsumed, {screened} systems screened on the device, 0 device "
+        f"failures; launches {launches} on {card}")
+
+
+def analyze_one(name, stats_path):
+    """``--analyze``: ``python -m mythril_tpu_torch analyze`` of one
+    fixture with the corpus flags, its report on stdout; the engine's
+    run stats, the screens' counters, the kernel launches and the
+    analysis' exceptions (which the JSON report leaves out) go to
+    ``stats_path``."""
+    sys.path.insert(0, HERE)
+    from mythril_tpu_torch import _build
+    from mythril_tpu_torch.interfaces import cli
+    from mythril_tpu_torch.laser import lane_engine as le
+    from mythril_tpu_torch.models import pruner
+    from mythril_tpu_torch.orchestration.mythril_analyzer import (
+        MythrilAnalyzer,
+    )
+    from mythril_tpu_torch.support.lane_compare import INPUTS, analyze_argv
+
+    exceptions = []
+    fire = MythrilAnalyzer.fire_lasers
+
+    def fire_recorded(*a, **k):
+        report = fire(*a, **k)
+        exceptions.extend(report.exceptions)
+        return report
+
+    MythrilAnalyzer.fire_lasers = fire_recorded
+    sys.argv = ["myth"] + analyze_argv(INPUTS / name, lanes=64)
+    try:
+        cli.main()
+    except SystemExit as e:
+        if e.code not in (None, 0, 1):
+            raise
+    finally:
+        with open(stats_path, "w") as f:
+            json.dump({"run_stats": le.RUN_STATS_TOTAL,
+                       "pruner": pruner.STATS,
+                       "launches": _build.LAUNCHES,
+                       "exceptions": exceptions}, f)
+    return 0
+
+
 #: the kernels the main path launches: (name, source, TPU kernel)
 ROWS = [
     ("sym_init", "mythril_tpu_torch/csrc/symstep.cu",
@@ -1059,6 +1506,8 @@ SCREEN_ROWS = [
 def main() -> int:
     import torch
 
+    if len(sys.argv) == 4 and sys.argv[1] == "--analyze":
+        return analyze_one(sys.argv[2], sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1077,6 +1526,14 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log(f"  {src}: {line.strip()}")
 
+    from mythril_tpu_torch import native
+
+    t0 = time.perf_counter()
+    fresh = not os.path.exists(native._LIB_PATH)
+    native.get_lib()  # raises with make's output on a failed build
+    log(f"native solver library: {'built' if fresh else 'loaded'} in "
+        f"{time.perf_counter() - t0:.1f} s ({native._LIB_PATH})")
+
     from mythril_tpu_torch.ops.symstep import lane_bytes
     from mythril_tpu_torch.support.devices import default_lanes
 
@@ -1087,24 +1544,43 @@ def main() -> int:
     check_init(dev, report)
     check_k1(dev, report)
     check_window(dev, report)
+    check_merge_fp(dev, report)
 
-    _build.reset_launches()
+    # the symbolic path at full width: its launch counts are the main
+    # path's for K0-K4
+    n_open, launches = symbolic_path(dev, card)
+
+    # the corpus, each fixture its own process, while this process runs
+    # the symbolic path's host-only reference (no card work here, so the
+    # timed phases below run alone)
+    from mythril_tpu_torch.support import runs
+    from mythril_tpu_torch.support.contracts import build_symbolic_contract
+
+    corpus = corpus_start()
+    t0 = time.perf_counter()
+    host_open, _, host_wall = runs.explore(
+        build_symbolic_contract(MAIN_K)[0], 0)
+    if host_open != n_open:
+        raise AssertionError(f"symbolic path: {n_open} open states, the "
+                             f"host-only run {host_open}")
+    log(f"symbolic path host-only: {host_open} open states (equal), "
+        f"{host_wall:.3f} s")
+    corpus_finish(corpus, card)
+    resume_and_spill(card)
+    k9_launches = merge_path(card)
+
     res, paths, wall, stats = explore(dev, MAIN_LANES, MAIN_K)
-    launches = dict(_build.LAUNCHES)
     if res["paths"] != paths or res["forks"] != paths - 1:
-        raise AssertionError(f"main path: {res['paths']} paths retired, "
+        raise AssertionError(f"device loop: {res['paths']} paths retired, "
                              f"{res['forks']} forks; want {paths}, "
                              f"{paths - 1}")
-    missing = [name for name, *_ in ROWS if launches[name] <= 0]
-    if missing:
-        raise AssertionError(f"main path never launched {missing}")
-    log(f"main path (kernels): {len(res['windows'])} windows, "
+    log(f"device loop (kernels): {len(res['windows'])} windows, "
         f"{res['paths']} paths, {res['forks']} forks, {res['records']} "
         f"unique records, {wall:.3f} s, {res['paths'] / wall:.1f} paths/s "
         f"on {card}")
     res_p, _, wall_p, _ = explore(dev, MAIN_LANES, MAIN_K, plain=True)
     compare_runs(res, res_p)
-    log(f"main path (plain on the card): identical windows, "
+    log(f"device loop (plain on the card): identical windows, "
         f"{wall_p:.3f} s")
 
     res_w, paths_w, wall_w, _ = explore(dev, WIDE_LANES, WIDE_K)
@@ -1139,7 +1615,10 @@ def main() -> int:
                    "prop_back_round")
     rows = [entry(*row) for row in ROWS] + [
         entry(name, src, rep, screen_launches[prop])
-        for name, src, rep, prop in SCREEN_ROWS]
+        for name, src, rep, prop in SCREEN_ROWS] + [
+        entry("merge_fingerprint", "mythril_tpu_torch/csrc/merge.cu",
+              "mythril_tpu/laser/lane_engine.py:906",
+              {"merge_fingerprint": k9_launches})]
     fast = [r["name"] for r in rows + [inlined]
             if r["device_ms"] is not None and r["device_ms"] < r["bound_ms"]]
     if fast:

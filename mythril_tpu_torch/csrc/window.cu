@@ -55,6 +55,7 @@ __global__ void k_scatter_prov(int32_t* dense, long long len, const int32_t* pai
   long long j = gid();
   if (j >= pv) return;
   long long slot = pairs[2 * j];
+  if (slot < 0) slot += len;  // the JAX scatter counts a negative slot from the end
   if (slot >= 0 && slot < len) dense[slot] = pairs[2 * j + 1];
 }
 

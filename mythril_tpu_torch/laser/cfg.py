@@ -1,0 +1,72 @@
+"""Control-flow-graph bookkeeping (reference parity:
+mythril/laser/ethereum/cfg.py:13-116)."""
+
+from enum import Enum
+from typing import Dict, List
+
+from ..smt import Bool, symbol_factory
+from .state.constraints import Constraints
+
+gbl_next_uid = 0
+
+
+class JumpType(Enum):
+    CONDITIONAL = 1
+    UNCONDITIONAL = 2
+    CALL = 3
+    RETURN = 4
+    Transaction = 5
+
+
+class NodeFlags(Enum):
+    FUNC_ENTRY = 1
+    CALL_RETURN = 2
+
+
+class Node:
+    """A basic-block node in the call graph."""
+
+    def __init__(self, contract_name: str, start_addr=0,
+                 constraints=None, function_name="unknown") -> None:
+        global gbl_next_uid
+        constraints = constraints if constraints else Constraints()
+        self.contract_name = contract_name
+        self.start_addr = start_addr
+        self.states: List = []
+        self.constraints = constraints
+        self.function_name = function_name
+        self.flags = 0
+        self.uid = gbl_next_uid
+        gbl_next_uid += 1
+
+    def get_cfg_dict(self) -> Dict:
+        code_lines = []
+        for state in self.states:
+            instruction = state.get_current_instruction()
+            code = str(instruction["address"]) + " " + instruction["opcode"]
+            if instruction["opcode"].startswith("PUSH"):
+                code += " " + "".join(str(instruction.get("argument", "")))
+            code_lines.append(code)
+        return dict(
+            contract_name=self.contract_name,
+            start_addr=self.start_addr,
+            function_name=self.function_name,
+            code="\\n".join(code_lines),
+        )
+
+
+class Edge:
+    def __init__(self, node_from: int, node_to: int,
+                 edge_type=JumpType.UNCONDITIONAL,
+                 condition=None) -> None:
+        self.node_from = node_from
+        self.node_to = node_to
+        self.type = edge_type
+        self.condition = condition
+
+    def __str__(self) -> str:
+        return str(self.as_dict)
+
+    @property
+    def as_dict(self) -> Dict:
+        return {"from": self.node_from, "to": self.node_to}

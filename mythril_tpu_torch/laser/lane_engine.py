@@ -1,45 +1,89 @@
-"""Lane engine, device half: the fused per-window dispatch and the window
-loop of ``LaneEngine``.
+"""Lane engine: the symbolic lane stepper's window dispatch on the card,
+and the host bridge that feeds it from ``GlobalState``s and hands its
+parked lanes back to the interpreter.
 
-The counterpart of the device half of ``mythril_tpu/laser/lane_engine.py``:
-the constants, the packed seed buffers (``_seed_sections``,
-``_pack_window``), the window dispatch ``window_exec`` (the JAX
+The counterpart of ``mythril_tpu/laser/lane_engine.py``, in two halves.
+
+The device half: the packed seed buffers (``_seed_sections``,
+``pack_window``), the window dispatch ``window_exec`` (the JAX
 ``_window_exec``: remap and reset, kill, resume, seed; ``sym_run``;
 record dedup and canonical remap; hold and retire selection; counters,
-unique-record and fork tables) and its escalations ``_retire_rows``,
-``_unique_table_big`` and ``_gather_full_flog``.
+unique-record and fork tables), its escalations ``_retire_rows``,
+``_unique_table_big`` and ``_gather_full_flog``, and the window-merge
+fingerprint ``merge_fingerprint``. Each has a plain PyTorch version
+(the ``*_plain`` functions, used for CPU tensors and as the comparison
+on the card) and, for CUDA tensors, kernels: K2 ``window_prologue``,
+K3 ``window_dedup``, K4 ``window_epilogue`` (whose gathers also serve
+the three escalations) in ``csrc/window.cu``, K9 in ``csrc/merge.cu``.
+``support/device_loop.py`` runs that half alone on raw seed dicts.
 
-Each of them has a plain PyTorch version (the ``*_plain`` functions,
-used for CPU tensors and as the comparison on the card) and, for CUDA
-tensors, kernels in ``csrc/window.cu``: K2 ``window_prologue``, K3
-``window_dedup``, K4 ``window_epilogue`` (whose gathers also serve the
-three escalations).
+The host half, ported from the JAX engine's (parity contract below):
+``LaneEngine`` seeds device lanes from host ``GlobalState``s at
+transaction entry (and mid-path, the spill/refill path), runs windows,
+drains the device's deferred-op, path-condition and fork logs into
+facade terms, screens forks, merges twin lanes at window boundaries,
+resumes SHA3-parked lanes in place, and materializes parked lanes as
+``GlobalState``s positioned at the instruction the device could not
+execute. The host engine (svm.py) remains the semantic authority:
+CALL/CREATE/SHA3/terminal opcodes and every detector hook run host-side
+on the materialized states.
 
-``LaneEngine`` here adds no feature. It is the device loop of the JAX
-engine's ``_explore_members``: seed fresh tx-entry lanes, dispatch
-windows until no lane is RUNNING, retire parked lanes (in the window
-dispatch, or through ``_retire_rows`` for the rest), and refill free
-slots. It stops where the JAX engine hands retired rows to the host
-drain and ``materialize``: the host bridge (SMT terms, the solver
-screen, the interpreter and detectors) is not part of this package yet.
-Its one device-facing duty, resolving canonical record ids to object
-ids for the next window's remap, is done by ``ObjectTable``; no kills
-and no SHA3 resumes are sent.
+Parity contract (why this cannot diverge from the interpreter):
+- deferred ALU records resolve through laser/alu.py — the same
+  functions the instruction handlers call;
+- CALLDATALOAD resolves through the transaction's own calldata object
+  (state/calldata.py get_word_at), SLOAD through the same
+  select+simplify the Storage class performs (state/account.py);
+- JUMPI conditions build exactly the condi/negated pair of the jumpi_
+  handler (instructions.py), including trivial-falsity pruning;
+- materialized memory reproduces the byte-granular int/Extract layout
+  of state/memory.py write_word_at;
+- gas is the device's [min,max] interval added onto the seed state's
+  counters, matching StateTransition accumulation.
+
+The object table maps device sids (>0) to facade BitVec/Bool wrappers.
+Provisional (negative) sids minted on device encode (lane, record-slot)
+and are rewritten to table ids at each drain.
+
+Unlike the JAX engine, nothing here falls back to the host: a kernel or
+device call that fails raises to the caller. Not ported: the XLA
+compile warm-up (``warm_variant``), the kernel-fault capacity autoprobe,
+multi-device meshes (``pick_mesh`` is None) and cross-tenant wave
+packing (``explore_packed``).
 """
 
 import ctypes
+import functools
+import logging
+import os
+import threading
+import time
 from collections import deque
+from contextlib import contextmanager
+from copy import copy
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..ops import symstep
+from ..ops import bv256, symstep
 from ..ops.bv256 import NLIMBS
 from ..ops.stepper import CompiledCode, Status, compile_code
 from ..ops.symstep import DEAD, SymLaneState
+from ..smt import (
+    BitVec, Bool, Concat, Extract, If, Not, simplify, symbol_factory,
+)
+from ..smt import terms as T
 from ..support.devices import resolve
 from ..support.opcodes import ADDRESS, OPCODES
+from ..support.telemetry import trace
+from . import alu
+from .state.calldata import ConcreteCalldata
+from .state.global_state import GlobalState
+
+log = logging.getLogger(__name__)
+
+_OPN = {data[ADDRESS]: name for name, data in OPCODES.items()}
 
 _OPB = {name: data[ADDRESS] for name, data in OPCODES.items()}
 
@@ -63,8 +107,6 @@ URB = 512
 FB = 512
 _DEDUP_H = 4096  # dedup hash-table cells
 _SSTORE_BYTE = _OPB["SSTORE"]
-DEFAULT_WINDOW = 256
-DEFAULT_STEP_BUDGET = 8192
 #: rows per escalation-retire gather
 RETIRE_CHUNK = 1024
 
@@ -217,15 +259,26 @@ def _lookup(table, plane, d_recs):
     return torch.where(negm, mapped.to(plane.dtype), plane)
 
 
-def _remap_reset_core(st: SymLaneState, prov_pairs) -> SymLaneState:
+def prov_table(st: SymLaneState, prov_pairs):
+    """The dense (lane, record slot) -> oid table of the sparse
+    resolution pairs (int32 min where none), as the JAX
+    ``.at[slot].set(oid, mode="drop")`` builds it: a negative slot
+    counts from the end, a slot out of range either way is dropped."""
     d_recs = st.dlog_op.shape[1]
     n = st.pc.shape[0]
-    dense = torch.full((n * d_recs,), _I32_MIN, dtype=torch.int32,
+    size = n * d_recs
+    dense = torch.full((size,), _I32_MIN, dtype=torch.int32,
                        device=st.device)
     slot = prov_pairs[:, 0].long()
-    ok = (slot >= 0) & (slot < n * d_recs)
+    slot = torch.where(slot < 0, slot + size, slot)
+    ok = (slot >= 0) & (slot < size)
     dense[slot[ok]] = prov_pairs[:, 1][ok]
-    prov_arr = dense.reshape(n, d_recs)
+    return dense.reshape(n, d_recs)
+
+
+def _remap_reset_core(st: SymLaneState, prov_pairs) -> SymLaneState:
+    d_recs = st.dlog_op.shape[1]
+    prov_arr = prov_table(st, prov_pairs)
     return st.replace(
         ssid=_lookup(prov_arr, st.ssid, d_recs),
         sval_sid=_lookup(prov_arr, st.sval_sid, d_recs),
@@ -770,13 +823,151 @@ DISPATCH = {"window_exec": window_exec, "retire_rows": _retire_rows,
 
 
 # ---------------------------------------------------------------------------
-# the engine shell
+# the window-merge fingerprint: csrc/merge.cu (K9)
 # ---------------------------------------------------------------------------
 
+def _mul32(a, b):
+    """(a * b) mod 2**32 for int64 values in [0, 2**32) (the product
+    would overflow int64): a's two 16-bit halves times b."""
+    lo = (a & 0xFFFF) * b
+    hi = ((a >> 16) * b) & 0xFFFF
+    return (lo + (hi << 16)) & _M32
+
+
+def _sm32(x):
+    """splitmix32 finisher on int64 values in [0, 2**32): the per-column
+    weights of the fingerprint folds."""
+    x = (x + 0x9E3779B9) & _M32
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def merge_fingerprint_plain(st: SymLaneState, prov_pairs):
+    """Per-lane frontier fingerprint of the window-boundary merge pass
+    in plain PyTorch (the JAX ``_merge_fingerprint``, fold for fold):
+    two 32-bit multilinear hashes over pc, depth, fork group, fentry,
+    the gas limit, the live stack (canonical sids and concrete limbs),
+    memory kinds, concrete bytes and overlay records, the storage slot
+    table with its write order as ranks, and the calldata shape; then
+    the raw gas interval. Provisional sids resolve through
+    ``prov_pairs`` as the next dispatch will resolve them. Returns
+    (N, 4) int32 holding the uint32 columns (h1, h2, min_gas,
+    max_gas)."""
+    n = st.pc.shape[0]
+    dev = st.device
+    d_recs = st.dlog_op.shape[1]
+    prov_arr = prov_table(st, prov_pairs)
+
+    def remap(plane):
+        return _lookup(prov_arr, plane, d_recs)
+
+    h1 = torch.full((n,), 2166136261, dtype=torch.int64, device=dev)
+    h2 = torch.full((n,), 0x9E3779B9, dtype=torch.int64, device=dev)
+    seed = [0]
+
+    def fold(h1, h2, arr, mask=None):
+        seed[0] += 1
+        arr = arr.reshape(n, -1).long() & _M32
+        if mask is not None:
+            arr = torch.where(mask.reshape(n, -1), arr, 0)
+        k = arr.shape[1]
+        idx = (torch.arange(k, dtype=torch.int64, device=dev)
+               + ((seed[0] * 0x632BE59B) & _M32)) & _M32
+        w1 = _sm32(idx)[None, :]
+        w2 = _sm32(idx ^ 0x7F4A7C15)[None, :]
+        s1 = _mul32(arr, w1).sum(dim=1) & _M32
+        s2 = _mul32(arr ^ w2, w1).sum(dim=1) & _M32
+        h1 = _mul32(h1 ^ s1, 16777619)
+        h2 = _mul32((h2 + s2) & _M32, 2654435761)
+        return h1, h2 ^ (h2 >> 15)
+
+    for scalar in (st.pc, st.sp, st.depth, st.group, st.fentry,
+                   st.msize, st.mlog_count, st.scount, st.s_mode,
+                   st.sbase, st.cd_size, st.cd_sym, st.cd_size_sid,
+                   st.gas_limit):
+        h1, h2 = fold(h1, h2, scalar)
+
+    depth_cap = st.stack.shape[1]
+    slot_live = torch.arange(depth_cap, device=dev)[None, :] \
+        < st.sp[:, None]
+    ssid_r = remap(st.ssid)
+    h1, h2 = fold(h1, h2, ssid_r, slot_live)
+    conc = slot_live & (ssid_r == 0)
+    h1, h2 = fold(h1, h2, st.stack, conc.repeat_interleave(NLIMBS, 1))
+
+    h1, h2 = fold(h1, h2, st.mkind)
+    conc_mem = (st.mkind != 0) & (st.mkind != symstep.KIND_SYM_WORD)
+    h1, h2 = fold(h1, h2, st.memory, conc_mem)
+    mr = st.mlog_off.shape[1]
+    mlog_live = torch.arange(mr, device=dev)[None, :] \
+        < st.mlog_count[:, None]
+    h1, h2 = fold(h1, h2, st.mlog_off, mlog_live)
+    h1, h2 = fold(h1, h2, st.mlog_len, mlog_live)
+    h1, h2 = fold(h1, h2, remap(st.mlog_sid), mlog_live)
+
+    s_slots = st.skeys.shape[1]
+    srow = torch.arange(s_slots, device=dev)[None, :] < st.scount[:, None]
+    skey_r = remap(st.skey_sid)
+    sval_r = remap(st.sval_sid)
+    h1, h2 = fold(h1, h2, skey_r, srow)
+    h1, h2 = fold(h1, h2, sval_r, srow)
+    h1, h2 = fold(h1, h2, st.s_written, srow)
+    h1, h2 = fold(h1, h2, st.s_read, srow)
+    h1, h2 = fold(h1, h2, st.skeys,
+                  (srow & (skey_r == 0)).repeat_interleave(NLIMBS, 1))
+    h1, h2 = fold(h1, h2, st.svals,
+                  (srow & (sval_r == 0)).repeat_interleave(NLIMBS, 1))
+    written = srow & (st.s_written != 0)
+    ws = torch.where(written, st.s_wstep, _I32_MAX)
+    slots = torch.arange(s_slots, device=dev)
+    earlier = (ws[:, :, None] > ws[:, None, :]) | (
+        (ws[:, :, None] == ws[:, None, :])
+        & (slots[None, :, None] > slots[None, None, :]))
+    rank = (earlier & written[:, None, :]).sum(dim=2)
+    h1, h2 = fold(h1, h2, torch.where(written, rank, -1))
+
+    out = torch.stack([h1, h2, st.min_gas.long() & _M32,
+                       st.max_gas.long() & _M32], dim=1)
+    return torch.where(out >= 1 << 31, out - (1 << 32), out).to(torch.int32)
+
+
+def merge_fingerprint_kernel(st: SymLaneState, prov_pairs):
+    """K9 on the card (``csrc/merge.cu``): ``merge_fingerprint_plain``
+    of a CUDA state. Launches on the current stream of the state's
+    device."""
+    from .. import _build
+
+    lib = _build.lib("merge.cu", {
+        "merge_fingerprint": [_P, _P, _P, _I, _P, _P, _P]})
+    planes, dims = symstep.state_args(st)
+    n, d_recs = st.pc.shape[0], st.dlog_op.shape[1]
+    pairs = prov_pairs.contiguous()
+    _build.need_cuda(pairs, torch.int32, "prov_pairs")
+    dense = torch.empty(n * d_recs, dtype=torch.int32, device=st.device)
+    out = torch.empty((n, 4), dtype=torch.int32, device=st.device)
+    rc = lib.merge_fingerprint(planes, dims, _build.ptr(pairs),
+                               pairs.shape[0], _build.ptr(dense),
+                               _build.ptr(out), _build.stream(st.device))
+    _build.LAUNCHES["merge_fingerprint"] += 1
+    _build.check(lib, rc, "merge_fingerprint")
+    return out
+
+
+def merge_fingerprint(st: SymLaneState, prov_pairs):
+    """The window-merge fingerprint: the plain version for a CPU state,
+    K9 for a CUDA state."""
+    if st.device.type == "cpu":
+        return merge_fingerprint_plain(st, prov_pairs)
+    return merge_fingerprint_kernel(st, prov_pairs)
+
+
 class ObjectTable:
-    """Object ids of the drained records: each unique-table row gets the
-    next oid (ids start at 1; 0 means concrete). Slice 2 stores the
-    record's SMT term here; this slice stores the row itself."""
+    """sid (>0) -> object (a facade BitVec or Bool for the engine; any
+    record for ``support/device_loop.py``). Ids start at 1; 0 means
+    concrete."""
 
     def __init__(self):
         self._objs: List = [None]
@@ -787,6 +978,9 @@ class ObjectTable:
 
     def __getitem__(self, sid: int):
         if sid <= 0:
+            # a negative sid here means a provisional id leaked through
+            # a drain unresolved: fail loudly instead of returning an
+            # unrelated object
             raise IndexError(f"unresolved/invalid sid {sid}")
         return self._objs[sid]
 
@@ -794,193 +988,2810 @@ class ObjectTable:
         return len(self._objs)
 
 
+# ---------------------------------------------------------------------------
+# the host bridge
+# ---------------------------------------------------------------------------
+
+class LaneCtx:
+    """Host context of one device lane: the pristine entry state it was
+    seeded from, the (step-stamped) path conditions accumulated through
+    drains, and per-adapter sink-taint promotions."""
+
+    __slots__ = ("template", "conds", "addr2idx", "storage_seed_raw",
+                 "calldata", "gas0_min", "gas0_max", "promos",
+                 "swrites", "owner", "code_base", "func_names")
+
+    def __init__(self, template, addr2idx, storage_seed_raw, calldata,
+                 gas0_min, gas0_max, owner=None, code_base=0,
+                 func_names=None):
+        self.template = template
+        #: cross-tenant wave packing (docs/daemon.md §wave packing):
+        #: the owning request's tag (None outside packed explores —
+        #: READ only through retire_ring.owner_of, lint rule 10), the
+        #: member segment's arena base offset, and the member's own
+        #: function-name map (None = use the engine's per-explore map)
+        self.owner = owner
+        self.code_base = code_base
+        self.func_names = func_names
+        # [(global step, Bool)] — the step stamp lets drain-time sites
+        # reconstruct the constraint prefix at any earlier record
+        self.conds: List[tuple] = []
+        self.addr2idx = addr2idx
+        self.storage_seed_raw = storage_seed_raw
+        self.calldata = calldata
+        self.gas0_min = gas0_min
+        self.gas0_max = gas0_max
+        # adapter-id -> [(step, annotation)] (lane_adapters promotions)
+        self.promos: Dict[int, List[tuple]] = {}
+        # per-path storage-write mirror [(key BitVec, value BitVec)] in
+        # program order, built from the lane's SSTORE records —
+        # REC_SLOAD_RW resolution folds it over the seed storage
+        self.swrites: List[tuple] = []
+
+    def clone(self) -> "LaneCtx":
+        c = LaneCtx(self.template, self.addr2idx, self.storage_seed_raw,
+                    self.calldata, self.gas0_min, self.gas0_max,
+                    owner=self.owner, code_base=self.code_base,
+                    func_names=self.func_names)
+        c.conds = list(self.conds)
+        c.promos = {k: list(v) for k, v in self.promos.items()}
+        c.swrites = list(self.swrites)
+        return c
+
+
+class _DrainSite:
+    """A reconstructed pre-hook site: enough of the GlobalState at a
+    device-executed instruction (pc, constraint prefix, gas interval,
+    active function, relevant stack tail) for an unmodified detection
+    module to run against. Built lazily — most sites are never
+    materialized."""
+
+    __slots__ = ("engine", "ctx", "step", "byte_pc", "fentry", "gmin",
+                 "gmax", "stack_tail", "_prefix")
+
+    def __init__(self, engine, ctx, step, byte_pc, fentry, gmin=None,
+                 gmax=None, stack_tail=(), prefix=None):
+        self.engine = engine
+        self.ctx = ctx
+        self.step = step
+        self.byte_pc = byte_pc
+        self.fentry = fentry
+        self.gmin = gmin
+        self.gmax = gmax
+        self.stack_tail = stack_tail
+        self._prefix = prefix  # explicit snapshot, or None -> by step
+
+    def _conds(self):
+        if self._prefix is not None:
+            return self._prefix
+        return [c for (s, c) in self.ctx.conds if s < self.step]
+
+    def build_state(self) -> GlobalState:
+        # copy(), not deepcopy(): the same sharing level the
+        # interpreter's own per-instruction StateTransition copy uses —
+        # accounts/storage fork independently, terms/code are shared
+        gs = copy(self.ctx.template)
+        for c in self._conds():
+            gs.world_state.constraints.append(c)
+        ms = gs.mstate
+        a2i = self.ctx.addr2idx
+        # device pcs are arena coordinates under a packed wave; the
+        # ctx carries its member segment's base (0 unpacked)
+        byte_pc = self.byte_pc - self.ctx.code_base
+        ms.pc = int(a2i[min(max(byte_pc, 0), a2i.shape[0] - 1)])
+        if self.gmin is not None:
+            ms.min_gas_used = self.ctx.gas0_min + int(self.gmin)
+            ms.max_gas_used = self.ctx.gas0_max + int(self.gmax)
+        fentry = self.fentry
+        fnames = self.ctx.func_names if self.ctx.func_names \
+            is not None else self.engine._func_names
+        if fentry >= 0 and fentry in fnames:
+            gs.environment.active_function_name = fnames[fentry]
+        for v in self.stack_tail:
+            ms.stack.append(v)
+        return gs
+
+    def lazy_ostate(self):
+        return _LazyOState(self)
+
+    def fire_module_pre_hook(self, module):
+        """Run the module's hook entry point against this site — the
+        function name makes module_helpers.is_prehook() report True,
+        exactly as under svm._execute_pre_hook."""
+        module.execute(self.build_state())
+
+
+class _LazyOState:
+    """Materialize-on-first-touch proxy for annotation-captured states
+    (the integer module stores one per arithmetic op; almost none are
+    ever promoted to a sink, so the deepcopy is deferred)."""
+
+    __slots__ = ("_site", "_gs")
+
+    def __init__(self, site):
+        self._site = site
+        self._gs = None
+
+    def __getattr__(self, name):
+        if self._gs is None:
+            self._gs = self._site.build_state()
+        return getattr(self._gs, name)
+
+
+#: phase wall-clock accumulator (seconds), enabled by MYTHRIL_TPU_PROF=1.
+#: In profiling mode the card is synchronized inside a phase that
+#: launches, so asynchronous launch cost lands on the phase that caused
+#: it.
+PROF: Dict[str, float] = {}
+PROF_ON = os.environ.get("MYTHRIL_TPU_PROF") == "1"
+
+
+@contextmanager
+def _prof(name: str, sync=None):
+    if not PROF_ON:
+        yield
+        return
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        if sync is not None:
+            x = sync() if callable(sync) else sync
+            if x.device.type == "cuda":
+                torch.cuda.synchronize(x.device)
+        PROF[name] = PROF.get(name, 0.0) + time.perf_counter() - t0
+        PROF["n_" + name] = PROF.get("n_" + name, 0.0) + 1
+
+
+#: stats of the most recent completed explore() in this process — lets
+#: callers/tests assert the device path genuinely ran (a fallback to the
+#: host interpreter would make lane-vs-host comparisons vacuous).
+#: RUN_STATS_TOTAL accumulates across engines (spill/refill re-sweeps
+#: create several per analysis).
+LAST_RUN_STATS: Optional[dict] = None
+RUN_STATS_TOTAL: Dict[str, int] = {}
+
+
+@functools.lru_cache(maxsize=65536)
+def _bv_raw(v: int):
+    return symbol_factory.BitVecVal(v, 256).raw
+
+
+@functools.lru_cache(maxsize=256)
+def _mem_word(obj) -> BitVec:
+    """A sid-carried word as ``Memory.write_word_at`` stores it
+    (state/memory.py): a Bool as 0/1, a narrower value zero-padded on
+    the left, a wider one cut to its low 256 bits. A CALLDATALOAD at a
+    symbolic offset gives a zero-width word (state/calldata.py), which
+    MSTORE pads to 256 zero bits."""
+    if isinstance(obj, Bool):
+        return If(obj, _bv_val(1), _bv_val(0))
+    if obj.size() < 256:
+        return Concat(symbol_factory.BitVecVal(0, 256 - obj.size()), obj)
+    if obj.size() > 256:
+        return Extract(255, 0, obj)
+    return obj
+
+
+def _bv8_raw(v: int):
+    return symbol_factory.BitVecVal(v, 8).raw
+
+
+def _bv_val(v: int) -> BitVec:
+    """256-bit constant facade over a memoized term: materialization
+    interns the same slot keys / small constants tens of times per
+    path across a terminal storm, and the intern round trip dominated
+    the stack/storage rebuild. The facade itself stays per-call —
+    Expression.annotate mutates in place, so instances must not be
+    shared across paths."""
+    return BitVec(_bv_raw(v))
+
+
+
+# ---------------------------------------------------------------------------
+# streaming retire/materialize pipeline gates (docs/drain_pipeline.md,
+# "streaming retire"). MTPU_STREAM is the master gate (default on;
+# =0 restores the monolithic-retire behavior bit-for-bit);
+# MTPU_RETIRE_CHUNK bounds rows per retire gather (pow2-rounded, so
+# buffer shapes repeat; 0 disables chunking specifically);
+# MTPU_MAT_WORKERS sizes the materialization ring's worker pool (K=1
+# stays the default — single-CPU container constraint, ROADMAP).
+# ---------------------------------------------------------------------------
+
+#: tri-state test/bench overrides (None = read the env)
+FORCE_STREAM: Optional[bool] = None
+FORCE_RETIRE_CHUNK: Optional[int] = None
+
+#: default rows-per-gather bound: at full plane caps a retire row is
+#: ~7 KB, so 1024 bounds any single gather's device output buffer to a
+#: few MB regardless of live width — live width stops being a
+#: single-allocation limit
+DEFAULT_RETIRE_CHUNK = 1024
+
+
+def stream_enabled() -> bool:
+    """The MTPU_STREAM master gate (default on). Off: monolithic
+    retire gathers, no spill merge, K=1 inline materialization —
+    today's behavior bit-for-bit."""
+    if FORCE_STREAM is not None:
+        return bool(FORCE_STREAM)
+    return os.environ.get("MTPU_STREAM", "1") != "0"
+
+
+def retire_chunk() -> int:
+    """Rows-per-gather bound for the chunked retire path (pow2-rounded
+    down, min 16 so the floors bucketing stays sane); 0 = monolithic
+    (MTPU_RETIRE_CHUNK=0, or the master gate off)."""
+    if not stream_enabled():
+        return 0
+    if FORCE_RETIRE_CHUNK is not None:
+        ch = int(FORCE_RETIRE_CHUNK)
+    else:
+        try:
+            ch = int(os.environ.get("MTPU_RETIRE_CHUNK",
+                                    str(DEFAULT_RETIRE_CHUNK)))
+        except ValueError:
+            ch = DEFAULT_RETIRE_CHUNK
+    if ch <= 0:
+        return 0
+    ch = max(ch, 4)  # tiny chunks exist for tests/smoke rigs only
+    return 1 << (ch.bit_length() - 1)  # pow2 floor: shapes repeat
+
+
+def mat_workers() -> int:
+    """Materialization ring worker count (MTPU_MAT_WORKERS, default 1
+    — the single-CPU pool default; the ring structure is what scales)."""
+    if not stream_enabled():
+        return 1
+    try:
+        return max(1, int(os.environ.get("MTPU_MAT_WORKERS", "1")))
+    except ValueError:
+        return 1
+
+
+# ---------------------------------------------------------------------------
+# capacity autoprobe (docs/drain_pipeline.md): on the first kernel-fault
+# fallback the engine binary-searches the max stable live width ONCE and
+# clamps pick_width (persisted into stats.json via parallel/cost_model
+# so subsequent runs — and the future daemon — never re-fault).
+# ---------------------------------------------------------------------------
+
+#: in-process live-width clamps keyed by the pow2 shape of the request.
+#: The JAX package fills it from its kernel-fault autoprobe, which has
+#: no counterpart here (a failed launch raises); clamps a prior run
+#: persisted through parallel/cost_model still bind.
+CAPACITY_CLAMPS: Dict[int, int] = {}
+_CLAMP_WARNED = False
+
+
+def capacity_clamp(width: Optional[int] = None) -> Optional[int]:
+    """The live-width clamp binding a request of `width`: this
+    process's probe result for that pow2 shape, else the one a prior
+    run persisted into stats.json (cost_model, per-shape map — a
+    legacy scalar loads as the shape-blind entry and binds every
+    width). ``width=None`` returns the tightest clamp known from any
+    shape (admission-control callers without a concrete request)."""
+    try:
+        from ..parallel import cost_model
+
+        if width is None:
+            cands = list(CAPACITY_CLAMPS.values()) \
+                + list(cost_model.WIDTH_CLAMPS.values())
+            return min(cands) if cands else None
+        shape = cost_model.clamp_shape(width)
+        persisted = cost_model.width_clamp_for(width)
+        local = CAPACITY_CLAMPS.get(shape)
+        cands = [c for c in (local, persisted) if c is not None]
+        return min(cands) if cands else None
+    except Exception:  # pragma: no cover - cost model optional
+        if width is None:
+            return min(CAPACITY_CLAMPS.values()) \
+                if CAPACITY_CLAMPS else None
+        return CAPACITY_CLAMPS.get(
+            1 << (max(int(width), 1) - 1).bit_length())
+
+
+
+
+def _u32(x) -> np.ndarray:
+    """A host copy of a u32 column block as uint32 (the port's tensors
+    hold the bit patterns as int32)."""
+    x = np.asarray(x)
+    return x.view(np.uint32) if x.dtype == np.int32 else x
+
+
+def _start_pull(tensors):
+    """Start the copies of device output tensors to the host now, on
+    the current stream, into pinned buffers, and return ``pull()``,
+    which waits for those copies only (an event recorded after them)
+    and gives the host arrays. A pull on another thread (the retire
+    ring's workers) never waits for, or races with, launches made
+    after this call. CPU tensors come back as they are."""
+    tensors = list(tensors)
+    if not tensors or tensors[0].device.type == "cpu":
+        outs = [t.numpy() for t in tensors]
+        return lambda: outs
+    dev = tensors[0].device
+    hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+             for t in tensors]
+    for h, t in zip(hosts, tensors):
+        h.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(dev))
+
+    def pull():
+        done.synchronize()
+        return [h.numpy() for h in hosts]
+
+    return pull
+
+
+def _unpack_resume(packed) -> dict:
+    """Host-side inverse of _resume_gather_core's packing."""
+    i32, u32, u8 = [np.asarray(x) for x in packed]
+    u32 = _u32(u32)
+    out = {}
+    for col, name in enumerate(("msize", "min_gas", "max_gas",
+                                "gas_limit", "mlog_count",
+                                "sid_top", "sid_sub")):
+        out[name] = i32[:, col]
+    off = 7
+    for name in ("mlog_off", "mlog_len", "mlog_sid"):
+        out[name] = i32[:, off:off + RESUME_MLOG]
+        off += RESUME_MLOG
+    out["top"] = u32[:, :bv256.NLIMBS]
+    out["sub"] = u32[:, bv256.NLIMBS:]
+    out["memory"] = u8[:, :RESUME_MEM]
+    out["mkind"] = u8[:, RESUME_MEM:]
+    return out
+
+
+def _unpack_rows(packed, dstack, dmem, dmlog, dslot) -> dict:
+    """Host-side inverse of _retire_rows' packing."""
+    i32, u32, u8 = [np.asarray(x) for x in packed]
+    u32 = _u32(u32)
+    k = i32.shape[0]
+    out = {}
+    off = 0
+    for name in ("pc", "sp", "depth", "fentry", "last_jump", "msize",
+                 "mlog_count", "scount", "min_gas", "max_gas"):
+        out[name] = i32[:, off]
+        off += 1
+    for name, w in (("mlog_off", dmlog), ("mlog_len", dmlog),
+                    ("mlog_sid", dmlog), ("ssid", dstack),
+                    ("sval_sid", dslot), ("s_written", dslot),
+                    ("s_read", dslot), ("skey_sid", dslot),
+                    ("s_wstep", dslot)):
+        out[name] = i32[:, off:off + w]
+        off += w
+    off = 0
+    for name, w, shp in (
+        ("stack", dstack * bv256.NLIMBS, (dstack, bv256.NLIMBS)),
+        ("skeys", dslot * bv256.NLIMBS, (dslot, bv256.NLIMBS)),
+        ("svals", dslot * bv256.NLIMBS, (dslot, bv256.NLIMBS)),
+    ):
+        out[name] = u32[:, off:off + w].reshape((k,) + shp)
+        off += w
+    out["memory"] = u8[:, :dmem]
+    out["mkind"] = u8[:, dmem:]
+    return out
+
+
+
+def _limbs_int(limbs) -> int:
+    return bv256.limbs_to_int(np.asarray(limbs))
+
+
+def lane_seedable(gs, stack_depth: int = SEED_STACK,
+                  memory_bytes: int = SEED_MEM,
+                  exec_table=None) -> bool:
+    """True when the lane engine can seed this state: tx-entry states
+    and mid-path states with device-representable stack/memory (the
+    host spill/refill path — over-capacity forks park to the host and
+    their descendants re-enter the device here). Mid-path limits:
+    every stack item is an int/term, memory bytes are concrete, the
+    state advanced past the instruction it parked at, and the
+    stack/memory content fits the SEED_* columns of the packed seed
+    buffer (deeper states stay on the host)."""
+    from .transaction import MessageCallTransaction
+
+    ms = gs.mstate
+    storage = gs.environment.active_account.storage
+    ilist = gs.environment.code.instruction_list
+    if (
+        gs.environment.static
+        or ms.subroutine_stack
+        or not isinstance(gs.current_transaction, MessageCallTransaction)
+        or (storage.dynld and storage.dynld.active)
+        or getattr(gs, "_lane_parked_pc", None) == ms.pc
+        or ms.pc >= len(ilist)
+        or len(ms.stack) > stack_depth
+        or int(ms.memory_size) > memory_bytes
+    ):
+        return False
+    table = symstep.SYM_EXECUTABLE if exec_table is None else exec_table
+    op_byte = _OPB.get(ilist[ms.pc]["opcode"])
+    if op_byte is None or not table[op_byte]:
+        return False  # would park on the first device step anyway
+    for key, val in ms.memory._memory.items():
+        if not isinstance(key, int):
+            return False
+        if isinstance(val, int):
+            continue
+        if not (isinstance(val, BitVec) and val.value is not None):
+            return False
+    return True
+
+
+def code_to_bytes(code_obj) -> Optional[bytes]:
+    """Concrete bytecode of a Disassembly, or None when it holds
+    symbolic bytes (runtime code returned by a creation tx can,
+    disassembler/disassembly.py assign_bytecode)."""
+    bc = getattr(code_obj, "bytecode", None)
+    if isinstance(bc, str):
+        try:
+            return bytes.fromhex(bc.replace("0x", ""))
+        except ValueError:
+            return None
+    if isinstance(bc, (bytes, bytearray)):
+        return bytes(bc)
+    if isinstance(bc, tuple):
+        from ..support.support_utils import fold_concrete_bytes
+
+        norm = fold_concrete_bytes(bc)
+        if all(isinstance(b, int) for b in norm):
+            return bytes(norm)
+    return None
+
+
+def _storage_read_term(seed_raw: "T.Term", key: BitVec) -> BitVec:
+    """The exact term Storage.__getitem__ builds for an in-memory read
+    (state/account.py:37-67 minus the dynamic-loader path): a select over
+    the storage array, simplified. Read-over-write folding makes the
+    select against the seed array identical to the interpreter's select
+    against the current array for any key that misses the write log."""
+    idx = key.raw
+    return simplify(BitVec(T.mk_select(seed_raw, idx), key.annotations))
+
+
+# ---------------------------------------------------------------------------
+# deferred-record resolution
+# ---------------------------------------------------------------------------
+
+#: CompiledCode per (bytecode, function entries) — the code planes stay
+#: resident on device across transactions, sweeps, and contracts (each
+#: compile_code call costs host decode + five H2D transfers).
+_CC_CACHE: Dict[tuple, object] = {}
+
+#: all-DEAD SymLaneState pool keyed by shape config: a finished engine
+#: parks its device buffers here and the next engine (same shapes —
+#: possibly a different contract) adopts them instead of paying the
+#: init dispatch. A pooled state is interchangeable because every live
+#: field of a lane is fully rewritten when the row is seeded.
+_STATE_POOL: Dict[tuple, List[SymLaneState]] = {}
+
+
+def _compiled_code(code_bytes: bytes, fentries, device) -> CompiledCode:
+    from ..analysis import static_pass
+    from ..analysis.static_pass import loop_summary
+
+    static_on = static_pass.enabled()
+    info = static_pass.info_for(code_bytes) if static_on else None
+    det_mask = info.reach_mask if info is not None else None
+    # verified loop-summary park plane (docs/static_pass.md,
+    # MTPU_LOOPSUM): lanes arriving at a summarizable head park so the
+    # host applies the closed form instead of the device unrolling the
+    # loop. The cache key carries the marked head set — bench/tests
+    # flip the gate mid-process and must not adopt a stale plane.
+    loopsum_heads = ()
+    try:
+        if info is not None and loop_summary.enabled():
+            loopsum_heads = tuple(
+                sorted(loop_summary.summarizable_heads(info)))
+    except Exception as e:
+        log.debug("loop-summary heads unavailable: %s", e)
+    key = (code_bytes, tuple(sorted(fentries)), static_on,
+           loopsum_heads, str(device))
+    cc = _CC_CACHE.get(key)
+    if cc is None:
+        loopsum_plane = (loop_summary.device_park_pcs(info)
+                         if loopsum_heads else None)
+        with _prof("compile_code"), trace.span(
+                "lane.compile_code", code_len=len(code_bytes)):
+            cc = compile_code(code_bytes, func_entries=key[1],
+                              det_mask=det_mask,
+                              loopsum_pcs=loopsum_plane, device=device)
+        if len(_CC_CACHE) >= 64:  # bound device-resident code tensors
+            _CC_CACHE.pop(next(iter(_CC_CACHE)))
+        _CC_CACHE[key] = cc
+    return cc
+
+
+
+
+# ops whose alu resolver takes pop-coerced bitvec args, keyed by arity
+_ALU2 = {
+    "ADD": alu.add, "SUB": alu.sub, "MUL": alu.mul, "DIV": alu.div,
+    "SDIV": alu.sdiv, "MOD": alu.mod, "SMOD": alu.smod,
+    "SIGNEXTEND": alu.signextend, "LT": alu.lt, "GT": alu.gt,
+    "SLT": alu.slt, "SGT": alu.sgt, "AND": alu.and_, "OR": alu.or_,
+    "XOR": alu.xor, "BYTE": alu.byte_op, "SHL": alu.shl,
+    "SHR": alu.shr, "SAR": alu.sar,
+}
+_ALU3 = {"ADDMOD": alu.addmod, "MULMOD": alu.mulmod}
+
+# pop arity per deferrable op (memo keys must ignore the unused operand
+# slots — they hold whatever sat below the live operands on the stack)
+_ARITY = {name: 2 for name in _ALU2}
+_ARITY.update({name: 3 for name in _ALU3})
+_ARITY.update({"EQ": 2, "EXP": 2, "ISZERO": 1, "NOT": 1,
+               "SLOAD": 1, "CALLDATALOAD": 1, "SHA3": 3,
+               "BALANCE": 1})
+
+
+#: steps per window dispatch. The step loop exits as soon as no lane is
+#: RUNNING, so a large window costs nothing when paths park early, and
+#: every extra dispatch pays a host round trip (the outputs' pull, the
+#: drain, the next pack). Deep device paths (SHA3 defer + symbolic-storage
+#: mode keep token transfers on-device end-to-end) want whole
+#: transactions inside ONE window. Bounded by the deferred-log
+#: capacity only in the worst case (dlog_full parks, degraded not
+#: wrong).
+DEFAULT_WINDOW = 256
+DEFAULT_STEP_BUDGET = 8192
+
+#: in-explore safety caps for the engine's id-keyed memos (they also
+#: clear wholesale at every explore — persistent corpus engines
+#: otherwise grow them without bound; see _reset_explore_memos)
+_CDL_CACHE_CAP = 1 << 16
+_RECORD_MEMO_CAP = 1 << 20
+
+
+def device_break_even(code: Optional[bytes] = None) -> int:
+    """Smallest wave worth dispatching to the device for `code`
+    (svm._lane_engine_sweep's engagement gate): 1, as the JAX package
+    answers for a local accelerator (the port has no tunneled
+    backend)."""
+    return 1
+
+
+#: per-code fork-scale observations: code -> peak width demand (lanes
+#: concurrently occupied + entries waiting for a slot) in any one
+#: explore. Feeds pick_width so a contract that demonstrably forks
+#: wide gets a wide engine on the next sweep, while small analyses
+#: stay on narrow (cheap) planes.
+PATH_HISTORY: Dict[bytes, int] = {}
+
+#: benchmark/test hook: pin the autotuned width (the merge rig runs at
+#: a width of its choosing). None = autotune normally.
+FORCE_WIDTH: Optional[int] = None
+
+
+def pick_mesh(width: int):
+    """Device mesh for a sweep: None, single-device execution (the
+    multi-device lane engine is not ported yet)."""
+    return None
+
+
+def pick_width(cap: int, n_entries: int,
+               code: Optional[bytes] = None,
+               headroom: int = 8) -> int:
+    """Engine width for a sweep: the smallest power-of-two bucket with
+    generous fork headroom over the entry batch (and over the code's
+    observed fork scale), bounded by the configured lane cap. The cap
+    is CAPACITY, not a mandate — a 4096-wide plane set for a 30-path
+    contract pays init, transfers and per-window compute for lanes
+    that never run. Correctness never depends on the width: fork
+    pressure stalls parents until slots free, and the host
+    spill/refill path absorbs overflow
+    (tests/test_lane_spill_refill.py). Worklists that genuinely grow
+    pick a wider engine on the next sweep. A capacity-autoprobe clamp
+    (CAPACITY_CLAMPS / stats.json via cost_model) caps the width below
+    any live-plane size that kernel-faulted this worker class AT THE
+    REQUESTED SHAPE — clamps are per pow2 shape, so a 256k fault's
+    clamp never narrows a 32k sweep — and the engine degrades through
+    the spill/refill path instead of faulting (logged at WARNING once
+    when the clamp actually binds)."""
+    global _CLAMP_WARNED
+    if FORCE_WIDTH is not None:
+        return max(min(cap, FORCE_WIDTH), 1)
+    clamp = capacity_clamp(cap)
+    if clamp is not None and clamp < cap:
+        if not _CLAMP_WARNED:
+            _CLAMP_WARNED = True
+            log.warning(
+                "lane width capped at %d by the capacity autoprobe "
+                "(configured cap %d kernel-faulted a worker at that "
+                "shape; overflow degrades via spill/refill)",
+                clamp, cap)
+        cap = max(clamp, 1)
+    if cap <= 64:
+        return max(cap, 1)
+    demand = max(n_entries * headroom,
+                 PATH_HISTORY.get(code, 0) if code else 0)
+    want = 64
+    while want < cap and want < demand:
+        want *= 2
+    return min(want, cap)
+
+
 class LaneEngine:
-    """Owns one lane batch and object table for one contract's
-    exploration: the window loop of the JAX engine, up to the host
-    drain (see the module docstring)."""
+    """Owns one lane batch + object table for a single contract's
+    exploration."""
 
     def __init__(self, n_lanes: int = 256, window: Optional[int] = None,
-                 step_budget: int = DEFAULT_STEP_BUDGET, device=None,
-                 plain: bool = False, **lane_kwargs):
-        """``plain`` runs the plain PyTorch versions even on the card
-        (the reference the kernels are held against)."""
+                 step_budget: int = DEFAULT_STEP_BUDGET,
+                 blocked_ops=None, adapters=None, mesh=None,
+                 slim_stop: bool = False, device=None, **lane_kwargs):
         self.n_lanes = n_lanes
+        # resolve at call time: bench.py --smoke (and tests) retune the
+        # module-level DEFAULT_WINDOW before svm builds the engine
         self.window = DEFAULT_WINDOW if window is None else window
         self.step_budget = step_budget
-        self.device = resolve(device)
         self.lane_kwargs = lane_kwargs
-        self.plain = plain
-        self.ops = PLAIN if plain else DISPATCH
-        self.exec_table = symstep.SYM_EXECUTABLE.copy()
-        self.taint_table = np.zeros(256, bool)
-        self.resume_on = 0
+        #: svm guarantees no essential hook watches STOP: lanes parked
+        #: at a top-level STOP materialize without the stack/memory
+        #: rebuild the STOP transaction-end path never reads
+        self.slim_stop = slim_stop
+        if mesh is not None:
+            raise NotImplementedError("the port runs one device per "
+                                      "lane engine")
+        self.mesh = None
+        #: the torch device of the lane planes: the caller's, else
+        #: args.device, else the card (support/devices.resolve)
+        self.device = resolve(device)
+        #: device-resident / host coverage bitmaps per code (see explore)
+        self._visited_dev: Dict[bytes, object] = {}
+        self.visited_by_code: Dict[bytes, np.ndarray] = {}
+        # opcodes with registered detector hooks must park so the hooks
+        # fire host-side; remove them from the device-executable set.
+        # Modules with a lane adapter (analysis/module/lane_adapters.py)
+        # are instead served at drain time and their hooks stay lifted.
+        table = symstep.SYM_EXECUTABLE.copy()
+        for name in blocked_ops or ():
+            if name in _OPB:
+                table[_OPB[name]] = False
+        #: the hook-blocked opcode set, kept for the wave-pack
+        #: coordinator to replicate this config on a packed engine
+        self.blocked_ops = frozenset(blocked_ops or ())
+        self.exec_table = table
+        self.adapters = list(adapters or ())
+        taint = np.zeros(256, bool)
+        for ad in self.adapters:
+            for name in ad.taint_ops:
+                if name in _OPB:
+                    taint[_OPB[name]] = True
+        self.taint_table = taint
+        # arithmetic records get their pc in the memo key when an
+        # adapter annotates them (the annotation site is per-pc)
+        self._annot_ops = {
+            op for ad in self.adapters
+            for op in ("ADD", "SUB", "MUL", "EXP")
+            if op in ad.taint_ops
+        }
         self.objects = ObjectTable()
+        # (lane, record-slot) -> object id for the most recent window's
+        # deferred records; the device-side remap of these lands at the
+        # NEXT window's fused dispatch, so retired-row resolution (_obj)
+        # reads this map directly in the meantime
         self._prov: Dict[Tuple[int, int], int] = {}
-        self.stats = {"seeded": 0, "windows": 0, "forks": 0, "records": 0,
-                      "retired": 0, "fast_retired": 0, "device_steps": 0,
-                      "records_escalated": 0, "forks_escalated": 0}
+        self._group_seq = 0
+        self._func_names: Dict[int, str] = {}
+        # repeated CALLDATALOADs at the same offset across lanes resolve
+        # to the same word term; building it once matters (32 If+select
+        # terms per word). All three memos below key on id()s and
+        # per-window (step, pc) tuples, which alias across codes once
+        # the owning objects die — they reset at every explore() (see
+        # _reset_explore_memos) and values pin the id-keyed owners so
+        # an id cannot be recycled while its entry is live.
+        self._cdl_cache: Dict[Tuple[int, int], tuple] = {}
+        self._record_memo: Dict[tuple, int] = {}
+        self._fired_sites: set = set()
+        self._memo_pins: list = []
+        #: static pre-analysis of the current explore's code (None =
+        #: gate off / unavailable) + per-template pending-PI memo
+        self._static_info = None
+        self._static_clean: Dict[int, bool] = {}
+        self.stats = {
+            "seeded": 0, "reseeded": 0, "forks": 0, "records": 0,
+            "parked": 0, "dead": 0, "device_steps": 0, "windows": 0,
+            "resumed": 0, "overlap_mat": 0, "overlap_mat_ms": 0,
+            # window-pipeline overlap (docs/drain_pipeline.md):
+            # host-visible device idle (pull-complete -> next dispatch),
+            # host work overlapped with device execution, host blocked
+            # on the fused window pull, and the batched fork screen
+            "overlap_idle_ms": 0, "overlap_busy_ms": 0,
+            "device_wait_ms": 0, "overlap_solve_ms": 0,
+            "fork_screened": 0, "fork_killed": 0,
+            # window-boundary merge/subsume pass (docs/lane_merge.md)
+            "lanes_merged": 0, "lanes_subsumed": 0, "merge_rounds": 0,
+            # static pre-analysis consumers (docs/static_pass.md)
+            "static_retired": 0, "static_jump_patches": 0,
+            # streaming retire pipeline (docs/drain_pipeline.md):
+            # bounded gathers issued, D2H pull wall hidden behind the
+            # next window's execution, spill candidates merged before
+            # materialization, and the deferral ring's peak occupancy
+            "retire_chunks": 0, "retire_overlap_ms": 0,
+            "spill_merged": 0, "ring_high_water": 0,
+        }
+        # static-pass run context, set by svm per sweep (the engine is
+        # cached across sweeps and transactions): the active-detector
+        # anchor mask (None = screen off), whether the current round is
+        # the run's last (open states unused afterwards), and whether
+        # patching a statically-resolved symbolic JUMP dest is safe
+        # (off while an arbitrary-jump-class detector is active — its
+        # issue PREDICATE is the dest's symbolicness)
+        self.static_active_mask = None
+        self.static_final_tx = False
+        self.static_jump_patch_ok = False
+        #: active-module names for the taint-refined reach plane
+        #: (docs/static_pass.md; None = refinement off, raw mask)
+        self.static_module_names = None
+        # in-place SHA3 resume: off whenever a detector hooks SHA3
+        # (the hook must fire host-side; no adapter lifts SHA3 today)
+        self.resume_on = "SHA3" not in set(blocked_ops or ())
+        self._resume_flag = 1 if self.resume_on else 0
+        self.last_run_stats: Optional[dict] = None
+        #: mid-flight wave export client (docs/checkpoint.md; set by
+        #: svm from the migration bus): polled at every window
+        #: boundary — `want(live)` lanes retire through the escalation
+        #: gather, materialize, and hand to `deliver(states)` as an
+        #: in-flight migration batch. None = seam off (the default).
+        self.export_client = None
+        #: live lane ctxs of an explore in progress (SIGTERM dump
+        #: path: support/checkpoint.snapshot_live_states)
+        self._explore_ctxs = None
+        #: packed-wave issue attribution (docs/daemon.md §wave
+        #: packing): owner tag -> context manager activating that
+        #: request's RunContext, so drain-time site firing lands
+        #: issues in the OWNING member's detector lists. None (the
+        #: default, incl. every plain explore) fires sites under the
+        #: caller's context — bit-for-bit today's behavior.
+        self.owner_context = None
+        #: per-boundary merge_fingerprint cache (None = not computed
+        #: this boundary) shared by the window
+        #: merge and the merge-before-spill pass — ONE dispatch serves
+        #: both (docs/drain_pipeline.md)
+        self._fp_boundary = None
+        #: deferred retire/materialize ring of the explore in progress
+        #: (laser/retire_ring.py); None between explores
+        self._ring = None
+        #: materialize() bumps stats off-thread under MTPU_MAT_WORKERS>1
+        self._stats_lock = threading.Lock()
 
-    def _acquire_state(self) -> SymLaneState:
-        return symstep.init_sym_lanes(self.n_lanes, device=self.device,
-                                      plain=self.plain, **self.lane_kwargs)
+    def _full_bucket(self) -> int:
+        """Full-width seed bucket for backlog drains."""
+        return self.n_lanes
 
-    def _retire_floors(self, counts, lanes_sel):
-        lk = self.lane_kwargs
-        sel = np.asarray(lanes_sel, np.int64)
-        return (
-            _geo_bucket(max(int(counts["sp"][sel].max()), 1),
-                        lk.get("stack_depth", 64), 8),
-            _geo_bucket(max(int(counts["msize"][sel].max()), 1),
-                        lk.get("memory_bytes", 4096), 64),
-            _geo_bucket(max(int(counts["mlog_count"][sel].max()), 1),
-                        lk.get("mem_records", 64), 8),
-            _geo_bucket(max(int(counts["scount"][sel].max()), 1),
-                        lk.get("storage_slots", 64), 8),
+    # -- seeding ------------------------------------------------------------
+    # (eligibility is decided by the caller: svm._lane_engine_sweep)
+
+    def _env_words(self, gs: GlobalState):
+        """(slot -> (concrete value | None, sid)) for the env plane,
+        mirroring the corresponding instruction handlers."""
+        env = gs.environment
+        ms = gs.mstate
+
+        def entry(val):
+            # (concrete value, None) | (None, symbolic wrapper) — the
+            # object slot must be None for concrete values: downstream
+            # consumers test `obj is not None`
+            if isinstance(val, int):
+                return val, None
+            if isinstance(val, BitVec) and val.value is not None:
+                return val.value, None
+            return None, val  # symbolic: sid assigned after adapters
+
+        out = {}
+        out["ADDRESS"] = entry(env.address)
+        out["ORIGIN"] = entry(env.origin)
+        out["CALLER"] = entry(env.sender)
+        out["CALLVALUE"] = entry(env.callvalue)
+        out["GASPRICE"] = entry(env.gasprice)
+        out["COINBASE"] = entry(gs.new_bitvec("coinbase", 256))
+        out["TIMESTAMP"] = entry(
+            symbol_factory.BitVecSym("timestamp", 256))
+        out["NUMBER"] = entry(env.block_number)
+        out["DIFFICULTY"] = entry(gs.new_bitvec("block_difficulty", 256))
+        out["GASLIMIT"] = entry(ms.gas_limit)
+        out["CHAINID"] = entry(env.chainid)
+        out["SELFBALANCE"] = entry(env.active_account.balance())
+        out["BASEFEE"] = entry(env.basefee)
+        return out
+
+    def _seed_spec(self, gs: GlobalState, calldata_cap: int,
+                   member=None):
+        """(LaneCtx, host-side per-lane values) for one entry state.
+        ``member`` is the packed-wave member record (owner tag, arena
+        base, function-name map) or None for a plain explore."""
+        env = gs.environment
+        acct = env.active_account
+        ms = gs.mstate
+
+        # instruction index <-> byte address maps
+        ilist = env.code.instruction_list
+        code_len = len(code_to_bytes(env.code) or b"")
+        addr2idx = np.full(max(code_len + 2, 2), len(ilist),
+                           dtype=np.int32)
+        for i, ins in enumerate(ilist):
+            if ins["address"] < addr2idx.shape[0]:
+                addr2idx[ins["address"]] = i
+
+        storage_raw = acct.storage._standard_storage.raw
+        virgin_zero = (
+            storage_raw.op == T.CONST_ARRAY
+            and T.is_const(storage_raw.args[0])
+            and storage_raw.args[0].val == 0
         )
 
-    def _retire_chunked(self, st, lanes_sel, counts):
-        """Escalation retire in chunks of at most RETIRE_CHUNK rows,
-        each padded to a power-of-two bucket. Returns (st, [(lanes,
-        floors, host rows)])."""
-        cap = min(RETIRE_CHUNK, self.n_lanes)
+        calldata = env.calldata
+        concrete_cd = (
+            isinstance(calldata, ConcreteCalldata)
+            and all(isinstance(x, int)
+                    for x in calldata._concrete_calldata)
+            and len(calldata._concrete_calldata)
+            <= min(calldata_cap, SEED_CD)
+        )
+
+        gas0_min, gas0_max = ms.min_gas_used, ms.max_gas_used
+        self._group_seq += 1
+        dev_limit = max(int(ms.gas_limit) - int(gas0_min), 0) \
+            if isinstance(ms.gas_limit, int) else 0xFFFFFFF
+
+        if member is None:
+            ctx = LaneCtx(gs, addr2idx, storage_raw, calldata,
+                          gas0_min, gas0_max)
+        else:
+            ctx = LaneCtx(gs, addr2idx, storage_raw, calldata,
+                          gas0_min, gas0_max, owner=member.owner,
+                          code_base=member.base,
+                          func_names=member.func_names)
+
+        envw = self._env_words(gs)
+        if self.adapters:
+            # taint seeding: annotating the env source terms once per
+            # seed is host-equivalent — the interpreter's post-hooks
+            # annotate the same shared wrapper the handlers push.
+            # Adapters may also REPLACE an entry (e.g. ORIGIN gets its
+            # own wrapper so the shared sender object isn't tainted)
+            env_objects = {
+                name: obj for name, (val, obj) in envw.items()
+                if obj is not None
+            }
+            for ad in self.adapters:
+                ad.seed_env(env_objects, gs)
+            envw = {
+                name: (val, env_objects.get(name, obj))
+                for name, (val, obj) in envw.items()
+            }
+        env_vals = np.zeros((symstep.N_ENV, bv256.NLIMBS), np.uint32)
+        env_sids = np.zeros(symstep.N_ENV, np.int32)
+        for name, slot in symstep.ENV_SLOTS.items():
+            val, obj = envw[name]
+            if obj is not None:
+                env_sids[slot] = self.objects.add(obj)
+            else:
+                env_vals[slot] = bv256.int_to_limbs(val or 0)
+
+        cd_buf = np.zeros(calldata_cap, np.uint8)
+        cd_size = 0
+        cd_sym = 0
+        cd_size_sid = 0
+        if concrete_cd:
+            data = calldata._concrete_calldata
+            cd_buf[: len(data)] = np.asarray(data, np.uint8)
+            cd_size = len(data)
+        else:
+            cd_sym = 1
+            size = calldata.calldatasize
+            if isinstance(size, BitVec) and size.value is not None:
+                cd_size = min(int(size.value), 1 << 29)
+            else:
+                cd_size_sid = self.objects.add(size)
+
+        # mid-path seeds (host spill/refill): device pc is a byte
+        # address; stack objects become sids; memory must be concrete
+        # bytes (ints or concrete 8-bit terms — eligibility checked by
+        # svm.lane_seedable)
+        n_depth = self.lane_kwargs.get("stack_depth", 64)
+        mem_cap = self.lane_kwargs.get("memory_bytes", 4096)
+        if len(ms.stack) > min(SEED_STACK, n_depth) or int(
+            ms.memory_size
+        ) > min(SEED_MEM, mem_cap):
+            # callers gate on lane_seedable; packing would silently
+            # truncate a deeper state into wrong execution
+            raise ValueError("seed exceeds SEED_STACK/SEED_MEM columns")
+        byte_pc = 0
+        if ms.pc:
+            byte_pc = ilist[ms.pc]["address"]
+        if member is not None:
+            byte_pc += member.base  # seed in arena coordinates
+        stack_v = np.zeros((n_depth, bv256.NLIMBS), np.uint32)
+        stack_s = np.zeros(n_depth, np.int32)
+        for i, item in enumerate(ms.stack):
+            if isinstance(item, int):
+                stack_v[i] = bv256.int_to_limbs(item)
+            elif isinstance(item, BitVec) and item.value is not None:
+                stack_v[i] = bv256.int_to_limbs(item.value)
+            else:
+                if isinstance(item, Bool):
+                    item = If(item, _bv_val(1), _bv_val(0))
+                stack_s[i] = self.objects.add(item)
+        mem_v = np.zeros(mem_cap, np.uint8)
+        mem_k = np.zeros(mem_cap, np.uint8)
+        for key, val in ms.memory._memory.items():
+            if isinstance(val, int):
+                mem_v[key] = val & 0xFF
+                mem_k[key] = symstep.KIND_BYTE_INT
+            else:  # concrete 8-bit term (eligibility guarantees)
+                mem_v[key] = val.value & 0xFF
+                mem_k[key] = symstep.KIND_CONC_WORD
+
+        return ctx, dict(
+            group=self._group_seq,
+            sbase=0 if virgin_zero else 1,
+            calldata=cd_buf, cd_size=cd_size, cd_sym=cd_sym,
+            cd_size_sid=cd_size_sid, env=env_vals, env_sid=env_sids,
+            gas_limit=dev_limit,
+            pc=byte_pc, sp=len(ms.stack), msize=int(ms.memory_size),
+            stack_v=stack_v, stack_s=stack_s, mem_v=mem_v, mem_k=mem_k,
+        )
+
+    def _pack_window(self, entries, ctxs: List[Optional[LaneCtx]],
+                     free, kill, calldata_cap: int, big: bool = False,
+                     resumes=()):
+        """Pack EVERYTHING the next window dispatch needs from the host
+        into two flat buffers (one i32, one u8): seed rows, free-slot
+        stack, the previous drain's provisional-sid resolutions, and
+        the kill list — each host->device copy pays its own latency,
+        so the count is what matters.
+        Returns (i32buf, u8buf, k, pv) with the layout of
+        _seed_sections, the buffers on the engine's device."""
+        lanes, specs = [], []
+        with _prof("seed_pack"):
+            for lane, gs, member in entries:
+                ctx, spec = self._seed_spec(gs, calldata_cap, member)
+                ctxs[lane] = ctx
+                lanes.append(lane)
+                specs.append(spec)
+        # two seed buckets: the small one covers the common trickle,
+        # the full-width one drains seed floods in one window
+        i32buf, u8buf, k, pv = pack_window(
+            self.n_lanes, symstep.N_ENV, self.lane_kwargs,
+            list(zip(lanes, specs)), free, kill, self._prov,
+            calldata_cap, big=big, resumes=resumes)
+        self.stats["seeded"] += len(entries)
+        # mid-path re-entries (the spill/refill path) vs fresh tx seeds
+        self.stats["reseeded"] += sum(1 for s in specs if s["pc"])
+        return (torch.from_numpy(i32buf).to(self.device),
+                torch.from_numpy(u8buf).to(self.device), k, pv)
+
+    # -- drain ---------------------------------------------------------------
+
+    def _resolve_arg(self, sid: int, val_limbs, prov: Dict[Tuple[int, int],
+                                                           int], d_recs):
+        if sid == 0:
+            return _bv_val(_limbs_int(val_limbs))
+        if sid > 0:
+            return self.objects[sid]
+        idx = -sid - 1
+        key = (idx // d_recs, idx % d_recs)
+        return self.objects[prov[key]]
+
+    def _resolve_record(self, ctx: LaneCtx, opname: str, args):
+        """args: raw resolved operand objects in pop order."""
+        if opname in _ALU2:
+            return _ALU2[opname](alu.to_bitvec(args[0]),
+                                 alu.to_bitvec(args[1]))
+        if opname in _ALU3:
+            return _ALU3[opname](alu.to_bitvec(args[0]),
+                                 alu.to_bitvec(args[1]),
+                                 alu.to_bitvec(args[2]))
+        if opname == "EQ":
+            return alu.eq(args[0], args[1])
+        if opname == "ISZERO":
+            return alu.iszero(args[0])
+        if opname == "NOT":
+            return alu.not_(alu.to_bitvec(args[0]))
+        if opname == "EXP":
+            result, constraint = alu.exp(alu.to_bitvec(args[0]),
+                                         alu.to_bitvec(args[1]))
+            assert constraint is None, \
+                "device deferred an impure EXP (stepper bug)"
+            return result
+        if opname == "CALLDATALOAD":
+            off = alu.to_bitvec(args[0])
+            key = (id(ctx.calldata), off.raw.tid)
+            hit = self._cdl_cache.get(key)
+            if hit is not None:
+                return hit[1]
+            cached = ctx.calldata.get_word_at(off)
+            if len(self._cdl_cache) > _CDL_CACHE_CAP:
+                self._cdl_cache.clear()
+            # the value pins the calldata object: its id (the key) can
+            # never be recycled onto a different calldata while the
+            # entry is live
+            self._cdl_cache[key] = (ctx.calldata, cached)
+            return cached
+        if opname == "SLOAD":
+            return _storage_read_term(ctx.storage_seed_raw,
+                                      alu.to_bitvec(args[0]))
+        if opname == "BALANCE":
+            # symbolic address: the interpreter reads the global
+            # balances array directly (instructions.py balance_)
+            return ctx.template.world_state.balances[
+                alu.to_bitvec(args[0])]
+        if opname == "SHA3":
+            # device-read input words + packed meta (length + per-byte
+            # memory kinds). Rebuild the hash input byte-for-byte the
+            # way the interpreter's sha3_ handler reads Memory (ints
+            # for untouched/MSTORE8 bytes, 8-bit const terms for
+            # concrete-word bytes, Extract slices for symbolic words):
+            # the keccak input term tids then match the host exactly.
+            from .function_managers import keccak_function_manager
+
+            meta = alu.to_bitvec(args[2]).value
+            length = meta & 0xFFFFFFFF
+            all_sym_kinds = (1 << 64) - 1  # every 2-bit field == 3
+            byte_list: list = []
+            for w in range(length // 32):
+                kinds = (meta >> (32 + w * 64)) & all_sym_kinds
+                if kinds == all_sym_kinds:  # sid-carried word term
+                    word = _mem_word(args[w])
+                    byte_list.extend(
+                        simplify(Extract(255 - 8 * j, 248 - 8 * j,
+                                         word))
+                        for j in range(32))
+                    continue
+                word_int = alu.to_bitvec(args[w]).value or 0
+                raw = word_int.to_bytes(32, "big")
+                for j in range(32):
+                    kind = (kinds >> (2 * j)) & 3
+                    if kind == symstep.KIND_CONC_WORD:
+                        byte_list.append(
+                            symbol_factory.BitVecVal(raw[j], 8))
+                    else:
+                        byte_list.append(raw[j])
+            if all(isinstance(bb, int) for bb in byte_list):
+                data = symbol_factory.BitVecVal(
+                    int.from_bytes(bytes(byte_list), "big"),
+                    length * 8)
+            else:
+                parts = [
+                    bb if isinstance(bb, BitVec)
+                    else symbol_factory.BitVecVal(bb, 8)
+                    for bb in byte_list
+                ]
+                data = simplify(Concat(parts))
+            return keccak_function_manager.create_keccak(data)
+        raise AssertionError(f"unresolvable deferred op {opname}")
+
+    def _jumpi_site_work(self, ctx, lane, cond, step, byte_pc,
+                         fentry, gmin, gmax, dest=0):
+        """Drain-time detector work for one path-condition record:
+        per-lane sink promotions, plus site-firing modules deduped
+        across the sibling lanes sharing the record (the interpreter
+        fires its pre-hook once per JUMPI execution; issue identity is
+        per (site, condition, path prefix)). The site's stack tail is
+        the real pre-hook stack [-2]=condition, [-1]=jump destination
+        (always concrete on device — forks require dest_ok)."""
+        prefix = [c for (_, c) in ctx.conds]
+        site = _DrainSite(self, ctx, step, byte_pc, fentry, gmin, gmax,
+                          stack_tail=(cond, _bv_val(dest)),
+                          prefix=prefix)
+        for ad in self.adapters:
+            anns = ad.on_jumpi(cond, site)
+            if anns:
+                ctx.promos.setdefault(id(ad), []).extend(
+                    (step, a) for a in anns)
+        key = (step, byte_pc, cond.raw.tid,
+               tuple(c.raw.tid for c in prefix))
+        if key in self._fired_sites:
+            return
+        self._fired_sites.add(key)
+        if self.owner_context is not None:
+            # packed wave: site-firing modules append to the global
+            # detector singletons, so fire under the lane OWNER's
+            # RunContext (per-request issue attribution)
+            from .retire_ring import owner_of
+
+            with self.owner_context(owner_of(ctx)):
+                for ad in self.adapters:
+                    ad.on_jumpi_site(cond, site)
+            return
+        for ad in self.adapters:
+            ad.on_jumpi_site(cond, site)
+
+    def _drain_host(self, recs, forks,
+                    ctxs: List[Optional[LaneCtx]]
+                    ) -> Tuple[Dict[Tuple[int, int], int], List[int]]:
+        """Resolve one window's canonical records and fork table into
+        facade terms; returns (provisional-sid resolutions, dead
+        lanes). Pure host work — the provisional remap + log reset
+        ride the NEXT window's fused dispatch.
+
+        recs: [(step, lane, slot, op, pc, fentry, sids(3), vals(3,8))]
+        — one entry per DISTINCT term (device-deduped; `lane` is the
+        canonical instance's lane). forks: [(step, parent, child, pc,
+        sid, gmin, gmax, fentry)]. Events interleave in global step
+        order, so a fork clones its parent's context exactly as
+        accumulated at that step — condition prefixes, sink
+        promotions, and annotations inherit by construction (the
+        interpreter's deepcopy-at-JUMPI semantics)."""
+        d_recs = self.lane_kwargs.get("dlog_records", 64)
+        _t_drain_py = time.perf_counter() if PROF_ON else 0.0
+        prov: Dict[Tuple[int, int], int] = {}
+        dead: List[int] = []
+        dead_set: set = set()
+        events = [(r[0], 0, r) for r in recs] \
+            + [(f[0], 1, f) for f in forks]
+        events.sort(key=lambda e: (e[0], e[1]))
+        for _, kind, ev in events:
+            if kind == 0:
+                step, lane, slot, op, pc, fentry, sids, vals = ev
+                opname = "SLOAD_RW" if op == symstep.REC_SLOAD_RW \
+                    else _OPN[op]
+                ctx = ctxs[lane]
+                if opname == "SSTORE":
+                    # write-mirror + taint-sink record (never deduped,
+                    # per-lane): the mirror feeds SLOAD_RW resolution
+                    value = self._resolve_arg(sids[1], vals[1], prov,
+                                              d_recs)
+                    key = self._resolve_arg(sids[0], vals[0], prov,
+                                            d_recs)
+                    ctx.swrites.append((alu.to_bitvec(key),
+                                        alu.to_bitvec(value)))
+                    if lane in dead_set:
+                        continue
+                    site = _DrainSite(self, ctx, step, pc, fentry)
+                    for ad in self.adapters:
+                        for ann in ad.on_sstore(alu.to_bitvec(value),
+                                                site,
+                                                alu.to_bitvec(key)):
+                            ctx.promos.setdefault(id(ad), []).append(
+                                (step, ann))
+                    continue
+                if opname == "SLOAD_RW":
+                    # mode SLOAD: read-over-write over the per-path
+                    # mirror, folded onto the seed storage (the lane's
+                    # write history at this step is exactly
+                    # ctx.swrites — records replay in step order).
+                    # Never memoized: identical (key, pc) records on
+                    # different paths see different mirrors.
+                    key = alu.to_bitvec(self._resolve_arg(
+                        sids[0], vals[0], prov, d_recs))
+                    term = _storage_read_term(ctx.storage_seed_raw,
+                                              key)
+                    for wk, wv in ctx.swrites:
+                        term = If(wk == key, wv, term)
+                    term = simplify(term)
+                    if isinstance(term, Bool):
+                        term = If(term, _bv_val(1), _bv_val(0))
+                    prov[(lane, slot)] = self.objects.add(term)
+                    continue
+                # cross-WINDOW dedup via the memo (the device already
+                # deduped within the window)
+                key_parts = [opname]
+                for j in range(_ARITY[opname]):
+                    sid = sids[j]
+                    if sid == 0:
+                        key_parts.append(("c", _limbs_int(vals[j])))
+                    elif sid > 0:
+                        key_parts.append(("o", sid))
+                    else:
+                        idx = -sid - 1
+                        key_parts.append(
+                            ("o", prov[(idx // d_recs,
+                                        idx % d_recs)]))
+                # SLOAD/CALLDATALOAD resolve against per-seed context;
+                # pin the template so its id (part of the key) cannot
+                # be recycled while the memo entry is live
+                if opname in ("SLOAD", "CALLDATALOAD", "BALANCE"):
+                    key_parts.append(("ctx", id(ctx.template)))
+                    self._memo_pins.append(ctx.template)
+                # annotated arithmetic is per-site AND per-seed: two
+                # executions at different pcs (or from different entry
+                # states) must annotate separately — the interpreter
+                # captures a distinct ostate per execution
+                if opname in self._annot_ops:
+                    key_parts.append(("pc", pc, "ctx",
+                                      id(ctx.template)))
+                    self._memo_pins.append(ctx.template)
+                key = tuple(key_parts)
+                oid = self._record_memo.get(key)
+                if oid is None:
+                    args = [
+                        self._resolve_arg(sids[j], vals[j], prov,
+                                          d_recs)
+                        for j in range(3)
+                    ]
+                    if opname in self._annot_ops:
+                        site = _DrainSite(self, ctx, step, pc, fentry)
+                        cargs = [alu.to_bitvec(x)
+                                 if not isinstance(x, int)
+                                 else _bv_val(x) for x in args[:2]]
+                        for ad in self.adapters:
+                            ad.pre_resolve(opname, cargs, site)
+                        args[:2] = cargs
+                    obj = self._resolve_record(ctx, opname, args)
+                    # sids model stack slots: apply MachineStack
+                    # .append's coercion (state/machine_state.py)
+                    if isinstance(obj, Bool):
+                        obj = If(obj, _bv_val(1), _bv_val(0))
+                    elif isinstance(obj, int):
+                        obj = _bv_val(obj)
+                    oid = self.objects.add(obj)
+                    if len(self._record_memo) > _RECORD_MEMO_CAP:
+                        self._record_memo.clear()
+                    self._record_memo[key] = oid
+                prov[(lane, slot)] = oid
+            else:
+                (step, parent, child, pc, sid, gmin, gmax, fentry,
+                 dest) = ev
+                ctx = ctxs[parent]
+                if parent in dead_set:
+                    # descendants of a trivially-false path die with it
+                    ctxs[child] = ctx.clone()
+                    dead_set.add(child)
+                    dead.append(child)
+                    continue
+                if sid > 0:
+                    cond = self.objects[sid]
+                else:
+                    idx = -sid - 1
+                    cond = self.objects[prov[(idx // d_recs,
+                                              idx % d_recs)]]
+                if self.adapters:
+                    self._jumpi_site_work(ctx, parent, cond, step, pc,
+                                          fentry, gmin, gmax, dest)
+                ctxs[child] = cctx = ctx.clone()
+                if isinstance(cond, Bool):
+                    chosen_p = simplify(cond)
+                    chosen_c = simplify(Not(cond))
+                else:
+                    chosen_p = cond != 0
+                    chosen_c = cond == 0
+                if chosen_p.is_false:
+                    dead_set.add(parent)
+                    dead.append(parent)
+                else:
+                    ctx.conds.append((step, chosen_p))
+                if chosen_c.is_false:
+                    dead_set.add(child)
+                    dead.append(child)
+                else:
+                    cctx.conds.append((step, chosen_c))
+        self.stats["records"] += len(recs)
+        self.stats["forks"] += len(forks)
+        self.stats["dead"] += len(dead)
+
+        if PROF_ON:
+            PROF["drain_py"] = PROF.get("drain_py", 0.0) \
+                + time.perf_counter() - _t_drain_py
+        return prov, dead
+
+    # -- materialization -----------------------------------------------------
+
+    def _obj(self, sid: int, prov: Optional[dict] = None):
+        """Object for a retired-row sid: positive sids index the table;
+        negative sids are this window's provisional records, resolved
+        through the drain's (lane, slot) map (the device-side remap only
+        lands at the NEXT window's dispatch — retired rows are pulled
+        before that). `prov` is an explicit snapshot of that map for
+        ring-deferred materialization: the next drain REPLACES
+        self._prov, and a chunk materializing after that boundary (a
+        worker-pool build, or a deep ring) must resolve against the
+        map of the window it retired in."""
+        if sid > 0:
+            return self.objects[sid]
+        d_recs = self.lane_kwargs.get("dlog_records", 64)
+        idx = -sid - 1
+        table = self._prov if prov is None else prov
+        return self.objects[table[(idx // d_recs, idx % d_recs)]]
+
+    def _try_resume(self, rows: dict, i: int, byte_pc: int, sp: int
+                    ) -> Optional[tuple]:
+        """Replay sha3_ semantics (laser/instructions.py:395-448) for a
+        held lane from its slim row; returns the device patch
+        (pc, sp, msize, min_gas, max_gas, sid, limbs) or None to
+        decline (symbolic length, out-of-gas, oversized hash — the
+        escalation path then hands the lane to the interpreter, which
+        owns the constraint-adding and exception semantics)."""
+        from ..support.eth_constants import (
+            GAS_MEMORY, GAS_MEMORY_QUADRATIC_DENOMINATOR, ceil32,
+        )
+        from .function_managers import keccak_function_manager
+        from .instruction_data import calculate_sha3_gas
+        from .transaction import tx_id_manager
+
+        if int(rows["sid_sub"][i]):
+            return None  # symbolic length: interpreter concretizes
+        length = _limbs_int(rows["sub"][i])
+        if length > 4096:
+            return None  # oversized: not worth modeling off-row
+        min_gas = int(rows["min_gas"][i])
+        max_gas = int(rows["max_gas"][i])
+        sha3_min, sha3_max = calculate_sha3_gas(length)
+        min_gas += sha3_min
+        max_gas += sha3_max
+
+        msize = int(rows["msize"][i])
+        new_msize = msize
+        sid_top = int(rows["sid_top"][i])
+        index = None
+        if sid_top == 0:
+            index = _limbs_int(rows["top"][i])
+            if index + length > 1 << 20:
+                return None
+            if length > 0 and msize <= index + length:
+                # mem_extend: word-aligned growth + quadratic fee
+                # (state/machine_state.py:96-142)
+                new_msize = ceil32(index + length)
+                for size, sign in ((new_msize, 1), (msize, -1)):
+                    words = size // 32
+                    fee = words * GAS_MEMORY + words ** 2 \
+                        // GAS_MEMORY_QUADRATIC_DENOMINATOR
+                    min_gas += sign * fee
+                    max_gas += sign * fee
+                if new_msize > self.lane_kwargs.get(
+                        "memory_bytes", 4096):
+                    return None  # outgrows the device planes
+        if min_gas >= int(rows["gas_limit"][i]):
+            return None  # OOG: the interpreter owns the exception
+
+        if length == 0:
+            result = keccak_function_manager.get_empty_keccak_hash()
+        elif index is None:
+            # symbolic offset: hash a fresh per-site symbolic input
+            # (instructions.py:421-432)
+            result = keccak_function_manager.create_keccak(
+                symbol_factory.BitVecSym(
+                    f"sha3_input_{tx_id_manager.get_next_tx_id()}",
+                    length * 8,
+                ))
+        else:
+            mem = rows["memory"][i]
+            kind = rows["mkind"][i]
+            sym_cover: Dict[int, Tuple[object, int]] = {}
+            for r in range(int(rows["mlog_count"][i])):
+                off = int(rows["mlog_off"][i, r])
+                for j in range(int(rows["mlog_len"][i, r])):
+                    sym_cover[off + j] = (
+                        self._obj(int(rows["mlog_sid"][i, r])), j)
+            byte_list = []
+            for j in range(index, index + length):
+                k = int(kind[j]) if j < RESUME_MEM else 0
+                if k == symstep.KIND_SYM_WORD:
+                    obj, jj = sym_cover[j]
+                    byte_list.append(simplify(
+                        Extract(255 - 8 * jj, 248 - 8 * jj,
+                                _mem_word(obj))))
+                elif k == symstep.KIND_CONC_WORD:
+                    byte_list.append(
+                        symbol_factory.BitVecVal(int(mem[j]), 8))
+                else:  # written int byte, or the default-zero region
+                    byte_list.append(int(mem[j]) if j < RESUME_MEM
+                                     else 0)
+            if all(isinstance(b, int) for b in byte_list):
+                data = symbol_factory.BitVecVal(
+                    int.from_bytes(bytes(byte_list), "big"),
+                    length * 8)
+            else:
+                parts = [
+                    b if isinstance(b, BitVec)
+                    else symbol_factory.BitVecVal(b, 8)
+                    for b in byte_list
+                ]
+                data = simplify(Concat(parts))
+            result = keccak_function_manager.create_keccak(data)
+
+        if result.value is not None and not result.annotations:
+            sid, limbs = 0, bv256.int_to_limbs(result.value)
+        else:
+            sid, limbs = self.objects.add(result), None
+        return (byte_pc + 1, sp - 1, new_msize, min_gas, max_gas,
+                sid, limbs)
+
+    def materialize(self, st_host: dict, lane: int,
+                    ctx: LaneCtx,
+                    prov: Optional[dict] = None) -> GlobalState:
+        """Rebuild a host GlobalState for a parked lane. `st_host` holds
+        the lane's rows on the host (``_unpack_rows``); `prov` is an
+        optional snapshot
+        of the provisional-sid map for ring-deferred builds (see
+        _obj)."""
+        # copy(), not deepcopy() — interpreter-fork sharing semantics;
+        # per-lane Account/Storage instances keep mutations independent
+        gs = copy(ctx.template)
+        ms = gs.mstate
+
+        for _, cond in ctx.conds:
+            gs.world_state.constraints.append(cond)
+
+        # device pcs are arena coordinates under a packed wave (the
+        # ctx carries its member segment's base, 0 unpacked); fentry
+        # values are member-local by construction (symstep records the
+        # pushed destination, not the arena pc)
+        byte_pc = int(st_host["pc"][lane]) - ctx.code_base
+        ms.pc = int(ctx.addr2idx[min(max(byte_pc, 0),
+                                     ctx.addr2idx.shape[0] - 1)])
+        ms.depth += int(st_host["depth"][lane])
+        # active function from the last function-entry jump the device
+        # took (svm._new_node_state parity for host-executed jumps)
+        fentry = int(st_host["fentry"][lane])
+        fnames = ctx.func_names if ctx.func_names is not None \
+            else self._func_names
+        if fentry >= 0 and fentry in fnames:
+            gs.environment.active_function_name = fnames[fentry]
+        ms.min_gas_used = ctx.gas0_min + int(st_host["min_gas"][lane])
+        ms.max_gas_used = ctx.gas0_max + int(st_host["max_gas"][lane])
+
+        # top-level STOP park with slim_stop: the transaction-end path
+        # (svm._fast_terminal, or the normal STOP path when it
+        # declines) reads neither the stack nor memory bytes — skip
+        # both rebuilds. Storage, constraints, gas, promotions, and
+        # annotations below still rebuild in full.
+        slim = (
+            self.slim_stop
+            and ms.pc < len(gs.environment.code.instruction_list)
+            and gs.environment.code.instruction_list[ms.pc]["opcode"]
+            == "STOP"
+            and gs.transaction_stack
+            and gs.transaction_stack[-1][1] is None
+        )
+
+        # stack: the device planes hold the COMPLETE current stack
+        # (mid-path re-seeds arrive with the template's entries already
+        # on device) — rebuild from scratch, never append to the
+        # template's copy
+        del ms.stack[:]
+        sp = 0 if slim else int(st_host["sp"][lane])
+        for s in range(sp):
+            sid = int(st_host["ssid"][lane, s])
+            if sid:
+                ms.stack.append(self._obj(sid, prov))
+            else:
+                ms.stack.append(
+                    _bv_val(_limbs_int(st_host["stack"][lane, s])))
+
+        # memory: reproduce the byte-level representation the Memory
+        # class would hold after the same writes — MSTORE8 bytes as
+        # ints, concrete-word bytes as 8-bit const terms, symbolic-word
+        # bytes as Extract slices (state/memory.py:61-88). Like the
+        # stack, the device planes are the complete state: reset the
+        # template's copy before rebuilding
+        ms.memory._memory.clear()
+        ms.memory._msize = 0
+        msize = int(st_host["msize"][lane])
+        if slim:
+            ms.memory._msize = msize  # size for fidelity, no content
+            msize = 0
+        if msize:
+            ms.memory.extend(msize)
+            mem = st_host["memory"][lane]
+            kind = st_host["mkind"][lane]
+            sym_cover: Dict[int, Tuple[object, int]] = {}
+            for r in range(int(st_host["mlog_count"][lane])):
+                off = int(st_host["mlog_off"][lane, r])
+                ln = int(st_host["mlog_len"][lane, r])
+                obj = self._obj(int(st_host["mlog_sid"][lane, r]),
+                                prov)
+                for j in range(ln):
+                    sym_cover[off + j] = (obj, j)
+            for i in np.nonzero(kind)[0]:
+                i = int(i)
+                k = int(kind[i])
+                if k == symstep.KIND_BYTE_INT:
+                    ms.memory[i] = int(mem[i])
+                elif k == symstep.KIND_CONC_WORD:
+                    ms.memory[i] = BitVec(_bv8_raw(int(mem[i])))
+                else:  # KIND_SYM_WORD
+                    obj, j = sym_cover[i]
+                    ms.memory[i] = simplify(
+                        Extract(255 - 8 * j, 248 - 8 * j, _mem_word(obj)))
+
+        # storage: replay reads/writes in keys_get/keys_set parity order
+        # — the interpreter records *every* read, so a slot read before
+        # its first write (s_read bit 1) replays a read ahead of the
+        # store, and one read after a write (bit 2) replays one behind
+        acct = gs.environment.active_account
+        any_written = False
+        scount = int(st_host["scount"][lane])
+        entries = []
+        for r in range(scount):
+            sidk = int(st_host["skey_sid"][lane, r])
+            key = alu.to_bitvec(self._obj(sidk, prov)) if sidk else \
+                _bv_val(_limbs_int(st_host["skeys"][lane, r]))
+            entries.append((
+                key,
+                int(st_host["s_written"][lane, r]),
+                int(st_host["s_read"][lane, r]),
+                int(st_host["sval_sid"][lane, r]),
+                r,
+                int(st_host["s_wstep"][lane, r]),
+                sidk,
+            ))
+
+        def _sval(r, sid):
+            if sid:
+                return self._obj(sid, prov)
+            return _bv_val(_limbs_int(st_host["svals"][lane, r]))
+
+        if not any(e[6] for e in entries):
+            # concrete keys only: slot order == the historical replay
+            for key, written, sread, sid, r, _w, _k in entries:
+                if sread & 1:
+                    _ = acct.storage[key]
+                if written:
+                    any_written = True
+                    acct.storage[key] = _sval(r, sid)
+                if sread & 2:
+                    _ = acct.storage[key]
+        else:
+            # symbolic keys may alias: the host Storage builds the
+            # read-over-write term, so writes must replay in device
+            # step order (s_wstep) for later writes to shadow earlier
+            # maybe-equal ones
+            for key, written, sread, sid, r, _w, _k in entries:
+                if sread & 1:
+                    _ = acct.storage[key]
+            for key, written, sread, sid, r, _w, _k in sorted(
+                    (e for e in entries if e[1]), key=lambda e: e[5]):
+                any_written = True
+                acct.storage[key] = _sval(r, sid)
+            for key, written, sread, sid, r, _w, _k in entries:
+                if sread & 2:
+                    _ = acct.storage[key]
+        if any_written:
+            # device-executed SSTOREs must leave the same mark the
+            # mutation-pruner's SSTORE hook would have left, or clean-
+            # path pruning drops the mutated end state
+            from .plugin.plugins.plugin_annotations import (
+                MutationAnnotation,
+            )
+            if not list(gs.get_annotations(MutationAnnotation)):
+                gs.annotate(MutationAnnotation())
+
+        # adapter state transfer (sink promotions, last-jump tracking)
+        if self.adapters:
+            last_jump = int(st_host["last_jump"][lane]) \
+                if "last_jump" in st_host else -1
+            if last_jump >= 0:
+                last_jump -= ctx.code_base  # arena -> member-local
+            for ad in self.adapters:
+                plist = ctx.promos.get(id(ad), ())
+                ad.attach(gs, [a for (_, a) in plist], last_jump)
+
+        # spill/refill marker: the state parked AT this instruction
+        # because the device could not execute it — it must take at
+        # least one host step before becoming re-seedable (the marker
+        # does not survive GlobalState.__copy__, so the post-step
+        # states are eligible again)
+        gs._lane_parked_pc = ms.pc
+
+        # guarded: ring workers (MTPU_MAT_WORKERS>1) materialize off
+        # the engine thread, and `+= 1` is not GIL-atomic
+        with self._stats_lock:
+            self.stats["parked"] += 1
+        return gs
+
+    # -- per-explore memo hygiene --------------------------------------------
+
+    def _reset_explore_memos(self) -> None:
+        """Clear the id-/site-keyed memos at every explore. Persistent
+        engines (corpus runs) otherwise grow them without bound, and
+        their keys — object ids, (step, pc) tuples — alias across
+        codes once the owning objects die. Within one explore the
+        memo values/pins keep the id-keyed owners alive, so id reuse
+        cannot corrupt a live entry."""
+        self._cdl_cache.clear()
+        self._record_memo.clear()
+        self._fired_sites.clear()
+        self._memo_pins.clear()
+        self._static_clean.clear()
+
+    # -- overlapped fork-feasibility screening -------------------------------
+
+    def _screen_forks(self, queries, registry):
+        """Batched feasibility discharge for still-running forked
+        lanes' condition prefixes (smt/solver/batch.py): runs in the
+        OVERLAPPED phase — the device is already executing the next
+        window — so the solver work that used to serialize behind the
+        drain now hides behind device execution. Returns the lanes
+        whose prefix is provably UNSAT; they join the next dispatch's
+        kill list. Sound: only proved-infeasible paths die (the same
+        guarantee as the host's prune_feasible_states, and engaged
+        under the same args.pruning_factor gate — the default-off host
+        policy keeps lane/host path counts identical by default).
+        Screening a lane's conds WITHOUT the keccak axioms is sound
+        for killing: an UNSAT subset implies an UNSAT superset. The
+        discharge also consults the RUN-WIDE verdict cache
+        (smt/solver/verdicts.py): a prefix refuted in any earlier
+        window or call site kills its descendants here without a
+        solve, and prefixes this screen refutes kill the open-state
+        screen's supersets later. With MTPU_PROPAGATE on the
+        discharge additionally runs the bidirectional propagation
+        prescreen FIRST (ops/propagate.py): product-domain kills
+        before any solver work, and harvested facts hint the solves
+        that survive (docs/propagation.md)."""
+        from ..smt import Model
+        from ..smt.solver import batch as solver_batch
+        from ..support.model import model_cache
+
+        term_sets = [[c.raw for c in conds] for _, conds in queries]
+
+        def quick_sat(conj):
+            return model_cache.check_quick_sat(conj)
+
+        def on_sat_model(md):
+            # feed the shared ModelCache: sibling lanes (and later
+            # open-state screens) quick-sat against this model
+            model_cache.put(Model([md]), 1)
+
+        t0 = time.perf_counter()
+        # a failure of the discharge (its device prescreen included)
+        # raises to the caller
+        with trace.span("lane.fork_screen", n=len(queries)):
+            verdicts = solver_batch.discharge(
+                term_sets, timeout_s=2.0, conflict_budget=16384,
+                quick_sat=quick_sat, on_sat_model=on_sat_model,
+                registry=registry)
+        self.stats["overlap_solve_ms"] += int(
+            (time.perf_counter() - t0) * 1000)
+        self.stats["fork_screened"] += len(queries)
+        return [lane for (lane, _), v in zip(queries, verdicts)
+                if v == solver_batch.UNSAT]
+
+    def _submit_fork_screen(self, queries, registry):
+        """Start the fork-feasibility screen for this window's touched
+        lanes. With the solver pool parallel (smt/solver/pool.py) the
+        batch goes through `discharge_async` right away at the drain —
+        the pool's workers solve it while this thread packs and
+        dispatches the next window and blocks in the device pull — and
+        the returned token is collected one boundary later
+        (_collect_fork_screen), booking the hidden wall as
+        async_overlap_ms. With the pool serial the token defers the
+        whole screen to collection time, which lands in the overlapped
+        phase exactly where the synchronous screen ran before — the
+        K=1 path behaves as the synchronous screen."""
+        from ..smt.solver import pool as pool_mod
+
+        if not pool_mod.get_pool().parallel:
+            return (queries, registry, None)
+        from ..smt import Model
+        from ..smt.solver import batch as solver_batch
+        from ..support.model import model_cache
+
+        term_sets = [[c.raw for c in conds] for _, conds in queries]
+
+        def quick_sat(conj):
+            return model_cache.check_quick_sat(conj)
+
+        def on_sat_model(md):
+            model_cache.put(Model([md]), 1)
+
+        fut = solver_batch.discharge_async(
+            term_sets, timeout_s=2.0, conflict_budget=16384,
+            quick_sat=quick_sat, on_sat_model=on_sat_model,
+            registry=registry)
+        return (queries, registry, fut)
+
+    def _collect_fork_screen(self, token):
+        """Verdicts for a screen started at the previous boundary;
+        returns the proved-UNSAT lanes for the next dispatch's kill
+        list (same protocol as the synchronous screen)."""
+        queries, registry, fut = token
+        if fut is None:
+            return self._screen_forks(queries, registry)
+        from ..smt.solver import batch as solver_batch
+
+        verdicts = fut.result()  # a failed screen raises here
+        self.stats["overlap_solve_ms"] += int(fut.duration_ms)
+        self.stats["fork_screened"] += len(queries)
+        return [lane for (lane, _), v in zip(queries, verdicts)
+                if v == solver_batch.UNSAT]
+
+    # -- window-boundary lane merge / subsumption ----------------------------
+
+    def _template_static_clean(self, ctx: LaneCtx) -> bool:
+        """No pending PotentialIssues ride the lane's seed state (a
+        statically-dead lane carrying one must still reach a terminator
+        to discharge it). Memoized per template per explore."""
+        key = id(ctx.template)
+        cached = self._static_clean.get(key)
+        if cached is None:
+            try:
+                from ..analysis.potential_issues import (
+                    PotentialIssuesAnnotation,
+                )
+
+                cached = not any(
+                    isinstance(a, PotentialIssuesAnnotation)
+                    and a.potential_issues
+                    for a in ctx.template.annotations)
+            except Exception:
+                cached = False
+            self._static_clean[key] = cached
+            self._memo_pins.append(ctx.template)
+        return cached
+
+    def _static_retire(self, status, ctxs, dead_set, kill,
+                       counts_h, resumes) -> None:
+        """Window-boundary static retire (docs/static_pass.md): a lane
+        whose per-PC reachable-detector mask has no bit in common with
+        the run's active-detector mask can never mint another issue; if
+        additionally no open-state terminator is reachable — or no
+        later round consumes open states and nothing is pending on the
+        lane — it retires on the next dispatch's kill list with ZERO
+        solver or materialization work (`statically_retired`). Runs
+        BEFORE the merge pass so retired lanes never cost a fingerprint
+        dispatch. Gated by MTPU_STATIC via the info lookup and by svm
+        actually setting an active mask."""
+        info = self._static_info
+        active = self.static_active_mask
+        if info is None or active is None:
+            return
+        from ..analysis.static_pass import TERMINATOR_BIT
+
+        # taint-refined plane for the active-module set: anchor
+        # sites whose trigger operands are provably
+        # attacker-independent stop holding lanes alive; None falls
+        # back to the raw reach mask (MTPU_TAINT=0, unconverged taint
+        # fixpoint, or a module with unknown trigger semantics)
+        plane = None
+        if self.static_module_names is not None:
+            try:
+                from ..analysis import static_pass
+
+                plane = static_pass.refined_plane(
+                    info, self.static_module_names)
+            except Exception:
+                plane = None
+
+        active = int(active)
+        final_tx = bool(self.static_final_tx)
+        excluded = dead_set | set(kill) | {r[0] for r in resumes}
+        pcs = counts_h["pc"]
+        retired = 0
+        for lane in range(self.n_lanes):
+            ctx = ctxs[lane]
+            if (ctx is None or lane in excluded
+                    or status[lane] != Status.RUNNING):
+                continue
+            if ctx.promos:
+                continue  # pending drain promotions: must materialize
+            mask = info.mask_at(int(pcs[lane]), plane)
+            if mask & active:
+                continue
+            if mask & int(TERMINATOR_BIT):
+                if not final_tx or not self._template_static_clean(ctx):
+                    continue
+            kill.append(lane)
+            retired += 1
+        if retired:
+            self.stats["static_retired"] += retired
+            from ..smt.solver.solver_statistics import SolverStatistics
+
+            SolverStatistics().bump(static_retired_lanes=retired)
+            trace.event("static.retire", retired=retired)
+            log.info("static pass retired %d lanes at the window "
+                     "boundary", retired)
+
+    def _patch_jump_parks(self, results: List[GlobalState]
+                          ) -> List[GlobalState]:
+        """Consult the static jump table before a symbolic-dest JUMP
+        park falls back to the host interpreter (which ends the path —
+        instructions.jump_ raises on a symbolic dest). A site whose
+        value-set resolved to EXACTLY one target continues there, with
+        the dest == target equality appended as a path condition
+        (implied true by the resolution's soundness, so the issue set
+        cannot grow; and were the resolution ever wrong, the constraint
+        makes the wrong continuation infeasible rather than unsound).
+        Disabled while an arbitrary-jump-class detector is active."""
+        info = self._static_info
+        if info is None or not self.static_jump_patch_ok \
+                or not info.jump_table:
+            return results
+        patched = 0
+        for gs in results:
+            try:
+                ilist = gs.environment.code.instruction_list
+                pc = gs.mstate.pc
+                if pc >= len(ilist) or ilist[pc]["opcode"] != "JUMP":
+                    continue
+                stack = gs.mstate.stack
+                if not stack:
+                    continue
+                dest = stack[-1]
+                if getattr(dest, "symbolic", False) is not True:
+                    continue
+                targets = info.jump_table.get(ilist[pc]["address"])
+                if not targets or len(targets) != 1:
+                    continue
+                target = symbol_factory.BitVecVal(targets[0], 256)
+                gs.world_state.constraints.append(dest == target)
+                stack[-1] = target
+                patched += 1
+            except Exception:
+                continue
+        if patched:
+            self.stats["static_jump_patches"] += patched
+            log.info("static jump table resolved %d symbolic JUMP "
+                     "parks in place", patched)
+        return results
+
+    def _window_merge(self, st, status, ctxs, dead_set, kill,
+                      counts_h, resumes) -> None:
+        """Collapse exact-frontier twin lanes at the window boundary
+        (docs/lane_merge.md). Runs AFTER the drain (canonical sids and
+        this window's conds are final) and BEFORE the next dispatch's
+        kill list closes, so a retired lane never executes another
+        step. Cheap host pre-grouping (pc/sp/counters/template/write
+        mirror) decides whether the device fingerprint dispatch is
+        worth issuing at all; groups that survive the full fingerprint
+        hand their condition lists to merge.plan_group — duplicates and
+        implied siblings retire subsumed, the incomparable rest merges
+        into one lane under an OR'd suffix with disjunct provenance.
+        Gated by MTPU_MERGE (default on). A fingerprint kernel that
+        fails raises (``_boundary_fp``)."""
+        from . import merge as merge_mod
+
+        if not merge_mod.enabled():
+            return
+        excluded = dead_set | set(kill) | {r[0] for r in resumes}
+        pcs, sps = counts_h["pc"], counts_h["sp"]
+        pre: Dict[tuple, List[int]] = {}
+        for lane in range(self.n_lanes):
+            ctx = ctxs[lane]
+            if (ctx is None or lane in excluded
+                    or status[lane] != Status.RUNNING):
+                continue
+            if ctx.promos:
+                continue  # adapter sink promotions are per-path
+            key = (
+                id(ctx.template), int(pcs[lane]), int(sps[lane]),
+                int(counts_h["msize"][lane]),
+                int(counts_h["scount"][lane]),
+                int(counts_h["mlog_count"][lane]),
+                tuple((k.raw.tid, v.raw.tid) for k, v in ctx.swrites),
+            )
+            pre.setdefault(key, []).append(lane)
+        if not any(len(v) > 1 for v in pre.values()):
+            return
+        fp = self._boundary_fp(st, groups=len(pre))
+        merged, subsumed, widened, dropped = \
+            self._collapse_twins(pre, fp, ctxs)
+        kill.extend(dropped)
+        if merged or subsumed:
+            self.stats["lanes_merged"] += merged
+            self.stats["lanes_subsumed"] += subsumed
+            self.stats["merge_rounds"] += 1
+            self.stats["gas_widened"] = (
+                self.stats.get("gas_widened", 0) + widened)
+            from ..smt.solver.solver_statistics import SolverStatistics
+
+            SolverStatistics().bump(
+                lanes_merged=merged, lanes_subsumed=subsumed,
+                merge_rounds=1, gas_widened_lanes=widened)
+            merge_mod.note_retired(merged + subsumed)
+            trace.event("merge.window", merged=merged,
+                        subsumed=subsumed)
+            log.info("lane merge: %d merged, %d subsumed at window "
+                     "boundary", merged, subsumed)
+
+    def _boundary_fp(self, st, groups: int = 0):
+        """Per-lane frontier fingerprint for THIS window boundary
+        (``merge_fingerprint`` over the full plane: K9 on the card),
+        computed at most once and shared by the live-lane window merge
+        AND the merge-before-spill pass — the two passes cost ONE
+        launch between them. The cache resets at every window (explore
+        loop). Returns (N, 4) uint32. A kernel that fails raises: the
+        JAX engine skips the merge instead, which here would hide the
+        kernel."""
+        if self._fp_boundary is None:
+            d_recs = self.lane_kwargs.get("dlog_records", 64)
+            n = self.n_lanes
+            pv = min(PROV_BUCKET, n * d_recs) \
+                if len(self._prov) <= PROV_BUCKET else n * d_recs
+            prov_pairs = np.full((pv, 2), n * d_recs, np.int32)
+            for j, ((lane, slot), oid) in enumerate(self._prov.items()):
+                prov_pairs[j, 0] = lane * d_recs + slot
+                prov_pairs[j, 1] = oid
+            with _prof("merge_fp"), \
+                    trace.span("merge.fingerprint", groups=groups):
+                fp = merge_fingerprint(
+                    st, torch.from_numpy(prov_pairs).to(self.device))
+                self._fp_boundary = fp.cpu().numpy().view(np.uint32)
+        return self._fp_boundary
+
+    def _collapse_twins(self, pre, fp, ctxs):
+        """Shared twin-collapse body of the window merge and the
+        merge-before-spill pass: within each host pre-group, lanes
+        whose device fingerprints match hand their condition lists to
+        merge.plan_group; the survivor's ctx takes the OR'd suffix
+        (and, under MTPU_MERGE_GASWIDEN, gas offsets widened to the
+        group hull — gas-widening merge, docs/lane_merge.md: with
+        widening OFF the gas interval joins the exact twin key, the
+        historical behavior). Returns (merged, subsumed, widened,
+        dropped lane list)."""
+        from . import merge as merge_mod
+
+        gas_widen = merge_mod.gas_widen_enabled()
+        merged = subsumed = widened = 0
+        dropped_lanes: List[int] = []
+        from .retire_ring import owner_of as _owner_of
+
+        for _key, lanes in pre.items():
+            if len(lanes) < 2:
+                continue
+            # cross-tenant lanes must never OR-merge (docs/daemon.md
+            # §wave packing): the pre-group keys on id(template) and
+            # arena pc, both per-member by construction, so a mixed
+            # group is a routing bug — assert rather than merge wrong
+            assert len({_owner_of(ctxs[lane])
+                        for lane in lanes}) == 1, \
+                "cross-tenant lanes reached one merge group"
+            twins: Dict[tuple, List[int]] = {}
+            for lane in lanes:
+                tkey = (int(fp[lane, 0]), int(fp[lane, 1]))
+                if not gas_widen:
+                    tkey += (int(fp[lane, 2]), int(fp[lane, 3]))
+                twins.setdefault(tkey, []).append(lane)
+            for group in twins.values():
+                if len(group) < 2:
+                    continue
+                cond_lists = [[c for (_s, c) in ctxs[g].conds]
+                              for g in group]
+                plan = merge_mod.plan_group(cond_lists)
+                if plan is None:
+                    continue
+                survivor = group[plan.keep]
+                if plan.new_conds is not None:
+                    sc = ctxs[survivor].conds
+                    stamp = max((cl[-1][0] for cl in
+                                 (ctxs[g].conds for g in group) if cl),
+                                default=0)
+                    ctxs[survivor].conds = (
+                        sc[:plan.prefix_len]
+                        + [(stamp, c)
+                           for c in plan.new_conds[plan.prefix_len:]])
+                if gas_widen:
+                    # the survivor now represents every dropped arm:
+                    # widen its host gas offsets so the effective
+                    # interval (materialize/_DrainSite add gas0_* to
+                    # the device values) covers the group's hull
+                    members = [survivor] + [group[mi]
+                                            for mi in plan.dropped]
+                    dmin = min(int(fp[m, 2]) for m in members) \
+                        - int(fp[survivor, 2])
+                    dmax = max(int(fp[m, 3]) for m in members) \
+                        - int(fp[survivor, 3])
+                    if dmin or dmax:
+                        ctxs[survivor].gas0_min += dmin
+                        ctxs[survivor].gas0_max += dmax
+                        widened += len(plan.dropped)
+                for mi, reason in plan.dropped.items():
+                    dropped_lanes.append(group[mi])
+                    if reason == "merged":
+                        merged += 1
+                    else:
+                        subsumed += 1
+        return merged, subsumed, widened, dropped_lanes
+
+    def _spill_merge(self, st, lanes, ctxs, dead_set, counts_h) -> set:
+        """Merge-before-spill (docs/drain_pipeline.md): the window's
+        retired SPILL CANDIDATES — parked lanes about to materialize
+        into the host worklist — run the same fingerprint twin-collapse
+        the live-lane merge runs, BEFORE any GlobalState is built. A
+        rejoin twin that would have merged at the next dispatch instead
+        re-executed host-side in the spill/refill regime (one
+        interpreter step + re-seed + full device re-execution per twin,
+        every spill generation); collapsing it here is why the overflow
+        regime stops paying rejoin storms twice. The dropped lanes are
+        already DEAD on device (the retire gather marked them); they
+        are simply never materialized, and the survivor materializes
+        with the OR'd constraint suffix (witness re-concretization
+        preserved — the same soundness argument as docs/lane_merge.md).
+        Returns the dropped-lane set. Gated by MTPU_MERGE +
+        MTPU_STREAM (merge.spill_merge_enabled)."""
+        from . import merge as merge_mod
+
+        if not merge_mod.spill_merge_enabled():
+            return set()
+        pcs, sps = counts_h["pc"], counts_h["sp"]
+        pre: Dict[tuple, List[int]] = {}
+        for lane in lanes:
+            ctx = ctxs[lane]
+            if ctx is None or lane in dead_set or ctx.promos:
+                continue
+            key = (
+                id(ctx.template), int(pcs[lane]), int(sps[lane]),
+                int(counts_h["msize"][lane]),
+                int(counts_h["scount"][lane]),
+                int(counts_h["mlog_count"][lane]),
+                tuple((k.raw.tid, v.raw.tid) for k, v in ctx.swrites),
+            )
+            pre.setdefault(key, []).append(lane)
+        if not any(len(v) > 1 for v in pre.values()):
+            return set()
+        fp = self._boundary_fp(st, groups=len(pre))
+        merged, subsumed, widened, dropped = \
+            self._collapse_twins(pre, fp, ctxs)
+        if not dropped:
+            return set()
+        n = merged + subsumed
+        self.stats["spill_merged"] += n
+        self.stats["gas_widened"] = (
+            self.stats.get("gas_widened", 0) + widened)
+        from ..smt.solver.solver_statistics import SolverStatistics
+
+        SolverStatistics().bump(spill_merged_lanes=n,
+                                gas_widened_lanes=widened)
+        merge_mod.note_retired(n)
+        trace.event("retire.spill_merge", merged=merged,
+                    subsumed=subsumed)
+        log.info("merge-before-spill: %d of %d spill candidates "
+                 "collapsed at the window boundary", n, len(lanes))
+        return set(dropped)
+
+    # -- chunked escalation retire (docs/drain_pipeline.md) ------------------
+
+    def _retire_chunked(self, st, lanes_sel, retire_floors):
+        """The ONE sanctioned escalation-retire gather seam
+        (tools/lint_static.py rule "unbounded-retire-gather"): retiring
+        k lanes issues ceil(k/chunk) gathers of at most
+        MTPU_RETIRE_CHUNK rows each into bounded device buffers — live
+        width is no longer a single-allocation limit (the 64k-LIVE
+        kernel-fault shape, BENCH_r08). Chunk buckets are pow2 capped
+        at the chunk bound. Each chunk's copy to the host starts at
+        dispatch into buffers no later launch writes (``_start_pull``);
+        a deferred pull (the retire ring) waits for that copy only, so
+        it overlaps the next window's device execution. With chunking
+        off (MTPU_RETIRE_CHUNK=0 or MTPU_STREAM=0) this is the old
+        monolithic gather. Returns (st, [(lanes, pull, floors,
+        dispatch time)]), ``pull()`` giving the chunk's host rows."""
+        ch = retire_chunk()
+        if ch <= 0 or len(lanes_sel) <= ch:
+            parts = [list(lanes_sel)]
+        else:
+            parts = [list(lanes_sel[i:i + ch])
+                     for i in range(0, len(lanes_sel), ch)]
+        cap = min(ch, self.n_lanes) if ch > 0 else self.n_lanes
         chunks = []
-        for i in range(0, len(lanes_sel), RETIRE_CHUNK):
-            part = list(lanes_sel[i:i + RETIRE_CHUNK])
-            floors = self._retire_floors(counts, part)
+        for part in parts:
+            floors = retire_floors(part)
             kp = _geo_bucket(len(part), cap, min(64, cap))
             idx = np.full(kp, self.n_lanes, np.int32)
-            idx[:len(part)] = part
-            st, rows = self.ops["retire_rows"](
-                st, torch.from_numpy(idx).to(self.device), *floors)
-            chunks.append((part, floors, [x.cpu().numpy() for x in rows]))
+            idx[: len(part)] = part
+            with _prof("retire_dispatch"):
+                st, rows = _retire_rows(
+                    st, torch.from_numpy(idx).to(self.device), *floors)
+                pull = _start_pull(rows)
+            chunks.append((part, pull, floors, time.perf_counter()))
+        if ch > 0:
+            self.stats["retire_chunks"] += len(parts)
+            from ..smt.solver.solver_statistics import SolverStatistics
+
+            SolverStatistics().bump(retire_chunks=len(parts))
+            if len(parts) > 1:
+                trace.event("retire.chunked", lanes=len(lanes_sel),
+                            chunks=len(parts))
         return st, chunks
 
-    def explore(self, code_bytes: bytes, seeds, func_entries=()) -> dict:
-        """Run seeds (raw seed dicts, see ``pack_window``) of one
-        contract until no lane is RUNNING. Returns {"windows": [per
-        window: outputs, records, forks, retired chunks], "paths": lanes
-        retired, "forks": forks made, "records": unique records}."""
-        n = self.n_lanes
-        cc = compile_code(code_bytes, func_entries, device=self.device)
-        visited = torch.zeros(cc.packed.shape[0], dtype=torch.bool,
-                              device=self.device)
+    def live_seed_states(self) -> List[GlobalState]:
+        """Host-only snapshot of every live lane as (seed template +
+        accumulated path conditions) — the lane's state at the window
+        boundary where it was seeded, restricted to its recorded
+        branch. Safe from a signal handler (no device access), so the
+        SIGTERM/fatal live dump can capture lanes mid-window
+        (support/checkpoint.snapshot_live_states); the device progress
+        since the seed re-executes on resume, and issue dedup absorbs
+        any re-detection. Empty when no explore is running.
+
+        Retired-but-unmaterialized lanes parked in the retire ring
+        (chunks whose pull is still deferred behind the next window)
+        are covered too: their ctxs ride the pending jobs'
+        introspection hook, so a SIGTERM mid-boundary loses no
+        in-flight subtree to the deferral."""
+        ctxs = self._explore_ctxs
+        if not ctxs:
+            return []
+        ctxs = list(ctxs)
+        ring = self._ring
+        if ring is not None:
+            try:
+                ctxs.extend(ring.pending_ctx_sources())
+            except Exception:
+                pass  # best-effort, signal-safe
+        out = []
+        for ctx in list(ctxs):
+            if ctx is None:
+                continue
+            try:
+                gs = copy(ctx.template)
+                for _step, cond in list(ctx.conds):
+                    gs.world_state.constraints.append(cond)
+                out.append(gs)
+            except Exception:
+                continue  # best-effort: the lane re-runs from the
+                #           round checkpoint instead
+        return out
+
+    def _window_export(self, st, status, ctxs, dead_set, kill,
+                       resumes, steps, free, results,
+                       retire_floors):
+        """Mid-flight wave export at the window boundary
+        (docs/checkpoint.md): when the export client asks for n lanes,
+        the TAIL of the live set retires through the escalation gather
+        and materializes into ordinary mid-path GlobalStates — the
+        complete per-lane plane (pc, depth, call frame, stack, memory,
+        storage slots, gas interval, constraints, pending promotions)
+        — which `deliver` ships as an in-flight migration batch. The
+        exported lanes are DEAD on device the moment the gather runs
+        (same protocol as the escalation retire), so a shipped lane
+        never executes another step: kill-then-import. A declined
+        delivery parks the states locally instead — work can move,
+        but never be lost. Runs AFTER the merge pass so a lane about
+        to collapse is never shipped."""
+        client = self.export_client
+        excluded = dead_set | set(kill) | {r[0] for r in resumes}
+        live = [lane for lane in range(self.n_lanes)
+                if (ctxs[lane] is not None and lane not in excluded
+                    and status[lane] == Status.RUNNING)]
+        if len(live) < 2:
+            return st
+        try:
+            want = int(client.want(len(live)))
+        except Exception:
+            want = 0
+        want = min(want, len(live) - 1)
+        if want < 1:
+            return st
+        sel = live[len(live) - want:]
+        try:
+            # the export retires through the SAME chunked gather seam
+            # as the escalation retire (docs/drain_pipeline.md): a
+            # migration client asking for half a 64k wave must not
+            # recreate the single-allocation shape chunking removed
+            with _prof("ckpt_export"), \
+                    trace.span("ckpt.export", lanes=len(sel)):
+                st, chunks = self._retire_chunked(st, sel,
+                                                  retire_floors)
+                exported = []
+                for part, pull, floors, _t in chunks:
+                    rows_host = _unpack_rows(pull(), *floors)
+                    exported.extend(
+                        self.materialize(rows_host, row, ctxs[lane])
+                        for row, lane in enumerate(part))
+        except Exception as e:  # a seam, never an error path
+            log.warning("mid-flight lane export failed (%s); lanes "
+                        "stay local", e)
+            return st
+        # the gather marked the rows DEAD on device: recycle the slots
+        # now, exactly like the escalation retire
+        for lane in sel:
+            self.stats["device_steps"] += int(steps[lane])
+            ctxs[lane] = None
+            free.append(lane)
+        status[np.asarray(sel, np.int32)] = DEAD
+        delivered = False
+        try:
+            delivered = bool(client.deliver(exported))
+        except Exception as e:
+            log.debug("export delivery failed: %s", e)
+        if delivered:
+            self.stats["exported"] = (
+                self.stats.get("exported", 0) + len(sel))
+            log.info("mid-flight export: %d live lanes shipped at the "
+                     "window boundary", len(sel))
+        else:
+            # undeliverable (no thief claimed / save failed): the
+            # states are ordinary parked mid-path states — they
+            # continue locally through the spill/refill path
+            results.extend(exported)
+        return st
+
+    # -- top-level loop ------------------------------------------------------
+
+    def explore(self, code_bytes: bytes,
+                entry_states: List[GlobalState]) -> List[GlobalState]:
+        """Run entry states on device until every path parks or dies;
+        returns the materialized parked states (each positioned at the
+        first instruction the device could not execute)."""
+        return self._explore_members(
+            ((code_bytes, entry_states, None),))[None]
+
+    def _explore_members(self, members) -> Dict[object, list]:
+        """The explore loop over ``members`` [(code_bytes,
+        entry_states, owner)]: one member (cross-tenant wave packing is
+        not ported yet). Returns {owner: parked states}."""
+        if len(members) != 1:
+            raise NotImplementedError("packed waves are not ported")
+        code_bytes = members[0][0]
+        mems: List[None] = [None]
+        stats0 = dict(self.stats)  # engines persist across explores
+        self._reset_explore_memos()
+        entry_states = members[0][1]
+        self._func_names = dict(
+            getattr(entry_states[0].environment.code,
+                    "address_to_function_name", {}) or {}
+        ) if entry_states else {}
+        # static pre-analysis (docs/static_pass.md): memoized per code
+        # hash; feeds the window-boundary retire, the jump-table
+        # consult on symbolic JUMP parks, and the det-mask plane the
+        # compile below ships with the code tensors
+        try:
+            from ..analysis import static_pass
+
+            self._static_info = static_pass.info_for(code_bytes)
+        except Exception as e:  # a host analysis, not the device
+            log.debug("static pass unavailable: %s", e)
+            self._static_info = None
+        cc = _compiled_code(code_bytes, self._func_names.keys(),
+                            self.device)
+        # per-byte-address coverage bitmap, device-resident across
+        # windows AND explores of the same code (the interpreter's
+        # execute_state coverage hook cannot see device steps; this is
+        # its device twin — svm merges it into the coverage plugin)
+        visited = self._visited_dev.pop(code_bytes, None)
+        if visited is None:
+            visited = torch.zeros(cc.packed.shape[0], dtype=torch.bool,
+                                  device=self.device)
+        code_len = len(code_bytes)
         st = self._acquire_state()
-        d_recs = self.lane_kwargs.get("dlog_records", 64)
+        ctxs: List[Optional[LaneCtx]] = [None] * self.n_lanes
+        # expose the live ctx table for the SIGTERM live dump
+        # (live_seed_states); cleared in the finally below
+        self._explore_ctxs = ctxs
+        queue = deque((midx, gs) for midx, (_c, states, _o)
+                      in enumerate(members) for gs in states)
+        n_entries = len(queue)
+        free = list(range(self.n_lanes - 1, -1, -1))
+        results: List[GlobalState] = []
+        from .retire_ring import owner_of
+
+        sink = results
+        deliver = lambda _owner, gs: results.append(gs)  # noqa: E731
         calldata_cap = int(st.calldata.shape[1])
-        queue = deque(seeds)
-        free = list(range(n - 1, -1, -1))
-        small = min(16, n)
-        windows = []
-        while True:
-            seed_cap = n if len(queue) > small else small
-            entries = []
-            while queue and free and len(entries) < seed_cap:
-                entries.append((free.pop(), queue.popleft()))
-            i32b, u8b, k, pv = pack_window(
-                n, symstep.N_ENV, self.lane_kwargs, entries, free, [],
-                self._prov, calldata_cap, big=seed_cap > small)
-            self.stats["seeded"] += len(entries)
-            n_free_written = len(free)
-            st, visited, out = self.ops["window_exec"](
-                st, cc, torch.from_numpy(i32b).to(self.device),
-                torch.from_numpy(u8b).to(self.device), self.exec_table,
-                self.taint_table, self.window, k, self.step_budget, pv,
-                visited, self.resume_on)
-            outs = [x.cpu().numpy() for x in out]
-            misc, scal, utab, ftab, ridx = outs[:5]
-            self.stats["windows"] += 1
-            counts = {"dlog_count": misc[:, 0], "status": misc[:, 1],
-                      "steps": misc[:, 2], "sp": misc[:, 3],
-                      "scount": misc[:, 4], "mlog_count": misc[:, 5],
-                      "msize": misc[:, 6], "pc": misc[:, 7]}
-            nf, free_count, ucount = (int(x) for x in scal)
-            if ucount > utab.shape[0]:
-                urb_big = utab.shape[0]
-                cap = n * d_recs
-                while urb_big < ucount and urb_big < cap:
-                    urb_big *= 2
-                urb_big = min(urb_big, cap)
-                tab, uc2 = self.ops["unique_table_big"](st, urb_big)
-                utab, ucount = tab.cpu().numpy(), int(uc2)
-                self.stats["records_escalated"] += 1
-            if nf > ftab.shape[0]:
-                ftab = self.ops["gather_full_flog"](st).cpu().numpy()
-                self.stats["forks_escalated"] += 1
-            records, forks = utab[:ucount], ftab[:nf]
-            status = counts["status"].copy()
-            steps = counts["steps"]
-            consumed = n_free_written - free_count
-            if consumed:
-                free = free[:n_free_written - consumed]
-            fast = [int(x) for x in ridx if x < n]
-            runaway = (status == Status.RUNNING) & (steps >= self.step_budget)
-            rest = np.nonzero((status == Status.NEEDS_HOST) | runaway)[0]
-            chunks = []
-            if len(rest):
-                st, chunks = self._retire_chunked(st, rest.tolist(), counts)
-            # the host drain's device-facing duty: every canonical record
-            # gets an object id, resolved into the planes at the next
-            # window's remap
-            self._prov = {}
-            for row in records:
-                self._prov[(int(row[0]), int(row[1]))] = \
-                    self.objects.add(row.copy())
-            for lane in fast:
-                self.stats["device_steps"] += int(steps[lane])
-                free.append(lane)
-            for part, _, _ in chunks:
-                for lane in part:
-                    self.stats["device_steps"] += int(steps[lane])
+        n = self.n_lanes
+
+        kill: List[int] = []
+        resumes: List[tuple] = []
+        small = min(16, self.n_lanes)
+        peak_demand = len(queue)
+        # streaming retire/materialize pipeline
+        # (docs/drain_pipeline.md "streaming retire"): window k's
+        # retired lanes leave the device as bounded CHUNKS
+        # (_retire_chunked) whose D2H pulls and GlobalState rebuilds
+        # run AFTER window k+1 is dispatched — the host's biggest
+        # per-window costs (transfer + materialize) overlap device
+        # execution. The deferral structure is a bounded ring
+        # (laser/retire_ring.py) feeding a K-worker materialization
+        # pool (K=1 default: inline at flush, bit-identical to the old
+        # pending_mat list) with delivery order into `results` pinned
+        # to submit order. Each job snapshots this window's
+        # provisional-sid map — the next drain REPLACES self._prov.
+        from .retire_ring import RetireRing
+
+        ring = RetireRing(workers=mat_workers(), sink=sink)
+        self._ring = ring
+        from ..smt.solver.solver_statistics import SolverStatistics \
+            as _SS
+
+        def _submit_mat(rows_ref, floors, items, t_disp) -> None:
+            """Queue one retired chunk: rows_ref is a host dict when
+            already pulled (floors None) or the pull of a deferred
+            gather (``_start_pull``); items = [(row index, ctx
+            snapshot)]."""
+            prov = self._prov
+
+            def pull():
+                if floors is None:
+                    return rows_ref
+                t0 = time.perf_counter()
+                hidden_ms = (t0 - t_disp) * 1000.0
+                with self._stats_lock:
+                    # wall the D2H copy had to progress behind the
+                    # next window's execution before anyone blocked
+                    # on it — the measured hide of the deferred pull
+                    self.stats["retire_overlap_ms"] += hidden_ms
+                _SS().bump(retire_overlap_ms=hidden_ms)
+                with _prof("retire_pull"), \
+                        trace.span("retire.pull", rows=len(items)):
+                    return _unpack_rows(rows_ref(), *floors)
+
+            def build(rows_host):
+                t0 = time.perf_counter()
+                with trace.span("retire.materialize", n=len(items)):
+                    out = [self.materialize(rows_host, row, ctx,
+                                            prov=prov)
+                           for row, ctx in items]
+                with self._stats_lock:
+                    self.stats["overlap_mat"] += len(items)
+                    self.stats["overlap_mat_ms"] += int(
+                        (time.perf_counter() - t0) * 1000)
+                return out
+
+            build.ring_items = items  # SIGTERM live-dump introspection
+            # already-pulled chunks hand the ring their host rows so
+            # it can park them codec-encoded (state_codec.encode_rows)
+            # instead of holding raw planes until flush
+            ring.submit(pull, build,
+                        payload=rows_ref if floors is None else None)
+
+        # overlapped fork-feasibility screening (batched discharge,
+        # gated like the host's fork pruning): queries collected at
+        # drain k discharge while window k+1 executes; UNSAT lanes
+        # ride the kill list of dispatch k+2
+        from ..smt.solver.solver_statistics import SolverStatistics
+        from ..support.support_args import args as _args
+
+        _solver_stats = SolverStatistics()
+        screen_on = bool(getattr(_args, "pruning_factor", None))
+        screen_registry = None
+        if screen_on:
+            from ..smt.solver.batch import SubsetRegistry
+
+            screen_registry = SubsetRegistry()
+        pending_screen: List[tuple] = []
+        screen_future = None
+        screen_dead: List[int] = []
+        t_idle0 = None
+        trace.begin("lane.explore", n_lanes=self.n_lanes,
+                    entries=n_entries, code_len=code_len,
+                    pack_members=0)
+        try:
+            while True:
+                # per-boundary fingerprint cache: the window merge and
+                # the merge-before-spill pass share ONE dispatch
+                self._fp_boundary = None
+                # a seed backlog beyond the small bucket drains in ONE
+                # window through the full-width seed bucket (the
+                # kernels have no per-shape compile to wait for)
+                seed_cap = small
+                full_bucket = self._full_bucket()
+                if (len(queue) > small or len(resumes) > small) \
+                        and full_bucket > small:
+                    seed_cap = full_bucket
+                entries = []
+                while queue and free and len(entries) < seed_cap:
+                    midx, gs = queue.popleft()
+                    if self.adapters and not all(
+                        ad.seed_ok(gs) for ad in self.adapters
+                    ):
+                        # host handles this entry
+                        deliver(None, gs)
+                        continue
+                    entries.append((free.pop(), gs, mems[midx]))
+                i32buf, u8buf, k, pv = self._pack_window(
+                    entries, ctxs, free, kill, calldata_cap,
+                    big=seed_cap > small, resumes=resumes)
+                resumes = []
+                n_free_written = len(free)
+                _tw = time.perf_counter() if PROF_ON else 0.0
+                if t_idle0 is not None:
+                    # host-visible device idle: from the previous
+                    # window's pull completing (device drained) to this
+                    # dispatch being enqueued — the serial drain wall
+                    # the pipeline exists to shrink
+                    idle_ms = (time.perf_counter() - t_idle0) * 1000
+                    self.stats["overlap_idle_ms"] += int(idle_ms)
+                    _solver_stats.overlap_idle_ms += idle_ms
+                    t_idle0 = None
+                with _prof("window_exec", sync=lambda: st.pc), \
+                        trace.span("lane.window_dispatch",
+                                   seeds=k, window=self.window):
+                    st, visited, out = window_exec(
+                        st, cc, i32buf, u8buf, self.exec_table,
+                        self.taint_table, self.window, k,
+                        self.step_budget, pv, visited,
+                        self._resume_flag)
+                # start the fused outputs' copies to the host now: the
+                # transfer overlaps the host work below instead of
+                # serializing into the blocking pull
+                out_pull = _start_pull(out)
+                # the kill landed at the dispatch's reset phase: only now
+                # may the slots be recycled (they enter the free stack the
+                # device sees at the NEXT dispatch)
+                for lane in kill:
+                    ctxs[lane] = None
                     free.append(lane)
-                status[np.asarray(part, np.int64)] = DEAD
-            self.stats["forks"] += nf
-            self.stats["records"] += ucount
-            self.stats["fast_retired"] += len(fast)
-            self.stats["retired"] += len(fast) + len(rest)
-            windows.append({"outs": outs, "records": records,
-                            "forks": forks, "retired": chunks})
-            if not int(np.sum(status == Status.RUNNING)) and not queue:
-                break
-        return {"windows": windows, "paths": self.stats["retired"],
-                "forks": self.stats["forks"],
-                "records": self.stats["records"],
-                "visited": visited.cpu().numpy()[:cc.size]}
+                kill = []
+                # the dispatch above is asynchronous: while this window
+                # executes, pull+rebuild the LAST window's retired
+                # GlobalStates and discharge its fork-feasibility batch
+                t_busy0 = time.perf_counter()
+                ring.flush()
+                if screen_future is not None:
+                    # started at the previous drain: with the pool
+                    # parallel the verdicts are usually already done
+                    # (they solved behind the pull + this dispatch);
+                    # serial tokens run the whole screen here, exactly
+                    # where the synchronous screen used to
+                    screen_dead = self._collect_fork_screen(
+                        screen_future)
+                    screen_future = None
+                busy_ms = (time.perf_counter() - t_busy0) * 1000
+                self.stats["overlap_busy_ms"] += int(busy_ms)
+                _solver_stats.overlap_busy_ms += busy_ms
+                if PROF_ON:
+                    PROF.setdefault("windows", []).append(  # type: ignore
+                        (round(time.perf_counter() - _tw, 3), k,
+                         len(code_bytes), self.n_lanes))
+                self.stats["windows"] += 1
+                # device-dispatch accounting (docs/daemon.md §wave
+                # packing): window count feeds the bench "strictly
+                # fewer dispatches" gate; occupancy is the live-lane
+                # share of the wave — packed waves carry several
+                # tenants' lanes through the same dispatches
+                _solver_stats.bump(lane_windows=1)
+                live_now = n - len(free)
+                if live_now > 0:
+                    _solver_stats.bump_max(pack_occupancy_pct=round(
+                        100.0 * live_now / n, 1))
+                t_wait0 = time.perf_counter()
+                with _prof("window_pull"), \
+                        trace.span("lane.window_pull"):
+                    (misc, scal, utab, ftab, ridx, r_i32, r_u32,
+                     r_u8, hidx, h_i32, h_u32, h_u8) = out_pull()
+                wait_ms = (time.perf_counter() - t_wait0) * 1000
+                self.stats["device_wait_ms"] += int(wait_ms)
+                _solver_stats.device_wait_ms += wait_ms
+                t_idle0 = time.perf_counter()
+                counts_h = {
+                    "dlog_count": misc[:, 0], "status": misc[:, 1],
+                    "steps": misc[:, 2], "sp": misc[:, 3],
+                    "scount": misc[:, 4], "mlog_count": misc[:, 5],
+                    "msize": misc[:, 6], "pc": misc[:, 7],
+                    "flog_count": int(scal[0]),
+                    "free_count": int(scal[1]),
+                    "ucount": int(scal[2]),
+                }
+                self.last_counts = counts_h
+                nf = counts_h["flog_count"]
+                ucount = counts_h["ucount"]
+                if ucount > utab.shape[0]:
+                    # more distinct records than the fused pull budget:
+                    # re-pull at the smallest geometric bucket that
+                    # fits the count we already have (a few compiles,
+                    # cached per bucket; the table ships right-sized)
+                    cap = self.n_lanes * self.lane_kwargs.get(
+                        "dlog_records", 64)
+                    urb_big = utab.shape[0]
+                    while urb_big < ucount and urb_big < cap:
+                        urb_big *= 2
+                    urb_big = min(urb_big, cap)
+                    with _prof("logs_escalate"):
+                        tab, uc2 = _unique_table_big(st, urb_big)
+                        utab = tab.cpu().numpy()
+                    ucount = int(uc2)
+                    if ucount > utab.shape[0]:
+                        raise RuntimeError(
+                            f"{ucount} distinct records in one window "
+                            f"exceed the escalation budget")
+                recs = []
+                for i in range(ucount):
+                    row = utab[i]
+                    recs.append((
+                        int(row[4]), int(row[0]), int(row[1]), int(row[2]),
+                        int(row[3]), int(row[5]),
+                        (int(row[6]), int(row[7]), int(row[8])),
+                        np.ascontiguousarray(row[9:]).view(np.uint32)
+                        .reshape(3, bv256.NLIMBS),
+                    ))
+                if nf > ftab.shape[0]:
+                    with _prof("flog_escalate"):
+                        ftab = _gather_full_flog(st).cpu().numpy()
+                forks = []
+                for i in range(nf):
+                    r = ftab[i]
+                    forks.append((
+                        int(r[2]), int(r[0]), int(r[1]), int(r[3]),
+                        int(r[4]), int(np.uint32(r[5])),
+                        int(np.uint32(r[6])), int(r[7]), int(r[8]),
+                    ))
+                status = counts_h["status"].copy()
+                steps = counts_h["steps"]
+                # forked children consumed slots from the top (tail) of the
+                # free stack; reconcile before re-seeding
+                consumed = n_free_written - counts_h["free_count"]
+                if consumed:
+                    free = free[: n_free_written - consumed]
 
+                # fast-retired lanes: the window dispatch already
+                # gathered their rows and marked them DEAD (ridx row i
+                # is the i-th retired lane; padding entries hold n)
+                fast = [int(x) for x in ridx if x < n]
+                # escalation set: parked lanes past the fast budget or
+                # over a column floor (status still NEEDS_HOST), plus
+                # runaways
+                runaway = (status == Status.RUNNING) \
+                    & (steps >= self.step_budget)
+                rest = np.nonzero(
+                    (status == Status.NEEDS_HOST) | runaway)[0].tolist()
+                # in-place resume candidates: the device held SHA3-
+                # parked lanes in the envelope and shipped their slim
+                # rows with this window's output. Resolving them needs
+                # the drain's provisional-sid map, so the actual
+                # _try_resume runs AFTER the drain below; here the
+                # held set is only carved out of the escalation retire
+                # (optimistically — a declined lane retires through
+                # the supplementary dispatch afterwards).
+                held = [int(x) for x in hidx if x < n]
+                cap_r = small
+                full_r = self._full_bucket()
+                if len(held) > small and full_r > small:
+                    cap_r = full_r
+                held = held[:cap_r]
+                if held:
+                    held_set = set(held)
+                    rest = [l for l in rest if l not in held_set]
+                # DISPATCH the escalation retire before the host drain:
+                # the device gathers and ships the rows (the largest
+                # per-window transfer) while the host resolves this
+                # window's records and forks — the two biggest
+                # per-window costs overlap instead of serializing
+                def _retire_floors(lanes_sel):
+                    # content-adaptive floors: the smallest pow2
+                    # columns that hold every selected row
+                    lk = self.lane_kwargs
+                    c = counts_h
+                    sel = np.asarray(lanes_sel, np.int32)
+                    return (
+                        _geo_bucket(max(int(c["sp"][sel].max()), 1),
+                                    lk.get("stack_depth", 64), 8),
+                        _geo_bucket(max(int(c["msize"][sel].max()), 1),
+                                    lk.get("memory_bytes", 4096), 64),
+                        _geo_bucket(
+                            max(int(c["mlog_count"][sel].max()), 1),
+                            lk.get("mem_records", 64), 8),
+                        _geo_bucket(max(int(c["scount"][sel].max()), 1),
+                                    lk.get("storage_slots", 64), 8),
+                    )
 
-#: env slots a fresh symbolic transaction entry carries as symbols (the
-#: rest are concrete): the sender and origin, the call value, and the
-#: block fields the interpreter leaves symbolic
-_SYMBOLIC_ENV = ("ORIGIN", "CALLER", "CALLVALUE", "COINBASE", "TIMESTAMP",
-                 "NUMBER", "DIFFICULTY", "SELFBALANCE")
+                def _materialize_rows(lanes_sel, rows_host):
+                    with _prof("materialize"):
+                        for row, lane in enumerate(lanes_sel):
+                            self.stats["device_steps"] += \
+                                int(steps[lane])
+                            if lane not in dead_set:
+                                deliver(owner_of(ctxs[lane]),
+                                        self.materialize(
+                                            rows_host, row,
+                                            ctxs[lane]))
+                            ctxs[lane] = None
+                            free.append(lane)
+                    status[np.asarray(lanes_sel, np.int32)] = DEAD
 
+                rest_chunks = []
+                if rest:
+                    st, rest_chunks = self._retire_chunked(
+                        st, rest, _retire_floors)
 
-#: gas limit and account address of a fresh transaction entry
-_TX_GAS_LIMIT = 8_000_000
-_TX_ADDRESS = 0xDEADBEEF
+                self._prov, dead = self._drain_host(recs, forks, ctxs)
+                dead_set = set(dead)
 
+                # merge-before-spill (docs/drain_pipeline.md): the
+                # retired spill candidates — fast + escalation sets,
+                # now with their condition lists final — collapse
+                # exact-frontier twins BEFORE any GlobalState is
+                # built; dropped twins are never materialized, so the
+                # spill/refill regime stops re-executing rejoins it
+                # would have merged at the next dispatch
+                spill_dropped: set = set()
+                if fast or rest:
+                    spill_dropped = self._spill_merge(
+                        st, fast + rest, ctxs, dead_set, counts_h)
 
-def tx_entry_seed(objects: ObjectTable, group: int, calldata_cap: int):
-    """A raw seed dict (see ``pack_window``) of a fresh transaction
-    entry: pc 0, empty stack and memory, symbolic calldata of symbolic
-    size, symbolic sender/value/block fields, zero-array storage. Each
-    symbol gets an object id from ``objects``."""
-    from ..ops.stepper import ENV_SLOTS
-    from ..ops.bv256 import int_to_limbs
+                # in-place resume (needs self._prov): patches ride the
+                # next dispatch's seed buffer — zero extra round trips.
+                # A trivially-false (dead) lane must NOT resume: the
+                # next dispatch's kill would race its patch (kill sets
+                # DEAD before patches set RUNNING) while the host has
+                # already freed its slot — route dead lanes to the
+                # supplementary retire instead.
+                declined: List[int] = []
+                if held:
+                    pcs = counts_h["pc"]
+                    rrows = _unpack_resume((h_i32, h_u32, h_u8))
+                    with _prof("resume_host"):
+                        for row_i, lane in enumerate(held):
+                            patch = None
+                            if lane not in dead_set:
+                                patch = self._try_resume(
+                                    rrows, row_i,
+                                    int(pcs[lane]),
+                                    int(counts_h["sp"][lane]))
+                            if patch is not None:
+                                resumes.append((lane,) + patch)
+                                status[lane] = Status.RUNNING
+                                self.stats["resumed"] += 1
+                            else:
+                                declined.append(lane)
 
-    env = np.zeros((symstep.N_ENV, NLIMBS), np.uint32)
-    env_sid = np.zeros(symstep.N_ENV, np.int32)
-    for name, slot in ENV_SLOTS.items():
-        if name in _SYMBOLIC_ENV:
-            env_sid[slot] = objects.add(("env", name))
-    env[ENV_SLOTS["ADDRESS"]] = int_to_limbs(_TX_ADDRESS)
-    env[ENV_SLOTS["GASLIMIT"]] = int_to_limbs(_TX_GAS_LIMIT)
-    env[ENV_SLOTS["CHAINID"]] = int_to_limbs(1)
-    return dict(
-        group=group, sbase=0, calldata=np.zeros(calldata_cap, np.uint8),
-        cd_size=0, cd_sym=1, cd_size_sid=objects.add(("calldatasize",)),
-        env=env, env_sid=env_sid, gas_limit=_TX_GAS_LIMIT, pc=0, sp=0,
-        msize=0,
-        stack_v=np.zeros((SEED_STACK, NLIMBS), np.uint32),
-        stack_s=np.zeros(SEED_STACK, np.int32),
-        mem_v=np.zeros(SEED_MEM, np.uint8), mem_k=np.zeros(SEED_MEM, np.uint8),
-    )
+                if fast:
+                    st_fast = _unpack_rows((r_i32, r_u32, r_u8),
+                                           *RETIRE_FLOORS)
+                    with _prof("materialize"):
+                        items = []
+                        for row, lane in enumerate(fast):
+                            self.stats["device_steps"] += int(steps[lane])
+                            if lane not in dead_set \
+                                    and lane not in spill_dropped:
+                                items.append((row, ctxs[lane]))
+                            ctxs[lane] = None
+                            free.append(lane)
+                        if items:
+                            _submit_mat(st_fast, None, items,
+                                        time.perf_counter())
+                for part, pull, floors_c, t_disp in rest_chunks:
+                    # pipelined: each chunk's pull rides the NEXT
+                    # window's execution (the gathers were dispatched
+                    # before the drain and are ordered ahead of any
+                    # re-seed by the st dependency chain); slots free
+                    # NOW — the device already marked the rows DEAD.
+                    # ctx refs snapshot here: the slot may be
+                    # re-seeded before the ring delivers.
+                    items = []
+                    for row, lane in enumerate(part):
+                        self.stats["device_steps"] += int(steps[lane])
+                        if lane not in dead_set \
+                                and lane not in spill_dropped:
+                            items.append((row, ctxs[lane]))
+                        ctxs[lane] = None
+                        free.append(lane)
+                    status[np.asarray(part, np.int32)] = DEAD
+                    _submit_mat(pull, floors_c, items, t_disp)
+                if declined:
+                    # rare: held lanes the host would not resume
+                    # (symbolic length, OOG, oversize, trivially-false
+                    # path) retire through a supplementary dispatch —
+                    # they must not stay held forever
+                    st, dchunks = self._retire_chunked(
+                        st, declined, _retire_floors)
+                    for part, dpull, dfloors, _t in dchunks:
+                        with _prof("retire_pull"):
+                            d_host = _unpack_rows(dpull(), *dfloors)
+                        _materialize_rows(part, d_host)
+                # 3. trivially-false lanes still RUNNING on device: kill
+                # them at the next dispatch (before it seeds anything) and
+                # recycle their slots after it. Their host status stays
+                # RUNNING so the loop always runs that dispatch.
+                retired = set(fast) | set(rest) | set(declined)
+                for lane in dead:
+                    if lane not in retired:
+                        kill.append(lane)
+                # solver-killed lanes from the overlapped fork screen:
+                # proved-UNSAT prefixes die at the next dispatch, same
+                # protocol as trivially-false lanes. A lane that parked
+                # or died in the meantime is skipped (its state already
+                # materialized; the open-state screen prunes it later).
+                for lane in screen_dead:
+                    if (lane not in retired and lane not in dead_set
+                            and status[lane] == Status.RUNNING
+                            and ctxs[lane] is not None
+                            and lane not in kill):
+                        kill.append(lane)
+                        self.stats["fork_killed"] += 1
+                screen_dead = []
+                # window-boundary STATIC retire (MTPU_STATIC,
+                # docs/static_pass.md): lanes whose remaining
+                # reachable-detector mask is dead against the active
+                # mask ride the next dispatch's kill list with zero
+                # solver/materialize work. Runs BEFORE the merge pass,
+                # which then never pays fingerprint work for them.
+                self._static_retire(status, ctxs, dead_set, kill,
+                                    counts_h, resumes)
+                # window-boundary lane merge/subsume (MTPU_MERGE,
+                # docs/lane_merge.md): exact-frontier twins collapse
+                # under an OR'd constraint suffix, implied siblings
+                # retire subsumed — their kills ride the next dispatch
+                # (same protocol as trivially-false lanes), BEFORE that
+                # window executes, so a merged-away lane never runs
+                # another step
+                self._window_merge(st, status, ctxs, dead_set, kill,
+                                   counts_h, resumes)
+                # mid-flight wave export (MTPU_CKPT,
+                # docs/checkpoint.md): a work-stealing client can take
+                # the tail of the live wave at this boundary — the
+                # lanes retire into complete mid-path GlobalStates and
+                # ship; their slots free for the next dispatch
+                if self.export_client is not None:
+                    st = self._window_export(
+                        st, status, ctxs, dead_set, kill, resumes,
+                        steps, free, results, _retire_floors)
+                # collect the NEXT overlapped screen batch: lanes that
+                # gained path conditions this window and are still
+                # running (their descendants subset-kill through the
+                # per-explore registry once a prefix is refuted)
+                if screen_on and forks:
+                    touched = sorted({f[1] for f in forks}
+                                     | {f[2] for f in forks})
+                    pending_screen = [
+                        (lane, [c for (_, c) in ctxs[lane].conds])
+                        for lane in touched
+                        if (status[lane] == Status.RUNNING
+                            and lane not in dead_set
+                            and lane not in kill
+                            and ctxs[lane] is not None
+                            and ctxs[lane].conds)
+                    ][:256]
+                    if pending_screen:
+                        # submit NOW: a parallel pool solves while this
+                        # thread packs/dispatches the next window and
+                        # waits on the device pull (collected at the
+                        # next overlapped phase — kills still land at
+                        # dispatch k+2, same protocol as before)
+                        screen_future = self._submit_fork_screen(
+                            pending_screen, screen_registry)
+                        pending_screen = []
+
+                # width-demand sample: lanes concurrently occupied plus
+                # entries still queued for a slot (what a wide-enough
+                # engine would have run this window)
+                peak_demand = max(peak_demand,
+                                  n - len(free) + len(queue))
+                running = int(np.sum(status == Status.RUNNING))
+                if not running and not queue:
+                    break
+            # the last window has no successor dispatch to hide behind
+            ring.flush()
+        finally:
+            self._explore_ctxs = None
+            self._ring = None
+            try:
+                # exception mid-sweep: pending ring chunks are
+                # deliberately NOT flushed (svm re-runs the entry
+                # states host-side) — just stop the workers and book
+                # the occupancy high-water mark
+                ring.close()
+                if ring.high_water > self.stats.get(
+                        "ring_high_water", 0):
+                    self.stats["ring_high_water"] = ring.high_water
+                _SS().bump_max(ring_high_water=ring.high_water)
+            except Exception:  # telemetry only
+                pass
+            trace.end("lane.explore",
+                      windows=self.stats["windows"]
+                      - stats0.get("windows", 0))
+            # an exception mid-sweep raises to the caller; the
+            # coverage of the windows that ran is kept all the same
+            self._visited_dev[code_bytes] = visited
+            self.visited_by_code[code_bytes] = \
+                visited.cpu().numpy()[: cc.size]
+        self._release_state(st)
+        # static jump-table consult (docs/static_pass.md): a symbolic-
+        # dest JUMP park with a statically-proved singleton target
+        # continues in place instead of dying in the interpreter
+        results = self._patch_jump_parks(results)
+        global LAST_RUN_STATS
+        delta = {k: v - stats0.get(k, 0) for k, v in self.stats.items()}
+        if peak_demand > PATH_HISTORY.get(code_bytes, 0):
+            PATH_HISTORY[code_bytes] = peak_demand
+        LAST_RUN_STATS = self.last_run_stats = delta
+        for key, val in delta.items():
+            RUN_STATS_TOTAL[key] = RUN_STATS_TOTAL.get(key, 0) + val
+        return {None: results}
+
+    # -- device-state pooling ------------------------------------------------
+
+    def _shape_key(self) -> tuple:
+        return (self.n_lanes, str(self.device)) \
+            + tuple(sorted(self.lane_kwargs.items()))
+
+    def _acquire_state(self) -> SymLaneState:
+        pool = _STATE_POOL.get(self._shape_key())
+        if pool:
+            return pool.pop()
+        with _prof("init_lanes"):
+            return symstep.init_sym_lanes(self.n_lanes, device=self.device,
+                                          **self.lane_kwargs)
+
+    def _release_state(self, st: SymLaneState) -> None:
+        """Park the (all-DEAD) device buffers for the next explore —
+        possibly by a different engine or contract. Stale plane contents
+        are unreachable: seeding rewrites every live field of a row, and
+        log counters were reset by the window dispatches."""
+        pool = _STATE_POOL.setdefault(self._shape_key(), [])
+        if len(pool) < 2:  # bound device memory held by idle batches
+            pool.append(st)

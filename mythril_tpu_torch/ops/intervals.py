@@ -705,8 +705,8 @@ def _run_tables(enc: EncodedDAG, device, plain: bool = False):
     with trace.span("intervals.eval", states=enc.n_real,
                     levels=len(enc.levels)):
         for level in enc.levels:
-            trace.launch("intervals.eval_level", eval_level,
-                         level_to_device(level, device), lo, hi, plain)
+            trace.call_jit("intervals.eval_level", eval_level,
+                           level_to_device(level, device), lo, hi, plain)
     return (lo, hi, ints_to_device(enc.assert_idx, device).long(),
             ints_to_device(enc.assert_mask, device, torch.bool))
 

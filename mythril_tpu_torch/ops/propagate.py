@@ -34,11 +34,11 @@ value and the flag gives the same sweep count without copying the
 tables). ``changed_plain`` is the JAX comparison, kept to check the
 flag against.
 
-Not here yet, each attaching with the host bridge: the verdict-cache
-banking of ``prefilter_feasible`` (refuted sets recorded UNSAT, facts
-and bounds noted), the static storage-ITE seeds (the JAX
-``_inject_static_seeds``, a no-op until the static pass opens its fact
-gate) and the fused ``lax.while_loop`` driver (``MTPU_PROPAGATE_FUSE``).
+``prefilter_feasible`` banks its results in the run-wide verdict cache
+(refuted sets recorded UNSAT, facts and bounds noted), and every screen
+meets the static storage-ITE seeds (``_inject_static_seeds``) into its
+init tables first, as the JAX package does. Not here yet: the fused
+``lax.while_loop`` driver (``MTPU_PROPAGATE_FUSE``).
 """
 
 import logging
@@ -914,13 +914,13 @@ def sweep(core, tabs, changed=None, plain=False) -> None:
     """One sweep in place: forward levels, exchange, backward rounds in
     reverse level order, exchange."""
     for level in core["levels"]:
-        trace.launch("propagate.fwd_level", fwd_level, level, tabs,
-                     changed, plain)
+        trace.call_jit("propagate.fwd_level", fwd_level, level, tabs,
+                       changed, plain)
     exchange(tabs, core["numeric"], changed, plain)
     for rounds in reversed(core["back"]):
         for rnd in rounds:
-            trace.launch("propagate.back_round", back_round, rnd, tabs,
-                         changed, plain)
+            trace.call_jit("propagate.back_round", back_round, rnd, tabs,
+                           changed, plain)
     exchange(tabs, core["numeric"], changed, plain)
 
 
@@ -1100,13 +1100,41 @@ def _state_terms(enc: EncodedDAG, s: int):
 Screen = namedtuple("Screen", "keep sweeps facts")
 
 
+def _inject_static_seeds(enc: EncodedDAG) -> None:
+    """Meet the static storage-ITE candidate hulls
+    (analysis/static_pass/deps.static_seed_rows) into the encoding's
+    shared init tables BEFORE the fixpoint/interval screen runs: the
+    hull is implied by the term structure (an ITE's value is always
+    one of its leaves), so the tighter seed removes only states the
+    term provably cannot reach — same soundness contract as the
+    syntactic bound seeds. Counted as ``static_facts_seeded``."""
+    from ..analysis.static_pass import deps as static_deps
+
+    rows = static_deps.static_seed_rows(enc)
+    if not rows:
+        return
+    from .intervals import _word
+
+    init_lo = np.asarray(enc.init_lo).copy()
+    init_hi = np.asarray(enc.init_hi).copy()
+    for i, (lo, hi) in rows.items():
+        if i >= init_lo.shape[0]:
+            continue
+        init_lo[i] = _word(lo)
+        init_hi[i] = _word(hi)
+    enc.init_lo = init_lo
+    enc.init_hi = init_hi
+    SolverStatistics().bump(static_facts_seeded=len(rows))
+
+
 def screen(assertion_sets: Sequence[Sequence], device=None,
            plain: bool = False) -> Screen:
-    """Linearize, run the fixpoint (or, outside its envelope, the
-    forward interval screen on the same encoding) and harvest facts
-    for the surviving sets."""
+    """Linearize, meet the static seeds, run the fixpoint (or, outside
+    its envelope, the forward interval screen on the same encoding)
+    and harvest facts for the surviving sets."""
     sets = [[getattr(t, "raw", t) for t in s] for s in assertion_sets]
     enc = linearize(sets)
+    _inject_static_seeds(enc)
     got = run(enc, device, plain)
     if got is None:
         return Screen(eval_feasible(enc, device, plain), None, {})
@@ -1117,11 +1145,12 @@ def screen(assertion_sets: Sequence[Sequence], device=None,
 def prefilter_feasible(assertion_sets: Sequence[Sequence],
                        device=None) -> np.ndarray:
     """Drop-in for ops/intervals.prefilter_feasible with the product
-    domain, bidirectional sweeps and fact harvest. Sound: only
-    provably-unsat states report False. Bumps ``propagate_kills``,
-    ``propagate_sweeps`` and ``facts_harvested``. (The JAX package banks
-    the kills and facts in its verdict cache here; that attaches with
-    the host bridge.)"""
+    domain, bidirectional sweeps, UNSAT recording and fact harvest.
+    Sound: only provably-unsat states report False. Bumps
+    ``propagate_kills``, ``propagate_sweeps`` and ``facts_harvested``,
+    and banks the result in the run-wide verdict cache: killed sets are
+    sound UNSAT proofs, surviving sets note their learned facts as
+    solver hints and their propagated bounds for tier-3 inheritance."""
     got = screen(assertion_sets, device)
     if got.sweeps is None:
         return got.keep
@@ -1131,6 +1160,23 @@ def prefilter_feasible(assertion_sets: Sequence[Sequence],
     n_facts = sum(len(facts) for facts, _ in got.facts.values())
     if n_facts:
         ss.bump(facts_harvested=n_facts)
+    from ..smt.solver import verdicts as verdict_mod
+
+    vc = verdict_mod.cache()
+    if vc is not None:
+        sets = [[getattr(t, "raw", t) for t in s] for s in assertion_sets]
+        for s, ok_s in enumerate(got.keep):
+            tids = tuple(t.tid for t in sets[s])
+            if tids and not ok_s:
+                vc.record(tids, verdict_mod.UNSAT)
+        for s, (facts, bounds) in got.facts.items():
+            tids = tuple(t.tid for t in sets[s])
+            if not tids:
+                continue
+            if facts:
+                vc.note_facts(tids, facts)
+            if bounds:
+                vc.absorb_bounds(tids, bounds)
     return got.keep
 
 

@@ -4,7 +4,7 @@ This is the host prototype of the TPU lane pre-filter promised by the build
 plan (SURVEY.md §2.10 solver-level row): before any SAT call, every assertion
 is abstractly evaluated; a must-false assertion proves the path infeasible
 without touching the CDCL core. The same transfer functions are mirrored as
-vectorized jax kernels in mythril_tpu/ops/intervals.py for on-device lane
+vectorized jax kernels in mythril_tpu_torch/ops/intervals.py for on-device lane
 pruning.
 
 Domain: [lo, hi] over unsigned width-w integers (no wrap tracking — any
@@ -263,7 +263,7 @@ def must_be_true(t: "T.Term", memo=None) -> bool:
 # scan the whole constraint system for syntactic `var <cmp> const` facts
 # (through conjunctions and negations), intersect them into per-variable
 # bounds, and seed the memo with the narrowed intervals so the forward
-# pass sees them. Mirrored on device by mythril_tpu/ops/intervals.py.
+# pass sees them. Mirrored on device by mythril_tpu_torch/ops/intervals.py.
 
 
 #: per-assertion bound contributions, memoized by tid: a constraint

@@ -7,9 +7,9 @@ build owns the whole term representation. Terms are immutable, interned
 local rewrite rules, so concrete execution through the facade never builds
 garbage symbolic nodes. The DAG is the single source of truth for:
 
-- the bit-blaster (mythril_tpu/smt/bitblast.py) lowering to the native CDCL
+- the bit-blaster (mythril_tpu_torch/smt/bitblast.py) lowering to the native CDCL
   core,
-- the interval/known-bits propagator (mythril_tpu/smt/interval.py) used as
+- the interval/known-bits propagator (mythril_tpu_torch/smt/interval.py) used as
   the fast `is_possible` pre-filter (device-mirrored later),
 - concrete evaluation under a model (eval_term), replacing z3's model.eval.
 

@@ -6,6 +6,9 @@ symbolic branches, 2**k paths, an arithmetic arm and an SSTORE per
 level, a SHA3 tail); ``build_dispatcher_loop`` is the dispatcher-with-
 loop contract of ``__graft_entry__._build_fixture``. The port imports
 neither, so it keeps these copies; tests check the bytes are equal.
+``build_diamond_contract`` is ``bench.py``'s window-merge rig (a storm
+of rejoining diamonds), ``build_sha3_resume_contract`` the JAX package's
+in-place-resume rig (``tests/test_lane_resume.py``).
 ``build_coverage_contract`` is the port's own: a symbolic switch whose
 arms each exercise one family of the symbolic stepper.
 """
@@ -39,6 +42,68 @@ def build_symbolic_contract(k: int = 12):
     c += _push(99) + bytes([op["SSTORE"], op["STOP"]])
     return bytes(c), 2 ** k
 
+
+
+
+def build_sha3_resume_contract():
+    """A 33-byte SHA3 over a symbolic word and one concrete byte: the
+    device defers only 32- and 64-byte hashes, so the lane parks at the
+    SHA3 and the engine resumes it in place with the host-built keccak
+    term; the result is stored at slot 99."""
+    op = _OP
+    return (_push(0) + bytes([op["CALLDATALOAD"]])
+            + _push(0) + bytes([op["MSTORE"]])
+            + _push(7) + _push(32) + bytes([op["MSTORE8"]])
+            + _push(33) + _push(0) + bytes([op["SHA3"]])
+            + _push(99) + bytes([op["SSTORE"], op["STOP"]]))
+
+def build_diamond_contract(k=6, dup_levels=2, tail=True, uneven_gas=0):
+    """k gas- and step-balanced CFG diamonds: level i forks on a
+    calldata bit, both arms run the same instruction count and gas
+    (JUMPDEST, PUSH2 R, JUMP) and rejoin at R with identical
+    stack/memory/storage, the exact-frontier-twin shape the window
+    merge collapses. The first ``dup_levels`` levels re-test bit 0 (so
+    superset subsumption fires), the rest fork on distinct bits. The
+    optional tail forks on calldata word 31 == 0xdeadbeef into an
+    INVALID (one Exception State issue). ``uneven_gas=p`` inserts
+    p*2**i stack-neutral filler pairs into both arms of level i
+    (PUSH1/POP on the fall side, CALLER/POP on the taken side)."""
+    op = _OP
+    c = bytearray()
+    for i in range(k):
+        bit = 0 if i < dup_levels else i
+        c += _push(bit) + bytes([op["CALLDATALOAD"]])
+        c += _push(1) + bytes([op["AND"]])
+        j = len(c)
+        c += _push(0, 2) + bytes([op["JUMPI"]])
+        c += bytes([op["JUMPDEST"]])
+        for _ in range(uneven_gas * (1 << i)):
+            c += _push(0) + bytes([op["POP"]])
+        jf = len(c)
+        c += _push(0, 2) + bytes([op["JUMP"]])
+        t = len(c)
+        c[j + 1:j + 3] = t.to_bytes(2, "big")
+        c += bytes([op["JUMPDEST"]])
+        for _ in range(uneven_gas * (1 << i)):
+            c += bytes([op["CALLER"], op["POP"]])
+        jt = len(c)
+        c += _push(0, 2) + bytes([op["JUMP"]])
+        r = len(c)
+        c[jf + 1:jf + 3] = r.to_bytes(2, "big")
+        c[jt + 1:jt + 3] = r.to_bytes(2, "big")
+        c += bytes([op["JUMPDEST"]])
+    if tail:
+        c += _push(31) + bytes([op["CALLDATALOAD"]])
+        c += _push(0xDEADBEEF, 4) + bytes([op["EQ"]])
+        j = len(c)
+        c += _push(0, 2) + bytes([op["JUMPI"]])
+        c += bytes([op["STOP"]])
+        t = len(c)
+        c[j + 1:j + 3] = t.to_bytes(2, "big")
+        c += bytes([op["JUMPDEST"], 0xFE])
+    else:
+        c += bytes([op["STOP"]])
+    return bytes(c)
 
 def build_dispatcher_loop() -> bytes:
     """x = calldata[0]; acc = 0; while x: acc += x*x; x -= 1;

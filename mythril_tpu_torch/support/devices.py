@@ -4,7 +4,8 @@ The counterpart of ``mythril_tpu/support/devices.py``: which device the
 lane engine runs on, whether that device really executes (a launch
 probe, not only enumeration), and how many lanes it should run by
 default. There is no CPU fallback: a caller that wants the CPU asks for
-it with ``device="cpu"`` (the tests do); otherwise a missing or broken
+it with ``device="cpu"``, or for a whole analysis with
+``args.device = "cpu"`` (the tests do); otherwise a missing or broken
 card raises.
 """
 
@@ -22,8 +23,14 @@ _EXEC_OK = {}
 
 
 def resolve(device=None) -> torch.device:
-    """The torch device an entry point runs on: ``cuda`` unless the
-    caller names another. A CUDA request without a usable card raises."""
+    """The torch device an entry point runs on: the one the caller
+    names, else ``args.device`` (the analyzer's setting, None by
+    default), else ``cuda``. A CUDA request without a usable card
+    raises."""
+    if device is None:
+        from .support_args import args
+
+        device = getattr(args, "device", None)
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -32,12 +39,20 @@ def resolve(device=None) -> torch.device:
                 "versions on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-        if not device_exec_ok(dev):
+        if not _probe(dev):
             raise RuntimeError(f"{dev} enumerates but does not execute")
     return dev
 
 
-def device_exec_ok(dev: torch.device) -> bool:
+def device_exec_ok(device=None) -> bool:
+    """True when the device an entry point would run on executes
+    (``resolve`` raises otherwise: a missing or broken card is an
+    error, never a reason to run elsewhere)."""
+    resolve(device)
+    return True
+
+
+def _probe(dev: torch.device) -> bool:
     """Probe the card with an executed launch, once per device:
     enumeration can succeed while execution is broken (a driver and
     runtime mismatch fails only at the first launch)."""

@@ -1,9 +1,5 @@
 """EVM opcode table: name -> gas interval, stack effect, byte value.
 
-The port's own copy of ``mythril_tpu/support/opcodes.py`` (the port
-imports nothing of the JAX package); the two tables must stay equal,
-which tests/test_torch_imports.py checks.
-
 Capability parity with the reference table (mythril/support/opcodes.py:16-141):
 same opcode set (Istanbul/Berlin era + EIP-2315 subroutines), same
 (min_gas, max_gas) interval convention used by the interval gas accountant,

@@ -11,7 +11,10 @@ setup(
     ),
     packages=find_packages(include=["mythril_tpu", "mythril_tpu.*",
                                     "mythril_tpu_torch*"]),
-    package_data={"mythril_tpu.support": ["assets/*.txt"]},
+    package_data={"mythril_tpu.support": ["assets/*.txt"],
+                  "mythril_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+                  "mythril_tpu_torch.native": ["*.cpp", "Makefile"],
+                  "mythril_tpu_torch.support": ["assets/*.txt"]},
     include_package_data=True,
     python_requires=">=3.9",
     install_requires=[

@@ -183,11 +183,11 @@ def test_the_screen_as_a_whole_matches_jax(wave):
     """prefilter_feasible: keep masks, sweep counts (the counters), and
     the harvested facts."""
     j_sets, p_sets, enc, _, _, sweeps, _ = wave
-    j0, p0 = dict(JSS().batch_counters()), SolverStatistics().counters()
+    j0, p0 = dict(JSS().batch_counters()), SolverStatistics().batch_counters()
     want = JP.prefilter_feasible(j_sets)
     got = P.prefilter_feasible(p_sets, device="cpu")
     np.testing.assert_array_equal(got, want)
-    j1, p1 = JSS().batch_counters(), SolverStatistics().counters()
+    j1, p1 = JSS().batch_counters(), SolverStatistics().batch_counters()
     for key in ("propagate_kills", "propagate_sweeps", "facts_harvested"):
         assert p1[key] - p0[key] == j1[key] - j0[key], key
     assert p1["propagate_sweeps"] - p0["propagate_sweeps"] == sweeps

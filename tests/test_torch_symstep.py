@@ -13,6 +13,7 @@ from mythril_tpu.ops import stepper as JST
 from mythril_tpu.ops import symstep as JS
 from mythril_tpu_torch import interop
 from mythril_tpu_torch.laser import lane_engine as TL
+from mythril_tpu_torch.support import device_loop as DL
 from mythril_tpu_torch.ops import symstep as TS
 from mythril_tpu_torch.support import contracts
 from mythril_tpu_torch.support.eth_constants import ARB_PROBE_SLOT
@@ -42,7 +43,7 @@ def _table(names, base=None):
 
 
 def symbolic_seed(objs, group, **over):
-    s = TL.tx_entry_seed(objs, group, KW["calldata_bytes"])
+    s = DL.tx_entry_seed(objs, group, KW["calldata_bytes"])
     s.update(over)
     return s
 

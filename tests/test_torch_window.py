@@ -22,6 +22,7 @@ from mythril_tpu.ops import stepper as JST
 from mythril_tpu.ops import symstep as JS
 from mythril_tpu_torch import interop
 from mythril_tpu_torch.laser import lane_engine as TL
+from mythril_tpu_torch.support import device_loop as DL
 from mythril_tpu_torch.ops import symstep as TS
 from mythril_tpu_torch.support import contracts
 
@@ -62,7 +63,7 @@ def _same_state(jst, tst, what):
 
 
 def seed(objs, group, words=None):
-    s = TL.tx_entry_seed(objs, group, KW["calldata_bytes"])
+    s = DL.tx_entry_seed(objs, group, KW["calldata_bytes"])
     if words is not None:
         data = b"".join(int(w).to_bytes(32, "big") for w in words)
         s["calldata"][:len(data)] = np.frombuffer(data, np.uint8)
@@ -205,8 +206,8 @@ def test_dispatcher_loop_windows():
 
 def test_lane_engine_runs_every_path():
     code, paths = contracts.build_symbolic_contract(6)
-    eng = TL.LaneEngine(n_lanes=64, window=WINDOW, device="cpu", **KW)
-    res = eng.explore(code, [TL.tx_entry_seed(eng.objects, 1, 64)])
+    eng = DL.DeviceLoop(n_lanes=64, window=WINDOW, device="cpu", **KW)
+    res = eng.explore(code, [DL.tx_entry_seed(eng.objects, 1, 64)])
     assert res["paths"] == paths and res["forks"] == paths - 1
     assert len(res["windows"]) >= 2
     assert len(eng.objects) - 1 > res["records"]

@@ -2,13 +2,23 @@
 
     python3 tools/prof_torch_port.py [--k 12] [--lanes 4096]
     python3 tools/prof_torch_port.py --screen [--systems 8192] [--off]
+    python3 tools/prof_torch_port.py --analyze calls.sol.o
 
-Without ``--screen``: runs ``LaneEngine.explore`` on
-``build_symbolic_contract(k)`` once to warm up (kernel builds,
-allocator), once timed on the host clock, then once under
-``torch.profiler``, and prints the card, both wall times, the device
-time summed over kernels, the device busy share of the profiled wall,
-and the kernels by device time.
+Without ``--screen`` or ``--analyze``: runs the device loop
+(``support/device_loop.DeviceLoop``) on ``build_symbolic_contract(k)``
+once to warm up (kernel builds, allocator), once timed on the host
+clock, then once under ``torch.profiler``, and prints the card, both
+wall times, the device time summed over kernels, the device busy share of the
+profiled wall, and the kernels by device time.
+
+With ``--analyze``: ``myth analyze`` of one vendored fixture through the
+port with the corpus flags (``support/lane_compare.analyze_argv``), once
+to warm up and once timed, its wall broken into the lane engine's
+window dispatch (launches to the window's outputs on the host), the
+host drain of records and forks, materialize, the K9 fingerprint, the
+device screens (every call of the interval and propagation screens,
+timed to their verdicts), the solver's queries and the rest of the
+host; then once under ``torch.profiler`` for the device busy share.
 
 With ``--screen``: the same for ``models/pruner._screen_interval`` over
 the ``bench_prefilter`` wave (``support/screen_waves.prefilter_wave``),
@@ -30,6 +40,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from mythril_tpu_torch.laser import lane_engine as le  # noqa: E402
+from mythril_tpu_torch.support import device_loop  # noqa: E402
 from mythril_tpu_torch.support.contracts import (  # noqa: E402
     build_symbolic_contract,
 )
@@ -38,8 +49,70 @@ from mythril_tpu_torch.support.devices import resolve  # noqa: E402
 
 def _explore(dev, k, lanes):
     code, _ = build_symbolic_contract(k)
-    eng = le.LaneEngine(n_lanes=lanes, device=dev)
-    return eng.explore(code, [le.tx_entry_seed(eng.objects, 1, 512)])
+    eng = device_loop.DeviceLoop(n_lanes=lanes, device=dev)
+    return eng.explore(code, [device_loop.tx_entry_seed(eng.objects, 1, 512)])
+
+
+def _analyze_parts(name):
+    """One timed ``myth analyze`` of fixture ``name``: (wall s, {part:
+    s}, issues, engine stats)."""
+    from mythril_tpu_torch.ops import intervals, propagate
+    from mythril_tpu_torch.smt.solver.solver_statistics import (
+        SolverStatistics,
+    )
+    from mythril_tpu_torch.support import runs
+    from mythril_tpu_torch.support.lane_compare import (
+        CREATION_FIXTURES, INPUTS,
+    )
+
+    screens = [0.0]
+
+    def timed(mod, fname):
+        fn = getattr(mod, fname)
+
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                screens[0] += time.perf_counter() - t0
+
+        setattr(mod, fname, wrapper)
+        return fn
+
+    saved = [(m, f, timed(m, f)) for m, f in (
+        (propagate, "prefilter_feasible"), (propagate, "abstraction_sets"),
+        (intervals, "prefilter_feasible"), (intervals, "shadow_prefilter"))]
+    ss = SolverStatistics()
+    ss.enabled, ss.solver_time = True, 0.0
+    le.PROF_ON = True
+    le.PROF.clear()
+    try:
+        report, stats, wall = runs.analyze(
+            (INPUTS / name).read_text().strip(),
+            bin_runtime=name not in CREATION_FIXTURES, tx_count=2,
+            tpu_lanes=64, solver_timeout=15000)
+    finally:
+        le.PROF_ON = False
+        ss.enabled = False
+        for m, f, fn in saved:
+            setattr(m, f, fn)
+    p = le.PROF
+    parts = {
+        "window dispatch": p.get("window_exec", 0) + p.get("window_pull", 0)
+        + p.get("retire_dispatch", 0) + p.get("retire_pull", 0)
+        + p.get("logs_escalate", 0) + p.get("flog_escalate", 0)
+        + p.get("init_lanes", 0) + p.get("seed_pack", 0),
+        "host drain": p.get("drain_py", 0) + p.get("resume_host", 0),
+        "materialize": p.get("materialize", 0)
+        + stats.get("overlap_mat_ms", 0) / 1e3,
+        "K9 fingerprint": p.get("merge_fp", 0),
+        "device screens": screens[0],
+        "solver": ss.solver_time,
+    }
+    parts["rest of the host"] = wall - sum(parts.values())
+    return wall, parts, len(report.issues), stats
 
 
 def _screen_stages(dev, systems, off):
@@ -92,12 +165,31 @@ def main(argv=None) -> int:
     ap.add_argument("--screen", action="store_true")
     ap.add_argument("--systems", type=int, default=8192)
     ap.add_argument("--off", action="store_true")
+    ap.add_argument("--analyze", metavar="FIXTURE")
     args = ap.parse_args(argv)
     dev = resolve()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+    if args.analyze:
+        _analyze_parts(args.analyze)  # warm: builds, allocator, caches
+        wall, parts, n_issues, stats = _analyze_parts(args.analyze)
+        print(f"card: {card}")
+        print(f"analyze {args.analyze}: {n_issues} issues, wall "
+              f"{wall:.3f} s, {stats.get('windows', 0)} windows, "
+              f"{stats.get('forks', 0)} forks, "
+              f"{stats.get('device_steps', 0)} device steps")
+        for part, sec in parts.items():
+            print(f"  {part:20s} {sec:8.3f} s {sec / wall:6.3f}")
+        res, pwall, rows = _profile(lambda: _analyze_parts(args.analyze))
+        dev_us = sum(e.self_device_time_total for e in rows)
+        print(f"under the profiler: wall {pwall:.3f} s, device "
+              f"{dev_us / 1e3:.3f} ms, busy share {dev_us / 1e6 / pwall:.4f}")
+        for e in rows[:15]:
+            print(f"  {e.key[:60]:60s} {e.count:7d} "
+                  f"{e.self_device_time_total / 1e3:10.3f}")
+        return 0
     if args.screen:
         from mythril_tpu_torch.models import pruner
         from mythril_tpu_torch.ops import propagate
