@@ -2,7 +2,8 @@
 """Build the port's CUDA kernels, hold each against its plain PyTorch
 version on the card, and drive the port's paths: ``myth analyze`` end
 to end, the symbolic path at full width, the window merge, the device
-loop alone and the solver's screens.
+loop alone, the concrete lane path and the solver's screens (with the
+host-sequenced and the fused fixpoint).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -61,16 +62,36 @@ Phases (any failure exits non-zero and prints no result):
    device's busy share and the kernels' device time on the path;
 9. the propagation mix (8192 sets): propagation refutes the bit
    conflicts and unit chains the interval pass keeps;
-10. the report: a ``kernels`` JSON line (launches on each kernel's path,
+10. the concrete path (before the screens): ``bench.py``'s
+    ``bench_device`` workload, the bench contract over 32768 lanes
+    through the port's ``ops/stepper.run`` (K10, its main path: one
+    launch a run, counts reset before the warm run and three timed
+    runs), every lane's status, steps and slot 0 equal to a closed form
+    in Python ints; K10 bit for bit against ``run_plain`` at 1024 lanes
+    through a whole run and over single steps at full width; paths/s,
+    lane instructions/s, the busy share (where the profiler records no
+    device event, the stream-interval share, an upper bound); K10's
+    bound from a traced run of the timed inputs, whose single steps
+    must end where one run does; then 131072 lanes at
+    ``init_lanes``' default planes (~11.2 KB a lane) on
+    ``__graft_entry__._build_fixture``'s loop contract and on the lane
+    mix contract (loop, memory and storage arms), 512 sampled lanes of
+    each equal to ``run_plain``;
+11. the fused screen: K11 on the 8192-system wave, equal to
+    ``_fixpoint_plain`` and to the host-sequenced K6-K8 driver (tables,
+    ok, contra, keep, sweeps); the pruner's screen with
+    ``MTPU_PROPAGATE_FUSE`` on (one K11 launch a wave) and off, in
+    turns, systems/s and launches each way;
+12. the report: a ``kernels`` JSON line (launches on each kernel's path,
     error, times, bounds), the card's name and power limit, and the
     result line.
 
 ``ms`` is a wrapper call on CUDA events, the host's argument packing
 and launch gaps included; ``device_ms`` is the device time of the same
-call: for K0-K4, K9 and bv256 its kernels and copies in torch.profiler,
-for K5-K8 CUDA events around the call queued behind a spin kernel
-(``queued_ms``), on the inputs its bound is counted from. The run
-fails where a device time is below its bound.
+call: for K0-K4, K9, K10 and bv256 its kernels and copies in
+torch.profiler, for K5-K8 and K11 CUDA events around the call queued
+behind a spin kernel (``queued_ms``), on the inputs its bound is
+counted from. The run fails where a device time is below its bound.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -1055,6 +1076,400 @@ def screen_mix(dev):
 
 
 # ---------------------------------------------------------------------------
+# the concrete lane path: K10
+# ---------------------------------------------------------------------------
+
+#: bench.py's bench_device batch and the plain comparison's width
+CONCRETE_N, CONCRETE_PLAIN_N = 32768, 1024
+#: the wide runs: init_lanes' default planes, their step cap, and the
+#: lanes held against the plain version
+WIDE_CONCRETE_N, WIDE_CONCRETE_STEPS, WIDE_SAMPLE = 131072, 4096, 512
+
+
+def same_lanes(a, b, what):
+    """The largest difference over every plane of two LaneStates;
+    raises if any."""
+    from mythril_tpu_torch.ops.stepper import LANE_FIELDS
+
+    err = 0
+    for f in LANE_FIELDS:
+        e = max_err(getattr(a, f), getattr(b, f))
+        if e:
+            raise AssertionError(f"{what}: plane {f} differs (max {e})")
+        err = max(err, e)
+    return err
+
+
+def lane_footprint(code, st, max_steps):
+    """What one run of ``st`` reads beyond its scalars, traced on a copy
+    with single steps (K10 at ``max_steps`` 1, which ends where one run
+    does: lanes never interact): each lane's env rows and calldata bytes
+    read, whether it touches memory, storage or calldata, the code rows
+    and opcodes the batch executes, and (``final``) the traced state."""
+    import torch
+
+    from mythril_tpu_torch.ops import stepper as S
+
+    x = S.clone_lanes(st)
+    n, c = x.calldata.shape
+    dev = x.device
+    lanes = torch.arange(n, device=dev)
+    cols = torch.arange(c, device=dev)
+    env_slot = torch.as_tensor(S.ENV_TABLE, device=dev).long()
+    op_ = {k: S._OP[k] for k in ("MLOAD", "MSTORE", "MSTORE8", "MSIZE",
+                                 "SLOAD", "SSTORE", "CALLDATALOAD",
+                                 "CALLDATASIZE")}
+    fams = dict(memory=("MLOAD", "MSTORE", "MSTORE8", "MSIZE"),
+                storage=("SLOAD", "SSTORE"),
+                calldata=("CALLDATALOAD", "CALLDATASIZE"))
+    fp = {k: torch.zeros(n, dtype=torch.bool, device=dev) for k in fams}
+    fp.update(env=torch.zeros((n, S.N_ENV), dtype=torch.bool, device=dev),
+              cd_bytes=torch.zeros((n, c), dtype=torch.bool, device=dev),
+              rows=torch.zeros(code.size + 1, dtype=torch.bool, device=dev),
+              ops=torch.zeros(256, dtype=torch.bool, device=dev))
+    for _ in range(max_steps):
+        live = x.status == S.Status.RUNNING
+        if not bool(live.any()):
+            break
+        pc = x.pc.long().clamp(0, code.size)
+        op = code.opcode[pc].long()
+        fp["rows"][pc[live]] = True
+        fp["ops"][op[live]] = True
+        slot = env_slot[op]
+        hit = live & (slot >= 0)
+        fp["env"][lanes[hit], slot[hit]] = True
+        for fam, names in fams.items():
+            for name in names:
+                fp[fam] |= live & (op == op_[name])
+        # CALLDATALOAD reads [top, top + 32) below cd_size
+        top = x.stack[lanes, (x.sp.long() - 1).clamp(0, x.stack.shape[1]
+                                                     - 1)]
+        off = top[:, 0].long() & 0xFFFFFFFF
+        small = ~(top[:, 1:] != 0).any(dim=1) & (off < 1 << 30)
+        cdl = live & (op == op_["CALLDATALOAD"]) & (x.sp > 0) & small
+        fp["cd_bytes"] |= (cdl[:, None] & (cols >= off[:, None])
+                           & (cols < off[:, None] + 32)
+                           & (cols < x.cd_size.long()[:, None]))
+        x = S.step(code, x)
+    fp["final"] = x
+    return fp
+
+
+def lane_run_bound(before, after, code, fp):
+    """(bound ms, "bytes" or "operations", bytes, operations) of one K10
+    run from ``before`` to ``after``, counting what this run's data
+    needs (``fp``, from ``lane_footprint``): every lane reads pc, sp,
+    status, gas_used, gas_limit and steps, and msize, scount, cd_size
+    where its instructions touch memory, storage, calldata; the stack
+    slots live at its start; the memory below its starting msize and the
+    storage keys of its starting log where it touches them; the calldata
+    bytes and env rows it reads; the batch reads the code rows and
+    op-table rows it executes; every element the run changed is written
+    once. Against 8 integer operations (one a limb of the word moved)
+    per instruction retired."""
+    from mythril_tpu_torch.ops import stepper as S
+
+    nbytes = 24 * before.pc.numel()
+    for fam in ("memory", "storage", "calldata"):
+        nbytes += 4 * int(fp[fam].sum())
+    nbytes += 32 * int(before.sp.long().sum())
+    nbytes += int((before.msize.long() * fp["memory"]).sum())
+    nbytes += 32 * int((before.scount.long() * fp["storage"]).sum())
+    nbytes += int(fp["cd_bytes"].sum()) + 32 * int(fp["env"].sum())
+    nbytes += (code.packed.shape[1] * 4 * int(fp["rows"].sum())
+               + S.LANE_OP_TABLE.shape[1] * 4 * int(fp["ops"].sum()))
+    for f in S.LANE_FIELDS:
+        x, y = getattr(before, f), getattr(after, f)
+        nbytes += x.element_size() * int((x != y).sum())
+    nops = 8 * int((after.steps.long() - before.steps.long()).sum())
+    bms, by = bound_ms(nbytes, nops)
+    return bms, by, nbytes, nops
+
+
+def concrete_path(dev, card, report):
+    """The concrete path of bench.py's headline (bench_device): the
+    bench contract over 32768 lanes through the port's ``run`` (K10),
+    one warm run and three timed, every lane's status, steps and slot 0
+    held against the closed form; K10 held bit for bit against
+    ``run_plain`` at 1024 lanes through a whole run and over single
+    steps at full width; the device's busy share under torch.profiler
+    (or the stream-interval share between CUDA events, an upper bound);
+    K10's bound from what the timed inputs need (``lane_footprint``);
+    then 131072 lanes at init_lanes' default planes on the dispatcher
+    loop of ``__graft_entry__._build_fixture`` and on the lane mix
+    contract, a sample of lanes held against the plain version. Returns
+    the launches of the main path."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mythril_tpu_torch import _build
+    from mythril_tpu_torch.ops import stepper as S
+    from mythril_tpu_torch.support import contracts as C
+
+    code = C.build_bench_contract()
+    cc = S.compile_code(code, device=dev)
+    cap = C.BENCH_MAX_STEPS
+
+    # K10 against the plain version: a whole run, then single steps
+    small = C.bench_batch(CONCRETE_PLAIN_N, dev)
+    got = S.run_kernel(cc, S.clone_lanes(small), cap)
+    t0 = time.perf_counter()
+    want = S.run_plain(cc, small, cap)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    err = same_lanes(got, want, f"K10 at {CONCRETE_PLAIN_N} lanes")
+    st = C.bench_batch(CONCRETE_N, dev)
+    for k in range(9):
+        if k == 6:
+            S.run_kernel(cc, st, 200)
+        x = S.step(cc, S.clone_lanes(st))
+        st = S.step_plain(cc, st)
+        err = max(err, same_lanes(x, st, f"K10 single step {k}"))
+    del small, got, want, st, x
+    log(f"K10 lane_run: equal to run_plain on every plane at "
+        f"{CONCRETE_PLAIN_N} lanes through a whole run (plain {plain_s:.3f}"
+        f" s) and over 9 single steps at {CONCRETE_N} lanes")
+
+    # the main path: counts reset, one warm run, three timed
+    _build.reset_launches()
+    st = C.bench_batch(CONCRETE_N, dev)
+    S.run(cc, st, cap)
+    walls = []
+    for _ in range(3):
+        st = C.bench_batch(CONCRETE_N, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        S.run(cc, st, cap)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = dict(_build.LAUNCHES)
+    if launches["lane_run"] != 4:
+        raise AssertionError(f"concrete path: {launches['lane_run']} K10 "
+                             f"launches for 4 runs")
+    words = [int.from_bytes(bytes(r), "big")
+             for r in C.bench_calldata(CONCRETE_N)]
+    steps, stored = zip(*C.bench_closed_form(words))
+    svals = st.svals[:, 0].cpu().numpy().view("uint32")
+    got_stored = [sum(int(w) << (32 * i) for i, w in enumerate(row))
+                  for row in svals]
+    if (st.status != S.Status.STOPPED).any() \
+            or st.steps.tolist() != list(steps) \
+            or (st.scount != 1).any() or (st.skeys[:, 0] != 0).any() \
+            or got_stored != list(stored):
+        raise AssertionError("concrete path: lanes differ from the closed "
+                             "form")
+    total = int(st.steps.sum())
+    med = statistics.median(walls)
+
+    # K10's times on the main path's inputs, the busy share
+    fresh = lambda: C.bench_batch(CONCRETE_N, dev)  # noqa: E731
+    call = cuda_ms(lambda x: S.run_kernel(cc, x, cap), reps=3, setup=fresh)
+    dev_ms = device_ms(lambda x: S.run_kernel(cc, x, cap), setup=fresh)
+    dev_src = "torch.profiler"
+    if dev_ms is None:
+        dev_ms = queued_ms(lambda x: S.run_kernel(cc, x, cap), fresh)
+        dev_src = "CUDA events behind a spin kernel"
+    # the busy share of one more run: its device time under the profiler
+    # over its wall (a session that records no device event is run
+    # again, up to 3; with none, the share of the wall between CUDA
+    # events around the run, an upper bound: idle time between the
+    # events counts as busy)
+    busy, busy_src = 0.0, "torch.profiler"
+    for _ in range(3):
+        x = fresh()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            S.run(cc, x, cap)
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t0
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+        if busy:
+            break
+    if not busy:
+        names = sorted({e.name[:40] for e in prof.events()})
+        log(f"concrete path: the profiler recorded no device event in 3 "
+            f"sessions (the last: {len(prof.events())} host events, "
+            f"{names})")
+        x = fresh()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.record()
+        S.run(cc, x, cap)
+        b.record()
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+        busy = a.elapsed_time(b) / 1e3
+        busy_src = "stream-interval share (upper bound), CUDA events"
+    # the bound, from what one run of the timed inputs needs
+    before = fresh()
+    fp = lane_footprint(cc, before, cap)
+    after = S.run_kernel(cc, S.clone_lanes(before), cap)
+    same_lanes(fp["final"], after, "K10 in single steps against one run")
+    bms, by, nbytes, nops = lane_run_bound(before, after, cc, fp)
+    if nops != 8 * total:
+        raise AssertionError(f"K10 bound: {nops // 8} instructions, the "
+                             f"timed run retired {total}")
+    report["lane_run"] = dict(max_abs_err=err, ms=call, device_ms=dev_ms,
+                              plain_ms=plain_s * 1e3, bound_ms=bms,
+                              bound_by=by)
+    log(f"concrete path ({CONCRETE_N} lanes, bench contract, max_steps "
+        f"{cap}): {CONCRETE_N / med:.1f} paths/s, {total / med:.1f} lane "
+        f"instructions/s; median {med * 1e3:.3f} ms (runs "
+        f"{', '.join(f'{w * 1e3:.3f}' for w in walls)} ms); every lane's "
+        f"status, steps and slot 0 equal the closed form; {total} "
+        f"instructions; K10 {call:.4f} ms a call, {dev_ms:.4f} ms device "
+        f"({dev_src}), bound {bms:.6f} ms ({by}: {nbytes} bytes, {nops} "
+        f"operations: {nbytes / CONCRETE_N:.1f} bytes and "
+        f"{nops / CONCRETE_N:.1f} operations a lane); device busy "
+        f"{busy:.6f} of {pwall:.6f} s ({busy_src}; share "
+        f"{busy / pwall:.4f}); plain at {CONCRETE_PLAIN_N} lanes "
+        f"{plain_s:.3f} s; on {card}")
+    del st, x, before, after, fp
+
+    # the wide runs at default planes: __graft_entry__._build_fixture's
+    # loop contract, then the lane mix contract (its loop, memory and
+    # storage arms), on one seeded batch (loop counts in word 0, the
+    # arm in word 1)
+    g = torch.Generator().manual_seed(SEED)
+    idx = torch.randperm(WIDE_CONCRETE_N, generator=g)[:WIDE_SAMPLE]
+    idx = idx.sort().values.to(dev)
+    for name, wcode in (("dispatcher loop", C.build_dispatcher_loop()),
+                        ("lane mix", C.build_lane_mix_contract())):
+        wcc = S.compile_code(wcode, device=dev)
+        st = C.lane_mix_batch(WIDE_CONCRETE_N, SEED, device=dev)
+        sample = S.select_lanes(st, idx)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        S.run(wcc, st, WIDE_CONCRETE_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if (st.status == S.Status.RUNNING).any():
+            raise AssertionError(f"wide run ({name}): lanes still running")
+        same_lanes(S.select_lanes(st, idx),
+                   S.run_plain(wcc, sample, WIDE_CONCRETE_STEPS),
+                   f"wide run ({name}), {WIDE_SAMPLE} sampled lanes")
+        counts = torch.bincount(st.status.long(), minlength=7).tolist()
+        log(f"wide concrete run ({name}): {WIDE_CONCRETE_N} lanes of "
+            f"{S.lane_bytes(st)} bytes ({S.lane_bytes(st) * WIDE_CONCRETE_N}"
+            f" bytes of planes), {wall:.3f} s, "
+            f"{WIDE_CONCRETE_N / wall:.1f} paths/s, "
+            f"{int(st.steps.sum()) / wall:.1f} lane instructions/s; "
+            f"statuses {dict(enumerate(counts))}; {WIDE_SAMPLE} sampled "
+            f"lanes equal to run_plain on every plane; on {card}")
+        want = ((S.Status.STOPPED,) if name == "dispatcher loop" else
+                (S.Status.STOPPED, S.Status.RETURNED, S.Status.NEEDS_HOST))
+        if not all(counts[k] for k in want):
+            raise AssertionError(f"wide run ({name}): statuses {counts}")
+        del st, sample
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the fused screen: K11
+# ---------------------------------------------------------------------------
+
+def fused_screen(dev, wave, card, report):
+    """The 8192-system wave with the fused driver: K11 against
+    ``_fixpoint_plain`` on the card and against the host-sequenced K6-K8
+    driver (tables, ok, contra, sweeps, keep); then the pruner's screen
+    with ``MTPU_PROPAGATE_FUSE`` on and off, in turns (off, on, on,
+    off), systems/s and launches each way. Returns the launches of the
+    fused screen path."""
+    import torch
+
+    from mythril_tpu_torch import _build
+    from mythril_tpu_torch.models import pruner
+    from mythril_tpu_torch.ops import propagate as P
+
+    systems, keep, enc, plan, core = wave
+    cap = plan.statics[0]
+    got = P.fixpoint_kernel(core, cap)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = P._fixpoint_plain(core, cap)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    host = P._run_host(core, cap)
+    err = same_outputs(got[0], want[0], "K11 tables against the plain")
+    err = max(err, same_outputs(got[0], host[0],
+                                "K11 tables against the host driver"))
+    for i, what in ((1, "ok"), (2, "contra")):
+        if not (torch.equal(got[i], want[i]) and torch.equal(got[i],
+                                                             host[i])):
+            raise AssertionError(f"K11 {what} differs")
+    if not (got[3] == want[3] == host[3]) or not torch.equal(got[4],
+                                                             want[4]):
+        raise AssertionError(f"K11 sweeps {got[3]}, plain {want[3]}, host "
+                             f"driver {host[3]}")
+    n = enc.n_real
+    dead = torch.as_tensor(enc.dead[:n], device=dev)
+    keeps = [(x[1][:n] & ~dead).tolist() for x in (got, host)]
+    if keeps[0] != keeps[1] or sum(keeps[0]) != SCREEN_KEEP:
+        raise AssertionError("K11 keep mask differs")
+    # bytes: the four tables written once (the outputs), and each sweep
+    # of a system reads its rows once: a numeric row's four words, a bool
+    # row's limb 0 of lo and hi (as K8's count); pad rows are not read
+    per = got[4]
+    n_t = core["init_lo"].shape[0]
+    row = int(torch.where(core["isbool"] != 0, 8, torch.where(
+        core["numeric"] != 0, 128, 0)).sum())
+    nbytes = 4 * n_t * 32 * per.numel() + row * int(per.sum())
+    bms, by = bound_ms(nbytes)
+    call = cuda_ms(lambda: P.fixpoint_kernel(core, cap), reps=3)
+    dev_ms = queued_ms(lambda _: P.fixpoint_kernel(core, cap), lambda: None)
+    host_ms = cuda_ms(lambda: P._run_host(core, cap), reps=3)
+    report["prop_fixpoint"] = dict(max_abs_err=err, ms=call,
+                                   device_ms=dev_ms, plain_ms=plain_s * 1e3,
+                                   bound_ms=bms, bound_by=by)
+    log(f"K11 prop_fixpoint: {SCREEN_N} systems, equal to _fixpoint_plain "
+        f"and to the host-sequenced K6-K8 driver (tables, ok, contra, "
+        f"keep {SCREEN_KEEP}, {got[3]} sweeps; per-system sweeps "
+        f"{torch.bincount(per.long()).tolist()}); {call:.4f} ms a call, "
+        f"{dev_ms:.4f} ms device, bound {bms:.6f} ms ({by}, {nbytes} "
+        f"bytes); the host-sequenced driver {host_ms:.4f} ms a call; plain "
+        f"{plain_s:.3f} s; on {card}")
+    del got, want, host
+
+    def ident(s):
+        return s
+
+    launches, rates = {}, {False: [], True: []}
+    for fuse in (False, True, True, False):
+        P.FUSE = fuse
+        pruner._screen_interval(systems, ident)  # warm
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kept = pruner._screen_interval(systems, ident)
+        torch.cuda.synchronize()
+        rates[fuse].append(SCREEN_N / (time.perf_counter() - t0))
+        launches[fuse] = dict(_build.LAUNCHES)
+        if len(kept) != SCREEN_KEEP or pruner.STATS["device_failures"]:
+            raise AssertionError(f"fused screen (fuse {fuse}): kept "
+                                 f"{len(kept)}")
+    P.FUSE = False
+    on, off = launches[True], launches[False]
+    if on["prop_fixpoint"] != 1 or on["prop_fwd_level"] \
+            or on["prop_back_round"] or off["prop_fixpoint"]:
+        raise AssertionError(f"fused screen launches {on}, host-sequenced "
+                             f"{off}")
+    log(f"fused screen (MTPU_PROPAGATE_FUSE=1): {SCREEN_KEEP} kept, "
+        f"{', '.join(f'{r:.1f}' for r in rates[True])} systems/s, launches "
+        f"{ {k: v for k, v in on.items() if v} }; host-sequenced: "
+        f"{', '.join(f'{r:.1f}' for r in rates[False])} systems/s, launches "
+        f"{ {k: v for k, v in off.items() if v} }; on {card}")
+    return on
+
+
+# ---------------------------------------------------------------------------
 # the host bridge: K9, the analyzer end to end
 # ---------------------------------------------------------------------------
 
@@ -1591,10 +2006,13 @@ def main() -> int:
         f"{len(res_w['windows'])} windows, {res_w['paths']} paths, "
         f"{wall_w:.3f} s, {res_w['paths'] / wall_w:.1f} paths/s on {card}")
 
+    concrete_launches = concrete_path(dev, card, report)
+
     wave = screen_wave(dev)
     check_screens(dev, report, wave)
     screen_launches = screen_path(dev, wave, card)
     screen_mix(dev)
+    fused_launches = fused_screen(dev, wave, card, report)
 
     def entry(name, source, replaces, counts=None):
         r = report[name]
@@ -1612,13 +2030,17 @@ def main() -> int:
     inlined = dict(entry("bv256", "mythril_tpu_torch/csrc/bv256.cuh",
                          "mythril_tpu/ops/bv256.py:93"),
                    inlined_in="sym_step, interval_level, prop_fwd_level, "
-                   "prop_back_round")
+                   "prop_back_round, lane_run, prop_fixpoint")
     rows = [entry(*row) for row in ROWS] + [
         entry(name, src, rep, screen_launches[prop])
         for name, src, rep, prop in SCREEN_ROWS] + [
         entry("merge_fingerprint", "mythril_tpu_torch/csrc/merge.cu",
               "mythril_tpu/laser/lane_engine.py:906",
-              {"merge_fingerprint": k9_launches})]
+              {"merge_fingerprint": k9_launches}),
+        entry("lane_run", "mythril_tpu_torch/csrc/stepper.cu",
+              "mythril_tpu/ops/stepper.py:902", concrete_launches),
+        entry("prop_fixpoint", "mythril_tpu_torch/csrc/screen.cu",
+              "mythril_tpu/ops/propagate.py:798", fused_launches)]
     fast = [r["name"] for r in rows + [inlined]
             if r["device_ms"] is not None and r["device_ms"] < r["bound_ms"]]
     if fast:

@@ -34,7 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"bv256": 0, "sym_init": 0, "sym_step": 0,
             "window_prologue": 0, "window_dedup": 0, "window_epilogue": 0,
             "interval_level": 0, "prop_fwd_level": 0, "prop_back_round": 0,
-            "prop_tables": 0, "merge_fingerprint": 0}
+            "prop_tables": 0, "merge_fingerprint": 0, "lane_run": 0,
+            "prop_fixpoint": 0}
 
 _LOCK = threading.Lock()
 _LIBS = {}

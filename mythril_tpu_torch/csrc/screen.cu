@@ -14,6 +14,10 @@
 //   K8 prop_init        propagate.py:699 _init_tables
 //      prop_exchange    propagate.py:327 _exchange_all
 //      prop_verdicts    propagate.py:720 _verdicts
+//   K11 prop_fixpoint   propagate.py:798 _fixpoint: the whole fixpoint
+//                       (init, sweeps to a fixpoint or the cap,
+//                       verdicts) in one launch, built from the device
+//                       functions of K6-K8 (see its own note below).
 //
 // Tables are (S, T, 8) uint32 limb words per state and node row (lo,
 // hi, and for the product domain k0, k1); levels and rounds are the
@@ -366,20 +370,24 @@ __device__ __forceinline__ bool put(uint32_t* p, const W& w, const W& old) {
 // K5 / K6: one forward level, one thread per (state, node)
 // ---------------------------------------------------------------------------
 
+struct Level {
+  const int32_t *node, *op, *args;
+  const uint32_t *mask, *aux;
+  const uint8_t *lvl_bool, *lvl_num;
+  int W;
+};
+
+// entry j of a level for state s; returns whether it stored a word that
+// differs (always false for the interval-only K5, which overwrites)
 template <bool PRODUCT>
-__global__ void __launch_bounds__(128)
-level_kernel(Tabs t, int Wd, const int32_t* node, const int32_t* op,
-             const int32_t* args, const uint32_t* mask, const uint32_t* aux,
-             const uint8_t* lvl_bool, const uint8_t* lvl_num, int32_t* changed) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)t.S * Wd) return;
-  int s = (int)(i / Wd), j = (int)(i % Wd);
-  int o = op[j], nd = node[j];
-  if (o == NOP || nd < 0 || nd >= t.T) return;  // NOP/pad rows keep their value
+__device__ bool fwd_entry(const Tabs& t, const Level& L, int s, int j) {
+  int o = L.op[j], nd = L.node[j];
+  if (o == NOP || nd < 0 || nd >= t.T) return false;  // NOP/pad rows keep their value
+  const int32_t* args = L.args;
   int a0 = clampi(args[3 * j], 0, t.T - 1);
   int a1 = clampi(args[3 * j + 1], 0, t.T - 1);
   int a2 = clampi(args[3 * j + 2], 0, t.T - 1);
-  W m = ldw(mask + 8 * j), x = ldw(aux + 8 * j);
+  W m = ldw(L.mask + 8 * j), x = ldw(L.aux + 8 * j);
   W alo = ldw(t.lo + t.row(s, a0)), ahi = ldw(t.hi + t.row(s, a0));
   W blo = ldw(t.lo + t.row(s, a1)), bhi = ldw(t.hi + t.row(s, a1));
   W clo = bv::zero(), chi = bv::zero();
@@ -391,12 +399,12 @@ level_kernel(Tabs t, int Wd, const int32_t* node, const int32_t* op,
   W lo, hi;
   if (!transfer(o, alo, ahi, blo, bhi, clo, chi, m, x, args[3 * j + 1],
                 args[3 * j + 2], lo, hi))
-    return;
+    return false;
   size_t r = t.row(s, nd);
   if (!PRODUCT) {
     stw(t.lo + r, lo);
     stw(t.hi + r, hi);
-    return;
+    return false;
   }
   W ak0 = ldw(t.k0 + t.row(s, a0)), ak1 = ldw(t.k1 + t.row(s, a0));
   W bk0 = ldw(t.k0 + t.row(s, a1)), bk1 = ldw(t.k1 + t.row(s, a1));
@@ -414,12 +422,20 @@ level_kernel(Tabs t, int Wd, const int32_t* node, const int32_t* op,
     hi.l[0] = 0;
   W clo0 = ldw(t.lo + r), chi0 = ldw(t.hi + r), ck00 = ldw(t.k0 + r), ck10 = ldw(t.k1 + r);
   W flo = clo0, fhi = chi0, fk0 = ck00, fk1 = ck10;
-  meet(lvl_bool[j] != 0, lvl_num[j] != 0, flo, fhi, fk0, fk1, lo, hi, nk0, nk1);
+  meet(L.lvl_bool[j] != 0, L.lvl_num[j] != 0, flo, fhi, fk0, fk1, lo, hi, nk0, nk1);
   bool diff = put(t.lo + r, flo, clo0);
   diff |= put(t.hi + r, fhi, chi0);
   diff |= put(t.k0 + r, fk0, ck00);
   diff |= put(t.k1 + r, fk1, ck10);
-  if (diff && changed) *changed = 1;
+  return diff;
+}
+
+template <bool PRODUCT>
+__global__ void __launch_bounds__(128)
+level_kernel(Tabs t, Level L, int32_t* changed) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)t.S * L.W) return;
+  if (fwd_entry<PRODUCT>(t, L, (int)(i / L.W), (int)(i % L.W)) && changed) *changed = 1;
 }
 
 // ---------------------------------------------------------------------------
@@ -605,126 +621,252 @@ __device__ void back_entry(const Tabs& t, const Round& R, int s, int j, W& lo, W
   meet(R.tbool[j] != 0, R.tnum[j] != 0, lo, hi, k0, k1, nlo, nhi, nk0, nk1);
 }
 
-// A block takes one state at a time. Phase 1: every entry's candidate
-// from the pre-round rows into the block's staging slots; phase 2,
-// after the barrier: the targets. An entry's target may be another
-// entry's parent or sibling in the same round; the barrier makes every
-// read precede every write, as the JAX gather-then-scatter does.
+// One round for state s, by the whole block. Phase 1: every entry's
+// candidate from the pre-round rows into the block's staging slots;
+// phase 2, after the barrier: the targets. An entry's target may be
+// another entry's parent or sibling in the same round; the barrier makes
+// every read precede every write, as the JAX gather-then-scatter does.
 // Targets are unique within a round (build_plan), and a thread reads
-// back only the slots it wrote.
+// back only the slots it wrote. Every thread of the block must call it;
+// it ends with a barrier. Returns whether this thread stored a word that
+// differs.
+__device__ bool back_state(const Tabs& t, int Wd, const Round& R, uint32_t* slot, int s) {
+  for (int j = threadIdx.x; j < Wd; j += blockDim.x) {
+    if (R.tgt[j] < 0 || R.tgt[j] >= t.T) continue;  // pad: dropped
+    W lo, hi, k0, k1;
+    back_entry(t, R, s, j, lo, hi, k0, k1);
+    stw(slot + 32 * j, lo);
+    stw(slot + 32 * j + 8, hi);
+    stw(slot + 32 * j + 16, k0);
+    stw(slot + 32 * j + 24, k1);
+  }
+  __syncthreads();
+  bool diff = false;
+  for (int j = threadIdx.x; j < Wd; j += blockDim.x) {
+    int tg = R.tgt[j];
+    if (tg < 0 || tg >= t.T) continue;
+    size_t r = t.row(s, tg);
+    diff |= put(t.lo + r, ldw(slot + 32 * j), ldw(t.lo + r));
+    diff |= put(t.hi + r, ldw(slot + 32 * j + 8), ldw(t.hi + r));
+    diff |= put(t.k0 + r, ldw(slot + 32 * j + 16), ldw(t.k0 + r));
+    diff |= put(t.k1 + r, ldw(slot + 32 * j + 24), ldw(t.k1 + r));
+  }
+  __syncthreads();
+  return diff;
+}
+
+// K7: a block takes one state at a time
 __global__ void __launch_bounds__(256)
 back_kernel(Tabs t, int Wd, Round R, uint32_t* stage, int32_t* changed) {
   uint32_t* slot = stage + (size_t)blockIdx.x * Wd * 32;
-  for (int s = blockIdx.x; s < t.S; s += gridDim.x) {
-    for (int j = threadIdx.x; j < Wd; j += blockDim.x) {
-      if (R.tgt[j] < 0 || R.tgt[j] >= t.T) continue;  // pad: dropped
-      W lo, hi, k0, k1;
-      back_entry(t, R, s, j, lo, hi, k0, k1);
-      stw(slot + 32 * j, lo);
-      stw(slot + 32 * j + 8, hi);
-      stw(slot + 32 * j + 16, k0);
-      stw(slot + 32 * j + 24, k1);
-    }
-    __syncthreads();
-    bool diff = false;
-    for (int j = threadIdx.x; j < Wd; j += blockDim.x) {
-      int tg = R.tgt[j];
-      if (tg < 0 || tg >= t.T) continue;
-      size_t r = t.row(s, tg);
-      diff |= put(t.lo + r, ldw(slot + 32 * j), ldw(t.lo + r));
-      diff |= put(t.hi + r, ldw(slot + 32 * j + 8), ldw(t.hi + r));
-      diff |= put(t.k0 + r, ldw(slot + 32 * j + 16), ldw(t.k0 + r));
-      diff |= put(t.k1 + r, ldw(slot + 32 * j + 24), ldw(t.k1 + r));
-    }
-    if (diff && changed) *changed = 1;
-    __syncthreads();
-  }
+  for (int s = blockIdx.x; s < t.S; s += gridDim.x)
+    if (back_state(t, Wd, R, slot, s) && changed) *changed = 1;
 }
 
 // ---------------------------------------------------------------------------
 // K8: the table-wide passes
 // ---------------------------------------------------------------------------
 
-// broadcast the init rows, scatter the seeds, pin asserted roots TRUE;
-// slots at rows past the table are dropped (mode="drop")
-__global__ void __launch_bounds__(256)
-init_kernel(Tabs t, const uint32_t* ilo, const uint32_t* ihi, const uint32_t* ik0,
-            const uint32_t* ik1, const int32_t* seed_idx, const uint32_t* seed_lo,
-            const uint32_t* seed_hi, int V, const int32_t* aidx,
-            const uint8_t* amask, int A) {
+// the inputs of the init pass
+struct Init {
+  const uint32_t *ilo, *ihi, *ik0, *ik1;
+  const int32_t* seed_idx;
+  const uint32_t *seed_lo, *seed_hi;
+  int V;
+  const int32_t* aidx;
+  const uint8_t* amask;
+  int A;
+};
+
+// state s by the whole block: broadcast the init rows, scatter the
+// seeds, pin asserted roots TRUE; slots at rows past the table are
+// dropped (mode="drop"). Ends with a barrier.
+__device__ void init_state(const Tabs& t, const Init& in, int s) {
   const int n4 = t.T * 2;  // 16-byte vectors per table
-  for (int s = blockIdx.x; s < t.S; s += gridDim.x) {
-    size_t base = t.row(s, 0) / 4;
-    for (int q = threadIdx.x; q < n4; q += blockDim.x) {
-      reinterpret_cast<uint4*>(t.lo)[base + q] = reinterpret_cast<const uint4*>(ilo)[q];
-      reinterpret_cast<uint4*>(t.hi)[base + q] = reinterpret_cast<const uint4*>(ihi)[q];
-      reinterpret_cast<uint4*>(t.k0)[base + q] = reinterpret_cast<const uint4*>(ik0)[q];
-      reinterpret_cast<uint4*>(t.k1)[base + q] = reinterpret_cast<const uint4*>(ik1)[q];
-    }
-    __syncthreads();
-    for (int v = threadIdx.x; v < V; v += blockDim.x) {
-      int r = seed_idx[(size_t)s * V + v];
-      if (r < 0 || r >= t.T) continue;
-      stw(t.lo + t.row(s, r), ldw(seed_lo + ((size_t)s * V + v) * 8));
-      stw(t.hi + t.row(s, r), ldw(seed_hi + ((size_t)s * V + v) * 8));
-    }
-    __syncthreads();
-    for (int a = threadIdx.x; a < A; a += blockDim.x) {
-      int r = aidx[(size_t)s * A + a];
-      if (!amask[(size_t)s * A + a] || r < 0 || r >= t.T) continue;
-      t.lo[t.row(s, r)] = 0;
-    }
-    __syncthreads();
+  size_t base = t.row(s, 0) / 4;
+  for (int q = threadIdx.x; q < n4; q += blockDim.x) {
+    reinterpret_cast<uint4*>(t.lo)[base + q] = reinterpret_cast<const uint4*>(in.ilo)[q];
+    reinterpret_cast<uint4*>(t.hi)[base + q] = reinterpret_cast<const uint4*>(in.ihi)[q];
+    reinterpret_cast<uint4*>(t.k0)[base + q] = reinterpret_cast<const uint4*>(in.ik0)[q];
+    reinterpret_cast<uint4*>(t.k1)[base + q] = reinterpret_cast<const uint4*>(in.ik1)[q];
   }
+  __syncthreads();
+  for (int v = threadIdx.x; v < in.V; v += blockDim.x) {
+    int r = in.seed_idx[(size_t)s * in.V + v];
+    if (r < 0 || r >= t.T) continue;
+    stw(t.lo + t.row(s, r), ldw(in.seed_lo + ((size_t)s * in.V + v) * 8));
+    stw(t.hi + t.row(s, r), ldw(in.seed_hi + ((size_t)s * in.V + v) * 8));
+  }
+  __syncthreads();
+  for (int a = threadIdx.x; a < in.A; a += blockDim.x) {
+    int r = in.aidx[(size_t)s * in.A + a];
+    if (!in.amask[(size_t)s * in.A + a] || r < 0 || r >= t.T) continue;
+    t.lo[t.row(s, r)] = 0;
+  }
+  __syncthreads();
 }
 
-// interval <-> known bits on numeric rows, one thread per (state, row)
+__global__ void __launch_bounds__(256) init_kernel(Tabs t, Init in) {
+  for (int s = blockIdx.x; s < t.S; s += gridDim.x) init_state(t, in, s);
+}
+
+// interval <-> known bits on numeric row r of state s; returns whether
+// it stored a word that differs
+__device__ __forceinline__ bool exchange_row(const Tabs& t, const uint8_t* numeric, int s,
+                                             int r) {
+  if (!numeric[r]) return false;
+  size_t o = t.row(s, r);
+  W lo = ldw(t.lo + o), hi = ldw(t.hi + o), k0 = ldw(t.k0 + o), k1 = ldw(t.k1 + o);
+  W known = bv::bnot(smear(bv::bxor(lo, hi)));
+  W k1n = bv::bor(k1, bv::band(lo, known));
+  W k0n = bv::bor(k0, bv::band(bv::bnot(lo), known));
+  bool diff = put(t.lo + o, max_n(lo, k1n), lo);
+  diff |= put(t.hi + o, min_n(hi, bv::bnot(k0n)), hi);
+  diff |= put(t.k0 + o, k0n, k0);
+  diff |= put(t.k1 + o, k1n, k1);
+  return diff;
+}
+
+// one thread per (state, row)
 __global__ void __launch_bounds__(128)
 exchange_kernel(Tabs t, const uint8_t* numeric, int32_t* changed) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)t.S * t.T) return;
-  if (!numeric[i % t.T]) return;
-  size_t r = (size_t)i * bv::NL;
-  W lo = ldw(t.lo + r), hi = ldw(t.hi + r), k0 = ldw(t.k0 + r), k1 = ldw(t.k1 + r);
-  W known = bv::bnot(smear(bv::bxor(lo, hi)));
-  W k1n = bv::bor(k1, bv::band(lo, known));
-  W k0n = bv::bor(k0, bv::band(bv::bnot(lo), known));
-  bool diff = put(t.lo + r, max_n(lo, k1n), lo);
-  diff |= put(t.hi + r, min_n(hi, bv::bnot(k0n)), hi);
-  diff |= put(t.k0 + r, k0n, k0);
-  diff |= put(t.k1 + r, k1n, k1);
-  if (diff && changed) *changed = 1;
+  if (exchange_row(t, numeric, (int)(i / t.T), (int)(i % t.T)) && changed) *changed = 1;
 }
 
-// per state: contra = some row conflicts, ok = every live assertion may
-// be true and no conflict; a block per state
+// state s by the whole block: contra = some row conflicts, ok = every
+// live assertion may be true and no conflict. Ends with a barrier.
+__device__ void verdict_state(const Tabs& t, const uint8_t* numeric, const uint8_t* isbool,
+                              const int32_t* aidx, const uint8_t* amask, int A, int s,
+                              uint8_t* ok, uint8_t* contra) {
+  int conf = 0, bad = 0;
+  for (int r = threadIdx.x; r < t.T && !conf; r += blockDim.x) {
+    size_t o = t.row(s, r);
+    if (numeric[r]) {
+      W lo = ldw(t.lo + o), hi = ldw(t.hi + o);
+      conf = !bv::is_zero(bv::band(ldw(t.k0 + o), ldw(t.k1 + o))) || bv::ult(hi, lo);
+    } else if (isbool[r]) {
+      conf = t.lo[o] == 0 && t.hi[o] == 0;
+    }
+  }
+  for (int a = threadIdx.x; a < A; a += blockDim.x) {
+    if (amask[(size_t)s * A + a]) {
+      int r = clampi(aidx[(size_t)s * A + a], 0, t.T - 1);
+      bad |= t.hi[t.row(s, r)] == 0;
+    }
+  }
+  conf = __syncthreads_or(conf);
+  bad = __syncthreads_or(bad);
+  if (threadIdx.x == 0) {
+    contra[s] = conf ? 1 : 0;
+    ok[s] = (conf || bad) ? 0 : 1;
+  }
+}
+
+// a block per state
 __global__ void __launch_bounds__(256)
 verdicts_kernel(Tabs t, const uint8_t* numeric, const uint8_t* isbool,
                 const int32_t* aidx, const uint8_t* amask, int A, uint8_t* ok,
                 uint8_t* contra) {
+  for (int s = blockIdx.x; s < t.S; s += gridDim.x)
+    verdict_state(t, numeric, isbool, aidx, amask, A, s, ok, contra);
+}
+
+// ---------------------------------------------------------------------------
+// K11: the fused fixpoint
+// ---------------------------------------------------------------------------
+//
+// JAX's _fixpoint runs init, then sweeps (forward levels, exchange,
+// backward rounds from the last level, exchange) while some table of
+// the wave changed and fewer than cap sweeps ran, then the verdicts.
+// Here a block takes one system at a time and runs that whole sequence
+// for it, with a barrier between passes (each pass is the K6, K8 or K7
+// device function, for one system). No grid-wide sync is needed: every
+// read and write of a pass is of the system's own rows (the level and
+// round row sets are shared, the tables are not; _exchange_all's
+// numeric mask broadcasts over systems), so systems never depend on one
+// another. A system stops at its own first sweep that stores no
+// differing word. Its tables are then unchanged by that sweep, and a
+// sweep is a function of the system's tables alone, so every further
+// sweep the wave would run is the identity on it. The wave's sweep
+// count is therefore the largest per-system count (each capped at cap);
+// the kernel writes each system's count and the wrapper takes the
+// maximum. Whether a sweep changed nothing is the flag K6-K8 set, which
+// stands for the JAX comparison of start and end tables because
+// refinement is monotone (see the changed flag above).
+//
+// Bound: bytes. Per sweep a system's four tables are read (and the rows
+// that change written) by its passes; chip_smoke.py counts each
+// system's tables once per sweep it ran. The staging slot of the
+// backward rounds is the block's own (global memory, L1/L2 resident).
+
+struct Passes {
+  int L;
+  const int32_t* loff;  // L+1 entry offsets of the levels
+  Level lv;             // the levels' arrays, concatenated (W unused)
+  int R;
+  const int32_t* roff;  // R+1 entry offsets of the rounds, run order
+  Round rd;             // the rounds' arrays, concatenated
+};
+
+__device__ __forceinline__ Level level_at(const Passes& P, int l) {
+  int o = P.loff[l];
+  Level L = P.lv;
+  L.node += o;
+  L.op += o;
+  L.args += 3 * o;
+  L.mask += 8 * o;
+  L.aux += 8 * o;
+  L.lvl_bool += o;
+  L.lvl_num += o;
+  L.W = P.loff[l + 1] - o;
+  return L;
+}
+
+__device__ __forceinline__ Round round_at(const Passes& P, int q) {
+  int o = P.roff[q];
+  Round R = P.rd;
+  R.parent += o;
+  R.a += o;
+  R.b += o;
+  R.tgt += o;
+  R.tgt_c += o;
+  R.role += o;
+  R.op += o;
+  R.pmask += 8 * o;
+  R.paux += 8 * o;
+  R.lob += o;
+  R.tnum += o;
+  R.tbool += o;
+  return R;
+}
+
+__global__ void __launch_bounds__(128)
+fixpoint_kernel(Tabs t, Passes P, Init in, const uint8_t* numeric, const uint8_t* isbool,
+                int cap, uint32_t* stage, int stage_w, uint8_t* ok, uint8_t* contra,
+                int32_t* sweeps) {
+  uint32_t* slot = stage + (size_t)blockIdx.x * stage_w * 32;
   for (int s = blockIdx.x; s < t.S; s += gridDim.x) {
-    int conf = 0, bad = 0;
-    for (int r = threadIdx.x; r < t.T && !conf; r += blockDim.x) {
-      size_t o = t.row(s, r);
-      if (numeric[r]) {
-        W lo = ldw(t.lo + o), hi = ldw(t.hi + o);
-        conf = !bv::is_zero(bv::band(ldw(t.k0 + o), ldw(t.k1 + o))) || bv::ult(hi, lo);
-      } else if (isbool[r]) {
-        conf = t.lo[o] == 0 && t.hi[o] == 0;
+    init_state(t, in, s);
+    int n = 0;
+    while (n < cap) {
+      bool diff = false;
+      for (int l = 0; l < P.L; ++l) {
+        const Level L = level_at(P, l);
+        for (int j = threadIdx.x; j < L.W; j += blockDim.x) diff |= fwd_entry<true>(t, L, s, j);
+        __syncthreads();
       }
+      for (int r = threadIdx.x; r < t.T; r += blockDim.x) diff |= exchange_row(t, numeric, s, r);
+      __syncthreads();
+      for (int q = 0; q < P.R; ++q)
+        diff |= back_state(t, P.roff[q + 1] - P.roff[q], round_at(P, q), slot, s);
+      for (int r = threadIdx.x; r < t.T; r += blockDim.x) diff |= exchange_row(t, numeric, s, r);
+      ++n;
+      if (!__syncthreads_or(diff)) break;
     }
-    for (int a = threadIdx.x; a < A; a += blockDim.x) {
-      if (amask[(size_t)s * A + a]) {
-        int r = clampi(aidx[(size_t)s * A + a], 0, t.T - 1);
-        bad |= t.hi[t.row(s, r)] == 0;
-      }
-    }
-    conf = __syncthreads_or(conf);
-    bad = __syncthreads_or(bad);
-    if (threadIdx.x == 0) {
-      contra[s] = conf ? 1 : 0;
-      ok[s] = (conf || bad) ? 0 : 1;
-    }
+    verdict_state(t, numeric, isbool, in.aidx, in.amask, in.A, s, ok, contra);
+    if (threadIdx.x == 0) sweeps[s] = n;
   }
 }
 
@@ -742,11 +884,11 @@ MTT_EXPORT int interval_level(void* lo, void* hi, int S, int T, int Wd, const vo
                               const void* op, const void* args, const void* mask,
                               const void* aux, void* stream) {
   Tabs t{(uint32_t*)lo, (uint32_t*)hi, nullptr, nullptr, S, T};
+  Level L{(const int32_t*)node, (const int32_t*)op, (const int32_t*)args,
+          (const uint32_t*)mask, (const uint32_t*)aux, nullptr, nullptr, Wd};
   long long n = (long long)S * Wd;
   if (n > 0)
-    level_kernel<false><<<grid_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
-        t, Wd, (const int32_t*)node, (const int32_t*)op, (const int32_t*)args,
-        (const uint32_t*)mask, (const uint32_t*)aux, nullptr, nullptr, nullptr);
+    level_kernel<false><<<grid_for(n, 128), 128, 0, (cudaStream_t)stream>>>(t, L, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -755,12 +897,13 @@ MTT_EXPORT int prop_fwd_level(void* lo, void* hi, void* k0, void* k1, int S, int
                               const void* mask, const void* aux, const void* lvl_bool,
                               const void* lvl_num, void* changed, void* stream) {
   Tabs t{(uint32_t*)lo, (uint32_t*)hi, (uint32_t*)k0, (uint32_t*)k1, S, T};
+  Level L{(const int32_t*)node, (const int32_t*)op, (const int32_t*)args,
+          (const uint32_t*)mask, (const uint32_t*)aux, (const uint8_t*)lvl_bool,
+          (const uint8_t*)lvl_num, Wd};
   long long n = (long long)S * Wd;
   if (n > 0)
     level_kernel<true><<<grid_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
-        t, Wd, (const int32_t*)node, (const int32_t*)op, (const int32_t*)args,
-        (const uint32_t*)mask, (const uint32_t*)aux, (const uint8_t*)lvl_bool,
-        (const uint8_t*)lvl_num, (int32_t*)changed);
+        t, L, (int32_t*)changed);
   return (int)cudaGetLastError();
 }
 
@@ -783,6 +926,15 @@ MTT_EXPORT int prop_back_round(void* lo, void* hi, void* k0, void* k1, int S, in
   return (int)cudaGetLastError();
 }
 
+static Init make_init(const void* init_lo, const void* init_hi, const void* init_k0,
+                      const void* init_k1, const void* seed_idx, const void* seed_lo,
+                      const void* seed_hi, int V, const void* aidx, const void* amask,
+                      int A) {
+  return Init{(const uint32_t*)init_lo, (const uint32_t*)init_hi, (const uint32_t*)init_k0,
+              (const uint32_t*)init_k1, (const int32_t*)seed_idx, (const uint32_t*)seed_lo,
+              (const uint32_t*)seed_hi, V, (const int32_t*)aidx, (const uint8_t*)amask, A};
+}
+
 MTT_EXPORT int prop_init(void* lo, void* hi, void* k0, void* k1, int S, int T,
                          const void* init_lo, const void* init_hi, const void* init_k0,
                          const void* init_k1, const void* seed_idx, const void* seed_lo,
@@ -791,9 +943,8 @@ MTT_EXPORT int prop_init(void* lo, void* hi, void* k0, void* k1, int S, int T,
   Tabs t{(uint32_t*)lo, (uint32_t*)hi, (uint32_t*)k0, (uint32_t*)k1, S, T};
   if (S > 0 && T > 0)
     init_kernel<<<state_grid(S), 256, 0, (cudaStream_t)stream>>>(
-        t, (const uint32_t*)init_lo, (const uint32_t*)init_hi, (const uint32_t*)init_k0,
-        (const uint32_t*)init_k1, (const int32_t*)seed_idx, (const uint32_t*)seed_lo,
-        (const uint32_t*)seed_hi, V, (const int32_t*)aidx, (const uint8_t*)amask, A);
+        t, make_init(init_lo, init_hi, init_k0, init_k1, seed_idx, seed_lo, seed_hi, V,
+                     aidx, amask, A));
   return (int)cudaGetLastError();
 }
 
@@ -817,4 +968,51 @@ MTT_EXPORT int prop_verdicts(void* lo, void* hi, void* k0, void* k1, int S, int 
         t, (const uint8_t*)numeric, (const uint8_t*)isbool, (const int32_t*)aidx,
         (const uint8_t*)amask, A, (uint8_t*)ok, (uint8_t*)contra);
   return (int)cudaGetLastError();
+}
+
+// K11. tabs: the four (S, T, 8) tables, written whole; lv: node, op,
+// args, mask, aux, lvl_bool, lvl_num of every level, concatenated;
+// rd: parent, a, b, tgt, tgt_c, role, op, pmask, paux, lob, tnum, tbool
+// of every round in run order (levels from the last, each level's rounds
+// in order), concatenated; loff, roff: device offsets (L+1, R+1) of each
+// level and round; init: init_lo, init_hi, init_k0, init_k1, seed_idx,
+// seed_lo, seed_hi, assert_idx, assert_mask. stage: blocks x stage_w x 32
+// words (stage_w at least the widest round); blocks: the grid
+// (prop_fixpoint_blocks gives the count resident at once). Writes ok,
+// contra and each system's sweep count.
+MTT_EXPORT int prop_fixpoint(void** tabs, int S, int T, void** lv, const void* loff, int L,
+                             void** rd, const void* roff, int R, void** init, int V, int A,
+                             const void* numeric, const void* isbool, int cap, void* stage,
+                             int stage_w, int blocks, void* ok, void* contra, void* sweeps,
+                             void* stream) {
+  Tabs t{(uint32_t*)tabs[0], (uint32_t*)tabs[1], (uint32_t*)tabs[2], (uint32_t*)tabs[3],
+         S, T};
+  Passes P;
+  P.L = L;
+  P.loff = (const int32_t*)loff;
+  P.lv = Level{(const int32_t*)lv[0], (const int32_t*)lv[1], (const int32_t*)lv[2],
+               (const uint32_t*)lv[3], (const uint32_t*)lv[4], (const uint8_t*)lv[5],
+               (const uint8_t*)lv[6], 0};
+  P.R = R;
+  P.roff = (const int32_t*)roff;
+  P.rd = Round{(const int32_t*)rd[0], (const int32_t*)rd[1], (const int32_t*)rd[2],
+               (const int32_t*)rd[3], (const int32_t*)rd[4], (const int32_t*)rd[5],
+               (const int32_t*)rd[6], (const uint32_t*)rd[7], (const uint32_t*)rd[8],
+               (const uint32_t*)rd[9], (const uint8_t*)rd[10], (const uint8_t*)rd[11]};
+  Init in = make_init(init[0], init[1], init[2], init[3], init[4], init[5], init[6], V,
+                      init[7], init[8], A);
+  if (S > 0 && T > 0 && blocks > 0)
+    fixpoint_kernel<<<blocks, 128, 0, (cudaStream_t)stream>>>(
+        t, P, in, (const uint8_t*)numeric, (const uint8_t*)isbool, cap, (uint32_t*)stage,
+        stage_w, (uint8_t*)ok, (uint8_t*)contra, (int32_t*)sweeps);
+  return (int)cudaGetLastError();
+}
+
+// blocks of K11 resident at once on the current device (its grid)
+MTT_EXPORT int prop_fixpoint_blocks() {
+  int dev = 0, sms = 0, per = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, fixpoint_kernel, 128, 0);
+  return sms * (per > 0 ? per : 1);
 }

@@ -1,9 +1,10 @@
 """Carry lane state, compiled code and screen encodings between the JAX
 package and the port, as numpy.
 
-A JAX ``SymLaneState`` reaches here as ``{field: numpy array}`` (the
-caller takes ``np.asarray`` of each plane) and a ``CompiledCode`` as its
-``packed`` array and ``size``; nothing here imports JAX. uint32 planes
+A JAX ``SymLaneState`` or concrete ``LaneState`` reaches here as
+``{field: numpy array}`` (the caller takes ``np.asarray`` of each plane)
+and a ``CompiledCode`` as its ``packed`` array and ``size``; nothing
+here imports JAX. uint32 planes
 travel as their bit patterns (the port's int32 tensors), so a round trip
 is exact. The tests feed both packages the same inputs through these.
 """
@@ -13,36 +14,46 @@ import torch
 
 from .ops.intervals import EncodedDAG
 from .ops.propagate import Plan
-from .ops.stepper import CompiledCode
+from .ops.stepper import (
+    LANE_FIELDS, LANE_U8, LANE_U32, CompiledCode, LaneState,
+)
 from .ops.symstep import FIELDS, U8_FIELDS, U32_FIELDS, SymLaneState
 from .support.devices import resolve
 
+#: state class -> (its fields, uint8 planes, uint32 planes)
+_LAYOUTS = {SymLaneState: (FIELDS, U8_FIELDS, U32_FIELDS),
+            LaneState: (LANE_FIELDS, LANE_U8, LANE_U32)}
 
-def state_from_numpy(planes: dict, device=None) -> SymLaneState:
+
+def state_from_numpy(planes: dict, device=None):
     """{field: numpy array} in the JAX dtypes -> the port's state on
-    ``device``."""
+    ``device``: a ``SymLaneState`` for the symbolic planes, a
+    ``LaneState`` for the concrete stepper's 17."""
     dev = resolve(device)
+    cls = LaneState if set(planes) == set(LANE_FIELDS) else SymLaneState
+    fields_, u8_fields, u32_fields = _LAYOUTS[cls]
     out = {}
-    for name in FIELDS:
+    for name in fields_:
         arr = np.array(planes[name])  # keeps 0-d scalars 0-d
-        if name in U8_FIELDS:
+        if name in u8_fields:
             arr = arr.astype(np.uint8)
-        elif name in U32_FIELDS:
+        elif name in u32_fields:
             arr = arr.astype(np.uint32).view(np.int32)
         else:
             arr = arr.astype(np.int32)
         out[name] = torch.from_numpy(np.ascontiguousarray(arr)
                                      .reshape(arr.shape)).to(dev)
-    return SymLaneState(**out)
+    return cls(**out)
 
 
-def state_to_numpy(st: SymLaneState) -> dict:
-    """The port's state -> {field: numpy array} in the JAX dtypes
-    (uint32 planes as uint32)."""
+def state_to_numpy(st) -> dict:
+    """The port's state (symbolic or concrete) -> {field: numpy array}
+    in the JAX dtypes (uint32 planes as uint32)."""
+    fields_, _, u32_fields = _LAYOUTS[type(st)]
     out = {}
-    for name in FIELDS:
+    for name in fields_:
         arr = getattr(st, name).detach().cpu().numpy()
-        out[name] = arr.view(np.uint32) if name in U32_FIELDS else arr
+        out[name] = arr.view(np.uint32) if name in u32_fields else arr
     return out
 
 

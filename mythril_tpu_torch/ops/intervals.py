@@ -616,6 +616,9 @@ SCREEN_SIGS = {
     "prop_init": [_P] * 4 + [_I] * 2 + [_P] * 7 + [_I, _P, _P, _I, _P],
     "prop_exchange": [_P] * 4 + [_I] * 2 + [_P] * 3,
     "prop_verdicts": [_P] * 4 + [_I] * 2 + [_P] * 4 + [_I] + [_P] * 3,
+    "prop_fixpoint": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _P, _I, _I, _P, _P,
+                      _I, _P, _I, _I, _P, _P, _P, _P],
+    "prop_fixpoint_blocks": [],
 }
 
 

@@ -34,11 +34,21 @@ value and the flag gives the same sweep count without copying the
 tables). ``changed_plain`` is the JAX comparison, kept to check the
 flag against.
 
+Two drivers, chosen as the JAX package chooses them
+(``MTPU_PROPAGATE_FUSE``, read once at import into ``FUSE``):
+``_run_host`` sequences the passes from the host, a launch each, with
+one changed-flag read per sweep; ``_fixpoint`` (the JAX ``_fixpoint``)
+runs the whole fixpoint in one launch of kernel K11
+(``csrc/screen.cu`` ``prop_fixpoint``), a block per system running the
+K6-K8 device functions to that system's own fixpoint, or on CPU tables
+``_fixpoint_plain``, which runs the plain passes in the same order on
+the systems still changing. Both give the same tables, verdicts and
+sweep count.
+
 ``prefilter_feasible`` banks its results in the run-wide verdict cache
 (refuted sets recorded UNSAT, facts and bounds noted), and every screen
 meets the static storage-ITE seeds (``_inject_static_seeds``) into its
-init tables first, as the JAX package does. Not here yet: the fused
-``lax.while_loop`` driver (``MTPU_PROPAGATE_FUSE``).
+init tables first, as the JAX package does.
 """
 
 import logging
@@ -84,6 +94,8 @@ SWEEP_CAP = int(os.environ.get("MTPU_PROPAGATE_SWEEPS", "6"))
 #: level-count ceiling: beyond it the screen falls back to the forward
 #: interval-only pass
 MAX_LEVELS = int(os.environ.get("MTPU_PROPAGATE_MAX_LEVELS", "96"))
+#: the fused driver (kernel K11), opt-in as in the JAX package
+FUSE = os.environ.get("MTPU_PROPAGATE_FUSE", "0") == "1"
 #: duplicate-target backward rounds kept per level (further refiners of
 #: an already-refined node are dropped — precision only, never
 #: soundness)
@@ -944,16 +956,142 @@ def _run_host(core, cap: int, plain: bool = False):
     return tabs, ok, contra, sweeps
 
 
+def _fixpoint_plain(core, cap: int):
+    """The fused driver's plain version: init, then sweeps of the plain
+    passes in the order of ``sweep``, each on the systems that changed
+    in the sweep before (all of them first), a system dropping out at
+    its first sweep that leaves its tables equal; then the verdicts.
+    Returns (tables, ok, contra, sweeps, each system's sweeps), sweeps
+    the most any system ran."""
+    tabs = init_tables_plain(core)
+    active = torch.arange(tabs[0].shape[0], device=tabs[0].device)
+    per = torch.zeros(active.numel(), dtype=torch.int32, device=active.device)
+    sweeps = 0
+    for _ in range(cap):
+        if active.numel() == 0:
+            break
+        sub = tuple(t[active] for t in tabs)
+        prev = tuple(t.clone() for t in sub)
+        sweep(core, sub, plain=True)
+        sweeps += 1
+        per[active] += 1
+        for t, x in zip(tabs, sub):
+            t[active] = x
+        moved = torch.zeros(active.numel(), dtype=torch.bool,
+                            device=active.device)
+        for x, y in zip(prev, sub):
+            moved |= (x != y).flatten(1).any(dim=1)
+        active = active[moved]
+    ok, contra = verdicts_plain(core, tabs)
+    return tabs, ok, contra, sweeps, per
+
+
+_LEVEL_KEYS = ("node", "op", "args", "mask", "aux", "lvl_bool", "lvl_num")
+_ROUND_KEYS = ("parent", "a", "b", "tgt", "tgt_c", "role", "op", "pmask",
+               "paux", "lob", "tnum", "tbool")
+_FLAG_KEYS = ("lvl_bool", "lvl_num", "tnum", "tbool")
+
+
+def _cat(xs, key):
+    """Every level's (or round's) ``key`` array, concatenated."""
+    return torch.cat([x[key].reshape(x[key].shape[0], -1) for x in xs])
+
+
+def _offsets(xs, device):
+    off = [0]
+    for x in xs:
+        off.append(off[-1] + x["op"].shape[0])
+    return torch.tensor(off, dtype=torch.int32, device=device)
+
+
+def _fused_plan(_build, core) -> dict:
+    """What K11 reads of the plan's levels and rounds: each key's arrays
+    concatenated, their offsets and the widest round. Built at the
+    first fused call on ``core`` and kept there."""
+    if "fused" not in core:
+        dev = core["init_lo"].device
+        levels = core["levels"]
+        rounds = [r for rs in reversed(core["back"]) for r in rs]
+        lv = [_cat(levels, k) for k in _LEVEL_KEYS]
+        rd = [_cat(rounds, k) for k in _ROUND_KEYS]
+        for key, x in zip(_LEVEL_KEYS + _ROUND_KEYS, lv + rd):
+            _build.need_cuda(x, torch.uint8 if key in _FLAG_KEYS
+                             else torch.int32, key)
+        core["fused"] = dict(
+            lv=lv, rd=rd, lv_ptrs=_build.ptr_array(lv),
+            rd_ptrs=_build.ptr_array(rd), loff=_offsets(levels, dev),
+            roff=_offsets(rounds, dev), n_levels=len(levels),
+            n_rounds=len(rounds),
+            stage_w=max([r["op"].shape[0] for r in rounds] + [1]))
+    return core["fused"]
+
+
+#: K11's resident blocks on each device (an occupancy query)
+_FIXPOINT_BLOCKS = {}
+
+
+def fixpoint_kernel(core, cap: int):
+    """K11 ``prop_fixpoint``: the whole fixpoint in one launch, a block
+    per system at a time (see ``csrc/screen.cu``). Returns (tables, ok,
+    contra, sweeps, each system's sweeps), as ``_fixpoint_plain``."""
+    from .. import _build
+
+    keys = ("init_lo", "init_hi", "init_k0", "init_k1", "seed_idx",
+            "seed_lo", "seed_hi", "assert_idx", "assert_mask")
+    _check_core(_build, core, keys + ("numeric", "isbool"))
+    dev = core["init_lo"].device
+    n_states, n_v = core["seed_idx"].shape
+    n_rows = core["init_lo"].shape[0]
+    fp = _fused_plan(_build, core)
+    tabs = tuple(torch.empty((n_states, n_rows, bv256.NLIMBS),
+                             dtype=torch.int32, device=dev)
+                 for _ in range(4))
+    _build, lib = screen_lib()
+    if str(dev) not in _FIXPOINT_BLOCKS:
+        _FIXPOINT_BLOCKS[str(dev)] = lib.prop_fixpoint_blocks()
+    blocks = min(n_states, _FIXPOINT_BLOCKS[str(dev)])
+    stage_w = fp["stage_w"]
+    stage = torch.empty((max(blocks, 1), stage_w, 4, bv256.NLIMBS),
+                        dtype=torch.int32, device=dev)
+    ok = torch.empty(n_states, dtype=torch.uint8, device=dev)
+    contra = torch.empty_like(ok)
+    per = torch.zeros(n_states, dtype=torch.int32, device=dev)
+    rc = lib.prop_fixpoint(
+        _build.ptr_array(tabs), n_states, n_rows, fp["lv_ptrs"],
+        _build.ptr(fp["loff"]), fp["n_levels"], fp["rd_ptrs"],
+        _build.ptr(fp["roff"]), fp["n_rounds"],
+        _build.ptr_array([core[k] for k in keys]), n_v,
+        core["assert_idx"].shape[1], _build.ptr(core["numeric"]),
+        _build.ptr(core["isbool"]), int(cap), _build.ptr(stage), stage_w,
+        blocks, _build.ptr(ok), _build.ptr(contra), _build.ptr(per),
+        _build.stream(dev))
+    _build.LAUNCHES["prop_fixpoint"] += 1
+    _build.check(lib, rc, "prop_fixpoint")
+    sweeps = int(per.max()) if n_states else 0
+    return tabs, ok != 0, contra != 0, sweeps, per
+
+
+def _fixpoint(core, cap: int, plain: bool = False):
+    """The fused driver: K11 on CUDA tables, ``_fixpoint_plain`` on CPU
+    tables or with ``plain``. Returns (tables, ok, contra, sweeps)."""
+    if _plain(plain, core["init_lo"]):
+        return _fixpoint_plain(core, cap)[:4]
+    return fixpoint_kernel(core, cap)[:4]
+
+
 def run(enc: EncodedDAG, device=None, plain: bool = False):
     """(keep, tables, sweeps) for an encoded wave, or None when the plan
     falls outside the fixpoint's envelope (caller uses the forward
-    interval screen on the SAME encoding)."""
+    interval screen on the SAME encoding). ``FUSE`` picks the fused
+    driver."""
     plan = build_plan(enc)
     if plan is None:
         return None
     core = plan_to_device(plan, resolve(device))
-    with trace.span("propagate.fixpoint", states=enc.n_real) as sp:
-        tabs, ok, _contra, sweeps = _run_host(core, plan.statics[0], plain)
+    driver = _fixpoint if FUSE else _run_host
+    with trace.span("propagate.fixpoint", states=enc.n_real,
+                    fused=FUSE) as sp:
+        tabs, ok, _contra, sweeps = driver(core, plan.statics[0], plain)
         sp.set(sweeps=sweeps)
     keep = ok.cpu().numpy()[:enc.n_real] & ~np.asarray(enc.dead[:enc.n_real])
     return keep, tabs, sweeps

@@ -11,6 +11,14 @@ of rejoining diamonds), ``build_sha3_resume_contract`` the JAX package's
 in-place-resume rig (``tests/test_lane_resume.py``).
 ``build_coverage_contract`` is the port's own: a symbolic switch whose
 arms each exercise one family of the symbolic stepper.
+
+For the concrete stepper: ``build_bench_contract`` and ``bench_batch``
+are the copies of ``bench.py``'s ``build_contract`` and of the batch
+``bench_device`` runs (its headline "paths/sec/chip"), with
+``bench_closed_form``, each lane's outcome from its calldata in Python
+ints. ``build_lane_mix_contract`` is the port's own: per lane, the loop
+of ``build_dispatcher_loop``, a memory loop or a storage loop
+(``lane_mix_batch`` picks one per lane).
 """
 
 from .opcodes import ADDRESS, OPCODES
@@ -205,3 +213,138 @@ def build_coverage_contract() -> bytes:
     for name, body in arms.items():
         items += [("label", name)] + body
     return assemble(items)
+
+
+# ---------------------------------------------------------------------------
+# the concrete stepper's workloads
+# ---------------------------------------------------------------------------
+
+def build_bench_contract() -> bytes:
+    """Dispatcher + arithmetic loop: selector-gated work(x) that
+    iterates x % 97 times doing mul/add chains, then stores the
+    result (``bench.build_contract``)."""
+    op = _OP
+    code = bytearray()
+    code += _push(0) + bytes([op["CALLDATALOAD"]])
+    code += _push(97) + bytes([op["SWAP1"], op["MOD"]])
+    code += _push(1)
+    loop = len(code)
+    code += bytes([op["JUMPDEST"], op["DUP2"], op["ISZERO"]])
+    code += _push(0, 2) + bytes([op["JUMPI"]])
+    patch = len(code) - 4
+    code += _push(3) + bytes([op["MUL"], op["DUP2"], op["ADD"]])
+    code += bytes([op["SWAP1"]]) + _push(1) \
+        + bytes([op["SWAP1"], op["SUB"], op["SWAP1"]])
+    code += _push(loop) + bytes([op["JUMP"]])
+    done = len(code)
+    code += bytes([op["JUMPDEST"]]) + _push(0) \
+        + bytes([op["SSTORE"], op["STOP"]])
+    code[patch + 1:patch + 3] = done.to_bytes(2, "big")
+    return bytes(code)
+
+
+#: ``bench_device``'s batch: lane sizes and its run's step cap
+BENCH_LANE_KW = dict(stack_depth=16, memory_bytes=64, storage_slots=4,
+                     calldata_bytes=32)
+BENCH_MAX_STEPS = 1800
+
+
+def bench_calldata(n_lanes: int):
+    """Lane i's calldata word, i * 2654435761 mod 2**256, as (n, 32)
+    big-endian bytes."""
+    import numpy as np
+
+    cd = np.zeros((n_lanes, 32), dtype=np.uint8)
+    for i in range(n_lanes):
+        cd[i] = np.frombuffer(
+            int.to_bytes(i * 2654435761 % (1 << 256), 32, "big"),
+            dtype=np.uint8)
+    return cd
+
+
+def bench_batch(n_lanes: int, device=None):
+    """``bench_device``'s batch: ``init_lanes`` at its sizes, lane i's
+    calldata ``bench_calldata``, cd_size 32, on ``device``."""
+    import torch
+
+    from ..ops import stepper
+
+    st = stepper.init_lanes(n_lanes, device=device, **BENCH_LANE_KW)
+    st.calldata.copy_(torch.from_numpy(bench_calldata(n_lanes)))
+    st.cd_size.fill_(32)
+    return st
+
+
+def bench_closed_form(words):
+    """Each lane's outcome on ``build_bench_contract`` from its calldata
+    word, in Python ints: (steps retired, the word stored at slot 0).
+    n = x % 97; acc starts at 1 and takes acc * 3 + k for k = n..1;
+    6 prologue steps, 16 a loop turn, 9 for the exit test and the
+    SSTORE tail."""
+    out, memo = [], {}
+    for x in words:
+        n = int(x) % 97
+        if n not in memo:
+            acc = 1
+            for k in range(n, 0, -1):
+                acc = (acc * 3 + k) % (1 << 256)
+            memo[n] = (15 + 16 * n, acc)
+        out.append(memo[n])
+    return out
+
+
+def build_lane_mix_contract() -> bytes:
+    """Three arms on calldata word 1 % 3, each looping n = calldata
+    word 0 times: 0, the dispatcher loop of
+    ``__graft_entry__._build_fixture`` (acc += x*x, SSTORE at the end);
+    1, a memory loop (MSTORE of i*i + n at 32*i, MSTORE8 at 31, an MLOAD
+    back; RETURN of memory[0:MSIZE]), which parks once 32*i passes the
+    lane's memory; 2, a storage loop (slot 7*i % 72 += i + 1, slot 0 :=
+    i, updated in place), which parks once the log's 64 slots are
+    full."""
+    loop_test = ["DUP2", "DUP2", "LT", "ISZERO"]
+    return assemble([
+        0x20, "CALLDATALOAD", 3, "SWAP1", "MOD",
+        "DUP1", 1, "EQ", ("ref", "mem"), "JUMPI",
+        2, "EQ", ("ref", "sto"), "JUMPI",
+        0, "CALLDATALOAD", 0,
+        ("label", "l0"), "DUP2", "ISZERO", ("ref", "d0"), "JUMPI",
+        "DUP2", "DUP3", "MUL", "ADD", "SWAP1", 1, "SWAP1", "SUB", "SWAP1",
+        ("ref", "l0"), "JUMP",
+        ("label", "d0"), 0, "SSTORE", "STOP",
+        ("label", "mem"), "POP", 0, "CALLDATALOAD", 0,
+        ("label", "lm"), *loop_test, ("ref", "dm"), "JUMPI",
+        "DUP1", "DUP1", "MUL", "DUP3", "ADD", "DUP2", 32, "MUL", "MSTORE",
+        "DUP1", 31, "MSTORE8", "DUP1", 32, "MUL", "MLOAD", "POP",
+        1, "ADD", ("ref", "lm"), "JUMP",
+        ("label", "dm"), "POP", "POP", "MSIZE", 0, "RETURN",
+        ("label", "sto"), 0, "CALLDATALOAD", 0,
+        ("label", "ls"), *loop_test, ("ref", "ds"), "JUMPI",
+        "DUP1", 7, "MUL", 72, "SWAP1", "MOD",
+        "DUP1", "SLOAD", "DUP3", "ADD", 1, "ADD", "SWAP1", "SSTORE",
+        "DUP1", 0, "SSTORE", 1, "ADD", ("ref", "ls"), "JUMP",
+        ("label", "ds"), "POP", "POP", 0, "SLOAD", "CALLER", "XOR", 1,
+        "SSTORE", "STOP",
+    ])
+
+
+def lane_mix_batch(n_lanes: int, seed: int, max_n: int = 160,
+                   device=None, **lane_kw):
+    """A batch for ``build_lane_mix_contract``: ``init_lanes`` (its
+    default sizes unless ``lane_kw`` names others), lane i's arm i % 3
+    and a seeded loop count in [0, max_n), 64 bytes of calldata."""
+    import numpy as np
+    import torch
+
+    from ..ops import stepper
+
+    st = stepper.init_lanes(n_lanes, device=device, **lane_kw)
+    rng = np.random.default_rng(seed)
+    cd = np.zeros((n_lanes, st.calldata.shape[1]), dtype=np.uint8)
+    loops = rng.integers(0, max_n, size=n_lanes)
+    cd[:, 30] = loops >> 8
+    cd[:, 31] = loops & 0xFF
+    cd[:, 63] = np.arange(n_lanes) % 3
+    st.calldata.copy_(torch.from_numpy(cd))
+    st.cd_size.fill_(64)
+    return st

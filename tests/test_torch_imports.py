@@ -143,7 +143,8 @@ def test_the_scan_sees_the_package():
             "models/pruner.py", "support/telemetry/spans.py",
             "support/screen_waves.py", "laser/svm.py",
             "interfaces/cli.py", "__main__.py", "support/runs.py",
-            "support/lane_compare.py"} <= names
+            "support/lane_compare.py", "ops/stepper.py", "interop.py",
+            "support/contracts.py"} <= names
     scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
     for rel in EXCLUDED:
         assert os.path.exists(os.path.join(ROOT, rel))
@@ -317,6 +318,31 @@ def test_kernel_constants_equal_the_python_ones():
                        open(os.path.join(csrc, "common.cuh")).read(),
                        re.S).group(1)
     assert tuple(re.findall(r"X\(\w+, (\w+)\)", fields)) == symstep.FIELDS
+
+
+def test_the_lane_kernel_constants_follow_the_port():
+    """csrc/stepper.cu (K10): its plane list is ``LaneState``'s field
+    order, its result classes and op-table columns are the Python
+    side's, and its opcode and status constants are the opcode table's
+    and ``Status``'s."""
+    src = _source(PKG, "csrc", "stepper.cu")
+    fields = re.search(r"#define LANE_FIELDS\(X\)(.*?)\n\n", src,
+                       re.S).group(1)
+    assert tuple(re.findall(r"X\(\w+, (\w+)\)", fields)) == \
+        stepper.LANE_FIELDS
+    enum = re.search(r"enum \{\s*(RC_ZERO.*?)\};", src, re.S).group(1)
+    assert [x.strip()[3:] for x in enum.split(",") if x.strip()] == \
+        stepper.RESULT_CLASSES
+    cols = re.search(r"enum \{ (T_NPOP.*?) \};", src).group(1)
+    assert [c.strip() for c in cols.split(",")] == [
+        "T_NPOP", "T_NPUSH", "T_GAS", "T_SUP", "T_ENV", "T_RCLASS",
+        "T_COLS"]
+    assert stepper.LANE_OP_TABLE.shape == (256, 6)
+    for name, val in re.findall(r"OP_(\w+) = (0x[0-9A-F]+)", src):
+        assert stepper._OP[name] == int(val, 16), name
+    for name, val in re.findall(r"\b([A-Z_]+) = (\d)\b", src):
+        if hasattr(stepper.Status, name):
+            assert getattr(stepper.Status, name) == int(val), name
 
 
 def test_bv256_op_codes_follow_the_kernel_switch():

@@ -9,6 +9,10 @@ every sweep of the fixpoint; the screen as a whole compares keep masks
 set by set, sweep counts, and harvested facts and abstractions by their
 printed terms (term ids differ between the two term tables)."""
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +31,7 @@ from mythril_tpu_torch.smt.interval import state_infeasible
 from mythril_tpu_torch.smt.solver.solver_statistics import SolverStatistics
 from mythril_tpu_torch.support import screen_waves
 from mythril_tpu_torch.support.support_args import args as p_args
+from mythril_tpu_torch.support.telemetry import trace
 
 from .torch_screen_common import canon, layered_sets
 
@@ -298,3 +303,102 @@ def test_an_all_dead_wave():
     got = P.screen(sets, device="cpu")
     assert not got.keep.any() and got.facts == {}
     assert all(state_infeasible(s) for s in sets)
+
+
+# ---------------------------------------------------------------------------
+# the fused driver (JAX _fixpoint, the port's _fixpoint_plain and K11)
+# ---------------------------------------------------------------------------
+
+def fused_sets(Tm):
+    """Four small sets (two DAG levels: the JAX fused program compiles
+    per DAG structure and cap): sets 0 and 2 keep refining one unit a
+    sweep and never converge, sets 1 and 3 converge after two sweeps."""
+    a, b = Tm.bv_var("fa", 256), Tm.bv_var("fb", 256)
+
+    def c(v):
+        return Tm.bv_const(v, 256)
+
+    return [
+        [Tm.mk_ult(a, c(10)), Tm.mk_eq(Tm.mk_and(a, c(0xF0)), c(0x10))],
+        [Tm.mk_ule(c(3), a), Tm.mk_ult(a, c(5)),
+         Tm.mk_eq(Tm.mk_add(a, c(1)), c(5))],
+        [Tm.mk_ult(a, b), Tm.mk_ult(b, c(2)), Tm.mk_ule(c(1), a)],
+        [Tm.mk_eq(Tm.mk_add(a, c(1)), b), Tm.mk_ult(b, c(7))],
+    ]
+
+
+#: wave name -> the sets of fused_sets it holds
+FUSED_WAVES = {"stops_at_the_cap": (0, 1, 2, 3), "converges": (1, 3)}
+
+
+@pytest.fixture(scope="module", params=sorted(FUSED_WAVES))
+def fused(request):
+    """(wave name, JAX plan, JAX _fixpoint_jit's tables, ok, contra,
+    sweeps), the JAX function called directly."""
+    sets = [fused_sets(JT)[i] for i in FUSED_WAVES[request.param]]
+    plan = JP.build_plan(JI.linearize(sets))
+    out = JP._fixpoint_jit(plan.arrays, statics=plan.statics)
+    return request.param, plan, tuple(np.asarray(x) for x in out)
+
+
+def test_the_fused_driver_matches_jax_fixpoint(fused):
+    name, plan, (lo, hi, k0, k1, ok, contra, sweeps) = fused
+    cap = plan.statics[0]
+    tabs, got_ok, got_contra, got_sweeps, per = P._fixpoint_plain(
+        port_core(plan), cap)
+    assert_tables(tabs, (lo, hi, k0, k1), f"{name}: the fixpoint")
+    np.testing.assert_array_equal(got_ok.numpy(), ok)
+    np.testing.assert_array_equal(got_contra.numpy(), contra)
+    assert got_sweeps == int(sweeps) == int(per.max())
+    if name == "stops_at_the_cap":
+        assert got_sweeps == cap and int(per.min()) < cap
+    else:
+        assert got_sweeps < cap
+    # the host-sequenced driver gives the same
+    h_tabs, h_ok, h_contra, h_sweeps = P._run_host(port_core(plan), cap)
+    assert_tables(h_tabs, (lo, hi, k0, k1), f"{name}: the host driver")
+    assert h_sweeps == got_sweeps
+    assert torch.equal(h_ok, got_ok) and torch.equal(h_contra, got_contra)
+
+
+def test_the_fuse_switch_picks_the_fused_driver(monkeypatch):
+    """With ``FUSE`` the port's run takes the fused driver (and not the
+    host-sequenced one), its span carries ``fused``, and the screen's
+    result is the host driver's."""
+    sets = fused_sets(T)
+    was = trace.enabled()
+    trace.configure(enable=True)
+    try:
+        results = {}
+        for fuse in (False, True):
+            monkeypatch.setattr(P, "FUSE", fuse)
+            called = []
+            for name in ("_fixpoint", "_run_host"):
+                real = getattr(P, name)
+                monkeypatch.setattr(P, name, lambda *a, _n=name, _r=real, **k:
+                                    called.append(_n) or _r(*a, **k))
+            trace.clear()
+            results[fuse] = P.screen(sets, device="cpu")
+            assert called == ["_fixpoint" if fuse else "_run_host"]
+            spans = [e for e in trace.snapshot_events()
+                     if e[1] == "propagate.fixpoint"]
+            assert len(spans) == 1 and spans[0][5]["fused"] is fuse
+            assert spans[0][5]["sweeps"] == results[fuse].sweeps
+            monkeypatch.undo()
+    finally:
+        trace.configure(enable=was)
+    assert list(results[True].keep) == list(results[False].keep)
+    assert results[True].sweeps == results[False].sweeps
+    assert _facts(results[True].facts) == _facts(results[False].facts)
+
+
+def test_the_fuse_switch_is_read_from_the_environment():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import mythril_tpu_torch.ops.propagate as P; "
+            "print(P.FUSE)")
+    for value, want in (("1", "True"), ("0", "False")):
+        env = dict(os.environ, MTPU_PROPAGATE_FUSE=value)
+        run = subprocess.run([sys.executable, "-c", code], cwd=root,
+                             env=env, capture_output=True, text=True,
+                             timeout=120)
+        assert run.stdout.strip() == want, run.stderr[-2000:]
