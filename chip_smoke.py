@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Build the port's CUDA kernels, hold each against its plain PyTorch
 version on the card, and drive the port's paths: ``myth analyze`` end
-to end, the symbolic path at full width, the window merge, the device
+to end, the resident daemon (``myth serve``) with cross-tenant wave
+packing, the symbolic path at full width, the window merge, the device
 loop alone, the concrete lane path and the solver's screens (with the
 host-sequenced and the fused fixpoint).
 
@@ -10,7 +11,8 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --analyze FIXTURE STATS`` is the per-fixture
-process the corpus phase starts.)
+process the corpus phase starts, ``--serve DIR STATS`` the daemon
+process of the daemon phase.)
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -20,7 +22,12 @@ Phases (any failure exits non-zero and prints no result):
 2. kernel checks, bit for bit against the plain versions on the card:
    ``bv256_apply`` for every op on seeded random and edge words; K0 over
    a 4096-lane batch whose planes hold junk; K1 over 64 steps of a seeded
-   4096-lane state (and the cost of the host's running-count read); K2-K4
+   4096-lane state (and the cost of the host's running-count read); K1's
+   packed branch (row 2p) over 64 steps of a seeded 4096-lane state on a
+   four-member arena (the k=12 contract, bench.py's diamond, calls.sol.o
+   and kinds_of_calls.sol.o, each with ``contracts.with_probe``'s probe:
+   in every member lanes fork, read PC and CODESIZE and jump inside and
+   out of their member), with the unpacked K1 on the same state; K2-K4
    through one ``window_exec`` and its three escalations; K9 on the k=12
    main path's state after its first window with that window's
    resolution pairs, and on two seeded random 4096-lane states;
@@ -36,7 +43,20 @@ Phases (any failure exits non-zero and prints no result):
    run the JAX engine's windows, forks and device steps (the
    reference's run stats), or a window where the JAX engine's sweep
    failed and went on on the host, the screens must screen on the
-   device, with no device failure;
+   device, with no device failure; beside it, the daemon: ``myth
+   serve`` in its own process (``--serve``, ``MTPU_PACK`` on) serves
+   the 18 fixtures submitted at once with the corpus flags: every
+   canonical issue list equal to the JAX package's one-shot lists, no
+   row with an error, at least one packed wave (waves packed, pack
+   members, dispatches saved, lane windows and the makespan printed
+   beside the corpus' one-shot windows); then tests/test_wave_pack.py's
+   four-code queue on it and on a daemon with ``MTPU_PACK=0``: equal
+   issues, a packed wave, strictly fewer lane windows packed; the
+   daemon's own launch counts (from its start to its stop) must show
+   K1's packed branch; then the packed explore at full width: the four
+   members (the k=11 contract: k=12 alone fills 4096 lanes) through
+   ``LaneEngine.explore_packed`` at 4096 lanes, each tenant's parked
+   states equal to its solo explore, K1's packed branch launched;
 5. the SHA3 resume (a 33-byte hash resumed in place) and the spill
    regime (64 paths through 8 lanes), each equal to the host-only run;
    the merge path: ``bench.py``'s window-merge rig (the diamond
@@ -392,6 +412,157 @@ def check_k1(dev, report):
         f"on the device), {p_ms:.1f} ms/step plain")
     log("K1 ms/step by steps between running-count reads: " + ", ".join(
         f"{e}: {ms:.4f}" for e, ms in sorted(sync.items())))
+
+
+def check_k1_packed(dev, report):
+    """Row 2p: K1's packed branch against the plain version over 64
+    steps of a seeded 4096-lane state on a four-member arena (each
+    member with ``contracts.with_probe``'s probe): in every member lanes
+    fork at symbolic JUMPIs, read PC and CODESIZE, and jump inside and
+    out of their member (``device_loop.packed_probe_seeds``). Every
+    plane and ``visited`` must agree bit for bit; the seeded cases must
+    show (a fork and a park at the probe in every member). The unpacked
+    K1 over the same arena and state is timed beside it."""
+    import torch
+
+    from mythril_tpu_torch.laser import lane_engine as le
+    from mythril_tpu_torch.ops import symstep
+    from mythril_tpu_torch.ops.stepper import (
+        CompiledCode, compile_packed_code,
+    )
+    from mythril_tpu_torch.support import contracts, device_loop, runs
+
+    codes, probes = zip(*(contracts.with_probe(c)
+                          for c in runs.pack_codes(MAIN_K)))
+    cc, bases = compile_packed_code(
+        [(c, (p["jumpi"],)) for c, p in zip(codes, probes)], device=dev)
+    n = MAIN_LANES
+    st = symstep.init_sym_lanes(n, device=dev)
+    seeds = device_loop.packed_probe_seeds(
+        le.ObjectTable(), codes, bases, probes, st.calldata.shape[1], n // 8)
+    free = list(range(n - 1, -1, -1))
+    entries = [(free.pop(), s) for s in seeds]
+    i32b, u8b, k, pv = le.pack_window(n, symstep.N_ENV, {}, entries, free,
+                                      [], {}, st.calldata.shape[1],
+                                      big=True)
+    st = le.prologue_plain(st, torch.from_numpy(i32b).to(dev),
+                           torch.from_numpy(u8b).to(dev), k, pv)
+    steps = 64
+    vis0 = torch.zeros(cc.packed.shape[0], dtype=torch.bool, device=dev)
+    s_k, v_k = symstep.sym_run_kernel(cc, clone_state(st), steps, None,
+                                      None, vis0.clone())
+    s_p, v_p = symstep.sym_run_plain(cc, clone_state(st), steps, None,
+                                     None, vis0.clone())
+    torch.cuda.synchronize()
+    err = same_state(s_k, s_p, "K1 packed sym_run")
+    if max_err(v_k, v_p):
+        raise AssertionError("K1 packed sym_run: visited differs")
+    forks = int(s_p.flog_count)
+    fork_seg = cc.seg_of[s_p.flog_pc[:forks].long()].tolist()
+    pc, status = s_p.pc.tolist(), s_p.status.tolist()
+    for m, (base, probe) in enumerate(zip(bases, probes)):
+        at_jump = sum(1 for p, s in zip(pc, status)
+                      if s == 5 and p == base + probe["jump"] + 4)
+        if m not in fork_seg or at_jump < 4:
+            raise AssertionError(f"K1 packed: member {m} forked "
+                                 f"{fork_seg.count(m)} times, {at_jump} "
+                                 f"lanes parked at its probe's JUMP")
+    ran = int(s_k.step_no) - int(st.step_no)
+    executed = int((s_k.steps.long() - st.steps.long()).sum())
+    lane_bytes = symstep.lane_bytes()
+    flat = CompiledCode(packed=cc.packed, size=cc.size)
+
+    def per_step(timer, code, reps=2):
+        ms = timer(lambda c: symstep.sym_run_kernel(code, c, steps),
+                   reps=reps, setup=lambda: clone_state(st))
+        return None if ms is None else ms / ran
+
+    # the unpacked K1 over the same arena and state, in turns with the
+    # packed branch (unpacked, packed, packed, unpacked)
+    timed = {}
+    for name, code in (("u", flat), ("k", cc), ("k", cc), ("u", flat)):
+        timed.setdefault(name, []).append(
+            (per_step(cuda_ms, code), per_step(device_ms, code)))
+
+    def mean(name, i):
+        vals = [t[i] for t in timed[name]]
+        return None if None in vals else sum(vals) / len(vals)
+
+    k_ms, d_ms, u_ms, u_dms = mean("k", 0), mean("k", 1), mean("u", 0), \
+        mean("u", 1)
+    p_ms = cuda_ms(lambda c: symstep.sym_run_plain(cc, c, steps),
+                   reps=1, setup=lambda: clone_state(st)) / ran
+    # as K1 (check_k1), with the two segment-table reads (4 + 8 bytes)
+    # of each executed instruction
+    bms, by = bound_ms((executed * (320 + 12) + forks * 2 * lane_bytes)
+                       / ran)
+    report["sym_step_packed"] = dict(
+        max_abs_err=err, ms=k_ms, plain_ms=p_ms, device_ms=d_ms,
+        bound_ms=bms, bound_by=by, unpacked_ms=u_ms,
+        unpacked_device_ms=u_dms)
+    log(f"K1 packed (row 2p): {ran} steps of {n} lanes over "
+        f"{len(codes)} members ({cc.size} arena bytes) equal ({executed} "
+        f"instructions, {forks} forks, some in every member; PC, CODESIZE "
+        f"and out-of-member jumps at every probe); {k_ms:.4f} ms/step "
+        f"kernel ({d_ms} on the device), unpacked K1 on the same arena "
+        f"and state {u_ms:.4f} ms/step ({u_dms} on the device), in turns; "
+        f"{p_ms:.1f} ms/step plain")
+
+
+#: the symbolic member of the packed explore: k=12 fills 4096 lanes by
+#: itself, so beside three more members its last forks would find no
+#: free lane and park early (right, but not the solo result)
+PACK_EXPLORE_K = 11
+
+
+def packed_explore(dev, card):
+    """The packed explore at full width: the four members' entry states
+    (``runs.entry_states``) through ``LaneEngine.explore_packed`` at
+    4096 lanes; each tenant's parked states must equal that member's
+    solo ``explore`` at 4096 lanes, and K1's packed branch must have
+    launched. Returns its ``sym_step_packed`` launches."""
+    import torch
+
+    from mythril_tpu_torch import _build
+    from mythril_tpu_torch.laser import lane_engine as le
+    from mythril_tpu_torch.support import runs
+
+    def sig(gs):
+        return (gs.mstate.pc, len(gs.mstate.stack),
+                len(gs.world_state.constraints),
+                int(gs.mstate.memory._msize))
+
+    codes = runs.pack_codes(PACK_EXPLORE_K)
+    entries = []
+    for code in codes:
+        le.PATH_HISTORY[code] = MAIN_LANES
+        entries.append(runs.entry_states(code.hex(), tpu_lanes=MAIN_LANES))
+    t0 = time.perf_counter()
+    solo = [sorted(sig(g) for g in le.LaneEngine(n_lanes=MAIN_LANES).explore(
+        code, list(states))) for code, states in zip(codes, entries)]
+    solo_wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    eng = le.LaneEngine(n_lanes=MAIN_LANES)
+    out = eng.explore_packed([(code, list(states), i) for i, (code, states)
+                              in enumerate(zip(codes, entries))])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    stats = eng.last_run_stats
+    differ = [i for i in range(len(codes))
+              if sorted(sig(g) for g in out[i]) != solo[i]]
+    if differ or launches["sym_step_packed"] <= 0 or launches["sym_step"]:
+        raise AssertionError(f"packed explore: members {differ} differ "
+                             f"from their solo explores; launches "
+                             f"{launches}")
+    log(f"packed explore at {MAIN_LANES} lanes: {[len(x) for x in solo]} "
+        f"parked states per member, equal to the solo explores; "
+        f"{stats['windows']} windows, {stats['forks']} forks, "
+        f"{launches['sym_step_packed']} packed K1 steps, {wall:.3f} s "
+        f"(four solo explores {solo_wall:.3f} s) on {card}")
+    return launches["sym_step_packed"]
 
 
 def check_window(dev, report):
@@ -1848,6 +2019,7 @@ def corpus_finish(handle, card):
         f"{tot['device_steps']} device steps, {tot['merged']} lanes merged "
         f"or subsumed, {screened} systems screened on the device, 0 device "
         f"failures; launches {launches} on {card}")
+    return tot["windows"]
 
 
 def analyze_one(name, stats_path):
@@ -1890,6 +2062,237 @@ def analyze_one(name, stats_path):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# the resident daemon with wave packing
+# ---------------------------------------------------------------------------
+
+#: the corpus phase's flags (support/lane_compare.analyze_argv) as daemon
+#: request fields: the one-shot CLI's execution timeout and the rest
+CORPUS_REQUEST = dict(timeout=86400, tpu_lanes=64, transaction_count=2,
+                      solver_timeout=15000, no_onchain_data=True)
+#: the daemon's counters of the packed queue (the ping's)
+PACK_COUNTERS = ("waves_packed", "pack_members", "dispatches_saved",
+                 "lane_windows")
+
+
+def serve_one(out_dir, stats_path):
+    """``--serve``: ``python -m mythril_tpu_torch serve --out-dir
+    out_dir`` (the CLI's main, as ``--analyze`` runs it for a fixture);
+    when the daemon stops, the kernel launches of its process (counted
+    from 0 at its start) go to ``stats_path``."""
+    sys.path.insert(0, HERE)
+    from mythril_tpu_torch import _build
+    from mythril_tpu_torch.interfaces import cli
+
+    sys.argv = ["myth", "serve", "--out-dir", out_dir]
+    try:
+        cli.main()
+    except SystemExit as e:
+        if e.code not in (None, 0):
+            raise
+    finally:
+        with open(stats_path, "w") as f:
+            json.dump(_build.LAUNCHES, f)
+    return 0
+
+
+#: the daemon processes started, each stopped or killed before exit
+DAEMONS = []
+
+
+def daemon_start(pack: bool):
+    """Start a daemon process (``--serve``) with ``MTPU_PACK`` on or
+    off; its output goes to a log file in its directory."""
+    import tempfile
+
+    from mythril_tpu_torch.daemon import SOCKET_NAME
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_daemon_")
+    serve = os.path.join(tmp, "serve")
+    stats = os.path.join(tmp, "launches.json")
+    logf = open(os.path.join(tmp, "daemon.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--serve",
+         serve, stats], cwd=HERE, stdout=logf, stderr=subprocess.STDOUT,
+        env=dict(os.environ, MTPU_PACK="1" if pack else "0"))
+    DAEMONS.append(proc)
+    return {"proc": proc, "tmp": tmp, "stats": stats, "log": logf,
+            "sock": os.path.join(serve, SOCKET_NAME)}
+
+
+def daemon_log(d) -> str:
+    d["log"].flush()
+    with open(os.path.join(d["tmp"], "daemon.log"),
+              errors="replace") as f:
+        return f.read()[-3000:]
+
+
+def daemon_ready(d, timeout=300):
+    from mythril_tpu_torch.daemon.client import wait_ready
+
+    if not wait_ready(d["sock"], timeout):
+        raise AssertionError(f"daemon never became ready (exit "
+                             f"{d['proc'].poll()}):\n{daemon_log(d)}")
+
+
+def daemon_stop(d):
+    """Shut the daemon down (draining its queue), wait for its process
+    and return its kernel launches."""
+    from mythril_tpu_torch.daemon.client import DaemonClient
+
+    try:
+        DaemonClient(d["sock"]).shutdown()
+        rc = d["proc"].wait(timeout=300)
+    finally:
+        if d["proc"].poll() is None:
+            d["proc"].kill()
+            d["proc"].wait()
+        d["log"].close()
+    if rc != 0 or not os.path.exists(d["stats"]):
+        raise AssertionError(f"daemon exit {rc}:\n{daemon_log(d)}")
+    with open(d["stats"]) as f:
+        launches = json.load(f)
+    shutil.rmtree(d["tmp"], ignore_errors=True)
+    return launches
+
+
+def counters(sock):
+    from mythril_tpu_torch.daemon.client import DaemonClient
+
+    return DaemonClient(sock).ping()["counters"]
+
+
+def daemon_corpus_start(d):
+    """Submit the 18 fixtures to the daemon at once, once it answers,
+    from a thread of their own (the daemon co-schedules them into
+    packed waves while the corpus phase runs); returns the handle for
+    ``daemon_corpus_finish``."""
+    import threading
+
+    from mythril_tpu_torch.daemon.client import DaemonClient
+    from mythril_tpu_torch.support.lane_compare import (
+        CREATION_FIXTURES, INPUTS,
+    )
+
+    h = {"rows": {}, "errors": {}, "done": {}}
+
+    def one(path):
+        try:
+            h["rows"][path.name] = DaemonClient(d["sock"]).analyze(
+                path.read_text().strip(), name=path.name,
+                bin_runtime=path.name not in CREATION_FIXTURES,
+                **CORPUS_REQUEST)
+        except Exception as e:  # reported by daemon_corpus_finish
+            h["errors"][path.name] = f"{type(e).__name__}: {e}"
+        h["done"][path.name] = time.perf_counter()
+
+    def run():
+        try:
+            daemon_ready(d)
+            h["c0"] = counters(d["sock"])
+            h["t0"] = time.perf_counter()
+            subs = [threading.Thread(target=one, args=(p,))
+                    for p in sorted(INPUTS.glob("*.sol.o"))]
+            for t in subs:
+                t.start()
+            for t in subs:
+                t.join()
+            h["c1"] = counters(d["sock"])
+        except Exception as e:  # reported by daemon_corpus_finish
+            h["errors"]["daemon"] = f"{type(e).__name__}: {e}"
+
+    h["thread"] = threading.Thread(target=run)
+    h["thread"].start()
+    return h
+
+
+def daemon_corpus_finish(h, d, oneshot_windows, card):
+    """Wait for the daemon's 18 reports and hold each canonical issue
+    list to the JAX package's (tests/torch_data/lane_issues.json); no
+    row may carry an error and at least one wave must have packed."""
+    from mythril_tpu_torch.support.lane_compare import canon
+
+    h["thread"].join(timeout=1100)
+    if h["thread"].is_alive() or h["errors"]:
+        raise AssertionError(f"daemon corpus: {h['errors'] or 'timed out'}"
+                             f"\n{daemon_log(d)}")
+    with open(os.path.join(HERE, "tests", "torch_data",
+                           "lane_issues.json")) as f:
+        ref = json.load(f)
+    bad, n_got, n_want = [], 0, 0
+    for name, row in sorted(h["rows"].items()):
+        if row.get("exceptions"):
+            raise AssertionError(f"daemon corpus {name}: the analysis "
+                                 f"raised\n{row['exceptions'][0][-3000:]}")
+        got, want = canon(json.loads(row["output"])), ref[name]["issues"]
+        n_got, n_want = n_got + len(got), n_want + len(want)
+        if got != want:
+            bad.append(name)
+    if bad or len(h["rows"]) != len(ref):
+        raise AssertionError(f"daemon corpus: issues differ on {bad} "
+                             f"({len(h['rows'])} reports)")
+    delta = {k: h["c1"][k] - h["c0"][k] for k in PACK_COUNTERS}
+    if delta["waves_packed"] < 1:
+        raise AssertionError(f"daemon corpus: no wave packed ({delta})")
+    makespan = max(h["done"].values()) - h["t0"]
+    packed = sum(1 for r in h["rows"].values() if r.get("packed"))
+    log(f"daemon corpus (MTPU_PACK on): {n_got} = {n_want} issues over "
+        f"{len(h['rows'])} requests, none failed, {packed} served in "
+        f"packs; waves_packed {delta['waves_packed']}, pack_members "
+        f"{delta['pack_members']}, dispatches_saved "
+        f"{delta['dispatches_saved']}, lane_windows "
+        f"{delta['lane_windows']} (one-shot corpus: {oneshot_windows} "
+        f"windows); makespan {makespan:.1f} s on {card}")
+    return delta, makespan
+
+
+def daemon_queue(d):
+    """tests/test_wave_pack.py's four-code queue: a head request keeps
+    the worker busy while three more queue (and pack, with MTPU_PACK
+    on). Returns ({id: canonical issues}, counter deltas)."""
+    import threading
+
+    from mythril_tpu_torch.daemon.client import DaemonClient
+    from mythril_tpu_torch.support.contracts import (
+        build_diamond_contract, build_fork_tree_contract,
+    )
+    from mythril_tpu_torch.support.lane_compare import canon
+
+    codes = {"warm": build_fork_tree_contract(3, 1).hex(),
+             "ra": build_fork_tree_contract(4, 1).hex(),
+             "rb": build_diamond_contract(5, dup_levels=0).hex(),
+             "rc": build_diamond_contract(3, dup_levels=0).hex()}
+    params = dict(tpu_lanes=64, timeout=120, transaction_count=1)
+    c0 = counters(d["sock"])
+    rows, started = {}, threading.Event()
+
+    def submit(rid):
+        for ev in DaemonClient(d["sock"]).submit(codes[rid], id=rid,
+                                                 **params):
+            if ev.get("event") == "started":
+                started.set()
+            rows[rid] = ev
+
+    threads = [threading.Thread(target=submit, args=("warm",))]
+    threads[0].start()
+    started.wait(timeout=300)
+    threads += [threading.Thread(target=submit, args=(rid,))
+                for rid in ("ra", "rb", "rc")]
+    for t in threads[1:]:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    c1 = counters(d["sock"])
+    out = {}
+    for rid in codes:
+        row = rows.get(rid, {})
+        if row.get("event") != "report" or row.get("exceptions"):
+            raise AssertionError(f"four-code queue {rid}: {row}\n"
+                                 f"{daemon_log(d)}")
+        out[rid] = canon(json.loads(row["output"]))
+    return out, {k: c1[k] - c0[k] for k in PACK_COUNTERS}
+
+
 #: the kernels the main path launches: (name, source, TPU kernel)
 ROWS = [
     ("sym_init", "mythril_tpu_torch/csrc/symstep.cu",
@@ -1919,10 +2322,22 @@ SCREEN_ROWS = [
 
 
 def main() -> int:
+    try:
+        return run()
+    finally:
+        for proc in DAEMONS:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def run() -> int:
     import torch
 
     if len(sys.argv) == 4 and sys.argv[1] == "--analyze":
         return analyze_one(sys.argv[2], sys.argv[3])
+    if len(sys.argv) == 4 and sys.argv[1] == "--serve":
+        return serve_one(sys.argv[2], sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1958,6 +2373,7 @@ def main() -> int:
     check_bv256(dev, report)
     check_init(dev, report)
     check_k1(dev, report)
+    check_k1_packed(dev, report)
     check_window(dev, report)
     check_merge_fp(dev, report)
 
@@ -1971,7 +2387,10 @@ def main() -> int:
     from mythril_tpu_torch.support import runs
     from mythril_tpu_torch.support.contracts import build_symbolic_contract
 
+    # the daemon serves the 18 fixtures packed beside the corpus phase
+    daemon = daemon_start(pack=True)
     corpus = corpus_start()
+    daemon_corpus = daemon_corpus_start(daemon)
     t0 = time.perf_counter()
     host_open, _, host_wall = runs.explore(
         build_symbolic_contract(MAIN_K)[0], 0)
@@ -1980,7 +2399,28 @@ def main() -> int:
                              f"host-only run {host_open}")
     log(f"symbolic path host-only: {host_open} open states (equal), "
         f"{host_wall:.3f} s")
-    corpus_finish(corpus, card)
+    oneshot_windows = corpus_finish(corpus, card)
+    daemon_corpus_finish(daemon_corpus, daemon, oneshot_windows, card)
+    queue_on, delta_on = daemon_queue(daemon)
+    daemon_launches = daemon_stop(daemon)
+    if daemon_launches["sym_step_packed"] <= 0:
+        raise AssertionError(f"daemon: K1's packed branch never launched "
+                             f"({daemon_launches})")
+    unpacked = daemon_start(pack=False)
+    daemon_ready(unpacked)
+    queue_off, delta_off = daemon_queue(unpacked)
+    daemon_stop(unpacked)
+    if queue_on != queue_off or delta_on["waves_packed"] < 1 \
+            or delta_off["waves_packed"] != 0 \
+            or delta_on["lane_windows"] >= delta_off["lane_windows"]:
+        raise AssertionError(f"four-code queue: packed {delta_on}, "
+                             f"unpacked {delta_off}, issues equal "
+                             f"{queue_on == queue_off}")
+    log(f"four-code queue: issues equal packed and unpacked "
+        f"({sum(len(v) for v in queue_on.values())} issues); packed "
+        f"{delta_on}, MTPU_PACK=0 {delta_off}; daemon launches "
+        f"{daemon_launches}")
+    packed_explore(dev, card)
     resume_and_spill(card)
     k9_launches = merge_path(card)
 
@@ -2022,7 +2462,9 @@ def main() -> int:
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "device_ms": r["device_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": None}
+                "library_ms": None,
+                **{k: r[k] for k in ("unpacked_ms", "unpacked_device_ms")
+                   if k in r}}
 
     # bv256 has no launch of its own on the main path: its word ops run
     # inside K1's launches, so it is listed apart with its test launch's
@@ -2032,6 +2474,8 @@ def main() -> int:
                    inlined_in="sym_step, interval_level, prop_fwd_level, "
                    "prop_back_round, lane_run, prop_fixpoint")
     rows = [entry(*row) for row in ROWS] + [
+        entry("sym_step_packed", "mythril_tpu_torch/csrc/symstep.cu",
+              "mythril_tpu/ops/symstep.py:453", daemon_launches)] + [
         entry(name, src, rep, screen_launches[prop])
         for name, src, rep, prop in SCREEN_ROWS] + [
         entry("merge_fingerprint", "mythril_tpu_torch/csrc/merge.cu",

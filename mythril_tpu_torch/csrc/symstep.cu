@@ -24,6 +24,16 @@
 // between reads of the running count and still stop at exactly the
 // step the JAX while_loop stops at.
 //
+// Row 2p, the packed arena (mythril_tpu/ops/symstep.py:453-467, used at
+// :546-556, :1084-1095, :1199-1216): with seg_of/seg_tab set, lane pcs
+// are arena pcs and each lane resolves its own member's [base, size] row
+// once a step (seg_row, from the clamped pc decide() computes and k_exec
+// reuses through Dec): jump bounds and CODESIZE are the member's size,
+// PC pushes pc - base, jumps take dest + base, and fentry and the fork
+// log keep the member-local dest. Null tables give exactly the plain
+// path (base 0, size code_size). The two table reads add 12 bytes a
+// lane a step.
+//
 // Bound: bytes. A step reads each running lane's operands, its opcode
 // row and whatever window its op touches (32 memory/kind bytes, the
 // MR overlay records, the S storage keys), and writes a few words; a
@@ -108,10 +118,35 @@ struct Env {
   const int32_t* code;  // (L+1, 14)
   int code_size;
   const int32_t* optab;  // (256, T_COLS)
+  // packed arena (ops/stepper.compile_packed_code): arena pc -> member
+  // (seg_of_len entries) and the member's [base, size] rows; both null
+  // for single-contract code
+  const int32_t* seg_of;
+  int seg_of_len;
+  const int32_t* seg_tab;
+  int seg_rows;
 };
 
 __device__ __forceinline__ int code_at(const Env& e, int pc, int col) {
   return e.code[(size_t)pc * CODE_COLS + col];
+}
+
+// The member segment of the lane at clamped pc pc_c: its arena base and
+// its code size (row 2p, mythril_tpu/ops/symstep.py:453-467). Plain code
+// is one segment at base 0 of size code_size.
+struct Seg {
+  int base, size;
+};
+
+__device__ __forceinline__ Seg seg_row(const Env& e, int pc_c) {
+  Seg g{0, e.code_size};
+  if (e.seg_tab) {
+    int sg = e.seg_of[clampi(pc_c, 0, e.seg_of_len - 1)];
+    const int32_t* r = e.seg_tab + 2 * clampi(sg, 0, e.seg_rows - 1);
+    g.base = r[0];
+    g.size = r[1];
+  }
+  return g;
 }
 
 __device__ __forceinline__ W stack_at(const Sym& s, int lane, int idx) {
@@ -178,7 +213,11 @@ struct Dec {
   int mem_off, acc_len;
   bool mem_ops, sym_store_val;
   uint32_t new_msize, gmin, gmax;
-  int dest;
+  // the lane's member segment; dest is member-local (what the program
+  // pushed, recorded in fentry and the fork log), dest_eff the arena pc
+  // control flow takes
+  int seg_base, seg_size;
+  int dest, dest_eff;
   bool dest_ok, jumpi_taken;
   // MLOAD
   int mload_sid;
@@ -203,6 +242,9 @@ __device__ void decide(const Env& e, int lane, Dec& d) {
   d.running = s.status[lane] == RUNNING;
   int pc = s.pc[lane];
   int pc_c = clampi(pc, 0, e.code_size);
+  Seg g = seg_row(e, pc_c);
+  d.seg_base = g.base;
+  d.seg_size = g.size;
   int op = d.running ? code_at(e, pc_c, 0) : OP_JUMPDEST;
   d.op = op;
   const int32_t* t = e.optab + op * T_COLS;
@@ -262,9 +304,12 @@ __device__ void decide(const Env& e, int lane, Dec& d) {
   uint32_t fee = mem_fee((uint32_t)msize, (uint32_t)nm);
 
   // ---- jump destination
-  bool dest_small = !a_hi && d.a.l[0] < (uint32_t)e.code_size;
+  // a destination at or past the member's size is invalid even where
+  // dest + base is another member's JUMPDEST
+  bool dest_small = !a_hi && d.a.l[0] < (uint32_t)d.seg_size;
   d.dest = dest_small ? (int)d.a.l[0] : 0;
-  d.dest_ok = dest_small && code_at(e, clampi(d.dest, 0, e.code_size), 2) != 0;
+  d.dest_eff = dest_small ? d.dest + d.seg_base : 0;
+  d.dest_ok = dest_small && code_at(e, clampi(d.dest_eff, 0, e.code_size), 2) != 0;
   d.jumpi_taken = !d.sym_b && !bv::is_zero(d.b);
 
   int popc = 0;
@@ -555,7 +600,7 @@ __global__ void k_exec(Env e, int32_t* ctl, const int32_t* req, const int32_t* b
         case RC_SLOAD:
           result = d.s_found ? bv::load(s.svals + ((size_t)lane * s.S + d.s_idx) * 8) : bv::zero();
           break;
-        case RC_PC: result = bv::from_u32((uint32_t)pc); break;
+        case RC_PC: result = bv::from_u32((uint32_t)(pc - d.seg_base)); break;
         case RC_MSIZE: result = bv::from_u32(msize2); break;
         case RC_GAS:
           result = bv::load(s.env + ((size_t)lane * s.NENV + GASLIMIT_SLOT) * 8);
@@ -571,7 +616,7 @@ __global__ void k_exec(Env e, int32_t* ctl, const int32_t* req, const int32_t* b
           break;
         }
         case RC_CALLDATASIZE: result = bv::from_u32((uint32_t)s.cd_size[lane]); break;
-        case RC_CODESIZE: result = bv::from_u32((uint32_t)e.code_size); break;
+        case RC_CODESIZE: result = bv::from_u32((uint32_t)d.seg_size); break;
         case RC_ENV: {
           int slot = clampi(e.optab[op * T_COLS + T_ENV], 0, s.NENV - 1);
           result = bv::load(s.env + ((size_t)lane * s.NENV + slot) * 8);
@@ -703,12 +748,12 @@ __global__ void k_exec(Env e, int32_t* ctl, const int32_t* req, const int32_t* b
     // ---- control flow, gas, status
     int next_pc = code_at(e, pc_c, 1);
     int new_pc = next_pc;
-    if (is_jump) new_pc = d.dest;
-    if (is_jumpi && !d.sym_b && d.jumpi_taken) new_pc = d.dest;
-    if (fork_can) new_pc = d.dest;
+    if (is_jump) new_pc = d.dest_eff;
+    if (is_jumpi && !d.sym_b && d.jumpi_taken) new_pc = d.dest_eff;
+    if (fork_can) new_pc = d.dest_eff;
     if (ok && is_jumpi) s.depth[lane] += 1;
     bool jumped = ok && (is_jump || (is_jumpi && !d.sym_b && d.jumpi_taken) || fork_can);
-    if (jumped && code_at(e, clampi(d.dest, 0, e.code_size), 3) != 0) s.fentry[lane] = d.dest;
+    if (jumped && code_at(e, clampi(d.dest_eff, 0, e.code_size), 3) != 0) s.fentry[lane] = d.dest;
     if (ok) {
       s.pc[lane] = new_pc;
       s.sp[lane] = new_sp;
@@ -726,7 +771,7 @@ __global__ void k_exec(Env e, int32_t* ctl, const int32_t* req, const int32_t* b
       int child = s.free_slots[clampi(free_count - 1 - f, 0, s.n - 1)];
       fs.parent[f] = lane;
       fs.child[f] = child;
-      fs.fall_pc[f] = next_pc;
+      fs.fall_pc[f] = next_pc;  // arena pc; flog_dest below stays member-local
       fs.fentry[f] = pre_fentry;
       int row = *s.flog_count + f;
       s.flog_parent[row] = lane;
@@ -878,13 +923,17 @@ MTT_EXPORT int sym_count_running(void** planes, const int* dims, void* ctl, void
 }
 
 // `steps` steps of K1. scratch: req[n], block_off[nb+1], then the fork
-// stash (4 x maxf).
+// stash (4 x maxf). seg_of/seg_tab: a packed arena's segment tables (row
+// 2p), or null for single-contract code.
 MTT_EXPORT int sym_run_steps(void** planes, const int* dims, const void* code, int code_size,
-                             const void* optab, void* ctl, void* scratch, int steps,
-                             int max_forks, void* visited, int vis_len, void* stream) {
+                             const void* seg_of, int seg_of_len, const void* seg_tab,
+                             int seg_rows, const void* optab, void* ctl, void* scratch,
+                             int steps, int max_forks, void* visited, int vis_len,
+                             void* stream) {
   Sym s = make_sym(planes, dims);
   cudaStream_t st = (cudaStream_t)stream;
-  Env e{s, (const int32_t*)code, code_size, (const int32_t*)optab};
+  Env e{s, (const int32_t*)code, code_size, (const int32_t*)optab,
+        (const int32_t*)seg_of, seg_of_len, (const int32_t*)seg_tab, seg_rows};
   int n = s.n;
   int nb = (int)nblocks_for(n, SCAN_BLOCK);
   int maxf = min(max_forks, n);

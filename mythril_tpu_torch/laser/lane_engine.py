@@ -1463,6 +1463,24 @@ def _storage_read_term(seed_raw: "T.Term", key: BitVec) -> BitVec:
 #: compile_code call costs host decode + five H2D transfers).
 _CC_CACHE: Dict[tuple, object] = {}
 
+#: daemon request epoch (docs/daemon.md): the resident daemon bumps
+#: this once per request, and a code-plane cache hit whose compile
+#: landed in an EARLIER epoch counts as compile_reuse_hits — the
+#: cross-request amortization the daemon exists for. One-shot
+#: processes never bump it, so every hit stays same-epoch. (The JAX
+#: package also books warmed window variants here; the kernels have no
+#: per-shape compile, so the port has no such variants to count.)
+REQUEST_EPOCH = [0]
+_CC_EPOCH: Dict[tuple, int] = {}
+
+
+def _note_cross_request_hit(epochs: Dict[tuple, int], key) -> None:
+    """Book a cache hit against the epoch its compile was paid in."""
+    if epochs.get(key, REQUEST_EPOCH[0]) != REQUEST_EPOCH[0]:
+        from ..smt.solver.solver_statistics import SolverStatistics
+
+        SolverStatistics().bump(compile_reuse_hits=1)
+
 #: all-DEAD SymLaneState pool keyed by shape config: a finished engine
 #: parks its device buffers here and the next engine (same shapes —
 #: possibly a different contract) adopts them instead of paying the
@@ -1502,9 +1520,80 @@ def _compiled_code(code_bytes: bytes, fentries, device) -> CompiledCode:
                               det_mask=det_mask,
                               loopsum_pcs=loopsum_plane, device=device)
         if len(_CC_CACHE) >= 64:  # bound device-resident code tensors
-            _CC_CACHE.pop(next(iter(_CC_CACHE)))
+            evicted = next(iter(_CC_CACHE))
+            _CC_CACHE.pop(evicted)
+            _CC_EPOCH.pop(evicted, None)
         _CC_CACHE[key] = cc
+        _CC_EPOCH[key] = REQUEST_EPOCH[0]
+    else:
+        _note_cross_request_hit(_CC_EPOCH, key)
     return cc
+
+
+# -- cross-tenant wave packing (docs/daemon.md §wave packing) ---------------
+
+
+class _PackMember:
+    """One member of a packed explore: the owner tag (request id), its
+    code bytes, arena base, and function-name map. The verified
+    loop-summary park planes pack per member (the owning svm applies
+    the closed forms — solo behavior); the det-mask plane ships empty
+    and the host static retire / jump patching stand down under
+    packing (documented in PARITY.md) — issue identity is gated by
+    those layers' own on/off equivalence."""
+
+    __slots__ = ("owner", "code", "base", "func_names")
+
+    def __init__(self, owner, code, base, func_names):
+        self.owner = owner
+        self.code = code
+        self.base = base
+        self.func_names = func_names
+
+
+#: packed CompiledCode per member-key tuple (code bytes, sorted
+#: function entries and loop-summary heads per member) and device.
+#: Bounded like _CC_CACHE.
+_PACK_CC_CACHE: Dict[tuple, tuple] = {}
+_PACK_CC_EPOCH: Dict[tuple, int] = {}
+
+
+def _compiled_packed(member_keys: tuple, device):
+    """(CompiledCode, bases) on ``device`` for a tuple of (code_bytes,
+    fentries, loopsum_heads) member keys — the head set is part of the
+    cache key for the same reason _compiled_code's is (gate flips
+    mid-process must not adopt a stale park plane)."""
+    key = (tuple(member_keys), str(device))
+    hit = _PACK_CC_CACHE.get(key)
+    if hit is None:
+        from ..analysis import static_pass
+        from ..analysis.static_pass import loop_summary
+        from ..ops.stepper import compile_packed_code
+
+        spec = []
+        for code, fentries, heads in key[0]:
+            plane = None
+            if heads:
+                try:
+                    plane = loop_summary.device_park_pcs(
+                        static_pass.info_for(code))
+                except Exception:
+                    plane = None
+            spec.append((code, fentries, plane))
+        with _prof("compile_code"), trace.span(
+                "lane.compile_code",
+                code_len=sum(len(c) for c, _f, _h in key[0]),
+                members=len(key[0])):
+            cc, bases = compile_packed_code(spec, device=device)
+        if len(_PACK_CC_CACHE) >= 32:
+            evicted = next(iter(_PACK_CC_CACHE))
+            _PACK_CC_CACHE.pop(evicted)
+            _PACK_CC_EPOCH.pop(evicted, None)
+        hit = _PACK_CC_CACHE[key] = (cc, bases)
+        _PACK_CC_EPOCH[key] = REQUEST_EPOCH[0]
+    else:
+        _note_cross_request_hit(_PACK_CC_EPOCH, key)
+    return hit
 
 
 
@@ -1978,6 +2067,21 @@ class LaneEngine:
         key = (idx // d_recs, idx % d_recs)
         return self.objects[prov[key]]
 
+    @contextmanager
+    def _owner_run(self, ctx: LaneCtx):
+        """Host work for one lane of a packed wave runs under the lane
+        owner's RunContext (``owner_context``): the keccak manager and
+        the detector lists are per-analysis singletons, and the wave is
+        dispatched under whichever member arrived last. A solo wave
+        runs under the caller's own context."""
+        if self.owner_context is None:
+            yield
+            return
+        from .retire_ring import owner_of
+
+        with self.owner_context(owner_of(ctx)):
+            yield
+
     def _resolve_record(self, ctx: LaneCtx, opname: str, args):
         """args: raw resolved operand objects in pop order."""
         if opname in _ALU2:
@@ -2063,7 +2167,10 @@ class LaneEngine:
                     for bb in byte_list
                 ]
                 data = simplify(Concat(parts))
-            return keccak_function_manager.create_keccak(data)
+            # the hash and its axioms belong to the lane owner's
+            # analysis, not to the member that dispatched the wave
+            with self._owner_run(ctx):
+                return keccak_function_manager.create_keccak(data)
         raise AssertionError(f"unresolvable deferred op {opname}")
 
     def _jumpi_site_work(self, ctx, lane, cond, step, byte_pc,
@@ -2118,6 +2225,8 @@ class LaneEngine:
         accumulated at that step — condition prefixes, sink
         promotions, and annotations inherit by construction (the
         interpreter's deepcopy-at-JUMPI semantics)."""
+        from .retire_ring import owner_of
+
         d_recs = self.lane_kwargs.get("dlog_records", 64)
         _t_drain_py = time.perf_counter() if PROF_ON else 0.0
         prov: Dict[Tuple[int, int], int] = {}
@@ -2197,6 +2306,9 @@ class LaneEngine:
                     key_parts.append(("pc", pc, "ctx",
                                       id(ctx.template)))
                     self._memo_pins.append(ctx.template)
+                # a packed wave's tenants never share a resolved term:
+                # a SHA3 lives in its owner's keccak manager
+                key_parts.append(("owner", owner_of(ctx)))
                 key = tuple(key_parts)
                 oid = self._record_memo.get(key)
                 if oid is None:
@@ -3201,43 +3313,105 @@ class LaneEngine:
         return self._explore_members(
             ((code_bytes, entry_states, None),))[None]
 
+    def explore_packed(self, members) -> Dict[object, list]:
+        """Cross-tenant packed explore (docs/daemon.md §wave packing):
+        ``members`` is [(code_bytes, entry_states, owner)] with
+        distinct owner tags; every member's lanes ride the SAME window
+        dispatches over one segment-arena CompiledCode (K1's packed
+        branch on the card), and retires route back per tenant
+        (retire_ring.TenantRouter) in submit order. Returns {owner:
+        parked states}. Member execution is independent by
+        construction — per-seed group ids key the device record dedup,
+        arena pcs are disjoint across segments, and the merge
+        pre-groups key on per-member templates — so per-tenant results
+        are identical to running each member's explore alone (gated by
+        tests/test_torch_wave_pack.py)."""
+        owners = [owner for _c, _s, owner in members]
+        if len(set(owners)) != len(owners):
+            raise ValueError("packed members need distinct owner tags")
+        return self._explore_members(tuple(members))
+
     def _explore_members(self, members) -> Dict[object, list]:
-        """The explore loop over ``members`` [(code_bytes,
-        entry_states, owner)]: one member (cross-tenant wave packing is
-        not ported yet). Returns {owner: parked states}."""
-        if len(members) != 1:
-            raise NotImplementedError("packed waves are not ported")
+        packed = len(members) > 1
         code_bytes = members[0][0]
-        mems: List[None] = [None]
+        mems: List[Optional[_PackMember]] = []
         stats0 = dict(self.stats)  # engines persist across explores
         self._reset_explore_memos()
-        entry_states = members[0][1]
-        self._func_names = dict(
-            getattr(entry_states[0].environment.code,
-                    "address_to_function_name", {}) or {}
-        ) if entry_states else {}
-        # static pre-analysis (docs/static_pass.md): memoized per code
-        # hash; feeds the window-boundary retire, the jump-table
-        # consult on symbolic JUMP parks, and the det-mask plane the
-        # compile below ships with the code tensors
-        try:
-            from ..analysis import static_pass
+        if not packed:
+            entry_states = members[0][1]
+            self._func_names = dict(
+                getattr(entry_states[0].environment.code,
+                        "address_to_function_name", {}) or {}
+            ) if entry_states else {}
+            # static pre-analysis (docs/static_pass.md): memoized per
+            # code hash; feeds the window-boundary retire, the
+            # jump-table consult on symbolic JUMP parks, and the
+            # det-mask plane the compile below ships with the code
+            # tensors
+            try:
+                from ..analysis import static_pass
 
-            self._static_info = static_pass.info_for(code_bytes)
-        except Exception as e:  # a host analysis, not the device
-            log.debug("static pass unavailable: %s", e)
+                self._static_info = static_pass.info_for(code_bytes)
+            except Exception as e:  # a host analysis, not the device
+                log.debug("static pass unavailable: %s", e)
+                self._static_info = None
+            cc = _compiled_code(code_bytes, self._func_names.keys(),
+                                self.device)
+            mems.append(None)
+        else:
+            # packed wave: per-member function maps ride the lane
+            # ctxs. The verified loop-summary park planes pack per
+            # member (lanes park at summarizable heads and the OWNING
+            # svm applies the closed form after the sweep, exactly the
+            # solo path). The remaining per-code host consumers
+            # (static retire, jump patching) stand down — their gates'
+            # own on/off identity covers the parity.
+            self._func_names = {}
             self._static_info = None
-        cc = _compiled_code(code_bytes, self._func_names.keys(),
-                            self.device)
+            member_keys = []
+            for code, states, owner in members:
+                fnames = dict(
+                    getattr(states[0].environment.code,
+                            "address_to_function_name", {}) or {}
+                ) if states else {}
+                heads = ()
+                try:
+                    from ..analysis import static_pass
+                    from ..analysis.static_pass import loop_summary
+
+                    if static_pass.enabled() \
+                            and loop_summary.enabled():
+                        info = static_pass.info_for(code)
+                        if info is not None:
+                            heads = tuple(sorted(
+                                loop_summary.summarizable_heads(
+                                    info)))
+                except Exception as e:
+                    log.debug("packed loop-summary heads "
+                              "unavailable: %s", e)
+                member_keys.append(
+                    (code, tuple(sorted(fnames.keys())), heads))
+                mems.append(_PackMember(owner, code, 0, fnames))
+            cc, bases = _compiled_packed(tuple(member_keys), self.device)
+            for m, base in zip(mems, bases):
+                m.base = base
+            from ..smt.solver.solver_statistics import (
+                SolverStatistics as _SSP,
+            )
+
+            _SSP().bump(waves_packed=1, pack_members=len(members))
         # per-byte-address coverage bitmap, device-resident across
         # windows AND explores of the same code (the interpreter's
         # execute_state coverage hook cannot see device steps; this is
-        # its device twin — svm merges it into the coverage plugin)
-        visited = self._visited_dev.pop(code_bytes, None)
+        # its device twin — svm merges it into the coverage plugin); a
+        # packed wave's bitmap covers the arena
+        visited = self._visited_dev.pop(code_bytes, None) \
+            if not packed else None
         if visited is None:
             visited = torch.zeros(cc.packed.shape[0], dtype=torch.bool,
                                   device=self.device)
-        code_len = len(code_bytes)
+        code_len = len(code_bytes) if not packed \
+            else int(cc.packed.shape[0]) - 1
         st = self._acquire_state()
         ctxs: List[Optional[LaneCtx]] = [None] * self.n_lanes
         # expose the live ctx table for the SIGTERM live dump
@@ -3248,10 +3422,16 @@ class LaneEngine:
         n_entries = len(queue)
         free = list(range(self.n_lanes - 1, -1, -1))
         results: List[GlobalState] = []
-        from .retire_ring import owner_of
+        from .retire_ring import TenantRouter, owner_of
 
-        sink = results
-        deliver = lambda _owner, gs: results.append(gs)  # noqa: E731
+        if packed:
+            router = TenantRouter([m.owner for m in mems])
+            sink = router
+            deliver = router.deliver
+        else:
+            router = None
+            sink = results
+            deliver = lambda _owner, gs: results.append(gs)  # noqa: E731
         calldata_cap = int(st.calldata.shape[1])
         n = self.n_lanes
 
@@ -3303,9 +3483,19 @@ class LaneEngine:
             def build(rows_host):
                 t0 = time.perf_counter()
                 with trace.span("retire.materialize", n=len(items)):
-                    out = [self.materialize(rows_host, row, ctx,
-                                            prov=prov)
-                           for row, ctx in items]
+                    if packed:
+                        # retire chunks carry the owner tag: the ring
+                        # sink (TenantRouter) routes each state into
+                        # its request's worklist in submit order
+                        out = [
+                            (owner_of(ctx),
+                             self.materialize(rows_host, row, ctx,
+                                              prov=prov))
+                            for row, ctx in items]
+                    else:
+                        out = [self.materialize(rows_host, row, ctx,
+                                                prov=prov)
+                               for row, ctx in items]
                 with self._stats_lock:
                     self.stats["overlap_mat"] += len(items)
                     self.stats["overlap_mat_ms"] += int(
@@ -3339,7 +3529,7 @@ class LaneEngine:
         t_idle0 = None
         trace.begin("lane.explore", n_lanes=self.n_lanes,
                     entries=n_entries, code_len=code_len,
-                    pack_members=0)
+                    pack_members=len(members) if packed else 0)
         try:
             while True:
                 # per-boundary fingerprint cache: the window merge and
@@ -3360,7 +3550,8 @@ class LaneEngine:
                         ad.seed_ok(gs) for ad in self.adapters
                     ):
                         # host handles this entry
-                        deliver(None, gs)
+                        deliver(mems[midx].owner if packed else None,
+                                gs)
                         continue
                     entries.append((free.pop(), gs, mems[midx]))
                 i32buf, u8buf, k, pv = self._pack_window(
@@ -3429,6 +3620,12 @@ class LaneEngine:
                 if live_now > 0:
                     _solver_stats.bump_max(pack_occupancy_pct=round(
                         100.0 * live_now / n, 1))
+                if packed:
+                    owners_live = {owner_of(c) for c in ctxs
+                                   if c is not None}
+                    if len(owners_live) > 1:
+                        _solver_stats.bump(
+                            dispatches_saved=len(owners_live) - 1)
                 t_wait0 = time.perf_counter()
                 with _prof("window_pull"), \
                         trace.span("lane.window_pull"):
@@ -3598,10 +3795,11 @@ class LaneEngine:
                         for row_i, lane in enumerate(held):
                             patch = None
                             if lane not in dead_set:
-                                patch = self._try_resume(
-                                    rrows, row_i,
-                                    int(pcs[lane]),
-                                    int(counts_h["sp"][lane]))
+                                with self._owner_run(ctxs[lane]):
+                                    patch = self._try_resume(
+                                        rrows, row_i,
+                                        int(pcs[lane]),
+                                        int(counts_h["sp"][lane]))
                             if patch is not None:
                                 resumes.append((lane,) + patch)
                                 status[lane] = Status.RUNNING
@@ -3756,21 +3954,37 @@ class LaneEngine:
                       - stats0.get("windows", 0))
             # an exception mid-sweep raises to the caller; the
             # coverage of the windows that ran is kept all the same
-            self._visited_dev[code_bytes] = visited
-            self.visited_by_code[code_bytes] = \
-                visited.cpu().numpy()[: cc.size]
+            if not packed:
+                self._visited_dev[code_bytes] = visited
+                self.visited_by_code[code_bytes] = \
+                    visited.cpu().numpy()[: cc.size]
+            else:
+                # per-member coverage: slice each segment out of the
+                # arena bitmap and OR into the per-code map
+                vh = visited.cpu().numpy()
+                for m in mems:
+                    cur = vh[m.base: m.base + len(m.code)]
+                    prev = self.visited_by_code.get(m.code)
+                    if prev is not None and prev.shape == cur.shape:
+                        cur = cur | prev
+                    self.visited_by_code[m.code] = cur
         self._release_state(st)
         # static jump-table consult (docs/static_pass.md): a symbolic-
         # dest JUMP park with a statically-proved singleton target
         # continues in place instead of dying in the interpreter
-        results = self._patch_jump_parks(results)
+        # (per-code — stands down under a packed wave)
+        if not packed:
+            results = self._patch_jump_parks(results)
         global LAST_RUN_STATS
         delta = {k: v - stats0.get(k, 0) for k, v in self.stats.items()}
-        if peak_demand > PATH_HISTORY.get(code_bytes, 0):
+        if not packed \
+                and peak_demand > PATH_HISTORY.get(code_bytes, 0):
             PATH_HISTORY[code_bytes] = peak_demand
         LAST_RUN_STATS = self.last_run_stats = delta
         for key, val in delta.items():
             RUN_STATS_TOTAL[key] = RUN_STATS_TOTAL.get(key, 0) + val
+        if packed:
+            return router.lists
         return {None: results}
 
     # -- device-state pooling ------------------------------------------------

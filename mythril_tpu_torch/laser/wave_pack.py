@@ -37,9 +37,10 @@ dispatcher: one submission runs the member's own engine solo
 (bit-for-bit the unpacked path — this is also why a pack degenerates
 gracefully as members finish at different speeds), two or more run as
 one packed explore on a shared engine sized for the combined wave.
-Results (and any dispatch exception — every member then falls back to
-its host interpreter, degraded never wrong) deliver per owner; the
-baton walks the members as each wakes.
+Results deliver per owner; a dispatch exception is delivered to every
+waiting member, whose sweep raises it: each of those requests ends
+with the error (no member re-runs its states on the host). The baton
+walks the members as each wakes.
 
 **Attribution.** SolverStatistics counters are snapshot/diffed at
 every baton switch and credited to the member that held it; a packed
@@ -320,8 +321,8 @@ class PackGroup:
         except (KeyboardInterrupt, MemoryError):
             raise
         except BaseException as e:
-            # every waiter falls back to its host interpreter
-            # (svm catches and re-queues — degraded, never wrong)
+            # every waiter's sweep raises it: its request ends with
+            # the error
             for w in waiting:
                 w.wave_result = e
         finally:

@@ -12,12 +12,15 @@ planes in place, as the JAX ``run_jit`` may with its donated state: on
 a CUDA state through one launch of kernel K10 (``csrc/stepper.cu``
 ``lane_run``), on a CPU state by copying the plain result back. The
 host builders and extractors (``set_calldata``, ``extract_storage``,
-...) update a state in place and return it. The wave-packed
-``compile_packed_code`` is not ported yet (ROADMAP A5).
+...) update a state in place and return it. ``compile_packed_code``
+builds the segment arena of a cross-tenant packed wave: several
+contracts' planes in one table, with the ``seg_of``/``seg_tab`` lookup
+the symbolic stepper resolves each lane's own member through.
 """
 
 import ctypes
 from dataclasses import dataclass, fields, replace
+from typing import Optional
 
 import numpy as np
 import torch
@@ -143,10 +146,15 @@ class CompiledCode:
     """Per-pc planes of one contract, packed into ONE ``(L+1, 14)`` int32
     tensor with the column layout of the JAX package: opcode, next_pc,
     is_jumpdest, is_func_entry, 8 PUSH-immediate limbs, det_mask,
-    loopsum_park. ``size`` is the real code length."""
+    loopsum_park. ``size`` is the real code length (of a packed arena:
+    its used length). ``seg_of`` (``(L+1,)`` int32, arena pc -> member)
+    and ``seg_tab`` (``(S, 2)`` int32 [base, size] rows) are set only by
+    ``compile_packed_code``; a plain compile leaves both None."""
 
     packed: torch.Tensor
     size: int
+    seg_of: Optional[torch.Tensor] = None
+    seg_tab: Optional[torch.Tensor] = None
 
     @property
     def opcode(self):
@@ -190,10 +198,12 @@ def _code_bucket(length: int) -> int:
 
 
 def pack_code(code: bytes, func_entries=(), det_mask=None,
-              loopsum_pcs=None) -> np.ndarray:
-    """The packed ``(L+1, 14)`` int32 code plane, as numpy."""
+              loopsum_pcs=None, padded=None) -> np.ndarray:
+    """The packed ``(L+1, 14)`` int32 code plane, as numpy; ``L`` is
+    ``padded``, by default the code's bucket."""
     length = len(code)
-    padded = _code_bucket(length)
+    if padded is None:
+        padded = _code_bucket(length)
     opcode = np.full(padded + 1, _OP["STOP"], dtype=np.int32)
     push_value = np.zeros((padded + 1, bv256.NLIMBS), dtype=np.uint32)
     next_pc = np.arange(1, padded + 2, dtype=np.int32)
@@ -240,6 +250,59 @@ def compile_code(code: bytes, func_entries=(), det_mask=None,
     packed = pack_code(code, func_entries, det_mask, loopsum_pcs)
     return CompiledCode(packed=torch.from_numpy(packed).to(resolve(device)),
                         size=len(code))
+
+
+# -- cross-tenant wave packing ------------------------------------------------
+
+#: STOP-filled guard bytes between packed segments: a lane walking off
+#: its member's code end halts inside its own region before it reads a
+#: neighbour's rows (the longest pc advance is a PUSH32's 33 bytes;
+#: jumps are bounded by the member's own size)
+SEG_GUARD = 64
+
+
+def _seg_bucket(n: int) -> int:
+    """pow2 segment-count bucket (the JAX package's, so the tables of
+    both packages have equal shapes)."""
+    return 1 << max(1, (max(1, n) - 1).bit_length())
+
+
+def compile_packed_code(members, device=None):
+    """One segment-arena ``CompiledCode`` for several member contracts
+    on ``device``: each member's planes (``pack_code``) land at a
+    STOP-guarded base offset with ``next_pc`` in arena coordinates, and
+    ``seg_of``/``seg_tab`` let the symbolic stepper resolve each lane's
+    jump bounds, CODESIZE and PC against its own member. ``members``:
+    [(code_bytes, func_entries)] or [(code_bytes, func_entries,
+    loopsum_pcs)], the optional per-member loop-summary park plane.
+    ``size`` is the arena's used length. Returns (CompiledCode, [base
+    offsets])."""
+    from ..support.devices import resolve
+
+    if not members:
+        raise ValueError("packed compile needs at least one member")
+    bases, off = [], 0
+    for member in members:
+        bases.append(off)
+        off += len(member[0]) + SEG_GUARD
+    padded = _code_bucket(off)
+    arena = pack_code(b"", padded=padded)
+    seg_of = np.zeros(padded + 1, dtype=np.int32)
+    seg_tab = np.zeros((_seg_bucket(len(members)), 2), dtype=np.int32)
+    for idx, (member, base) in enumerate(zip(members, bases)):
+        code, fentries = member[0], member[1]
+        loopsum_pcs = member[2] if len(member) > 2 else None
+        rows = pack_code(code, fentries, loopsum_pcs=loopsum_pcs)
+        rows = rows[:len(code) + 1]
+        rows[:, 1] += base
+        arena[base:base + len(rows)] = rows
+        end = bases[idx + 1] if idx + 1 < len(bases) else padded + 1
+        seg_of[base:end] = idx
+        seg_tab[idx] = (base, len(code))
+    dev = resolve(device)
+    return CompiledCode(packed=torch.from_numpy(arena).to(dev), size=off,
+                        seg_of=torch.from_numpy(seg_of).to(dev),
+                        seg_tab=torch.from_numpy(seg_tab).to(dev)), bases
 
 
 # ---------------------------------------------------------------------------

@@ -392,6 +392,15 @@ def sym_step(code: CompiledCode, st: SymLaneState, exec_table=None,
     pc = st.pc.to(I64)
     sp = st.sp.to(I64)
     pc_c = pc.clamp(0, code.size)
+    if code.seg_tab is not None:
+        # packed arena (stepper.compile_packed_code): lane pcs are arena
+        # coordinates; jump bounds, CODESIZE and PC resolve against the
+        # lane's own member through its [base, size] row
+        seg = code.seg_of[pc_c.clamp(0, code.seg_of.shape[0] - 1)].long()
+        srow = code.seg_tab[seg.clamp(0, code.seg_tab.shape[0] - 1)].long()
+        seg_base, seg_size = srow[:, 0], srow[:, 1]
+    else:
+        seg_base, seg_size = None, None
     op = code.opcode[pc_c].to(I64)
     op = torch.where(running, op, _OP["JUMPDEST"])
 
@@ -452,10 +461,17 @@ def sym_step(code: CompiledCode, st: SymLaneState, exec_table=None,
     mem_fee = _mem_fee(msize & M32, new_msize & M32)
 
     # ---- jump destination -------------------------------------------------
+    # `dest` stays member-local (what the program pushed: fork logs and
+    # fentry record it); `dest_eff` is the arena pc control flow takes
     dest_u32, dest_hi = _u32_of(a)
-    dest_small = ~dest_hi & (dest_u32 < code.size)
-    dest = torch.where(dest_small, dest_u32, 0)
-    dest_eff = dest
+    if seg_base is None:
+        dest_small = ~dest_hi & (dest_u32 < code.size)
+        dest = torch.where(dest_small, dest_u32, 0)
+        dest_eff = dest
+    else:
+        dest_small = ~dest_hi & (dest_u32 < seg_size)
+        dest = torch.where(dest_small, dest_u32, 0)
+        dest_eff = torch.where(dest_small, dest + seg_base, 0)
     dest_ok = dest_small & code.is_jumpdest[dest_eff.clamp(0, code.size)]
     jumpi_taken_conc = ~sym_b & ~bv256.is_zero(b)
 
@@ -756,11 +772,13 @@ def sym_step(code: CompiledCode, st: SymLaneState, exec_table=None,
     env_idx = tab["env"][op].clamp(0, N_ENV - 1)
     env_r = _onehot_gather(env_u, env_idx)
     env_sid_r = _gather_flat(st.env_sid, env_idx)
-    pc_r = bv256.from_u32(pc)
+    pc_r = bv256.from_u32(pc if seg_base is None else (pc - seg_base) & M32)
     gl_slot = ENV_SLOTS["GASLIMIT"]
     gas_r = env_u[:, gl_slot, :]
     cds_r = bv256.from_u32(cd_size)
-    codesize_r = bv256.from_u32(torch.full((n,), code.size, device=dev))
+    codesize_r = bv256.from_u32(
+        torch.full((n,), code.size, device=dev) if seg_base is None
+        else seg_size)
     push_r = u32(code.push_value[pc_c])
     dup_r = _peek(stack_u, sp, dup_n)
     dup_sid = _peek_sid(st.ssid, sp, dup_n)
@@ -975,9 +993,11 @@ SYNC_EVERY = 8
 
 _STEP_SIGS = {
     "sym_run_steps": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+                      ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_void_p],
     "sym_count_running": [ctypes.c_void_p, ctypes.c_void_p,
                           ctypes.c_void_p, ctypes.c_void_p],
     "sym_init": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -1020,7 +1040,8 @@ def sym_run_kernel(code: CompiledCode, st: SymLaneState, max_steps: int,
     """``sym_run`` on the card through kernel K1 (``csrc/symstep.cu``),
     reading the running count back every ``sync_every`` steps. Updates
     the state's planes in place (the JAX run donates its state) and
-    returns (state, visited)."""
+    returns (state, visited). A packed arena (``code.seg_tab`` set)
+    takes K1's packed branch (row 2p), counted as ``sym_step_packed``."""
     from .. import _build
 
     dev = st.pc.device
@@ -1030,6 +1051,14 @@ def sym_run_kernel(code: CompiledCode, st: SymLaneState, max_steps: int,
     optab = torch.from_numpy(op_table(exec_table, taint_table)).to(dev)
     packed = code.packed.contiguous()
     _build.need_cuda(packed, torch.int32, "code.packed")
+    seg_args, counter = (None, 0, None, 0), "sym_step"
+    if code.seg_tab is not None:
+        seg_of, seg_tab = code.seg_of.contiguous(), code.seg_tab.contiguous()
+        _build.need_cuda(seg_of, torch.int32, "code.seg_of")
+        _build.need_cuda(seg_tab, torch.int32, "code.seg_tab")
+        seg_args = (_build.ptr(seg_of), seg_of.shape[0], _build.ptr(seg_tab),
+                    seg_tab.shape[0])
+        counter = "sym_step_packed"
     vis = visited
     if vis is not None:
         _build.need_cuda(vis, torch.bool, "visited")
@@ -1046,11 +1075,11 @@ def sym_run_kernel(code: CompiledCode, st: SymLaneState, max_steps: int,
     while done < max_steps:
         k = min(sync_every, max_steps - done)
         rc = lib.sym_run_steps(
-            planes, dims, _build.ptr(packed), code.size, _build.ptr(optab),
-            _build.ptr(ctl), _build.ptr(scratch), k, MAX_FORKS_PER_STEP,
-            None if vis is None else _build.ptr(vis),
+            planes, dims, _build.ptr(packed), code.size, *seg_args,
+            _build.ptr(optab), _build.ptr(ctl), _build.ptr(scratch), k,
+            MAX_FORKS_PER_STEP, None if vis is None else _build.ptr(vis),
             0 if vis is None else vis.shape[0], stream)
-        _build.LAUNCHES["sym_step"] += k
+        _build.LAUNCHES[counter] += k
         _build.check(lib, rc, "sym_run_steps")
         done += k
         if int(ctl[0]) == 0:

@@ -8,9 +8,13 @@ loop contract of ``__graft_entry__._build_fixture``. The port imports
 neither, so it keeps these copies; tests check the bytes are equal.
 ``build_diamond_contract`` is ``bench.py``'s window-merge rig (a storm
 of rejoining diamonds), ``build_sha3_resume_contract`` the JAX package's
-in-place-resume rig (``tests/test_lane_resume.py``).
+in-place-resume rig (``tests/test_lane_resume.py``),
+``build_fork_tree_contract`` the fork tree of its wave-packing tests.
 ``build_coverage_contract`` is the port's own: a symbolic switch whose
-arms each exercise one family of the symbolic stepper.
+arms each exercise one family of the symbolic stepper. ``with_probe``
+appends the port's packed-arena probe to a member contract (PC,
+CODESIZE and jumps at seeded destinations, for the checks of K1's
+packed branch).
 
 For the concrete stepper: ``build_bench_contract`` and ``bench_batch``
 are the copies of ``bench.py``'s ``build_contract`` and of the batch
@@ -51,6 +55,28 @@ def build_symbolic_contract(k: int = 12):
     return bytes(c), 2 ** k
 
 
+
+
+def build_fork_tree_contract(k: int = 5, sstore_every: int = 1) -> bytes:
+    """k sequential symbolic branches (2**k paths), an SSTORE on every
+    ``sstore_every``-th level, a final SSTORE: the fork tree of the JAX
+    package's wave-packing queue (``tests/test_stream_retire.py``)."""
+    op = _OP
+    c = bytearray(_push(0))
+    for i in range(k):
+        c += _push(i) + bytes([op["CALLDATALOAD"]])
+        c += _push(1) + bytes([op["AND"], op["ISZERO"]])
+        j = len(c)
+        c += _push(0, 2) + bytes([op["JUMPI"]])
+        c += _push(7) + bytes([op["ADD"], op["DUP1"]])
+        if i % sstore_every == 0:
+            c += _push(i) + bytes([op["SSTORE"]])
+        else:
+            c += bytes([op["POP"]])
+        c[j + 1:j + 3] = len(c).to_bytes(2, "big")
+        c += bytes([op["JUMPDEST"]])
+    c += _push(0) + bytes([op["SSTORE"], op["STOP"]])
+    return bytes(c)
 
 
 def build_sha3_resume_contract():
@@ -156,6 +182,25 @@ def assemble(items) -> bytes:
     for pos, name in refs:
         out[pos:pos + 2] = labels[name].to_bytes(2, "big")
     return bytes(out)
+
+
+def with_probe(code: bytes):
+    """``code`` with the packed-arena probe appended, and the probe's
+    two entry offsets {"jump", "jumpi"} (both JUMPDESTs, member-local).
+    A lane entering "jump" with a destination on its stack pushes PC
+    and CODESIZE below it (SWAP2) and jumps; one entering "jumpi" with
+    [condition, destination] branches, and stops when not taken. A
+    PUSH that runs past the end of ``code`` (a metadata trailer) is
+    completed with zero bytes first, so the probe starts on an
+    instruction."""
+    end = 0
+    while end < len(code):
+        op = code[end]
+        end += 1 + (op - 0x5F if 0x60 <= op <= 0x7F else 0)
+    code = code + bytes(end - len(code))
+    tail = assemble([("label", "jump"), "PC", "CODESIZE", "SWAP2", "JUMP",
+                     ("label", "jumpi"), "JUMPI", "STOP"])
+    return code + tail, {"jump": len(code), "jumpi": len(code) + 5}
 
 
 def build_coverage_contract() -> bytes:

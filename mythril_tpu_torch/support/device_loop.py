@@ -223,3 +223,60 @@ def tx_entry_seed(objects: "le.ObjectTable", group: int,
         mem_v=np.zeros(le.SEED_MEM, np.uint8),
         mem_k=np.zeros(le.SEED_MEM, np.uint8),
     )
+
+
+def packed_probe_seeds(objects: "le.ObjectTable", codes, bases, probes,
+                       calldata_cap: int, n_seeds: int, group0: int = 1):
+    """``n_seeds`` raw seeds over a packed arena of the members
+    ``codes`` (each ending in ``contracts.with_probe``'s probe, entry
+    offsets ``probes``) at arena ``bases``, round robin over the
+    members: a transaction entry at the member's base (symbolic
+    calldata: it forks at the member's own JUMPIs), then probe lanes
+    that read PC and CODESIZE and JUMP to each destination kind (an
+    in-member JUMPDEST; the member's size; the next member's JUMPDEST,
+    out of the member; a non-JUMPDEST; a word over 32 bits; a symbolic
+    word), and JUMPI lanes on a symbolic condition (a fork), a true
+    and a false one."""
+    from ..ops.bv256 import int_to_limbs
+
+    kinds = [("entry", None)] + [
+        ("jump", d) for d in ("local", "size", "cross", "plain", "huge",
+                              "symbolic")] + [
+        ("jumpi", c) for c in ("symbolic", "true", "false")]
+    seeds = []
+    m_count = len(codes)
+    for i in range(n_seeds):
+        m = i % m_count
+        kind, arg = kinds[(i // m_count) % len(kinds)]
+        s = tx_entry_seed(objects, group0 + i, calldata_cap)
+        s["pc"] = bases[m]
+        seeds.append(s)
+        if kind == "entry":
+            continue
+        nxt = (m + 1) % m_count
+        dests = {
+            "local": probes[m]["jumpi"],
+            "size": len(codes[m]),
+            "cross": (bases[nxt] - bases[m] + probes[nxt]["jumpi"])
+            % (1 << 256),
+            "plain": probes[m]["jump"] + 1,
+            "huge": 1 << 40,
+            "symbolic": 0,
+        }
+        stack = []  # (value, sid) from the bottom
+        if kind == "jump":
+            s["pc"] = bases[m] + probes[m]["jump"]
+            sid = objects.add(("dest", i)) if arg == "symbolic" else 0
+            stack.append((dests[arg], sid))
+        else:
+            s["pc"] = bases[m] + probes[m]["jumpi"]
+            sym = arg == "symbolic"
+            stack.append((int(arg == "true"),
+                          objects.add(("cond", i)) if sym else 0))
+            stack.append((dests["local"] if sym or arg == "false"
+                          else dests["cross"], 0))
+        for j, (v, sid) in enumerate(stack):
+            s["stack_v"][j] = int_to_limbs(v)
+            s["stack_s"][j] = sid
+        s["sp"] = len(stack)
+    return seeds

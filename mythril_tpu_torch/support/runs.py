@@ -1,8 +1,10 @@
 """In-process runs of the analyzer that ``chip_smoke.py``,
 ``tools/prof_torch_port.py`` and the tests share: ``analyze`` (a
 ``myth analyze`` of bytecode through ``MythrilAnalyzer``), ``explore``
-(the engine alone over every path, as ``bench.py``'s ``_explore``) and
-``merge_run`` (``bench.py``'s window-merge rig).
+(the engine alone over every path, as ``bench.py``'s ``_explore``),
+``merge_run`` (``bench.py``'s window-merge rig), ``entry_states``
+(the states an analysis hands the lane engine first) and ``pack_codes``
+(the members of the packed checks).
 
 Each run resets the analysis state first and reports what the lane
 engine did (``lane_engine.RUN_STATS_TOTAL`` over the run) beside its
@@ -81,6 +83,46 @@ def explore(code: bytes, tpu_lanes: int):
     finally:
         args.tpu_lanes = 0
     return len(sym.laser.open_states), stats, time.perf_counter() - t0
+
+
+#: the corpus fixtures of the packed arena checks (runtime code)
+PACK_FIXTURES = ("calls.sol.o", "kinds_of_calls.sol.o")
+
+
+def pack_codes(k: int):
+    """The four members of the packed checks (chip_smoke.py,
+    tools/prof_torch_port.py): the k-branch symbolic contract,
+    bench.py's diamond (k=6) and the runtime code of the two
+    PACK_FIXTURES."""
+    from .contracts import build_diamond_contract, build_symbolic_contract
+    from .lane_compare import INPUTS
+
+    return [build_symbolic_contract(k)[0], build_diamond_contract(k=6)] + [
+        bytes.fromhex((INPUTS / name).read_text().strip())
+        for name in PACK_FIXTURES]
+
+
+def entry_states(code: str, bin_runtime: bool = True, tpu_lanes: int = 64):
+    """The transaction-entry states the first lane sweep of an analysis
+    of hex ``code`` hands the engine (every detector, one transaction).
+    The sweep is cut there: it parks nothing, so the analysis ends at
+    once and the states stay as they were seeded."""
+    captured = []
+
+    def spy(self, code_bytes, states):
+        if not captured:
+            captured.extend(states)
+        return []
+
+    orig = lane_engine.LaneEngine.explore
+    lane_engine.LaneEngine.explore = spy
+    try:
+        analyze(code, bin_runtime=bin_runtime, tpu_lanes=tpu_lanes)
+    finally:
+        lane_engine.LaneEngine.explore = orig
+    if not captured:
+        raise RuntimeError("the analysis never reached the lane engine")
+    return captured
 
 
 def merge_run(code: bytes, merge_on: bool, width: int = 64,

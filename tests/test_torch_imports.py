@@ -78,6 +78,18 @@ EDITED = {
         "the first build writes its own file and renames it into place: "
         "test workers that import the package together must never load "
         "a half-written library"),
+    "daemon/server.py": (
+        {"<doc>", "AnalysisDaemon._configure_shared_state",
+         "AnalysisDaemon._analyze"},
+        "the daemon builds every kernel at startup (or stops) instead of "
+        "arming an XLA compile cache, and a request's failed analysis "
+        "is named in its report row instead of hidden by the "
+        "analyzer's per-contract capture"),
+    "laser/wave_pack.py": (
+        {"<doc>", "PackGroup._run_wave"},
+        "a packed dispatch that raises ends its members' requests with "
+        "the error: the port's svm has no host fallback, so the copy "
+        "no longer promises one"),
     "models/pruner.py": (
         {"<doc>", "<module>", "_raws", "_device_threshold",
          "prefilter_world_states", "_screen_interval",
@@ -144,7 +156,8 @@ def test_the_scan_sees_the_package():
             "support/screen_waves.py", "laser/svm.py",
             "interfaces/cli.py", "__main__.py", "support/runs.py",
             "support/lane_compare.py", "ops/stepper.py", "interop.py",
-            "support/contracts.py"} <= names
+            "support/contracts.py", "daemon/server.py",
+            "laser/wave_pack.py", "support/checkpoint.py"} <= names
     scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
     for rel in EXCLUDED:
         assert os.path.exists(os.path.join(ROOT, rel))
@@ -211,10 +224,14 @@ def test_every_copy_is_accounted_for():
     assert set(EDITED) <= copies
     assert len(copies) > 150
     # what myth analyze loads and the port leaves out on purpose
-    for rel in ("daemon/server.py", "parallel/mesh.py",
-                "parallel/corpus.py", "parallel/migrate.py",
-                "support/checkpoint.py", "concolic/__init__.py"):
+    for rel in ("parallel/mesh.py", "parallel/corpus.py",
+                "parallel/migrate.py", "concolic/__init__.py"):
         assert not os.path.exists(os.path.join(PKG, rel)), rel
+    # the resident daemon and its request path are ported
+    for rel in ("daemon/server.py", "daemon/protocol.py",
+                "daemon/client.py", "support/checkpoint.py",
+                "laser/wave_pack.py"):
+        assert rel in copies, rel
 
 
 @pytest.mark.parametrize("rel", ["native/Makefile", "native/sat.cpp",

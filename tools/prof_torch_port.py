@@ -3,6 +3,7 @@
     python3 tools/prof_torch_port.py [--k 12] [--lanes 4096]
     python3 tools/prof_torch_port.py --screen [--systems 8192] [--off]
     python3 tools/prof_torch_port.py --analyze calls.sol.o
+    python3 tools/prof_torch_port.py --packed [--k 11] [--lanes 4096]
 
 Without ``--screen`` or ``--analyze``: runs the device loop
 (``support/device_loop.DeviceLoop``) on ``build_symbolic_contract(k)``
@@ -19,6 +20,13 @@ host drain of records and forks, materialize, the K9 fingerprint, the
 device screens (every call of the interval and propagation screens,
 timed to their verdicts), the solver's queries and the rest of the
 host; then once under ``torch.profiler`` for the device busy share.
+
+With ``--packed``: the four members of chip_smoke.py's packed explore
+(``support/runs.pack_codes``) explored solo, one engine each, and
+packed into one ``LaneEngine.explore_packed``, in turns (solo, packed,
+packed, solo) on the host clock; then one packed explore under
+``cProfile`` (the host functions by cumulative time) and one under
+``torch.profiler`` (the device busy share).
 
 With ``--screen``: the same for ``models/pruner._screen_interval`` over
 the ``bench_prefilter`` wave (``support/screen_waves.prefilter_wave``),
@@ -144,6 +152,47 @@ def _screen_stages(dev, systems, off):
     return out
 
 
+def _packed(k, lanes, card):
+    import cProfile
+    import pstats
+
+    from mythril_tpu_torch.support import runs
+
+    codes = runs.pack_codes(k)
+    entries = []
+    for code in codes:
+        le.PATH_HISTORY[code] = lanes
+        entries.append(runs.entry_states(code.hex(), tpu_lanes=lanes))
+
+    def solo():
+        return [len(le.LaneEngine(n_lanes=lanes).explore(c, list(s)))
+                for c, s in zip(codes, entries)]
+
+    def packed():
+        out = le.LaneEngine(n_lanes=lanes).explore_packed(
+            [(c, list(s), i) for i, (c, s) in enumerate(zip(codes, entries))])
+        return [len(out[i]) for i in range(len(codes))]
+
+    print(f"card: {card}")
+    for name, fn in (("solo", solo), ("packed", packed), ("packed", packed),
+                     ("solo", solo)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parked = fn()
+        torch.cuda.synchronize()
+        print(f"{name:7s} k={k} lanes={lanes}: parked {parked}, wall "
+              f"{time.perf_counter() - t0:.3f} s")
+    prof = cProfile.Profile()
+    prof.enable()
+    packed()
+    prof.disable()
+    pstats.Stats(prof).sort_stats("cumulative").print_stats(15)
+    _, wall, rows = _profile(packed)
+    dev_us = sum(e.self_device_time_total for e in rows)
+    print(f"packed under torch.profiler: wall {wall:.3f} s, device "
+          f"{dev_us / 1e3:.3f} ms, busy share {dev_us / 1e6 / wall:.4f}")
+
+
 def _profile(fn):
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -166,12 +215,16 @@ def main(argv=None) -> int:
     ap.add_argument("--systems", type=int, default=8192)
     ap.add_argument("--off", action="store_true")
     ap.add_argument("--analyze", metavar="FIXTURE")
+    ap.add_argument("--packed", action="store_true")
     args = ap.parse_args(argv)
     dev = resolve()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+    if args.packed:
+        _packed(args.k, args.lanes, card)
+        return 0
     if args.analyze:
         _analyze_parts(args.analyze)  # warm: builds, allocator, caches
         wall, parts, n_issues, stats = _analyze_parts(args.analyze)
