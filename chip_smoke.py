@@ -12,7 +12,8 @@ Run from the repository root on a machine with one CUDA card:
 
 (``python3 chip_smoke.py --analyze FIXTURE STATS`` is the per-fixture
 process the corpus phase starts, ``--serve DIR STATS`` the daemon
-process of the daemon phase.)
+process of the daemon phase, ``--corpus-rank STATS ARGS`` a rank of the
+corpus-mode phase.)
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -62,7 +63,12 @@ Phases (any failure exits non-zero and prints no result):
    the merge path: ``bench.py``'s window-merge rig (the diamond
    contract, 64 lanes, 32-step windows) with the merge on and off:
    lanes merge and subsume, K9 launches (its main path), the issues
-   are identical;
+   are identical; the corpus mode: four ranks of ``python -m
+   mythril_tpu_torch.parallel.corpus`` on this card (``--corpus-rank``,
+   a TCPStore on localhost, ``--tpu-lanes 64``, stealing on) over the
+   18 fixtures: no rank fails, every fixture is analysed by one rank,
+   and the merged report has, fixture by fixture, the JAX package's
+   corpus-mode issues (``tests/torch_data/corpus_issues.json``);
 6. the device loop alone (``support/device_loop.DeviceLoop``, raw
    seeds): k=12 at 4096 lanes with the kernels and with the plain
    versions, every window's outputs equal; the wide run, k=17 at 131072 lanes;
@@ -96,22 +102,34 @@ Phases (any failure exits non-zero and prints no result):
     ``init_lanes``' default planes (~11.2 KB a lane) on
     ``__graft_entry__._build_fixture``'s loop contract and on the lane
     mix contract (loop, memory and storage arms), 512 sampled lanes of
-    each equal to ``run_plain``;
+    each equal to ``run_plain``; then the mesh (``parallel/mesh.py``):
+    that batch on 8 shards of this card, K12 ``lane_live``, K13
+    ``lane_order`` and K14 ``lane_gather`` bit for bit against their
+    plain versions, ``sharded_run`` equal to one K10 run, the live
+    counts, ``compact_lanes`` and ``steal_balance`` equal to the plain
+    versions after 400 steps (the main path of K12-K14: counts reset
+    before it and read after), the balanced shards within one running
+    lane of each other, ``make_mesh()`` equal to K10 alone, and one
+    ``steal_balance`` of 131072 lanes at the default planes; K12-K14's
+    call, device, plain and library times (the per-shard sum,
+    ``torch.argsort(stable=True)``, ``index_select``) at both sizes;
 11. the fused screen: K11 on the 8192-system wave, equal to
     ``_fixpoint_plain`` and to the host-sequenced K6-K8 driver (tables,
     ok, contra, keep, sweeps); the pruner's screen with
     ``MTPU_PROPAGATE_FUSE`` on (one K11 launch a wave) and off, in
     turns, systems/s and launches each way;
 12. the report: a ``kernels`` JSON line (launches on each kernel's path,
-    error, times, bounds), the card's name and power limit, and the
+    error, times, bounds, library times where one PyTorch call computes
+    the same function), the card's name and power limit, and the
     result line.
 
 ``ms`` is a wrapper call on CUDA events, the host's argument packing
 and launch gaps included; ``device_ms`` is the device time of the same
 call: for K0-K4, K9, K10 and bv256 its kernels and copies in
-torch.profiler, for K5-K8 and K11 CUDA events around the call queued
-behind a spin kernel (``queued_ms``), on the inputs its bound is
-counted from. The run fails where a device time is below its bound.
+torch.profiler, for K5-K8, K11 and K12-K14 CUDA events around the call
+queued behind a spin kernel after an L2 flush (``queued_ms``), on the
+inputs its bound is counted from. The run fails where a device
+time is below its bound.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -1544,6 +1562,235 @@ def concrete_path(dev, card, report):
 
 
 # ---------------------------------------------------------------------------
+# the mesh: sharded runs, the live count, compaction, the deal (K12-K14)
+# ---------------------------------------------------------------------------
+
+#: the mesh phase: bench_device's batch on MESH_SHARDS shards of one
+#: card, MESH_STEPS steps before the count, compaction and the deal;
+#: then one deal at init_lanes' default planes
+MESH_LANES, MESH_SHARDS, MESH_STEPS = 32768, 8, 400
+WIDE_MESH_N, WIDE_MESH_STEPS = 131072, 64
+
+
+def mesh_kernel_times(dev, st, n_dev, reps):
+    """Call, device (``queued_ms``: inside this script, after the earlier
+    phases, torch.profiler records only part of these short launches),
+    plain and library ms and the bounds of K12, K13 (with the deal over
+    n_dev shards) and K14 on ``st``'s statuses and planes:
+    {kernel: {...}}. The library calls: the per-shard sum of
+    ``status == RUNNING``, ``torch.argsort(stable=True)`` of the
+    not-running key (the order of compact_lanes) and ``index_select``
+    of every plane."""
+    import torch
+
+    from mythril_tpu_torch.ops import stepper as S
+    from mythril_tpu_torch.parallel import mesh as M
+
+    n = st.pc.shape[0]
+    status = st.status
+    order = M.lane_order(status, n_dev)
+    rows = M.source_rows(order, n)
+    planes = [getattr(st, f) for f in S.LANE_FIELDS]
+
+    def timed(kern, plain, library, nbytes):
+        bms, by = bound_ms(nbytes)
+        return dict(ms=cuda_ms(kern, reps=reps),
+                    device_ms=queued_ms(lambda _: kern(), lambda: None,
+                                        reps=reps),
+                    plain_ms=cuda_ms(plain, reps=reps),
+                    library_ms=cuda_ms(library, reps=reps), bound_ms=bms,
+                    bound_by=by)
+
+    return {
+        "lane_live": timed(
+            lambda: M.lane_live(status, n_dev),
+            lambda: M.lane_live_plain(status, n_dev),
+            lambda: (status.view(n_dev, -1) == S.Status.RUNNING).sum(1),
+            4 * n + 4 * n_dev),
+        "lane_order": timed(
+            lambda: M.lane_order(status, n_dev),
+            lambda: M.lane_order_plain(status, n_dev),
+            lambda: torch.argsort((status != S.Status.RUNNING).int(),
+                                  stable=True),
+            8 * n),
+        "lane_gather": timed(
+            lambda: M.lane_gather(st, order),
+            lambda: M.lane_gather_plain(st, order),
+            lambda: [x.index_select(0, rows) for x in planes],
+            2 * n * S.lane_bytes(st)),
+    }
+
+
+def mesh_path(dev, card, report):
+    """The scale-out path (``parallel/mesh.py``) at full width:
+    ``bench_device``'s batch (32768 lanes of 1324 bytes) on a mesh of 8
+    shards of this card. First K12-K14 against their plain versions on
+    the batch after MESH_STEPS steps (mixed statuses: the live counts,
+    the order with no deal and with the deal over 8 shards, the gather
+    through both orders and through a seeded order with negative and
+    out-of-range entries). Then the main path, counts reset:
+    ``sharded_run`` to the end, equal on every plane to one unsharded
+    K10 run; a fresh batch through MESH_STEPS sharded steps (equal to
+    the unsharded K10 run of as many), ``live_lane_counts``,
+    ``compact_lanes`` and ``steal_balance`` equal to their plain
+    versions, the balanced shards' RUNNING counts within 1 of each
+    other, and the balanced shards run to the end equal to the
+    unsharded run in the dealt order; ``make_mesh()`` (the card's
+    devices) equal to K10 alone; then one ``steal_balance`` of 131072
+    lanes at ``init_lanes``' default planes (11212 bytes a lane) after
+    WIDE_MESH_STEPS steps of the lane mix contract, equal to the plain
+    version. Times: K12-K14 on the 32768-lane batch (report) and on
+    the 131072-lane one (``wide_*`` keys). Returns the main path's
+    launches."""
+    import torch
+
+    from mythril_tpu_torch import _build
+    from mythril_tpu_torch.ops import stepper as S
+    from mythril_tpu_torch.parallel import mesh as M
+    from mythril_tpu_torch.support import contracts as C
+
+    cc = S.compile_code(C.build_bench_contract(), device=dev)
+    cap = C.BENCH_MAX_STEPS
+    mesh = M.Mesh([dev] * MESH_SHARDS)
+    ref = S.run_kernel(cc, C.bench_batch(MESH_LANES, dev), cap)
+    mid = S.run_kernel(cc, C.bench_batch(MESH_LANES, dev), MESH_STEPS)
+    n_run = int((mid.status == S.Status.RUNNING).sum())
+    if not 0 < n_run < MESH_LANES:
+        raise AssertionError(f"mesh: {n_run} lanes running after "
+                             f"{MESH_STEPS} steps")
+
+    # K12-K14 against the plain versions on the mixed batch
+    g = torch.Generator().manual_seed(SEED)
+    wild = torch.randint(-2 * MESH_LANES, 2 * MESH_LANES, (MESH_LANES // 2,),
+                         generator=g, dtype=torch.int32).to(dev)
+    err = {"lane_live": 0, "lane_order": 0, "lane_gather": 0}
+    for n_dev in (1, MESH_SHARDS):
+        err["lane_live"] = max(err["lane_live"], max_err(
+            M.lane_live(mid.status, n_dev),
+            M.lane_live_plain(mid.status, n_dev)))
+        order = M.lane_order(mid.status, n_dev)
+        err["lane_order"] = max(err["lane_order"], max_err(
+            order, M.lane_order_plain(mid.status, n_dev)))
+        if err["lane_live"] or err["lane_order"]:
+            raise AssertionError(f"mesh: K12/K13 differ from the plain "
+                                 f"versions ({err})")
+        for o in (order, wild):
+            err["lane_gather"] = max(err["lane_gather"], same_lanes(
+                M.lane_gather(mid, o), M.lane_gather_plain(mid, o),
+                f"K14 ({len(o)} rows, {n_dev} shards)"))
+    log(f"mesh kernels: K12 lane_live, K13 lane_order (with and without "
+        f"the deal over {MESH_SHARDS} shards) and K14 lane_gather (both "
+        f"orders and {len(wild)} seeded rows with negative and "
+        f"out-of-range entries) equal to their plain versions on "
+        f"{MESH_LANES} lanes ({n_run} running)")
+
+    # the main path
+    _build.reset_launches()
+    whole = M.sharded_run(cc, M.shard_lanes(C.bench_batch(MESH_LANES, dev),
+                                            mesh), cap, mesh)
+    same_lanes(whole.lanes(), ref, "sharded_run against one K10 run")
+    sh = M.shard_lanes(C.bench_batch(MESH_LANES, dev), mesh)
+    M.sharded_run(M.replicate_code(cc, mesh), sh, MESH_STEPS, mesh)
+    same_lanes(sh.lanes(), mid, f"sharded_run of {MESH_STEPS} steps")
+    per, total = M.live_lane_counts(sh, mesh)
+    want = M.lane_live_plain(mid.status, MESH_SHARDS).cpu().numpy()
+    if per.tolist() != want.tolist() or total != n_run:
+        raise AssertionError(f"live_lane_counts {per} {total}, plain {want}")
+    packed = M.compact_lanes(sh)
+    same_lanes(packed, M.lane_gather_plain(
+        mid, M.lane_order_plain(mid.status, 1)), "compact_lanes")
+    dealt = M.lane_order_plain(mid.status, MESH_SHARDS)
+    bal = M.steal_balance(sh, mesh)
+    same_lanes(bal.lanes(), M.lane_gather_plain(mid, dealt),
+               "steal_balance")
+    per_b, total_b = M.live_lane_counts(bal, mesh)
+    if total_b != n_run or int(per_b.max()) - int(per_b.min()) > 1:
+        raise AssertionError(f"steal_balance: running per shard {per_b}")
+    M.sharded_run(cc, bal, cap, mesh)
+    same_lanes(bal.lanes(), M.lane_gather_plain(ref, dealt),
+               "the balanced shards run to the end")
+    # the card's own devices (one here; several cards are a mesh of
+    # distinct devices, whose shards are copies, not views)
+    real = M.make_mesh()
+    alone = M.sharded_run(cc, M.shard_lanes(C.bench_batch(MESH_LANES, dev),
+                                            real), cap, real)
+    same_lanes(alone.lanes(), ref, "make_mesh() against K10 alone")
+    alone = M.sharded_run(cc, M.shard_lanes(C.bench_batch(MESH_LANES, dev),
+                                            real), MESH_STEPS, real)
+    same_lanes(alone.lanes(), mid, "make_mesh(): the partial run")
+    per_r, _ = M.live_lane_counts(alone, real)
+    if per_r.tolist() != M.lane_live_plain(mid.status, real.size).tolist():
+        raise AssertionError(f"make_mesh(): live counts {per_r}")
+    same_lanes(M.compact_lanes(alone), packed, "make_mesh(): compact_lanes")
+    same_lanes(M.steal_balance(alone, real).lanes(), M.lane_gather_plain(
+        mid, M.lane_order_plain(mid.status, real.size)),
+        "make_mesh(): steal_balance")
+    del whole, sh, packed, bal, alone
+
+    wcc = S.compile_code(C.build_lane_mix_contract(), device=dev)
+    wide = C.lane_mix_batch(WIDE_MESH_N, SEED, device=dev)
+    S.run_kernel(wcc, wide, WIDE_MESH_STEPS)
+    w_run = int((wide.status == S.Status.RUNNING).sum())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wbal = M.steal_balance(M.shard_lanes(wide, mesh), mesh)
+    torch.cuda.synchronize()
+    w_wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    same_lanes(wbal.lanes(), M.lane_gather_plain(
+        wide, M.lane_order_plain(wide.status, MESH_SHARDS)),
+        f"steal_balance at {WIDE_MESH_N} lanes")
+    w_per, _ = M.live_lane_counts(wbal, mesh)
+    if int(w_per.max()) - int(w_per.min()) > 1 or not 0 < w_run < WIDE_MESH_N:
+        raise AssertionError(f"wide steal_balance: {w_run} running, per "
+                             f"shard {w_per}")
+    del wbal
+    for name in ("lane_live", "lane_order", "lane_gather"):
+        if launches[name] <= 0:
+            raise AssertionError(f"mesh path: {name} never launched "
+                                 f"({launches})")
+    log(f"mesh path ({MESH_LANES} lanes, {MESH_SHARDS} shards on {dev}): "
+        f"sharded_run equal to one K10 run on every plane; after "
+        f"{MESH_STEPS} steps {total} running, per shard {per.tolist()}, "
+        f"after steal_balance {per_b.tolist()}; compact_lanes and "
+        f"steal_balance equal to the plain versions; the balanced shards "
+        f"finish as the unsharded run; make_mesh() ({real.size} device) "
+        f"equal to K10 alone; steal_balance of {WIDE_MESH_N} lanes of "
+        f"{S.lane_bytes(wide)} bytes ({S.lane_bytes(wide) * WIDE_MESH_N} "
+        f"bytes of planes, {w_run} running) in {w_wall * 1e3:.3f} ms of "
+        f"host wall (its output's first allocation included), per "
+        f"shard {w_per.tolist()}; launches "
+        f"{ {k: launches[k] for k in err} } on {card}")
+
+    fresh = lambda: C.bench_batch(MESH_LANES, dev)  # noqa: E731
+    one_ms = cuda_ms(lambda x: S.run_kernel(cc, x, cap), reps=3, setup=fresh)
+    sharded_ms = cuda_ms(lambda x: M.sharded_run(
+        cc, M.shard_lanes(x, mesh), cap, mesh), reps=3, setup=fresh)
+    log(f"  sharded_run of the {MESH_LANES}-lane batch to the end: "
+        f"{sharded_ms:.4f} ms on {MESH_SHARDS} shards ({MESH_SHARDS} K10 "
+        f"launches in turn on one stream) against {one_ms:.4f} ms for one "
+        f"K10 run; on {card}")
+    times = mesh_kernel_times(dev, mid, MESH_SHARDS, reps=20)
+    wide_times = mesh_kernel_times(dev, wide, MESH_SHARDS, reps=3)
+    for name, t in times.items():
+        w = wide_times[name]
+        report[name] = dict(t, max_abs_err=err[name],
+                            **{f"wide_{k}": w[k] for k in
+                               ("ms", "device_ms", "plain_ms", "library_ms",
+                                "bound_ms")})
+        log(f"  {name}: {MESH_LANES} lanes {t['ms']:.4f} ms a call, "
+            f"{t['device_ms']:.4f} ms device, bound {t['bound_ms']:.6f} ms "
+            f"({t['bound_by']}), plain {t['plain_ms']:.4f} ms, library "
+            f"{t['library_ms']:.4f} ms; {WIDE_MESH_N} lanes {w['ms']:.4f} "
+            f"ms a call, {w['device_ms']:.4f} ms device, bound "
+            f"{w['bound_ms']:.6f} ms, plain {w['plain_ms']:.4f} ms, library "
+            f"{w['library_ms']:.4f} ms; on {card}")
+    del wide, mid, ref
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # the fused screen: K11
 # ---------------------------------------------------------------------------
 
@@ -2321,6 +2568,127 @@ SCREEN_ROWS = [
 ]
 
 
+# ---------------------------------------------------------------------------
+# the multi-rank corpus mode
+# ---------------------------------------------------------------------------
+
+#: the corpus mode's ranks on this card and their flags (those of the
+#: reference, tools/make_torch_reference.py --corpus, with stealing on)
+CORPUS_RANKS = 4
+CORPUS_MODE_FLAGS = ["--tpu-lanes", "64", "--timeout", "600"]
+
+
+def corpus_rank(stats_path, argv):
+    """``--corpus-rank STATS ARGS``: one rank of ``python -m
+    mythril_tpu_torch.parallel.corpus ARGS`` (the module run as ``-m``
+    runs it); the kernel launches of the rank go to ``stats_path`` when
+    it ends."""
+    import runpy
+
+    sys.path.insert(0, HERE)
+    from mythril_tpu_torch import _build
+
+    sys.argv = ["corpus"] + argv
+    try:
+        runpy.run_module("mythril_tpu_torch.parallel.corpus",
+                         run_name="__main__", alter_sys=True)
+    except SystemExit as e:
+        if e.code not in (None, 0):
+            raise
+    finally:
+        with open(stats_path, "w") as f:
+            json.dump(_build.LAUNCHES, f)
+    return 0
+
+
+def corpus_mode(card):
+    """CORPUS_RANKS ranks of the port's corpus mode on this card
+    (``--corpus-rank``), meeting at a TCPStore on localhost, stealing
+    on, over the 18 fixtures: every rank exits 0, the merged report has
+    no error and, fixture by fixture, the JAX package's corpus-mode
+    issues (``tests/torch_data/corpus_issues.json``), every fixture is
+    analysed by exactly one rank, and the ranks' lane engines launched
+    K1. Returns the makespan in seconds."""
+    import socket
+    import tempfile
+
+    from mythril_tpu_torch.support.lane_compare import INPUTS
+
+    with open(os.path.join(HERE, "tests", "torch_data",
+                           "corpus_issues.json")) as f:
+        ref = json.load(f)
+    files = sorted(str(p) for p in INPUTS.glob("*.sol.o"))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    out = os.path.join(tmp, "out")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(CORPUS_RANKS):
+            stats = os.path.join(tmp, f"launches_{rank}.json")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                 "--corpus-rank", stats, "--coordinator",
+                 f"127.0.0.1:{port}", "--num-processes", str(CORPUS_RANKS),
+                 "--process-id", str(rank), "--out-dir", out]
+                + CORPUS_MODE_FLAGS + files, cwd=HERE,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+                stats))
+        outs = [p.communicate(timeout=900) for p, _ in procs]
+        makespan = time.perf_counter() - t0
+        for rank, ((p, _), (_, err)) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"corpus mode: rank {rank} exited "
+                                     f"{p.returncode}\n{err[-3000:]}")
+        with open(os.path.join(out, "corpus_report.json")) as f:
+            merged = json.load(f)
+        seen = {}
+        walls = []
+        for rank in range(CORPUS_RANKS):
+            with open(os.path.join(out, f"shard_{rank}.json")) as f:
+                shard = json.load(f)
+            walls.append(shard["wall_s"])
+            for r in shard["results"]:
+                seen.setdefault(r["contract"], []).append(rank)
+        launches = {}
+        for _, stats in procs:
+            with open(stats) as f:
+                for k, v in json.load(f).items():
+                    launches[k] = launches.get(k, 0) + v
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    got = {c["contract"]: {"issues": c.get("issues"), "swc": c.get("swc")}
+           for c in merged["contracts"]}
+    if merged["errors"] or got != ref:
+        bad = sorted(k for k in set(got) | set(ref)
+                     if got.get(k) != ref.get(k))
+        raise AssertionError(f"corpus mode: {merged['errors']} errors, "
+                             f"issues differ on {bad}: "
+                             f"{[(k, got.get(k), ref.get(k)) for k in bad]}")
+    twice = {k: v for k, v in seen.items() if len(v) != 1}
+    if twice or set(seen) != set(ref):
+        raise AssertionError(f"corpus mode: fixtures not analysed exactly "
+                             f"once: {twice or sorted(set(ref) - set(seen))}")
+    if launches.get("sym_step", 0) <= 0:
+        raise AssertionError(f"corpus mode: the lane engine never stepped "
+                             f"({launches})")
+    log(f"corpus mode ({CORPUS_RANKS} ranks on this card, TCPStore on "
+        f"localhost, stealing on, {' '.join(CORPUS_MODE_FLAGS)}): "
+        f"{merged['total_issues']} issues over {len(got)} fixtures, each "
+        f"fixture's issues and SWC ids equal to the JAX package's corpus "
+        f"mode, each analysed by one rank, {merged['stolen']} stolen; "
+        f"makespan {makespan:.1f} s (rank walls "
+        f"{', '.join(f'{w:.1f}' for w in walls)} s); launches "
+        f"{ {k: v for k, v in launches.items() if v} } on {card}")
+    return makespan
+
+
 def main() -> int:
     try:
         return run()
@@ -2338,6 +2706,8 @@ def run() -> int:
         return analyze_one(sys.argv[2], sys.argv[3])
     if len(sys.argv) == 4 and sys.argv[1] == "--serve":
         return serve_one(sys.argv[2], sys.argv[3])
+    if len(sys.argv) > 3 and sys.argv[1] == "--corpus-rank":
+        return corpus_rank(sys.argv[2], sys.argv[3:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2423,6 +2793,7 @@ def run() -> int:
     packed_explore(dev, card)
     resume_and_spill(card)
     k9_launches = merge_path(card)
+    corpus_mode(card)
 
     res, paths, wall, stats = explore(dev, MAIN_LANES, MAIN_K)
     if res["paths"] != paths or res["forks"] != paths - 1:
@@ -2447,6 +2818,7 @@ def run() -> int:
         f"{wall_w:.3f} s, {res_w['paths'] / wall_w:.1f} paths/s on {card}")
 
     concrete_launches = concrete_path(dev, card, report)
+    mesh_launches = mesh_path(dev, card, report)
 
     wave = screen_wave(dev)
     check_screens(dev, report, wave)
@@ -2462,9 +2834,9 @@ def run() -> int:
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "device_ms": r["device_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": None,
-                **{k: r[k] for k in ("unpacked_ms", "unpacked_device_ms")
-                   if k in r}}
+                "library_ms": r.get("library_ms"),
+                **{k: r[k] for k in r if k.startswith(("unpacked_",
+                                                       "wide_"))}}
 
     # bv256 has no launch of its own on the main path: its word ops run
     # inside K1's launches, so it is listed apart with its test launch's
@@ -2484,7 +2856,11 @@ def run() -> int:
         entry("lane_run", "mythril_tpu_torch/csrc/stepper.cu",
               "mythril_tpu/ops/stepper.py:902", concrete_launches),
         entry("prop_fixpoint", "mythril_tpu_torch/csrc/screen.cu",
-              "mythril_tpu/ops/propagate.py:798", fused_launches)]
+              "mythril_tpu/ops/propagate.py:798", fused_launches)] + [
+        entry(name, "mythril_tpu_torch/csrc/mesh.cu",
+              f"mythril_tpu/parallel/mesh.py:{line}", mesh_launches)
+        for name, line in (("lane_live", 110), ("lane_order", 138),
+                           ("lane_gather", 139))]
     fast = [r["name"] for r in rows + [inlined]
             if r["device_ms"] is not None and r["device_ms"] < r["bound_ms"]]
     if fast:

@@ -37,7 +37,8 @@ LAUNCHES = {"bv256": 0, "sym_init": 0, "sym_step": 0, "sym_step_packed": 0,
             "window_prologue": 0, "window_dedup": 0, "window_epilogue": 0,
             "interval_level": 0, "prop_fwd_level": 0, "prop_back_round": 0,
             "prop_tables": 0, "merge_fingerprint": 0, "lane_run": 0,
-            "prop_fixpoint": 0}
+            "prop_fixpoint": 0, "lane_live": 0, "lane_order": 0,
+            "lane_gather": 0}
 
 _LOCK = threading.Lock()
 _LIBS = {}

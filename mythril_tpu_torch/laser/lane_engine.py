@@ -46,10 +46,12 @@ Provisional (negative) sids minted on device encode (lane, record-slot)
 and are rewritten to table ids at each drain.
 
 Unlike the JAX engine, nothing here falls back to the host: a kernel or
-device call that fails raises to the caller. Not ported: the XLA
-compile warm-up (``warm_variant``), the kernel-fault capacity autoprobe,
-multi-device meshes (``pick_mesh`` is None) and cross-tenant wave
-packing (``explore_packed``).
+device call that fails raises to the caller. Cross-tenant wave packing
+(``explore_packed``) is ported. Not ported: the XLA compile warm-up
+(``warm_variant``), the kernel-fault capacity autoprobe and the meshed
+engine: meshes and the sharded concrete batch are in
+``parallel/mesh.py``, but a window's programs are not partitioned over
+devices, so ``pick_mesh`` is None and ``LaneEngine(mesh=...)`` raises.
 """
 
 import ctypes

@@ -1,0 +1,392 @@
+"""Lane sharding over a mesh of devices: SPMD lane stepping, the live-lane
+count, compaction and the work-stealing deal.
+
+The counterpart of ``mythril_tpu/parallel/mesh.py`` (kernel row 14),
+with its names. A ``Mesh`` is an ordered tuple of ``torch.device``s
+along the ``lanes`` axis; ``make_mesh(n)`` takes the first ``n`` CUDA
+devices, as the JAX function takes ``jax.devices()[:n]``, and a mesh
+may also be built from a device list in which one device repeats (the
+counterpart of the JAX tests' virtual CPU devices: several shards on
+one card or on the CPU). A sharded batch (``ShardedLanes``) keeps
+``P("lanes")``'s placement: lane ``i`` lives in shard
+``i // (N / n_dev)``. Where every shard is on one device, the shards
+are views of one batch, which ``ShardedLanes.lanes()`` returns;
+otherwise that global batch is gathered onto the first device.
+
+- ``sharded_run``: ``stepper.run`` on each shard (kernel K10 on a CUDA
+  shard, the plain loop on a CPU one), each shard stepping until its
+  own lanes halt, with no traffic between shards; the shards update in
+  place, as ``stepper.run`` does.
+- ``live_lane_counts``: the RUNNING lanes per shard, kernel K12
+  ``lane_live`` (``csrc/mesh.cu``), and their total summed in the
+  process.
+- ``compact_lanes``: the stable "running first" order (or a caller's
+  ``order``, with JAX's index rule: a negative index wraps once, then
+  an index out of range clamps), kernel K13 ``lane_order``, then every
+  plane gathered in that order, kernel K14 ``lane_gather``.
+- ``steal_balance``: the same order dealt round-robin over the shards
+  (sorted lane ``s * n_dev + d`` to shard ``d``, slot ``s``) in the
+  same K13 launch, then K14, then resharded.
+
+Each kernel's wrapper (``lane_live``, ``lane_order``, ``lane_gather``)
+runs its plain PyTorch version (``*_plain``) on a CPU tensor and
+launches its kernel on a CUDA one, counting the launch in
+``_build.LAUNCHES``; a failed build or launch raises.
+"""
+
+import contextlib
+import ctypes
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+
+from ..ops import stepper
+from ..ops.stepper import LANE_FIELDS, CompiledCode, LaneState, Status
+
+LANES_AXIS = "lanes"
+
+
+@dataclass(frozen=True, init=False)
+class Mesh:
+    """A 1-D mesh: ``devices`` in order along ``axis_names[0]``."""
+
+    devices: Tuple[torch.device, ...]
+    axis_names: Tuple[str, ...]
+
+    def __init__(self, devices: Sequence, axis_names=(LANES_AXIS,)):
+        devs = tuple(torch.device(d) for d in devices)
+        devs = tuple(torch.device("cuda", torch.cuda.current_device())
+                     if d.type == "cuda" and d.index is None else d
+                     for d in devs)
+        if not devs:
+            raise ValueError("a mesh needs at least one device")
+        object.__setattr__(self, "devices", devs)
+        object.__setattr__(self, "axis_names", tuple(axis_names))
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def one_device(self) -> Optional[torch.device]:
+        """The device every shard lives on, or None when they differ."""
+        first = self.devices[0]
+        return first if all(d == first for d in self.devices) else None
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """Where an array lives on a mesh: ``spec`` ``(LANES_AXIS,)`` splits
+    its leading axis over the mesh, ``()`` replicates it."""
+
+    mesh: Mesh
+    spec: Tuple[str, ...]
+
+
+def make_mesh(n_devices: Optional[int] = None) -> Mesh:
+    """1-D mesh over the first ``n_devices`` CUDA devices (default:
+    all). Raises without a usable card."""
+    from ..support.devices import resolve
+
+    resolve("cuda")
+    devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    if n_devices is not None:
+        devs = devs[:n_devices]
+    return Mesh([resolve(d) for d in devs])
+
+
+def lane_sharding(mesh: Mesh) -> NamedSharding:
+    """Shard the leading (lane) axis; replicate everything smaller."""
+    return NamedSharding(mesh, (LANES_AXIS,))
+
+
+def replicated(mesh: Mesh) -> NamedSharding:
+    return NamedSharding(mesh, ())
+
+
+@dataclass
+class ShardedLanes:
+    """A ``LaneState`` split along its lanes over ``mesh``: ``shards[i]``
+    holds lanes ``[i * per, (i + 1) * per)`` on ``mesh.devices[i]``;
+    ``whole`` is the batch the shards are views of, where every shard
+    lives on one device (else None)."""
+
+    mesh: Mesh
+    shards: Tuple[LaneState, ...]
+    whole: Optional[LaneState] = None
+
+    def lanes(self) -> LaneState:
+        """The global batch: ``whole``, or the shards gathered onto the
+        mesh's first device (a copy)."""
+        if self.whole is not None:
+            return self.whole
+        dev = self.mesh.devices[0]
+        return LaneState(**{f: torch.cat([getattr(s, f).to(dev)
+                                          for s in self.shards])
+                            for f in LANE_FIELDS})
+
+
+def _lanes_of(state: Union[LaneState, ShardedLanes]) -> LaneState:
+    return state.lanes() if isinstance(state, ShardedLanes) else state
+
+
+def _per_shard(n: int, n_dev: int) -> int:
+    if n_dev < 1 or n % n_dev:
+        raise ValueError(f"{n} lanes not divisible by {n_dev} devices")
+    return n // n_dev
+
+
+def shard_lanes(state: Union[LaneState, ShardedLanes],
+                mesh: Mesh) -> ShardedLanes:
+    """Place every per-lane plane with its leading axis split across the
+    mesh. Lane count must be divisible by mesh size. Planes already on
+    a shard's device are not copied: the shards are views of them."""
+    state = _lanes_of(state)
+    per = _per_shard(state.pc.shape[0], mesh.size)
+
+    def cut(st, i, dev):
+        return LaneState(**{f: getattr(st, f)[i * per:(i + 1) * per]
+                            .to(dev).contiguous() for f in LANE_FIELDS})
+
+    dev = mesh.one_device
+    if dev is None:
+        return ShardedLanes(mesh, tuple(cut(state, i, d) for i, d in
+                                        enumerate(mesh.devices)))
+    whole = LaneState(**{f: getattr(state, f).to(dev).contiguous()
+                         for f in LANE_FIELDS})
+    return ShardedLanes(mesh, tuple(cut(whole, i, dev)
+                                    for i in range(mesh.size)), whole)
+
+
+def replicate_code(code: CompiledCode, mesh: Mesh
+                   ) -> Tuple[CompiledCode, ...]:
+    """One ``CompiledCode`` a shard, on the shard's device (one copy a
+    device)."""
+    copies = {}
+    for dev in mesh.devices:
+        if dev not in copies:
+            copies[dev] = code if code.packed.device == dev else \
+                CompiledCode(
+                    packed=code.packed.to(dev), size=code.size,
+                    seg_of=None if code.seg_of is None
+                    else code.seg_of.to(dev),
+                    seg_tab=None if code.seg_tab is None
+                    else code.seg_tab.to(dev))
+    return tuple(copies[d] for d in mesh.devices)
+
+
+def _on(dev: torch.device):
+    """Make ``dev`` the current CUDA device for a launch on it."""
+    return torch.cuda.device(dev) if dev.type == "cuda" \
+        else contextlib.nullcontext()
+
+
+def sharded_run(code, state: Union[LaneState, ShardedLanes],
+                max_steps: int, mesh: Mesh) -> ShardedLanes:
+    """Run the stepper on each shard: ``stepper.run`` over its own lanes
+    until they halt or ``max_steps`` steps, with no traffic between
+    shards (the JAX function's ``shard_map``; each shard's loop ends as
+    soon as its own lanes halt). ``code`` is a ``CompiledCode`` or
+    ``replicate_code``'s tuple. The shards update in place."""
+    sh = state if isinstance(state, ShardedLanes) \
+        else shard_lanes(state, mesh)
+    if sh.mesh != mesh:
+        raise ValueError("the state is sharded over another mesh")
+    codes = code if isinstance(code, tuple) else replicate_code(code, mesh)
+    if len(codes) != mesh.size:
+        raise ValueError(f"{len(codes)} code copies for {mesh.size} shards")
+    for cc, shard, dev in zip(codes, sh.shards, mesh.devices):
+        with _on(dev):
+            stepper.run(cc, shard, max_steps)
+    return sh
+
+
+def live_lane_counts(state: Union[LaneState, ShardedLanes], mesh: Mesh):
+    """(per-shard running-lane counts as an int32 numpy array, global
+    total): K12 over each device's shards, the total summed here."""
+    sh = state if isinstance(state, ShardedLanes) \
+        else shard_lanes(state, mesh)
+    if sh.whole is not None:
+        per = lane_live(sh.whole.status, mesh.size).cpu()
+    else:
+        per = []
+        for shard, dev in zip(sh.shards, mesh.devices):
+            with _on(dev):
+                per.append(lane_live(shard.status, 1).cpu())
+        per = torch.cat(per)
+    per = per.numpy()
+    return per, int(per.sum())
+
+
+def compact_lanes(state: Union[LaneState, ShardedLanes],
+                  order=None) -> LaneState:
+    """Pack live lanes to the front: every plane gathered in the stable
+    "running first" order (K13, then K14), or in ``order`` (any length,
+    with JAX's index rule). Returns the global batch, on the device of
+    ``state``'s global batch."""
+    src = _lanes_of(state)
+    with _on(src.device):
+        if order is None:
+            order = lane_order(src.status, 1)
+        else:
+            order = torch.as_tensor(order).to(device=src.device,
+                                              dtype=torch.int32)
+        return lane_gather(src, order)
+
+
+def steal_balance(state: Union[LaneState, ShardedLanes],
+                  mesh: Mesh) -> ShardedLanes:
+    """Work-stealing rebalance: sort lanes by liveness (stable) and deal
+    them round-robin across the shards so every shard holds an equal
+    share of running lanes (K13 with the deal, K14), then reshard."""
+    src = _lanes_of(state)
+    _per_shard(src.pc.shape[0], mesh.size)
+    with _on(src.device):
+        dealt = lane_gather(src, lane_order(src.status, mesh.size))
+    return shard_lanes(dealt, mesh)
+
+
+# ---------------------------------------------------------------------------
+# the plain versions
+# ---------------------------------------------------------------------------
+
+def lane_live_plain(status: torch.Tensor, n_dev: int) -> torch.Tensor:
+    """(n_dev,) int32: RUNNING lanes in each of n_dev equal shards."""
+    return (status.reshape(n_dev, -1) == Status.RUNNING).sum(
+        dim=1, dtype=torch.int32)
+
+
+def lane_order_plain(status: torch.Tensor, n_dev: int) -> torch.Tensor:
+    """(N,) int32: the lanes in stable "running first" order, dealt over
+    n_dev shards (sorted lane ``s * n_dev + d`` to position
+    ``d * (N / n_dev) + s``)."""
+    n = status.shape[0]
+    run = (status == Status.RUNNING).to(torch.int64)
+    before = torch.cumsum(run, 0) - run
+    idx = torch.arange(n, device=status.device)
+    q = torch.where(run.bool(), before, run.sum() + idx - before)
+    per = n // n_dev
+    out = torch.empty(n, dtype=torch.int32, device=status.device)
+    out[(q % n_dev) * per + q // n_dev] = idx.to(torch.int32)
+    return out
+
+
+def source_rows(order: torch.Tensor, n_src: int) -> torch.Tensor:
+    """JAX's gather index rule: a negative index wraps once, then an
+    index out of range clamps to ``[0, n_src)``."""
+    o = order.to(torch.int64)
+    return torch.where(o < 0, o + n_src, o).clamp(0, n_src - 1)
+
+
+def lane_gather_plain(state: LaneState, order: torch.Tensor) -> LaneState:
+    """Every plane's rows ``order`` (JAX's index rule): a new batch of
+    ``len(order)`` lanes."""
+    rows = source_rows(order, state.pc.shape[0])
+    return LaneState(**{f: getattr(state, f)[rows] for f in LANE_FIELDS})
+
+
+# ---------------------------------------------------------------------------
+# the kernels (csrc/mesh.cu)
+# ---------------------------------------------------------------------------
+
+_SIGS = {
+    "lane_live": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                  ctypes.c_void_p, ctypes.c_void_p],
+    "lane_order": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+    "lane_gather": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p],
+}
+
+#: the scan block of csrc/common.cuh (K13's scratch is a count a block)
+SCAN_BLOCK = 256
+
+
+def _lib():
+    from .. import _build
+
+    return _build.lib("mesh.cu", _SIGS)
+
+
+def lane_live(status: torch.Tensor, n_dev: int) -> torch.Tensor:
+    """RUNNING lanes per shard: K12 on a CUDA ``status``, the plain
+    version on a CPU one."""
+    _per_shard(status.shape[0], n_dev)
+    if status.device.type == "cpu":
+        return lane_live_plain(status, n_dev)
+    from .. import _build
+
+    _build.need_cuda(status, torch.int32, "status")
+    out = torch.empty(n_dev, dtype=torch.int32, device=status.device)
+    lib = _lib()
+    rc = lib.lane_live(_build.ptr(status), status.shape[0], n_dev,
+                       _build.ptr(out), _build.stream(status.device))
+    _build.LAUNCHES["lane_live"] += 1
+    _build.check(lib, rc, "lane_live")
+    return out
+
+
+def lane_order(status: torch.Tensor, n_dev: int) -> torch.Tensor:
+    """The stable "running first" order dealt over ``n_dev`` shards: K13
+    on a CUDA ``status``, the plain version on a CPU one."""
+    n = status.shape[0]
+    _per_shard(n, n_dev)
+    if status.device.type == "cpu":
+        return lane_order_plain(status, n_dev)
+    from .. import _build
+
+    _build.need_cuda(status, torch.int32, "status")
+    out = torch.empty(n, dtype=torch.int32, device=status.device)
+    scratch = torch.empty(-(-n // SCAN_BLOCK) + 1, dtype=torch.int32,
+                          device=status.device)
+    lib = _lib()
+    rc = lib.lane_order(_build.ptr(status), n, n_dev, _build.ptr(scratch),
+                        _build.ptr(out), _build.stream(status.device))
+    _build.LAUNCHES["lane_order"] += 1
+    _build.check(lib, rc, "lane_order")
+    return out
+
+
+def _copy_width(row: int, *addrs: int) -> int:
+    """The widest word (16, 8, 4, 2, 1 bytes) that divides the row width
+    and every base address."""
+    for w in (16, 8, 4, 2):
+        if row % w == 0 and all(a % w == 0 for a in addrs):
+            return w
+    return 1
+
+
+def lane_gather(state: LaneState, order: torch.Tensor) -> LaneState:
+    """A new batch of ``len(order)`` lanes, every plane's rows gathered
+    through ``order`` with JAX's index rule: K14 on a CUDA batch, the
+    plain version on a CPU one."""
+    if state.device.type == "cpu":
+        return lane_gather_plain(state, order)
+    from .. import _build
+
+    for f in LANE_FIELDS:
+        x = getattr(state, f)
+        _build.need_cuda(x, torch.uint8 if f in stepper.LANE_U8
+                         else torch.int32, f)
+    _build.need_cuda(order, torch.int32, "order")
+    n_src, n_out = state.pc.shape[0], order.shape[0]
+    out = LaneState(**{f: torch.empty((n_out,) + getattr(state, f).shape[1:],
+                                      dtype=getattr(state, f).dtype,
+                                      device=state.device)
+                       for f in LANE_FIELDS})
+    src = [getattr(state, f) for f in LANE_FIELDS]
+    dst = [getattr(out, f) for f in LANE_FIELDS]
+    rows = [x[0].numel() * x.element_size() if n_src else 0 for x in src]
+    widths = [_copy_width(r, s.data_ptr(), d.data_ptr())
+              for r, s, d in zip(rows, src, dst)]
+    lib = _lib()
+    rc = lib.lane_gather(
+        _build.ptr_array(src), _build.ptr_array(dst),
+        (ctypes.c_longlong * len(rows))(*rows), _build.int_array(widths),
+        len(LANE_FIELDS), _build.ptr(order), n_src, n_out,
+        _build.stream(state.device))
+    _build.LAUNCHES["lane_gather"] += 1
+    _build.check(lib, rc, "lane_gather")
+    return out

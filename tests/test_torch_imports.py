@@ -38,7 +38,8 @@ EXCLUDED = {os.path.join("tools", "make_torch_reference.py")}
 #: path: the device half and the device discovery
 PORT_OWN = {"__init__.py", "ops/bv256.py", "ops/intervals.py",
             "ops/propagate.py", "ops/stepper.py", "ops/symstep.py",
-            "laser/lane_engine.py", "support/devices.py"}
+            "laser/lane_engine.py", "support/devices.py",
+            "parallel/mesh.py"}
 
 #: copies edited where, as copied, they would hide the device:
 #: {file: (the units whose source may differ, why)}. A unit is a
@@ -97,6 +98,14 @@ EDITED = {
          "_device_failed", "_device_succeeded"},
         "a device screen that fails is counted and raised (no host "
         "fallback, no backoff); one batch threshold; a device argument"),
+    "parallel/corpus.py": (
+        {"init_distributed", "_barrier", "_kv_client"},
+        "the process group is torch.distributed's: a TCPStore rendezvous "
+        "that rank 0 serves with a gloo group over it instead of "
+        "jax.distributed, a barrier on that store instead of the JAX "
+        "coordination service's, and the work claims' fetch-add on it "
+        "(TCPStore.add) instead of the JAX coordinator's key-value "
+        "increment"),
 }
 
 
@@ -145,6 +154,19 @@ def _forbidden(name):
 def test_no_jax_and_no_jax_package(path):
     bad = [m for m in _imported(path) if _forbidden(m)]
     assert not bad, f"{path} imports {bad}"
+
+
+def test_the_parallel_layer_imports_no_jax():
+    """Every module of the port's ``parallel/`` (the mesh, the corpus
+    mode, migration, the cost model) is scanned, and none imports JAX or
+    the JAX package."""
+    pdir = os.path.join(PKG, "parallel")
+    mods = sorted(f for f in os.listdir(pdir) if f.endswith(".py"))
+    assert {"mesh.py", "corpus.py", "migrate.py", "cost_model.py"} <= \
+        set(mods)
+    for f in mods:
+        bad = [m for m in _imported(os.path.join(pdir, f)) if _forbidden(m)]
+        assert not bad, f"parallel/{f} imports {bad}"
 
 
 def test_the_scan_sees_the_package():
@@ -224,9 +246,12 @@ def test_every_copy_is_accounted_for():
     assert set(EDITED) <= copies
     assert len(copies) > 150
     # what myth analyze loads and the port leaves out on purpose
-    for rel in ("parallel/mesh.py", "parallel/corpus.py",
-                "parallel/migrate.py", "concolic/__init__.py"):
+    for rel in ("concolic/__init__.py",):
         assert not os.path.exists(os.path.join(PKG, rel)), rel
+    # the scale-out layer is ported: migration verbatim, the corpus mode
+    # edited, the mesh the port's own
+    assert {"parallel/migrate.py", "parallel/corpus.py"} <= copies
+    assert os.path.exists(os.path.join(PKG, "parallel", "mesh.py"))
     # the resident daemon and its request path are ported
     for rel in ("daemon/server.py", "daemon/protocol.py",
                 "daemon/client.py", "support/checkpoint.py",

@@ -21,6 +21,16 @@ windows, forks and device steps on each fixture where no JAX sweep
 failed (a failed sweep falls back to the host in the JAX package and
 counts nothing; the port raises instead), and a window where one did.
 
+With ``--corpus`` it writes instead the reference of the multi-rank
+corpus mode (``tests/torch_data/corpus_issues.json`` by default): the
+JAX package's ``python -m mythril_tpu.parallel.corpus`` over the
+fixtures as one rank, with the flags ``chip_smoke.py`` gives the port's
+(``CORPUS_FLAGS``). Its ``default_analyze`` loads every file with
+``--bin-runtime`` and runs two transactions with the full detector set,
+so its issues differ from the CLI corpus'. The file maps each fixture to
+``{"issues": count, "swc": sorted SWC ids}``, the fields of the merged
+``corpus_report.json``.
+
 This is the one script of the port that runs the JAX package: the
 import scan of ``tests/test_torch_imports.py`` names it as excluded.
 """
@@ -82,14 +92,50 @@ finally:
 """
 
 
+#: the corpus-mode flags of the reference and of chip_smoke.py's
+#: four-rank phase (a timeout far above any fixture's wall, so that the
+#: issues do not depend on the machine's speed)
+CORPUS_FLAGS = ["--tpu-lanes", "64", "--timeout", "600"]
+
+
+def corpus_reference(names, out_path):
+    """The JAX package's corpus mode over ``names`` as one rank."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "mythril_tpu.parallel.corpus",
+               "--out-dir", tmp, "--no-steal"] + CORPUS_FLAGS + [
+            str(INPUTS / n) for n in names]
+        t0 = time.time()
+        run = subprocess.run(cmd, capture_output=True, text=True,
+                             cwd=str(REPO), env=dict(os.environ),
+                             timeout=3600)
+        if run.returncode != 0:
+            sys.stderr.write(run.stderr[-3000:])
+            raise SystemExit(f"corpus mode exited {run.returncode}")
+        with open(os.path.join(tmp, "corpus_report.json")) as f:
+            merged = json.load(f)
+    if merged["errors"]:
+        raise SystemExit(f"corpus mode: {merged['errors']} errors")
+    out = {c["contract"]: {"issues": c["issues"], "swc": c["swc"]}
+           for c in merged["contracts"]}
+    path = pathlib.Path(out_path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(out, indent=1, sort_keys=True) + "\n")
+    print(f"corpus mode: {merged['total_issues']} issues over {len(out)} "
+          f"fixtures in {time.time() - t0:.1f} s -> {path}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("-o", "--out",
-                    default=str(REPO / "tests" / "torch_data"
-                                / "lane_issues.json"))
+    ap.add_argument("-o", "--out", default=None)
+    ap.add_argument("--corpus", action="store_true",
+                    help="the corpus-mode reference instead")
     ap.add_argument("fixtures", nargs="*")
     a = ap.parse_args()
     names = a.fixtures or sorted(p.name for p in INPUTS.glob("*.sol.o"))
+    data = REPO / "tests" / "torch_data"
+    if a.corpus:
+        return corpus_reference(names, a.out or data / "corpus_issues.json")
+    a.out = a.out or str(data / "lane_issues.json")
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name in names:
