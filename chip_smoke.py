@@ -22,9 +22,15 @@ Phases (any failure exits non-zero and prints no result):
    limit and the compiler's register/spill lines;
 2. kernel checks, bit for bit against the plain versions on the card:
    ``bv256_apply`` for every op on seeded random and edge words; K0 over
-   a 4096-lane batch whose planes hold junk; K1 over 64 steps of a seeded
-   4096-lane state (and the cost of the host's running-count read); K1's
-   packed branch (row 2p) over 64 steps of a seeded 4096-lane state on a
+   a 4096-lane batch whose planes hold junk (and its library
+   counterpart, a fill a plane); K1 over 64 steps of a seeded 4096-lane
+   state with 1, 8 and 32 steps a read window, one launch a window, and
+   over ``device_loop.k1_edge_cases`` (lanes no multiple of a block, fork
+   requests past the step's budget over many blocks, the last lane
+   stopping inside a window, 64 lanes, a packed arena), its times at
+   4096 and 64 lanes, its device time by kernel and by phase, the cost
+   of the host's running-count read and of a run with no lane running;
+   K1's packed branch (row 2p) over 64 steps of a seeded 4096-lane state on a
    four-member arena (the k=12 contract, bench.py's diamond, calls.sol.o
    and kinds_of_calls.sol.o, each with ``contracts.with_probe``'s probe:
    in every member lanes fork, read PC and CODESIZE and jump inside and
@@ -71,7 +77,10 @@ Phases (any failure exits non-zero and prints no result):
    corpus-mode issues (``tests/torch_data/corpus_issues.json``);
 6. the device loop alone (``support/device_loop.DeviceLoop``, raw
    seeds): k=12 at 4096 lanes with the kernels and with the plain
-   versions, every window's outputs equal; the wide run, k=17 at 131072 lanes;
+   versions, every window's outputs equal; the wide run, k=17 at 131072
+   lanes; then K1 on that loop's first window (two lanes a thread) from
+   the step where the most lanes run, 32 steps against the plain
+   version;
 7. the screens' kernels K5-K8, bit for bit against the plain versions:
    on the all-opcode wave (``screen_waves.layered_sets`` replicated to
    8192 states: every opcode and backward rule, checked present) from
@@ -105,14 +114,19 @@ Phases (any failure exits non-zero and prints no result):
     each equal to ``run_plain``; then the mesh (``parallel/mesh.py``):
     that batch on 8 shards of this card, K12 ``lane_live``, K13
     ``lane_order`` and K14 ``lane_gather`` bit for bit against their
-    plain versions, ``sharded_run`` equal to one K10 run, the live
+    plain versions (K14 also on an empty order, negative and
+    out-of-range indices and more rows than lanes, its output disjoint
+    aligned views of one allocation), ``sharded_run`` equal to one K10
+    run (and its device time), the live
     counts, ``compact_lanes`` and ``steal_balance`` equal to the plain
     versions after 400 steps (the main path of K12-K14: counts reset
     before it and read after), the balanced shards within one running
     lane of each other, ``make_mesh()`` equal to K10 alone, and one
     ``steal_balance`` of 131072 lanes at the default planes; K12-K14's
     call, device, plain and library times (the per-shard sum,
-    ``torch.argsort(stable=True)``, ``index_select``) at both sizes;
+    ``torch.argsort(stable=True)``, ``index_select``; call and library
+    in turns) at both sizes, and beside K14 a contiguous copy of as many
+    bytes;
 11. the fused screen: K11 on the 8192-system wave, equal to
     ``_fixpoint_plain`` and to the host-sequenced K6-K8 driver (tables,
     ok, contra, keep, sweeps); the pruner's screen with
@@ -334,17 +348,32 @@ def check_init(dev, report):
     d_ms = device_ms(lambda: symstep.init_kernel(junk))
     p_ms = cuda_ms(
         lambda: symstep.init_sym_lanes(n, device=dev, plain=True), reps=3)
+    # the library's way: one fill a plane, the free-slot stack an arange
+    values = symstep._init_values(n, 8_000_000)
+
+    def library():
+        for f in symstep.FIELDS:
+            x = getattr(junk, f)
+            if f == "free_slots":
+                torch.arange(n - 1, -1, -1, out=x)
+            else:
+                x.fill_(values.get(f, 0))
+
+    library()
+    err = max(err, same_state(junk, want, "K0's library counterpart"))
+    l_ms = cuda_ms(library, reps=5)
     torch.cuda.synchronize()
     bms, by = bound_ms(nbytes)
     report["sym_init"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                              device_ms=d_ms, bound_ms=bms, bound_by=by)
+                              device_ms=d_ms, bound_ms=bms, bound_by=by,
+                              library_ms=l_ms)
     log(f"K0 sym_init: {n} lanes ({nbytes} bytes) equal, also over junk; "
         f"{k_ms:.4f} ms kernel ({d_ms} ms on the device), {p_ms:.3f} ms "
         f"plain")
 
 
-def seeded_state(dev, n_seeds):
-    """A 4096-lane state with n_seeds fresh entries of the coverage
+def seeded_state(dev, n_seeds, n=MAIN_LANES):
+    """An n-lane state with n_seeds fresh entries of the coverage
     contract: odd seeds have symbolic calldata, even ones concrete
     calldata that picks each arm in turn. Returns (state, code, free)."""
     import numpy as np
@@ -357,7 +386,6 @@ def seeded_state(dev, n_seeds):
     from mythril_tpu_torch.support.contracts import build_coverage_contract
 
     rng = np.random.default_rng(SEED)
-    n = MAIN_LANES
     st = symstep.init_sym_lanes(n, device=dev)
     objs = le.ObjectTable()
     seeds = []
@@ -384,52 +412,255 @@ def clone_state(st):
     return st.replace(**{f: getattr(st, f).clone() for f in FIELDS})
 
 
-def check_k1(dev, report):
+def k1_state(dev, n=MAIN_LANES):
+    """K1's input: ``seeded_state`` with n // 8 seeds after the window
+    prologue. Returns (state, code)."""
+    from mythril_tpu_torch.laser import lane_engine as le
+
+    st, cc, (i32b, u8b, k, pv) = seeded_state(dev, n // 8, n)
+    return le.prologue_plain(st, i32b, u8b, k, pv), cc
+
+
+def packed_state(dev, n=MAIN_LANES):
+    """Row 2p's input: n // 8 probe seeds of the four-member arena
+    (``check_k1_packed``) after the window prologue. Returns (state,
+    arena code, member codes, bases, probes)."""
     import torch
 
     from mythril_tpu_torch.laser import lane_engine as le
     from mythril_tpu_torch.ops import symstep
+    from mythril_tpu_torch.ops.stepper import compile_packed_code
+    from mythril_tpu_torch.support import contracts, device_loop, runs
 
-    st, cc, (i32b, u8b, k, pv) = seeded_state(dev, MAIN_LANES // 8)
-    st = le.prologue_plain(st, i32b, u8b, k, pv)
-    steps = 64
-    vis0 = torch.zeros(cc.packed.shape[0], dtype=torch.bool, device=dev)
-    s_k, v_k = symstep.sym_run_kernel(cc, clone_state(st), steps, None,
-                                      None, vis0.clone())
+    codes, probes = zip(*(contracts.with_probe(c)
+                          for c in runs.pack_codes(MAIN_K)))
+    cc, bases = compile_packed_code(
+        [(c, (p["jumpi"],)) for c, p in zip(codes, probes)], device=dev)
+    st = symstep.init_sym_lanes(n, device=dev)
+    seeds = device_loop.packed_probe_seeds(
+        le.ObjectTable(), codes, bases, probes, st.calldata.shape[1], n // 8)
+    free = list(range(n - 1, -1, -1))
+    entries = [(free.pop(), s) for s in seeds]
+    i32b, u8b, k, pv = le.pack_window(n, symstep.N_ENV, {}, entries, free,
+                                      [], {}, st.calldata.shape[1],
+                                      big=True)
+    st = le.prologue_plain(st, torch.from_numpy(i32b).to(dev),
+                           torch.from_numpy(u8b).to(dev), k, pv)
+    return st, cc, codes, bases, probes
+
+
+#: the read windows K1 is held to its plain version with (steps a launch)
+K1_SYNC = (1, 8, 32)
+
+
+def k1_profile(fn, ran):
+    """{kernel: [launches, device ms a step]} of one call of fn under
+    torch.profiler, copies left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: [e.count, e.self_device_time_total / 1e3 / ran]
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "Memcpy" not in e.key and "Memset" not in e.key
+            and "elementwise" not in e.key}
+
+
+def k1_phases(cc, st, steps, sync_every):
+    """K1's phases over one run from ``st``: the share of block 0's SM
+    cycles in decide, exec and forks (each to its barrier's exit), and
+    the steps run."""
+    import torch
+
+    from mythril_tpu_torch.ops import symstep
+
+    ph = torch.zeros(4, dtype=torch.int64, device=st.pc.device)
+    symstep.sym_run_kernel(cc, clone_state(st), steps,
+                           sync_every=sync_every, phases=ph)
+    c = ph.tolist()
+    total = sum(c[:3]) or 1
+    return {"decide": c[0] / total, "exec": c[1] / total,
+            "forks": c[2] / total, "steps": c[3]}
+
+
+def hold_k1(cc, st, steps, what, syncs=None):
+    """K1 against sym_run_plain from ``st`` (both on the card, on clones),
+    with each of ``syncs`` steps a read window (SYNC_EVERY by default):
+    every plane and the visited bitmap equal, and one launch a read window
+    (``LAUNCHES["sym_run"]``). Returns (plain's state, steps run)."""
+    import torch
+
+    from mythril_tpu_torch import _build
+    from mythril_tpu_torch.ops import symstep
+
+    vis0 = torch.zeros(cc.packed.shape[0], dtype=torch.bool,
+                       device=st.pc.device)
     s_p, v_p = symstep.sym_run_plain(cc, clone_state(st), steps, None,
                                      None, vis0.clone())
-    torch.cuda.synchronize()
-    err = same_state(s_k, s_p, "K1 sym_run")
-    if max_err(v_k, v_p):
-        raise AssertionError("K1 sym_run: visited differs")
-    ran = int(s_k.step_no) - int(st.step_no)
-    executed = int((s_k.steps.long() - st.steps.long()).sum())
-    forks = int(s_k.flog_count)
+    ran = int(s_p.step_no) - int(st.step_no)
+    for every in syncs or (symstep.SYNC_EVERY,):
+        before = _build.LAUNCHES["sym_run"]
+        s_k, v_k = symstep.sym_run_kernel(cc, clone_state(st), steps, None,
+                                          None, vis0.clone(),
+                                          sync_every=every)
+        launched = _build.LAUNCHES["sym_run"] - before
+        torch.cuda.synchronize()
+        same_state(s_k, s_p, f"K1 {what}, sync_every {every}")
+        if max_err(v_k, v_p):
+            raise AssertionError(f"K1 {what}: visited differs")
+        want = max(1, -(-ran // every))
+        if launched != want:
+            raise AssertionError(f"K1 {what}: {launched} launches for {ran} "
+                                 f"steps at {every} a window, want {want}")
+        del s_k, v_k
+    return s_p, ran
+
+
+def check_k1(dev, report):
+    """K1 bit for bit against its plain version: 64 steps of the seeded
+    4096-lane state with 1, 8 and 32 steps a read window, and each of
+    ``device_loop.k1_edge_cases`` (at 64 times the CPU tests' lane
+    counts); then its call, device and plain times a step at 4096 and
+    64 lanes, its device time by kernel and its phases, the cost of the
+    host's read between windows, and of a run in which no lane runs."""
+    from mythril_tpu_torch.ops import symstep
+    from mythril_tpu_torch.support import device_loop
+
+    st, cc = k1_state(dev)
+    steps = 64
+    s_p, ran = hold_k1(cc, st, steps, "4096 lanes", K1_SYNC)
+    err = 0
+    for case in device_loop.k1_edge_cases(st.calldata.shape[1], scale=64):
+        cst, ccc = device_loop.k1_case_state(case, dev)
+        out, cran = hold_k1(ccc, cst, case.steps, case.name)
+        note = ""
+        if case.name == "mid_window_stop":
+            if cran >= case.steps or cran % symstep.SYNC_EVERY == 0 \
+                    or int((out.status == 0).sum()):
+                raise AssertionError(f"K1 mid_window_stop: ran {cran} "
+                                     f"steps, the last lane did not stop "
+                                     f"inside a window")
+            note = f", the last lane stops at step {cran}"
+        if case.name == "fork_budget" and int(out.flog_count) != 2100:
+            raise AssertionError(f"K1 fork_budget: {int(out.flog_count)} "
+                                 f"forks, want 2048 + 52")
+        log(f"K1 {case.name}: {case.lanes} lanes, {len(case.seeds)} seeds, "
+            f"{cran} steps equal to the plain version ("
+            f"{int(out.flog_count)} forks{note})")
+    executed = int((s_p.steps.long() - st.steps.long()).sum())
+    forks = int(s_p.flog_count)
     lane_bytes = symstep.lane_bytes()
-    k_ms = cuda_ms(lambda c: symstep.sym_run_kernel(cc, c, steps),
-                   reps=2, setup=lambda: clone_state(st)) / ran
+
+    def per_step(timer, code, state, n_ran, reps=2, **kw):
+        ms = timer(lambda c: symstep.sym_run_kernel(code, c, steps, **kw),
+                   reps=reps, setup=lambda: clone_state(state))
+        return None if ms is None else ms / n_ran
+
+    narrow, ncc = k1_state(dev, 64)
+    _, nran = hold_k1(ncc, narrow, steps, "64 lanes")
+    k_ms = per_step(cuda_ms, cc, st, ran)
+    d_ms = per_step(device_ms, cc, st, ran)
+    n_ms = per_step(cuda_ms, ncc, narrow, nran)
+    n_dms = per_step(device_ms, ncc, narrow, nran)
     p_ms = cuda_ms(lambda c: symstep.sym_run_plain(cc, c, steps),
                    reps=1, setup=lambda: clone_state(st)) / ran
-    d_ms = device_ms(lambda c: symstep.sym_run_kernel(cc, c, steps),
-                     reps=2, setup=lambda: clone_state(st))
-    d_ms = None if d_ms is None else d_ms / ran
     # the host's read of the running count between K1 launches
-    sync = {every: cuda_ms(
-        lambda c, e=every: symstep.sym_run_kernel(cc, c, steps,
-                                                  sync_every=e),
-        reps=2, setup=lambda: clone_state(st)) / ran for every in (1, 32)}
+    sync = {e: per_step(cuda_ms, cc, st, ran, sync_every=e)
+            for e in (1, 32)}
     sync[symstep.SYNC_EVERY] = k_ms
+    split = k1_profile(lambda: symstep.sym_run_kernel(
+        cc, clone_state(st), steps), ran)
+    phases = {every: k1_phases(cc, st, steps, every) for every in K1_SYNC}
+    idle = clone_state(st)
+    idle.status.fill_(5)
+    idle_ms = device_ms(lambda c: symstep.sym_run_kernel(cc, c, steps),
+                        reps=5, setup=lambda: clone_state(idle))
     # per executed instruction ~320 bytes (lane scalars, the opcode row,
     # three stack words and sids, the written word); a fork reads and
     # writes a whole row
     bms, by = bound_ms((executed * 320 + forks * 2 * lane_bytes) / ran)
+    shape = symstep.run_shape(st.pc.shape[0], dev)
     report["sym_step"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                              device_ms=d_ms, bound_ms=bms, bound_by=by)
-    log(f"K1 sym_step: {ran} steps of 4096 lanes equal ({executed} "
-        f"instructions, {forks} forks); {k_ms:.4f} ms/step kernel ({d_ms} "
-        f"on the device), {p_ms:.1f} ms/step plain")
-    log("K1 ms/step by steps between running-count reads: " + ", ".join(
+                              device_ms=d_ms, bound_ms=bms, bound_by=by,
+                              narrow_ms=n_ms, narrow_device_ms=n_dms)
+    log(f"K1 sym_step: {ran} steps of 4096 lanes equal with "
+        f"{', '.join(map(str, K1_SYNC))} steps a read window, one launch "
+        f"a window ({executed} instructions, {forks} forks); launch "
+        f"shape {shape[1]} blocks of {shape[0]} threads holding "
+        f"{shape[4]} lanes each, {shape[2]} lane(s) a thread; {k_ms:.4f} "
+        f"ms/step kernel ({d_ms} on the "
+        f"device), {p_ms:.1f} ms/step plain; 64 lanes {n_ms:.4f} ms/step "
+        f"({n_dms} on the device)")
+    log("K1 ms/step by steps a read window: " + ", ".join(
         f"{e}: {ms:.4f}" for e, ms in sorted(sync.items())))
+    log("K1 device split at 4096 lanes [launches, ms a step]: "
+        + json.dumps({k[:40]: [v[0], round(v[1], 6)]
+                      for k, v in split.items()}))
+    log("K1 phases (share of block 0's cycles) by steps a window: "
+        + json.dumps({e: {k: round(v, 4) for k, v in p.items()}
+                      for e, p in phases.items()}))
+    log(f"K1 with no lane running: {idle_ms} ms on the device a run "
+        f"(one launch, ended at its first step)")
+    if any("k_decide" in k or "k_exec" in k or "k_fork" in k
+           or "k_scan" in k for k in split):
+        raise AssertionError(f"K1: the four-launch step ran ({split})")
+
+
+def k1_wide_state(dev, n_lanes=WIDE_LANES, k=WIDE_K):
+    """A real K1 input at 131072 lanes, where a thread holds several
+    lanes: the k=17 device loop's first window input, stepped by K1 (its
+    forks fill the batch inside the window) to the step where the most
+    lanes run. Returns (code, state, lanes running, steps taken)."""
+    from mythril_tpu_torch.ops import symstep
+
+    taken = {}
+    real = symstep.sym_run_kernel
+
+    def catch(cc, st, *a, **kw):
+        if not taken:
+            taken.update(cc=cc, st=clone_state(st))
+        return real(cc, st, *a, **kw)
+
+    symstep.sym_run_kernel = catch
+    try:
+        explore(dev, n_lanes, k)
+    finally:
+        symstep.sym_run_kernel = real
+    cc, st = taken["cc"], taken["st"]
+    peak, at, advanced = None, 0, 0
+    running = int((st.status == 0).sum())
+    while running and advanced < 1024:
+        symstep.sym_run_kernel(cc, st, symstep.SYNC_EVERY)
+        advanced += symstep.SYNC_EVERY
+        running = int((st.status == 0).sum())
+        if peak is None or running > at:
+            peak, at = clone_state(st), running
+    return cc, peak, at, advanced
+
+
+def check_k1_wide(dev, n_lanes, k, steps=32):
+    """K1 on ``k1_wide_state``, ``steps`` steps against the plain
+    version."""
+    from mythril_tpu_torch.ops import symstep
+
+    cc, peak, at, advanced = k1_wide_state(dev, n_lanes, k)
+    threads, blocks, per, _, lanes = symstep.run_shape(n_lanes, dev)
+    later = int((peak.status[lanes * blocks:] == 0).sum())
+    if per < 2 or not later:
+        raise AssertionError(f"wide run: {per} lanes a thread, {later} "
+                             f"lanes running past the first round")
+    out, ran = hold_k1(cc, peak, steps, f"{n_lanes} lanes")
+    log(f"K1 at {n_lanes} lanes (the k={k} device loop's first window "
+        f"after {advanced} steps, at its most lanes running: {at}, {later} "
+        f"of them past the first {lanes * blocks}): {ran} steps equal to "
+        f"the plain version, {int(out.flog_count)} forks in the log; "
+        f"{blocks} blocks of {threads} threads, {per} lanes a thread")
 
 
 def check_k1_packed(dev, report):
@@ -441,40 +672,14 @@ def check_k1_packed(dev, report):
     plane and ``visited`` must agree bit for bit; the seeded cases must
     show (a fork and a park at the probe in every member). The unpacked
     K1 over the same arena and state is timed beside it."""
-    import torch
-
-    from mythril_tpu_torch.laser import lane_engine as le
     from mythril_tpu_torch.ops import symstep
-    from mythril_tpu_torch.ops.stepper import (
-        CompiledCode, compile_packed_code,
-    )
-    from mythril_tpu_torch.support import contracts, device_loop, runs
+    from mythril_tpu_torch.ops.stepper import CompiledCode
 
-    codes, probes = zip(*(contracts.with_probe(c)
-                          for c in runs.pack_codes(MAIN_K)))
-    cc, bases = compile_packed_code(
-        [(c, (p["jumpi"],)) for c, p in zip(codes, probes)], device=dev)
     n = MAIN_LANES
-    st = symstep.init_sym_lanes(n, device=dev)
-    seeds = device_loop.packed_probe_seeds(
-        le.ObjectTable(), codes, bases, probes, st.calldata.shape[1], n // 8)
-    free = list(range(n - 1, -1, -1))
-    entries = [(free.pop(), s) for s in seeds]
-    i32b, u8b, k, pv = le.pack_window(n, symstep.N_ENV, {}, entries, free,
-                                      [], {}, st.calldata.shape[1],
-                                      big=True)
-    st = le.prologue_plain(st, torch.from_numpy(i32b).to(dev),
-                           torch.from_numpy(u8b).to(dev), k, pv)
+    st, cc, codes, bases, probes = packed_state(dev, n)
     steps = 64
-    vis0 = torch.zeros(cc.packed.shape[0], dtype=torch.bool, device=dev)
-    s_k, v_k = symstep.sym_run_kernel(cc, clone_state(st), steps, None,
-                                      None, vis0.clone())
-    s_p, v_p = symstep.sym_run_plain(cc, clone_state(st), steps, None,
-                                     None, vis0.clone())
-    torch.cuda.synchronize()
-    err = same_state(s_k, s_p, "K1 packed sym_run")
-    if max_err(v_k, v_p):
-        raise AssertionError("K1 packed sym_run: visited differs")
+    s_p, ran = hold_k1(cc, st, steps, "packed", K1_SYNC)
+    err = 0
     forks = int(s_p.flog_count)
     fork_seg = cc.seg_of[s_p.flog_pc[:forks].long()].tolist()
     pc, status = s_p.pc.tolist(), s_p.status.tolist()
@@ -485,8 +690,7 @@ def check_k1_packed(dev, report):
             raise AssertionError(f"K1 packed: member {m} forked "
                                  f"{fork_seg.count(m)} times, {at_jump} "
                                  f"lanes parked at its probe's JUMP")
-    ran = int(s_k.step_no) - int(st.step_no)
-    executed = int((s_k.steps.long() - st.steps.long()).sum())
+    executed = int((s_p.steps.long() - st.steps.long()).sum())
     lane_bytes = symstep.lane_bytes()
     flat = CompiledCode(packed=cc.packed, size=cc.size)
 
@@ -524,7 +728,13 @@ def check_k1_packed(dev, report):
         f"and out-of-member jumps at every probe); {k_ms:.4f} ms/step "
         f"kernel ({d_ms} on the device), unpacked K1 on the same arena "
         f"and state {u_ms:.4f} ms/step ({u_dms} on the device), in turns; "
-        f"{p_ms:.1f} ms/step plain")
+        f"{p_ms:.1f} ms/step plain; equal with "
+        f"{', '.join(map(str, K1_SYNC))} steps a read window")
+    split = k1_profile(lambda: symstep.sym_run_kernel(
+        cc, clone_state(st), steps), ran)
+    log("K1 packed device split [launches, ms a step]: "
+        + json.dumps({k[:40]: [v[0], round(v[1], 6)]
+                      for k, v in split.items()}))
 
 
 #: the symbolic member of the packed explore: k=12 fills 4096 lanes by
@@ -680,9 +890,36 @@ def check_window(dev, report):
         "gather_full_flog": (le._gather_full_flog, le.gather_full_flog_plain,
                              int(s_k.flog_count) * 9 * 4 * 2),
     }
+    # one PyTorch call a plane for the retire (index_select of each
+    # gathered plane's clipped columns, index_fill_ of the status), one
+    # torch.stack for the fork table
+    rc = ridx.clamp(0, n - 1).long()
+    real = ridx[ridx < n].long()
+    clipped = [(x.narrow(1, 0, w) if w is not None else x) for x, w in (
+        (s_k.pc, None), (s_k.sp, None), (s_k.depth, None),
+        (s_k.fentry, None), (s_k.last_jump, None), (s_k.msize, None),
+        (s_k.mlog_count, None), (s_k.scount, None), (s_k.min_gas, None),
+        (s_k.max_gas, None), (s_k.mlog_off, wl), (s_k.mlog_len, wl),
+        (s_k.mlog_sid, wl), (s_k.ssid, ws), (s_k.sval_sid, wk),
+        (s_k.s_written, wk), (s_k.s_read, wk), (s_k.skey_sid, wk),
+        (s_k.s_wstep, wk), (s_k.stack, ws), (s_k.skeys, wk),
+        (s_k.svals, wk), (s_k.memory, wm), (s_k.mkind, wm))]
+    fb = s_k.flog_parent.shape[0]
+    flog = [getattr(s_k, f"flog_{c}")[:fb] for c in (
+        "parent", "child", "step", "pc", "sid", "gmin", "gmax", "fentry",
+        "dest")]
+    library = {
+        "retire_rows": lambda c: [x.index_select(0, rc) for x in clipped]
+        + [c.status.index_fill_(0, real, 5)],
+        "gather_full_flog": lambda c: torch.stack(flog, 1).view(
+            torch.int32),
+    }
     for name, (kern, plain, nb) in escalations.items():
         k_ms = cuda_ms(kern, reps=3, setup=lambda: clone_state(s_k))
         p_ms = cuda_ms(plain, reps=1, setup=lambda: clone_state(s_k))
+        l_ms = cuda_ms(library[name], reps=3,
+                       setup=lambda: clone_state(s_k)) \
+            if name in library else None
         if name == "gather_full_flog":
             # a few microseconds a launch: three profiled calls record no
             # device event, so profile 50 calls of it (it reads the state
@@ -692,7 +929,8 @@ def check_window(dev, report):
             d_ms = device_ms(kern, setup=lambda: clone_state(s_k))
         bms, by = bound_ms(nb)
         log(f"{name}: {k_ms:.4f} ms kernel ({d_ms} ms on the device), "
-            f"{p_ms:.2f} ms plain, bound {bms} ms ({by})")
+            f"{p_ms:.2f} ms plain, library {l_ms} ms, bound {bms} ms "
+            f"({by})")
 
 
 def prologue_bytes(st, i32b, k, pv):
@@ -1592,13 +1830,23 @@ def mesh_kernel_times(dev, st, n_dev, reps):
     rows = M.source_rows(order, n)
     planes = [getattr(st, f) for f in S.LANE_FIELDS]
 
+    def copy_ms(nbytes):
+        """device ms of one contiguous copy of as many bytes: the rate a
+        plain copy reaches on this card"""
+        a = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        b = torch.empty_like(a)
+        return queued_ms(lambda _: b.copy_(a), lambda: None, reps=reps)
+
     def timed(kern, plain, library, nbytes):
         bms, by = bound_ms(nbytes)
-        return dict(ms=cuda_ms(kern, reps=reps),
+        # the kernel's call and the library's in turns
+        turns = [cuda_ms(f, reps=reps) for f in (kern, library, library,
+                                                   kern)]
+        return dict(ms=(turns[0] + turns[3]) / 2,
                     device_ms=queued_ms(lambda _: kern(), lambda: None,
                                         reps=reps),
                     plain_ms=cuda_ms(plain, reps=reps),
-                    library_ms=cuda_ms(library, reps=reps), bound_ms=bms,
+                    library_ms=(turns[1] + turns[2]) / 2, bound_ms=bms,
                     bound_by=by)
 
     return {
@@ -1613,11 +1861,12 @@ def mesh_kernel_times(dev, st, n_dev, reps):
             lambda: torch.argsort((status != S.Status.RUNNING).int(),
                                   stable=True),
             8 * n),
-        "lane_gather": timed(
+        "lane_gather": dict(timed(
             lambda: M.lane_gather(st, order),
             lambda: M.lane_gather_plain(st, order),
             lambda: [x.index_select(0, rows) for x in planes],
             2 * n * S.lane_bytes(st)),
+            copy_device_ms=copy_ms(n * S.lane_bytes(st))),
     }
 
 
@@ -1678,11 +1927,31 @@ def mesh_path(dev, card, report):
             err["lane_gather"] = max(err["lane_gather"], same_lanes(
                 M.lane_gather(mid, o), M.lane_gather_plain(mid, o),
                 f"K14 ({len(o)} rows, {n_dev} shards)"))
+    # K14's edges: an empty order, more rows than lanes (negative and
+    # out-of-range entries), and the one allocation of its output
+    longer = torch.randint(-MESH_LANES - 9, MESH_LANES + 9,
+                           (MESH_LANES * 3 // 2,), generator=g,
+                           dtype=torch.int32).to(dev)
+    empty = torch.empty(0, dtype=torch.int32, device=dev)
+    for o in (empty, longer):
+        same_lanes(M.lane_gather(mid, o), M.lane_gather_plain(mid, o),
+                   f"K14 ({len(o)} rows of {MESH_LANES})")
+    got = M.lane_gather(mid, wild)
+    spans = sorted((x.data_ptr(), x.data_ptr() + x.numel() * x.element_size())
+                   for x in (getattr(got, f) for f in S.LANE_FIELDS))
+    stores = {getattr(got, f).untyped_storage().data_ptr()
+              for f in S.LANE_FIELDS}
+    if len(stores) != 1 or any(a % 16 for a, _ in spans) or any(
+            spans[i][1] > spans[i + 1][0] for i in range(len(spans) - 1)):
+        raise AssertionError(f"K14: output planes are not disjoint 16-byte "
+                             f"aligned views of one allocation ({spans})")
     log(f"mesh kernels: K12 lane_live, K13 lane_order (with and without "
         f"the deal over {MESH_SHARDS} shards) and K14 lane_gather (both "
-        f"orders and {len(wild)} seeded rows with negative and "
-        f"out-of-range entries) equal to their plain versions on "
-        f"{MESH_LANES} lanes ({n_run} running)")
+        f"orders, {len(wild)} seeded rows with negative and out-of-range "
+        f"entries, an empty order and {len(longer)} rows of "
+        f"{MESH_LANES}) equal to their plain versions on {MESH_LANES} "
+        f"lanes ({n_run} running); K14's planes are disjoint 16-byte "
+        f"aligned views of one allocation")
 
     # the main path
     _build.reset_launches()
@@ -1764,12 +2033,16 @@ def mesh_path(dev, card, report):
 
     fresh = lambda: C.bench_batch(MESH_LANES, dev)  # noqa: E731
     one_ms = cuda_ms(lambda x: S.run_kernel(cc, x, cap), reps=3, setup=fresh)
-    sharded_ms = cuda_ms(lambda x: M.sharded_run(
-        cc, M.shard_lanes(x, mesh), cap, mesh), reps=3, setup=fresh)
+    sharded = lambda x: M.sharded_run(  # noqa: E731
+        cc, M.shard_lanes(x, mesh), cap, mesh)
+    sharded_ms = cuda_ms(sharded, reps=3, setup=fresh)
+    sharded_dms = queued_ms(sharded, fresh, reps=3)
+    one_dms = queued_ms(lambda x: S.run_kernel(cc, x, cap), fresh, reps=3)
     log(f"  sharded_run of the {MESH_LANES}-lane batch to the end: "
         f"{sharded_ms:.4f} ms on {MESH_SHARDS} shards ({MESH_SHARDS} K10 "
-        f"launches in turn on one stream) against {one_ms:.4f} ms for one "
-        f"K10 run; on {card}")
+        f"launches in turn on one stream; {sharded_dms:.4f} ms on the "
+        f"device) against {one_ms:.4f} ms for one K10 run ({one_dms:.4f} "
+        f"ms on the device); on {card}")
     times = mesh_kernel_times(dev, mid, MESH_SHARDS, reps=20)
     wide_times = mesh_kernel_times(dev, wide, MESH_SHARDS, reps=3)
     for name, t in times.items():
@@ -1777,14 +2050,17 @@ def mesh_path(dev, card, report):
         report[name] = dict(t, max_abs_err=err[name],
                             **{f"wide_{k}": w[k] for k in
                                ("ms", "device_ms", "plain_ms", "library_ms",
-                                "bound_ms")})
+                                "bound_ms", "copy_device_ms") if k in w})
         log(f"  {name}: {MESH_LANES} lanes {t['ms']:.4f} ms a call, "
             f"{t['device_ms']:.4f} ms device, bound {t['bound_ms']:.6f} ms "
             f"({t['bound_by']}), plain {t['plain_ms']:.4f} ms, library "
             f"{t['library_ms']:.4f} ms; {WIDE_MESH_N} lanes {w['ms']:.4f} "
             f"ms a call, {w['device_ms']:.4f} ms device, bound "
             f"{w['bound_ms']:.6f} ms, plain {w['plain_ms']:.4f} ms, library "
-            f"{w['library_ms']:.4f} ms; on {card}")
+            f"{w['library_ms']:.4f} ms; on {card}"
+            + (f"; a contiguous copy of as many bytes {t['copy_device_ms']:.4f}"
+               f" and {w['copy_device_ms']:.4f} ms device"
+               if "copy_device_ms" in t else ""))
     del wide, mid, ref
     torch.cuda.empty_cache()
     return launches
@@ -2069,7 +2345,8 @@ def symbolic_path(dev, card):
     n_open, stats, wall = runs.explore(code, MAIN_LANES)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
-    missing = [name for name, *_ in ROWS if launches[name] <= 0]
+    missing = [name for name, *_ in ROWS + [("sym_run",)]
+               if launches[name] <= 0]
     if missing:
         raise AssertionError(f"symbolic path never launched {missing}")
     if not stats.get("windows") or not stats.get("device_steps"):
@@ -2079,7 +2356,8 @@ def symbolic_path(dev, card):
         f"states, {stats['windows']} windows, {stats['forks']} forks, "
         f"{stats['parked']} lanes materialized, {stats['resumed']} SHA3 "
         f"resumes, {stats['device_steps']} device steps, {wall:.3f} s, "
-        f"{paths / wall:.1f} paths/s on {card}")
+        f"{paths / wall:.1f} paths/s on {card}; K1 {launches['sym_run']} "
+        f"launches for {launches['sym_step']} steps")
     return n_open, launches
 
 
@@ -2723,7 +3001,8 @@ def run() -> int:
     for src in sorted(os.listdir(_build.CSRC)):
         if src.endswith(".cu"):
             for line in _build.build_log(src).splitlines():
-                if "registers" in line or "spill" in line:
+                if "registers" in line or "spill" in line \
+                        or "Function properties" in line:
                     log(f"  {src}: {line.strip()}")
 
     from mythril_tpu_torch import native
@@ -2816,6 +3095,7 @@ def run() -> int:
     log(f"wide run k={WIDE_K} at {WIDE_LANES} lanes: "
         f"{len(res_w['windows'])} windows, {res_w['paths']} paths, "
         f"{wall_w:.3f} s, {res_w['paths'] / wall_w:.1f} paths/s on {card}")
+    check_k1_wide(dev, WIDE_LANES, WIDE_K)
 
     concrete_launches = concrete_path(dev, card, report)
     mesh_launches = mesh_path(dev, card, report)
@@ -2828,15 +3108,22 @@ def run() -> int:
 
     def entry(name, source, replaces, counts=None):
         r = report[name]
+        counts = counts or launches
+        # K1 (and its packed branch) counts launches, one a read window,
+        # apart from its steps
+        runs = {"sym_step": "sym_run", "sym_step_packed": "sym_run_packed"}
+        steps = {"steps": counts[name]} if name in runs else {}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
-                "launches": (counts or launches)[name],
+                "launches": counts[runs.get(name, name)], **steps,
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "device_ms": r["device_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r.get("library_ms"),
                 **{k: r[k] for k in r if k.startswith(("unpacked_",
-                                                       "wide_"))}}
+                                                       "wide_",
+                                                       "narrow_",
+                                                       "copy_"))}}
 
     # bv256 has no launch of its own on the main path: its word ops run
     # inside K1's launches, so it is listed apart with its test launch's

@@ -31,9 +31,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: reads it around each path it drives. "bv256" counts only its test
 #: launch ``bv256_apply``: K1 and K5-K7 inline ``csrc/bv256.cuh``.
 #: "prop_tables" counts K8's three entries (init, exchange, verdicts).
-#: "sym_step_packed" counts K1's steps on a packed arena (row 2p), which
+#: "sym_run" counts K1's launches (one a read window), "sym_run_packed"
+#: those of them on a packed arena (row 2p); "sym_step" counts the steps
+#: of K1's windows and "sym_step_packed" those on a packed arena, which
 #: "sym_step" then does not.
-LAUNCHES = {"bv256": 0, "sym_init": 0, "sym_step": 0, "sym_step_packed": 0,
+LAUNCHES = {"bv256": 0, "sym_init": 0, "sym_run": 0, "sym_run_packed": 0,
+            "sym_step": 0, "sym_step_packed": 0,
             "window_prologue": 0, "window_dedup": 0, "window_epilogue": 0,
             "interval_level": 0, "prop_fwd_level": 0, "prop_back_round": 0,
             "prop_tables": 0, "merge_fingerprint": 0, "lane_run": 0,

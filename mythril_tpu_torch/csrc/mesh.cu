@@ -28,10 +28,23 @@
 // so their time is launch latency and the scan's dependent steps, not
 // bandwidth. K14 reads every byte of the gathered rows once and writes
 // it once: at 131072 default lanes (11212 bytes) 2.94 GB, 0.88 ms at
-// 3.35 TB/s; its design aims at that: a block copies one plane's rows
-// for 32 output lanes with the widest aligned word the row allows
-// (16, 8, 4, 2 or 1 bytes, chosen by the wrapper from the row width
-// and both base addresses), neighbouring threads on neighbouring words.
+// 3.35 TB/s. Its design aims at that bound: one launch over every
+// plane, each block a run of one plane's output rows; each plane copies
+// with the widest word (16, 8, 4, 2 or 1 bytes) that divides its row and
+// both base addresses, indexed by (row, word) with shifts only: a row
+// takes the smallest power-of-two group of a warp's lanes that covers
+// its words (at most 32), so a 4-byte plane copies 32 rows a warp and a
+// 4 KB row a warp's 32 lanes. Every thread keeps four copies in flight:
+// four rows of a small plane, or four 16-byte words of a large row.
+// Plain unrolled 16-byte loads, not TMA bulk copies: each row comes from
+// its own gathered source address and most rows are a few words, so a
+// bulk copy through shared memory would add a hop and a barrier a row
+// without adding bytes in flight, which four loads a thread already
+// give (8 warps a block, ~16-32 KB a block). The wrapper allocates the
+// output batch once, every plane a view of it (parallel/mesh.py
+// gather_outputs).
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -39,15 +52,27 @@ namespace {
 constexpr int RUNNING = 0;
 constexpr int LIVE_BLOCK = 256;
 constexpr int MAX_PLANES = 32;
-constexpr int GATHER_LANES = 32;
 constexpr int GATHER_THREADS = 256;
+constexpr int GATHER_WARPS = GATHER_THREADS / 32;
+constexpr int UNROLL = 4;
+// bytes a block of K14 copies (at least a step of rows)
+constexpr long long GATHER_BLOCK_BYTES = 32768;
 
-// every plane's source and destination base, row bytes and copy width
+// one plane of K14: its rows and how its blocks copy them
+struct GPlane {
+  const uint8_t* src;
+  uint8_t* dst;
+  long long row;   // bytes a lane
+  int words;       // row / vec
+  int vec;         // copy width in bytes
+  int lg;          // log2 of the warp lanes a row takes
+  int rows;        // output rows a block
+  int first;       // the plane's first block
+};
+
 struct Planes {
-  const uint8_t* src[MAX_PLANES];
-  uint8_t* dst[MAX_PLANES];
-  long long row[MAX_PLANES];
-  int vec[MAX_PLANES];
+  GPlane p[MAX_PLANES];
+  int n;
 };
 
 // K12: block b counts the RUNNING lanes of shard b (lanes
@@ -94,39 +119,74 @@ __global__ void k_order_write(const int32_t* status, long long n, int n_dev,
   out[(q % n_dev) * per + q / n_dev] = (int32_t)i;
 }
 
-// K14: block (x, y) copies plane y's rows of output lanes
-// [32x, 32x + 32) from the source lanes order names.
-__global__ void __launch_bounds__(GATHER_THREADS)
-k_lane_gather(Planes p, const int32_t* order, long long n_src, long long n_out) {
-  __shared__ long long src_lane[GATHER_LANES];
-  const int plane = blockIdx.y;
-  const long long lane0 = (long long)blockIdx.x * GATHER_LANES;
-  const long long left = n_out - lane0;
-  const int lanes = left < GATHER_LANES ? (int)left : GATHER_LANES;
-  if (threadIdx.x < lanes) {
-    long long i = order[lane0 + threadIdx.x];
-    if (i < 0) i += n_src;
-    src_lane[threadIdx.x] = i < 0 ? 0 : (i >= n_src ? n_src - 1 : i);
-  }
-  __syncthreads();
-  const long long row = p.row[plane];
-  const int vec = p.vec[plane];
-  const long long words = row / vec;
-  const uint8_t* src = p.src[plane];
-  uint8_t* dst = p.dst[plane] + lane0 * row;
-  const long long total = lanes * words;
-  for (long long k = threadIdx.x; k < total; k += GATHER_THREADS) {
-    const long long l = k / words;
-    const long long off = (k - l * words) * vec;
-    const uint8_t* s = src + src_lane[l] * row + off;
-    uint8_t* d = dst + l * row + off;
-    switch (vec) {
-      case 16: *(int4*)d = *(const int4*)s; break;
-      case 8: *(int2*)d = *(const int2*)s; break;
-      case 4: *(int*)d = *(const int*)s; break;
-      case 2: *(short*)d = *(const short*)s; break;
-      default: *d = *s; break;
+// JAX's gather index rule: a negative index wraps once, then clamps
+__device__ __forceinline__ long long source_row(const int32_t* order, long long r,
+                                                long long n_src) {
+  long long i = order[r];
+  if (i < 0) i += n_src;
+  return i < 0 ? 0 : (i >= n_src ? n_src - 1 : i);
+}
+
+// rows [r0, r1) of plane g, words of type V
+template <typename V>
+__device__ __forceinline__ void gather_rows(const GPlane& g, const int32_t* order, long long n_src,
+                                            long long r0, long long r1) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lpr = 1 << g.lg;            // lanes a row
+  const int sub = lane & (lpr - 1);     // this lane's first word
+  const int rpw = 32 >> g.lg;           // rows a warp at once
+  const int step = GATHER_WARPS * rpw;  // rows the block at once
+  long long r = r0 + warp * rpw + (lane >> g.lg);
+  if (g.words <= lpr) {
+    // a word a row a lane: four rows in flight
+    if (sub >= g.words) return;
+    for (; r < r1; r += UNROLL * step) {
+      V v[UNROLL];
+#pragma unroll
+      for (int k = 0; k < UNROLL; ++k) {
+        long long rk = r + k * step;
+        if (rk < r1) v[k] = ((const V*)(g.src + source_row(order, rk, n_src) * g.row))[sub];
+      }
+#pragma unroll
+      for (int k = 0; k < UNROLL; ++k) {
+        long long rk = r + k * step;
+        if (rk < r1) ((V*)(g.dst + rk * g.row))[sub] = v[k];
+      }
     }
+    return;
+  }
+  // a row a warp (lpr 32): four words in flight a lane
+  for (; r < r1; r += step) {
+    const V* a = (const V*)(g.src + source_row(order, r, n_src) * g.row);
+    V* b = (V*)(g.dst + r * g.row);
+    int w = sub;
+    for (; w + (UNROLL - 1) * 32 < g.words; w += UNROLL * 32) {
+      V v[UNROLL];
+#pragma unroll
+      for (int k = 0; k < UNROLL; ++k) v[k] = a[w + k * 32];
+#pragma unroll
+      for (int k = 0; k < UNROLL; ++k) b[w + k * 32] = v[k];
+    }
+    for (; w < g.words; w += 32) b[w] = a[w];
+  }
+}
+
+// K14: block b copies rows [rows * (b - first), +rows) of the plane
+// whose blocks hold b
+__global__ void __launch_bounds__(GATHER_THREADS)
+k_lane_gather(const __grid_constant__ Planes ps, const int32_t* order, long long n_src,
+              long long n_out) {
+  int k = 0;
+  while (k + 1 < ps.n && ps.p[k + 1].first <= (int)blockIdx.x) ++k;
+  const GPlane& g = ps.p[k];
+  const long long r0 = (long long)(blockIdx.x - g.first) * g.rows;
+  const long long r1 = min(r0 + g.rows, n_out);
+  switch (g.vec) {
+    case 16: gather_rows<int4>(g, order, n_src, r0, r1); break;
+    case 8: gather_rows<int2>(g, order, n_src, r0, r1); break;
+    case 4: gather_rows<int>(g, order, n_src, r0, r1); break;
+    case 2: gather_rows<short>(g, order, n_src, r0, r1); break;
+    default: gather_rows<char>(g, order, n_src, r0, r1); break;
   }
 }
 
@@ -159,23 +219,52 @@ MTT_EXPORT int lane_order(const void* status, long long n, int n_dev, void* scra
   return (int)cudaGetLastError();
 }
 
-// K14: for each of n_planes planes, dst row j = src row order[j] (JAX's
-// index rule), rows of row_bytes[k] bytes copied vec[k] bytes at a time.
-MTT_EXPORT int lane_gather(void** src, void** dst, const long long* row_bytes,
-                           const int* vec, int n_planes, const void* order,
-                           long long n_src, long long n_out, void* stream) {
-  if (n_planes < 1 || n_planes > MAX_PLANES) return (int)cudaErrorInvalidValue;
-  Planes p;
-  for (int k = 0; k < n_planes; ++k) {
-    p.src[k] = (const uint8_t*)src[k];
-    p.dst[k] = (uint8_t*)dst[k];
-    p.row[k] = row_bytes[k];
-    p.vec[k] = vec[k];
+// K14's layout of an output batch, prepared once by the wrapper for a
+// batch shape: the planes' row bytes and their offsets (16-byte aligned)
+// in the one output allocation.
+struct GatherLayout {
+  int n_planes;
+  long long n_out;
+  long long row[MAX_PLANES];
+  long long offset[MAX_PLANES];
+};
+
+// K14: plane k of the output (at dst + offset[k]) gets, as its row j,
+// row order[j] of src[k] (JAX's index rule). One launch over every
+// plane; nothing launched for n_out or n_src 0.
+MTT_EXPORT int lane_gather(const GatherLayout* lay, void** src, void* dst, const void* order,
+                           long long n_src, void* stream) {
+  const int np = lay->n_planes;
+  if (np < 1 || np > MAX_PLANES) return (int)cudaErrorInvalidValue;
+  const long long n_out = lay->n_out;
+  if (n_out <= 0 || n_src <= 0) return 0;
+  Planes ps;
+  ps.n = np;
+  long long blocks = 0;
+  for (int k = 0; k < np; ++k) {
+    GPlane& g = ps.p[k];
+    g.src = (const uint8_t*)src[k];
+    g.dst = (uint8_t*)dst + lay->offset[k];
+    g.row = lay->row[k];
+    int v = 16;
+    while (v > 1 && (g.row % v || (uintptr_t)g.src % v || (uintptr_t)g.dst % v)) v >>= 1;
+    g.vec = v;
+    g.words = (int)(g.row / v);
+    g.lg = 0;
+    while ((1 << g.lg) < g.words && g.lg < 5) ++g.lg;
+    // a block copies whole steps of rows, about GATHER_BLOCK_BYTES
+    long long step = GATHER_WARPS * (32 >> g.lg);
+    long long unit = g.words <= (1 << g.lg) ? UNROLL * step : step;
+    long long want = GATHER_BLOCK_BYTES / (g.row > 0 ? g.row : 1);
+    long long rows = std::max(unit, want / unit * unit);
+    rows = std::min(rows, (n_out + step - 1) / step * step);
+    g.rows = (int)rows;
+    g.first = (int)blocks;
+    blocks += g.row > 0 ? (n_out + rows - 1) / rows : 0;
   }
-  if (n_out > 0 && n_src > 0) {
-    dim3 grid(nblocks_for(n_out, GATHER_LANES), n_planes);
-    k_lane_gather<<<grid, GATHER_THREADS, 0, (cudaStream_t)stream>>>(
-        p, (const int32_t*)order, n_src, n_out);
-  }
+  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidConfiguration;
+  if (blocks > 0)
+    k_lane_gather<<<(unsigned)blocks, GATHER_THREADS, 0, (cudaStream_t)stream>>>(
+        ps, (const int32_t*)order, n_src, n_out);
   return (int)cudaGetLastError();
 }

@@ -6,29 +6,46 @@
 // evaluates every op family over the whole batch and selects per lane;
 // here one thread runs one lane and computes only what its own opcode
 // needs (per lane the JAX lax.cond gates change nothing, so the result
-// is the same). A step is four launches:
-//   A  k_decide : each lane's decisions up to park0 -> its fork request
-//                 flag, and the per-block count of requests; marks the
-//                 visited bitmap;
-//   B  k_scan   : one block scans the block counts (fork order is the
-//                 lane order of requests, as JAX's cumsum: a prefix
-//                 scan, never a racing atomic), fixes the step's fork
-//                 budget, and decides whether the step runs at all;
-//   C  k_exec   : each lane recomputes its decisions, takes its fork
-//                 rank, and executes; forking parents write their fork
-//                 table row and stash what the child needs;
-//   D  k_fork   : one block per fork copies the parent's post-step row
-//                 into the child slot, then bumps the step counters.
-// A step after the last RUNNING lane stopped is a no-op in all four
-// (B clears the active flag), so the host may enqueue several steps
-// between reads of the running count and still stop at exactly the
-// step the JAX while_loop stops at.
+// is the same). As the JAX while_loop runs a window's steps as one
+// program, one cooperative launch (k_sym_run) runs the steps of one
+// read window: a persistent grid whose blocks must all be resident
+// (cudaLaunchCooperativeKernel; sym_run_shape sizes it from the
+// occupancy and refuses a card without cooperative launch). Its blocks
+// of 256 threads hold 32-256 lanes each (their first threads), so the
+// lanes spread over every SM while all the threads copy fork rows;
+// where the batch needs more blocks than fit at once, each thread holds
+// a lane in each of several rounds (round j: lane j * lanes held a
+// round + the block's). A step:
+//   decide  each lane's decisions up to park0, computed once: its fork
+//           request, the block's request count (per round), the
+//           visited bitmap; a thread of one lane keeps them in
+//           registers, else the block stages each round's in shared
+//           memory and writes them out as one coalesced run of its
+//           scratch;                     --- grid barrier
+//   budget  every block sums the counts (fork order is the lane order
+//           of requests, as JAX's cumsum: a block's rank is the counts
+//           of the blocks and rounds before it plus its ballot rank,
+//           never a racing atomic) and fixes the step's fork budget;
+//   exec    each lane executes; forking parents write their fork table
+//           row and stash what the child needs; the block's lanes still
+//           RUNNING are added to the next count;   --- grid barrier
+//   forks   a warp a fork copies the parent's post-step row into the
+//           child slot (one pass over a table of the planes, the widest
+//           word each row allows, four words in flight a thread); block
+//           0 bumps the step counters;  --- grid barrier, when a lane
+//           forked.
+// A grid of one block (up to 256 lanes: the corpus' 64) has
+// __syncthreads as its barrier. The running count lives in a ring of
+// three ints (step t reads slot t % 3, adds to the next, zeroes the one
+// after): a step that finds it 0 ends the launch, so the host may enqueue
+// a window of steps between reads of the count and still stop at
+// exactly the step the JAX while_loop stops at.
 //
 // Row 2p, the packed arena (mythril_tpu/ops/symstep.py:453-467, used at
 // :546-556, :1084-1095, :1199-1216): with seg_of/seg_tab set, lane pcs
 // are arena pcs and each lane resolves its own member's [base, size] row
-// once a step (seg_row, from the clamped pc decide() computes and k_exec
-// reuses through Dec): jump bounds and CODESIZE are the member's size,
+// once a step (seg_row, from the clamped pc decide() computes and
+// exec_lane reuses through Dec): jump bounds and CODESIZE are the member's size,
 // PC pushes pc - base, jumps take dest + base, and fentry and the fork
 // log keep the member-local dest. Null tables give exactly the plain
 // path (base 0, size code_size). The two table reads add 12 bytes a
@@ -37,8 +54,10 @@
 // Bound: bytes. A step reads each running lane's operands, its opcode
 // row and whatever window its op touches (32 memory/kind bytes, the
 // MR overlay records, the S storage keys), and writes a few words; a
-// fork copies the whole ~25 KB row. The lane loop is one thread per
-// lane with no cross-lane traffic except the scan and the fork copies.
+// fork copies the whole ~25 KB row. A lane's step is a chain of
+// dependent loads and 256-bit arithmetic in one thread, so at these
+// batch sizes latency, not bandwidth, bounds it: the design removes the
+// launches and the second decide, and spreads the lanes over the SMs.
 //
 // K0 sym_init replaces mythril_tpu/ops/symstep.py:250
 // _init_sym_lanes_dev: every plane of a fresh batch written in place
@@ -46,8 +65,14 @@
 // stack n-1..0). One launch, a block per 64 KB of a plane, 16-byte
 // stores.
 // Bound: bytes (each plane written once, nothing read).
+#include <algorithm>
+
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 #include "bv256.cuh"
+
+namespace cg = cooperative_groups;
 
 using bv::W;
 
@@ -76,8 +101,6 @@ enum {
 };
 // op table columns (ops/symstep.op_table)
 enum { T_NPOP, T_NPUSH, T_GMIN, T_GMAX, T_DEFER, T_RCLASS, T_ENV, T_EXEC, T_TAINT, T_COLS };
-// control words
-enum { C_CNT, C_ACTIVE, C_NAVAIL, C_NF };
 
 // user-assertions 0xcafe... pattern: value >> 4*(nd-60) == pattern for a
 // value of nd hex digits, 60 <= nd <= 64 (symstep.MSTORE_PAT_*)
@@ -201,8 +224,10 @@ __device__ __forceinline__ bool overlay_exact(const Sym& s, int lane, int woff, 
   return exact;
 }
 
-// everything sym_step decides before the fork phase
-struct Dec {
+// everything sym_step decides before the fork phase (16-byte aligned:
+// a block moves its lanes' decisions to and from its scratch in 16-byte
+// words)
+struct __align__(16) Dec {
   bool running;
   int op, npop, npush, rclass;
   bool is_dup, is_swap;
@@ -456,404 +481,502 @@ __device__ void decide(const Env& e, int lane, Dec& d) {
   d.fork_req = d.running && is_jumpi && d.sym_b && !d.sym_a && d.dest_ok && !d.park0;
 }
 
-__global__ void k_count_running(Sym s, int32_t* ctl) {
-  int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  int run = lane < s.n && s.status[lane] == RUNNING;
-  int c = __syncthreads_count(run);
-  if (threadIdx.x == 0 && c) atomicAdd(ctl + C_CNT, c);
-}
+// ---- the block's collectives (blockDim.x a multiple of 32, at most 1024)
 
-__global__ void k_decide(Env e, int32_t* ctl, int32_t* req, int32_t* block_off,
-                         uint8_t* visited, int vis_len) {
-  if (ctl[C_CNT] == 0) return;  // uniform: no lane running
-  const Sym& s = e.s;
-  int lane = blockIdx.x * SCAN_BLOCK + threadIdx.x;
-  int f = 0;
-  if (lane < s.n) {
-    Dec d;
-    decide(e, lane, d);
-    f = d.fork_req;
-    req[lane] = f;
-    if (visited && d.running) {
-      int pc = s.pc[lane];
-      if (pc >= 0 && pc < vis_len) visited[pc] = 1;
-    }
-  }
-  int total;
-  block_exclusive_scan(f, &total);
-  if (threadIdx.x == 0) block_off[blockIdx.x] = total;
-}
-
-__device__ int scan_counts(int32_t* block_off, int nblocks) {
-  __shared__ int carry;
-  __shared__ int buf[SCAN_BLOCK];
-  if (threadIdx.x == 0) carry = 0;
+// the sum of v over the block; every thread of the block must call it
+__device__ int block_sum(int v) {
+  __shared__ int sums[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, off);
+  if (lane == 0) sums[warp] = v;
   __syncthreads();
-  for (int base = 0; base < nblocks; base += SCAN_BLOCK) {
-    int i = base + threadIdx.x;
-    int v = i < nblocks ? block_off[i] : 0;
-    buf[threadIdx.x] = v;
-    __syncthreads();
-    for (int off = 1; off < SCAN_BLOCK; off <<= 1) {
-      int t = threadIdx.x >= off ? buf[threadIdx.x - off] : 0;
-      __syncthreads();
-      buf[threadIdx.x] += t;
-      __syncthreads();
-    }
-    if (i < nblocks) block_off[i] = carry + buf[threadIdx.x] - v;
-    __syncthreads();
-    if (threadIdx.x == SCAN_BLOCK - 1) carry += buf[SCAN_BLOCK - 1];
-    __syncthreads();
-  }
-  return carry;
+  int t = 0;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) t += sums[w];
+  __syncthreads();
+  return t;
 }
 
-__global__ void k_scan(Sym s, int32_t* ctl, int32_t* block_off, int nblocks, int maxf) {
-  if (ctl[C_CNT] == 0) {
-    if (threadIdx.x == 0) ctl[C_ACTIVE] = 0;
-    return;
-  }
-  int total = scan_counts(block_off, nblocks);
-  if (threadIdx.x == 0) {
-    int navail = min(min(*s.free_count, maxf), s.F - *s.flog_count);
-    ctl[C_ACTIVE] = 1;
-    ctl[C_NAVAIL] = navail;
-    ctl[C_NF] = max(0, min(total, navail));
-    ctl[C_CNT] = 0;
-  }
+// exclusive prefix of `flag` over the block's threads (thread order);
+// every thread of the block must call it
+__device__ int block_rank(int flag) {
+  __shared__ int sums[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned ballot = __ballot_sync(0xFFFFFFFFu, flag != 0);
+  if (lane == 0) sums[warp] = __popc(ballot);
+  __syncthreads();
+  int before = __popc(ballot & ((1u << lane) - 1u));
+  for (int w = 0; w < warp; ++w) before += sums[w];
+  __syncthreads();
+  return before;
 }
 
 struct ForkStash {
   int32_t *parent, *child, *fall_pc, *fentry;
 };
 
-__global__ void k_exec(Env e, int32_t* ctl, const int32_t* req, const int32_t* block_off,
-                       ForkStash fs) {
-  if (ctl[C_ACTIVE] == 0) return;
+// One lane's step after its decisions `d` (the fork phase's row copy
+// excepted): forder is its rank among the step's fork requests in lane
+// order, navail the step's fork budget; free_count, step_no and
+// flog_count are the values before the step. Returns whether the lane
+// is RUNNING after it.
+__device__ bool exec_lane(const Env& e, int lane, const Dec& d, int forder, int navail,
+                          int free_count, int step_no, int flog_count, const ForkStash& fs) {
   const Sym& s = e.s;
-  int lane = blockIdx.x * SCAN_BLOCK + threadIdx.x;
-  int flag = lane < s.n ? req[lane] : 0;
-  int total;
-  int forder = block_exclusive_scan(flag, &total) + block_off[blockIdx.x];
-  bool still = false;
-  if (lane < s.n) {
-    Dec d;
-    decide(e, lane, d);
-    const int navail = ctl[C_NAVAIL];
-    const int free_count = *s.free_count;
-    const int step_no = *s.step_no;
-    const int d_recs = s.R;
-    bool fork_can = d.fork_req && forder < navail;
-    bool fork_stall = d.fork_req && !fork_can && forder < free_count;
-    bool fork_nocap = d.fork_req && !fork_can && !fork_stall;
-    bool park = d.park0 || fork_nocap;
-    bool ok = d.running && !park && !fork_stall;
-    bool defer = d.defer && ok;
-    bool logrec = defer || (d.sstore_rec_want && ok);
-    fork_can = fork_can && ok;
-    bool live_alu = ok && !defer;
-    const int op = d.op;
-    const int pc = s.pc[lane];
-    const int pc_c = clampi(pc, 0, e.code_size);
-    const int sp = s.sp[lane];
-    const int dcount = s.dlog_count[lane];
-    const int prov_id = -(lane * d_recs + clampi(dcount, 0, d_recs - 1) + 1);
-    const bool is_jump = op == OP_JUMP, is_jumpi = op == OP_JUMPI;
-    const uint32_t pre_min = s.min_gas[lane], pre_max = s.max_gas[lane];
-    const int pre_fentry = s.fentry[lane];
+  const int d_recs = s.R;
+  bool fork_can = d.fork_req && forder < navail;
+  bool fork_stall = d.fork_req && !fork_can && forder < free_count;
+  bool fork_nocap = d.fork_req && !fork_can && !fork_stall;
+  bool park = d.park0 || fork_nocap;
+  bool ok = d.running && !park && !fork_stall;
+  bool defer = d.defer && ok;
+  bool logrec = defer || (d.sstore_rec_want && ok);
+  fork_can = fork_can && ok;
+  bool live_alu = ok && !defer;
+  const int op = d.op;
+  const int pc = s.pc[lane];
+  const int pc_c = clampi(pc, 0, e.code_size);
+  const int sp = s.sp[lane];
+  const int dcount = s.dlog_count[lane];
+  const int prov_id = -(lane * d_recs + clampi(dcount, 0, d_recs - 1) + 1);
+  const bool is_jump = op == OP_JUMP, is_jumpi = op == OP_JUMPI;
+  const uint32_t pre_min = s.min_gas[lane], pre_max = s.max_gas[lane];
+  const int pre_fentry = s.fentry[lane];
 
-    // ---- result and its sid
-    W result = bv::zero();
-    int result_sid = defer ? prov_id : 0;
-    uint32_t msize2 = (ok && d.mem_ops) ? d.new_msize : (uint32_t)s.msize[lane];
-    if (live_alu && d.npush == 1) {
-      const W& a = d.a;
-      const W& b = d.b;
-      W q, r;
-      switch (d.rclass) {
-        case RC_ADD: result = bv::add(a, b); break;
-        case RC_MUL: result = bv::mul(a, b); break;
-        case RC_SUB: result = bv::sub(a, b); break;
-        case RC_DIV: result = bv::div(a, b); break;
-        case RC_SDIV: bv::sdivmod(a, b, result, r); break;
-        case RC_MOD: result = bv::mod(a, b); break;
-        case RC_SMOD: bv::sdivmod(a, b, q, result); break;
-        case RC_ADDMOD: result = bv::addmod(a, b, d.c); break;
-        case RC_MULMOD: result = bv::mulmod(a, b, d.c); break;
-        case RC_EXP: result = bv::exp(a, b); break;
-        case RC_SIGNEXTEND: result = bv::signextend(a, b); break;
-        case RC_LT: result = bv::bool_word(bv::ult(a, b)); break;
-        case RC_GT: result = bv::bool_word(bv::ult(b, a)); break;
-        case RC_SLT: result = bv::bool_word(bv::slt(a, b)); break;
-        case RC_SGT: result = bv::bool_word(bv::slt(b, a)); break;
-        case RC_EQ: result = bv::bool_word(bv::eq(a, b)); break;
-        case RC_ISZERO: result = bv::bool_word(bv::is_zero(a)); break;
-        case RC_AND: result = bv::band(a, b); break;
-        case RC_OR: result = bv::bor(a, b); break;
-        case RC_XOR: result = bv::bxor(a, b); break;
-        case RC_NOT: result = bv::bnot(a); break;
-        case RC_BYTE: result = bv::byte_op(a, b); break;
-        case RC_SHL: result = bv::shl(b, a); break;
-        case RC_SHR: result = bv::shr(b, a); break;
-        case RC_SAR: result = bv::sar(b, a); break;
-        case RC_MLOAD: result = read_window(s, lane, d.mem_off, false).val; break;
-        case RC_SLOAD:
-          result = d.s_found ? bv::load(s.svals + ((size_t)lane * s.S + d.s_idx) * 8) : bv::zero();
-          break;
-        case RC_PC: result = bv::from_u32((uint32_t)(pc - d.seg_base)); break;
-        case RC_MSIZE: result = bv::from_u32(msize2); break;
-        case RC_GAS:
-          result = bv::load(s.env + ((size_t)lane * s.NENV + GASLIMIT_SLOT) * 8);
-          break;
-        case RC_CALLDATALOAD: {
-          const uint8_t* cd = s.calldata + (size_t)lane * s.C;
-          int cds = s.cd_size[lane];
-          for (int j = 0; j < 32; ++j) {
-            int ci = d.cd_off + j;
-            uint32_t byte = (ci < cds && ci < s.C) ? cd[clampi(ci, 0, s.C - 1)] : 0u;
-            result.l[7 - (j >> 2)] |= byte << (8 * (3 - (j & 3)));
-          }
-          break;
-        }
-        case RC_CALLDATASIZE: result = bv::from_u32((uint32_t)s.cd_size[lane]); break;
-        case RC_CODESIZE: result = bv::from_u32((uint32_t)d.seg_size); break;
-        case RC_ENV: {
-          int slot = clampi(e.optab[op * T_COLS + T_ENV], 0, s.NENV - 1);
-          result = bv::load(s.env + ((size_t)lane * s.NENV + slot) * 8);
-          break;
-        }
-        case RC_PUSH: {
-          W w;
-#pragma unroll
-          for (int i = 0; i < 8; ++i) w.l[i] = (uint32_t)code_at(e, pc_c, 4 + i);
-          result = w;
-          break;
-        }
-        case RC_DUP: result = stack_at(s, lane, clampi(sp - d.dup_n, 0, s.D - 1)); break;
-        default: break;
-      }
-    }
-    if (!defer) {
-      if (d.rclass == RC_ENV) {
-        int slot = clampi(e.optab[op * T_COLS + T_ENV], 0, s.NENV - 1);
-        result_sid = s.env_sid[(size_t)lane * s.NENV + slot];
-      }
-      if (op == OP_CALLDATASIZE) result_sid = s.cd_size_sid[lane];
-      if (op == OP_GAS) result_sid = s.env_sid[(size_t)lane * s.NENV + GASLIMIT_SLOT];
-      if (d.is_dup) result_sid = s.ssid[(size_t)lane * s.D + clampi(sp - d.dup_n, 0, s.D - 1)];
-      if (op == OP_MLOAD) result_sid = d.mload_sid;
-      if (op == OP_SLOAD && d.s_found) result_sid = s.sval_sid[(size_t)lane * s.S + d.s_idx];
-    }
-
-    // ---- memory execution
-    if (ok) {
-      uint8_t* mem = s.memory + (size_t)lane * s.M;
-      uint8_t* kind = s.mkind + (size_t)lane * s.M;
-      if (op == OP_MSTORE) {
-        uint8_t kv = d.sym_b ? KIND_SYM_WORD : KIND_CONC_WORD;
+  // ---- result and its sid
+  W result = bv::zero();
+  int result_sid = defer ? prov_id : 0;
+  uint32_t msize2 = (ok && d.mem_ops) ? d.new_msize : (uint32_t)s.msize[lane];
+  if (live_alu && d.npush == 1) {
+    const W& a = d.a;
+    const W& b = d.b;
+    W q, r;
+    switch (d.rclass) {
+      case RC_ADD: result = bv::add(a, b); break;
+      case RC_MUL: result = bv::mul(a, b); break;
+      case RC_SUB: result = bv::sub(a, b); break;
+      case RC_DIV: result = bv::div(a, b); break;
+      case RC_SDIV: bv::sdivmod(a, b, result, r); break;
+      case RC_MOD: result = bv::mod(a, b); break;
+      case RC_SMOD: bv::sdivmod(a, b, q, result); break;
+      case RC_ADDMOD: result = bv::addmod(a, b, d.c); break;
+      case RC_MULMOD: result = bv::mulmod(a, b, d.c); break;
+      case RC_EXP: result = bv::exp(a, b); break;
+      case RC_SIGNEXTEND: result = bv::signextend(a, b); break;
+      case RC_LT: result = bv::bool_word(bv::ult(a, b)); break;
+      case RC_GT: result = bv::bool_word(bv::ult(b, a)); break;
+      case RC_SLT: result = bv::bool_word(bv::slt(a, b)); break;
+      case RC_SGT: result = bv::bool_word(bv::slt(b, a)); break;
+      case RC_EQ: result = bv::bool_word(bv::eq(a, b)); break;
+      case RC_ISZERO: result = bv::bool_word(bv::is_zero(a)); break;
+      case RC_AND: result = bv::band(a, b); break;
+      case RC_OR: result = bv::bor(a, b); break;
+      case RC_XOR: result = bv::bxor(a, b); break;
+      case RC_NOT: result = bv::bnot(a); break;
+      case RC_BYTE: result = bv::byte_op(a, b); break;
+      case RC_SHL: result = bv::shl(b, a); break;
+      case RC_SHR: result = bv::shr(b, a); break;
+      case RC_SAR: result = bv::sar(b, a); break;
+      case RC_MLOAD: result = read_window(s, lane, d.mem_off, false).val; break;
+      case RC_SLOAD:
+        result = d.s_found ? bv::load(s.svals + ((size_t)lane * s.S + d.s_idx) * 8) : bv::zero();
+        break;
+      case RC_PC: result = bv::from_u32((uint32_t)(pc - d.seg_base)); break;
+      case RC_MSIZE: result = bv::from_u32(msize2); break;
+      case RC_GAS:
+        result = bv::load(s.env + ((size_t)lane * s.NENV + GASLIMIT_SLOT) * 8);
+        break;
+      case RC_CALLDATALOAD: {
+        const uint8_t* cd = s.calldata + (size_t)lane * s.C;
+        int cds = s.cd_size[lane];
         for (int j = 0; j < 32; ++j) {
-          int bi = d.mem_off + j;
-          if (bi >= s.M) continue;
-          if (!d.sym_b) mem[bi] = (uint8_t)(d.b.l[7 - (j >> 2)] >> (8 * (3 - (j & 3))));
-          kind[bi] = kv;
+          int ci = d.cd_off + j;
+          uint32_t byte = (ci < cds && ci < s.C) ? cd[clampi(ci, 0, s.C - 1)] : 0u;
+          result.l[7 - (j >> 2)] |= byte << (8 * (3 - (j & 3)));
         }
-      } else if (op == OP_MSTORE8) {
-        if (d.mem_off < s.M) {
-          mem[d.mem_off] = (uint8_t)(d.b.l[0] & 0xFFu);
-          kind[d.mem_off] = KIND_BYTE_INT;
-        }
+        break;
       }
-      if (d.sym_store_val) {
-        int cnt = s.mlog_count[lane];
-        size_t rp = (size_t)lane * s.MR + clampi(cnt, 0, s.MR - 1);
-        s.mlog_off[rp] = d.mem_off;
-        s.mlog_len[rp] = d.acc_len;
-        s.mlog_sid[rp] = d.sid_b;
-        s.mlog_count[lane] = cnt + 1;
+      case RC_CALLDATASIZE: result = bv::from_u32((uint32_t)s.cd_size[lane]); break;
+      case RC_CODESIZE: result = bv::from_u32((uint32_t)d.seg_size); break;
+      case RC_ENV: {
+        int slot = clampi(e.optab[op * T_COLS + T_ENV], 0, s.NENV - 1);
+        result = bv::load(s.env + ((size_t)lane * s.NENV + slot) * 8);
+        break;
       }
-      s.msize[lane] = (int)msize2;
-    }
-
-    // ---- storage execution
-    if (ok && (op == OP_SLOAD || op == OP_SSTORE)) {
-      bool do_sstore = op == OP_SSTORE;
-      bool do_write = do_sstore || d.sload_miss;
-      int cnt = s.scount[lane];
-      int pos_c = clampi(d.s_found ? d.s_idx : cnt, 0, s.S - 1);
-      size_t sk = (size_t)lane * s.S + pos_c;
-      int prior_written = s.s_written[sk];
-      int prior_read = s.s_read[sk];
-      if (do_write) {
-        bv::store(s.skeys + sk * 8, d.a);
-        s.skey_sid[sk] = d.sid_a;
-        bv::store(s.svals + sk * 8, do_sstore ? d.b : bv::zero());
-        s.sval_sid[sk] = do_sstore ? d.sid_b
-                                   : ((d.sload_miss_sym || (d.sload_rw && d.sload_miss)) ? prov_id : 0);
-        s.s_written[sk] = max(do_sstore ? 1 : 0, prior_written);
-        if (!d.s_found) s.scount[lane] = cnt + 1;
+      case RC_PUSH: {
+        W w;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) w.l[i] = (uint32_t)code_at(e, pc_c, 4 + i);
+        result = w;
+        break;
       }
-      if (do_sstore) s.s_wstep[sk] = step_no;
-      if (op == OP_SLOAD) s.s_read[sk] = (prior_written > 0 ? 2 : 1) | prior_read;
-    }
-    if (ok && d.mode_on_now) s.s_mode[lane] = 1;
-
-    // ---- stack updates
-    int new_sp = sp - d.npop + d.npush;
-    if (ok && d.npush == 1) {
-      int pi = clampi(new_sp - 1, 0, s.D - 1);
-      bv::store(s.stack + ((size_t)lane * s.D + pi) * 8, result);
-      s.ssid[(size_t)lane * s.D + pi] = result_sid;
-    }
-    if (ok && d.is_swap) {
-      int ti = clampi(sp - 1, 0, s.D - 1);
-      int si = clampi(sp - 1 - d.swap_n, 0, s.D - 1);
-      int wi = clampi(sp - (d.swap_n + 1), 0, s.D - 1);
-      W swap_val = stack_at(s, lane, wi);
-      int swap_sid = s.ssid[(size_t)lane * s.D + wi];
-      bv::store(s.stack + ((size_t)lane * s.D + ti) * 8, swap_val);
-      bv::store(s.stack + ((size_t)lane * s.D + si) * 8, d.a);
-      s.ssid[(size_t)lane * s.D + ti] = swap_sid;
-      s.ssid[(size_t)lane * s.D + si] = d.sid_a;
-    }
-
-    // ---- deferred-record append
-    if (logrec) {
-      int pos = clampi(dcount, 0, d_recs - 1);
-      size_t rp = (size_t)lane * d_recs + pos;
-      bool sd = d.sha3_defer;
-      s.dlog_op[rp] = d.sload_rw ? REC_SLOAD_RW : op;
-      s.dlog_pc[rp] = pc;
-      s.dlog_step[rp] = step_no;
-      s.dlog_fentry[rp] = pre_fentry;
-      s.dlog_sid[rp * 3 + 0] = sd ? d.s3_sid0 : d.sid_a;
-      s.dlog_sid[rp * 3 + 1] = sd ? (d.sha3_two ? d.s3_sid1 : 0) : d.sid_b;
-      s.dlog_sid[rp * 3 + 2] = sd ? 0 : d.sid_c;
-      W v0 = sd ? d.s3_val0 : d.a;
-      W v1 = sd ? ((d.sha3_two && d.s3_sid1 == 0) ? d.s3_val1 : bv::zero()) : d.b;
-      W v2 = d.c;
-      if (sd) {
-        v2 = bv::zero();
-        v2.l[0] = (uint32_t)d.sha3_len;
-        v2.l[1] = d.s3_k0lo;
-        v2.l[2] = d.s3_k0hi;
-        v2.l[3] = d.sha3_two ? d.s3_k1lo : 0u;
-        v2.l[4] = d.sha3_two ? d.s3_k1hi : 0u;
-      }
-      bv::store(s.dlog_val + (rp * 3 + 0) * 8, v0);
-      bv::store(s.dlog_val + (rp * 3 + 1) * 8, v1);
-      bv::store(s.dlog_val + (rp * 3 + 2) * 8, v2);
-      s.dlog_count[lane] = dcount + 1;
-    }
-
-    // ---- control flow, gas, status
-    int next_pc = code_at(e, pc_c, 1);
-    int new_pc = next_pc;
-    if (is_jump) new_pc = d.dest_eff;
-    if (is_jumpi && !d.sym_b && d.jumpi_taken) new_pc = d.dest_eff;
-    if (fork_can) new_pc = d.dest_eff;
-    if (ok && is_jumpi) s.depth[lane] += 1;
-    bool jumped = ok && (is_jump || (is_jumpi && !d.sym_b && d.jumpi_taken) || fork_can);
-    if (jumped && code_at(e, clampi(d.dest_eff, 0, e.code_size), 3) != 0) s.fentry[lane] = d.dest;
-    if (ok) {
-      s.pc[lane] = new_pc;
-      s.sp[lane] = new_sp;
-      s.min_gas[lane] = pre_min + d.gmin;
-      s.max_gas[lane] = pre_max + d.gmax;
-      s.steps[lane] += 1;
-      if (is_jump) s.last_jump[lane] = pc;
-    }
-    if (d.running && park) s.status[lane] = NEEDS_HOST;
-    still = s.status[lane] == RUNNING;
-
-    // ---- fork bookkeeping: the row copy waits for k_fork
-    if (fork_can) {
-      int f = forder;
-      int child = s.free_slots[clampi(free_count - 1 - f, 0, s.n - 1)];
-      fs.parent[f] = lane;
-      fs.child[f] = child;
-      fs.fall_pc[f] = next_pc;  // arena pc; flog_dest below stays member-local
-      fs.fentry[f] = pre_fentry;
-      int row = *s.flog_count + f;
-      s.flog_parent[row] = lane;
-      s.flog_child[row] = child;
-      s.flog_step[row] = step_no;
-      s.flog_pc[row] = pc;
-      s.flog_sid[row] = d.sid_b;
-      s.flog_gmin[row] = pre_min;
-      s.flog_gmax[row] = pre_max;
-      s.flog_fentry[row] = pre_fentry;
-      s.flog_dest[row] = d.dest;
+      case RC_DUP: result = stack_at(s, lane, clampi(sp - d.dup_n, 0, s.D - 1)); break;
+      default: break;
     }
   }
-  int c = __syncthreads_count(still);
-  if (threadIdx.x == 0 && c) atomicAdd(ctl + C_CNT, c);
+  if (!defer) {
+    if (d.rclass == RC_ENV) {
+      int slot = clampi(e.optab[op * T_COLS + T_ENV], 0, s.NENV - 1);
+      result_sid = s.env_sid[(size_t)lane * s.NENV + slot];
+    }
+    if (op == OP_CALLDATASIZE) result_sid = s.cd_size_sid[lane];
+    if (op == OP_GAS) result_sid = s.env_sid[(size_t)lane * s.NENV + GASLIMIT_SLOT];
+    if (d.is_dup) result_sid = s.ssid[(size_t)lane * s.D + clampi(sp - d.dup_n, 0, s.D - 1)];
+    if (op == OP_MLOAD) result_sid = d.mload_sid;
+    if (op == OP_SLOAD && d.s_found) result_sid = s.sval_sid[(size_t)lane * s.S + d.s_idx];
+  }
+
+  // ---- memory execution
+  if (ok) {
+    uint8_t* mem = s.memory + (size_t)lane * s.M;
+    uint8_t* kind = s.mkind + (size_t)lane * s.M;
+    if (op == OP_MSTORE) {
+      uint8_t kv = d.sym_b ? KIND_SYM_WORD : KIND_CONC_WORD;
+      for (int j = 0; j < 32; ++j) {
+        int bi = d.mem_off + j;
+        if (bi >= s.M) continue;
+        if (!d.sym_b) mem[bi] = (uint8_t)(d.b.l[7 - (j >> 2)] >> (8 * (3 - (j & 3))));
+        kind[bi] = kv;
+      }
+    } else if (op == OP_MSTORE8) {
+      if (d.mem_off < s.M) {
+        mem[d.mem_off] = (uint8_t)(d.b.l[0] & 0xFFu);
+        kind[d.mem_off] = KIND_BYTE_INT;
+      }
+    }
+    if (d.sym_store_val) {
+      int cnt = s.mlog_count[lane];
+      size_t rp = (size_t)lane * s.MR + clampi(cnt, 0, s.MR - 1);
+      s.mlog_off[rp] = d.mem_off;
+      s.mlog_len[rp] = d.acc_len;
+      s.mlog_sid[rp] = d.sid_b;
+      s.mlog_count[lane] = cnt + 1;
+    }
+    s.msize[lane] = (int)msize2;
+  }
+
+  // ---- storage execution
+  if (ok && (op == OP_SLOAD || op == OP_SSTORE)) {
+    bool do_sstore = op == OP_SSTORE;
+    bool do_write = do_sstore || d.sload_miss;
+    int cnt = s.scount[lane];
+    int pos_c = clampi(d.s_found ? d.s_idx : cnt, 0, s.S - 1);
+    size_t sk = (size_t)lane * s.S + pos_c;
+    int prior_written = s.s_written[sk];
+    int prior_read = s.s_read[sk];
+    if (do_write) {
+      bv::store(s.skeys + sk * 8, d.a);
+      s.skey_sid[sk] = d.sid_a;
+      bv::store(s.svals + sk * 8, do_sstore ? d.b : bv::zero());
+      s.sval_sid[sk] = do_sstore ? d.sid_b
+                                 : ((d.sload_miss_sym || (d.sload_rw && d.sload_miss)) ? prov_id : 0);
+      s.s_written[sk] = max(do_sstore ? 1 : 0, prior_written);
+      if (!d.s_found) s.scount[lane] = cnt + 1;
+    }
+    if (do_sstore) s.s_wstep[sk] = step_no;
+    if (op == OP_SLOAD) s.s_read[sk] = (prior_written > 0 ? 2 : 1) | prior_read;
+  }
+  if (ok && d.mode_on_now) s.s_mode[lane] = 1;
+
+  // ---- stack updates
+  int new_sp = sp - d.npop + d.npush;
+  if (ok && d.npush == 1) {
+    int pi = clampi(new_sp - 1, 0, s.D - 1);
+    bv::store(s.stack + ((size_t)lane * s.D + pi) * 8, result);
+    s.ssid[(size_t)lane * s.D + pi] = result_sid;
+  }
+  if (ok && d.is_swap) {
+    int ti = clampi(sp - 1, 0, s.D - 1);
+    int si = clampi(sp - 1 - d.swap_n, 0, s.D - 1);
+    int wi = clampi(sp - (d.swap_n + 1), 0, s.D - 1);
+    W swap_val = stack_at(s, lane, wi);
+    int swap_sid = s.ssid[(size_t)lane * s.D + wi];
+    bv::store(s.stack + ((size_t)lane * s.D + ti) * 8, swap_val);
+    bv::store(s.stack + ((size_t)lane * s.D + si) * 8, d.a);
+    s.ssid[(size_t)lane * s.D + ti] = swap_sid;
+    s.ssid[(size_t)lane * s.D + si] = d.sid_a;
+  }
+
+  // ---- deferred-record append
+  if (logrec) {
+    int pos = clampi(dcount, 0, d_recs - 1);
+    size_t rp = (size_t)lane * d_recs + pos;
+    bool sd = d.sha3_defer;
+    s.dlog_op[rp] = d.sload_rw ? REC_SLOAD_RW : op;
+    s.dlog_pc[rp] = pc;
+    s.dlog_step[rp] = step_no;
+    s.dlog_fentry[rp] = pre_fentry;
+    s.dlog_sid[rp * 3 + 0] = sd ? d.s3_sid0 : d.sid_a;
+    s.dlog_sid[rp * 3 + 1] = sd ? (d.sha3_two ? d.s3_sid1 : 0) : d.sid_b;
+    s.dlog_sid[rp * 3 + 2] = sd ? 0 : d.sid_c;
+    W v0 = sd ? d.s3_val0 : d.a;
+    W v1 = sd ? ((d.sha3_two && d.s3_sid1 == 0) ? d.s3_val1 : bv::zero()) : d.b;
+    W v2 = d.c;
+    if (sd) {
+      v2 = bv::zero();
+      v2.l[0] = (uint32_t)d.sha3_len;
+      v2.l[1] = d.s3_k0lo;
+      v2.l[2] = d.s3_k0hi;
+      v2.l[3] = d.sha3_two ? d.s3_k1lo : 0u;
+      v2.l[4] = d.sha3_two ? d.s3_k1hi : 0u;
+    }
+    bv::store(s.dlog_val + (rp * 3 + 0) * 8, v0);
+    bv::store(s.dlog_val + (rp * 3 + 1) * 8, v1);
+    bv::store(s.dlog_val + (rp * 3 + 2) * 8, v2);
+    s.dlog_count[lane] = dcount + 1;
+  }
+
+  // ---- control flow, gas, status
+  int next_pc = code_at(e, pc_c, 1);
+  int new_pc = next_pc;
+  if (is_jump) new_pc = d.dest_eff;
+  if (is_jumpi && !d.sym_b && d.jumpi_taken) new_pc = d.dest_eff;
+  if (fork_can) new_pc = d.dest_eff;
+  if (ok && is_jumpi) s.depth[lane] += 1;
+  bool jumped = ok && (is_jump || (is_jumpi && !d.sym_b && d.jumpi_taken) || fork_can);
+  if (jumped && code_at(e, clampi(d.dest_eff, 0, e.code_size), 3) != 0) s.fentry[lane] = d.dest;
+  if (ok) {
+    s.pc[lane] = new_pc;
+    s.sp[lane] = new_sp;
+    s.min_gas[lane] = pre_min + d.gmin;
+    s.max_gas[lane] = pre_max + d.gmax;
+    s.steps[lane] += 1;
+    if (is_jump) s.last_jump[lane] = pc;
+  }
+  if (d.running && park) s.status[lane] = NEEDS_HOST;
+
+  // ---- fork bookkeeping: the row copy waits for the fork phase
+  if (fork_can) {
+    int f = forder;
+    int child = s.free_slots[clampi(free_count - 1 - f, 0, s.n - 1)];
+    fs.parent[f] = lane;
+    fs.child[f] = child;
+    fs.fall_pc[f] = next_pc;  // arena pc; flog_dest below stays member-local
+    fs.fentry[f] = pre_fentry;
+    int row = flog_count + f;
+    s.flog_parent[row] = lane;
+    s.flog_child[row] = child;
+    s.flog_step[row] = step_no;
+    s.flog_pc[row] = pc;
+    s.flog_sid[row] = d.sid_b;
+    s.flog_gmin[row] = pre_min;
+    s.flog_gmax[row] = pre_max;
+    s.flog_fentry[row] = pre_fentry;
+    s.flog_dest[row] = d.dest;
+  }
+  return s.status[lane] == RUNNING;
 }
 
-template <typename T>
-__device__ __forceinline__ void copy_row(T* p, size_t elems, int src, int dst) {
-  for (size_t i = threadIdx.x; i < elems; i += blockDim.x) p[(size_t)dst * elems + i] = p[(size_t)src * elems + i];
+// The fork phase's row table: every per-lane plane a child takes from
+// its parent, but pc, fentry and dlog_count, which the child gets from
+// the stash (and 0). The first `scalar` planes have 4-byte rows (one
+// lane of the copying warp each); the rest copy `vec` bytes at a time,
+// the widest word dividing the row and the base.
+constexpr int MAX_ROWS = 48;
+struct Rows {
+  char* base[MAX_ROWS];
+  int bytes[MAX_ROWS];
+  int vec[MAX_ROWS];
+  int n, scalar;
+};
+
+template <typename V>
+__device__ __forceinline__ void copy_words(char* base, int bytes, int src, int dst, int lane) {
+  const V* a = (const V*)(base + (size_t)src * bytes);
+  V* b = (V*)(base + (size_t)dst * bytes);
+  const int words = bytes / (int)sizeof(V);
+  int w = lane;
+  // four words in flight a thread, neighbouring lanes on neighbouring words
+  for (; w + 96 < words; w += 128) {
+    V v0 = a[w], v1 = a[w + 32], v2 = a[w + 64], v3 = a[w + 96];
+    b[w] = v0;
+    b[w + 32] = v1;
+    b[w + 64] = v2;
+    b[w + 96] = v3;
+  }
+  for (; w < words; w += 32) b[w] = a[w];
 }
 
-__global__ void k_fork(Sym s, int32_t* ctl, ForkStash fs) {
-  if (ctl[C_ACTIVE] == 0) return;
-  int nf = ctl[C_NF];
-  int f = blockIdx.x;
-  if (f < nf) {
-    int src = fs.parent[f], dst = fs.child[f];
-    copy_row(s.pc, 1, src, dst);
-    copy_row(s.sp, 1, src, dst);
-    copy_row(s.depth, 1, src, dst);
-    copy_row(s.group, 1, src, dst);
-    copy_row(s.fentry, 1, src, dst);
-    copy_row(s.last_jump, 1, src, dst);
-    copy_row(s.stack, (size_t)s.D * 8, src, dst);
-    copy_row(s.ssid, s.D, src, dst);
-    copy_row(s.memory, s.M, src, dst);
-    copy_row(s.mkind, s.M, src, dst);
-    copy_row(s.msize, 1, src, dst);
-    copy_row(s.mlog_off, s.MR, src, dst);
-    copy_row(s.mlog_len, s.MR, src, dst);
-    copy_row(s.mlog_sid, s.MR, src, dst);
-    copy_row(s.mlog_count, 1, src, dst);
-    copy_row(s.skeys, (size_t)s.S * 8, src, dst);
-    copy_row(s.svals, (size_t)s.S * 8, src, dst);
-    copy_row(s.sval_sid, s.S, src, dst);
-    copy_row(s.s_written, s.S, src, dst);
-    copy_row(s.s_read, s.S, src, dst);
-    copy_row(s.skey_sid, s.S, src, dst);
-    copy_row(s.s_wstep, s.S, src, dst);
-    copy_row(s.s_mode, 1, src, dst);
-    copy_row(s.scount, 1, src, dst);
-    copy_row(s.sbase, 1, src, dst);
-    copy_row(s.calldata, s.C, src, dst);
-    copy_row(s.cd_size, 1, src, dst);
-    copy_row(s.cd_sym, 1, src, dst);
-    copy_row(s.cd_size_sid, 1, src, dst);
-    copy_row(s.env, (size_t)s.NENV * 8, src, dst);
-    copy_row(s.env_sid, s.NENV, src, dst);
-    copy_row(s.min_gas, 1, src, dst);
-    copy_row(s.max_gas, 1, src, dst);
-    copy_row(s.gas_limit, 1, src, dst);
-    copy_row(s.status, 1, src, dst);
-    copy_row(s.steps, 1, src, dst);
-    copy_row(s.dlog_op, s.R, src, dst);
-    copy_row(s.dlog_pc, s.R, src, dst);
-    copy_row(s.dlog_step, s.R, src, dst);
-    copy_row(s.dlog_fentry, s.R, src, dst);
-    copy_row(s.dlog_sid, (size_t)s.R * 3, src, dst);
-    copy_row(s.dlog_val, (size_t)s.R * 24, src, dst);
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      s.pc[dst] = fs.fall_pc[f];
-      s.fentry[dst] = fs.fentry[f];
-      s.dlog_count[dst] = 0;
+// one warp copies lane src's row of every plane of the table to lane dst
+__device__ void copy_lane(const Rows& t, int src, int dst, int lane) {
+  if (lane < t.scalar) {
+    int32_t* p = (int32_t*)t.base[lane];
+    p[dst] = p[src];
+  }
+  for (int k = t.scalar; k < t.n; ++k) {
+    switch (t.vec[k]) {
+      case 16: copy_words<int4>(t.base[k], t.bytes[k], src, dst, lane); break;
+      case 8: copy_words<int2>(t.base[k], t.bytes[k], src, dst, lane); break;
+      case 4: copy_words<int>(t.base[k], t.bytes[k], src, dst, lane); break;
+      case 2: copy_words<short>(t.base[k], t.bytes[k], src, dst, lane); break;
+      default: copy_words<char>(t.base[k], t.bytes[k], src, dst, lane); break;
     }
   }
-  if (f == 0 && threadIdx.x == 0) {
-    *s.step_no += 1;
-    *s.flog_count += nf;
-    *s.free_count -= nf;
+}
+
+// threads a block of K1: every one copies fork rows; the first `lanes`
+// hold lanes
+constexpr int RUN_THREADS = 256;
+
+// a block's run of `count` decisions between shared memory and its
+// scratch, 16 bytes a thread at a time
+__device__ __forceinline__ void move_decs(int4* to, const int4* from, int count) {
+  const int words = count * (int)(sizeof(Dec) / 16);
+  for (int i = threadIdx.x; i < words; i += RUN_THREADS) to[i] = from[i];
+}
+
+// what a window's launch needs beside the state
+struct Run {
+  int32_t* ctl;     // [0, 3): the running-count ring (module comment)
+  int32_t* counts;  // nl * gridDim.x: each block's fork requests a round
+  Dec* dec;         // the decisions of every round's lanes, a block's run
+                    // of `lanes` after another's, when a thread holds
+                    // several lanes; else null
+  int lanes;        // lanes a block holds a round (its first threads)
+  ForkStash fs;
+  Rows rows;
+  uint8_t* visited;
+  int vis_len;
+  int steps, maxf, count_first;
+  // or null: SM cycles block 0 spends in decide, exec and forks (each up
+  // to its barrier's exit), and the steps run
+  long long* phase;
+};
+
+// K1: up to r.steps steps of the whole batch in one cooperative launch
+// (the module comment has the phases and barriers).
+// (__grid_constant__: the phases index the tables of e and r at run
+// time without a per-thread copy of either)
+__global__ void __launch_bounds__(RUN_THREADS)
+k_sym_run(const __grid_constant__ Env e, const __grid_constant__ Run r) {
+  cg::grid_group grid = cg::this_grid();
+  const Sym& s = e.s;
+  const int G = gridDim.x;
+  // round j's lanes: j * GL + the block's L, one a thread of its first L
+  const long long GL = (long long)G * r.lanes;
+  const long long me = (long long)blockIdx.x * RUN_THREADS + threadIdx.x;
+  const bool holds = (int)threadIdx.x < r.lanes;
+  const long long mine0 = (long long)blockIdx.x * r.lanes + threadIdx.x;
+  const int nl = (int)((s.n + GL - 1) / GL);
+  const int wlane = threadIdx.x & 31;
+  auto barrier = [&]() {
+    if (G == 1) __syncthreads();
+    else grid.sync();
+  };
+  if (r.count_first) {  // the first window counts the running lanes
+    int c = 0;
+    for (int j = 0; j < nl; ++j) {
+      long long lane = j * GL + mine0;
+      c += holds && lane < s.n && s.status[lane] == RUNNING;
+    }
+    c = block_sum(c);
+    if (threadIdx.x == 0 && c) atomicAdd(r.ctl, c);
+    barrier();
   }
+  Dec dk;  // the decisions of the thread's lane this round
+  // a round's decisions of the block's lanes, staged (r.dec set)
+  extern __shared__ int4 staged_raw[];
+  Dec* staged = reinterpret_cast<Dec*>(staged_raw);
+  const bool timed = r.phase && me == 0;
+  long long mark = 0;
+  auto stamp = [&](int k) {
+    if (timed) {
+      long long now = clock64();
+      r.phase[k] += now - mark;
+      mark = now;
+    }
+  };
+  int t = 0;
+  for (; t < r.steps; ++t) {
+    if (*(volatile int32_t*)(r.ctl + t % 3) == 0) break;  // uniform
+    const int next = (t + 1) % 3;
+    if (me == 0) r.ctl[next] = 0;
+    if (timed) mark = clock64();
+    // decide: each lane's decisions, once; the fork requests per block
+    for (int j = 0; j < nl; ++j) {
+      long long lane = j * GL + mine0;
+      int f = 0;
+      if (holds && lane < s.n) {
+        Dec d;
+        decide(e, (int)lane, d);
+        f = d.fork_req;
+        if (r.visited && d.running) {
+          int pc = s.pc[lane];
+          if (pc >= 0 && pc < r.vis_len) r.visited[pc] = 1;
+        }
+        if (r.dec) staged[threadIdx.x] = d;
+        else dk = d;
+      }
+      f = block_sum(f);  // (its __syncthreads also publish `staged`)
+      if (threadIdx.x == 0) r.counts[j * G + blockIdx.x] = f;
+      if (r.dec) {
+        move_decs((int4*)(r.dec + (j * G + blockIdx.x) * (long long)r.lanes),
+                  staged_raw, r.lanes);
+        __syncthreads();
+      }
+    }
+    barrier();
+    stamp(0);
+    // the step's fork budget, as every block computes it
+    const int free_count = *(volatile int32_t*)s.free_count;
+    const int flog_count = *(volatile int32_t*)s.flog_count;
+    const int step_no = *(volatile int32_t*)s.step_no;
+    const int ncounts = nl * G;
+    int part = 0;
+    for (int i = threadIdx.x; i < ncounts; i += RUN_THREADS) part += r.counts[i];
+    const int total = block_sum(part);
+    const int navail = min(min(free_count, r.maxf), s.F - flog_count);
+    const int nf = max(0, min(total, navail));
+    // exec: fork ranks in lane order (blocks of round j after every
+    // block of the rounds before it)
+    int still = 0;
+    for (int j = 0; j < nl; ++j) {
+      long long lane = j * GL + mine0;
+      const int mine = j * G + blockIdx.x;
+      part = 0;
+      for (int i = threadIdx.x; i < mine; i += RUN_THREADS) part += r.counts[i];
+      const int off = block_sum(part);
+      const bool have = holds && lane < s.n;
+      if (r.dec) {
+        move_decs(staged_raw,
+                  (const int4*)(r.dec + (j * G + blockIdx.x) * (long long)r.lanes),
+                  r.lanes);
+        __syncthreads();
+        if (have) dk = staged[threadIdx.x];
+      }
+      const int forder = off + block_rank(have && dk.fork_req);
+      if (have)
+        still += exec_lane(e, (int)lane, dk, forder, navail, free_count, step_no, flog_count,
+                           r.fs);
+    }
+    still = block_sum(still);
+    if (threadIdx.x == 0 && still) atomicAdd(r.ctl + next, still);
+    barrier();
+    stamp(1);
+    // forks: a warp a fork, each child a copy of its parent's row
+    if (nf > 0) {
+      const long long warps = (long long)G * (RUN_THREADS / 32);
+      for (long long f = me >> 5; f < nf; f += warps) {
+        const int src = r.fs.parent[f], dst = r.fs.child[f];
+        copy_lane(r.rows, src, dst, wlane);
+        if (wlane == 0) {
+          s.pc[dst] = r.fs.fall_pc[f];
+          s.fentry[dst] = r.fs.fentry[f];
+          s.dlog_count[dst] = 0;
+        }
+      }
+    }
+    if (me == 0) {
+      *s.step_no = step_no + 1;
+      *s.flog_count = flog_count + nf;
+      *s.free_count = free_count - nf;
+    }
+    if (nf > 0) barrier();
+    stamp(2);
+  }
+  // the running count before step t is the count the host reads
+  if (me == 0 && t % 3) r.ctl[0] = *(volatile int32_t*)(r.ctl + t % 3);
+  if (timed) r.phase[3] += t;
 }
 
 // K0: plane f of the batch is ip.bytes[f] bytes at ip.p[f]; its 32-bit
@@ -914,42 +1037,136 @@ MTT_EXPORT int sym_init(void** planes, const long long* bytes, const int* vals,
   return (int)cudaGetLastError();
 }
 
-MTT_EXPORT int sym_count_running(void** planes, const int* dims, void* ctl, void* stream) {
-  Sym s = make_sym(planes, dims);
-  cudaStream_t st = (cudaStream_t)stream;
-  fill_i32<<<1, 1, 0, st>>>((int32_t*)ctl, 1, 0);
-  if (s.n > 0) k_count_running<<<nblocks_for(s.n, 256), 256, 0, st>>>(s, (int32_t*)ctl);
-  return (int)cudaGetLastError();
+// shared memory a block of K1 stages a round's decisions in, when a
+// thread holds several lanes
+inline size_t staging_bytes(int lanes) { return (size_t)lanes * sizeof(Dec); }
+
+inline cudaError_t staging_allowed() {
+  return cudaFuncSetAttribute((const void*)k_sym_run,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)staging_bytes(RUN_THREADS));
 }
 
-// `steps` steps of K1. scratch: req[n], block_off[nb+1], then the fork
-// stash (4 x maxf). seg_of/seg_tab: a packed arena's segment tables (row
-// 2p), or null for single-contract code.
-MTT_EXPORT int sym_run_steps(void** planes, const int* dims, const void* code, int code_size,
-                             const void* seg_of, int seg_of_len, const void* seg_tab,
-                             int seg_rows, const void* optab, void* ctl, void* scratch,
-                             int steps, int max_forks, void* visited, int vis_len,
-                             void* stream) {
+// The launch shape of K1 over n lanes: out = {threads a block, blocks,
+// lanes a thread, bytes of one lane's decisions, lanes a block}. A
+// block holds 32-256 lanes a round, so the lanes spread over every SM
+// (one block of n lanes up to 256); the grid is capped at the blocks
+// that fit on the card at once (a cooperative launch needs all of them
+// resident), and a thread then holds several lanes. Refuses a card
+// without cooperative launch.
+MTT_EXPORT int sym_run_shape(int n, int* out) {
+  int dev, coop = 0, sms = 0, occ = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc == cudaSuccess) rc = staging_allowed();
+  if (rc != cudaSuccess) return (int)rc;
+  if (!coop) return (int)cudaErrorNotSupported;
+  int lanes = 32;
+  if (n <= RUN_THREADS) {
+    lanes = std::max(32, (n + 31) / 32 * 32);
+  } else {
+    int per = (n + sms - 1) / sms;
+    while (lanes < per && lanes < RUN_THREADS) lanes <<= 1;
+  }
+  const int need = (n + lanes - 1) / lanes;
+  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, k_sym_run, RUN_THREADS, 0);
+  if (rc == cudaSuccess && need > occ * sms)  // rounds: with the staging
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, k_sym_run, RUN_THREADS,
+                                                       staging_bytes(lanes));
+  if (rc != cudaSuccess) return (int)rc;
+  if (occ < 1) return (int)cudaErrorInvalidConfiguration;
+  int blocks = std::max(1, std::min(need, occ * sms));
+  long long held = (long long)blocks * lanes;
+  out[0] = RUN_THREADS;
+  out[1] = blocks;
+  out[2] = (int)((n + held - 1) / held);
+  out[3] = (int)sizeof(Dec);
+  out[4] = lanes;
+  return 0;
+}
+
+// K1: up to `steps` steps in one cooperative launch of `blocks` blocks
+// of `lanes` lanes a round (sym_run_shape). ctl: the 3-int running-count
+// ring, ctl[0] the count (counted here when count_first is set: ctl
+// zeroed by the caller); scratch: rounds * blocks block counts, then the
+// fork stash (4 x min(max_forks, n)); dec: rounds * blocks * lanes
+// decisions when a thread holds several lanes (rounds > 1), else null.
+// seg_of/seg_tab: a packed arena's segment
+// tables (row 2p), or null for single-contract code. phase: null, or 4
+// int64 the phases' cycles are added to (Run::phase).
+MTT_EXPORT int sym_run(void** planes, const int* dims, const void* code, int code_size,
+                       const void* seg_of, int seg_of_len, const void* seg_tab, int seg_rows,
+                       const void* optab, void* ctl, void* scratch, void* dec, int lanes,
+                       int blocks, int steps, int max_forks, void* visited, int vis_len,
+                       int count_first, void* phase, void* stream) {
   Sym s = make_sym(planes, dims);
-  cudaStream_t st = (cudaStream_t)stream;
+  if (s.n <= 0 || steps <= 0) return 0;
   Env e{s, (const int32_t*)code, code_size, (const int32_t*)optab,
         (const int32_t*)seg_of, seg_of_len, (const int32_t*)seg_tab, seg_rows};
-  int n = s.n;
-  int nb = (int)nblocks_for(n, SCAN_BLOCK);
-  int maxf = min(max_forks, n);
-  int32_t* req = (int32_t*)scratch;
-  int32_t* block_off = req + n;
-  ForkStash fs;
-  fs.parent = block_off + nb + 1;
-  fs.child = fs.parent + maxf;
-  fs.fall_pc = fs.child + maxf;
-  fs.fentry = fs.fall_pc + maxf;
-  int32_t* c = (int32_t*)ctl;
-  for (int i = 0; i < steps && n > 0; ++i) {
-    k_decide<<<nb, SCAN_BLOCK, 0, st>>>(e, c, req, block_off, (uint8_t*)visited, vis_len);
-    k_scan<<<1, SCAN_BLOCK, 0, st>>>(s, c, block_off, nb, maxf);
-    k_exec<<<nb, SCAN_BLOCK, 0, st>>>(e, c, req, block_off, fs);
-    k_fork<<<maxf, 256, 0, st>>>(s, c, fs);
-  }
+  if (lanes < 1 || lanes > RUN_THREADS || blocks < 1) return (int)cudaErrorInvalidValue;
+  long long held = (long long)blocks * lanes;
+  int nl = (int)((s.n + held - 1) / held);
+  if (nl > 1 && !dec) return (int)cudaErrorInvalidValue;
+  int maxf = std::min(max_forks, s.n);
+  Run r;
+  r.ctl = (int32_t*)ctl;
+  r.counts = (int32_t*)scratch;
+  r.dec = nl > 1 ? (Dec*)dec : nullptr;
+  r.lanes = lanes;
+  r.fs.parent = r.counts + (size_t)nl * blocks;
+  r.fs.child = r.fs.parent + maxf;
+  r.fs.fall_pc = r.fs.child + maxf;
+  r.fs.fentry = r.fs.fall_pc + maxf;
+  r.visited = (uint8_t*)visited;
+  r.vis_len = vis_len;
+  r.steps = steps;
+  r.maxf = maxf;
+  r.count_first = count_first;
+  r.phase = (long long*)phase;
+  Rows& t = r.rows;
+  t.n = 0;
+  auto put = [&t](void* p, long long bytes) {
+    int k = t.n++;
+    int v = 16;
+    while (v > 1 && (bytes % v || (uintptr_t)p % v)) v >>= 1;
+    t.base[k] = (char*)p;
+    t.bytes[k] = (int)bytes;
+    t.vec[k] = v;
+  };
+  for (int32_t* p : {s.sp, s.depth, s.group, s.last_jump, s.msize, s.mlog_count, s.s_mode,
+                     s.scount, s.sbase, s.cd_size, s.cd_sym, s.cd_size_sid, (int32_t*)s.min_gas,
+                     (int32_t*)s.max_gas, (int32_t*)s.gas_limit, s.status, s.steps})
+    put(p, 4);
+  t.scalar = t.n;
+  put(s.stack, 32LL * s.D);
+  put(s.ssid, 4LL * s.D);
+  put(s.memory, s.M);
+  put(s.mkind, s.M);
+  put(s.mlog_off, 4LL * s.MR);
+  put(s.mlog_len, 4LL * s.MR);
+  put(s.mlog_sid, 4LL * s.MR);
+  put(s.skeys, 32LL * s.S);
+  put(s.svals, 32LL * s.S);
+  put(s.sval_sid, 4LL * s.S);
+  put(s.s_written, 4LL * s.S);
+  put(s.s_read, 4LL * s.S);
+  put(s.skey_sid, 4LL * s.S);
+  put(s.s_wstep, 4LL * s.S);
+  put(s.calldata, s.C);
+  put(s.env, 32LL * s.NENV);
+  put(s.env_sid, 4LL * s.NENV);
+  put(s.dlog_op, 4LL * s.R);
+  put(s.dlog_pc, 4LL * s.R);
+  put(s.dlog_step, 4LL * s.R);
+  put(s.dlog_fentry, 4LL * s.R);
+  put(s.dlog_sid, 12LL * s.R);
+  put(s.dlog_val, 96LL * s.R);
+  void* args[] = {&e, &r};
+  cudaError_t rc = staging_allowed();
+  if (rc != cudaSuccess) return (int)rc;
+  rc = cudaLaunchCooperativeKernel((const void*)k_sym_run, dim3(blocks), dim3(RUN_THREADS), args,
+                                   nl > 1 ? staging_bytes(lanes) : 0, (cudaStream_t)stream);
+  if (rc != cudaSuccess) return (int)rc;
   return (int)cudaGetLastError();
 }

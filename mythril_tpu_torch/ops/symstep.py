@@ -986,23 +986,28 @@ def op_table(exec_table=None, taint_table=None) -> np.ndarray:
     ], axis=1).astype(np.int32)
 
 
-#: steps enqueued between two reads of the device's running count: the
-#: kernels of a step after the last lane stopped exit at once, so the
-#: run still stops at exactly the step the JAX loop stops at
+#: steps one launch of K1 runs between two reads of the device's running
+#: count: a step that finds no lane running ends the launch, so the run
+#: still stops at exactly the step the JAX loop stops at
 SYNC_EVERY = 8
 
 _STEP_SIGS = {
-    "sym_run_steps": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                      ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                      ctypes.c_void_p],
-    "sym_count_running": [ctypes.c_void_p, ctypes.c_void_p,
-                          ctypes.c_void_p, ctypes.c_void_p],
+    "sym_run": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p],
+    "sym_run_shape": [ctypes.c_int, ctypes.c_void_p],
     "sym_init": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                  ctypes.c_void_p, ctypes.c_void_p],
 }
+
+#: K1's launch shape by (lanes, device): threads a block, blocks, lanes
+#: a thread, bytes of a lane's decisions, lanes a block
+#: (``csrc/symstep.cu`` ``sym_run_shape``)
+_SHAPES = {}
 
 
 def _k1():
@@ -1015,6 +1020,24 @@ def _k1():
         raise RuntimeError("csrc/common.cuh SYM_FIELDS differs from "
                            "SymLaneState")
     return lib
+
+
+def run_shape(n: int, dev: torch.device):
+    """K1's launch shape over ``n`` lanes on ``dev``: (threads a block,
+    blocks, lanes a thread, bytes of a lane's decisions, lanes a block).
+    Raises where the card has no cooperative launch."""
+    from .. import _build
+
+    key = (n, dev.index)
+    if key not in _SHAPES:
+        lib = _k1()
+        out = (ctypes.c_int * 5)()
+        with torch.cuda.device(dev):
+            rc = lib.sym_run_shape(n, out)
+        _build.check(lib, rc, "sym_run_shape (K1 needs a cooperative "
+                     "launch of blocks that are all resident)")
+        _SHAPES[key] = tuple(out)
+    return _SHAPES[key]
 
 
 def state_args(st: SymLaneState):
@@ -1036,12 +1059,16 @@ def state_args(st: SymLaneState):
 
 def sym_run_kernel(code: CompiledCode, st: SymLaneState, max_steps: int,
                    exec_table=None, taint_table=None, visited=None,
-                   sync_every: int = SYNC_EVERY):
-    """``sym_run`` on the card through kernel K1 (``csrc/symstep.cu``),
-    reading the running count back every ``sync_every`` steps. Updates
-    the state's planes in place (the JAX run donates its state) and
-    returns (state, visited). A packed arena (``code.seg_tab`` set)
-    takes K1's packed branch (row 2p), counted as ``sym_step_packed``."""
+                   sync_every: int = SYNC_EVERY, phases=None):
+    """``sym_run`` on the card through kernel K1 (``csrc/symstep.cu``):
+    one cooperative launch a window of ``sync_every`` steps, the running
+    count read back after each. Updates the state's planes in place (the
+    JAX run donates its state) and returns (state, visited). Counts each
+    launch in ``LAUNCHES["sym_run"]`` and its steps in ``"sym_step"``, or
+    on a packed arena (K1's packed branch, row 2p) in
+    ``"sym_run_packed"`` too and in ``"sym_step_packed"``. ``phases``
+    (a CUDA int64 tensor of 4, or None) gets the SM cycles of K1's
+    phases added (decide, exec, forks) and the steps run."""
     from .. import _build
 
     dev = st.pc.device
@@ -1062,25 +1089,35 @@ def sym_run_kernel(code: CompiledCode, st: SymLaneState, max_steps: int,
     vis = visited
     if vis is not None:
         _build.need_cuda(vis, torch.bool, "visited")
-    # per-step scratch (layout in csrc/symstep.cu sym_run_steps): fork
-    # flags, block offsets, and the forking parents' stash
-    nb = (n + 255) // 256
-    ctl = torch.zeros(8, dtype=torch.int32, device=dev)
-    scratch = torch.empty(n + nb + 1 + 4 * min(MAX_FORKS_PER_STEP, n),
+    if phases is not None:
+        _build.need_cuda(phases, torch.int64, "phases")
+    if n == 0:
+        return st, vis
+    _, blocks, per, dec_bytes, lanes = run_shape(n, dev)
+    # the count ring (zeroed: the first launch counts into slot 0), the
+    # block counts, the forking parents' stash, and the decisions where a
+    # thread holds several lanes (layout in csrc/symstep.cu sym_run)
+    ctl = torch.zeros(4, dtype=torch.int32, device=dev)
+    scratch = torch.empty(per * blocks + 4 * min(MAX_FORKS_PER_STEP, n),
                           dtype=torch.int32, device=dev)
+    dec = torch.empty(per * blocks * lanes * dec_bytes, dtype=torch.uint8,
+                      device=dev) if per > 1 else None
     stream = _build.stream(dev)
-    rc = lib.sym_count_running(planes, dims, _build.ptr(ctl), stream)
-    _build.check(lib, rc, "sym_count_running")
     done = 0
     while done < max_steps:
         k = min(sync_every, max_steps - done)
-        rc = lib.sym_run_steps(
+        rc = lib.sym_run(
             planes, dims, _build.ptr(packed), code.size, *seg_args,
-            _build.ptr(optab), _build.ptr(ctl), _build.ptr(scratch), k,
+            _build.ptr(optab), _build.ptr(ctl), _build.ptr(scratch),
+            None if dec is None else _build.ptr(dec), lanes, blocks, k,
             MAX_FORKS_PER_STEP, None if vis is None else _build.ptr(vis),
-            0 if vis is None else vis.shape[0], stream)
+            0 if vis is None else vis.shape[0], int(done == 0),
+            None if phases is None else _build.ptr(phases), stream)
+        _build.LAUNCHES["sym_run"] += 1
+        if code.seg_tab is not None:
+            _build.LAUNCHES["sym_run_packed"] += 1
         _build.LAUNCHES[counter] += k
-        _build.check(lib, rc, "sym_run_steps")
+        _build.check(lib, rc, "sym_run")
         done += k
         if int(ctl[0]) == 0:
             break

@@ -36,6 +36,7 @@ launches its kernel on a CUDA one, counting the launch in
 
 import contextlib
 import ctypes
+import math
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple, Union
 
@@ -290,14 +291,77 @@ def lane_gather_plain(state: LaneState, order: torch.Tensor) -> LaneState:
 # the kernels (csrc/mesh.cu)
 # ---------------------------------------------------------------------------
 
+#: K14's output layout (csrc/mesh.cu ``GatherLayout``): the planes' row
+#: bytes and offsets in the one output allocation
+MAX_PLANES = 32
+#: each output plane starts at a multiple of this many bytes
+PLANE_ALIGN = 16
+
+
+class GatherLayout(ctypes.Structure):
+    _fields_ = [("n_planes", ctypes.c_int), ("n_out", ctypes.c_longlong),
+                ("row", ctypes.c_longlong * MAX_PLANES),
+                ("offset", ctypes.c_longlong * MAX_PLANES)]
+
+
+class _GatherPlan:
+    """K14's output for a batch shape and an order length: the C layout
+    and each plane's view of the one allocation (dtype, shape, strides,
+    offset in elements)."""
+
+    def __init__(self, planes, n_out: int):
+        if len(planes) > MAX_PLANES:
+            raise ValueError(f"{len(planes)} planes, at most {MAX_PLANES}")
+        self.layout = GatherLayout(n_planes=len(planes), n_out=n_out)
+        self.views = []
+        off = 0
+        for k, x in enumerate(planes):
+            shape = (n_out,) + tuple(x.shape[1:])
+            row = x.element_size() * math.prod(shape[1:])
+            strides = tuple(math.prod(shape[i + 1:])
+                            for i in range(len(shape)))
+            self.layout.row[k] = row
+            self.layout.offset[k] = off
+            self.views.append((x.dtype, shape, strides,
+                               off // x.element_size()))
+            off += -(-row * n_out // PLANE_ALIGN) * PLANE_ALIGN
+        self.nbytes = max(off, PLANE_ALIGN)
+
+    def outputs(self, device):
+        """(the one allocation, each plane's view of it)."""
+        buf = torch.empty(self.nbytes, dtype=torch.uint8, device=device)
+        by_type = {torch.uint8: buf, torch.int32: buf.view(torch.int32)}
+        return buf, [by_type[dt].as_strided(shape, strides, off)
+                     for dt, shape, strides, off in self.views]
+
+
+_PLANS = {}
+
+
+def gather_outputs(state: LaneState, n_out: int):
+    """The planes of a ``n_out``-lane batch shaped as ``state``'s, as
+    views of one allocation (each at a 16-byte-aligned offset, none
+    overlapping): (the allocation, a ``LaneState`` of the views). K14
+    writes them; its layout is cached by the batch's shape."""
+    planes = [getattr(state, f) for f in LANE_FIELDS]
+    key = (n_out,) + tuple((x.dtype, x.shape[1:]) for x in planes)
+    plan = _PLANS.get(key)
+    if plan is None:
+        if len(_PLANS) >= 64:
+            _PLANS.clear()
+        plan = _PLANS[key] = _GatherPlan(planes, n_out)
+    buf, views = plan.outputs(state.device)
+    return buf, LaneState(*views), plan
+
+
 _SIGS = {
     "lane_live": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                   ctypes.c_void_p, ctypes.c_void_p],
     "lane_order": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
-    "lane_gather": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p],
+    "lane_gather": [ctypes.POINTER(GatherLayout), ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                    ctypes.c_void_p],
 }
 
 #: the scan block of csrc/common.cuh (K13's scratch is a count a block)
@@ -349,43 +413,48 @@ def lane_order(status: torch.Tensor, n_dev: int) -> torch.Tensor:
     return out
 
 
-def _copy_width(row: int, *addrs: int) -> int:
-    """The widest word (16, 8, 4, 2, 1 bytes) that divides the row width
-    and every base address."""
-    for w in (16, 8, 4, 2):
-        if row % w == 0 and all(a % w == 0 for a in addrs):
-            return w
-    return 1
+#: each plane's dtype in a batch K14 takes
+_PLANE_TYPES = tuple(torch.uint8 if f in stepper.LANE_U8 else torch.int32
+                     for f in LANE_FIELDS)
+
+
+def _check_batch(planes) -> None:
+    """The batch as a whole: every plane a contiguous CUDA tensor of its
+    type on one device, and as many lanes in each."""
+    dev, n = planes[0].device, planes[0].shape[0]
+    if dev.type != "cuda":
+        raise ValueError(f"lane_gather: expected CUDA planes, got {dev}")
+    bad = [f for f, x, t in zip(LANE_FIELDS, planes, _PLANE_TYPES)
+           if x.device != dev or x.dtype != t or not x.is_contiguous()
+           or x.shape[0] != n]
+    if bad:
+        raise ValueError(f"lane_gather: planes {bad} are not contiguous "
+                         f"{n}-lane tensors of their type on {dev}")
 
 
 def lane_gather(state: LaneState, order: torch.Tensor) -> LaneState:
     """A new batch of ``len(order)`` lanes, every plane's rows gathered
     through ``order`` with JAX's index rule: K14 on a CUDA batch, the
-    plain version on a CPU one."""
+    plain version on a CPU one. On the card the output planes are views
+    of one allocation (``gather_outputs``)."""
     if state.device.type == "cpu":
         return lane_gather_plain(state, order)
     from .. import _build
 
-    for f in LANE_FIELDS:
-        x = getattr(state, f)
-        _build.need_cuda(x, torch.uint8 if f in stepper.LANE_U8
-                         else torch.int32, f)
+    planes = [getattr(state, f) for f in LANE_FIELDS]
+    _check_batch(planes)
     _build.need_cuda(order, torch.int32, "order")
-    n_src, n_out = state.pc.shape[0], order.shape[0]
-    out = LaneState(**{f: torch.empty((n_out,) + getattr(state, f).shape[1:],
-                                      dtype=getattr(state, f).dtype,
-                                      device=state.device)
-                       for f in LANE_FIELDS})
-    src = [getattr(state, f) for f in LANE_FIELDS]
-    dst = [getattr(out, f) for f in LANE_FIELDS]
-    rows = [x[0].numel() * x.element_size() if n_src else 0 for x in src]
-    widths = [_copy_width(r, s.data_ptr(), d.data_ptr())
-              for r, s, d in zip(rows, src, dst)]
+    n_src, n_out = planes[0].shape[0], order.shape[0]
+    if n_src == 0 and n_out:
+        raise IndexError(f"lane_gather: {n_out} rows of a batch of 0 lanes")
+    buf, out, plan = gather_outputs(state, n_out)
+    if n_out == 0:
+        return out
     lib = _lib()
     rc = lib.lane_gather(
-        _build.ptr_array(src), _build.ptr_array(dst),
-        (ctypes.c_longlong * len(rows))(*rows), _build.int_array(widths),
-        len(LANE_FIELDS), _build.ptr(order), n_src, n_out,
+        ctypes.byref(plan.layout),
+        (ctypes.c_void_p * len(planes))(*[x.data_ptr() for x in planes]),
+        buf.data_ptr(), order.data_ptr(), n_src,
         _build.stream(state.device))
     _build.LAUNCHES["lane_gather"] += 1
     _build.check(lib, rc, "lane_gather")

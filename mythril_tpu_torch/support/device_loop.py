@@ -10,7 +10,7 @@ at widths the host bridge cannot (131072 lanes of one contract), so
 their times can be taken at those widths.
 """
 
-from collections import deque
+from collections import deque, namedtuple
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -19,7 +19,7 @@ import torch
 from ..laser import lane_engine as le
 from ..ops import symstep
 from ..ops.bv256 import NLIMBS
-from ..ops.stepper import Status, compile_code
+from ..ops.stepper import Status, compile_code, compile_packed_code
 from ..ops.symstep import DEAD, SymLaneState
 from .devices import resolve
 
@@ -280,3 +280,104 @@ def packed_probe_seeds(objects: "le.ObjectTable", codes, bases, probes,
             s["stack_s"][j] = sid
         s["sp"] = len(stack)
     return seeds
+
+
+#: the inputs K1 is held to on both sides (``k1_edge_cases``)
+K1Case = namedtuple("K1Case", "name code members seeds lanes steps")
+
+
+def k1_edge_cases(calldata_cap: int, scale: int = 1):
+    """The edge inputs of K1: on the card ``chip_smoke.py`` holds K1 to
+    its plain version on them, on the CPU ``tests/test_torch_symstep.py``
+    holds the plain version to the JAX ``sym_run``. Each is a
+    ``K1Case``: one contract's bytes (``code``) or a packed arena's
+    members (``members``, for ``compile_packed_code``), raw seeds, the
+    lane count and the steps to run. ``scale`` multiplies the lane
+    counts that are not fixed by what the case is about (1 on the CPU).
+
+    - ``odd_lanes``: 64 * scale + 37 lanes, no multiple of any block;
+    - ``fork_budget``: MAX_FORKS_PER_STEP + 452 lanes reach a symbolic
+      JUMPI in the same step, spread over many blocks, with 2100 free
+      slots: 2048 fork, 52 stall and fork the next step, the rest park;
+    - ``mid_window_stop``: every lane stops on its own, the last at a
+      step that is no multiple of ``symstep.SYNC_EVERY``;
+    - ``corpus_width``: 64 lanes (the corpus' ``--tpu-lanes``);
+    - ``packed``: a packed arena of three probe members, 64 * scale
+      lanes, five eighths of them seeded."""
+    from . import contracts
+    from ..ops.symstep import MAX_FORKS_PER_STEP
+
+    def mixed(objs, n_seeds, seed):
+        """coverage-contract entries: odd ones symbolic, even ones
+        concrete calldata picking each arm in turn"""
+        rng = np.random.default_rng(seed)
+        out = []
+        for i in range(n_seeds):
+            s = tx_entry_seed(objs, i + 1, calldata_cap)
+            if i % 2 == 0:
+                s["cd_sym"], s["cd_size_sid"], s["cd_size"] = 0, 0, 64
+                s["calldata"][31] = (i // 2) % 10
+                s["calldata"][32:64] = rng.integers(0, 256, 32, np.uint8)
+            out.append(s)
+        return out
+
+    cover = contracts.build_coverage_contract()
+    objs = le.ObjectTable()
+    odd = 64 * scale + 37
+    cases = [K1Case("odd_lanes", cover, None, mixed(objs, odd // 8, 1), odd,
+                    64)]
+    objs = le.ObjectTable()
+    storm = MAX_FORKS_PER_STEP + 452
+    cases.append(K1Case(
+        "fork_budget", contracts.build_symbolic_contract(4)[0], None,
+        [tx_entry_seed(objs, g + 1, calldata_cap) for g in range(storm)],
+        storm + 2100, 12))
+    objs = le.ObjectTable()
+    seeds = []
+    for i in range(12):
+        s = tx_entry_seed(objs, i + 1, calldata_cap)
+        s["cd_sym"], s["cd_size_sid"], s["cd_size"] = 0, 0, 64
+        s["calldata"][31] = _STOP_ARMS[i % len(_STOP_ARMS)]
+        s["calldata"][63] = i
+        seeds.append(s)
+    cases.append(K1Case("mid_window_stop", cover, None, seeds, 64, 256))
+    objs = le.ObjectTable()
+    cases.append(K1Case("corpus_width", cover, None, mixed(objs, 8, 2), 64,
+                        64))
+    codes, probes = zip(*(contracts.with_probe(c) for c in (
+        contracts.build_symbolic_contract(4)[0],
+        contracts.build_diamond_contract(k=3),
+        cover)))
+    members = [(c, (p["jumpi"], 0)) for c, p in zip(codes, probes)]
+    lanes = 64 * scale
+    _, bases = compile_packed_code(members, device="cpu")
+    cases.append(K1Case(
+        "packed", None, members,
+        packed_probe_seeds(le.ObjectTable(), codes, bases, probes,
+                           calldata_cap, lanes * 5 // 8),
+        lanes, 48))
+    return cases
+
+
+#: the coverage contract's arms that stop (arm 7 loops) for
+#: ``mid_window_stop``: arm 5 runs longest, to step 90
+_STOP_ARMS = (0, 1, 2, 3, 4, 5, 6, 8, 9)
+
+
+def k1_case_state(case: K1Case, device, **lane_kwargs):
+    """A case's batch after the window prologue, and its code:
+    (SymLaneState, CompiledCode) on ``device``."""
+    dev = resolve(device)
+    st = symstep.init_sym_lanes(case.lanes, device=dev, **lane_kwargs)
+    free = list(range(case.lanes - 1, -1, -1))
+    entries = [(free.pop(), s) for s in case.seeds]
+    i32b, u8b, k, pv = le.pack_window(
+        case.lanes, symstep.N_ENV, lane_kwargs, entries, free, [], {},
+        int(st.calldata.shape[1]), big=len(entries) > 16)
+    st = le.prologue_plain(st, torch.from_numpy(i32b).to(dev),
+                           torch.from_numpy(u8b).to(dev), k, pv)
+    if case.members is not None:
+        cc, _ = compile_packed_code(case.members, device=dev)
+    else:
+        cc = compile_code(case.code, device=dev)
+    return st, cc

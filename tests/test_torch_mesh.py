@@ -296,3 +296,53 @@ def test_dryrun_multichip_macro_step(eight_devices):
     assert int(tst.steps.min()) >= 1
     # lanes halt along the way, so the rebalance order moves rows
     assert lives[0] == n and 0 < lives[-1] < n, lives
+
+
+# -- K14's output: one allocation ---------------------------------------------
+
+@pytest.mark.parametrize("n_out", [0, 1, 37, 64, 100])
+def test_gather_outputs_are_views_of_one_allocation(n_out):
+    """The planes K14 writes: each view has its plane's shape (``n_out``
+    lanes) and dtype, starts at a 16-byte-aligned offset of the one
+    allocation, overlaps no other, and a write to one plane leaves the
+    others unchanged."""
+    tst = port_state(random_planes(11, 64, "random"))
+    buf, out, _ = TM.gather_outputs(tst, n_out)
+    base = buf.data_ptr()
+    spans = []
+    for f in T.LANE_FIELDS:
+        x, src = getattr(out, f), getattr(tst, f)
+        assert x.shape == (n_out,) + src.shape[1:], f
+        assert x.dtype == src.dtype and x.is_contiguous(), f
+        assert x.untyped_storage().data_ptr() == base, f
+        off = x.data_ptr() - base
+        assert off % TM.PLANE_ALIGN == 0, f
+        spans.append((off, off + x.numel() * x.element_size(), f))
+    spans.sort()
+    for (_, end, f), (start, _, g) in zip(spans, spans[1:]):
+        assert end <= start, (f, g)
+    assert spans[-1][1] <= buf.numel()
+    for f in T.LANE_FIELDS:
+        getattr(out, f).zero_()
+    for f in T.LANE_FIELDS:
+        getattr(out, f).fill_(-1 if getattr(out, f).dtype == torch.int32
+                              else 255)
+        for g in T.LANE_FIELDS:
+            if g != f:
+                assert not getattr(out, g).any(), (f, g)
+        getattr(out, f).zero_()
+
+
+def test_gather_of_an_empty_batch():
+    """An empty order gives an empty batch, also from no lanes; rows of a
+    batch of no lanes are an index error (the kernel's wrapper raises
+    the same)."""
+    tst = port_state(random_planes(12, 64, "random"))
+    none = T.LaneState(**{f: getattr(tst, f)[:0] for f in T.LANE_FIELDS})
+    empty = torch.empty(0, dtype=torch.int32)
+    for src in (tst, none):
+        got = TM.lane_gather(src, empty)
+        for f in T.LANE_FIELDS:
+            assert getattr(got, f).shape == (0,) + getattr(src, f).shape[1:]
+    with pytest.raises(IndexError):
+        TM.lane_gather(none, torch.zeros(3, dtype=torch.int32))

@@ -243,3 +243,55 @@ def test_concrete_alu_op(op):
         0x20, "CALLDATALOAD", 0, "CALLDATALOAD", "XOR", 0x20,
         "CALLDATALOAD", 0, "CALLDATALOAD", op, 0, "SSTORE", "STOP"])
     run_both(code, seeded_planes(seeds))
+
+
+# -- K1's edge inputs (device_loop.k1_edge_cases; chip_smoke.py holds the
+# kernel to the plain version on the same inputs at 64 times the lanes)
+
+_EDGE = {c.name: c for c in DL.k1_edge_cases(KW["calldata_bytes"])}
+
+
+@pytest.mark.parametrize("name", sorted(_EDGE))
+def test_k1_edge_case_matches_the_jax_package(name):
+    """Each edge input through the JAX ``sym_run_jit`` and the port's
+    plain ``sym_run``, from the same planes: every plane and the visited
+    bitmap equal, bit for bit."""
+    case = _EDGE[name]
+    st, tcc = DL.k1_case_state(case, "cpu", **KW)
+    planes = interop.state_to_numpy(st)
+    if case.members is not None:
+        jcc, _ = JST.compile_packed_code(case.members)
+    else:
+        jcc = JST.compile_code(case.code)
+    np.testing.assert_array_equal(tcc.packed.numpy(), np.asarray(jcc.packed))
+    ex, ta = TS.SYM_EXECUTABLE, np.zeros(256, bool)
+    jst = JS.SymLaneState(**{k: jnp.asarray(v) for k, v in planes.items()})
+    jout, jvis = JS.sym_run_jit(jcc, jst, case.steps, jnp.asarray(ex),
+                                jnp.asarray(ta),
+                                jnp.zeros(jcc.packed.shape[0], bool))
+    tout, tvis = TS.sym_run(tcc, st, case.steps, ex, ta,
+                            torch.zeros(tcc.packed.shape[0],
+                                        dtype=torch.bool))
+    got = interop.state_to_numpy(tout)
+    for f in TS.FIELDS:
+        want = np.asarray(getattr(jout, f))
+        assert got[f].dtype == want.dtype, f
+        np.testing.assert_array_equal(got[f], want, err_msg=f)
+    np.testing.assert_array_equal(tvis.numpy(), np.asarray(jvis))
+    ran = int(got["step_no"]) - int(planes["step_no"])
+    if name == "odd_lanes":
+        assert case.lanes % 32 and int(got["flog_count"]) > 0
+    if name == "fork_budget":
+        # 2048 fork in the storm step, 52 stall and fork the next step,
+        # the rest park
+        assert len(case.seeds) > TS.MAX_FORKS_PER_STEP
+        assert int(got["flog_count"]) == TS.MAX_FORKS_PER_STEP + 52
+        assert (got["flog_step"][:TS.MAX_FORKS_PER_STEP]
+                == got["flog_step"][0]).all()
+    if name == "mid_window_stop":
+        assert ran < case.steps and ran % TS.SYNC_EVERY
+        assert not (got["status"] == 0).any()
+    if name == "corpus_width":
+        assert case.lanes == 64
+    if name == "packed":
+        assert tcc.seg_tab is not None and int(got["flog_count"]) > 0

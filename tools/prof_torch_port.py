@@ -4,12 +4,14 @@
     python3 tools/prof_torch_port.py --screen [--systems 8192] [--off]
     python3 tools/prof_torch_port.py --analyze calls.sol.o
     python3 tools/prof_torch_port.py --packed [--k 11] [--lanes 4096]
+    python3 tools/prof_torch_port.py --kernels
 
-Without ``--screen`` or ``--analyze``: runs the device loop
-(``support/device_loop.DeviceLoop``) on ``build_symbolic_contract(k)``
-once to warm up (kernel builds, allocator), once timed on the host
-clock, then once under ``torch.profiler``, and prints the card, both
-wall times, the device time summed over kernels, the device busy share of the
+Without ``--screen`` or ``--analyze``: builds the kernels, runs the
+device loop (``support/device_loop.DeviceLoop``) on
+``build_symbolic_contract(k)`` once (the process's first run: the
+allocator's first blocks), once timed on the host clock, then once
+under ``torch.profiler``, and prints the card, the three wall times,
+the device time summed over kernels, the device busy share of the
 profiled wall, and the kernels by device time.
 
 With ``--analyze``: ``myth analyze`` of one vendored fixture through the
@@ -27,6 +29,20 @@ packed into one ``LaneEngine.explore_packed``, in turns (solo, packed,
 packed, solo) on the host clock; then one packed explore under
 ``cProfile`` (the host functions by cumulative time) and one under
 ``torch.profiler`` (the device busy share).
+
+With ``--kernels``: K1 and K14 at their shapes. K1 (``sym_run_kernel``)
+over 64 steps of chip_smoke.py's K1 inputs at 4096 and 64 lanes and of
+its packed arena (row 2p) at 4096 lanes, under ``torch.profiler``: the
+device time a step split by kernel name, the launches a window
+(``sync_every`` 1, 8 and 32), the call a step on CUDA events, and the
+device time of a step in which no lane runs; and K1 on 131072 lanes of
+the k=17 device loop (``chip_smoke.k1_wide_state``, two lanes a
+thread). K14 (``lane_gather``) on
+the mesh phase's 32768-lane batch and on 131072 lanes at the default
+planes: the call on CUDA events beside ``index_select`` of the 17
+planes (in turns), its device time alone, and a ``cProfile`` of 1000
+calls (100 at 131072 lanes). First the compiler's register and spill
+lines of ``csrc/symstep.cu`` and ``csrc/mesh.cu``.
 
 With ``--screen``: the same for ``models/pruner._screen_interval`` over
 the ``bench_prefilter`` wave (``support/screen_waves.prefilter_wave``),
@@ -193,6 +209,105 @@ def _packed(k, lanes, card):
           f"{dev_us / 1e3:.3f} ms, busy share {dev_us / 1e6 / wall:.4f}")
 
 
+def _kernels(card):
+    import cProfile
+    import pstats
+
+    import chip_smoke as cs
+    from mythril_tpu_torch import _build
+    from mythril_tpu_torch.ops import stepper as S
+    from mythril_tpu_torch.ops import symstep
+    from mythril_tpu_torch.parallel import mesh as M
+    from mythril_tpu_torch.support import contracts as C
+
+    dev = torch.device("cuda", 0)
+    _build.build_all()
+    print(f"card: {card}")
+    for src in ("symstep.cu", "mesh.cu"):
+        for line in _build.build_log(src).splitlines():
+            if "registers" in line or "spill" in line or "Function" in line:
+                print(f"  {src}: {line.strip()}")
+    steps = 64
+    wcc, wide, _, _ = cs.k1_wide_state(dev)
+    cases = [("4096 lanes", *cs.k1_state(dev)),
+             ("64 lanes", *cs.k1_state(dev, 64)),
+             ("packed 4096 lanes", *cs.packed_state(dev)[:2]),
+             ("131072 lanes (k=17)", wide, wcc)]
+    for what, st, cc in cases:
+        probe = cs.clone_state(st)
+        symstep.sym_run_kernel(cc, probe, steps)
+        ran = int(probe.step_no) - int(st.step_no)
+        for every in (1, symstep.SYNC_EVERY, 32):
+            def run(e=every):
+                symstep.sym_run_kernel(cc, cs.clone_state(st), steps,
+                                       sync_every=e)
+            before = dict(_build.LAUNCHES)
+            run()
+            launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()
+                        if v != before[k]}
+            split = cs.k1_profile(run, ran)
+            call = cs.cuda_ms(
+                lambda c, e=every: symstep.sym_run_kernel(
+                    cc, c, steps, sync_every=e),
+                reps=3, setup=lambda: cs.clone_state(st)) / ran
+            print(f"K1 {what}, sync_every {every}: {ran} steps, call "
+                  f"{call:.4f} ms a step, device "
+                  f"{sum(v[1] for v in split.values()):.4f} ms a step; "
+                  f"counters {launched}")
+            for name, (count, ms) in split.items():
+                print(f"    {name[:50]:50s} {count:6d} launches "
+                      f"{ms:.5f} ms a step")
+            if "k_sym_run" in "".join(split):
+                print(f"    phases (share of block 0's cycles): "
+                      f"{cs.k1_phases(cc, st, steps, every)}")
+        # a run in which no lane runs: every lane parked
+        idle = cs.clone_state(st)
+        idle.status.fill_(S.Status.NEEDS_HOST)
+        split = cs.k1_profile(
+            lambda: symstep.sym_run_kernel(cc, cs.clone_state(idle), 1), 1)
+        print(f"K1 {what}: a run with no lane running, device "
+              f"{sum(v[1] for v in split.values()):.5f} ms "
+              f"({ {k[:40]: round(v[1], 5) for k, v in split.items()} })")
+
+    cc = S.compile_code(C.build_bench_contract(), device=dev)
+    mid = S.run_kernel(cc, C.bench_batch(32768, dev), 400)
+    wcc = S.compile_code(C.build_lane_mix_contract(), device=dev)
+    wide = C.lane_mix_batch(131072, cs.SEED, device=dev)
+    S.run_kernel(wcc, wide, 64)
+    for st, calls in ((mid, 1000), (wide, 100)):
+        n = st.pc.shape[0]
+        order = M.lane_order(st.status, 8)
+        rows = M.source_rows(order, n)
+        planes = [getattr(st, f) for f in S.LANE_FIELDS]
+        times = {}
+        for name, fn in (("lane_gather", lambda: M.lane_gather(st, order)),
+                         ("index_select", lambda: [
+                             x.index_select(0, rows) for x in planes]),
+                         ("index_select", lambda: [
+                             x.index_select(0, rows) for x in planes]),
+                         ("lane_gather", lambda: M.lane_gather(st, order))):
+            times.setdefault(name, []).append(cs.cuda_ms(fn, reps=20))
+        dev_ms = cs.queued_ms(lambda _: M.lane_gather(st, order),
+                              lambda: None, reps=5)
+        nbytes = 2 * n * S.lane_bytes(st)
+        print(f"K14 {n} lanes ({S.lane_bytes(st)} bytes a lane): call "
+              f"{times['lane_gather']} ms, index_select "
+              f"{times['index_select']} ms (in turns), device {dev_ms:.4f} "
+              f"ms, bound {nbytes / cs.PEAK_BYTES * 1e3:.6f} ms (bytes)")
+        torch.cuda.synchronize()
+        prof = cProfile.Profile()
+        prof.enable()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            M.lane_gather(st, order)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof.disable()
+        print(f"K14 {n} lanes: {calls} calls under cProfile, "
+              f"{wall / calls * 1e3:.4f} ms a call")
+        pstats.Stats(prof).sort_stats("tottime").print_stats(14)
+
+
 def _profile(fn):
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -216,6 +331,7 @@ def main(argv=None) -> int:
     ap.add_argument("--off", action="store_true")
     ap.add_argument("--analyze", metavar="FIXTURE")
     ap.add_argument("--packed", action="store_true")
+    ap.add_argument("--kernels", action="store_true")
     args = ap.parse_args(argv)
     dev = resolve()
     card = subprocess.run(
@@ -224,6 +340,9 @@ def main(argv=None) -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     if args.packed:
         _packed(args.k, args.lanes, card)
+        return 0
+    if args.kernels:
+        _kernels(card)
         return 0
     if args.analyze:
         _analyze_parts(args.analyze)  # warm: builds, allocator, caches
@@ -264,8 +383,14 @@ def main(argv=None) -> int:
         what = f"k={args.k} lanes={args.lanes}"
         size = lambda res: (f"{res['paths']} paths, "  # noqa: E731
                             f"{len(res['windows'])} windows")
+    from mythril_tpu_torch import _build
+
+    _build.build_all()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     run()
     torch.cuda.synchronize()
+    first_wall = time.perf_counter() - t0
     t0 = time.perf_counter()
     run()
     torch.cuda.synchronize()
@@ -274,7 +399,8 @@ def main(argv=None) -> int:
     dev_us = sum(e.self_device_time_total for e in rows)
     print(f"card: {card}")
     print(f"{what}: {size(res)}, wall {plain_wall * 1e3:.3f} ms "
-          f"({wall * 1e3:.3f} ms under the profiler)")
+          f"({wall * 1e3:.3f} ms under the profiler; the process's first "
+          f"run {first_wall * 1e3:.3f} ms)")
     print(f"device time {dev_us / 1e3:.3f} ms, busy share "
           f"{dev_us / 1e6 / wall:.3f}")
     if args.screen:
