@@ -35,7 +35,13 @@ Phases (any failure exits non-zero and prints no result):
    and kinds_of_calls.sol.o, each with ``contracts.with_probe``'s probe:
    in every member lanes fork, read PC and CODESIZE and jump inside and
    out of their member), with the unpacked K1 on the same state; K2-K4
-   through one ``window_exec`` and its three escalations; K9 on the k=12
+   through one ``window_exec`` and its three escalations (row 9's call
+   against ``torch.stack`` in turns); K3 (rows 5, 8) and K4's fork table
+   (row 9) on ``device_loop.k3_edge_cases`` in each launch mode (one
+   block, a cooperative grid), write_sids on and off, then K3 on real windows
+   at 64, 4096 and 131072 lanes (``k3_input``): exact, at most two CUDA
+   launches a call, its rounds and device time, and a call that returns
+   while a spin kernel queued ahead of it still runs; K9 on the k=12
    main path's state after its first window with that window's
    resolution pairs, and on two seeded random 4096-lane states;
 3. the symbolic path: every path of the k=12 contract through the
@@ -139,10 +145,10 @@ Phases (any failure exits non-zero and prints no result):
 
 ``ms`` is a wrapper call on CUDA events, the host's argument packing
 and launch gaps included; ``device_ms`` is the device time of the same
-call: for K0-K4, K9, K10 and bv256 its kernels and copies in
-torch.profiler, for K5-K8, K11 and K12-K14 CUDA events around the call
-queued behind a spin kernel after an L2 flush (``queued_ms``), on the
-inputs its bound is counted from. The run fails where a device
+call: for K0-K2, K4, K9, K10 and bv256 its kernels and copies in
+torch.profiler, for K3, K5-K8, K11 and K12-K14 CUDA events around the
+call queued behind a spin kernel after an L2 flush (``queued_ms``), on
+the inputs its bound is counted from. The run fails where a device
 time is below its bound.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -864,7 +870,12 @@ def check_window(dev, report):
     for name, (kern, plain, src) in stages.items():
         k_ms = cuda_ms(kern, reps=3, setup=lambda s=src: clone_state(s))
         p_ms = cuda_ms(plain, reps=1, setup=lambda s=src: clone_state(s))
-        d_ms = device_ms(kern, setup=lambda s=src: clone_state(s))
+        # K3's rounds are a cooperative launch, which a profiler session
+        # can miss while it records the remap: K3 is timed on CUDA events
+        # behind a spin kernel after an L2 flush, which see every launch
+        d_ms = queued_ms(kern, lambda s=src: clone_state(s)) \
+            if name == "window_dedup" \
+            else device_ms(kern, setup=lambda s=src: clone_state(s))
         bms, by = bound_ms(nbytes[name])
         report[name] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                             device_ms=d_ms, bound_ms=bms, bound_by=by)
@@ -921,16 +932,178 @@ def check_window(dev, report):
                        setup=lambda: clone_state(s_k)) \
             if name in library else None
         if name == "gather_full_flog":
+            # the call against torch.stack in turns (stack, call, call,
+            # stack), 50 calls each
+            turns = {}
+            for what, fn in (("torch.stack", library[name]),
+                             ("fork_table", kern), ("fork_table", kern),
+                             ("torch.stack", library[name])):
+                turns.setdefault(what, []).append(
+                    cuda_ms(lambda f=fn: f(s_k), reps=50))
+            k_ms = sum(turns["fork_table"]) / 2
+            l_ms = sum(turns["torch.stack"]) / 2
+            log(f"gather_full_flog in turns: call {turns['fork_table']} "
+                f"ms, torch.stack {turns['torch.stack']} ms")
             # a few microseconds a launch: three profiled calls record no
             # device event, so profile 50 calls of it (it reads the state
             # and writes a table of its own, so no copy is needed)
             d_ms = device_ms(lambda: kern(s_k), reps=50)
+        elif name == "unique_table_big":  # K3 inside: as window_dedup
+            d_ms = queued_ms(kern, lambda: clone_state(s_k))
         else:
             d_ms = device_ms(kern, setup=lambda: clone_state(s_k))
         bms, by = bound_ms(nb)
         log(f"{name}: {k_ms:.4f} ms kernel ({d_ms} ms on the device), "
             f"{p_ms:.2f} ms plain, library {l_ms} ms, bound {bms} ms "
             f"({by})")
+    check_k3(dev, report, ran)
+
+
+def k3_input(dev, n_lanes, k):
+    """K3's input with the most live records of the k-contract's device
+    loop at n_lanes: the state after K1 of that window (or of its
+    escalation)."""
+    from mythril_tpu_torch.laser import lane_engine as le
+
+    best = {}
+    real = le.dedup_kernel
+
+    def catch(st, *a, **kw):
+        live = int(st.dlog_count.clamp(max=st.dlog_op.shape[1]).sum())
+        if live > best.get("live", -1):
+            best.update(live=live, st=clone_state(st))
+        return real(st, *a, **kw)
+
+    le.dedup_kernel = catch
+    try:
+        explore(dev, n_lanes, k)
+    finally:
+        le.dedup_kernel = real
+    return best["st"]
+
+
+def k3_rounds(st):
+    """(rounds, live records) of K3 on st: the distinct steps of the
+    live records, and their count."""
+    import torch
+
+    r = st.dlog_op.shape[1]
+    live = torch.arange(r, device=st.device)[None, :] \
+        < st.dlog_count[:, None]
+    return int(torch.unique(st.dlog_step[live]).numel()), int(live.sum())
+
+
+def k3_shapes(n):
+    """K3's launch shapes over n lanes in each mode that holds them (at
+    most 8 lanes a thread): (blocks, threads, mode) for one block and for
+    a cooperative grid."""
+    t = min(1024, -(-n // 32) * 32)
+    out = [(1, t, 0)] if n <= 8 * 1024 else []
+    out.append((min(132, max(2, -(-n // 1024))), min(1024, max(32, t)), 1))
+    return tuple(out)
+
+
+def hold_k3(st, what, shapes=(None,)):
+    """K3 on st against ``dedup_plain`` with write_sids on and off, in
+    each launch shape (None: ``dedup_shape``'s): the canon and every
+    plane equal, bit for bit. Returns K3's CUDA launches a call
+    ({write_sids: launches})."""
+    import torch
+
+    from mythril_tpu_torch import _build
+    from mythril_tpu_torch.laser import lane_engine as le
+
+    want_st, want = le.dedup_plain(clone_state(st))
+    per_call = {}
+    for shape in shapes:
+        for write in (True, False):
+            x = clone_state(st)
+            before = _build.LAUNCHES["window_dedup"]
+            got = le.dedup_kernel(x, write_sids=write, shape=shape)
+            per_call[write] = _build.LAUNCHES["window_dedup"] - before
+            torch.cuda.synchronize()
+            tag = f"K3 {what}, shape {shape or 'default'}, write {write}"
+            if max_err(got, want):
+                raise AssertionError(f"{tag}: canon differs")
+            same_state(x, want_st if write else st, tag)
+    if per_call[True] > 2 or per_call[False] > 1:
+        raise AssertionError(f"K3 {what}: {per_call} launches a call")
+    return per_call
+
+
+def k3_returns_early(st):
+    """A K3 call queued behind a spin kernel returns while the spin
+    still runs (the call never waits on the card). Returns the call's
+    host milliseconds."""
+    import torch
+
+    from mythril_tpu_torch.laser import lane_engine as le
+
+    le.dedup_kernel(clone_state(st))
+    x = clone_state(st)
+    torch.cuda.synchronize()
+    mark = torch.cuda.Event()
+    torch.cuda._sleep(SPIN_CYCLES)
+    mark.record()
+    t0 = time.perf_counter()
+    le.dedup_kernel(x)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    spinning = not mark.query()
+    torch.cuda.synchronize()
+    if not spinning:
+        raise AssertionError("K3 returned only after the spin kernel ended: "
+                             "the call waits on the card")
+    return host_ms
+
+
+def check_k3(dev, report, ran):
+    """K3 (rows 5, 8) and K4's fork table (row 9) on
+    ``device_loop.k3_edge_cases`` in one block and on a cooperative
+    grid, then on real windows at 64, 4096 and 131072 lanes: exact
+    against the plain versions, its CUDA launches a call, its device
+    time, and a call that returns behind a running spin kernel."""
+    from mythril_tpu_torch.laser import lane_engine as le
+    from mythril_tpu_torch.support import device_loop
+
+    for case in device_loop.k3_edge_cases():
+        st = device_loop.k3_case_state(case, dev)
+        hold_k3(st, case.name, (None,) + k3_shapes(case.lanes))
+        same_outputs(le._unique_table_big(clone_state(st), case.urb),
+                     le.unique_table_big_plain(clone_state(st), case.urb),
+                     f"_unique_table_big on {case.name}")
+        same_outputs([le._gather_full_flog(st)],
+                     [le.gather_full_flog_plain(st)],
+                     f"_gather_full_flog on {case.name}")
+    log("K3 on k3_edge_cases (one block and a cooperative grid, write_sids "
+        "on and off), _unique_table_big and _gather_full_flog: equal to the "
+        "plain versions")
+    host_ms = k3_returns_early(ran)
+    log(f"K3 call queued behind a spin kernel returned after {host_ms:.4f} "
+        f"ms on the host, the spin still running: no host wait")
+    sizes = (("narrow", "64 lanes, k=6 loop", k3_input(dev, 64, 6)),
+             ("main", "4096 lanes, check_window", ran),
+             ("loop", "4096 lanes, k=12 loop", k3_input(dev, MAIN_LANES,
+                                                        MAIN_K)),
+             ("wide", f"{WIDE_LANES} lanes, k={WIDE_K} loop",
+              k3_input(dev, WIDE_LANES, WIDE_K)))
+    for key, what, st in sizes:
+        n = st.pc.shape[0]
+        per_call = hold_k3(st, what, (None,) + k3_shapes(n))
+        rounds, records = k3_rounds(st)
+        shape = le.dedup_shape(n, dev)
+        d_ms = queued_ms(lambda x: le.dedup_kernel(x),
+                         lambda s=st: clone_state(s))
+        d_nw = queued_ms(lambda x: le.dedup_kernel(x, write_sids=False),
+                         lambda s=st: clone_state(s))
+        report["window_dedup"][f"{key}_device_ms"] = d_ms
+        report["window_dedup"][f"{key}_rounds"] = rounds
+        log(f"K3 at {what}: {records} live records in {rounds} rounds, "
+            f"{shape[0]} block(s) of {shape[1]} threads in mode {shape[2]} "
+            f"(0 one block, 1 a grid), {per_call} CUDA "
+            f"launches a call (write_sids: launches); device {d_ms:.4f} ms "
+            f"(without the remap {d_nw:.4f} ms; queued behind a spin after "
+            f"an L2 flush), exact in that shape and in {k3_shapes(n)}")
+        del st
 
 
 def prologue_bytes(st, i32b, k, pv):

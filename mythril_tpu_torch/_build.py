@@ -148,7 +148,11 @@ def check(handle, rc: int, what: str) -> None:
 
 
 def stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    """The current stream of ``device``: PyTorch's raw handle, as its
+    compiled kernels take it."""
+    index = device.index
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index))
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -172,7 +176,7 @@ def int_array(values) -> ctypes.Array:
 
 def need_cuda(t: torch.Tensor, dtype, name: str) -> None:
     """Check a kernel argument the wrapper passes by pointer."""
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")

@@ -633,19 +633,27 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _WINDOW_SIGS = {
     "window_prologue": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
-    "window_dedup": [_P, _P, _P, _P, _I, _P],
+    "window_dedup": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "window_dedup_shape": [_I, _P],
     "window_epilogue": [_P, _P, _P, _I, _I, _I] + [_P] * 14
     + [_I, _I, _P, _P],
     "retire_rows": [_P, _P, _P, _I, _P, _P, _P, _P, _P],
     "unique_table": [_P, _P, _P, _I, _P, _P, _P, _P],
-    "fork_table": [_P, _P, _I, _P, _P],
+    "fork_table": [_P, _I, _P, _P],
 }
 
 
-def _kw():
-    from .. import _build
+_WINDOW_LIB = []
 
-    return _build, _build.lib("window.cu", _WINDOW_SIGS)
+
+def _kw():
+    """(``_build``, the loaded ``csrc/window.cu`` library), the library
+    bound at the first call."""
+    if not _WINDOW_LIB:
+        from .. import _build
+
+        _WINDOW_LIB.extend((_build, _build.lib("window.cu", _WINDOW_SIGS)))
+    return _WINDOW_LIB[0], _WINDOW_LIB[1]
 
 
 def prologue_kernel(st, i32buf, u8buf, k, pv):
@@ -670,19 +678,62 @@ def prologue_kernel(st, i32buf, u8buf, k, pv):
     _build.check(lib, rc, "window_prologue")
 
 
-def dedup_kernel(st: SymLaneState, write_sids: bool = True):
+#: the planes K3 reads and writes, in ``csrc/window.cu`` ``DedupPlanes``
+#: order
+_DEDUP_PLANES = ("dlog_count", "dlog_step", "dlog_op", "dlog_pc",
+                 "dlog_fentry", "group", "dlog_sid", "dlog_val", "ssid",
+                 "sval_sid", "skey_sid", "mlog_sid", "flog_sid")
+#: K3's launch shape by (lanes, device): (blocks, threads a block, mode:
+#: 0 one block, 1 a cooperative grid)
+_DEDUP_SHAPES = {}
+
+
+def dedup_shape(n: int, dev: torch.device):
+    """K3's launch shape over ``n`` lanes on ``dev`` (``csrc/window.cu``
+    ``window_dedup_shape``): (blocks, threads a block, mode), one block
+    or a cooperative grid by the batch's width. Raises where the card
+    cannot launch the one the batch needs."""
+    key = (n, dev.index)
+    if key not in _DEDUP_SHAPES:
+        _build, lib = _kw()
+        out = (ctypes.c_int * 3)()
+        with torch.cuda.device(dev):
+            rc = lib.window_dedup_shape(n, out)
+        _build.check(lib, rc, "window_dedup_shape (a wide batch needs a "
+                     "cooperative launch)")
+        _DEDUP_SHAPES[key] = tuple(out)
+    return _DEDUP_SHAPES[key]
+
+
+def dedup_kernel(st: SymLaneState, write_sids: bool = True, shape=None,
+                 phases=None):
     """K3: the record dedup, and (write_sids) the dlog_sid rewrite plus
-    the canonical remap of the persistent planes. Returns canon_pid."""
+    the canonical remap of the persistent planes. Returns canon_pid
+    without waiting on the card. ``shape`` (blocks, threads, mode)
+    overrides ``dedup_shape``'s; ``phases`` (a CUDA int64 tensor of 8, or
+    None) gets the SM cycles of K3's phases added (``csrc/window.cu``
+    ``DedupScratch::phase``) and the rounds run.
+    Counts each CUDA launch: the rounds, and the remap with
+    write_sids."""
     _build, lib = _kw()
-    planes, dims = symstep.state_args(st)
+    planes = symstep.plane_args(st, _DEDUP_PLANES)
     n, d_recs = st.pc.shape[0], st.dlog_op.shape[1]
+    dims = _build.int_array((n, d_recs, st.ssid.shape[1],
+                             st.sval_sid.shape[1], st.mlog_sid.shape[1],
+                             st.flog_sid.shape[0]))
+    blocks, threads, mode = shape or dedup_shape(n, st.device)
+    if phases is not None:
+        _build.need_cuda(phases, torch.int64, "phases")
     canon = torch.empty((n, d_recs), dtype=torch.int32, device=st.device)
-    scratch = torch.empty(2 * _DEDUP_H + 6 * n + 4, dtype=torch.int32,
-                          device=st.device)
+    scratch = torch.empty(2 * _DEDUP_H + 4 + 4 * n + n * d_recs,
+                          dtype=torch.int32, device=st.device)
     rc = lib.window_dedup(planes, dims, _build.ptr(canon),
-                          _build.ptr(scratch), int(write_sids),
+                          _build.ptr(scratch), int(write_sids), blocks,
+                          threads, mode,
+                          None if phases is None else _build.ptr(phases),
                           _build.stream(st.device))
-    _build.LAUNCHES["window_dedup"] += 1
+    if n and d_recs:
+        _build.LAUNCHES["window_dedup"] += 1 + int(write_sids)
     _build.check(lib, rc, "window_dedup")
     return canon
 
@@ -799,15 +850,21 @@ def _unique_table_big(st: SymLaneState, urb: int):
     return tab, count[0]
 
 
+#: the fork log's planes in the fork table's column order
+_FLOG_PLANES = ("flog_parent", "flog_child", "flog_step", "flog_pc",
+                "flog_sid", "flog_gmin", "flog_gmax", "flog_fentry",
+                "flog_dest")
+
+
 def _gather_full_flog(st: SymLaneState):
-    if st.device.type == "cpu":
+    dev = st.flog_parent.device
+    if dev.type == "cpu":
         return gather_full_flog_plain(st)
     _build, lib = _kw()
-    planes, dims = symstep.state_args(st)
+    flog = symstep.plane_args(st, _FLOG_PLANES)
     fb = st.flog_parent.shape[0]
-    tab = torch.empty((fb, 9), dtype=torch.int32, device=st.device)
-    rc = lib.fork_table(planes, dims, fb, _build.ptr(tab),
-                        _build.stream(st.device))
+    tab = torch.empty((fb, 9), dtype=torch.int32, device=dev)
+    rc = lib.fork_table(flog, fb, tab.data_ptr(), _build.stream(dev))
     _build.LAUNCHES["window_epilogue"] += 1
     _build.check(lib, rc, "fork_table")
     return tab

@@ -20,6 +20,7 @@ gate ran, which is what lets K1 compute each lane on its own.
 """
 
 import ctypes
+import operator
 from dataclasses import dataclass, fields, replace
 
 import numpy as np
@@ -1040,21 +1041,43 @@ def run_shape(n: int, dev: torch.device):
     return _SHAPES[key]
 
 
+#: each plane's dtype in the port (uint32 planes hold int32 bit patterns)
+_DTYPES = {f: torch.uint8 if f in U8_FIELDS else torch.int32 for f in FIELDS}
+#: by tuple of plane names: (their getter, their dtypes, the C array type)
+_PLANE_ARGS = {}
+
+
+def plane_args(st: SymLaneState, names: tuple) -> ctypes.Array:
+    """A C array (``void**``) of the named planes of a CUDA state, each
+    checked once (a contiguous CUDA tensor of its type); the caller
+    keeps ``st`` alive while the kernels run."""
+    spec = _PLANE_ARGS.get(names)
+    if spec is None:
+        spec = _PLANE_ARGS[names] = (
+            operator.attrgetter(*names), tuple(_DTYPES[n] for n in names),
+            ctypes.c_void_p * len(names))
+    get, dtypes, array = spec
+    planes = get(st)
+    for t, dtype in zip(planes, dtypes):
+        if not (t.is_cuda and t.dtype is dtype and t.is_contiguous()):
+            from .. import _build
+
+            for name, x, want in zip(names, planes, dtypes):
+                _build.need_cuda(x, want, name)
+    return array(*[t.data_ptr() for t in planes])
+
+
 def state_args(st: SymLaneState):
-    """(void** array, int dims array) of a CUDA state for the kernels;
-    the caller keeps ``st`` alive while they run."""
+    """(void** array, int dims array) of a CUDA state for the kernels
+    that take the whole state (``csrc/common.cuh`` ``Sym``); the caller
+    keeps ``st`` alive while they run."""
     from .. import _build
 
-    for name in FIELDS:
-        t = getattr(st, name)
-        want = torch.uint8 if name in U8_FIELDS else torch.int32
-        _build.need_cuda(t, want, name)
     n, d, _ = st.stack.shape
     dims = [n, d, st.memory.shape[1], st.mlog_off.shape[1],
             st.skeys.shape[1], st.calldata.shape[1], st.dlog_op.shape[1],
             st.flog_parent.shape[0], st.env.shape[1]]
-    return (_build.ptr_array([getattr(st, f) for f in FIELDS]),
-            _build.int_array(dims))
+    return plane_args(st, FIELDS), _build.int_array(dims)
 
 
 def sym_run_kernel(code: CompiledCode, st: SymLaneState, max_steps: int,

@@ -381,3 +381,241 @@ def k1_case_state(case: K1Case, device, **lane_kwargs):
     else:
         cc = compile_code(case.code, device=dev)
     return st, cc
+
+
+#: the inputs K3 is held to on both sides (``k3_edge_cases``): a batch's
+#: lanes and deferred-record slots, the planes written over a fresh
+#: batch (numpy, the JAX dtypes), and the unique-table rows to pull
+K3Case = namedtuple("K3Case", "name lanes records planes urb")
+
+#: plane widths of the K3 cases' batches (besides their records)
+K3_WIDTHS = dict(stack_depth=16, memory_bytes=64, mem_records=8,
+                 storage_slots=8, calldata_bytes=64)
+
+_HASH_MUL = 0x9E3779B1
+_M32 = 0xFFFFFFFF
+
+
+def record_hash(group, op, pc, fentry, sids, vals) -> int:
+    """K3's record hash (``lane_engine._dedup_canon``) of one record in
+    Python ints: h = h * 0x9E3779B1 + x mod 2**32 over group, op, pc,
+    fentry, the three canonical sids and the 24 value limbs."""
+    h = 0
+    for x in (group, op, pc, fentry, *sids, *vals):
+        h = (h * _HASH_MUL + (int(x) & _M32)) & _M32
+    return h
+
+
+class _Batch:
+    """Planes of an n-lane, R-record batch whose lanes hold no record:
+    junk in every record slot and fork-log row, and sid planes that mix
+    object ids, provisional sids of every (lane, slot), unresolved sids
+    (int32 min) and provisional sids past the last lane (JAX clamps
+    their row)."""
+
+    def __init__(self, n, r, rng):
+        self.n, self.r, self.rng = n, r, rng
+        i32 = np.iinfo(np.int32)
+        junk = rng.integers(i32.min, i32.max, (n, r), dtype=np.int32)
+        self.p = {
+            "group": rng.integers(0, 4, n).astype(np.int32),
+            "dlog_count": np.zeros(n, np.int32),
+            "dlog_op": junk.copy(), "dlog_pc": junk ^ 1,
+            "dlog_step": junk ^ 2, "dlog_fentry": junk ^ 3,
+            "dlog_sid": rng.integers(i32.min, i32.max, (n, r, 3),
+                                     dtype=np.int32),
+            "dlog_val": rng.integers(0, 1 << 32, (n, r, 3, NLIMBS),
+                                     dtype=np.uint64).astype(np.uint32)}
+        shapes = symstep._plane_shapes(
+            n, K3_WIDTHS["stack_depth"], K3_WIDTHS["memory_bytes"],
+            K3_WIDTHS["mem_records"], K3_WIDTHS["storage_slots"],
+            K3_WIDTHS["calldata_bytes"], r)
+        for f in ("ssid", "sval_sid", "skey_sid", "mlog_sid", "flog_sid"):
+            self.p[f] = self.sids(shapes[f])
+        for f in ("flog_parent", "flog_child", "flog_step", "flog_pc",
+                  "flog_fentry", "flog_dest"):
+            self.p[f] = rng.integers(-5, n + 5, n).astype(np.int32)
+        for f in ("flog_gmin", "flog_gmax"):
+            self.p[f] = rng.integers(0, 1 << 32, n,
+                                     dtype=np.uint64).astype(np.uint32)
+        self.p["flog_count"] = np.array(n, np.int32)
+
+    def sids(self, shape):
+        rng, nr = self.rng, self.n * self.r
+        kind = rng.integers(0, 8, shape)
+        prov = -rng.integers(1, nr + 1, shape)
+        past = -rng.integers(nr + 1, nr + 4 * self.r, shape)
+        obj = rng.integers(0, 1000, shape)
+        out = np.where(kind < 4, prov, np.where(kind < 6, obj, np.where(
+            kind == 6, past, np.iinfo(np.int32).min)))
+        return out.astype(np.int32)
+
+    def pid(self, lane, slot):
+        """The provisional sid of record (lane, slot)."""
+        return -(lane * self.r + slot + 1)
+
+    def record(self, step, op=0x01, pc=7, fentry=-1, sids=(0, 0, 0),
+               vals=None):
+        if vals is None:
+            vals = self.rng.integers(0, 1 << 32, 3 * NLIMBS,
+                                     dtype=np.uint64)
+        return (step, op, pc, fentry, tuple(sids),
+                np.asarray(vals, np.uint64).astype(np.uint32))
+
+    def put(self, lane, recs, count=None):
+        """Write lane's records (slot order) and its record count."""
+        p = self.p
+        for slot, (step, op, pc, fen, sids, vals) in enumerate(recs):
+            p["dlog_step"][lane, slot] = step
+            p["dlog_op"][lane, slot] = op
+            p["dlog_pc"][lane, slot] = pc
+            p["dlog_fentry"][lane, slot] = fen
+            p["dlog_sid"][lane, slot] = sids
+            p["dlog_val"][lane, slot] = vals.reshape(3, NLIMBS)
+        p["dlog_count"][lane] = len(recs) if count is None else count
+
+
+def k3_edge_cases():
+    """The edge inputs of K3 (``window_dedup``) and of the escalation
+    tables it feeds (``_unique_table_big``, ``_gather_full_flog``): on
+    the card ``chip_smoke.py`` holds K3 to ``dedup_plain`` on them (in
+    one block and on a cooperative grid), on the CPU
+    ``tests/test_torch_dedup.py`` holds the plain versions to the JAX
+    functions. Each is a ``K3Case``; ``k3_case_state`` makes its batch.
+
+    - ``rules`` (33 lanes, 16 records, steps from 1003 with gaps):
+      two distinct records in one bucket (lanes 2 and 7; lane 9 equal
+      to lane 7 meets lane 2, the bucket's winner, and keeps its own
+      identity); equal records in lanes 5 and 3 (lane 3 wins); equal
+      SSTORE and ``REC_SLOAD_RW`` records that keep their own; a chain
+      of three rounds whose sids name the round before's duplicates;
+      a lane whose records repeat a step (the first counts) and one
+      whose records are out of step order; lanes with no records;
+    - ``full_log``: 64 lanes of 64 records, lanes 0-15 lockstep
+      siblings, lane 3's count past its 64 slots;
+    - ``none``: 33 lanes, no records (junk in every slot);
+    - ``one_lane``: one lane whose sids name itself and rows past it;
+    - ``wide``: 4096 lanes of up to 24 records each, a quarter copying
+      a lower lane's, sids naming earlier records; more unique records
+      than ``URB`` and more fork rows than ``FB``."""
+    from ..ops.symstep import REC_SLOAD_RW
+
+    sstore = le._SSTORE_BYTE
+    cases = []
+
+    # rules
+    rng = np.random.default_rng(301)
+    b = _Batch(33, 16, rng)
+    base = 1003
+    b.p["group"][[2, 7, 9]] = 1
+    a = b.record(base, op=0x16, pc=40)
+    vals = a[5].copy()
+    vals[-1] = (int(vals[-1]) + 4096) & _M32
+    b.put(2, [b.record(base, op=0x16, pc=40, vals=vals)])
+    b.put(7, [a])
+    b.put(9, [a])
+    assert record_hash(1, 0x16, 40, -1, (0, 0, 0), vals) % 4096 \
+        == record_hash(1, 0x16, 40, -1, (0, 0, 0), a[5]) % 4096
+    eq = b.record(base + 4, op=0x01, pc=12, sids=(0, 77, 0))
+    b.put(3, [b.record(base, op=0x02, pc=3), eq])
+    b.put(5, [eq])
+    b.p["group"][[3, 5]] = 2
+    st_rec = b.record(base, op=sstore, pc=50)
+    rw_rec = b.record(base + 4, op=REC_SLOAD_RW, pc=51)
+    for lane in (10, 11):
+        b.put(lane, [st_rec, rw_rec])
+    b.p["group"][[10, 11]] = 3
+    # the chain: lanes 20/21 equal at the first step, 22/23 at the
+    # second naming 21's and 20's record, 24/25 at the third naming 23's
+    # and 22's
+    x = b.record(base, op=0x20, pc=60)
+    b.put(20, [x])
+    b.put(21, [x])
+    v2, v3 = b.record(0)[5], b.record(0)[5]
+    b.put(22, [b.record(base + 4, pc=61, sids=(b.pid(21, 0), 5, 0),
+                        vals=v2)])
+    b.put(23, [b.record(base + 4, pc=61, sids=(b.pid(20, 0), 5, 0),
+                        vals=v2)])
+    b.put(24, [b.record(base + 9, pc=62, sids=(0, b.pid(23, 0), 0),
+                        vals=v3)])
+    b.put(25, [b.record(base + 9, pc=62, sids=(0, b.pid(22, 0), 0),
+                        vals=v3)])
+    b.p["group"][20:26] = 0
+    # a repeated step, records out of step order
+    b.put(30, [b.record(base), b.record(base), b.record(base + 7)])
+    b.put(31, [b.record(base + 9), b.record(base + 4),
+               b.record(base + 4), b.record(base + 12)])
+    cases.append(K3Case("rules", 33, 16, b.p, 64))
+
+    # full_log
+    rng = np.random.default_rng(302)
+    b = _Batch(64, 64, rng)
+    sib = [b.record(2 * s + 1, op=int(rng.integers(1, 0x20)),
+                    pc=int(rng.integers(0, 300)),
+                    sids=(b.pid(0, s - 1) if s else 0, 0, 0))
+           for s in range(64)]
+    b.p["group"][:16] = 7
+    for lane in range(16):
+        recs = [(st, op, pc, fen, (b.pid(lane, s - 1) if s else 0, 0, 0),
+                 v) for s, (st, op, pc, fen, _, v) in enumerate(sib)]
+        b.put(lane, recs, count=70 if lane == 3 else None)
+    for lane in range(16, 64):
+        k = int(rng.integers(0, 40))
+        steps = np.sort(rng.choice(200, k, replace=False)) + 1
+        b.put(lane, [b.record(int(s), sids=(
+            b.pid(lane - 1, 0) if j % 3 == 0 else 0, 0, 0))
+            for j, s in enumerate(steps)])
+    cases.append(K3Case("full_log", 64, 64, b.p, 256))
+
+    cases.append(K3Case("none", 33, 16, _Batch(33, 16, np.random
+                                                .default_rng(303)).p, 16))
+
+    rng = np.random.default_rng(304)
+    b = _Batch(1, 16, rng)
+    b.put(0, [b.record(4), b.record(5, sids=(b.pid(0, 0), -40, 0)),
+              b.record(9, sids=(b.pid(0, 1), b.pid(0, 0), -9999))])
+    cases.append(K3Case("one_lane", 1, 16, b.p, 8))
+
+    rng = np.random.default_rng(305)
+    n = 4096
+    b = _Batch(n, 64, rng)
+    b.p["group"] = rng.integers(0, 64, n).astype(np.int32)
+    for lane in range(n):
+        if lane >= 4 and rng.random() < 0.25:
+            src = int(rng.integers(0, lane))
+            b.p["group"][lane] = b.p["group"][src]
+            k = int(b.p["dlog_count"][src])
+            for f in ("dlog_step", "dlog_op", "dlog_pc", "dlog_fentry",
+                      "dlog_sid", "dlog_val"):
+                b.p[f][lane, :k] = b.p[f][src, :k]
+            b.p["dlog_count"][lane] = k
+            continue
+        k = int(rng.integers(0, 25))
+        steps = np.sort(rng.choice(168, k, replace=False)) + 5
+        recs = []
+        for j, s in enumerate(steps):
+            ref = 0
+            if j and rng.random() < 0.5:
+                ref = b.pid(lane, int(rng.integers(0, j)))
+            elif lane and rng.random() < 0.3:
+                ref = b.pid(int(rng.integers(0, lane)), int(rng.integers(
+                    0, 24)))
+            op = sstore if rng.random() < 0.05 else int(rng.integers(1, 4))
+            recs.append(b.record(int(s), op=op, pc=int(rng.integers(0, 8)),
+                                 sids=(ref, 0, 0),
+                                 vals=rng.integers(0, 3, 3 * NLIMBS)))
+        b.put(lane, recs)
+    cases.append(K3Case("wide", n, 64, b.p, 2048))
+    return cases
+
+
+def k3_case_state(case: K3Case, device) -> SymLaneState:
+    """A case's batch on ``device``: a fresh batch of ``K3_WIDTHS`` with
+    the case's planes written over it."""
+    from .. import interop
+
+    st = symstep.init_sym_lanes(case.lanes, device="cpu",
+                                dlog_records=case.records, **K3_WIDTHS)
+    planes = interop.state_to_numpy(st)
+    planes.update(case.planes)
+    return interop.state_from_numpy(planes, resolve(device))

@@ -5,6 +5,7 @@
     python3 tools/prof_torch_port.py --analyze calls.sol.o
     python3 tools/prof_torch_port.py --packed [--k 11] [--lanes 4096]
     python3 tools/prof_torch_port.py --kernels
+    python3 tools/prof_torch_port.py --dedup
 
 Without ``--screen`` or ``--analyze``: builds the kernels, runs the
 device loop (``support/device_loop.DeviceLoop``) on
@@ -43,6 +44,19 @@ planes: the call on CUDA events beside ``index_select`` of the 17
 planes (in turns), its device time alone, and a ``cProfile`` of 1000
 calls (100 at 131072 lanes). First the compiler's register and spill
 lines of ``csrc/symstep.cu`` and ``csrc/mesh.cu``.
+
+With ``--dedup``: K3 (``window_dedup``) in each of its launch shapes.
+First the compiler's lines of ``csrc/window.cu``, and K3 exact against
+``dedup_plain`` on ``device_loop.k3_edge_cases`` in each launch mode.
+Then on the device loop's dedup input with the most live records
+(``chip_smoke.k3_input``) at 64 to 131072 lanes: its rounds and
+records, and the device time (behind a spin kernel after an L2 flush)
+of one block of up to 1024 threads and of cooperative grids of 1024-
+and 256-thread blocks, each shape exact and timed in turns, which
+places the crossover of ``window_dedup_shape``; the call on CUDA events,
+the host's time of a call in each shape and the phases' SM cycles a
+round; at 4096 lanes a cProfile of K3's and K4's ``fork_table``'s host
+side, and ``fork_table``'s call against ``torch.stack`` in turns.
 
 With ``--screen``: the same for ``models/pruner._screen_interval`` over
 the ``bench_prefilter`` wave (``support/screen_waves.prefilter_wave``),
@@ -308,6 +322,115 @@ def _kernels(card):
         pstats.Stats(prof).sort_stats("tottime").print_stats(14)
 
 
+def _dedup(card):
+    import chip_smoke as cs
+    from mythril_tpu_torch import _build
+
+    dev = torch.device("cuda", 0)
+    _build.build_all()
+    print(f"card: {card}")
+    for line in _build.build_log("window.cu").splitlines():
+        if "registers" in line or "spill" in line or "Function" in line:
+            print(f"  window.cu: {line.strip()}")
+    for case in device_loop.k3_edge_cases():
+        st = device_loop.k3_case_state(case, dev)
+        cs.hold_k3(st, case.name, (None,) + cs.k3_shapes(case.lanes))
+    print("K3 exact on k3_edge_cases in each launch mode")
+    for n, k in ((64, 6), (1024, 10), (2048, 11), (4096, 12), (8192, 13),
+                 (16384, 14), (32768, 15), (131072, 17)):
+        st = cs.k3_input(dev, n, k)
+        rounds, records = cs.k3_rounds(st)
+        shapes = {"one block": (1, min(1024, -(-n // 32) * 32), 0),
+                  "grid of 1024": (min(132, max(2, -(-n // 1024))), 1024,
+                                   1),
+                  "grid of 256": (min(264, max(2, -(-n // 256))), 256, 1),
+                  "default": le.dedup_shape(n, dev)}
+        if n > 8192:  # at most 8 lanes a thread
+            del shapes["one block"]
+        if shapes["default"] in list(shapes.values())[:-1]:
+            del shapes["default"]
+        for shape in shapes.values():
+            cs.hold_k3(st, f"{n} lanes", (shape,))
+        times = {}
+        for name in list(shapes) + list(shapes)[::-1]:
+            times.setdefault(name, []).append(round(cs.queued_ms(
+                lambda x, sh=shapes[name]: le.dedup_kernel(x, shape=sh),
+                lambda: cs.clone_state(st)), 4))
+        call = cs.cuda_ms(lambda x: le.dedup_kernel(x), reps=5,
+                          setup=lambda: cs.clone_state(st))
+        # the phases of thread 0 of block 0 in the default shape, SM
+        # cycles a round
+        ph = torch.zeros(8, dtype=torch.int64, device=dev)
+        le.dedup_kernel(cs.clone_state(st), phases=ph)
+        ph = ph.tolist()
+        per = {name: round(c / max(ph[7], 1), 1) for name, c in zip(
+            ("A", "A barrier", "B winners", "B compare", "B cursors",
+             "next step"), ph[1:7])}
+        print(f"K3 {n} lanes phases: set-up {ph[0]} cycles, {ph[7]} rounds, "
+              f"cycles a round {per}")
+        # the host's time of a call in each shape, the card kept busy
+        host = {}
+        for name, sh in shapes.items():
+            xs = [cs.clone_state(st) for _ in range(5)]
+            torch.cuda.synchronize()
+            torch.cuda._sleep(cs.SPIN_CYCLES)
+            t0 = time.perf_counter()
+            for x in xs:
+                le.dedup_kernel(x, shape=sh)
+            host[name] = round((time.perf_counter() - t0) / len(xs) * 1e3, 4)
+            torch.cuda.synchronize()
+            del xs
+        print(f"K3 {n} lanes: host ms a call by shape {host}")
+        print(f"K3 {n} lanes (k={k}): {records} live records, {rounds} "
+              f"rounds; default shape {le.dedup_shape(n, dev)}, call "
+              f"{call:.4f} ms; device ms by shape (in turns): "
+              + ", ".join(f"{name} {shapes[name]}: {t}"
+                          for name, t in times.items()))
+        if n == 4096:
+            _host_profile("K3 (write_sids off)", lambda: le.dedup_kernel(
+                st, write_sids=False), 500)
+            _host_profile("K4's fork_table", lambda: le._gather_full_flog(st),
+                          2000)
+            fb = st.flog_parent.shape[0]
+            cols = [getattr(st, f"flog_{c}")[:fb] for c in (
+                "parent", "child", "step", "pc", "sid", "gmin", "gmax",
+                "fentry", "dest")]
+            turns = {}
+            for name, fn in (("torch.stack", lambda: torch.stack(cols, 1)),
+                             ("fork_table", lambda: le._gather_full_flog(st)),
+                             ("fork_table", lambda: le._gather_full_flog(st)),
+                             ("torch.stack", lambda: torch.stack(cols, 1))):
+                turns.setdefault(name, []).append(round(cs.cuda_ms(
+                    fn, reps=50), 4))
+            print(f"K4's fork_table call against torch.stack in turns: "
+                  f"{turns}")
+        del st
+
+
+def _host_profile(what, fn, calls):
+    """``calls`` calls of fn under cProfile, the card kept busy: the
+    host's milliseconds a call and its functions by own time."""
+    import cProfile
+    import pstats
+
+    import chip_smoke as cs
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(cs.SPIN_CYCLES * 4)
+    prof = cProfile.Profile()
+    prof.enable()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    wall = time.perf_counter() - t0
+    prof.disable()
+    torch.cuda.synchronize()
+    print(f"{what}: {calls} calls under cProfile, {wall / calls * 1e3:.4f} "
+          f"ms a call on the host")
+    pstats.Stats(prof).sort_stats("tottime").print_stats(12)
+
+
 def _profile(fn):
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -332,6 +455,7 @@ def main(argv=None) -> int:
     ap.add_argument("--analyze", metavar="FIXTURE")
     ap.add_argument("--packed", action="store_true")
     ap.add_argument("--kernels", action="store_true")
+    ap.add_argument("--dedup", action="store_true")
     args = ap.parse_args(argv)
     dev = resolve()
     card = subprocess.run(
@@ -343,6 +467,9 @@ def main(argv=None) -> int:
         return 0
     if args.kernels:
         _kernels(card)
+        return 0
+    if args.dedup:
+        _dedup(card)
         return 0
     if args.analyze:
         _analyze_parts(args.analyze)  # warm: builds, allocator, caches
