@@ -11,9 +11,10 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --analyze FIXTURE STATS`` is the per-fixture
-process the corpus phase starts, ``--serve DIR STATS`` the daemon
-process of the daemon phase, ``--corpus-rank STATS ARGS`` a rank of the
-corpus-mode phase.)
+process the corpus phase starts, ``--analyze-held FIXTURE STATS`` the
+same with K6 and K7 held against their plain versions, ``--serve DIR
+STATS`` the daemon process of the daemon phase, ``--corpus-rank STATS
+ARGS`` a rank of the corpus-mode phase.)
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -56,7 +57,12 @@ Phases (any failure exits non-zero and prints no result):
    run the JAX engine's windows, forks and device steps (the
    reference's run stats), or a window where the JAX engine's sweep
    failed and went on on the host, the screens must screen on the
-   device, with no device failure; beside it, the daemon: ``myth
+   device, with no device failure; then, apart from the timed corpus,
+   the fixture that launches K6 and K7 the most is analysed again with
+   every K6 and K7 call held against its plain version on a copy of
+   its input (``--analyze-held``, ``hold_screen_kernels``), and the
+   calls are logged by shape;
+   beside it, the daemon: ``myth
    serve`` in its own process (``--serve``, ``MTPU_PACK`` on) serves
    the 18 fixtures submitted at once with the corpus flags: every
    canonical issue list equal to the JAX package's one-shot lists, no
@@ -94,7 +100,14 @@ Phases (any failure exits non-zero and prints no result):
    screen; then at the shapes of the 8192-system wave of the JAX
    package's ``bench_prefilter`` with call, device and plain times and
    byte bounds; and one sweep's changed flag against the plain
-   comparison on each;
+   comparison on each; K6 and K7 run on the plan's kernel layout, their
+   plain versions on the plan; then the edge inputs of K6 and K7
+   (``screen_waves.edge_sets``: a round whose targets are each other's
+   siblings, an ITE whose condition another entry refines, a round of
+   one entry, a round whose staging outgrows a block's shared memory, a
+   level of UDIV, UREM and MUL beside ULE nodes, bool and numeric
+   targets in one round) at 1, 33 and 8192 states and past K7's grid,
+   and a level and a round of pads only;
 8. the screen path: ``models/pruner._screen_interval`` over that wave
    with propagation on (K6-K8) and off (K5): 2731 kept each time,
    ``device_screened`` up by 8192, no device failure, keep masks, sweep
@@ -1312,6 +1325,205 @@ def _round_rows(rnd, n_rows):
     return rows
 
 
+#: the parts of a row a rule reads: lo, hi, k0, k1 (32 B each of a
+#: numeric row; of a bool row 4 B of lo and hi, nothing of k0 and k1)
+#: and limb 0 of lo or hi (4 B, where the whole is not read)
+LO, HI, K0, K1, LO0, HI0 = range(6)
+
+
+def parts_bytes(reads, n_s, n_t, isbool):
+    """Bytes of the (rows, part, mask) reads over n_s states: each part
+    of a row that some read's mask (a bool of len(rows) columns and
+    n_s rows or one, or None for every state) needs, once a state."""
+    import torch
+
+    dev = isbool.device
+    need = torch.zeros((6, n_s, n_t), dtype=torch.int32, device=dev)
+    for rows, part, mask in reads:
+        if rows.numel() == 0:
+            continue
+        m = torch.ones((n_s, rows.numel()), dtype=torch.int32, device=dev) \
+            if mask is None else mask.expand(n_s, -1).int()
+        need[part].index_add_(1, rows.long(), m)
+    need = need > 0
+    need[LO0] &= ~need[LO]
+    need[HI0] &= ~need[HI]
+    whole = torch.where(isbool, 4, 32).long()
+    knum = torch.where(isbool, 0, 32).long()
+    cost = torch.stack([whole, whole, knum, knum,
+                        torch.full_like(whole, 4), torch.full_like(whole, 4)])
+    return int((need.sum(1) * cost).sum())
+
+
+def level_parts(level, n_t):
+    """The (rows, part, None) reads of a forward level's real nodes, by
+    op, as K6 loads them (``fwd_op``): its arguments' lo and hi (limb 0
+    of a bool argument of a bool op or an ITE condition), the known
+    bits its known-bits transfer reads, and its own row's lo and hi
+    (limb 0 of a bool node) and, where it has a known-bits transfer,
+    k0 and k1."""
+    import torch
+
+    from mythril_tpu_torch.ops import intervals as I
+
+    op, node = level["op"].long(), level["node"].long()
+    real = (op != I.NOP) & (node >= 0) & (node < n_t)
+    op, node = op[real], node[real]
+    args = level["args"][real].long().clamp(0, n_t - 1)
+    nb, nn = level["lvl_bool"][real] != 0, level["lvl_num"][real] != 0
+    dev = op.device
+
+    def isin(*ops):
+        return torch.isin(op, torch.tensor(ops, device=dev))
+
+    unary = isin(I.BNOT, I.NEG, I.COPY, I.SEXT, I.EXTRACT, I.BNOT1)
+    a0 = isin(I.BAND2, I.BOR2, I.BNOT1, I.BXOR2, I.BITE, I.ITE)
+    b0 = isin(I.BAND2, I.BOR2, I.BXOR2, I.BITE)
+    kb = isin(I.BAND, I.BOR, I.BXOR, I.BNOT, I.COPY, I.SHL, I.LSHR,
+              I.EXTRACT, I.CONCAT2, I.ADD, I.SUB, I.ITE)
+    ka = (kb & (op != I.ITE)) | (op == I.EQ)
+    kbb = isin(I.BAND, I.BOR, I.BXOR, I.CONCAT2, I.ADD, I.SUB, I.EQ, I.ITE)
+    a, b, c = args[:, 0], args[:, 1], args[:, 2]
+    sel = [(a, ~a0, (LO, HI)), (a, a0, (LO0, HI0)),
+           (b, ~unary & ~b0, (LO, HI)), (b, ~unary & b0, (LO0, HI0)),
+           (c, op == I.ITE, (LO, HI, K0, K1)), (c, op == I.BITE, (LO0, HI0)),
+           (a, ka, (K0, K1)), (b, kbb, (K0, K1)),
+           (node, nb, (LO0, HI0)), (node, nn & ~nb, (LO, HI)),
+           (node, nn & ~nb & kb, (K0, K1))]
+    return [(rows[m], part, None) for rows, m, parts in sel
+            for part in parts]
+
+
+def round_parts(rnd, x, n_t):
+    """The (rows, part, mask) reads of a backward round's real entries on
+    the pre-round tables x, as K7 loads them (``back_rule``): the
+    parent's bool gate, then under it what the rule reads (the rows of
+    a gate that does not pass are not read; ADD's overflow, SUB's order
+    and the known-bits rules' zero tests are not applied: their reads
+    are counted whole)."""
+    import torch
+
+    from mythril_tpu_torch.ops import intervals as I
+
+    tgt = rnd["tgt"].long()
+    real = (tgt >= 0) & (tgt < n_t)
+    op, role = rnd["op"][real].long(), rnd["role"][real].long()
+    p, a, b = (rnd[k][real].long().clamp(0, n_t - 1)
+               for k in ("parent", "a", "b"))
+    t = tgt[real]
+    tb = rnd["tbool"][real] != 0
+    tn = (rnd["tnum"][real] != 0) & ~tb
+    r0, r1, r2 = role == 0, role == 1, role == 2
+    sib = torch.where(r0, b, a)
+    lo, hi = x[0], x[1]
+    lo0z, hi0z = lo[..., 0] == 0, hi[..., 0] == 0
+    mt, mf = lo0z[:, p], hi0z[:, p]
+    out = []
+
+    def add(rows, part, mask):
+        out.append((rows, part, mask))
+
+    def rows4(rows, m):
+        """all four parts of rows where m (limb 0 of lo and hi where
+        the target is bool)"""
+        for part in (LO, HI, K0, K1):
+            add(rows, part, m & tn[None, :])
+        add(rows, LO0, m & tb[None, :])
+        add(rows, HI0, m & tb[None, :])
+
+    def is_(o):
+        return (op == o)[None, :]
+
+    live = (tb | tn)[None, :]
+    # EQ: the parent's lo; under mtrue the target's and the sibling's rows
+    m = is_(I.EQ) & live
+    add(p, LO0, m)
+    rows4(t, m & mt)
+    rows4(sib, m & mt)
+    # ULT, ULE: the parent's gate, the bound it refines from, the
+    # target's side that moves
+    m = (is_(I.ULT) | is_(I.ULE)) & live
+    add(p, LO0, m)
+    add(p, HI0, m)
+    nz = (hi != 0).any(-1)
+    top = (lo == -1).all(-1)
+    ult, ule = is_(I.ULT) & live, is_(I.ULE) & live
+    r0_, r1_ = r0[None, :], r1[None, :]
+    g_bhi = (ult | ule) & r0_ & mt
+    g_blo = (ult | ule) & r0_ & mf
+    g_alo = (ult | ule) & r1_ & mt
+    g_ahi = (ult | ule) & r1_ & mf
+    add(b, HI, g_bhi)
+    add(b, LO, g_blo)
+    add(a, LO, g_alo)
+    add(a, HI, g_ahi)
+    setlo = (ult & g_blo) | (ule & g_blo & ~top[:, b]) \
+        | (ult & g_alo & ~top[:, a]) | (ule & g_alo)
+    sethi = (ult & g_bhi & nz[:, b]) | (ule & g_bhi) | (ult & g_ahi) \
+        | (ule & g_ahi & nz[:, a])
+    add(t, LO, setlo & tn[None, :])
+    add(t, HI, sethi & tn[None, :])
+    add(t, LO0, setlo & tb[None, :])
+    add(t, HI0, sethi & tb[None, :])
+    # ADD, SUB: their arguments' bounds, the parent's, the target's lo
+    # and hi
+    m = is_(I.ADD) & live
+    for rows, part in ((a, HI), (b, HI), (p, LO), (p, HI), (sib, LO)):
+        add(rows, part, m)
+    msub = is_(I.SUB) & live
+    for rows, part in ((a, LO), (b, HI), (p, LO), (p, HI)):
+        add(rows, part, msub)
+    add(b, LO, msub & r0_)
+    add(a, HI, msub & r1_)
+    m = m | (msub & (r0_ | r1_))
+    for part, kind in ((LO, tn), (HI, tn), (LO0, tb), (HI0, tb)):
+        add(t, part, m & kind[None, :])
+    # COPY: the parent's and the target's rows
+    m = is_(I.COPY) & live
+    rows4(t, m)
+    rows4(p, m)
+    # ITE: the condition's limb 0; where it selects the entry's branch,
+    # the parent's and the target's rows
+    m = is_(I.ITE) & live
+    add(a, LO0, m)
+    add(a, HI0, m)
+    sel = m & ((lo0z[:, a] & r1_) | (hi0z[:, a] & r2[None, :]))
+    rows4(t, sel)
+    rows4(p, sel)
+    # the bool rules: limb 0 of the parent, the sibling's under the
+    # gate, the target's under its rule
+    band, bor, bnot = (is_(o) & live for o in (I.BAND2, I.BOR2, I.BNOT1))
+    m = band | bor | bnot
+    add(p, LO0, m)
+    add(p, HI0, m)
+    add(sib, LO0, band & mf)
+    add(sib, HI0, bor & mt)
+    clo = (band & mt) | (bor & mt & hi0z[:, sib]) | (bnot & mf)
+    chi = (band & mf & lo0z[:, sib]) | (bor & mf) | (bnot & mt)
+    add(t, LO0, clo & tb[None, :])
+    add(t, HI0, chi)
+    # the known-bits rules (a numeric target): the parent's known bits,
+    # the sibling's a rule reads, a shift's amount, the target's known
+    # bits (a shift's only where its amount is one value)
+    kn = tn[None, :]
+    kbr = [is_(o) & kn for o in (I.BAND, I.BOR, I.BXOR, I.BNOT, I.SHL,
+                                  I.LSHR, I.EXTRACT, I.CONCAT2)]
+    m = kbr[0] | kbr[1] | kbr[2] | kbr[3] | kbr[4] | kbr[5] | kbr[6] \
+        | kbr[7]
+    add(p, K0, m)
+    add(p, K1, m)
+    add(sib, K1, kbr[0] | kbr[2])
+    add(sib, K0, kbr[1] | kbr[2])
+    shift = kbr[4] | kbr[5]
+    add(b, LO, shift)
+    add(b, HI, shift)
+    eq = (lo == hi).all(-1)[:, b]
+    tk = (m & ~shift) | (shift & eq)
+    add(t, K0, tk)
+    add(t, K1, tk)
+    return out
+
+
 def clone_all(tabs):
     return tuple(t.clone() for t in tabs)
 
@@ -1359,15 +1571,21 @@ def check_tables(name, core, start, interval_start, accs=None):
     against its plain version on the same input. K5 and K6 run each
     forward level, K8's exchange follows, K7 runs each backward round
     from the last level down, K8's verdicts close; K8's init and one
-    sweep's changed flag against the plain comparison come first.
+    sweep's changed flag against the plain comparison come first. K6
+    and K7 take the plan's kernel layout, their plain versions the plan
+    as the JAX package builds it; ``start`` must keep a bool row zero
+    above limb 0 (the kernels' invariant, ``csrc/screen.cu``).
 
     With ``accs`` (name -> dict), every call is also timed: ``ms`` (a
     call on CUDA events, the host's launch included), ``device_ms``
     (``queued_ms``) and ``plain_ms``, all on fresh copies of the checked
     call's input; and the bytes the function must move on that input
-    are counted: the rows it reads, once each (numeric rows 32 bytes per
+    are counted (``bytes``): what it reads, once each (K6 and K7 the
+    parts of rows each op or rule reads on that input, ``level_parts``,
+    ``round_parts``; K5 and K8 the rows: numeric rows 32 bytes per
     table, bool rows the 4-byte limb 0 of lo and hi), and the limbs that
-    its call changed; K8's init writes the four tables whole, and its
+    its call changed; ``rows_bytes`` is K6's and K7's earlier count,
+    each row they touch whole, so the rows stay comparable; K8's init writes the four tables whole, and its
     verdicts read each state's rows up to the first row in conflict (all
     of them in a state without one), then the assertion slots of a state
     that has none."""
@@ -1379,16 +1597,20 @@ def check_tables(name, core, start, interval_start, accs=None):
     n_s, n_t = core["seed_idx"].shape[0], core["init_lo"].shape[0]
     numeric = core["numeric"] != 0
     isbool = core["isbool"] != 0
+    if any(bool(t[:, isbool, 1:].any()) for t in start[:2]):
+        raise AssertionError(f"{name}: a bool row is not zero above limb 0")
+    lay = P.kernel_layout(core)
     row_iv = torch.where(isbool, 8, 64).tolist()
     row_pr = torch.where(isbool, 8, 128).tolist()
     flag = torch.zeros(1, dtype=torch.int32, device=start[0].device)
     err = dict.fromkeys(("interval_level", "prop_fwd_level",
                          "prop_back_round", "prop_tables"), 0)
 
-    def call(key, what, kern, plain, x, nbytes=None):
+    def call(key, what, kern, plain, x, nbytes=None, rows_nbytes=None):
         """Run kern and plain on copies of x, require equal outputs,
-        time the pair when accs is given; returns the kernel's
-        output."""
+        time the pair when accs is given, with the bytes it must move
+        (``nbytes``; ``rows_nbytes``, where given, the rows' count of
+        PRs 4-8); returns the kernel's output."""
         a, b = clone_all(x), clone_all(x)
         out_k, out_p = kern(a), plain(b)
         out_k, out_p = (a, b) if out_k is None else (out_k, out_p)
@@ -1401,6 +1623,7 @@ def check_tables(name, core, start, interval_start, accs=None):
             acc["plain_ms"] += cuda_ms(plain, reps=1,
                                        setup=lambda: clone_all(x))
             acc["bytes"] += nbytes(x, out_k)
+            acc["rows_bytes"] += (rows_nbytes or nbytes)(x, out_k)
         return out_k
 
     # K8 init; the changed flag of one kernel sweep
@@ -1423,7 +1646,7 @@ def check_tables(name, core, start, interval_start, accs=None):
     del a, b
 
     iv, tabs = interval_start, start
-    for li, lvl in enumerate(core["levels"]):
+    for li, (lvl, klv) in enumerate(zip(core["levels"], lay["levels"])):
         reads, nodes = _level_rows(lvl)
         iv = call("interval_level", f"K5 interval_level {li}",
                   lambda x, lv=lvl: I.eval_level_kernel(lv, *x),
@@ -1431,8 +1654,11 @@ def check_tables(name, core, start, interval_start, accs=None):
                   lambda x, o, r=reads: n_s * sum(row_iv[i] for i in r)
                   + changed_bytes(x, o))
         tabs = call("prop_fwd_level", f"K6 prop_fwd_level {li}",
-                    lambda x, lv=lvl: P.fwd_level_kernel(lv, x, flag),
+                    lambda x, lv=klv: P.fwd_level_kernel(lv, x, flag),
                     lambda x, lv=lvl: P.fwd_level_plain(lv, x), tabs,
+                    lambda x, o, lv=lvl: parts_bytes(
+                        level_parts(lv, n_t), n_s, n_t, isbool)
+                    + changed_bytes(x, o),
                     lambda x, o, r=reads | nodes: n_s * sum(
                         row_pr[i] for i in r) + changed_bytes(x, o))
     tabs = call("prop_tables", "K8 prop_exchange",
@@ -1441,11 +1667,15 @@ def check_tables(name, core, start, interval_start, accs=None):
                 lambda x, o: n_s * int(numeric.sum()) * 128
                 + changed_bytes(x, o))
     for li in range(len(core["back"]) - 1, -1, -1):
-        for ri, rnd in enumerate(core["back"][li]):
+        for ri, (rnd, krnd) in enumerate(zip(core["back"][li],
+                                             lay["back"][li])):
             rows = _round_rows(rnd, n_t)
             tabs = call("prop_back_round", f"K7 prop_back_round {li}.{ri}",
-                        lambda x, r=rnd: P.back_round_kernel(r, x, flag),
+                        lambda x, r=krnd: P.back_round_kernel(r, x, flag),
                         lambda x, r=rnd: P.back_round_plain(r, x), tabs,
+                        lambda x, o, r=rnd: parts_bytes(
+                            round_parts(r, x, n_t), n_s, n_t, isbool)
+                        + changed_bytes(x, o),
                         lambda x, o, rows=rows: n_s * sum(
                             row_pr[i] for i in rows) + changed_bytes(x, o))
 
@@ -1506,8 +1736,8 @@ def check_screens(dev, report, wave):
     log(f"screen wave: {SCREEN_N} systems, {enc.n_nodes} nodes in {n_t} "
         f"rows, levels {[lv['op'].shape[0] for lv in core['levels']]}, "
         f"rounds {[[r['op'].shape[0] for r in rs] for rs in core['back']]}")
-    accs = {k: dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bytes=0)
-            for k in errs[0]}
+    accs = {k: dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bytes=0,
+                    rows_bytes=0) for k in errs[0]}
     start = P.init_tables_kernel(core)
     seeded = I.seed_tables(core["init_lo"], core["init_hi"],
                            core["seed_idx"], core["seed_lo"],
@@ -1521,9 +1751,107 @@ def check_screens(dev, report, wave):
                             ms=acc["ms"], plain_ms=acc["plain_ms"],
                             device_ms=acc["device_ms"], bound_ms=bms,
                             bound_by=by)
+        rows = ""
+        if acc["rows_bytes"] != acc["bytes"]:
+            report[name]["bound_rows_ms"] = bound_ms(acc["rows_bytes"])[0]
+            rows = (f"; rows whole {report[name]['bound_rows_ms']:.6f} ms "
+                    f"({acc['rows_bytes']} bytes)")
         log(f"{name}: {acc['ms']:.4f} ms calls, {acc['device_ms']:.4f} ms "
             f"device, {acc['plain_ms']:.1f} ms plain, bound {bms:.6f} ms "
-            f"({by}, {acc['bytes']} bytes)")
+            f"({by}, {acc['bytes']} bytes){rows}")
+
+
+#: the edge inputs' state counts, the last past the resident grid of
+#: K7's widest round (``staging``: twice that grid and one, its 1000
+#: assertion pairs a state making 8192 states slow to encode and check)
+EDGE_STATES = (1, 33, 8192)
+
+
+def edge_wave(dev, sets, n):
+    """``sets`` repeated to n states: (the states' sets, their plan on
+    the card)."""
+    from mythril_tpu_torch.ops import intervals as I
+    from mythril_tpu_torch.ops import propagate as P
+
+    wave = (sets * -(-n // len(sets)))[:n]
+    return wave, P.plan_to_device(P.build_plan(I.linearize(wave)), dev)
+
+
+def check_screen_edges(dev):
+    """K6 and K7 (with K5 and K8 around them, ``check_tables``) on the
+    edge inputs ``screen_waves.edge_sets`` at 1, 33 and 8192 states
+    (``staging``: a count past its resident grid), from the init tables
+    and from seeded random tables, and each wave's whole screen, against
+    the plain versions; then a level and a round of pads only, which
+    launch nothing and change nothing."""
+    import torch
+
+    from mythril_tpu_torch import _build
+    from mythril_tpu_torch.ops import propagate as P
+    from mythril_tpu_torch.support.screen_waves import edge_sets
+
+    def widest_grid(core):
+        rounds = [r for rs in P.kernel_layout(core)["back"] for r in rs]
+        return max(rounds, key=lambda r: r["launch"][3])["grid"]
+
+    t0 = time.perf_counter()
+    for name, sets in edge_sets().items():
+        counts = EDGE_STATES
+        if name == "staging":
+            counts = (1, 33, 2 * widest_grid(edge_wave(dev, sets, 1)[1]) + 1)
+        for n in counts:
+            wave, core = edge_wave(dev, sets, n)
+            lay = P.kernel_layout(core)
+            grid = widest_grid(core)
+            glob = sum(r["launch"][7] is not None for rs in lay["back"]
+                       for r in rs)
+            if n == counts[-1] and n <= grid:
+                raise AssertionError(f"edge {name}: {n} states within the "
+                                     f"grid of {grid} blocks")
+            if (name == "staging") != bool(glob):
+                raise AssertionError(f"edge {name}: {glob} rounds stage in "
+                                     f"global memory")
+            init = P.init_tables_kernel(core)
+            check_tables(f"edge {name}, {n} states", core, init, init[:2])
+            rnd = random_tables(core, SEED + n)
+            check_tables(f"edge {name}, {n} states, random tables", core,
+                         rnd, rnd[:2])
+            got, want = P.screen(wave, dev), P.screen(wave, dev, plain=True)
+            if (list(got.keep) != list(want.keep) or got.sweeps != want.sweeps
+                    or _facts_key(got.facts) != _facts_key(want.facts)):
+                raise AssertionError(f"edge {name}, {n} states: the screen "
+                                     f"differs from the plain versions")
+            del init, rnd, core
+            torch.cuda.empty_cache()
+        log(f"edge {name}: K5-K8 and the screen equal to the plain versions "
+            f"at {list(counts)} states (the grid of K7's widest round {grid} "
+            f"blocks; {glob} rounds staged in global memory)")
+
+    _, _, core = layered_wave(dev)
+    n_t = core["init_lo"].shape[0]
+    level = dict(core["levels"][0], op=torch.zeros_like(
+        core["levels"][0]["op"]))
+    rnd = dict(core["back"][0][0], tgt=torch.full_like(
+        core["back"][0][0]["tgt"], n_t))
+    pads = {k: v for k, v in core.items() if k != "layout"}
+    pads["levels"], pads["back"] = [level], [[rnd]]
+    init = P.init_tables_kernel(pads)
+    _build.reset_launches()
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    tabs = clone_all(init)
+    lay = P.kernel_layout(pads)
+    P.fwd_level_kernel(lay["levels"][0], tabs, flag)
+    P.back_round_kernel(lay["back"][0][0], tabs, flag)
+    torch.cuda.synchronize()
+    if (_build.LAUNCHES["prop_fwd_level"] or _build.LAUNCHES["prop_back_round"]
+            or flag.item()):
+        raise AssertionError(f"pads only: {dict(_build.LAUNCHES)} launches, "
+                             f"flag {flag.item()}")
+    same_outputs(tabs, init, "pads only")
+    check_tables("pads only", pads, init, init[:2])
+    log(f"pads only: a level and a round of pads launch nothing and change "
+        f"nothing, as the plain versions; the edge inputs took "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def _facts_key(facts):
@@ -1533,7 +1861,7 @@ def _facts_key(facts):
 
 
 #: the screens' kernels by their symbols in a profile
-SCREEN_SYMBOLS = ("level_kernel<false>", "level_kernel<true>", "back_kernel",
+SCREEN_SYMBOLS = ("level_kernel", "fwd_kernel", "back_kernel",
                   "init_kernel", "exchange_kernel", "verdicts_kernel")
 
 
@@ -2623,15 +2951,39 @@ def corpus_start():
 
     def one(name):
         stats = os.path.join(tmp, name + ".json")
-        t0 = time.perf_counter()
-        run = subprocess.run(
-            [sys.executable, os.path.join(HERE, "chip_smoke.py"),
-             "--analyze", name, stats], capture_output=True, text=True,
-            cwd=HERE, timeout=900)
-        return name, run, stats, time.perf_counter() - t0
+        return (name, *analyze_process(name, stats), stats)
 
     pool = ThreadPoolExecutor(CORPUS_WORKERS)
     return pool, [pool.submit(one, n) for n in names], tmp
+
+
+def analyze_process(name, stats, held=False):
+    """(the finished process, its wall in s) of ``--analyze`` (with
+    ``held``, ``--analyze-held``) of one fixture."""
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+         "--analyze-held" if held else "--analyze", name, stats],
+        capture_output=True, text=True, cwd=HERE, timeout=900)
+    return run, time.perf_counter() - t0
+
+
+def analysis_result(name, run, stats_path):
+    """(report, stats) of a finished ``--analyze`` process; fails on a
+    run that exited with an error or printed one, or whose analysis
+    raised."""
+    if run.returncode != 0 or not os.path.exists(stats_path):
+        raise AssertionError(f"corpus {name}: exit {run.returncode}\n"
+                             f"{run.stderr[-3000:]}")
+    rep = json.loads(run.stdout)
+    if rep.get("error") or not rep.get("success", True):
+        raise AssertionError(f"corpus {name}: {rep.get('error')}")
+    with open(stats_path) as f:
+        st = json.load(f)
+    if st["exceptions"]:
+        raise AssertionError(f"corpus {name}: the analysis raised\n"
+                             f"{st['exceptions'][0][-3000:]}")
+    return rep, st
 
 
 def corpus_finish(handle, card):
@@ -2652,23 +3004,13 @@ def corpus_finish(handle, card):
         ref = json.load(f)
     tot = {"windows": 0, "forks": 0, "device_steps": 0, "merged": 0}
     screened = failures = n_got = n_want = 0
-    launches = {}
+    launches, per_fixture, walls = {}, {}, {}
     bad, unlike = [], []
     try:
         for fut in futs:
-            name, run, stats_path, wall = fut.result()
-            if run.returncode != 0 or not os.path.exists(stats_path):
-                raise AssertionError(f"corpus {name}: exit "
-                                     f"{run.returncode}\n"
-                                     f"{run.stderr[-3000:]}")
-            rep = json.loads(run.stdout)
-            if rep.get("error") or not rep.get("success", True):
-                raise AssertionError(f"corpus {name}: {rep.get('error')}")
-            with open(stats_path) as f:
-                st = json.load(f)
-            if st["exceptions"]:
-                raise AssertionError(f"corpus {name}: the analysis raised\n"
-                                     f"{st['exceptions'][0][-3000:]}")
+            name, run, wall, stats_path = fut.result()
+            rep, st = analysis_result(name, run, stats_path)
+            walls[name] = wall
             got, want = canon(rep), ref[name]["issues"]
             n_got, n_want = n_got + len(got), n_want + len(want)
             rs = st["run_stats"]
@@ -2680,6 +3022,8 @@ def corpus_finish(handle, card):
             failures += st["pruner"]["device_failures"]
             for k, v in st["launches"].items():
                 launches[k] = launches.get(k, 0) + v
+            per_fixture[name] = (st["launches"]["prop_fwd_level"]
+                                 + st["launches"]["prop_back_round"])
             if got != want:
                 bad.append(name)
             keys = ("windows", "forks", "device_steps")
@@ -2717,15 +3061,52 @@ def corpus_finish(handle, card):
         f"{tot['device_steps']} device steps, {tot['merged']} lanes merged "
         f"or subsumed, {screened} systems screened on the device, 0 device "
         f"failures; launches {launches} on {card}")
+    top = sorted(per_fixture.items(), key=lambda kv: -kv[1])[:3]
+    log(f"corpus: K6 and K7 launches by fixture, the most: {top}")
+    hold_corpus_screens(top[0][0], walls[top[0][0]], ref)
     return tot["windows"]
 
 
-def analyze_one(name, stats_path):
+def hold_corpus_screens(name, wall, ref):
+    """A second analysis of the corpus fixture ``name`` (the one that
+    launches K6 and K7 the most), apart from the timed corpus, with
+    every K6 and K7 call held against its plain version on a copy of
+    its input (``--analyze-held``): its issues must again equal the
+    JAX package's, and the calls are logged by shape, beside its wall
+    with and without the check."""
+    import tempfile
+
+    from mythril_tpu_torch.support.lane_compare import canon
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_held_")
+    try:
+        stats = os.path.join(tmp, "held.json")
+        run, held_wall = analyze_process(name, stats, held=True)
+        rep, st = analysis_result(name, run, stats)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if canon(rep) != ref[name]["issues"]:
+        raise AssertionError(f"corpus {name}, held: issues differ")
+    shapes = st["screen_shapes"]
+    if not shapes:
+        raise AssertionError(f"corpus {name}, held: no K6 or K7 call")
+    for kern in ("prop_fwd_level", "prop_back_round"):
+        mine = sorted(((v, k) for k, v in shapes.items()
+                       if k.startswith(kern + " ")), reverse=True)
+        log(f"corpus {name} {kern}: {sum(v for v, _ in mine)} calls, each "
+            f"equal to the plain version; by (S, T, entries): "
+            + ", ".join(f"{k.split(' ', 1)[1]} x{v}" for v, k in mine[:8]))
+    log(f"corpus {name}: {wall:.1f} s in the timed corpus, {held_wall:.1f} "
+        f"s analysed again with K6 and K7 held against the plain versions")
+
+
+def analyze_one(name, stats_path, held=False):
     """``--analyze``: ``python -m mythril_tpu_torch analyze`` of one
     fixture with the corpus flags, its report on stdout; the engine's
     run stats, the screens' counters, the kernel launches and the
     analysis' exceptions (which the JSON report leaves out) go to
-    ``stats_path``."""
+    ``stats_path``, and with ``held`` (``--analyze-held``) the K6 and
+    K7 calls, each held against its plain version, by shape."""
     sys.path.insert(0, HERE)
     from mythril_tpu_torch import _build
     from mythril_tpu_torch.interfaces import cli
@@ -2737,6 +3118,7 @@ def analyze_one(name, stats_path):
     from mythril_tpu_torch.support.lane_compare import INPUTS, analyze_argv
 
     exceptions = []
+    shapes = hold_screen_kernels() if held else {}
     fire = MythrilAnalyzer.fire_lasers
 
     def fire_recorded(*a, **k):
@@ -2756,8 +3138,37 @@ def analyze_one(name, stats_path):
             json.dump({"run_stats": le.RUN_STATS_TOTAL,
                        "pruner": pruner.STATS,
                        "launches": _build.LAUNCHES,
+                       "screen_shapes": shapes,
                        "exceptions": exceptions}, f)
     return 0
+
+
+def hold_screen_kernels():
+    """Wrap K6's and K7's wrappers for the rest of the process: every
+    call also runs the plain version on a copy of its input and fails on
+    a difference, so the corpus holds both kernels at its own shapes.
+    Returns the calls counted by "kernel S T entries" (states, table
+    rows, the layout's real nodes or entries)."""
+    from mythril_tpu_torch.ops import propagate as P
+
+    shapes = {}
+
+    def held(name, kern, plain):
+        def call(entry, tabs, changed=None):
+            want = clone_all(tabs)
+            kern(entry, tabs, changed)
+            plain(entry, want)
+            same_outputs(tabs, want, f"{name} in the corpus")
+            key = (f"{name} {tabs[0].shape[0]} {tabs[0].shape[1]} "
+                   f"{entry['ent'].shape[0]}")
+            shapes[key] = shapes.get(key, 0) + 1
+        return call
+
+    P.fwd_level_kernel = held("prop_fwd_level", P.fwd_level_kernel,
+                              P.fwd_level_plain)
+    P.back_round_kernel = held("prop_back_round", P.back_round_kernel,
+                               P.back_round_plain)
+    return shapes
 
 
 # ---------------------------------------------------------------------------
@@ -3153,8 +3564,10 @@ def main() -> int:
 def run() -> int:
     import torch
 
-    if len(sys.argv) == 4 and sys.argv[1] == "--analyze":
-        return analyze_one(sys.argv[2], sys.argv[3])
+    if len(sys.argv) == 4 and sys.argv[1] in ("--analyze",
+                                              "--analyze-held"):
+        return analyze_one(sys.argv[2], sys.argv[3],
+                           held=sys.argv[1] == "--analyze-held")
     if len(sys.argv) == 4 and sys.argv[1] == "--serve":
         return serve_one(sys.argv[2], sys.argv[3])
     if len(sys.argv) > 3 and sys.argv[1] == "--corpus-rank":
@@ -3275,6 +3688,7 @@ def run() -> int:
 
     wave = screen_wave(dev)
     check_screens(dev, report, wave)
+    check_screen_edges(dev)
     screen_launches = screen_path(dev, wave, card)
     screen_mix(dev)
     fused_launches = fused_screen(dev, wave, card, report)
@@ -3296,7 +3710,8 @@ def run() -> int:
                 **{k: r[k] for k in r if k.startswith(("unpacked_",
                                                        "wide_",
                                                        "narrow_",
-                                                       "copy_"))}}
+                                                       "copy_",
+                                                       "bound_rows_"))}}
 
     # bv256 has no launch of its own on the main path: its word ops run
     # inside K1's launches, so it is listed apart with its test launch's

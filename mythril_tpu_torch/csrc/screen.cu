@@ -16,8 +16,9 @@
 //      prop_verdicts    propagate.py:720 _verdicts
 //   K11 prop_fixpoint   propagate.py:798 _fixpoint: the whole fixpoint
 //                       (init, sweeps to a fixpoint or the cap,
-//                       verdicts) in one launch, built from the device
-//                       functions of K6-K8 (see its own note below).
+//                       verdicts) in one launch, built from K6's, K7's
+//                       and K8's device functions over the same kernel
+//                       layout (see its own note below).
 //
 // Tables are (S, T, 8) uint32 limb words per state and node row (lo,
 // hi, and for the product domain k0, k1); levels and rounds are the
@@ -27,10 +28,51 @@
 // compute every op of the level's cover and select by opcode, which
 // gives the same row).
 //
-// Bound: bytes. A level moves, per (state, node), its argument rows and
-// its own row (32 B each per table); a table-wide pass reads and writes
-// every row. Rows are 32-byte aligned and loaded as two 16-byte vectors.
-// The transfer arithmetic (a few dozen 8-limb ops; 512-bit MUL and
+// K6 and K7 take the plan's kernel layout (ops/propagate.kernel_layout,
+// built once a plan): each level's and round's real entries only (no
+// NOP node, no pad: the rows the JAX scatter writes), ordered by op
+// (K6: by op class, then op; K7: by op, role and target kind), two int4
+// of indices an entry. A level's nodes are distinct and write only
+// their own rows, and a round's targets are distinct and read the
+// pre-round rows, so the order changes nothing.
+//
+//   K6: a launch per op class present (fwd_kernel<0..2>: the bool-valued
+//       ops; the rest; MUL, UDIV, UREM and BOR/BXOR's smear; fwd_class,
+//       which the layout builder reads through prop_fwd_class), so the
+//       heavy transfers do not set the light ones' registers; a thread a
+//       (state, node), the node fastest, so a warp runs neighbouring
+//       nodes of one op and one state. Each op loads only what its
+//       transfer, its known-bits transfer and the meet read.
+//   K7: a block a state at a time, the grid the blocks resident at once
+//       (prop_back_shape's occupancy query). Each rule loads only what
+//       it and the meet read (the bool gate first where there is one);
+//       the rows that differ are staged in the block's dynamic shared
+//       memory, each entry's slot sized by its rule and target (limb 0
+//       of lo and hi for a bool target: 8 B; lo and hi, or k0 and k1:
+//       64 B; all four: 128 B), then one barrier, then stored. The
+//       staging rule: a round whose staging (one flag word an entry and
+//       the slots) exceeds a block's shared memory (the opt-in maximum,
+//       227 KB on an H100) stages in a global buffer the plan
+//       allocates once, a block's part each (as many blocks as the grid
+//       or the plan's states, the fewer). A round's staging is a
+//       multiple of 4 words, so every block's part, and in it every
+//       slot of 16 or 32 words, is 16-byte aligned for ldw and stw.
+//   K11 runs K6's fwd_node and K7's back_block over the same layout.
+//
+// The bool-row invariant: a bool row holds (may_false, may_true) in
+// limb 0 of lo and hi and zeros above. The init rows are so, and every
+// pass ANDs a bool row or clears limb 0, so every table the screen makes
+// keeps it; K6's and K7's bool rows read and write limb 0 only, which
+// under it is the JAX meet of the whole row (chip_smoke.py checks it on
+// every table it starts from).
+//
+// Bound: bytes. A level moves, per (state, node), the parts of its
+// argument rows and its own row that its op reads (32 B a table of a
+// numeric row, 4 B of limb 0 of a bool row's lo or hi); a round the
+// parts of its entries' parent, argument and target rows that each rule
+// reads on the round's data (chip_smoke.py: rule_parts); a table-wide
+// pass reads and writes every row. Rows are 32-byte aligned and loaded as two 16-byte vectors. The
+// transfer arithmetic (a few dozen 8-limb ops; 512-bit MUL and
 // 256-round division where a node needs them) stays in registers.
 //
 // The "changed" flag: the JAX driver compares a sweep's start tables
@@ -89,9 +131,10 @@ __device__ __forceinline__ W bool_abs(bool b) { return bv::from_u32(b ? 1u : 0u)
 // The interval transfer of one node (_transfer_level for one row).
 // c is the third argument's rows, read only by ITE and BITE. Returns
 // false for NOP and any unknown opcode: the row keeps its value.
-__device__ bool transfer(int op, const W& alo, const W& ahi, const W& blo,
-                         const W& bhi, const W& clo, const W& chi, const W& mask,
-                         const W& aux, int arg1, int arg2, W& lo, W& hi) {
+__device__ __forceinline__ bool transfer(int op, const W& alo, const W& ahi, const W& blo,
+                                         const W& bhi, const W& clo, const W& chi,
+                                         const W& mask, const W& aux, int arg1, int arg2,
+                                         W& lo, W& hi) {
   const W z = bv::zero();
   switch (op) {
     case ADD: {
@@ -253,10 +296,11 @@ __device__ bool transfer(int op, const W& alo, const W& ahi, const W& blo,
 
 // The known-bits half of _fwd_level for one node: (nk0, nk1), zero for
 // opcodes without a known-bits transfer.
-__device__ void kbits(int op, const W& alo, const W& ahi, const W& blo, const W& bhi,
-                      const W& ak0, const W& ak1, const W& bk0, const W& bk1,
-                      const W& ck0, const W& ck1, const W& mask, const W& aux,
-                      int arg1, W& nk0, W& nk1) {
+__device__ __forceinline__ void kbits(int op, const W& alo, const W& ahi, const W& blo,
+                                      const W& bhi, const W& ak0, const W& ak1,
+                                      const W& bk0, const W& bk1, const W& ck0,
+                                      const W& ck1, const W& mask, const W& aux, int arg1,
+                                      W& nk0, W& nk1) {
   const W z = bv::zero();
   const W nw = bv::bnot(mask);  // out-of-width bits
   nk0 = z;
@@ -335,22 +379,6 @@ __device__ void kbits(int op, const W& alo, const W& ahi, const W& blo, const W&
   }
 }
 
-// _meet: bools intersect their (mf, mt) bits, numerics take max-lo /
-// min-hi and union the known bits, other rows keep the current value.
-__device__ __forceinline__ void meet(bool isb, bool isn, W& lo, W& hi, W& k0, W& k1,
-                                     const W& nlo, const W& nhi, const W& nk0,
-                                     const W& nk1) {
-  if (isb) {
-    lo = bv::band(lo, nlo);
-    hi = bv::band(hi, nhi);
-  } else if (isn) {
-    lo = max_n(lo, nlo);
-    hi = min_n(hi, nhi);
-    k0 = bv::bor(k0, nk0);
-    k1 = bv::bor(k1, nk1);
-  }
-}
-
 struct Tabs {
   uint32_t *lo, *hi, *k0, *k1;
   int S, T;
@@ -367,22 +395,19 @@ __device__ __forceinline__ bool put(uint32_t* p, const W& w, const W& old) {
 }
 
 // ---------------------------------------------------------------------------
-// K5 / K6: one forward level, one thread per (state, node)
+// K5: one forward interval level, (state, node) at a time
 // ---------------------------------------------------------------------------
 
 struct Level {
   const int32_t *node, *op, *args;
   const uint32_t *mask, *aux;
-  const uint8_t *lvl_bool, *lvl_num;
   int W;
 };
 
-// entry j of a level for state s; returns whether it stored a word that
-// differs (always false for the interval-only K5, which overwrites)
-template <bool PRODUCT>
-__device__ bool fwd_entry(const Tabs& t, const Level& L, int s, int j) {
+// entry j of a level for state s: its interval rows, overwritten
+__device__ void fwd_interval(const Tabs& t, const Level& L, int s, int j) {
   int o = L.op[j], nd = L.node[j];
-  if (o == NOP || nd < 0 || nd >= t.T) return false;  // NOP/pad rows keep their value
+  if (o == NOP || nd < 0 || nd >= t.T) return;  // NOP/pad rows keep their value
   const int32_t* args = L.args;
   int a0 = clampi(args[3 * j], 0, t.T - 1);
   int a1 = clampi(args[3 * j + 1], 0, t.T - 1);
@@ -391,276 +416,538 @@ __device__ bool fwd_entry(const Tabs& t, const Level& L, int s, int j) {
   W alo = ldw(t.lo + t.row(s, a0)), ahi = ldw(t.hi + t.row(s, a0));
   W blo = ldw(t.lo + t.row(s, a1)), bhi = ldw(t.hi + t.row(s, a1));
   W clo = bv::zero(), chi = bv::zero();
-  bool third = o == ITE || o == BITE;
-  if (third) {
+  if (o == ITE || o == BITE) {
     clo = ldw(t.lo + t.row(s, a2));
     chi = ldw(t.hi + t.row(s, a2));
   }
   W lo, hi;
   if (!transfer(o, alo, ahi, blo, bhi, clo, chi, m, x, args[3 * j + 1],
                 args[3 * j + 2], lo, hi))
-    return false;
+    return;
   size_t r = t.row(s, nd);
-  if (!PRODUCT) {
-    stw(t.lo + r, lo);
-    stw(t.hi + r, hi);
-    return false;
-  }
-  W ak0 = ldw(t.k0 + t.row(s, a0)), ak1 = ldw(t.k1 + t.row(s, a0));
-  W bk0 = ldw(t.k0 + t.row(s, a1)), bk1 = ldw(t.k1 + t.row(s, a1));
-  W ck0 = bv::zero(), ck1 = bv::zero();
-  if (o == ITE) {
-    ck0 = ldw(t.k0 + t.row(s, a2));
-    ck1 = ldw(t.k1 + t.row(s, a2));
-  }
-  W nk0, nk1;
-  kbits(o, alo, ahi, blo, bhi, ak0, ak1, bk0, bk1, ck0, ck1, m, x, args[3 * j + 1],
-        nk0, nk1);
-  // known-bits refutation of EQ: a bit one side must set and the other
-  // must clear makes the equality must-false
-  if (o == EQ && !bv::is_zero(bv::bor(bv::band(ak1, bk0), bv::band(ak0, bk1))))
-    hi.l[0] = 0;
-  W clo0 = ldw(t.lo + r), chi0 = ldw(t.hi + r), ck00 = ldw(t.k0 + r), ck10 = ldw(t.k1 + r);
-  W flo = clo0, fhi = chi0, fk0 = ck00, fk1 = ck10;
-  meet(L.lvl_bool[j] != 0, L.lvl_num[j] != 0, flo, fhi, fk0, fk1, lo, hi, nk0, nk1);
-  bool diff = put(t.lo + r, flo, clo0);
-  diff |= put(t.hi + r, fhi, chi0);
-  diff |= put(t.k0 + r, fk0, ck00);
-  diff |= put(t.k1 + r, fk1, ck10);
-  return diff;
+  stw(t.lo + r, lo);
+  stw(t.hi + r, hi);
 }
 
-template <bool PRODUCT>
-__global__ void __launch_bounds__(128)
-level_kernel(Tabs t, Level L, int32_t* changed) {
+// K5: one thread per (state, node), the node fastest
+__global__ void __launch_bounds__(128) level_kernel(Tabs t, Level L) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)t.S * L.W) return;
-  if (fwd_entry<PRODUCT>(t, L, (int)(i / L.W), (int)(i % L.W)) && changed) *changed = 1;
+  fwd_interval(t, L, (int)(i / L.W), (int)(i % L.W));
 }
 
 // ---------------------------------------------------------------------------
-// K7: one backward round
+// K6: one forward level over the layout's real nodes, a launch an op class
 // ---------------------------------------------------------------------------
 
-struct Round {
-  const int32_t *parent, *a, *b, *tgt, *tgt_c, *role, *op;
-  const uint32_t *pmask, *paux, *lob;
-  const uint8_t *tnum, *tbool;
+// A level of the kernel layout: its real nodes, ordered by (class, op),
+// two int4 a node: {node, op, a0, a1} and {a2, arg1, arg2, flags}, the
+// argument rows clamped into the table, arg1 and arg2 as the plan holds
+// them (EXTRACT's immediates); mask and aux eight words a node.
+struct FwdNodes {
+  const int4* ent;
+  const uint32_t *mask, *aux;
 };
 
-// the candidate of entry j for state s, met into the target's current
-// row (_back_round for one entry)
-__device__ void back_entry(const Tabs& t, const Round& R, int s, int j, W& lo, W& hi,
-                           W& k0, W& k1) {
-  const int p = R.parent[j], ai = R.a[j], bi = R.b[j], tc = R.tgt_c[j];
-  const int o = R.op[j], role = R.role[j];
-  W rlo = ldw(t.lo + t.row(s, p)), rhi = ldw(t.hi + t.row(s, p));
-  W rk0 = ldw(t.k0 + t.row(s, p)), rk1 = ldw(t.k1 + t.row(s, p));
-  W alo = ldw(t.lo + t.row(s, ai)), ahi = ldw(t.hi + t.row(s, ai));
-  W ak0 = ldw(t.k0 + t.row(s, ai)), ak1 = ldw(t.k1 + t.row(s, ai));
-  W blo = ldw(t.lo + t.row(s, bi)), bhi = ldw(t.hi + t.row(s, bi));
-  W bk0 = ldw(t.k0 + t.row(s, bi)), bk1 = ldw(t.k1 + t.row(s, bi));
-  const W clo = ldw(t.lo + t.row(s, tc)), chi = ldw(t.hi + t.row(s, tc));
-  const W ck0 = ldw(t.k0 + t.row(s, tc)), ck1 = ldw(t.k1 + t.row(s, tc));
-  const W pmask = ldw(R.pmask + 8 * j), paux = ldw(R.paux + 8 * j);
-  const bool r0 = role == 0, r1 = role == 1, r2 = role == 2;
-  // sibling of the refined arg (binary numeric rules)
-  const W slo = r0 ? blo : alo, shi = r0 ? bhi : ahi;
-  const W sk0 = r0 ? bk0 : ak0, sk1 = r0 ? bk1 : ak1;
-  const bool mtrue = rlo.l[0] == 0;   // parent bool cannot be false
-  const bool mfalse = rhi.l[0] == 0;  // parent bool cannot be true
-  const W one = bv::from_u32(1u), z = bv::zero();
-  W nlo = clo, nhi = chi, nk0 = ck0, nk1 = ck1;
-  switch (o) {
-    case EQ:
-      if (mtrue) {
-        nlo = slo;
-        nhi = shi;
-        nk0 = sk0;
-        nk1 = sk1;
-      }
-      break;
-    case ULT: {
-      // a < b: a <= b.hi-1, b >= a.lo+1; !(a < b): a >= b.lo, b <= a.hi
-      W alo_p1 = bv::add(alo, one);
-      if (mtrue && !bv::is_zero(bhi) && r0) nhi = bv::sub(bhi, one);
-      if (mfalse && r0) nlo = blo;
-      if (mtrue && !bv::is_zero(alo_p1) && r1) nlo = alo_p1;
-      if (mfalse && r1) nhi = ahi;
-      break;
-    }
-    case ULE: {
-      // a <= b: a <= b.hi, b >= a.lo; !(a <= b): a >= b.lo+1, b <= a.hi-1
-      W blo_p1 = bv::add(blo, one);
-      if (mtrue && r0) nhi = bhi;
-      if (mfalse && !bv::is_zero(blo_p1) && r0) nlo = blo_p1;
-      if (mtrue && r1) nlo = alo;
-      if (mfalse && !bv::is_zero(ahi) && r1) nhi = bv::sub(ahi, one);
-      break;
-    }
-    case ADD: {
-      W s_hi = bv::add(ahi, bhi);
-      bool no_ovf = !(bv::ult(s_hi, ahi) || ugt(s_hi, pmask));
-      if (no_ovf) {
-        bool ok_hi = !bv::ult(rhi, slo);
-        if (ok_hi) {
-          nlo = !bv::ult(rlo, shi) ? bv::sub(rlo, shi) : z;
-          nhi = bv::sub(rhi, slo);
-        } else {
-          nlo = one;  // empty interval
-          nhi = z;
-        }
-      }
-      break;
-    }
-    case SUB: {
-      // forward-exact gate: a >= b guaranteed (alo >= bhi)
-      if (bv::ult(alo, bhi)) break;
-      if (r0) {
-        // a = r + b under add no-wrap
-        W s2 = bv::add(rhi, bhi);
-        if (!(bv::ult(s2, rhi) || ugt(s2, pmask))) {
-          nlo = bv::add(rlo, blo);
-          nhi = s2;
-        }
-      } else if (r1) {
-        // b = a - r
-        if (!bv::ult(ahi, rlo)) {
-          nlo = !bv::ult(alo, rhi) ? bv::sub(alo, rhi) : z;
-          nhi = bv::sub(ahi, rlo);
-        } else {
-          nlo = one;
-          nhi = z;
-        }
-      }
-      break;
-    }
-    case BAND:
-      nk0 = bv::bor(ck0, bv::band(rk0, sk1));
-      nk1 = bv::bor(ck1, bv::band(rk1, pmask));
-      break;
-    case BOR:
-      nk0 = bv::bor(ck0, bv::band(rk0, pmask));
-      nk1 = bv::bor(ck1, bv::band(rk1, sk0));
-      break;
-    case BXOR:
-      nk0 = bv::bor(ck0, bv::band(bv::bor(bv::band(rk0, sk0), bv::band(rk1, sk1)), pmask));
-      nk1 = bv::bor(ck1, bv::band(bv::bor(bv::band(rk1, sk0), bv::band(rk0, sk1)), pmask));
-      break;
-    case BNOT:
-      nk0 = bv::bor(ck0, bv::band(rk1, pmask));
-      nk1 = bv::bor(ck1, bv::band(rk0, pmask));
-      break;
-    case SHL:
-      if (bv::eq(blo, bhi)) {
-        W surv = bv::shr(pmask, blo);
-        nk0 = bv::bor(ck0, bv::band(bv::shr(rk0, blo), surv));
-        nk1 = bv::bor(ck1, bv::band(bv::shr(rk1, blo), surv));
-      }
-      break;
-    case LSHR:
-      if (bv::eq(blo, bhi)) {
-        nk0 = bv::bor(ck0, bv::band(bv::shl(rk0, blo), pmask));
-        nk1 = bv::bor(ck1, bv::band(bv::shl(rk1, blo), pmask));
-      }
-      break;
-    case COPY:
-      nlo = max_n(clo, rlo);
-      nhi = min_n(chi, rhi);
-      nk0 = bv::bor(ck0, rk0);
-      nk1 = bv::bor(ck1, rk1);
-      break;
-    case EXTRACT: {
-      W lb = bv::from_u32(R.lob[j]);
-      nk0 = bv::bor(ck0, bv::shl(bv::band(rk0, paux), lb));
-      nk1 = bv::bor(ck1, bv::shl(bv::band(rk1, paux), lb));
-      break;
-    }
-    case CONCAT2: {
-      W bw = bv::from_u32(paux.l[0]);
-      if (r0) {
-        W hs = bv::shr(pmask, bw);
-        nk0 = bv::bor(ck0, bv::band(bv::shr(rk0, bw), hs));
-        nk1 = bv::bor(ck1, bv::band(bv::shr(rk1, bw), hs));
-      } else {
-        W low = bv::bnot(bv::shl(ones(), bw));
-        nk0 = bv::bor(ck0, bv::band(rk0, low));
-        nk1 = bv::bor(ck1, bv::band(rk1, low));
-      }
-      break;
-    }
-    case ITE:
-      // args = (cond, then, else): a branch the condition selects
-      // equals the parent
-      if ((alo.l[0] == 0 && r1) || (ahi.l[0] == 0 && r2)) {
-        nlo = rlo;
-        nhi = rhi;
-        nk0 = rk0;
-        nk1 = rk1;
-      }
-      break;
-    case BAND2:  // AND true -> target true; AND false, sibling true
-      if (mtrue) nlo.l[0] = 0;
-      if (mfalse && slo.l[0] == 0) nhi.l[0] = 0;
-      break;
-    case BOR2:  // OR false -> target false; OR true, sibling false
-      if (mtrue && shi.l[0] == 0) nlo.l[0] = 0;
-      if (mfalse) nhi.l[0] = 0;
-      break;
-    case BNOT1:
-      if (mfalse) nlo.l[0] = 0;
-      if (mtrue) nhi.l[0] = 0;
-      break;
+// a node's or a target's row flags (the plan's lvl_bool/lvl_num, tbool/tnum)
+enum { FL_BOOL = 1, FL_NUM = 2 };
+
+// K6's op classes, one instantiation (and launch) each, so that the heavy
+// transfers do not set the light ones' register count: 0 the bool-valued
+// ops, 2 MUL, UDIV, UREM and BOR/BXOR's smear, 1 the rest. The layout
+// builder orders nodes by these classes (ops/propagate.py fwd_classes
+// reads them through prop_fwd_class).
+__host__ __device__ constexpr int fwd_class(int op) {
+  return (op == EQ || op == ULT || op == ULE || op == BAND2 || op == BOR2 ||
+          op == BNOT1 || op == BXOR2 || op == BITE)
+             ? 0
+             : (op == MUL || op == UDIV || op == UREM || op == BOR || op == BXOR) ? 2 : 1;
+}
+
+// a row's limb 0, or the whole row
+template <bool LIMB0>
+__device__ __forceinline__ W ldrow(const uint32_t* p) {
+  if (LIMB0) {
+    W w = bv::zero();
+    w.l[0] = p[0];
+    return w;
+  }
+  return ldw(p);
+}
+
+// MET (lo, hi, nk0, nk1) into node row r; kb: the op has a known-bits
+// transfer. A bool row holds (mf, mt) in limb 0 and zeros above (the
+// invariant in the header), so its meet is an AND of limb 0.
+__device__ __forceinline__ bool fwd_store(const Tabs& t, size_t r, int flags, const W& lo,
+                                          const W& hi, const W& nk0, const W& nk1,
+                                          bool kb) {
+  if (flags & FL_BOOL) {
+    const uint32_t clo = t.lo[r], chi = t.hi[r];
+    const uint32_t nlo = clo & lo.l[0], nhi = chi & hi.l[0];
+    if (nlo != clo) t.lo[r] = nlo;
+    if (nhi != chi) t.hi[r] = nhi;
+    return nlo != clo || nhi != chi;
+  }
+  if (!(flags & FL_NUM)) return false;
+  const W clo = ldw(t.lo + r), chi = ldw(t.hi + r);
+  bool d = put(t.lo + r, max_n(clo, lo), clo);
+  d |= put(t.hi + r, min_n(chi, hi), chi);
+  if (kb && !(bv::is_zero(nk0) && bv::is_zero(nk1))) {  // k | 0 keeps k
+    const W ck0 = ldw(t.k0 + r), ck1 = ldw(t.k1 + r);
+    d |= put(t.k0 + r, bv::bor(ck0, nk0), ck0);
+    d |= put(t.k1 + r, bv::bor(ck1, nk1), ck1);
+  }
+  return d;
+}
+
+// node j of state s under opcode OP: loads only what OP's transfer, its
+// known-bits transfer and the meet read
+template <int OP>
+__device__ __forceinline__ bool fwd_op(const Tabs& t, const FwdNodes& L, int s, int j,
+                                       const int4& e0, const int4& e1) {
+  // bool arguments: limb 0 only (ITE's condition too)
+  constexpr bool A0 = OP == BAND2 || OP == BOR2 || OP == BNOT1 || OP == BXOR2 ||
+                      OP == BITE || OP == ITE;
+  constexpr bool B0 = OP == BAND2 || OP == BOR2 || OP == BXOR2 || OP == BITE;
+  constexpr int NARGS = (OP == BNOT || OP == NEG || OP == COPY || OP == SEXT ||
+                         OP == EXTRACT || OP == BNOT1)
+                            ? 1
+                            : (OP == ITE || OP == BITE) ? 3 : 2;
+  constexpr bool KB = OP == BAND || OP == BOR || OP == BXOR || OP == BNOT || OP == COPY ||
+                      OP == SHL || OP == LSHR || OP == EXTRACT || OP == CONCAT2 ||
+                      OP == ADD || OP == SUB || OP == ITE;  // a known-bits transfer
+  constexpr bool KA = (KB && OP != ITE) || OP == EQ;        // reads a's known bits
+  constexpr bool KBB = OP == BAND || OP == BOR || OP == BXOR || OP == CONCAT2 ||
+                       OP == ADD || OP == SUB || OP == EQ || OP == ITE;  // b's
+  constexpr bool MASK = fwd_class(OP) != 0;
+  constexpr bool AUX = OP == SEXT || OP == EXTRACT || OP == CONCAT2;
+  const W z = bv::zero();
+  const size_t ra = t.row(s, e0.z), rb = t.row(s, e0.w), rc = t.row(s, e1.x);
+  const W m = MASK ? ldw(L.mask + 8 * j) : z, x = AUX ? ldw(L.aux + 8 * j) : z;
+  const W alo = ldrow<A0>(t.lo + ra), ahi = ldrow<A0>(t.hi + ra);
+  W blo = z, bhi = z, clo = z, chi = z;
+  if (NARGS > 1) {
+    blo = ldrow<B0>(t.lo + rb);
+    bhi = ldrow<B0>(t.hi + rb);
+  }
+  if (NARGS > 2) {
+    clo = ldrow<OP == BITE>(t.lo + rc);
+    chi = ldrow<OP == BITE>(t.hi + rc);
+  }
+  W ak0 = z, ak1 = z, bk0 = z, bk1 = z, ck0 = z, ck1 = z;
+  if (KA) {
+    ak0 = ldw(t.k0 + ra);
+    ak1 = ldw(t.k1 + ra);
+  }
+  if (KBB) {
+    bk0 = ldw(t.k0 + rb);
+    bk1 = ldw(t.k1 + rb);
+  }
+  if (OP == ITE) {
+    ck0 = ldw(t.k0 + rc);
+    ck1 = ldw(t.k1 + rc);
+  }
+  W lo, hi, nk0 = z, nk1 = z;
+  transfer(OP, alo, ahi, blo, bhi, clo, chi, m, x, e1.y, e1.z, lo, hi);
+  if (KB) kbits(OP, alo, ahi, blo, bhi, ak0, ak1, bk0, bk1, ck0, ck1, m, x, e1.y, nk0, nk1);
+  if (OP == EQ && !bv::is_zero(bv::bor(bv::band(ak1, bk0), bv::band(ak0, bk1))))
+    hi.l[0] = 0;  // known-bits refutation of EQ
+  return fwd_store(t, t.row(s, e0.x), e1.w, lo, hi, nk0, nk1, KB);
+}
+
+// node j of state s, by its op; CLS: the op class compiled in (the
+// nodes of other classes are not this instantiation's), -1 every class
+template <int CLS>
+__device__ __forceinline__ bool fwd_node(const Tabs& t, const FwdNodes& L, int s, int j) {
+  const int4 e0 = L.ent[2 * j], e1 = L.ent[2 * j + 1];
+  switch (e0.y) {
+#define FWD_CASE(OP)                                  \
+  case OP:                                            \
+    if constexpr (CLS < 0 || fwd_class(OP) == CLS)    \
+      return fwd_op<OP>(t, L, s, j, e0, e1);          \
+    break;
+    FWD_CASE(ADD) FWD_CASE(SUB) FWD_CASE(MUL) FWD_CASE(UDIV) FWD_CASE(UREM)
+    FWD_CASE(BAND) FWD_CASE(BOR) FWD_CASE(BXOR) FWD_CASE(BNOT) FWD_CASE(NEG)
+    FWD_CASE(SHL) FWD_CASE(LSHR) FWD_CASE(COPY) FWD_CASE(SEXT) FWD_CASE(EXTRACT)
+    FWD_CASE(CONCAT2) FWD_CASE(ITE) FWD_CASE(EQ) FWD_CASE(ULT) FWD_CASE(ULE)
+    FWD_CASE(BAND2) FWD_CASE(BOR2) FWD_CASE(BNOT1) FWD_CASE(BXOR2) FWD_CASE(BITE)
+#undef FWD_CASE
     default:
       break;
   }
-  lo = clo;
-  hi = chi;
-  k0 = ck0;
-  k1 = ck1;
-  meet(R.tbool[j] != 0, R.tnum[j] != 0, lo, hi, k0, k1, nlo, nhi, nk0, nk1);
+  return false;
 }
 
-// One round for state s, by the whole block. Phase 1: every entry's
-// candidate from the pre-round rows into the block's staging slots;
-// phase 2, after the barrier: the targets. An entry's target may be
-// another entry's parent or sibling in the same round; the barrier makes
-// every read precede every write, as the JAX gather-then-scatter does.
-// Targets are unique within a round (build_plan), and a thread reads
-// back only the slots it wrote. Every thread of the block must call it;
-// it ends with a barrier. Returns whether this thread stored a word that
-// differs.
-__device__ bool back_state(const Tabs& t, int Wd, const Round& R, uint32_t* slot, int s) {
-  for (int j = threadIdx.x; j < Wd; j += blockDim.x) {
-    if (R.tgt[j] < 0 || R.tgt[j] >= t.T) continue;  // pad: dropped
-    W lo, hi, k0, k1;
-    back_entry(t, R, s, j, lo, hi, k0, k1);
-    stw(slot + 32 * j, lo);
-    stw(slot + 32 * j + 8, hi);
-    stw(slot + 32 * j + 16, k0);
-    stw(slot + 32 * j + 24, k1);
-  }
-  __syncthreads();
-  bool diff = false;
-  for (int j = threadIdx.x; j < Wd; j += blockDim.x) {
-    int tg = R.tgt[j];
-    if (tg < 0 || tg >= t.T) continue;
-    size_t r = t.row(s, tg);
-    diff |= put(t.lo + r, ldw(slot + 32 * j), ldw(t.lo + r));
-    diff |= put(t.hi + r, ldw(slot + 32 * j + 8), ldw(t.hi + r));
-    diff |= put(t.k0 + r, ldw(slot + 32 * j + 16), ldw(t.k0 + r));
-    diff |= put(t.k1 + r, ldw(slot + 32 * j + 24), ldw(t.k1 + r));
-  }
-  __syncthreads();
-  return diff;
+// The nodes [base, base + n) of a level, all of class CLS: a thread a
+// (state, node), the node fastest, so a warp runs 32 neighbouring nodes
+// of one state, of one op but where the op changes (the layout is
+// ordered by op), whose argument and own rows lie side by side in the
+// state's table as the plan numbers them. (The state fastest, a warp
+// one node over 32 states, spreads a warp's loads over 32 tables:
+// 0.6825 ms on the screen wave against 0.7223 before; PERF.md.)
+template <int CLS>
+__global__ void __launch_bounds__(128)
+fwd_kernel(Tabs t, FwdNodes L, int base, int n, int32_t* changed) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)n * t.S) return;
+  if (fwd_node<CLS>(t, L, (int)(i / n), base + (int)(i % n)) && changed) *changed = 1;
 }
 
-// K7: a block takes one state at a time
+// ---------------------------------------------------------------------------
+// K7: one backward round over the layout's real entries
+// ---------------------------------------------------------------------------
+
+// A round of the kernel layout: its real entries, ordered by (op, role,
+// target kind), two int4 an entry: {parent, a, b, tgt} and {tgt_c, code,
+// soff, lob}; code = op | role << 8 | flags << 16 (the target's FL_BOOL,
+// FL_NUM); soff is the word offset of the entry's staging slot. Rows
+// are clamped into the table (the JAX gather clamps).
+struct BackEntries {
+  const int4* ent;
+  const uint32_t *pmask, *paux;
+  int n;
+};
+
+// what phase 1 staged for an entry: which of the target's rows differ,
+// and where they sit in its slot (F_L0: limb 0 of lo and hi at words 0
+// and 1; else lo at 0, hi at 8, k0 and k1 at 16 and 24, or at 0 and 8
+// with F_KLOW)
+enum { F_LO = 1, F_HI = 2, F_K0 = 4, F_K1 = 8, F_L0 = 16, F_KLOW = 32 };
+
+// a bool target: limb 0 of lo and hi ANDed with the candidate's (a bool
+// row is zero above limb 0: the header's invariant)
+__device__ __forceinline__ int meet_l0(const Tabs& t, size_t r, bool setlo, uint32_t nlo,
+                                       bool sethi, uint32_t nhi, uint32_t* sl) {
+  int fl = 0;
+  if (setlo) {
+    const uint32_t c = t.lo[r], v = c & nlo;
+    if (v != c) {
+      sl[0] = v;
+      fl |= F_LO;
+    }
+  }
+  if (sethi) {
+    const uint32_t c = t.hi[r], v = c & nhi;
+    if (v != c) {
+      sl[1] = v;
+      fl |= F_HI;
+    }
+  }
+  return fl ? fl | F_L0 : 0;
+}
+
+// an interval candidate (lo where setlo, hi where sethi, else the
+// target's own) met into target row r: max-lo, min-hi for a numeric
+// target, an AND of limb 0 for a bool one
+__device__ __forceinline__ int meet_iv(const Tabs& t, size_t r, bool tb, bool setlo,
+                                       const W& nlo, bool sethi, const W& nhi,
+                                       uint32_t* sl) {
+  if (tb) return meet_l0(t, r, setlo, nlo.l[0], sethi, nhi.l[0], sl);
+  int fl = 0;
+  if (setlo) {
+    const W c = ldw(t.lo + r), v = max_n(c, nlo);
+    if (!bv::eq(v, c)) {
+      stw(sl, v);
+      fl |= F_LO;
+    }
+  }
+  if (sethi) {
+    const W c = ldw(t.hi + r), v = min_n(c, nhi);
+    if (!bv::eq(v, c)) {
+      stw(sl + 8, v);
+      fl |= F_HI;
+    }
+  }
+  return fl;
+}
+
+// known bits x0, x1 ORed into numeric target row r (zero keeps a row)
+__device__ __forceinline__ int meet_k(const Tabs& t, size_t r, const W& x0, const W& x1,
+                                      uint32_t* sl) {
+  int fl = 0;
+  if (!bv::is_zero(x0)) {
+    const W c = ldw(t.k0 + r), v = bv::bor(c, x0);
+    if (!bv::eq(v, c)) {
+      stw(sl, v);
+      fl |= F_K0;
+    }
+  }
+  if (!bv::is_zero(x1)) {
+    const W c = ldw(t.k1 + r), v = bv::bor(c, x1);
+    if (!bv::eq(v, c)) {
+      stw(sl + 8, v);
+      fl |= F_K1;
+    }
+  }
+  return fl ? fl | F_KLOW : 0;
+}
+
+// a whole-row candidate (the sibling's or the parent's rows) met into
+// target row r
+__device__ __forceinline__ int meet_rows(const Tabs& t, size_t r, bool tb, size_t q,
+                                         uint32_t* sl) {
+  if (tb) return meet_l0(t, r, true, t.lo[q], true, t.hi[q], sl);
+  int fl = meet_iv(t, r, false, true, ldw(t.lo + q), true, ldw(t.hi + q), sl);
+  const W c0 = ldw(t.k0 + r), v0 = bv::bor(c0, ldw(t.k0 + q));
+  const W c1 = ldw(t.k1 + r), v1 = bv::bor(c1, ldw(t.k1 + q));
+  if (!bv::eq(v0, c0)) {
+    stw(sl + 16, v0);
+    fl |= F_K0;
+  }
+  if (!bv::eq(v1, c1)) {
+    stw(sl + 24, v1);
+    fl |= F_K1;
+  }
+  return fl;
+}
+
+// Phase 1 of entry j for state s: the rule's candidate from the
+// pre-round rows, loading only what the rule and the meet read, met
+// into the target's current rows; the rows that differ go to the slot
+// sl. Returns the F_ flags (0: the target keeps its rows).
+__device__ int back_rule(const Tabs& t, const BackEntries& R, int s, int j, const int4& e0,
+                         const int4& e1, uint32_t* sl) {
+  const int op = e1.y & 0xff, role = (e1.y >> 8) & 0xff, tf = e1.y >> 16;
+  if (!(tf & (FL_BOOL | FL_NUM))) return 0;  // neither: the meet keeps the row
+  const bool tb = tf & FL_BOOL, r0 = role == 0, r1 = role == 1;
+  const size_t rp = t.row(s, e0.x), ra = t.row(s, e0.y), rb = t.row(s, e0.z);
+  const size_t rc = t.row(s, e1.x), rs = r0 ? rb : ra;  // target, sibling
+  const W one = bv::from_u32(1u), z = bv::zero();
+  switch (op) {
+    case EQ:
+      if (t.lo[rp] != 0) return 0;  // the parent may be false
+      return meet_rows(t, rc, tb, rs, sl);
+    case ULT:
+    case ULE: {
+      const bool mt = t.lo[rp] == 0, mf = t.hi[rp] == 0;
+      bool sl_ = false, sh = false;
+      W nlo = z, nhi = z;
+      if (op == ULT) {
+        // a < b: a <= b.hi-1, b >= a.lo+1; !(a < b): a >= b.lo, b <= a.hi
+        if (r0 && mt) {
+          const W bhi = ldw(t.hi + rb);
+          sh = !bv::is_zero(bhi);
+          nhi = bv::sub(bhi, one);
+        }
+        if (r0 && mf) {
+          nlo = ldw(t.lo + rb);
+          sl_ = true;
+        }
+        if (r1 && mt) {
+          nlo = bv::add(ldw(t.lo + ra), one);
+          sl_ = !bv::is_zero(nlo);
+        }
+        if (r1 && mf) {
+          nhi = ldw(t.hi + ra);
+          sh = true;
+        }
+      } else {
+        // a <= b: a <= b.hi, b >= a.lo; !(a <= b): a >= b.lo+1, b <= a.hi-1
+        if (r0 && mt) {
+          nhi = ldw(t.hi + rb);
+          sh = true;
+        }
+        if (r0 && mf) {
+          nlo = bv::add(ldw(t.lo + rb), one);
+          sl_ = !bv::is_zero(nlo);
+        }
+        if (r1 && mt) {
+          nlo = ldw(t.lo + ra);
+          sl_ = true;
+        }
+        if (r1 && mf) {
+          const W ahi = ldw(t.hi + ra);
+          sh = !bv::is_zero(ahi);
+          nhi = bv::sub(ahi, one);
+        }
+      }
+      if (!sl_ && !sh) return 0;
+      return meet_iv(t, rc, tb, sl_, nlo, sh, nhi, sl);
+    }
+    case ADD: {
+      const W ahi = ldw(t.hi + ra), bhi = ldw(t.hi + rb), pm = ldw(R.pmask + 8 * j);
+      const W rlo = ldw(t.lo + rp), rhi = ldw(t.hi + rp), slo = ldw(t.lo + rs);
+      const W s_hi = bv::add(ahi, bhi);
+      if (bv::ult(s_hi, ahi) || ugt(s_hi, pm)) return 0;
+      const W shi = r0 ? bhi : ahi;
+      W nlo = one, nhi = z;  // empty interval
+      if (!bv::ult(rhi, slo)) {
+        nlo = !bv::ult(rlo, shi) ? bv::sub(rlo, shi) : z;
+        nhi = bv::sub(rhi, slo);
+      }
+      return meet_iv(t, rc, tb, true, nlo, true, nhi, sl);
+    }
+    case SUB: {
+      // forward-exact gate: a >= b guaranteed (alo >= bhi)
+      const W alo = ldw(t.lo + ra), bhi = ldw(t.hi + rb);
+      const W rlo = ldw(t.lo + rp), rhi = ldw(t.hi + rp);
+      if (bv::ult(alo, bhi)) return 0;
+      W nlo = one, nhi = z;
+      if (r0) {
+        // a = r + b under add no-wrap
+        const W s2 = bv::add(rhi, bhi);
+        if (bv::ult(s2, rhi) || ugt(s2, ldw(R.pmask + 8 * j))) return 0;
+        nlo = bv::add(rlo, ldw(t.lo + rb));
+        nhi = s2;
+      } else if (r1) {
+        // b = a - r
+        const W ahi = ldw(t.hi + ra);
+        if (!bv::ult(ahi, rlo)) {
+          nlo = !bv::ult(alo, rhi) ? bv::sub(alo, rhi) : z;
+          nhi = bv::sub(ahi, rlo);
+        }
+      } else {
+        return 0;
+      }
+      return meet_iv(t, rc, tb, true, nlo, true, nhi, sl);
+    }
+    case COPY:
+      if (tb) {
+        const W clo = ldw(t.lo + rc), chi = ldw(t.hi + rc);
+        return meet_l0(t, rc, true, max_n(clo, ldw(t.lo + rp)).l[0], true,
+                       min_n(chi, ldw(t.hi + rp)).l[0], sl);
+      }
+      return meet_rows(t, rc, false, rp, sl);
+    case ITE:
+      // args = (cond, then, else): a branch the condition selects
+      // equals the parent
+      if (!((t.lo[ra] == 0 && r1) || (t.hi[ra] == 0 && role == 2))) return 0;
+      return meet_rows(t, rc, tb, rp, sl);
+    case BAND2:
+    case BOR2:
+    case BNOT1: {
+      // bool unit propagation; a numeric target's lo keeps its value
+      // (max with itself, limb 0 cleared) and its hi takes limb 0 cleared
+      const bool mt = t.lo[rp] == 0, mf = t.hi[rp] == 0;
+      bool clo, chi;
+      if (op == BAND2) {  // AND true -> target true; AND false, sibling true
+        clo = mt;
+        chi = mf && t.lo[rs] == 0;
+      } else if (op == BOR2) {  // OR false -> target false; OR true, sibling false
+        clo = mt && t.hi[rs] == 0;
+        chi = mf;
+      } else {
+        clo = mf;
+        chi = mt;
+      }
+      return meet_l0(t, rc, clo && tb, 0u, chi, 0u, sl);
+    }
+    default:
+      break;
+  }
+  // the known-bits rules: a numeric target's k0, k1; a bool target keeps
+  // its rows
+  if (tb) return 0;
+  const W rk0 = ldw(t.k0 + rp), rk1 = ldw(t.k1 + rp);
+  switch (op) {
+    case BAND: {
+      const W pm = ldw(R.pmask + 8 * j);
+      return meet_k(t, rc, bv::band(rk0, ldw(t.k1 + rs)), bv::band(rk1, pm), sl);
+    }
+    case BOR: {
+      const W pm = ldw(R.pmask + 8 * j);
+      return meet_k(t, rc, bv::band(rk0, pm), bv::band(rk1, ldw(t.k0 + rs)), sl);
+    }
+    case BXOR: {
+      const W pm = ldw(R.pmask + 8 * j), sk0 = ldw(t.k0 + rs), sk1 = ldw(t.k1 + rs);
+      return meet_k(t, rc, bv::band(bv::bor(bv::band(rk0, sk0), bv::band(rk1, sk1)), pm),
+                    bv::band(bv::bor(bv::band(rk1, sk0), bv::band(rk0, sk1)), pm), sl);
+    }
+    case BNOT: {
+      const W pm = ldw(R.pmask + 8 * j);
+      return meet_k(t, rc, bv::band(rk1, pm), bv::band(rk0, pm), sl);
+    }
+    case SHL:
+    case LSHR: {
+      const W blo = ldw(t.lo + rb), bhi = ldw(t.hi + rb), pm = ldw(R.pmask + 8 * j);
+      if (!bv::eq(blo, bhi)) return 0;
+      if (op == SHL) {
+        const W surv = bv::shr(pm, blo);
+        return meet_k(t, rc, bv::band(bv::shr(rk0, blo), surv),
+                      bv::band(bv::shr(rk1, blo), surv), sl);
+      }
+      return meet_k(t, rc, bv::band(bv::shl(rk0, blo), pm), bv::band(bv::shl(rk1, blo), pm),
+                    sl);
+    }
+    case EXTRACT: {
+      const W pa = ldw(R.paux + 8 * j), lb = bv::from_u32((uint32_t)e1.w);
+      return meet_k(t, rc, bv::shl(bv::band(rk0, pa), lb), bv::shl(bv::band(rk1, pa), lb),
+                    sl);
+    }
+    case CONCAT2: {
+      const W bw = bv::from_u32(R.paux[8 * j]);
+      if (r0) {
+        const W hs = bv::shr(ldw(R.pmask + 8 * j), bw);
+        return meet_k(t, rc, bv::band(bv::shr(rk0, bw), hs), bv::band(bv::shr(rk1, bw), hs),
+                      sl);
+      }
+      const W low = bv::bnot(bv::shl(ones(), bw));
+      return meet_k(t, rc, bv::band(rk0, low), bv::band(rk1, low), sl);
+    }
+    default:
+      return 0;
+  }
+}
+
+// Phase 2: the rows phase 1 staged for entry j of state s
+__device__ __forceinline__ void back_write(const Tabs& t, int s, int tgt, int fl,
+                                           const uint32_t* sl) {
+  const size_t r = t.row(s, tgt);
+  if (fl & F_L0) {
+    if (fl & F_LO) t.lo[r] = sl[0];
+    if (fl & F_HI) t.hi[r] = sl[1];
+    return;
+  }
+  if (fl & F_LO) stw(t.lo + r, ldw(sl));
+  if (fl & F_HI) stw(t.hi + r, ldw(sl + 8));
+  const int k = (fl & F_KLOW) ? 0 : 16;
+  if (fl & F_K0) stw(t.k0 + r, ldw(sl + k));
+  if (fl & F_K1) stw(t.k1 + r, ldw(sl + k + 8));
+}
+
+// The entries [lo, hi) of a round for state s, by the whole block (every
+// thread calls it). Phase 1: each thread computes its entries'
+// candidates from the pre-round rows and stages the rows that differ,
+// with their flags, in its own slots of the block's staging (flags:
+// words [0, hi - lo); slots: at each entry's soff); then one barrier,
+// which also tells whether any entry changed a row (the return value,
+// the same in every thread); phase 2: the same thread stores its
+// entries' staged rows. An entry's target may be another entry's
+// parent, sibling or condition in the same round: the barrier puts
+// every read of the round before every write, as the JAX
+// gather-then-scatter does. A thread reads back only the slots it
+// wrote, so the staging can take the next state or round without a
+// second barrier (a pass that then reads the tables needs one).
+__device__ __forceinline__ bool back_block(const Tabs& t, const BackEntries& R, int lo, int hi,
+                                           uint32_t* stage, int s) {
+  int* flags = reinterpret_cast<int*>(stage);
+  bool d = false;
+  for (int j = lo + threadIdx.x; j < hi; j += blockDim.x) {
+    const int4 e0 = R.ent[2 * j], e1 = R.ent[2 * j + 1];
+    const int fl = back_rule(t, R, s, j, e0, e1, stage + e1.z);
+    flags[j - lo] = fl;
+    d |= fl != 0;
+  }
+  if (!__syncthreads_or(d)) return false;
+  for (int j = lo + threadIdx.x; j < hi; j += blockDim.x) {
+    const int fl = flags[j - lo];
+    if (fl) back_write(t, s, R.ent[2 * j].w, fl, stage + R.ent[2 * j + 1].z);
+  }
+  return true;
+}
+
+// A block takes a state at a time (grid-stride), the round's entries by
+// back_block. SMEM: the staging is the block's dynamic shared memory,
+// else its part of a global buffer.
+template <bool SMEM>
 __global__ void __launch_bounds__(256)
-back_kernel(Tabs t, int Wd, Round R, uint32_t* stage, int32_t* changed) {
-  uint32_t* slot = stage + (size_t)blockIdx.x * Wd * 32;
-  for (int s = blockIdx.x; s < t.S; s += gridDim.x)
-    if (back_state(t, Wd, R, slot, s) && changed) *changed = 1;
+back_kernel(Tabs t, BackEntries R, uint32_t* gstage, int stage_words, int32_t* changed) {
+  extern __shared__ uint4 smem_stage[];
+  uint32_t* stage =
+      SMEM ? reinterpret_cast<uint32_t*>(smem_stage) : gstage + (size_t)blockIdx.x * stage_words;
+  bool any = false;
+  for (int s = blockIdx.x; s < t.S; s += gridDim.x) any |= back_block(t, R, 0, R.n, stage, s);
+  if (any && changed && threadIdx.x == 0) *changed = 1;
 }
 
 // ---------------------------------------------------------------------------
@@ -782,7 +1069,9 @@ verdicts_kernel(Tabs t, const uint8_t* numeric, const uint8_t* isbool,
 // the wave changed and fewer than cap sweeps ran, then the verdicts.
 // Here a block takes one system at a time and runs that whole sequence
 // for it, with a barrier between passes (each pass is the K6, K8 or K7
-// device function, for one system). No grid-wide sync is needed: every
+// device function, for one system: fwd_node over each level's nodes of
+// the kernel layout, exchange_row, back_block over each round's
+// entries). No grid-wide sync is needed: every
 // read and write of a pass is of the system's own rows (the level and
 // round row sets are shared, the tables are not; _exchange_all's
 // numeric mask broadcasts over systems), so systems never depend on one
@@ -798,69 +1087,42 @@ verdicts_kernel(Tabs t, const uint8_t* numeric, const uint8_t* isbool,
 //
 // Bound: bytes. Per sweep a system's four tables are read (and the rows
 // that change written) by its passes; chip_smoke.py counts each
-// system's tables once per sweep it ran. The staging slot of the
-// backward rounds is the block's own (global memory, L1/L2 resident).
+// system's tables once per sweep it ran. The backward rounds stage in
+// the block's own part of a global buffer (L1/L2 resident), each round
+// as K7 lays it out.
 
 struct Passes {
   int L;
-  const int32_t* loff;  // L+1 entry offsets of the levels
-  Level lv;             // the levels' arrays, concatenated (W unused)
+  const int32_t* loff;  // L+1 node offsets of the levels
+  FwdNodes lv;          // the levels' kernel layout, concatenated
   int R;
   const int32_t* roff;  // R+1 entry offsets of the rounds, run order
-  Round rd;             // the rounds' arrays, concatenated
+  BackEntries rd;       // the rounds' kernel layout, concatenated (n unused)
 };
-
-__device__ __forceinline__ Level level_at(const Passes& P, int l) {
-  int o = P.loff[l];
-  Level L = P.lv;
-  L.node += o;
-  L.op += o;
-  L.args += 3 * o;
-  L.mask += 8 * o;
-  L.aux += 8 * o;
-  L.lvl_bool += o;
-  L.lvl_num += o;
-  L.W = P.loff[l + 1] - o;
-  return L;
-}
-
-__device__ __forceinline__ Round round_at(const Passes& P, int q) {
-  int o = P.roff[q];
-  Round R = P.rd;
-  R.parent += o;
-  R.a += o;
-  R.b += o;
-  R.tgt += o;
-  R.tgt_c += o;
-  R.role += o;
-  R.op += o;
-  R.pmask += 8 * o;
-  R.paux += 8 * o;
-  R.lob += o;
-  R.tnum += o;
-  R.tbool += o;
-  return R;
-}
 
 __global__ void __launch_bounds__(128)
 fixpoint_kernel(Tabs t, Passes P, Init in, const uint8_t* numeric, const uint8_t* isbool,
                 int cap, uint32_t* stage, int stage_w, uint8_t* ok, uint8_t* contra,
                 int32_t* sweeps) {
-  uint32_t* slot = stage + (size_t)blockIdx.x * stage_w * 32;
+  uint32_t* slot = stage + (size_t)blockIdx.x * stage_w;
   for (int s = blockIdx.x; s < t.S; s += gridDim.x) {
     init_state(t, in, s);
     int n = 0;
     while (n < cap) {
       bool diff = false;
       for (int l = 0; l < P.L; ++l) {
-        const Level L = level_at(P, l);
-        for (int j = threadIdx.x; j < L.W; j += blockDim.x) diff |= fwd_entry<true>(t, L, s, j);
+        for (int j = P.loff[l] + threadIdx.x; j < P.loff[l + 1]; j += blockDim.x)
+          diff |= fwd_node<-1>(t, P.lv, s, j);
         __syncthreads();
       }
       for (int r = threadIdx.x; r < t.T; r += blockDim.x) diff |= exchange_row(t, numeric, s, r);
       __syncthreads();
-      for (int q = 0; q < P.R; ++q)
-        diff |= back_state(t, P.roff[q + 1] - P.roff[q], round_at(P, q), slot, s);
+      for (int q = 0; q < P.R; ++q) {
+        if (back_block(t, P.rd, P.roff[q], P.roff[q + 1], slot, s)) {
+          diff = true;
+          __syncthreads();  // the next pass reads the rows stored
+        }
+      }
       for (int r = threadIdx.x; r < t.T; r += blockDim.x) diff |= exchange_row(t, numeric, s, r);
       ++n;
       if (!__syncthreads_or(diff)) break;
@@ -885,44 +1147,88 @@ MTT_EXPORT int interval_level(void* lo, void* hi, int S, int T, int Wd, const vo
                               const void* aux, void* stream) {
   Tabs t{(uint32_t*)lo, (uint32_t*)hi, nullptr, nullptr, S, T};
   Level L{(const int32_t*)node, (const int32_t*)op, (const int32_t*)args,
-          (const uint32_t*)mask, (const uint32_t*)aux, nullptr, nullptr, Wd};
+          (const uint32_t*)mask, (const uint32_t*)aux, Wd};
   long long n = (long long)S * Wd;
-  if (n > 0)
-    level_kernel<false><<<grid_for(n, 128), 128, 0, (cudaStream_t)stream>>>(t, L, nullptr);
+  if (n > 0) level_kernel<<<grid_for(n, 128), 128, 0, (cudaStream_t)stream>>>(t, L);
   return (int)cudaGetLastError();
 }
 
-MTT_EXPORT int prop_fwd_level(void* lo, void* hi, void* k0, void* k1, int S, int T, int Wd,
-                              const void* node, const void* op, const void* args,
-                              const void* mask, const void* aux, const void* lvl_bool,
-                              const void* lvl_num, void* changed, void* stream) {
+// K6. ent, mask, aux: the level's kernel layout (FwdNodes); counts: the
+// nodes of op classes 0, 1, 2, in that order in the layout. One launch
+// a class that has nodes.
+MTT_EXPORT int prop_fwd_level(void* lo, void* hi, void* k0, void* k1, int S, int T,
+                              const void* ent, const void* mask, const void* aux, int n0,
+                              int n1, int n2, void* changed, void* stream) {
   Tabs t{(uint32_t*)lo, (uint32_t*)hi, (uint32_t*)k0, (uint32_t*)k1, S, T};
-  Level L{(const int32_t*)node, (const int32_t*)op, (const int32_t*)args,
-          (const uint32_t*)mask, (const uint32_t*)aux, (const uint8_t*)lvl_bool,
-          (const uint8_t*)lvl_num, Wd};
-  long long n = (long long)S * Wd;
-  if (n > 0)
-    level_kernel<true><<<grid_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
-        t, L, (int32_t*)changed);
+  FwdNodes L{(const int4*)ent, (const uint32_t*)mask, (const uint32_t*)aux};
+  cudaStream_t st = (cudaStream_t)stream;
+  int32_t* ch = (int32_t*)changed;
+  if (n0 > 0 && S > 0)
+    fwd_kernel<0><<<grid_for((long long)n0 * S, 128), 128, 0, st>>>(t, L, 0, n0, ch);
+  if (n1 > 0 && S > 0)
+    fwd_kernel<1><<<grid_for((long long)n1 * S, 128), 128, 0, st>>>(t, L, n0, n1, ch);
+  if (n2 > 0 && S > 0)
+    fwd_kernel<2><<<grid_for((long long)n2 * S, 128), 128, 0, st>>>(t, L, n0 + n1, n2, ch);
   return (int)cudaGetLastError();
 }
 
-MTT_EXPORT int prop_back_round(void* lo, void* hi, void* k0, void* k1, int S, int T, int Wd,
-                               const void* parent, const void* a, const void* b,
-                               const void* tgt, const void* tgt_c, const void* role,
-                               const void* op, const void* pmask, const void* paux,
-                               const void* lob, const void* tnum, const void* tbool,
-                               void* stage, int blocks, void* changed, void* stream) {
+// K6's op class of op (fwd_class), for the layout builder to order a
+// level's nodes by
+MTT_EXPORT int prop_fwd_class(int op) { return fwd_class(op); }
+
+// dynamic shared memory a block of K7 may take (the opt-in maximum)
+static int back_smem_max() {
+  int dev = 0, bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return bytes;
+}
+
+// K7's launch shape for a round of stage_words staging words and blocks
+// of threads: out[0] the blocks resident at once (the grid), out[1] 1
+// where the staging fits a block's shared memory, else 0 (it then
+// stages in a global buffer of out[0] x stage_words words). Called for
+// every round before its first launch (ops/propagate.kernel_layout).
+MTT_EXPORT int prop_back_shape(int threads, int stage_words, int* out) {
+  int dev = 0, sms = 0, per = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long bytes = 4LL * stage_words;
+  const int cap = back_smem_max(), smem = bytes <= cap;
+  if (smem) {
+    // the cap every round's launch may then take (an attribute of the
+    // kernel, not of a launch)
+    cudaFuncSetAttribute(back_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, cap);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, back_kernel<true>, threads,
+                                                  (size_t)bytes);
+  } else {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, back_kernel<false>, threads, 0);
+  }
+  out[0] = sms * (per > 0 ? per : 1);
+  out[1] = smem;
+  return (int)cudaGetLastError();
+}
+
+// K7. ent, pmask, paux, n: the round's kernel layout (BackEntries);
+// stage_words: its staging a block; threads, blocks: prop_back_shape's
+// block and grid; gstage: null to stage in shared memory, else a buffer
+// of blocks x stage_words words.
+MTT_EXPORT int prop_back_round(void* lo, void* hi, void* k0, void* k1, int S, int T,
+                               const void* ent, const void* pmask, const void* paux, int n,
+                               int stage_words, int threads, int blocks, void* gstage,
+                               void* changed, void* stream) {
   Tabs t{(uint32_t*)lo, (uint32_t*)hi, (uint32_t*)k0, (uint32_t*)k1, S, T};
-  Round R{(const int32_t*)parent, (const int32_t*)a, (const int32_t*)b,
-          (const int32_t*)tgt, (const int32_t*)tgt_c, (const int32_t*)role,
-          (const int32_t*)op, (const uint32_t*)pmask, (const uint32_t*)paux,
-          (const uint32_t*)lob, (const uint8_t*)tnum, (const uint8_t*)tbool};
-  int threads = 32;
-  while (threads < Wd && threads < 256) threads <<= 1;
-  if (S > 0 && Wd > 0 && blocks > 0)
-    back_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(t, Wd, R, (uint32_t*)stage,
-                                                              (int32_t*)changed);
+  BackEntries R{(const int4*)ent, (const uint32_t*)pmask, (const uint32_t*)paux, n};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (S > 0 && n > 0 && blocks > 0) {
+    if (gstage == nullptr) {
+      back_kernel<true><<<blocks, threads, 4 * (size_t)stage_words, st>>>(
+          t, R, nullptr, stage_words, (int32_t*)changed);
+    } else {
+      back_kernel<false><<<blocks, threads, 0, st>>>(t, R, (uint32_t*)gstage, stage_words,
+                                                     (int32_t*)changed);
+    }
+  }
   return (int)cudaGetLastError();
 }
 
@@ -970,14 +1276,14 @@ MTT_EXPORT int prop_verdicts(void* lo, void* hi, void* k0, void* k1, int S, int 
   return (int)cudaGetLastError();
 }
 
-// K11. tabs: the four (S, T, 8) tables, written whole; lv: node, op,
-// args, mask, aux, lvl_bool, lvl_num of every level, concatenated;
-// rd: parent, a, b, tgt, tgt_c, role, op, pmask, paux, lob, tnum, tbool
-// of every round in run order (levels from the last, each level's rounds
-// in order), concatenated; loff, roff: device offsets (L+1, R+1) of each
-// level and round; init: init_lo, init_hi, init_k0, init_k1, seed_idx,
-// seed_lo, seed_hi, assert_idx, assert_mask. stage: blocks x stage_w x 32
-// words (stage_w at least the widest round); blocks: the grid
+// K11. tabs: the four (S, T, 8) tables, written whole; lv: ent, mask,
+// aux of every level's kernel layout (FwdNodes), concatenated; rd: ent,
+// pmask, paux of every round's (BackEntries) in run order (levels from
+// the last, each level's rounds in order), concatenated; loff, roff:
+// device offsets (L+1, R+1) of each level and round; init: init_lo,
+// init_hi, init_k0, init_k1, seed_idx, seed_lo, seed_hi, assert_idx,
+// assert_mask. stage: blocks x stage_w words (stage_w a multiple of 4,
+// at least the largest staging of a round); blocks: the grid
 // (prop_fixpoint_blocks gives the count resident at once). Writes ok,
 // contra and each system's sweep count.
 MTT_EXPORT int prop_fixpoint(void** tabs, int S, int T, void** lv, const void* loff, int L,
@@ -990,15 +1296,10 @@ MTT_EXPORT int prop_fixpoint(void** tabs, int S, int T, void** lv, const void* l
   Passes P;
   P.L = L;
   P.loff = (const int32_t*)loff;
-  P.lv = Level{(const int32_t*)lv[0], (const int32_t*)lv[1], (const int32_t*)lv[2],
-               (const uint32_t*)lv[3], (const uint32_t*)lv[4], (const uint8_t*)lv[5],
-               (const uint8_t*)lv[6], 0};
+  P.lv = FwdNodes{(const int4*)lv[0], (const uint32_t*)lv[1], (const uint32_t*)lv[2]};
   P.R = R;
   P.roff = (const int32_t*)roff;
-  P.rd = Round{(const int32_t*)rd[0], (const int32_t*)rd[1], (const int32_t*)rd[2],
-               (const int32_t*)rd[3], (const int32_t*)rd[4], (const int32_t*)rd[5],
-               (const int32_t*)rd[6], (const uint32_t*)rd[7], (const uint32_t*)rd[8],
-               (const uint32_t*)rd[9], (const uint8_t*)rd[10], (const uint8_t*)rd[11]};
+  P.rd = BackEntries{(const int4*)rd[0], (const uint32_t*)rd[1], (const uint32_t*)rd[2], 0};
   Init in = make_init(init[0], init[1], init[2], init[3], init[4], init[5], init[6], V,
                       init[7], init[8], A);
   if (S > 0 && T > 0 && blocks > 0)

@@ -611,8 +611,10 @@ _I = ctypes.c_int
 #: bind through ``screen_lib``, so the library gets them all at once)
 SCREEN_SIGS = {
     "interval_level": [_P, _P, _I, _I, _I] + [_P] * 6,
-    "prop_fwd_level": [_P] * 4 + [_I] * 3 + [_P] * 9,
-    "prop_back_round": [_P] * 4 + [_I] * 3 + [_P] * 13 + [_I, _P, _P],
+    "prop_fwd_level": [_P] * 4 + [_I] * 2 + [_P] * 3 + [_I] * 3 + [_P] * 2,
+    "prop_back_round": [_P] * 4 + [_I] * 2 + [_P] * 3 + [_I] * 4 + [_P] * 3,
+    "prop_back_shape": [_I, _I, _P],
+    "prop_fwd_class": [_I],
     "prop_init": [_P] * 4 + [_I] * 2 + [_P] * 7 + [_I, _P, _P, _I, _P],
     "prop_exchange": [_P] * 4 + [_I] * 2 + [_P] * 3,
     "prop_verdicts": [_P] * 4 + [_I] * 2 + [_P] * 4 + [_I] + [_P] * 3,

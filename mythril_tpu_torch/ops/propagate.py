@@ -20,6 +20,8 @@ a line-by-line mirror of the JAX function, and a kernel in
 
 - ``fwd_level`` (JAX ``_fwd_level``): K6 ``prop_fwd_level``;
 - ``back_round`` (JAX ``_back_round``): K7 ``prop_back_round``;
+  both take the plan's kernel layout (``kernel_layout``: each level's
+  and round's real entries only, ordered by op), built once a plan;
 - ``init_tables``, ``exchange``, ``verdicts`` (JAX ``_init_tables``,
   ``_exchange_all``, ``_verdicts``): K8 ``prop_init``,
   ``prop_exchange``, ``prop_verdicts``.
@@ -67,7 +69,7 @@ from . import bv256
 from .bv256 import M32, i32, u32
 from .intervals import (
     ADD, BAND, BAND2, BNOT, BNOT1, BOR, BOR2, BXOR, CONCAT2, COPY, EQ,
-    EXTRACT, ITE, LSHR, SHL, SUB, ULE, ULT,
+    EXTRACT, ITE, LSHR, NOP, SHL, SUB, ULE, ULT,
     EncodedDAG, _next_pow2, _not, _ugt, _where, check_tables,
     eval_feasible, gather_rows, ints_to_device, linearize, screen_lib,
     smear_plain, state_chunks, transfer_level_plain, words_to_device,
@@ -742,6 +744,174 @@ def changed_plain(prev, tabs) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# the kernel layout of K6 and K7
+# ---------------------------------------------------------------------------
+
+#: K7's staging words of an entry with a numeric target, by rule: lo and
+#: hi (interval rules), k0 and k1 (known-bits rules) or all four; a bool
+#: target, and the bool rules, stage limb 0 of lo and hi (2 words)
+_NUM_SLOT = {ULT: 16, ULE: 16, ADD: 16, SUB: 16, BAND: 16, BOR: 16,
+             BXOR: 16, BNOT: 16, SHL: 16, LSHR: 16, EXTRACT: 16,
+             CONCAT2: 16, EQ: 32, COPY: 32, ITE: 32}
+_BOOL_RULES = (BAND2, BOR2, BNOT1)
+#: K7's block: at most this many threads, a warp at least
+BACK_THREADS = 256
+
+
+def _lookup(table, ops):
+    lut = torch.zeros(32, dtype=torch.long, device=ops.device)
+    for op, v in table.items():
+        lut[op] = v
+    return lut[ops.long()]
+
+
+def _take(d: dict, order) -> dict:
+    return {k: (v[order] if torch.is_tensor(v) else v) for k, v in d.items()}
+
+
+def level_layout(level: dict, n_rows: int, classes=None) -> dict:
+    """A level's real nodes (not NOP, inside the table: the rows the
+    JAX ``_fwd_level`` writes), ordered by (class, op), ``classes[op]``
+    the class of each opcode (K6's, ``fwd_classes``; None: one class,
+    0): the level's own keys in that order, which the plain version
+    takes as it takes the level, and K6's ``ent`` ((n, 8) int32: node,
+    op, the three argument rows clamped into the table, the raw second
+    and third arguments, the row flags) and ``counts`` (nodes a class).
+    A level's nodes are distinct and each writes only its own row, so
+    their order does not change the result."""
+    op, node = level["op"], level["node"]
+    real = torch.nonzero((op != NOP) & (node >= 0)
+                         & (node < n_rows)).reshape(-1)
+    cls = _lookup(dict(enumerate(classes or ())), op[real])
+    order = real[torch.sort(cls * 32 + op[real].long(), stable=True).indices]
+    out = _take(level, order)
+    args = out["args"].long()
+    rows = args.clamp(0, n_rows - 1)
+    flags = (out["lvl_bool"] != 0).long() | ((out["lvl_num"] != 0).long() << 1)
+    out["ent"] = torch.stack(
+        [out["node"].long(), out["op"].long(), rows[:, 0], rows[:, 1],
+         rows[:, 2], args[:, 1], args[:, 2], flags], 1).to(torch.int32)
+    out["counts"] = torch.bincount(cls, minlength=3).tolist()
+    out["n_rows"] = n_rows
+    return out
+
+
+def round_layout(rnd: dict, n_rows: int) -> dict:
+    """A round's real entries (target inside the table: the JAX
+    ``mode="drop"`` drops the rest), ordered by (op, role, bool target):
+    the round's own keys in that order, which the plain version takes,
+    and K7's ``ent`` ((n, 8) int32: parent, a, b, tgt, tgt_c, code =
+    op | role << 8 | (tbool | tnum << 1) << 16, the staging slot's word
+    offset, lob) and ``stage_words`` (the flags, one word an entry,
+    rounded to four; then the numeric slots, 16-byte aligned; then the
+    2-word slots; the whole rounded to four, so that a block's part of
+    a global buffer starts 16-byte aligned). A round's targets are
+    distinct, and every entry reads the pre-round rows, so the order
+    does not change the result."""
+    tgt = rnd["tgt"]
+    real = torch.nonzero((tgt >= 0) & (tgt < n_rows)).reshape(-1)
+    key = (rnd["op"][real].long() * 4 + rnd["role"][real].long()) * 2 \
+        + (rnd["tbool"][real] != 0).long()
+    order = real[torch.sort(key, stable=True).indices]
+    out = _take(rnd, order)
+    n = order.numel()
+    op = out["op"].long()
+    tb, tn = out["tbool"] != 0, out["tnum"] != 0
+    l0 = tb | (tn & torch.isin(op, torch.tensor(_BOOL_RULES,
+                                                  device=op.device)))
+    num = torch.where(tn & ~l0, _lookup(_NUM_SLOT, op), 0)
+    l0w = torch.where(l0, 2, 0)
+    flags_w = -(-n // 4) * 4
+    num_end = flags_w + int(num.sum())
+    soff = torch.where(l0, num_end + torch.cumsum(l0w, 0) - l0w,
+                       flags_w + torch.cumsum(num, 0) - num)
+    code = op | (out["role"].long() << 8) \
+        | ((tb.long() | (tn.long() << 1)) << 16)
+    rows = [out[k].long().clamp(0, n_rows - 1)
+            for k in ("parent", "a", "b", "tgt_c")]
+    out["ent"] = torch.stack(
+        rows[:3] + [out["tgt"].long(), rows[3], code, soff,
+                    out["lob"].long()], 1).to(torch.int32)
+    out["stage_words"] = -(-(num_end + int(l0w.sum())) // 4) * 4
+    out["n_rows"] = n_rows
+    return out
+
+
+def kernel_layout(core: dict) -> dict:
+    """K6's and K7's layout of the plan: ``levels`` and ``back`` as in
+    ``core``, each level and round holding its real entries only
+    (``level_layout``, ``round_layout``). Built at the first call on
+    ``core`` and kept there; on a CUDA plan the levels are ordered by
+    K6's op classes, each level and round also gets its launch
+    arguments, checked once (``launch``), and the rounds whose staging
+    outgrows a block's shared memory share one global buffer
+    (``stage``)."""
+    if "layout" not in core:
+        n_rows = core["init_lo"].shape[0]
+        cuda = core["init_lo"].is_cuda
+        classes = fwd_classes() if cuda else None
+        lay = dict(levels=[level_layout(lv, n_rows, classes)
+                           for lv in core["levels"]],
+                   back=[[round_layout(r, n_rows) for r in rs]
+                         for rs in core["back"]])
+        if cuda:
+            _bind(lay, core["seed_idx"].shape[0])
+        core["layout"] = lay
+    return core["layout"]
+
+
+def fwd_classes() -> list:
+    """K6's op class of each opcode (``fwd_class`` in csrc/screen.cu), a
+    launch each: 0 the bool-valued ops, 2 the heavy transfers (MUL's
+    512-bit product, UDIV's and UREM's division, BOR's and BXOR's
+    smear), 1 the rest."""
+    _build, lib = screen_lib()
+    return [lib.prop_fwd_class(op) for op in range(32)]
+
+
+def _bind(lay: dict, n_states: int) -> None:
+    """Each level's and round's launch arguments: checked pointers, the
+    class counts; for a round its block, ``grid`` (the blocks resident
+    at once, an occupancy query), its blocks (the grid, and no more
+    than the plan's ``n_states`` where it stages in global memory) and
+    where it stages."""
+    import ctypes
+
+    _build, lib = screen_lib()
+    for lv in lay["levels"]:
+        _build.need_cuda(lv["ent"], torch.int32, "level ent")
+        for key in ("mask", "aux"):
+            _build.need_cuda(lv[key], torch.int32, f"level[{key!r}]")
+        lv["launch"] = (_build.ptr(lv["ent"]), _build.ptr(lv["mask"]),
+                        _build.ptr(lv["aux"]), lv["counts"])
+    rounds = [r for rs in lay["back"] for r in rs]
+    shapes = []
+    for rnd in rounds:
+        for key in ("ent", "pmask", "paux"):
+            _build.need_cuda(rnd[key], torch.int32, f"round[{key!r}]")
+        n = rnd["ent"].shape[0]
+        threads = min(BACK_THREADS, max(32, -(-n // 32) * 32))
+        out = (ctypes.c_int * 2)()
+        _build.check(lib, lib.prop_back_shape(threads, rnd["stage_words"],
+                                              out), "prop_back_shape")
+        rnd["grid"], smem = out[0], bool(out[1])
+        shapes.append((threads, out[0] if smem else min(out[0], n_states),
+                       smem))
+    glob = [r["stage_words"] * blocks
+            for r, (_, blocks, smem) in zip(rounds, shapes) if not smem]
+    stage = None
+    if glob:
+        lay["stage"] = torch.empty(max(max(glob), 1), dtype=torch.int32,
+                                   device=rounds[0]["ent"].device)
+        stage = _build.ptr(lay["stage"])
+    for rnd, (threads, blocks, smem) in zip(rounds, shapes):
+        rnd["launch"] = (_build.ptr(rnd["ent"]), _build.ptr(rnd["pmask"]),
+                         _build.ptr(rnd["paux"]), rnd["ent"].shape[0],
+                         rnd["stage_words"], threads, blocks,
+                         None if smem else stage)
+
+
+# ---------------------------------------------------------------------------
 # kernels K6-K8 (csrc/screen.cu)
 # ---------------------------------------------------------------------------
 
@@ -756,61 +926,61 @@ def _flag_ptr(_build, changed):
 
 
 def fwd_level_kernel(level, tabs, changed=None) -> None:
-    """K6: one forward level, one thread per (state, node); sets
-    ``changed[0]`` when it stores a word that differs."""
+    """K6: one forward level, ``level`` a level of ``kernel_layout``:
+    a launch per op class present (``fwd_classes``), a thread per (state,
+    real node), the node fastest, so a warp runs neighbouring nodes of
+    one op; each op loads only what its transfer and the meet read.
+    Sets ``changed[0]`` when it stores a word that differs."""
     from .. import _build
 
     check_tables(tabs, _TAB_NAMES)
     s, t = tabs[0].shape[:2]
-    w = level["op"].shape[0]
-    for key in ("node", "op", "args", "mask", "aux"):
-        _build.need_cuda(level[key], torch.int32, f"level[{key!r}]")
-    for key in ("lvl_bool", "lvl_num"):
-        _build.need_cuda(level[key], torch.uint8, f"level[{key!r}]")
+    ent, mask, aux, counts = _bound(level, t, "K6")
     flag = _flag_ptr(_build, changed)
     _build, lib = screen_lib()
-    rc = lib.prop_fwd_level(
-        *[_build.ptr(x) for x in tabs], s, t, w,
-        *[_build.ptr(level[k]) for k in ("node", "op", "args", "mask", "aux",
-                                          "lvl_bool", "lvl_num")],
-        flag, _build.stream(tabs[0].device))
-    _build.LAUNCHES["prop_fwd_level"] += 1
+    rc = lib.prop_fwd_level(*[_build.ptr(x) for x in tabs], s, t, ent, mask,
+                            aux, *counts, flag, _build.stream(tabs[0].device))
+    if s:
+        _build.LAUNCHES["prop_fwd_level"] += sum(1 for c in counts if c)
     _build.check(lib, rc, "prop_fwd_level")
 
 
-#: blocks of the backward-round kernel (one state at a time each); its
-#: staging buffer holds one round's candidates per block
-BACK_BLOCKS = 1024
-
-
 def back_round_kernel(rnd, tabs, changed=None) -> None:
-    """K7: one backward round. A block takes one state at a time: its
-    threads compute every entry's candidate from the pre-round rows
-    into a staging buffer, synchronize, then write the targets (so a
-    target that another entry reads as parent or sibling is read before
-    it is written, as in the JAX gather-then-scatter)."""
+    """K7: one backward round, ``rnd`` a round of ``kernel_layout``. A
+    block takes a state at a time: each thread computes its entries'
+    candidates from the pre-round rows (each rule loading only what it
+    and the meet read) and stages the rows that differ in the round's
+    staging (shared memory, or the plan's global buffer where a round's
+    staging outgrows a block's), then, after one barrier, stores them;
+    so a target that another entry reads as parent, sibling or
+    condition is read before it is written, as in the JAX
+    gather-then-scatter. Sets ``changed[0]`` when it stores a word that
+    differs."""
     from .. import _build
 
     check_tables(tabs, _TAB_NAMES)
     s, t = tabs[0].shape[:2]
-    w = rnd["op"].shape[0]
-    keys32 = ("parent", "a", "b", "tgt", "tgt_c", "role", "op", "pmask",
-              "paux", "lob")
-    for key in keys32:
-        _build.need_cuda(rnd[key], torch.int32, f"round[{key!r}]")
-    for key in ("tnum", "tbool"):
-        _build.need_cuda(rnd[key], torch.uint8, f"round[{key!r}]")
+    ent, pmask, paux, n, words, threads, blocks, stage = _bound(rnd, t, "K7")
     flag = _flag_ptr(_build, changed)
     _build, lib = screen_lib()
-    blocks = min(s, BACK_BLOCKS)
-    stage = torch.empty((blocks, w, 4, bv256.NLIMBS), dtype=torch.int32,
-                        device=tabs[0].device)
-    rc = lib.prop_back_round(
-        *[_build.ptr(x) for x in tabs], s, t, w,
-        *[_build.ptr(rnd[k]) for k in keys32 + ("tnum", "tbool")],
-        _build.ptr(stage), blocks, flag, _build.stream(tabs[0].device))
-    _build.LAUNCHES["prop_back_round"] += 1
+    rc = lib.prop_back_round(*[_build.ptr(x) for x in tabs], s, t, ent, pmask,
+                             paux, n, words, threads, min(s, blocks), stage,
+                             flag, _build.stream(tabs[0].device))
+    if s and n:
+        _build.LAUNCHES["prop_back_round"] += 1
     _build.check(lib, rc, "prop_back_round")
+
+
+def _bound(entry, n_rows, what):
+    """The launch arguments ``kernel_layout`` bound to a level or round
+    of a CUDA plan."""
+    if "launch" not in entry:
+        raise ValueError(f"{what} takes a level or round of "
+                         f"kernel_layout(core) on a CUDA plan")
+    if n_rows != entry["n_rows"]:
+        raise ValueError(f"{what}: tables of {n_rows} rows for a plan of "
+                         f"{entry['n_rows']}")
+    return entry["launch"]
 
 
 def _check_core(_build, core, keys):
@@ -924,12 +1094,14 @@ def verdicts(core, tabs, plain=False):
 
 def sweep(core, tabs, changed=None, plain=False) -> None:
     """One sweep in place: forward levels, exchange, backward rounds in
-    reverse level order, exchange."""
-    for level in core["levels"]:
+    reverse level order, exchange. The kernels take the plan's kernel
+    layout, the plain versions the plan as the JAX package builds it."""
+    lay = core if _plain(plain, tabs[0]) else kernel_layout(core)
+    for level in lay["levels"]:
         trace.call_jit("propagate.fwd_level", fwd_level, level, tabs,
                        changed, plain)
     exchange(tabs, core["numeric"], changed, plain)
-    for rounds in reversed(core["back"]):
+    for rounds in reversed(lay["back"]):
         for rnd in rounds:
             trace.call_jit("propagate.back_round", back_round, rnd, tabs,
                            changed, plain)
@@ -986,43 +1158,36 @@ def _fixpoint_plain(core, cap: int):
     return tabs, ok, contra, sweeps, per
 
 
-_LEVEL_KEYS = ("node", "op", "args", "mask", "aux", "lvl_bool", "lvl_num")
-_ROUND_KEYS = ("parent", "a", "b", "tgt", "tgt_c", "role", "op", "pmask",
-               "paux", "lob", "tnum", "tbool")
-_FLAG_KEYS = ("lvl_bool", "lvl_num", "tnum", "tbool")
-
-
-def _cat(xs, key):
-    """Every level's (or round's) ``key`` array, concatenated."""
-    return torch.cat([x[key].reshape(x[key].shape[0], -1) for x in xs])
-
-
 def _offsets(xs, device):
     off = [0]
     for x in xs:
-        off.append(off[-1] + x["op"].shape[0])
+        off.append(off[-1] + x["ent"].shape[0])
     return torch.tensor(off, dtype=torch.int32, device=device)
 
 
-def _fused_plan(_build, core) -> dict:
-    """What K11 reads of the plan's levels and rounds: each key's arrays
-    concatenated, their offsets and the widest round. Built at the
-    first fused call on ``core`` and kept there."""
+def _fused_plan(core) -> dict:
+    """What K11 reads of the plan: the kernel layout's levels and rounds
+    (in run order: levels from the last, each level's rounds in order),
+    their ``ent``, ``mask``, ``aux`` (``pmask``, ``paux``) arrays
+    concatenated, their offsets and the largest staging of a round.
+    Built at the first fused call on ``core`` and kept there."""
     if "fused" not in core:
+        from .. import _build
+
         dev = core["init_lo"].device
-        levels = core["levels"]
-        rounds = [r for rs in reversed(core["back"]) for r in rs]
-        lv = [_cat(levels, k) for k in _LEVEL_KEYS]
-        rd = [_cat(rounds, k) for k in _ROUND_KEYS]
-        for key, x in zip(_LEVEL_KEYS + _ROUND_KEYS, lv + rd):
-            _build.need_cuda(x, torch.uint8 if key in _FLAG_KEYS
-                             else torch.int32, key)
+        lay = kernel_layout(core)
+        levels = lay["levels"]
+        rounds = [r for rs in reversed(lay["back"]) for r in rs]
+        lv = [torch.cat([x[k] for x in levels]) for k in ("ent", "mask",
+                                                          "aux")]
+        rd = [torch.cat([x[k] for x in rounds]) for k in ("ent", "pmask",
+                                                          "paux")]
         core["fused"] = dict(
             lv=lv, rd=rd, lv_ptrs=_build.ptr_array(lv),
             rd_ptrs=_build.ptr_array(rd), loff=_offsets(levels, dev),
             roff=_offsets(rounds, dev), n_levels=len(levels),
             n_rounds=len(rounds),
-            stage_w=max([r["op"].shape[0] for r in rounds] + [1]))
+            stage_w=max([r["stage_words"] for r in rounds] + [4]))
     return core["fused"]
 
 
@@ -1042,7 +1207,7 @@ def fixpoint_kernel(core, cap: int):
     dev = core["init_lo"].device
     n_states, n_v = core["seed_idx"].shape
     n_rows = core["init_lo"].shape[0]
-    fp = _fused_plan(_build, core)
+    fp = _fused_plan(core)
     tabs = tuple(torch.empty((n_states, n_rows, bv256.NLIMBS),
                              dtype=torch.int32, device=dev)
                  for _ in range(4))
@@ -1051,8 +1216,8 @@ def fixpoint_kernel(core, cap: int):
         _FIXPOINT_BLOCKS[str(dev)] = lib.prop_fixpoint_blocks()
     blocks = min(n_states, _FIXPOINT_BLOCKS[str(dev)])
     stage_w = fp["stage_w"]
-    stage = torch.empty((max(blocks, 1), stage_w, 4, bv256.NLIMBS),
-                        dtype=torch.int32, device=dev)
+    stage = torch.empty((max(blocks, 1), stage_w), dtype=torch.int32,
+                        device=dev)
     ok = torch.empty(n_states, dtype=torch.uint8, device=dev)
     contra = torch.empty_like(ok)
     per = torch.zeros(n_states, dtype=torch.int32, device=dev)

@@ -222,3 +222,56 @@ def layered_sets(T=T):
         [eq2, ult2, eq2b, xor3],
         [not3, r[1], lo_a, tops[1], tops[2]],
     ]
+
+
+#: the pairs of the staging edge case: 2 x 1000 EQ entries with numeric
+#: targets stage 256 KB a state, past a block's shared memory
+STAGE_PAIRS = 1000
+
+
+def edge_sets(T=T):
+    """The edge inputs of K6 and K7 (``ops/propagate`` ``fwd_level``,
+    ``back_round``), by name, each a list of assertion sets over one
+    DAG; it takes a term module as ``layered_sets`` does.
+
+    - ``sibling``: ADD(x, y) refines x and y in one round, each entry's
+      target the other's sibling;
+    - ``ite_cond``: in one round an ITE's branches and a bool AND's
+      arguments, one of which is the ITE's condition;
+    - ``one_entry``: a NOT over a comparison, a round of one entry;
+    - ``staging``: ``STAGE_PAIRS`` EQs of two fresh 256-bit variables
+      and an AND of a bool variable and a NOT, one round of 2000
+      numeric targets and one bool target (an odd count of 2-word
+      slots);
+    - ``heavy``: a level of UDIV, UREM and MUL beside ULE nodes;
+    - ``bool_num``: a round with bool targets (an AND of bool variables)
+      and numeric ones (a ULE).
+    """
+    x, y, u, v = (T.bv_var(f"ex{n}", 256) for n in "xyuv")
+    p, q, r = T.bool_var("ep"), T.bool_var("eq"), T.bool_var("er")
+
+    def c(val, w=256):
+        return T.bv_const(val, w)
+
+    total = T.mk_eq(T.mk_add(x, y), c(10))
+    cond = T.mk_ult(u, c(5))
+    pick = T.mk_eq(T.mk_ite(cond, x, y), c(7))
+    xs = [T.bv_var(f"es{i}", 256) for i in range(STAGE_PAIRS)]
+    ys = [T.bv_var(f"et{i}", 256) for i in range(STAGE_PAIRS)]
+    pairs = [T.mk_eq(a, b) for a, b in zip(xs, ys)]
+    heavy = [T.mk_ule(T.mk_udiv(x, y), c(9)), T.mk_ule(T.mk_urem(x, y), c(3)),
+             T.mk_ule(T.mk_mul(x, c(3)), c(600)), T.mk_ule(x, c(100))]
+    return {
+        "sibling": [[total, T.mk_ult(x, c(4))], [total, T.mk_ult(y, c(4))],
+                    [total]],
+        "ite_cond": [[pick, T.mk_bool_and(cond, T.mk_ult(v, c(3)))],
+                     [pick, T.mk_bool_and(T.mk_not(cond), p)], [pick]],
+        "one_entry": [[T.mk_not(T.mk_ult(x, c(5)))],
+                      [T.mk_not(T.mk_ult(x, c(5))), T.mk_ule(c(9), x)]],
+        "staging": [pairs + [T.mk_ult(xs[0], c(9)),
+                             T.mk_bool_and(r, T.mk_not(q))],
+                    pairs + [T.mk_ule(c(4), ys[1])]],
+        "heavy": [heavy, heavy[:2] + [T.mk_ule(c(200), x)], heavy[2:]],
+        "bool_num": [[T.mk_bool_and(p, q), T.mk_ule(x, c(7))],
+                     [T.mk_bool_or(p, q), T.mk_not(p), T.mk_ule(c(5), x)]],
+    }

@@ -74,7 +74,24 @@ def _sidecar(pkg, path):
     return sorted(out)
 
 
+@pytest.fixture
+def _default_solver_pools():
+    """Both packages' solver pools at their default width (up to four
+    workers). An earlier test may leave the port's at one worker
+    (``tests/test_torch_daemon.py``'s ``test_verdict_parity_warm_vs_
+    retired`` ends with ``configure_pool(workers=1)``), and with one
+    worker neither package writes the sidecar for this run
+    (``MTPU_SOLVER_WORKERS=1`` shows it)."""
+    from mythril_tpu.smt.solver.pool import configure_pool as jax_pool
+    from mythril_tpu_torch.smt.solver.pool import configure_pool
+
+    jax_pool()
+    configure_pool()
+    yield
+
+
 @pytest.mark.skipif(not INPUTS.exists(), reason="fixtures not present")
+@pytest.mark.usefixtures("_default_solver_pools")
 def test_checkpoint_run_writes_the_verdict_sidecar(tmp_path):
     """A ``--checkpoint`` run of ``overflow.sol.o`` at two transactions
     leaves ``FILE`` and ``FILE.verdicts`` in the port as in the JAX

@@ -6,6 +6,7 @@
     python3 tools/prof_torch_port.py --packed [--k 11] [--lanes 4096]
     python3 tools/prof_torch_port.py --kernels
     python3 tools/prof_torch_port.py --dedup
+    python3 tools/prof_torch_port.py --tables
 
 Without ``--screen`` or ``--analyze``: builds the kernels, runs the
 device loop (``support/device_loop.DeviceLoop``) on
@@ -22,7 +23,15 @@ window dispatch (launches to the window's outputs on the host), the
 host drain of records and forks, materialize, the K9 fingerprint, the
 device screens (every call of the interval and propagation screens,
 timed to their verdicts), the solver's queries and the rest of the
-host; then once under ``torch.profiler`` for the device busy share.
+host; then once under ``torch.profiler`` for the device busy share;
+then once more with K6's and K7's calls timed one by one, on copies of
+their inputs (a call on CUDA events and its device time behind a spin
+kernel), grouped by (states, table rows, real entries).
+
+With ``--tables``: K5-K8 against their plain versions and timed as
+``chip_smoke.py``'s screen phase does it (``check_screens``, then the
+edge inputs ``check_screen_edges``), after the compiler's register and
+spill lines of ``csrc/screen.cu``.
 
 With ``--packed``: the four members of chip_smoke.py's packed explore
 (``support/runs.pack_codes``) explored solo, one engine each, and
@@ -91,9 +100,90 @@ def _explore(dev, k, lanes):
     return eng.explore(code, [device_loop.tx_entry_seed(eng.objects, 1, 512)])
 
 
-def _analyze_parts(name):
+def _time_screen_kernels(records):
+    """Wrap K6's and K7's wrappers for one analysis: each call is first
+    timed on copies of its input, as a call on CUDA events (the host's
+    launch included) and as device time (events around the call queued
+    behind a spin kernel, the tables as the analysis leaves them in the
+    L2), then run on its input; ``records`` gets (kernel, S, T, real
+    entries, call ms, device ms) a call. Returns the undo."""
+    from chip_smoke import SPIN_CYCLES
+    from mythril_tpu_torch.ops import propagate
+
+    def timed(name, kern):
+        def call(entry, tabs, changed=None):
+            out = []
+            for spin in (False, True):
+                x = tuple(t.clone() for t in tabs)
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                if spin:
+                    torch.cuda._sleep(SPIN_CYCLES)
+                a.record()
+                kern(entry, x)
+                b.record()
+                torch.cuda.synchronize()
+                out.append(a.elapsed_time(b))
+            kern(entry, tabs, changed)
+            records.append((name, tabs[0].shape[0], tabs[0].shape[1],
+                            entry["ent"].shape[0], *out))
+        return call
+
+    saved = (propagate.fwd_level_kernel, propagate.back_round_kernel)
+    propagate.fwd_level_kernel = timed("prop_fwd_level", saved[0])
+    propagate.back_round_kernel = timed("prop_back_round", saved[1])
+
+    def undo():
+        propagate.fwd_level_kernel, propagate.back_round_kernel = saved
+    return undo
+
+
+def _print_screen_shapes(records):
+    """K6's and K7's calls of one analysis by (S, T, real entries): the
+    count, the median call and device ms, the device ms summed."""
+    import statistics
+
+    groups = {}
+    for name, s, t, n, call_ms, dev_ms in records:
+        groups.setdefault((name, s, t, n), []).append((call_ms, dev_ms))
+    print(f"  {'kernel':16s} {'S':>6s} {'T':>6s} {'n':>6s} {'calls':>6s} "
+          f"{'call ms':>9s} {'device ms':>10s} {'device sum':>11s}")
+    for key, got in sorted(groups.items(), key=lambda kv: (kv[0][0],
+                                                           -len(kv[1]))):
+        print(f"  {key[0]:16s} {key[1]:6d} {key[2]:6d} {key[3]:6d} "
+              f"{len(got):6d} {statistics.median(c for c, _ in got):9.4f} "
+              f"{statistics.median(d for _, d in got):10.4f} "
+              f"{sum(d for _, d in got):11.4f}")
+
+
+def _tables(card):
+    """K5-K8 as chip_smoke.py's screen phase holds them: against their
+    plain versions on the all-opcode wave and the edge inputs, and timed
+    at the 8192-system wave's shapes, with the compiler's lines of
+    ``csrc/screen.cu``."""
+    import chip_smoke as cs
+    from mythril_tpu_torch import _build
+
+    dev = torch.device("cuda", 0)
+    _build.build_all()
+    print(f"card: {card}")
+    for line in _build.build_log("screen.cu").splitlines():
+        if "registers" in line or "spill" in line or "Function" in line:
+            print(f"  screen.cu: {line.strip()}")
+    report = {}
+    cs.check_screens(dev, report, cs.screen_wave(dev))
+    cs.check_screen_edges(dev)
+    for name, r in report.items():
+        print(f"{name}: call {r['ms']:.4f} ms, device {r['device_ms']:.4f} "
+              f"ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.1f} ms on {card}")
+
+
+def _analyze_parts(name, shapes=None):
     """One timed ``myth analyze`` of fixture ``name``: (wall s, {part:
-    s}, issues, engine stats)."""
+    s}, issues, engine stats); with ``shapes`` (a list), K6's and K7's
+    calls timed into it (``_time_screen_kernels``)."""
     from mythril_tpu_torch.ops import intervals, propagate
     from mythril_tpu_torch.smt.solver.solver_statistics import (
         SolverStatistics,
@@ -122,6 +212,9 @@ def _analyze_parts(name):
     saved = [(m, f, timed(m, f)) for m, f in (
         (propagate, "prefilter_feasible"), (propagate, "abstraction_sets"),
         (intervals, "prefilter_feasible"), (intervals, "shadow_prefilter"))]
+    if shapes is not None:
+        undo = _time_screen_kernels(shapes)
+        saved.append((None, None, undo))
     ss = SolverStatistics()
     ss.enabled, ss.solver_time = True, 0.0
     le.PROF_ON = True
@@ -135,7 +228,10 @@ def _analyze_parts(name):
         le.PROF_ON = False
         ss.enabled = False
         for m, f, fn in saved:
-            setattr(m, f, fn)
+            if m is None:
+                fn()
+            else:
+                setattr(m, f, fn)
     p = le.PROF
     parts = {
         "window dispatch": p.get("window_exec", 0) + p.get("window_pull", 0)
@@ -456,6 +552,7 @@ def main(argv=None) -> int:
     ap.add_argument("--packed", action="store_true")
     ap.add_argument("--kernels", action="store_true")
     ap.add_argument("--dedup", action="store_true")
+    ap.add_argument("--tables", action="store_true")
     args = ap.parse_args(argv)
     dev = resolve()
     card = subprocess.run(
@@ -470,6 +567,9 @@ def main(argv=None) -> int:
         return 0
     if args.dedup:
         _dedup(card)
+        return 0
+    if args.tables:
+        _tables(card)
         return 0
     if args.analyze:
         _analyze_parts(args.analyze)  # warm: builds, allocator, caches
@@ -488,6 +588,11 @@ def main(argv=None) -> int:
         for e in rows[:15]:
             print(f"  {e.key[:60]:60s} {e.count:7d} "
                   f"{e.self_device_time_total / 1e3:10.3f}")
+        shapes = []
+        _analyze_parts(args.analyze, shapes)
+        print(f"K6 and K7 by call shape ({len(shapes)} calls; a fourth "
+              f"run, each call timed on copies of its input) on {card}:")
+        _print_screen_shapes(shapes)
         return 0
     if args.screen:
         from mythril_tpu_torch.models import pruner
