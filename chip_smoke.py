@@ -877,18 +877,15 @@ def check_window(dev, report):
         "window_prologue": prologue_bytes(st0, i32b, k, pv),
         "window_dedup": live * 36 * 4 + 4 * n * r + 2 * sid_plane_bytes
         + 8 * n,
-        "window_epilogue": n * 32 + n * 28 + 4 * n * r + n * 4
-        + le.RCAP * 4 * 2000 + le.URB * 132 + le.FB * 36,
+        "window_epilogue": epilogue_bytes(ran),
     }
     for name, (kern, plain, src) in stages.items():
         k_ms = cuda_ms(kern, reps=3, setup=lambda s=src: clone_state(s))
         p_ms = cuda_ms(plain, reps=1, setup=lambda s=src: clone_state(s))
-        # K3's rounds are a cooperative launch, which a profiler session
-        # can miss while it records the remap: K3 is timed on CUDA events
-        # behind a spin kernel after an L2 flush, which see every launch
-        d_ms = queued_ms(kern, lambda s=src: clone_state(s)) \
-            if name == "window_dedup" \
-            else device_ms(kern, setup=lambda s=src: clone_state(s))
+        # one launch each, cooperative past one block, which a profiler
+        # session can miss: timed on CUDA events behind a spin kernel
+        # after an L2 flush, which see every launch
+        d_ms = queued_ms(kern, lambda s=src: clone_state(s))
         bms, by = bound_ms(nbytes[name])
         report[name] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                             device_ms=d_ms, bound_ms=bms, bound_by=by)
@@ -961,15 +958,235 @@ def check_window(dev, report):
             # device event, so profile 50 calls of it (it reads the state
             # and writes a table of its own, so no copy is needed)
             d_ms = device_ms(lambda: kern(s_k), reps=50)
-        elif name == "unique_table_big":  # K3 inside: as window_dedup
+        else:  # one launch (retire_rows), or K3's inside: queued
             d_ms = queued_ms(kern, lambda: clone_state(s_k))
-        else:
-            d_ms = device_ms(kern, setup=lambda: clone_state(s_k))
         bms, by = bound_ms(nb)
         log(f"{name}: {k_ms:.4f} ms kernel ({d_ms} ms on the device), "
             f"{p_ms:.2f} ms plain, library {l_ms} ms, bound {bms} ms "
             f"({by})")
     check_k3(dev, report, ran)
+    check_k2_k4(dev, report, (st0, i32b, u8b, k, pv),
+                (deduped, cc, canon, le.DEFAULT_STEP_BUDGET, 1))
+
+
+def epilogue_bytes(st):
+    """Bytes K4 must move (``check_window``'s count, unchanged): the
+    lanes' planes it reads and its counts written, the canon read whole,
+    the retire and the unique and fork tables' rows written."""
+    from mythril_tpu_torch.laser import lane_engine as le
+
+    n, r = st.pc.shape[0], st.dlog_op.shape[1]
+    return n * 32 + n * 28 + 4 * n * r + n * 4 + le.RCAP * 4 * 2000 \
+        + le.URB * 132 + le.FB * 36
+
+
+def to_cpu(st):
+    from mythril_tpu_torch.ops.symstep import FIELDS
+
+    return st.replace(**{f: getattr(st, f).cpu() for f in FIELDS})
+
+
+def window_shapes(kernel, n, dev):
+    """K2's (kernel "prologue") or K4's ("epilogue") launch shapes over n
+    lanes in each mode that holds them: one block up to 2048 lanes (the
+    shape the card gives such a batch), and a cooperative grid (the
+    shape it gives a batch past one block)."""
+    from mythril_tpu_torch.laser import lane_engine as le
+
+    return ((le.window_shape(kernel, n, dev),) if n <= 2048 else ()) + (
+        le.window_shape(kernel, max(n, 2049), dev),)
+
+
+def restore(dst, src):
+    """dst's planes (the same tensors) set to src's: a timed call then
+    finds its state's argument block built, as the engine's calls do."""
+    from mythril_tpu_torch.ops.symstep import FIELDS
+
+    for f in FIELDS:
+        getattr(dst, f).copy_(getattr(src, f))
+    return dst
+
+
+def hold_window(kernel, args, what, shapes=(None,), want=None):
+    """K2 (kernel "prologue": args (state, i32buf, u8buf, k, pv)) or K4
+    ("epilogue": (state, code, canon, budget, resume_on)) on copies of
+    the state against its plain version, in each launch shape (None:
+    ``window_shape``'s): the state and K4's 12 outputs equal, bit for
+    bit, and one CUDA launch a call. ``want``: the plain version's
+    (state, outputs), on the CPU for the edge cases (whose duplicate
+    entries a CUDA scatter would write in any order); else the plain
+    version runs on the card."""
+    import torch
+
+    from mythril_tpu_torch import _build
+    from mythril_tpu_torch.laser import lane_engine as le
+
+    st, rest = args[0], args[1:]
+    kern = le.prologue_kernel if kernel == "prologue" else le.epilogue_kernel
+    plain = le.prologue_plain if kernel == "prologue" else le.epilogue_plain
+    if want is None:
+        out = plain(clone_state(st), *rest)
+        want = (out, ()) if kernel == "prologue" else out
+    key = f"window_{kernel}"
+    for shape in shapes:
+        x = clone_state(st)
+        before = _build.LAUNCHES[key]
+        got = kern(x, *rest, shape=shape)
+        launches = _build.LAUNCHES[key] - before
+        torch.cuda.synchronize()
+        tag = f"{key} {what}, shape {shape or 'default'}"
+        if launches != 1:
+            raise AssertionError(f"{tag}: {launches} CUDA launches a call")
+        cpu = want[0].pc.device.type == "cpu"
+        same_state(to_cpu(x) if cpu else x, want[0], tag)
+        if kernel == "epilogue":
+            same_outputs([o.cpu() for o in got] if cpu else got, want[1],
+                         tag)
+
+
+def returns_early(fn, setup, what):
+    """fn(setup()) queued behind a spin kernel returns while the spin
+    still runs (the call never waits on the card). Returns the call's
+    host milliseconds."""
+    import torch
+
+    fn(setup())
+    x = setup()
+    torch.cuda.synchronize()
+    mark = torch.cuda.Event()
+    torch.cuda._sleep(SPIN_CYCLES)
+    mark.record()
+    t0 = time.perf_counter()
+    fn(x)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    spinning = not mark.query()
+    torch.cuda.synchronize()
+    if not spinning:
+        raise AssertionError(f"{what} returned only after the spin kernel "
+                             f"ended: the call waits on the card")
+    return host_ms
+
+
+def window_inputs(dev, n_lanes, k):
+    """K2's and K4's inputs in the k-contract's device loop at n_lanes:
+    K2's call with the most seed and pair entries (its state, buffers, k,
+    pv) and K4's call on the batch with the most live records and parked
+    lanes (its state, code, canon, budget, resume flag), each copied
+    before the call."""
+    import torch
+
+    from mythril_tpu_torch.laser import lane_engine as le
+
+    best = {}
+    pro, epi = le.prologue_kernel, le.epilogue_kernel
+
+    def keep(key, score, args):
+        if score > best.get(key, (-1,))[0]:
+            best[key] = (score, (clone_state(args[0]),) + tuple(
+                a.clone() if isinstance(a, torch.Tensor) else a
+                for a in args[1:]))
+
+    def catch_pro(st, i32b, u8b, k, pv, **kw):
+        keep("prologue", k * 1_000_000 + pv, (st, i32b, u8b, k, pv))
+        return pro(st, i32b, u8b, k, pv, **kw)
+
+    def catch_epi(st, cc, canon, budget, resume_on, **kw):
+        live = int(st.dlog_count.clamp(0, st.dlog_op.shape[1]).sum()) \
+            + int((st.status == 5).sum())
+        keep("epilogue", live, (st, cc, canon, budget, resume_on))
+        return epi(st, cc, canon, budget, resume_on, **kw)
+
+    le.prologue_kernel, le.epilogue_kernel = catch_pro, catch_epi
+    try:
+        explore(dev, n_lanes, k)
+    finally:
+        le.prologue_kernel, le.epilogue_kernel = pro, epi
+    return best["prologue"][1], best["epilogue"][1]
+
+
+def check_k2_k4(dev, report, pro512, epi512):
+    """K2 and K4 (rows 4, 6) on ``device_loop.k2_edge_cases`` and
+    ``k4_edge_cases`` in one block and on a cooperative grid (the plain
+    versions on the CPU), then on real windows at 64, 512, 4096 and
+    131072 lanes and on ``check_window``'s (4096 lanes, 512 seeds:
+    ``pro512``, ``epi512``; the plain versions on the card), exact, one
+    CUDA launch a call, a call that returns behind a running spin
+    kernel, and their call and device times at 64, 512 and 4096
+    lanes."""
+    from mythril_tpu_torch.laser import lane_engine as le
+    from mythril_tpu_torch.support import device_loop as dl
+
+    for case in dl.k2_edge_cases():
+        want = le.prologue_plain(*dl.k2_case_state(case, "cpu"))
+        hold_window("prologue", dl.k2_case_state(case, dev), case.name,
+                    (None,) + window_shapes("prologue", case.lanes, dev),
+                    (want, ()))
+    for case in dl.k4_edge_cases():
+        want = le.epilogue_plain(*dl.k4_case_inputs(case, "cpu"))
+        hold_window("epilogue", dl.k4_case_inputs(case, dev), case.name,
+                    (None,) + window_shapes("epilogue", case.lanes, dev),
+                    want)
+    log("K2 and K4 on k2_edge_cases and k4_edge_cases (one block and a "
+        "cooperative grid): equal to the plain versions, one CUDA launch "
+        "a call")
+    sizes = [("narrow", "64 lanes, k=6 loop") + window_inputs(dev, 64, 6),
+             ("mid", "512 lanes, k=9 loop") + window_inputs(dev, 512, 9),
+             ("main", "4096 lanes, 512 seeds (check_window)", pro512,
+              epi512),
+             ("loop", "4096 lanes, k=12 loop")
+             + window_inputs(dev, MAIN_LANES, MAIN_K),
+             ("wide", f"{WIDE_LANES} lanes, k={WIDE_K} loop")
+             + window_inputs(dev, WIDE_LANES, WIDE_K)]
+    for key, what, pro, epi in sizes:
+        n = pro[0].pc.shape[0]
+        hold_window("prologue", pro, what,
+                    (None,) + window_shapes("prologue", n, dev))
+        hold_window("epilogue", epi, what,
+                    (None,) + window_shapes("epilogue", n, dev))
+        if key == "wide":
+            log(f"K2 and K4 at {what}: exact in "
+                f"{window_shapes('prologue', n, dev)} and "
+                f"{window_shapes('epilogue', n, dev)}")
+            continue
+        for name, args, kern, plain, nbytes in (
+                ("window_prologue", pro, le.prologue_kernel,
+                 le.prologue_plain, prologue_bytes(*pro[:2], *pro[3:])),
+                ("window_epilogue", epi, le.epilogue_kernel,
+                 le.epilogue_plain, epilogue_bytes(epi[0]))):
+            st, rest = args[0], args[1:]
+            work = clone_state(st)
+
+            def setup(s=st, w=work):
+                return restore(w, s)
+
+            def fresh(s=st):
+                return clone_state(s)
+
+            host_ms = returns_early(lambda x, f=kern: f(x, *rest), setup,
+                                    f"{name} at {what}")
+            k_ms = cuda_ms(lambda x, f=kern: f(x, *rest), reps=5,
+                           setup=setup)
+            cold_ms = cuda_ms(lambda x, f=kern: f(x, *rest), reps=3,
+                              setup=fresh)
+            d_ms = queued_ms(lambda x, f=kern: f(x, *rest), setup, reps=5)
+            p_ms = cuda_ms(lambda x, f=plain: f(x, *rest), reps=1,
+                           setup=fresh)
+            bms, by = bound_ms(nbytes)
+            r = report[name]
+            if key == "main":
+                r.update(ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
+                         bound_ms=bms, bound_by=by, cold_ms=cold_ms)
+            else:
+                r.update({f"{key}_ms": k_ms, f"{key}_device_ms": d_ms,
+                          f"{key}_plain_ms": p_ms, f"{key}_bound_ms": bms,
+                          f"{key}_cold_ms": cold_ms})
+            log(f"{name} at {what}: call {k_ms:.4f} ms (on a new state, "
+                f"its argument block built: {cold_ms:.4f} ms), device "
+                f"{d_ms:.4f} ms (queued behind a spin after an L2 flush), "
+                f"plain {p_ms:.3f} ms, bound {bms:.6f} ms ({by}); one CUDA "
+                f"launch a call, exact in {window_shapes(name[7:], n, dev)}; "
+                f"the call returned in {host_ms:.4f} ms behind a running "
+                f"spin")
 
 
 def k3_input(dev, n_lanes, k):
@@ -1048,25 +1265,9 @@ def k3_returns_early(st):
     """A K3 call queued behind a spin kernel returns while the spin
     still runs (the call never waits on the card). Returns the call's
     host milliseconds."""
-    import torch
-
     from mythril_tpu_torch.laser import lane_engine as le
 
-    le.dedup_kernel(clone_state(st))
-    x = clone_state(st)
-    torch.cuda.synchronize()
-    mark = torch.cuda.Event()
-    torch.cuda._sleep(SPIN_CYCLES)
-    mark.record()
-    t0 = time.perf_counter()
-    le.dedup_kernel(x)
-    host_ms = (time.perf_counter() - t0) * 1e3
-    spinning = not mark.query()
-    torch.cuda.synchronize()
-    if not spinning:
-        raise AssertionError("K3 returned only after the spin kernel ended: "
-                             "the call waits on the card")
-    return host_ms
+    return returns_early(le.dedup_kernel, lambda: clone_state(st), "K3")
 
 
 def check_k3(dev, report, ran):
@@ -3710,6 +3911,9 @@ def run() -> int:
                 **{k: r[k] for k in r if k.startswith(("unpacked_",
                                                        "wide_",
                                                        "narrow_",
+                                                       "mid_",
+                                                       "cold_",
+                                                       "loop_",
                                                        "copy_",
                                                        "bound_rows_"))}}
 

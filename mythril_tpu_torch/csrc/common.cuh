@@ -93,20 +93,11 @@ __device__ inline int block_exclusive_scan(int flag, int* total) {
   return before + in_warp;
 }
 
-// Ordered compaction, in three launches (count, scan, write): the
-// indices i < len with flag[i] != 0, in ascending order, into
-// out[0..cap), the rest of out holding `pad`; *count gets the number
-// of flags set. `block_off` needs ceil(len / SCAN_BLOCK) + 1 ints.
-__global__ void compact_count(const int32_t* flag, long long len, int32_t* block_off) {
-  long long i = (long long)blockIdx.x * SCAN_BLOCK + threadIdx.x;
-  int f = i < len ? (flag[i] != 0) : 0;
-  int total;
-  block_exclusive_scan(f, &total);
-  if (threadIdx.x == 0) block_off[blockIdx.x] = total;
-}
-
+// One block: the exclusive prefix over block_off[0..nblocks) of the
+// blocks' counts, in place (block_off[nblocks] and *count, where not
+// null, get the total): the middle pass of a compaction over many
+// blocks (K13's).
 __global__ void compact_scan(int32_t* block_off, int nblocks, int32_t* count) {
-  // one block: running exclusive scan over the block totals
   __shared__ int carry;
   __shared__ int buf[SCAN_BLOCK];
   if (threadIdx.x == 0) carry = 0;
@@ -133,39 +124,6 @@ __global__ void compact_scan(int32_t* block_off, int nblocks, int32_t* count) {
   }
 }
 
-__global__ void compact_write(const int32_t* flag, long long len,
-                              const int32_t* block_off, int32_t* out, int cap) {
-  long long i = (long long)blockIdx.x * SCAN_BLOCK + threadIdx.x;
-  int f = i < len ? (flag[i] != 0) : 0;
-  int total;
-  int rank = block_exclusive_scan(f, &total);
-  if (f) {
-    long long pos = (long long)block_off[blockIdx.x] + rank;
-    if (pos < cap) out[pos] = (int32_t)i;
-  }
-}
-
-__global__ void fill_i32(int32_t* p, long long len, int32_t v) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < len) p[i] = v;
-}
-
 inline unsigned nblocks_for(long long len, int block) {
   return (unsigned)((len + block - 1) / block);
-}
-
-// out[0..cap) = ascending indices with flag set, padded with `pad`
-// (scratch: ceil(len/SCAN_BLOCK)+1 ints); *count (device) = flags set
-inline void compact(const int32_t* flag, long long len, int32_t* out, int cap,
-                    int32_t pad, int32_t* scratch, int32_t* count,
-                    cudaStream_t st) {
-  unsigned nb = nblocks_for(len, SCAN_BLOCK);
-  if (cap > 0) fill_i32<<<nblocks_for(cap, 256), 256, 0, st>>>(out, cap, pad);
-  if (nb == 0) {
-    if (count) fill_i32<<<1, 1, 0, st>>>(count, 1, 0);
-    return;
-  }
-  compact_count<<<nb, SCAN_BLOCK, 0, st>>>(flag, len, scratch);
-  compact_scan<<<1, SCAN_BLOCK, 0, st>>>(scratch, (int)nb, count);
-  if (cap > 0) compact_write<<<nb, SCAN_BLOCK, 0, st>>>(flag, len, scratch, out, cap);
 }

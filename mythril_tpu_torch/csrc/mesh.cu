@@ -13,10 +13,10 @@
 //    lane i goes to sorted position q = (running lanes before i) if it
 //    runs, else R + (lanes before i that do not run), R the running
 //    total. The count before i is a prefix scan (block ranks by ballot,
-//    block offsets by one scan block, as every ordered compaction of
-//    the port), so no two lanes race for a slot and the order is JAX's
-//    bit for bit at every n. The deal sends sorted position
-//    q = s * n_dev + d to output position d * (n / n_dev) + s.
+//    block offsets by one scan block), so no two lanes race for a slot
+//    and the order is JAX's bit for bit at every n. The deal sends
+//    sorted position q = s * n_dev + d to output position
+//    d * (n / n_dev) + s.
 //  - K14: :139 `x[order]` and :156 `x[dealt]` over every plane of the
 //    LaneState (17 planes of their own row widths, int32 and uint8),
 //    with JAX's index rule: a negative index wraps once (i + n), then an index out

@@ -2,11 +2,15 @@
 //
 // K2 window_prologue replaces, inside mythril_tpu/laser/lane_engine.py
 // _window_exec (:1118), _remap_reset_core (:859), the kill and SHA3
-// resume scatters (:1165-1184) and _prologue_core (:471): the sparse
-// (slot, oid) pairs become a dense table (int32 min where unresolved),
-// the sid planes are remapped through it, the logs reset, and k seed
-// rows written from the packed buffers. Bound: bytes (it touches the
-// four sid planes of every lane and k seed rows).
+// resume scatters (:1165-1184) and _prologue_core (:471), in one launch
+// that never waits on the host: one block up to 2048 lanes, a
+// cooperative grid past it (window_prologue_shape). The sparse (slot,
+// oid) pairs stay sparse: a hash the size of the pairs in each block's
+// shared memory (a dense table in global memory past PROV_LOCAL pairs),
+// which the sid planes' provisional sids look up. Each word of the state
+// has one writer, so the phases need two barriers (k_prologue). Bound:
+// bytes (the four sid planes read and their provisional sids written,
+// the packed sections, and the real seed, kill and resume rows).
 //
 // K3 window_dedup replaces _dedup_canon (:689) and _canon_remap (:771).
 // JAX runs a round per step of the window's records, in global step
@@ -41,11 +45,16 @@
 //
 // K4 window_epilogue replaces the hold/retire selection (:1196-1226),
 // _resume_gather_core (:594), _retire_gather_core (:547), _counts_core
-// (:670), _unique_table (:792) and _fork_table (:823); its gathers also
-// serve _retire_rows (:580), _unique_table_big (:839) and
-// _gather_full_flog (:855). Selections are ascending-index compactions
-// (a prefix scan, the order of JAX's sort of where(sel, arange, n)).
-// Bound: bytes (N x R canonical flags plus the gathered rows).
+// (:670), _unique_table (:792) and _fork_table (:823), in one launch that
+// never waits on the host: one block up to 2048 lanes, a cooperative
+// grid past it (window_epilogue_shape). Its selections are prefix scans
+// over the lanes in thread order (the order of JAX's sort of where(sel,
+// arange, n)), the floors are arguments, and its 12 outputs are sections
+// of one allocation. Its gathers also serve _retire_rows (:580, one
+// launch) and, its unique phase alone, _unique_table_big (:839); its fork
+// words _gather_full_flog (:855). Bound: bytes (N x R canonical flags
+// plus the gathered rows). What holds it back is latency: two scans and
+// a barrier (grid barriers past one block), then dependent row loads.
 #include <algorithm>
 
 #include <cooperative_groups.h>
@@ -87,120 +96,368 @@ __device__ __forceinline__ int lookup(const int32_t* table, int v, int n, int R)
   return table[row * R + idx % R];
 }
 
+// K2's, K3's and K4's launch modes: one block; a cooperative grid of
+// resident blocks, whose barriers are grid barriers
+enum LaunchMode { ONE = 0, GRID = 1 };
+
+template <int MODE>
+__device__ __forceinline__ void launch_sync() {
+  if constexpr (MODE == GRID) cg::this_grid().sync();
+  else __syncthreads();
+}
+
+// a load of what other threads of the launch write during it: from L2
+// across blocks (no stale L1 line of another SM), plain in one block
+template <int MODE, class T>
+__device__ __forceinline__ T ld(const T* p) {
+  if constexpr (MODE != ONE) return __ldcg(p);
+  else return *p;
+}
+
+// K2's and K4's launch shapes (window_prologue_shape,
+// window_epilogue_shape): one block of WIN_THREADS threads up to
+// WIN_ONE_BLOCK lanes, past it a cooperative grid of K2_GRID_THREADS- or
+// K4_GRID_THREADS-thread blocks. K2 takes the grid below WIN_ONE_BLOCK
+// lanes too where its sid planes and seed rows are more than
+// K2_ONE_BYTES, which one SM would move alone (at 512 lanes of the k=9
+// device loop one block is slower than a grid, PERF.md §6).
+constexpr int WIN_THREADS = 1024;
+constexpr int WIN_ONE_BLOCK = 2048;
+constexpr int K2_GRID_THREADS = 512;
+constexpr int K4_GRID_THREADS = 256;
+constexpr int K2_ONE_BYTES = 512 << 10;
+// K2's remap: 16-byte loads a thread keeps in flight; K4's gathers:
+// words a thread keeps in flight
+constexpr int REMAP_LOADS = 4;
+constexpr int GATHER_WORDS = 4;
+
+// a scatter's row as JAX's mode="drop" takes it: a negative index counts
+// from the end, one out of range either way is dropped (-1)
+__device__ __forceinline__ int drop_row(long long i, long long n) {
+  if (i < 0) i += n;
+  return i >= 0 && i < n ? (int)i : -1;
+}
+
+// dst[c] = word(c) for c = t, t + step, ... below count, B words' loads
+// in flight before their stores (a store may alias a later load, so a
+// plain loop waits on each load in turn)
+template <int B, class T, class F>
+__device__ __forceinline__ void gather_words(T* dst, int count, int t, int step, F word) {
+  for (int c0 = t; c0 < count; c0 += B * step) {
+    T v[B];
+#pragma unroll
+    for (int q = 0; q < B; ++q)
+      if (c0 + q * step < count) v[q] = word(c0 + q * step);
+#pragma unroll
+    for (int q = 0; q < B; ++q)
+      if (c0 + q * step < count) dst[c0 + q * step] = v[q];
+  }
+}
+
 // ---------------------------------------------------------------- K2
 
-__global__ void k_scatter_prov(int32_t* dense, long long len, const int32_t* pairs, int pv) {
-  long long j = gid();
-  if (j >= pv) return;
-  long long slot = pairs[2 * j];
-  if (slot < 0) slot += len;  // the JAX scatter counts a negative slot from the end
-  if (slot >= 0 && slot < len) dense[slot] = pairs[2 * j + 1];
+// K2's provisional table: the window's (slot, oid) pairs, a slot naming
+// record r of lane l as l * R + r. Where a slot comes twice the last pair
+// wins, as JAX's scatter leaves it. Up to PROV_LOCAL pairs the table is
+// an open-addressing hash in shared memory, which every block builds for
+// itself: an entry is slot << 32 | pair index (EMPTY: none). Past that
+// (a window after a _unique_table_big escalation) it is a dense table of
+// n * R entries in global memory, an entry epoch << 32 | pair index + 1,
+// so that no call has to clear it.
+constexpr int PROV_LOCAL = 4096;
+constexpr unsigned long long EMPTY = ~0ULL;
+
+// the hash's entries for pv pairs: a power of two, at most half full
+__host__ __device__ inline int prov_cap(int pv) {
+  int c = 32;
+  while (c < 2 * pv) c *= 2;
+  return c;
 }
 
-__global__ void k_remap(int32_t* plane, long long len, const int32_t* table, int n, int R) {
-  long long i = gid();
-  if (i < len) plane[i] = lookup(table, plane[i], n, R);
+constexpr int PROV_LOCAL_BYTES = 8 * 2 * PROV_LOCAL;
+
+__device__ __forceinline__ uint32_t prov_bucket(long long key, int cap) {
+  return ((uint32_t)key * HASH_MUL) & (uint32_t)(cap - 1);
 }
 
-__global__ void k_reset_logs(Sym s) {
-  long long lane = gid();
-  if (lane < s.n) s.dlog_count[lane] = 0;
-  if (lane == 0) *s.flog_count = 0;
+__device__ void prov_insert(unsigned long long* hash, int cap, long long key, int j) {
+  const unsigned long long want = ((unsigned long long)key << 32) | (uint32_t)j;
+  for (uint32_t h = prov_bucket(key, cap);; h = (h + 1) & (uint32_t)(cap - 1)) {
+    unsigned long long e = hash[h];
+    if (e == EMPTY) {
+      e = atomicCAS(hash + h, EMPTY, want);
+      if (e == EMPTY) return;
+    }
+    if ((e >> 32) == (unsigned long long)key) {  // the same slot: the last pair wins
+      atomicMax(hash + h, want);
+      return;
+    }
+  }
 }
 
-__global__ void k_kill(Sym s, const int32_t* kill) {
-  long long i = gid();
-  if (i >= s.n) return;
-  int l = kill[i];
-  if (l >= 0 && l < s.n) s.status[l] = DEAD;
-}
-
-__global__ void k_resume(Sym s, const int32_t* r_idx, const int32_t* r_i32,
-                         const uint32_t* r_limbs, int k) {
-  long long j = gid();
-  if (j >= k) return;
-  int r = r_idx[j];
-  if (r < 0 || r >= s.n) return;
-  const int32_t* ri = r_i32 + 6 * j;
-  s.pc[r] = ri[0];
-  s.sp[r] = ri[1];
-  s.msize[r] = ri[2];
-  s.min_gas[r] = (uint32_t)ri[3];
-  s.max_gas[r] = (uint32_t)ri[4];
-  int slot = clampi(ri[1] - 1, 0, s.D - 1);
-  s.ssid[(size_t)r * s.D + slot] = ri[5];
-  for (int i = 0; i < 8; ++i) s.stack[((size_t)r * s.D + slot) * 8 + i] = r_limbs[8 * j + i];
-  s.status[r] = RUNNING;
-}
-
-template <typename T>
-__device__ __forceinline__ void fill_row(T* p, size_t width, int lane, T v) {
-  for (size_t i = threadIdx.x; i < width; i += blockDim.x) p[(size_t)lane * width + i] = v;
-}
-
-struct Seeds {
-  const int32_t *idx, *i32p, *stack_s;
-  const uint32_t *u32p, *stack_v;
+// K2's inputs: the packed sections of the seed buffers
+// (_seed_sections), the provisional table, and on a grid each lane's
+// winning seed and resume (own: epoch << 32 | index + 1, n each) and the
+// epoch of its kill (killed)
+struct Pro {
+  const int32_t *idx, *i32p, *fs, *fcount, *pairs, *kill, *stack_s, *r_idx, *r_i32;
+  const uint32_t *u32p, *stack_v, *r_limbs;
   const uint8_t *u8p, *mem_v, *mem_k;
-  int k, sd, mc, ccw;
+  int k, pv, sd, mc, ccw;
+  int cap;  // the shared hash's entries; 0: the dense table
+  uint32_t epoch;
+  unsigned long long* dense;
+  unsigned long long* own;
+  uint32_t* killed;
 };
 
-// one block per seed row: zero the row's planes, then write the prefix
-__global__ void k_seed(Sym s, Seeds z) {
-  int j = blockIdx.x;
-  int lane = z.idx[j];
-  if (lane < 0 || lane >= s.n) return;
-  const int32_t* ip = z.i32p + (size_t)j * (8 + s.NENV);
-  const uint32_t* up = z.u32p + (size_t)j * (1 + s.NENV * 8);
-  if (threadIdx.x == 0) {
-    s.sbase[lane] = ip[0];
-    s.cd_size[lane] = ip[1];
-    s.cd_sym[lane] = ip[2];
-    s.cd_size_sid[lane] = ip[3];
-    s.pc[lane] = ip[4];
-    s.sp[lane] = ip[5];
-    s.msize[lane] = ip[6];
-    s.group[lane] = ip[7];
-    s.depth[lane] = 0;
-    s.mlog_count[lane] = 0;
-    s.s_mode[lane] = 0;
-    s.scount[lane] = 0;
-    s.min_gas[lane] = 0;
-    s.max_gas[lane] = 0;
-    s.steps[lane] = 0;
-    s.dlog_count[lane] = 0;
-    s.fentry[lane] = -1;
-    s.last_jump[lane] = -1;
-    s.status[lane] = RUNNING;
-    s.gas_limit[lane] = up[0];
+// the oid of provisional sid v (< 0), I32_MIN where no pair resolves it:
+// the row is clamped as the JAX gather clamps it
+__device__ int prov_lookup(const Pro& a, const unsigned long long* hash, int v, int n, int R) {
+  const long long idx = -(long long)v - 1;
+  long long row = idx / R;
+  if (row > n - 1) row = n - 1;
+  const long long key = row * R + idx % R;
+  int j = -1;
+  if (a.cap) {
+    for (uint32_t h = prov_bucket(key, a.cap);; h = (h + 1) & (uint32_t)(a.cap - 1)) {
+      const unsigned long long e = hash[h];
+      if (e == EMPTY) break;
+      if ((e >> 32) == (unsigned long long)key) {
+        j = (int)(uint32_t)e;
+        break;
+      }
+    }
+  } else {
+    const unsigned long long e = __ldcg(a.dense + key);
+    if ((uint32_t)(e >> 32) == a.epoch) j = (int)(uint32_t)e - 1;
   }
-  for (int i = threadIdx.x; i < s.D; i += blockDim.x)
-    s.ssid[(size_t)lane * s.D + i] = i < z.sd ? z.stack_s[(size_t)j * z.sd + i] : 0;
-  for (int i = threadIdx.x; i < s.D * 8; i += blockDim.x)
-    s.stack[(size_t)lane * s.D * 8 + i] = i < z.sd * 8 ? z.stack_v[(size_t)j * z.sd * 8 + i] : 0u;
-  for (int i = threadIdx.x; i < s.M; i += blockDim.x) {
-    s.memory[(size_t)lane * s.M + i] = i < z.mc ? z.mem_v[(size_t)j * z.mc + i] : 0;
-    s.mkind[(size_t)lane * s.M + i] = i < z.mc ? z.mem_k[(size_t)j * z.mc + i] : 0;
-  }
-  for (int i = threadIdx.x; i < s.C; i += blockDim.x)
-    s.calldata[(size_t)lane * s.C + i] = i < z.ccw ? z.u8p[(size_t)j * z.ccw + i] : 0;
-  for (int i = threadIdx.x; i < s.NENV * 8; i += blockDim.x)
-    s.env[(size_t)lane * s.NENV * 8 + i] = up[1 + i];
-  for (int i = threadIdx.x; i < s.NENV; i += blockDim.x)
-    s.env_sid[(size_t)lane * s.NENV + i] = ip[8 + i];
-  fill_row(s.sval_sid, s.S, lane, 0);
-  fill_row(s.s_written, s.S, lane, 0);
-  fill_row(s.s_read, s.S, lane, 0);
-  fill_row(s.skey_sid, s.S, lane, 0);
-  fill_row(s.s_wstep, s.S, lane, 0);
-  fill_row(s.skeys, (size_t)s.S * 8, lane, 0u);
-  fill_row(s.svals, (size_t)s.S * 8, lane, 0u);
+  return j >= 0 ? a.pairs[2 * (size_t)j + 1] : I32_MIN;
 }
 
-__global__ void k_free_slots(Sym s, const int32_t* fs, const int32_t* fcount) {
-  long long i = gid();
-  if (i < s.n) s.free_slots[i] = fs[i];
-  if (i == 0) *s.free_count = *fcount;
+// dst[0..w) = src[0..sw) then zeros, by threads t, t + step, ...
+template <class T>
+__device__ __forceinline__ void put_row(T* dst, int w, const T* src, int sw, int t, int step) {
+  for (int c = t; c < w; c += step) dst[c] = c < sw ? src[c] : (T)0;
+}
+
+// put_row of bytes, four a store where the row is 4-byte aligned
+__device__ void put_bytes(uint8_t* dst, int w, const uint8_t* src, int sw, int t, int step) {
+  if (((uintptr_t)dst & 3) == 0 && (w & 3) == 0) {
+    for (int c = 4 * t; c < w; c += 4 * step) {
+      uint32_t x = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) x |= (uint32_t)(c + b < sw ? src[c + b] : 0) << (8 * b);
+      *reinterpret_cast<uint32_t*>(dst + c) = x;
+    }
+  } else {
+    put_row(dst, w, src, sw, t, step);
+  }
+}
+
+// seed j's rows of lane l (_prologue_core's row writes), split over
+// threads t, t + step, ...
+__device__ void seed_rows(const Sym& s, const Pro& a, int j, int l, int t, int step) {
+  const size_t L = (size_t)l;
+  put_row(s.ssid + L * s.D, s.D, a.stack_s + (size_t)j * a.sd, a.sd, t, step);
+  put_row(s.stack + L * s.D * 8, s.D * 8, a.stack_v + (size_t)j * a.sd * 8, a.sd * 8, t, step);
+  put_bytes(s.memory + L * s.M, s.M, a.mem_v + (size_t)j * a.mc, a.mc, t, step);
+  put_bytes(s.mkind + L * s.M, s.M, a.mem_k + (size_t)j * a.mc, a.mc, t, step);
+  put_bytes(s.calldata + L * s.C, s.C, a.u8p + (size_t)j * a.ccw, a.ccw, t, step);
+  put_row(s.env + L * s.NENV * 8, s.NENV * 8, a.u32p + (size_t)j * (1 + s.NENV * 8) + 1,
+          s.NENV * 8, t, step);
+  put_row(s.env_sid + L * s.NENV, s.NENV, a.i32p + (size_t)j * (8 + s.NENV) + 8, s.NENV, t, step);
+  int32_t* const zero32[5] = {s.sval_sid, s.s_written, s.s_read, s.skey_sid, s.s_wstep};
+#pragma unroll
+  for (int q = 0; q < 5; ++q) put_row<int32_t>(zero32[q] + L * s.S, s.S, nullptr, 0, t, step);
+  put_row<uint32_t>(s.skeys + L * s.S * 8, s.S * 8, nullptr, 0, t, step);
+  put_row<uint32_t>(s.svals + L * s.S * 8, s.S * 8, nullptr, 0, t, step);
+}
+
+// K2: the window prologue in one launch, in launch mode MODE. JAX runs
+// its phases in order over the whole batch: the remap of the four sid
+// planes and the log reset, the kills, the resumes, the seeds, the
+// free-slot stack. Here A fills the provisional table and each lane's
+// winning seed and resume (its last entry) and kill flag; after a
+// barrier B remaps the sid planes; after another C writes each lane's
+// scalars as its last phase leaves them (seed, else resume, else kill),
+// each resume entry of a lane without a seed its pushed slot (unless a
+// later entry of the lane names the same slot: JAX's scatter keeps the
+// last write of an element), and D a warp a winning seed its rows.
+template <int MODE>
+__global__ void __launch_bounds__(WIN_THREADS)
+k_prologue(const __grid_constant__ Sym s, const __grid_constant__ Pro a) {
+  extern __shared__ unsigned long long psm[];
+  const int n = s.n, R = s.R;
+  const long long nr = (long long)n * R;
+  const long long G = (long long)gridDim.x * blockDim.x;
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  unsigned long long* const hash = psm;
+  // one block: each lane's winning seed and resume (-1 none) and its
+  // kill flag, after the hash
+  int* const s_seed = reinterpret_cast<int*>(psm + a.cap);
+  int* const s_res = s_seed + n;
+  int* const s_kill = s_res + n;
+
+  // A: the tables
+  for (int i = threadIdx.x; i < a.cap; i += blockDim.x) hash[i] = EMPTY;
+  if constexpr (MODE == ONE) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      s_seed[i] = -1;
+      s_res[i] = -1;
+      s_kill[i] = 0;
+    }
+  }
+  __syncthreads();
+  const unsigned long long tag = (unsigned long long)a.epoch << 32;
+  if (a.cap) {  // every block its own copy
+    for (int j = threadIdx.x; j < a.pv; j += blockDim.x) {
+      long long slot = a.pairs[2 * (size_t)j];
+      if (slot < 0) slot += nr;
+      if (slot >= 0 && slot < nr) prov_insert(hash, a.cap, slot, j);
+    }
+  } else {
+    for (long long j = g; j < a.pv; j += G) {
+      long long slot = a.pairs[2 * j];
+      if (slot < 0) slot += nr;
+      if (slot >= 0 && slot < nr) atomicMax(a.dense + slot, tag | (uint32_t)(j + 1));
+    }
+  }
+  for (long long j = g; j < a.k; j += G) {
+    const int ls = drop_row(a.idx[j], n), lr = drop_row(a.r_idx[j], n);
+    if constexpr (MODE == ONE) {
+      if (ls >= 0) atomicMax(s_seed + ls, (int)j);
+      if (lr >= 0) atomicMax(s_res + lr, (int)j);
+    } else {
+      if (ls >= 0) atomicMax(a.own + ls, tag | (uint32_t)(j + 1));
+      if (lr >= 0) atomicMax(a.own + n + lr, tag | (uint32_t)(j + 1));
+    }
+  }
+  for (long long i = g; i < n; i += G) {
+    const int l = drop_row(a.kill[i], n);
+    if (l < 0) continue;
+    if constexpr (MODE == ONE) s_kill[l] = 1;
+    else a.killed[l] = a.epoch;
+  }
+  launch_sync<MODE>();
+
+  auto winner = [&](const int* local, int off, int l) -> int {
+    if constexpr (MODE == ONE) return local[l];
+    const unsigned long long e = __ldcg(a.own + off + l);
+    return (uint32_t)(e >> 32) == a.epoch ? (int)(uint32_t)e - 1 : -1;
+  };
+  auto seed_of = [&](int l) { return winner(s_seed, 0, l); };
+  auto resume_of = [&](int l) { return winner(s_res, n, l); };
+
+  // B: the sid planes through the table, four words a load and
+  // REMAP_LOADS loads a thread in flight
+  {
+    int32_t* const planes[4] = {s.ssid, s.sval_sid, s.skey_sid, s.mlog_sid};
+    const int widths[4] = {s.D, s.S, s.S, s.MR};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      int32_t* const p = planes[q];
+      const long long len = (long long)n * widths[q];
+      const long long n4 = ((uintptr_t)p & 15) ? 0 : len / 4;
+      int4* const p4 = reinterpret_cast<int4*>(p);
+      for (long long j0 = g; j0 < n4; j0 += REMAP_LOADS * G) {
+        int4 v[REMAP_LOADS];
+#pragma unroll
+        for (int u = 0; u < REMAP_LOADS; ++u)
+          if (j0 + u * G < n4) v[u] = p4[j0 + u * G];
+#pragma unroll
+        for (int u = 0; u < REMAP_LOADS; ++u) {
+          const long long j = j0 + u * G;
+          if (j >= n4) continue;
+          int* w = &v[u].x;
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (w[c] < 0) p[4 * j + c] = prov_lookup(a, hash, w[c], n, R);
+        }
+      }
+      for (long long i = 4 * n4 + g; i < len; i += G) {
+        const int v = p[i];
+        if (v < 0) p[i] = prov_lookup(a, hash, v, n, R);
+      }
+    }
+  }
+  launch_sync<MODE>();
+
+  // C: each lane's scalars, the log reset and the free-slot stack
+  for (long long li = g; li < n; li += G) {
+    const int l = (int)li;
+    s.dlog_count[l] = 0;
+    s.free_slots[l] = a.fs[l];
+    const int sj = seed_of(l);
+    if (sj >= 0) {
+      const int32_t* ip = a.i32p + (size_t)sj * (8 + s.NENV);
+      s.sbase[l] = ip[0];
+      s.cd_size[l] = ip[1];
+      s.cd_sym[l] = ip[2];
+      s.cd_size_sid[l] = ip[3];
+      s.pc[l] = ip[4];
+      s.sp[l] = ip[5];
+      s.msize[l] = ip[6];
+      s.group[l] = ip[7];
+      s.depth[l] = 0;
+      s.mlog_count[l] = 0;
+      s.s_mode[l] = 0;
+      s.scount[l] = 0;
+      s.min_gas[l] = 0;
+      s.max_gas[l] = 0;
+      s.steps[l] = 0;
+      s.fentry[l] = -1;
+      s.last_jump[l] = -1;
+      s.status[l] = RUNNING;
+      s.gas_limit[l] = a.u32p[(size_t)sj * (1 + s.NENV * 8)];
+      continue;
+    }
+    const int rj = resume_of(l);
+    if (rj >= 0) {
+      const int32_t* ri = a.r_i32 + 6 * (size_t)rj;
+      s.pc[l] = ri[0];
+      s.sp[l] = ri[1];
+      s.msize[l] = ri[2];
+      s.min_gas[l] = (uint32_t)ri[3];
+      s.max_gas[l] = (uint32_t)ri[4];
+      s.status[l] = RUNNING;
+    } else {
+      bool killed;
+      if constexpr (MODE == ONE) killed = s_kill[l];
+      else killed = __ldcg(a.killed + l) == a.epoch;
+      if (killed) s.status[l] = DEAD;
+    }
+  }
+  // the resumes' pushed slots (a lane's entries before its last are
+  // checked against the later ones: no path writes two a lane)
+  for (long long j = g; j < a.k; j += G) {
+    const int l = drop_row(a.r_idx[j], n);
+    if (l < 0 || seed_of(l) >= 0) continue;
+    const int slot = clampi(a.r_i32[6 * j + 1] - 1, 0, s.D - 1);
+    bool last = resume_of(l) == (int)j;
+    if (!last) {
+      last = true;
+      for (long long q = j + 1; q < a.k && last; ++q)
+        last = !(drop_row(a.r_idx[q], n) == l &&
+                 clampi(a.r_i32[6 * q + 1] - 1, 0, s.D - 1) == slot);
+    }
+    if (!last) continue;
+    const size_t e = (size_t)l * s.D + slot;
+    s.ssid[e] = a.r_i32[6 * j + 5];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s.stack[e * 8 + i] = a.r_limbs[8 * j + i];
+  }
+  if (g == 0) {
+    *s.flog_count = 0;
+    *s.free_count = *a.fcount;
+  }
+
+  // D: the winning seeds' rows, a warp a seed
+  const int wl = threadIdx.x & 31;
+  for (long long j = g >> 5; j < a.k; j += G >> 5) {
+    const int l = drop_row(a.idx[j], n);
+    if (l >= 0 && seed_of(l) == (int)j) seed_rows(s, a, (int)j, l, wl, 32);
+  }
 }
 
 // ---------------------------------------------------------------- K3
@@ -282,18 +539,6 @@ __device__ __forceinline__ bool same_static(const DedupPlanes& p, long long la, 
   for (int k = 0; k < 6; ++k)
     diff |= (va[k].x ^ vb[k].x) | (va[k].y ^ vb[k].y) | (va[k].z ^ vb[k].z) | (va[k].w ^ vb[k].w);
   return diff == 0;
-}
-
-// K3's launch modes: one block; a cooperative grid (a block's winners bid
-// for a table in global memory, a grid barrier a phase)
-enum DedupMode { ONE = 0, GRID = 1 };
-
-// a load of what other threads of the launch write during it: from L2
-// across blocks (no stale L1 line of another SM), plain in one block
-template <int MODE, class T>
-__device__ __forceinline__ T ld(const T* p) {
-  if constexpr (MODE != ONE) return __ldcg(p);
-  else return *p;
 }
 
 template <int MODE>
@@ -605,48 +850,16 @@ __global__ void k_canon_remap(const __grid_constant__ RemapPlanes rp, long long 
   }
 }
 
-inline void remap_plane(int32_t* plane, long long len, const int32_t* table, int n, int R,
-                        cudaStream_t st) {
-  if (len > 0) k_remap<<<nblocks_for(len, 256), 256, 0, st>>>(plane, len, table, n, R);
-}
-
 // ---------------------------------------------------------------- K4
 
-__global__ void k_hold_flags(Sym s, const int32_t* code, int code_rows, int resume_on,
-                             int32_t* flag) {
-  long long lane = gid();
-  if (lane >= s.n) return;
-  int pc = clampi(s.pc[lane], 0, code_rows - 1);
-  int op = code[(size_t)pc * CODE_COLS];
-  flag[lane] = resume_on != 0 && s.status[lane] == NEEDS_HOST && op == OP_SHA3 &&
-               s.sp[lane] >= 2 && s.msize[lane] <= RESUME_MEM &&
-               s.mlog_count[lane] <= RESUME_MLOG;
-}
-
-__global__ void k_mark(int32_t* flag, const int32_t* idx, int cap, int n, int32_t v) {
-  long long j = gid();
-  if (j >= cap) return;
-  int l = idx[j];
-  if (l >= 0 && l < n) flag[l] = v;
-}
-
-__global__ void k_elig_flags(Sym s, int budget, const int* floors, const int32_t* held,
-                             int32_t* flag) {
-  long long lane = gid();
-  if (lane >= s.n) return;
-  int st = s.status[lane];
-  bool parked = st == NEEDS_HOST || (st == RUNNING && s.steps[lane] >= budget);
-  bool fits = s.sp[lane] <= floors[0] && s.msize[lane] <= floors[1] &&
-              s.mlog_count[lane] <= floors[2] && s.scount[lane] <= floors[3];
-  flag[lane] = parked && fits && !held[lane];
-}
-
-__global__ void k_mark_dead(Sym s, const int32_t* idx, int cap) {
-  long long j = gid();
-  if (j >= cap) return;
-  int l = idx[j];
-  if (l >= 0 && l < s.n) s.status[l] = DEAD;
-}
+// K4's phases: the selections, row gathers and counts; the
+// unique-record table; the fork table (the escalation's unique_table
+// runs the second alone)
+constexpr int EPI_SELECT = 1, EPI_UNIQUE = 2, EPI_FORK = 4;
+// one block keeps the unique rows' indices in shared memory up to this
+// many rows
+constexpr int EPI_LOCAL_ROWS = 11 * 1024;
+constexpr int RCAP = 16, HOLD_CAP = 64;
 
 struct Rows {
   int32_t* i32;
@@ -655,133 +868,129 @@ struct Rows {
   int ws, wm, wl, wk;  // stack slots, memory bytes, overlay records, storage slots
 };
 
-// one block per row: the lane's row packed as _retire_gather_core packs it
-__global__ void k_retire_gather(Sym s, const int32_t* idx, Rows o) {
-  int j = blockIdx.x;
-  int lane = clampi(idx[j], 0, s.n - 1);
-  const int ci = 10 + 3 * o.wl + o.ws + 5 * o.wk;
-  const int cu = 8 * (o.ws + 2 * o.wk);
-  int32_t* ri = o.i32 + (size_t)j * ci;
-  uint32_t* ru = o.u32 + (size_t)j * cu;
-  uint8_t* rb = o.u8 + (size_t)j * 2 * o.wm;
-  if (threadIdx.x == 0) {
-    ri[0] = s.pc[lane];
-    ri[1] = s.sp[lane];
-    ri[2] = s.depth[lane];
-    ri[3] = s.fentry[lane];
-    ri[4] = s.last_jump[lane];
-    ri[5] = s.msize[lane];
-    ri[6] = s.mlog_count[lane];
-    ri[7] = s.scount[lane];
-    ri[8] = (int32_t)s.min_gas[lane];
-    ri[9] = (int32_t)s.max_gas[lane];
+// A set of gathered rows: rows 0..count) of lanes sel[...] (clamped to
+// the batch, as the JAX gather clamps), packed as _retire_gather_core's
+// rows (resume false) or as _resume_gather_core's slim rows. A row is ci
+// int32 words, cu uint32 words and its 2 * wm bytes of memory and kinds,
+// four a word where every row is 4-byte aligned (u8w of them).
+struct RowSet {
+  const int32_t* sel;
+  int count, ci, cu, u8w;
+  bool resume, words, cg;  // cg: sel is written by other blocks
+  Rows o;
+};
+
+__host__ __device__ inline RowSet row_set(const Sym& s, const int32_t* sel, int count, bool resume,
+                                          const Rows& o) {
+  RowSet r;
+  r.sel = sel;
+  r.count = count;
+  r.resume = resume;
+  r.cg = false;
+  r.o = o;
+  r.ci = resume ? 7 + 3 * o.wl : 10 + 3 * o.wl + o.ws + 5 * o.wk;
+  r.cu = resume ? 16 : 8 * (o.ws + 2 * o.wk);
+  r.words = (o.wm & 3) == 0 && (s.M & 3) == 0;
+  r.u8w = r.words ? o.wm / 2 : 2 * o.wm;
+  return r;
+}
+
+// word c of a row of set r for lane l (top, sub: a resume row's two
+// stack slots)
+__device__ uint32_t row_word(const Sym& s, const RowSet& r, size_t L, size_t top, size_t sub,
+                             int c) {
+  const Rows& o = r.o;
+  if (c >= r.ci + r.cu) {  // memory, then kinds
+    const int k = c - r.ci - r.cu;
+    if (r.words) {
+      const int h = o.wm / 4;
+      return k < h ? reinterpret_cast<const uint32_t*>(s.memory + L * s.M)[k]
+                   : reinterpret_cast<const uint32_t*>(s.mkind + L * s.M)[k - h];
+    }
+    return k < o.wm ? s.memory[L * s.M + k] : s.mkind[L * s.M + k - o.wm];
   }
-  for (int i = threadIdx.x; i < o.wl; i += blockDim.x) {
-    size_t p = (size_t)lane * s.MR + i;
-    ri[10 + i] = s.mlog_off[p];
-    ri[10 + o.wl + i] = s.mlog_len[p];
-    ri[10 + 2 * o.wl + i] = s.mlog_sid[p];
+  if (r.resume) {
+    if (c >= r.ci) return s.stack[((c - r.ci < 8 ? top : sub)) * 8 + ((c - r.ci) & 7)];
+    switch (c) {
+      case 0: return s.msize[L];
+      case 1: return s.min_gas[L];
+      case 2: return s.max_gas[L];
+      case 3: return s.gas_limit[L];
+      case 4: return s.mlog_count[L];
+      case 5: return s.ssid[top];
+      case 6: return s.ssid[sub];
+      default: {
+        const int q = (c - 7) / o.wl;
+        const size_t p = L * s.MR + (c - 7) % o.wl;
+        return q == 0 ? s.mlog_off[p] : q == 1 ? s.mlog_len[p] : s.mlog_sid[p];
+      }
+    }
   }
-  int base = 10 + 3 * o.wl;
-  for (int i = threadIdx.x; i < o.ws; i += blockDim.x) ri[base + i] = s.ssid[(size_t)lane * s.D + i];
-  base += o.ws;
-  for (int i = threadIdx.x; i < o.wk; i += blockDim.x) {
-    size_t p = (size_t)lane * s.S + i;
-    ri[base + i] = s.sval_sid[p];
-    ri[base + o.wk + i] = s.s_written[p];
-    ri[base + 2 * o.wk + i] = s.s_read[p];
-    ri[base + 3 * o.wk + i] = s.skey_sid[p];
-    ri[base + 4 * o.wk + i] = s.s_wstep[p];
+  if (c >= r.ci) {
+    const int d = c - r.ci;
+    return d < 8 * o.ws ? s.stack[L * s.D * 8 + d]
+         : d < 8 * (o.ws + o.wk) ? s.skeys[L * s.S * 8 + d - 8 * o.ws]
+         : s.svals[L * s.S * 8 + d - 8 * (o.ws + o.wk)];
   }
-  for (int i = threadIdx.x; i < o.ws * 8; i += blockDim.x) ru[i] = s.stack[(size_t)lane * s.D * 8 + i];
-  for (int i = threadIdx.x; i < o.wk * 8; i += blockDim.x) {
-    ru[o.ws * 8 + i] = s.skeys[(size_t)lane * s.S * 8 + i];
-    ru[(o.ws + o.wk) * 8 + i] = s.svals[(size_t)lane * s.S * 8 + i];
+  switch (c) {
+    case 0: return s.pc[L];
+    case 1: return s.sp[L];
+    case 2: return s.depth[L];
+    case 3: return s.fentry[L];
+    case 4: return s.last_jump[L];
+    case 5: return s.msize[L];
+    case 6: return s.mlog_count[L];
+    case 7: return s.scount[L];
+    case 8: return s.min_gas[L];
+    case 9: return s.max_gas[L];
+    default: break;
   }
-  for (int i = threadIdx.x; i < o.wm; i += blockDim.x) {
-    rb[i] = s.memory[(size_t)lane * s.M + i];
-    rb[o.wm + i] = s.mkind[(size_t)lane * s.M + i];
+  if (c < 10 + 3 * o.wl) {
+    const int q = (c - 10) / o.wl;
+    const size_t p = L * s.MR + (c - 10) % o.wl;
+    return q == 0 ? s.mlog_off[p] : q == 1 ? s.mlog_len[p] : s.mlog_sid[p];
+  }
+  if (c < 10 + 3 * o.wl + o.ws) return s.ssid[L * s.D + c - 10 - 3 * o.wl];
+  const int d = c - 10 - 3 * o.wl - o.ws, q = d / o.wk;
+  const size_t p = L * s.S + d % o.wk;
+  return q == 0 ? s.sval_sid[p] : q == 1 ? s.s_written[p] : q == 2 ? s.s_read[p]
+       : q == 3 ? s.skey_sid[p] : s.s_wstep[p];
+}
+
+__device__ __forceinline__ void row_store(const RowSet& r, int j, int c, uint32_t v) {
+  if (c < r.ci) {
+    r.o.i32[(size_t)j * r.ci + c] = (int32_t)v;
+  } else if (c < r.ci + r.cu) {
+    r.o.u32[(size_t)j * r.cu + c - r.ci] = v;
+  } else {
+    uint8_t* row = r.o.u8 + (size_t)j * 2 * r.o.wm;
+    const int k = c - r.ci - r.cu;
+    if (r.words) reinterpret_cast<uint32_t*>(row)[k] = v;
+    else row[k] = (uint8_t)v;
   }
 }
 
-// one block per held lane: _resume_gather_core's slim row
-__global__ void k_resume_gather(Sym s, const int32_t* idx, Rows o) {
-  int j = blockIdx.x;
-  int lane = clampi(idx[j], 0, s.n - 1);
-  const int ci = 7 + 3 * o.wl;
-  int32_t* ri = o.i32 + (size_t)j * ci;
-  uint32_t* ru = o.u32 + (size_t)j * 16;
-  uint8_t* rb = o.u8 + (size_t)j * 2 * o.wm;
-  int sp = s.sp[lane];
-  int top = clampi(sp - 1, 0, s.D - 1), sub = clampi(sp - 2, 0, s.D - 1);
-  if (threadIdx.x == 0) {
-    ri[0] = s.msize[lane];
-    ri[1] = (int32_t)s.min_gas[lane];
-    ri[2] = (int32_t)s.max_gas[lane];
-    ri[3] = (int32_t)s.gas_limit[lane];
-    ri[4] = s.mlog_count[lane];
-    ri[5] = s.ssid[(size_t)lane * s.D + top];
-    ri[6] = s.ssid[(size_t)lane * s.D + sub];
+// row j of set r by the 32 threads of a warp (lane: this thread's),
+// GATHER_WORDS words' loads a thread in flight before their stores
+__device__ void gather_row(const Sym& s, const RowSet& r, int j, int lane) {
+  const int l = clampi(r.cg ? __ldcg(r.sel + j) : r.sel[j], 0, s.n - 1);
+  const size_t L = (size_t)l;
+  size_t top = 0, sub = 0;
+  if (r.resume) {
+    const int sp = s.sp[l];
+    top = L * s.D + clampi(sp - 1, 0, s.D - 1);
+    sub = L * s.D + clampi(sp - 2, 0, s.D - 1);
   }
-  for (int i = threadIdx.x; i < o.wl; i += blockDim.x) {
-    size_t p = (size_t)lane * s.MR + i;
-    ri[7 + i] = s.mlog_off[p];
-    ri[7 + o.wl + i] = s.mlog_len[p];
-    ri[7 + 2 * o.wl + i] = s.mlog_sid[p];
+  const int w = r.ci + r.cu + r.u8w;
+  for (int c0 = lane; c0 < w; c0 += 32 * GATHER_WORDS) {
+    uint32_t v[GATHER_WORDS];
+#pragma unroll
+    for (int q = 0; q < GATHER_WORDS; ++q)
+      if (c0 + 32 * q < w) v[q] = row_word(s, r, L, top, sub, c0 + 32 * q);
+#pragma unroll
+    for (int q = 0; q < GATHER_WORDS; ++q)
+      if (c0 + 32 * q < w) row_store(r, j, c0 + 32 * q, v[q]);
   }
-  for (int i = threadIdx.x; i < 8; i += blockDim.x) {
-    ru[i] = s.stack[((size_t)lane * s.D + top) * 8 + i];
-    ru[8 + i] = s.stack[((size_t)lane * s.D + sub) * 8 + i];
-  }
-  for (int i = threadIdx.x; i < o.wm; i += blockDim.x) {
-    rb[i] = s.memory[(size_t)lane * s.M + i];
-    rb[o.wm + i] = s.mkind[(size_t)lane * s.M + i];
-  }
-}
-
-__global__ void k_counts(Sym s, int32_t* misc, int32_t* scal) {
-  long long lane = gid();
-  if (lane < s.n) {
-    int32_t* m = misc + lane * 8;
-    m[0] = s.dlog_count[lane];
-    m[1] = s.status[lane];
-    m[2] = s.steps[lane];
-    m[3] = s.sp[lane];
-    m[4] = s.scount[lane];
-    m[5] = s.mlog_count[lane];
-    m[6] = s.msize[lane];
-    m[7] = s.pc[lane];
-  }
-  if (lane == 0) {
-    scal[0] = *s.flog_count;
-    scal[1] = *s.free_count;
-  }
-}
-
-__global__ void k_canon_flags(Sym s, const int32_t* canon, int32_t* flag) {
-  long long i = gid();
-  long long len = (long long)s.n * s.R;
-  if (i >= len) return;
-  long long lane = i / s.R, r = i % s.R;
-  flag[i] = r < s.dlog_count[lane] && canon[i] == (int32_t)(-(lane * s.R + r + 1));
-}
-
-// one thread per row: [lane, slot, op, pc, step, fentry, sid0..2, vals]
-__global__ void k_unique_gather(Sym s, const int32_t* rows, int urb, int32_t* tab) {
-  long long j = gid();
-  if (j >= urb) return;
-  long long flat = rows[j];
-  int l = (int)(flat / s.R), sl = (int)(flat % s.R);
-  size_t rp = (size_t)l * s.R + sl;
-  int32_t* t = tab + j * 33;
-  t[0] = l;
-  t[1] = sl;
-  t[2] = s.dlog_op[rp];
-  t[3] = s.dlog_pc[rp];
-  t[4] = s.dlog_step[rp];
-  t[5] = s.dlog_fentry[rp];
-  for (int c = 0; c < 3; ++c) t[6 + c] = s.dlog_sid[rp * 3 + c];
-  for (int c = 0; c < 24; ++c) t[9 + c] = (int32_t)s.dlog_val[rp * 24 + c];
 }
 
 // the fork table's nine columns, in its column order (_fork_table)
@@ -795,13 +1004,318 @@ inline Flog flog_of(const Sym& s) {
                s.flog_dest}};
 }
 
-// a thread an output word: row i / 9, column i % 9 (coalesced stores)
-__global__ void k_fork_gather(const __grid_constant__ Flog f, int fb, int32_t* tab) {
-  long long i = gid();
-  if (i >= 9LL * fb) return;
-  tab[i] = f.col[i % 9][i / 9];
+// output word i of the fork table: row i / 9, column i % 9
+__device__ __forceinline__ int32_t fork_word(const Flog& f, int i) {
+  return f.col[(unsigned)i % 9u][(unsigned)i / 9u];
 }
 
+// a thread an output word (coalesced stores)
+__global__ void k_fork_gather(const __grid_constant__ Flog f, int fb, int32_t* tab) {
+  const long long i = gid();
+  if (i < 9LL * fb) tab[i] = fork_word(f, (int)i);
+}
+
+// word c of unique row `row` ([lane, slot, op, pc, step, fentry,
+// sid0..2, vals]), the row's record at flat index flat = lane * R + slot
+__device__ __forceinline__ int32_t unique_word(const Sym& s, int flat, int c) {
+  const size_t rp = (size_t)flat;
+  switch (c) {
+    case 0: return flat / s.R;
+    case 1: return flat % s.R;
+    case 2: return s.dlog_op[rp];
+    case 3: return s.dlog_pc[rp];
+    case 4: return s.dlog_step[rp];
+    case 5: return s.dlog_fentry[rp];
+    default: return c < 9 ? s.dlog_sid[rp * 3 + c - 6] : (int32_t)s.dlog_val[rp * 24 + c - 9];
+  }
+}
+
+// f(e) for each canonical record e (flat lane * R + slot) in [lo, hi),
+// ascending: live (its slot below the lane's count) and its own canon.
+// The canon is read 16 bytes a load, CANON_LOADS loads in flight.
+constexpr int CANON_LOADS = 4;
+
+template <class F>
+__device__ __forceinline__ void canon_records(const Sym& s, const int32_t* canon, int lo, int hi,
+                                              F f) {
+  const int R = s.R, nr = s.n * R;
+  int lane = lo / R, r = lo - lane * R;
+  int live = lo < hi ? clampi(s.dlog_count[lane], 0, R) : 0;
+  for (int i0 = lo; i0 < hi; i0 += 4 * CANON_LOADS) {
+    int4 c[CANON_LOADS];
+#pragma unroll
+    for (int q = 0; q < CANON_LOADS; ++q) {
+      const int i = i0 + 4 * q;
+      if (i + 4 <= nr) {
+        c[q] = *reinterpret_cast<const int4*>(canon + i);
+      } else if (i < nr) {
+        int* w = &c[q].x;
+        for (int u = 0; u < 4; ++u) w[u] = i + u < nr ? canon[i + u] : 0;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < CANON_LOADS; ++q) {
+      const int* w = &c[q].x;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int e = i0 + 4 * q + u;
+        if (e >= hi) continue;
+        if (r < live && w[u] == -e - 1) f(e);
+        if (++r == R && e + 1 < hi) {
+          r = 0;
+          live = clampi(s.dlog_count[++lane], 0, R);
+        }
+      }
+    }
+  }
+}
+
+// K4's arguments besides the state
+struct Epi {
+  const int32_t* code;
+  int code_rows, budget, resume_on;
+  int floors[4];  // the retire column floors: stack, memory, overlay, slots
+  const int32_t* canon;
+  int32_t *misc, *scal, *ucount, *utab, *ftab, *ridx, *hidx;
+  Rows r, h;  // the retire and the resume rows
+  int urb, fb, rcap, hcap, phases;
+  int32_t* part;   // a grid's scan sums: 4 x gridDim
+  int32_t* urows;  // the unique rows' indices in global memory; null: in shared memory
+  Flog flog;
+};
+
+// exclusive prefix of (a, b) over the launch's threads in thread order
+// (a block's after the blocks before it); *tot gets the launch's sums.
+// Every thread of the launch calls it; a grid's scans each take their
+// own 2 x gridDim ints of `part`. ws: 68 ints of shared memory.
+template <int MODE>
+__device__ int2 launch_scan(int a, int b, int* ws, int32_t* part, int2* tot) {
+  const unsigned FULL = 0xFFFFFFFFu;
+  const int wl = threadIdx.x & 31, w = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  int xa = a, xb = b;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int ya = __shfl_up_sync(FULL, xa, o), yb = __shfl_up_sync(FULL, xb, o);
+    if (wl >= o) {
+      xa += ya;
+      xb += yb;
+    }
+  }
+  if (wl == 31) {
+    ws[w] = xa;
+    ws[32 + w] = xb;
+  }
+  __syncthreads();
+  if (w == 0) {  // the warps' sums, inclusive (from lane nw on: the block's)
+    int sa = wl < nw ? ws[wl] : 0, sb = wl < nw ? ws[32 + wl] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int ya = __shfl_up_sync(FULL, sa, o), yb = __shfl_up_sync(FULL, sb, o);
+      if (wl >= o) {
+        sa += ya;
+        sb += yb;
+      }
+    }
+    ws[wl] = sa;
+    ws[32 + wl] = sb;
+  }
+  __syncthreads();
+  int2 pre = make_int2((w ? ws[w - 1] : 0) + xa - a, (w ? ws[32 + w - 1] : 0) + xb - b);
+  int2 sum = make_int2(ws[31], ws[63]);
+  __syncthreads();
+  if constexpr (MODE == GRID) {
+    if (threadIdx.x == 0) {
+      part[blockIdx.x] = sum.x;
+      part[gridDim.x + blockIdx.x] = sum.y;
+    }
+    cg::this_grid().sync();
+    if (w == 0) {
+      int ba = 0, bb = 0, ta = 0, tb = 0;
+      for (int q = wl; q < (int)gridDim.x; q += 32) {
+        const int va = __ldcg(part + q), vb = __ldcg(part + gridDim.x + q);
+        ta += va;
+        tb += vb;
+        if (q < (int)blockIdx.x) {
+          ba += va;
+          bb += vb;
+        }
+      }
+      ba = __reduce_add_sync(FULL, ba);
+      bb = __reduce_add_sync(FULL, bb);
+      ta = __reduce_add_sync(FULL, ta);
+      tb = __reduce_add_sync(FULL, tb);
+      if (wl == 0) {
+        ws[64] = ba;
+        ws[65] = bb;
+        ws[66] = ta;
+        ws[67] = tb;
+      }
+    }
+    __syncthreads();
+    pre.x += ws[64];
+    pre.y += ws[65];
+    sum = make_int2(ws[66], ws[67]);
+    __syncthreads();
+  }
+  *tot = sum;
+  return pre;
+}
+
+// K4: the window epilogue in one launch, in launch mode MODE; a thread
+// holds lanes g * NL .. g * NL + NL - 1 (lane order is thread order, so
+// prefix scans over the threads select in ascending lane order, as JAX's
+// sort of where(sel, arange, n) does). S reads each lane's planes once
+// and computes its hold flag, and counts the canonical records in the
+// thread's chunk of the flat (lane, slot) index (chunks in thread order,
+// read 16 bytes a load); one scan places the first hcap holds and the
+// first urb unique rows; a
+// second places the first rcap retire-eligible lanes (parked, fitting
+// the floors, not held), whose owner marks them DEAD and writes each
+// lane's counts with its final status: no gather reads the status, so
+// JAX's order (gathers, then DEAD, then the counts) holds. After one
+// barrier G gathers the resume and retire rows (a warp a row), the
+// unique rows and the fork table (a thread a word).
+template <int NL, int MODE>
+__global__ void __launch_bounds__(WIN_THREADS)
+k_epilogue(const __grid_constant__ Sym s, const __grid_constant__ Epi e) {
+  __shared__ int ws[68];
+  __shared__ int32_t s_sel[HOLD_CAP + RCAP];  // one block: hidx, then ridx
+  extern __shared__ int32_t s_rows[];          // one block: the unique rows' indices
+  const int n = s.n, R = s.R;
+  const long long G = (long long)gridDim.x * blockDim.x;
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool sel = e.phases & EPI_SELECT, uniq = e.phases & EPI_UNIQUE;
+  int32_t* const urows = e.urows ? e.urows : s_rows;
+
+  // S: the lanes' planes, hold flags and canonical records
+  int pcv[NL], spv[NL], msv[NL], mcv[NL], scv[NL], stv[NL], stepv[NL], dcv[NL];
+  bool hf[NL];
+  int nh = 0, nu = 0;
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    const long long l = g * NL + j;
+    hf[j] = false;
+    dcv[j] = 0;
+    if (l >= n) continue;
+    dcv[j] = s.dlog_count[l];
+    if (sel) {
+      pcv[j] = s.pc[l];
+      spv[j] = s.sp[l];
+      msv[j] = s.msize[l];
+      mcv[j] = s.mlog_count[l];
+      scv[j] = s.scount[l];
+      stv[j] = s.status[l];
+      stepv[j] = s.steps[l];
+      const int op = e.code[(size_t)clampi(pcv[j], 0, e.code_rows - 1) * CODE_COLS];
+      hf[j] = e.resume_on != 0 && stv[j] == NEEDS_HOST && op == OP_SHA3 && spv[j] >= 2 &&
+              msv[j] <= RESUME_MEM && mcv[j] <= RESUME_MLOG;
+      nh += hf[j];
+    }
+  }
+  // the thread's records: a chunk of the flat (lane, slot) index, a
+  // multiple of 4 long, in thread order
+  const long long nr = (long long)n * R;
+  const long long chunk = ((nr + G - 1) / G + 3) & ~3LL;
+  const int rlo = (int)min(nr, g * chunk), rhi = (int)min(nr, rlo + chunk);
+  if (uniq) canon_records(s, e.canon, rlo, rhi, [&](int) { ++nu; });
+  int2 tot;
+  const int2 pre = launch_scan<MODE>(nh, nu, ws, e.part, &tot);
+  bool held[NL];
+  int rk = pre.x;
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    held[j] = hf[j] && rk < e.hcap;
+    if (held[j]) {
+      e.hidx[rk] = (int)(g * NL + j);
+      if (MODE == ONE) s_sel[rk] = (int)(g * NL + j);
+    }
+    rk += hf[j];
+  }
+  if (sel) {
+    for (long long i = g; i < e.hcap; i += G) {
+      if (i < tot.x) continue;
+      e.hidx[i] = n;
+      if (MODE == ONE) s_sel[i] = n;
+    }
+  }
+  if (uniq) {
+    int u = pre.y;
+    if (u < e.urb)
+      canon_records(s, e.canon, rlo, rhi, [&](int r) {
+        if (u < e.urb) urows[u] = r;
+        ++u;
+      });
+    for (long long i = g; i < e.urb; i += G)
+      if (i >= tot.y) urows[i] = 0;
+    if (g == 0) *e.ucount = tot.y;
+  }
+  if (sel) {
+    bool el[NL];
+    int ne = 0;
+#pragma unroll
+    for (int j = 0; j < NL; ++j) {
+      el[j] = false;
+      if (g * NL + j >= n) continue;
+      const bool parked = stv[j] == NEEDS_HOST || (stv[j] == RUNNING && stepv[j] >= e.budget);
+      const bool fits = spv[j] <= e.floors[0] && msv[j] <= e.floors[1] &&
+                        mcv[j] <= e.floors[2] && scv[j] <= e.floors[3];
+      el[j] = parked && fits && !held[j];
+      ne += el[j];
+    }
+    int2 t2;
+    const int2 p2 = launch_scan<MODE>(ne, 0, ws, e.part + 2 * gridDim.x, &t2);
+    int rr = p2.x;
+#pragma unroll
+    for (int j = 0; j < NL; ++j) {
+      const long long l = g * NL + j;
+      if (l >= n) continue;
+      const bool ret = el[j] && rr < e.rcap;
+      if (ret) {
+        e.ridx[rr] = (int)l;
+        if (MODE == ONE) s_sel[HOLD_CAP + rr] = (int)l;
+        s.status[l] = DEAD;
+      }
+      rr += el[j];
+      int4* m = reinterpret_cast<int4*>(e.misc + l * 8);
+      m[0] = make_int4(dcv[j], ret ? DEAD : stv[j], stepv[j], spv[j]);
+      m[1] = make_int4(scv[j], mcv[j], msv[j], pcv[j]);
+    }
+    for (long long i = g; i < e.rcap; i += G) {
+      if (i < t2.x) continue;
+      e.ridx[i] = n;
+      if (MODE == ONE) s_sel[HOLD_CAP + i] = n;
+    }
+    if (g == 0) {
+      e.scal[0] = *s.flog_count;
+      e.scal[1] = *s.free_count;
+    }
+  }
+  if (sel || uniq) launch_sync<MODE>();
+
+  // G: the retire and resume rows (a warp a row), the unique rows and
+  // the fork table (a thread a word), GATHER_WORDS words' loads in
+  // flight before their stores
+  if (sel) {  // the retire rows (the longer) first
+    RowSet ret = row_set(s, MODE == ONE ? s_sel + HOLD_CAP : e.ridx, e.rcap, false, e.r);
+    RowSet res = row_set(s, MODE == ONE ? s_sel : e.hidx, e.hcap, true, e.h);
+    ret.cg = res.cg = MODE == GRID;
+    const int lane = threadIdx.x & 31;
+    for (long long t = g >> 5; t < e.rcap + e.hcap; t += G >> 5) {
+      if (t < e.rcap) gather_row(s, ret, (int)t, lane);
+      else gather_row(s, res, (int)(t - e.rcap), lane);
+    }
+  }
+  if (uniq)
+    gather_words<GATHER_WORDS>(e.utab, 33 * e.urb, (int)g, (int)G, [&](int i) {
+      const unsigned row = (unsigned)i / 33u;
+      return unique_word(s, e.urows ? __ldcg(urows + row) : urows[row], (int)((unsigned)i % 33u));
+    });
+  if (e.phases & EPI_FORK)
+    gather_words<GATHER_WORDS>(e.ftab, 9 * e.fb, (int)g, (int)G,
+                               [&](int i) { return fork_word(e.flog, i); });
+}
+
+// the retire rows' widths under the floors, clipped to the planes
 inline Rows retire_rows_of(const Sym& s, const int* floors, void* i32, void* u32, void* u8) {
   Rows o;
   o.i32 = (int32_t*)i32;
@@ -814,62 +1328,136 @@ inline Rows retire_rows_of(const Sym& s, const int* floors, void* i32, void* u32
   return o;
 }
 
-// unique-record table: canonical flags over N x R, ascending compaction
-// into urb rows (padding row 0), the count into *count
-inline void unique_table_launch(const Sym& s, const int32_t* canon, int urb, int32_t* tab,
-                                int32_t* count, int32_t* scratch, cudaStream_t st) {
-  long long len = (long long)s.n * s.R;
-  int32_t* flag = scratch;
-  int32_t* rows = flag + len;
-  int32_t* block_off = rows + urb;
-  if (len > 0) k_canon_flags<<<nblocks_for(len, 256), 256, 0, st>>>(s, canon, flag);
-  compact(flag, len, rows, urb, 0, block_off, count, st);
-  if (urb > 0) k_unique_gather<<<nblocks_for(urb, 128), 128, 0, st>>>(s, rows, urb, tab);
+// _retire_rows: a warp a row; each row's lane marked DEAD by its warp
+// after the row (no gather reads the status)
+__global__ void k_retire_rows(const __grid_constant__ Sym s, const __grid_constant__ RowSet r) {
+  const long long w = gid() >> 5;
+  if (w >= r.count) return;
+  gather_row(s, r, (int)w, threadIdx.x & 31);
+  const int l = drop_row(r.sel[w], s.n);
+  if ((threadIdx.x & 31) == 0 && l >= 0) s.status[l] = DEAD;
 }
 
 }  // namespace
 
-// K2. offs: element offsets in i32buf of the _seed_sections, in order
-// (idx, i32p, u32p, fs, fcount, prov, kill, stack_v, stack_s, r_idx,
-// r_i32, r_limbs); u8buf holds u8p, mem_v, mem_k. dense: n*R ints.
-MTT_EXPORT int window_prologue(void** planes, const int* dims, const void* i32buf,
-                               const void* u8buf, const int* offs, int k, int pv, int sd,
-                               int mc, int ccw, void* dense, void* stream) {
-  Sym s = make_sym(planes, dims);
-  cudaStream_t st = (cudaStream_t)stream;
-  const int32_t* b = (const int32_t*)i32buf;
-  const uint8_t* u8 = (const uint8_t*)u8buf;
-  int32_t* table = (int32_t*)dense;
-  long long nr = (long long)s.n * s.R;
-  if (s.n == 0) return (int)cudaGetLastError();
-  fill_i32<<<nblocks_for(nr, 256), 256, 0, st>>>(table, nr, I32_MIN);
-  if (pv > 0) k_scatter_prov<<<nblocks_for(pv, 256), 256, 0, st>>>(table, nr, b + offs[5], pv);
-  remap_plane(s.ssid, (long long)s.n * s.D, table, s.n, s.R, st);
-  remap_plane(s.sval_sid, (long long)s.n * s.S, table, s.n, s.R, st);
-  remap_plane(s.skey_sid, (long long)s.n * s.S, table, s.n, s.R, st);
-  remap_plane(s.mlog_sid, (long long)s.n * s.MR, table, s.n, s.R, st);
-  k_reset_logs<<<nblocks_for(s.n, 256), 256, 0, st>>>(s);
-  k_kill<<<nblocks_for(s.n, 256), 256, 0, st>>>(s, b + offs[6]);
-  if (k > 0) {
-    k_resume<<<nblocks_for(k, 128), 128, 0, st>>>(s, b + offs[9], b + offs[10],
-                                                  (const uint32_t*)(b + offs[11]), k);
-    Seeds z;
-    z.idx = b + offs[0];
-    z.i32p = b + offs[1];
-    z.u32p = (const uint32_t*)(b + offs[2]);
-    z.stack_v = (const uint32_t*)(b + offs[7]);
-    z.stack_s = b + offs[8];
-    z.u8p = u8;
-    z.mem_v = u8 + (size_t)k * ccw;
-    z.mem_k = u8 + (size_t)k * (ccw + mc);
-    z.k = k;
-    z.sd = sd;
-    z.mc = mc;
-    z.ccw = ccw;
-    k_seed<<<k, 256, 0, st>>>(s, z);
+// the SMs and the cooperative-launch attribute of the current device
+inline cudaError_t card_of(int* sms, int* coop) {
+  int dev;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(coop, cudaDevAttrCooperativeLaunch, dev);
+  if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return rc;
+}
+
+// K2's shared memory: its hash (PROV_LOCAL pairs at most), and in one
+// block three ints a lane
+constexpr int K2_ONE_SMEM = PROV_LOCAL_BYTES + 12 * WIN_ONE_BLOCK;
+
+inline const void* prologue_kernel_of(int mode) {
+  return mode == GRID ? (const void*)k_prologue<GRID> : (const void*)k_prologue<ONE>;
+}
+
+// K2's dynamic shared-memory limits (past the default 48 KB), set once a
+// device: the attribute call costs more than the launch
+inline cudaError_t prologue_smem_limits() {
+  static bool set[64];
+  int dev;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess || (dev < 64 && set[dev])) return rc;
+  rc = cudaFuncSetAttribute(prologue_kernel_of(ONE), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            K2_ONE_SMEM);
+  if (rc == cudaSuccess)
+    rc = cudaFuncSetAttribute(prologue_kernel_of(GRID),
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, PROV_LOCAL_BYTES);
+  if (rc == cudaSuccess && dev < 64) set[dev] = true;
+  return rc;
+}
+
+// K2's launch shape over n lanes whose sid planes and seed rows are
+// `bytes`: out = {blocks, threads a block, mode}. One block up to
+// WIN_ONE_BLOCK lanes and K2_ONE_BYTES, else a cooperative grid of the
+// K2_GRID_THREADS-thread blocks that fit on the card at once. Refuses a
+// card without cooperative launch where the batch needs it.
+MTT_EXPORT int window_prologue_shape(int n, int bytes, int* out) {
+  cudaError_t rc = prologue_smem_limits();
+  if (rc != cudaSuccess) return (int)rc;
+  if (n <= WIN_ONE_BLOCK && bytes <= K2_ONE_BYTES) {
+    out[0] = 1;
+    out[1] = WIN_THREADS;
+    out[2] = ONE;
+    return 0;
   }
-  k_free_slots<<<nblocks_for(s.n, 256), 256, 0, st>>>(s, b + offs[3], b + offs[4]);
-  return (int)cudaGetLastError();
+  int sms = 0, coop = 0, occ = 0;
+  rc = card_of(&sms, &coop);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, prologue_kernel_of(GRID),
+                                                       K2_GRID_THREADS, PROV_LOCAL_BYTES);
+  if (rc != cudaSuccess) return (int)rc;
+  if (!coop) return (int)cudaErrorNotSupported;
+  if (occ < 1) return (int)cudaErrorInvalidConfiguration;
+  out[0] = occ * sms;
+  out[1] = K2_GRID_THREADS;
+  out[2] = GRID;
+  return 0;
+}
+
+// K2: one launch, no host wait. args: blocks, threads, mode (from
+// window_prologue_shape, or a grid no larger than fits), k, pv, sd, mc,
+// ccw, then the element offsets in i32buf of the _seed_sections in order
+// (idx, i32p, u32p, fs, fcount, prov, kill, stack_v, stack_s, r_idx,
+// r_i32, r_limbs); u8buf holds u8p, mem_v, mem_k. scratch, zeroed once
+// when it is allocated: past PROV_LOCAL pairs the dense table (n * R
+// uint64), then on a grid 2n uint64 and n uint32. epoch: above every
+// earlier call's on the same scratch.
+MTT_EXPORT int window_prologue(void** planes, const int* dims, const void* i32buf,
+                               const void* u8buf, const int* args, unsigned epoch, void* scratch,
+                               void* stream) {
+  const Sym s = make_sym(planes, dims);
+  if (s.n == 0) return 0;
+  const int blocks = args[0], threads = args[1], mode = args[2];
+  if (blocks < 1 || threads < 32 || threads > WIN_THREADS || threads % 32 ||
+      (mode != ONE && mode != GRID) || (mode == ONE && (blocks != 1 || s.n > WIN_ONE_BLOCK)) ||
+      (long long)s.n * s.R > I32_MAX || epoch == 0)
+    return (int)cudaErrorInvalidValue;
+  Pro a;
+  const int32_t* b = (const int32_t*)i32buf;
+  const int* off = args + 8;
+  a.k = args[3];
+  a.pv = args[4];
+  a.sd = args[5];
+  a.mc = args[6];
+  a.ccw = args[7];
+  a.idx = b + off[0];
+  a.i32p = b + off[1];
+  a.u32p = (const uint32_t*)(b + off[2]);
+  a.fs = b + off[3];
+  a.fcount = b + off[4];
+  a.pairs = b + off[5];
+  a.kill = b + off[6];
+  a.stack_v = (const uint32_t*)(b + off[7]);
+  a.stack_s = b + off[8];
+  a.r_idx = b + off[9];
+  a.r_i32 = b + off[10];
+  a.r_limbs = (const uint32_t*)(b + off[11]);
+  a.u8p = (const uint8_t*)u8buf;
+  a.mem_v = a.u8p + (size_t)a.k * a.ccw;
+  a.mem_k = a.u8p + (size_t)a.k * (a.ccw + a.mc);
+  a.cap = a.pv <= PROV_LOCAL ? prov_cap(a.pv) : 0;
+  a.epoch = epoch;
+  unsigned long long* sc = (unsigned long long*)scratch;
+  a.dense = a.cap ? nullptr : sc;
+  if (!a.cap) sc += (size_t)s.n * s.R;
+  a.own = sc;
+  a.killed = (uint32_t*)(sc + 2 * (size_t)s.n);
+  const size_t smem = 8 * (size_t)a.cap + (mode == ONE ? 12 * (size_t)s.n : 0);
+  void* kargs[] = {(void*)&s, &a};
+  const void* fn = prologue_kernel_of(mode);
+  cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t rc = prologue_smem_limits();
+  if (rc != cudaSuccess) return (int)rc;
+  return (int)(mode == GRID
+                   ? cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(threads), kargs, smem, st)
+                   : cudaLaunchKernel(fn, dim3(1), dim3(threads), kargs, smem, st));
 }
 
 // K3's kernel holding nl lanes a thread (1, 2, 4 or 8) in launch mode
@@ -1008,75 +1596,150 @@ MTT_EXPORT int window_dedup(void** planes, const int* dims, void* canon, void* s
   return (int)cudaGetLastError();
 }
 
-// K4. floors: the retire column floors (stack, memory, overlay, slots).
-// scratch: 3*n + n*R + urb + ceil(n*R/256) + 8 ints.
-MTT_EXPORT int window_epilogue(void** planes, const int* dims, const void* code, int code_rows,
-                               int budget, int resume_on, const void* canon, void* misc,
-                               void* scal, void* utab, void* ftab, void* ridx, void* r_i32,
-                               void* r_u32, void* r_u8, void* hidx, void* h_i32, void* h_u32,
-                               void* h_u8, const int* floors, int urb, int fb, void* scratch,
-                               void* stream) {
-  Sym s = make_sym(planes, dims);
-  cudaStream_t st = (cudaStream_t)stream;
-  int n = s.n;
-  if (n == 0) return (int)cudaGetLastError();
-  int rcap = min(16, n), hcap = min(64, n);
-  int32_t* sc = (int32_t*)scratch;
-  int32_t* hflag = sc;
-  int32_t* held = hflag + n;
-  int32_t* eflag = held + n;
-  int32_t* rest = eflag + n;  // unique-table scratch
-  // floors live on the host; the flag kernel reads them from the device
-  int32_t* dfloors = rest;
-  cudaMemcpyAsync(dfloors, floors, 4 * sizeof(int), cudaMemcpyHostToDevice, st);
-  unsigned nb = nblocks_for(n, 256);
-  int32_t* block_off = rest + 8;
-  k_hold_flags<<<nb, 256, 0, st>>>(s, (const int32_t*)code, code_rows, resume_on, hflag);
-  compact(hflag, n, (int32_t*)hidx, hcap, n, block_off, nullptr, st);
-  fill_i32<<<nb, 256, 0, st>>>(held, n, 0);
-  k_mark<<<nblocks_for(hcap, 64), 64, 0, st>>>(held, (const int32_t*)hidx, hcap, n, 1);
-  k_elig_flags<<<nb, 256, 0, st>>>(s, budget, dfloors, held, eflag);
-  compact(eflag, n, (int32_t*)ridx, rcap, n, block_off, nullptr, st);
-  Rows h;
-  h.i32 = (int32_t*)h_i32;
-  h.u32 = (uint32_t*)h_u32;
-  h.u8 = (uint8_t*)h_u8;
-  h.ws = 0;
-  h.wk = 0;
-  h.wl = min(RESUME_MLOG, s.MR);
-  h.wm = min(RESUME_MEM, s.M);
-  k_resume_gather<<<hcap, 128, 0, st>>>(s, (const int32_t*)hidx, h);
-  k_retire_gather<<<rcap, 256, 0, st>>>(s, (const int32_t*)ridx,
-                                        retire_rows_of(s, floors, r_i32, r_u32, r_u8));
-  k_mark_dead<<<1, 64, 0, st>>>(s, (const int32_t*)ridx, rcap);
-  k_counts<<<nb, 256, 0, st>>>(s, (int32_t*)misc, (int32_t*)scal);
-  unique_table_launch(s, (const int32_t*)canon, urb, (int32_t*)utab, (int32_t*)scal + 2,
-                      rest + 8, st);
-  if (fb > 0) k_fork_gather<<<nblocks_for(9LL * fb, 256), 256, 0, st>>>(flog_of(s), fb, (int32_t*)ftab);
-  return (int)cudaGetLastError();
+// K4's kernel holding nl lanes a thread (1, 2, 4 or 8) in launch mode
+// `mode`; null past 8
+template <int MODE>
+inline const void* epilogue_kernel_in(int nl) {
+  switch (nl) {
+    case 1: return (const void*)k_epilogue<1, MODE>;
+    case 2: return (const void*)k_epilogue<2, MODE>;
+    case 4: return (const void*)k_epilogue<4, MODE>;
+    case 8: return (const void*)k_epilogue<8, MODE>;
+    default: return nullptr;
+  }
 }
 
-// _retire_rows: gather the rows of idx[0..k) and mark them DEAD
+inline const void* epilogue_kernel_of(int nl, int mode) {
+  return mode == GRID ? epilogue_kernel_in<GRID>(nl) : epilogue_kernel_in<ONE>(nl);
+}
+
+// K4's launch shape over n lanes: out = {blocks, threads a block, mode,
+// lanes a thread}. One block of WIN_THREADS threads up to WIN_ONE_BLOCK
+// lanes; past that a cooperative grid of K4_GRID_THREADS-thread blocks, a
+// block a K4_GRID_THREADS lanes up to the blocks that fit on the card at
+// once. Refuses a card without cooperative launch where the batch needs
+// it, and a batch that would need more than 8 lanes a thread.
+MTT_EXPORT int window_epilogue_shape(int n, int* out) {
+  if (n <= WIN_ONE_BLOCK) {
+    out[0] = 1;
+    out[1] = WIN_THREADS;
+    out[2] = ONE;
+    out[3] = n <= WIN_THREADS ? 1 : 2;
+    return 0;
+  }
+  int sms = 0, coop = 0, occ = 0;
+  cudaError_t rc = card_of(&sms, &coop);
+  for (int nl = 1; nl <= 8 && rc == cudaSuccess; nl *= 2) {
+    int o = 0;
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o, epilogue_kernel_of(nl, GRID),
+                                                       K4_GRID_THREADS, 0);
+    occ = nl == 1 ? o : std::min(occ, o);
+  }
+  if (rc != cudaSuccess) return (int)rc;
+  if (!coop) return (int)cudaErrorNotSupported;
+  if (occ < 1) return (int)cudaErrorInvalidConfiguration;
+  out[0] = (int)std::min((long long)occ * sms,
+                         ((long long)n + K4_GRID_THREADS - 1) / K4_GRID_THREADS);
+  out[1] = K4_GRID_THREADS;
+  out[2] = GRID;
+  out[3] = dedup_lanes_a_thread(n, out[0], out[1]);
+  return out[3] ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// K4's launch (and the unique-table escalation's): shape = {blocks,
+// threads, mode, lanes a thread}; scratch: on a grid 4 x blocks ints,
+// then urb ints where the unique rows' indices do not stay in the
+// block's shared memory (on a grid, or past EPI_LOCAL_ROWS)
+inline int epilogue_launch(const Sym& s, Epi& e, const int* shape, void* scratch, void* stream) {
+  const int blocks = shape[0], threads = shape[1], mode = shape[2], nl = shape[3];
+  const void* fn = epilogue_kernel_of(nl, mode);
+  if (!fn || blocks < 1 || threads < 32 || threads > WIN_THREADS || threads % 32 ||
+      (mode != ONE && mode != GRID) || (mode == ONE && blocks != 1) ||
+      (long long)blocks * threads * nl < s.n || (long long)s.n * s.R > I32_MAX)
+    return (int)cudaErrorInvalidValue;
+  if ((uintptr_t)e.canon % 16) return (int)cudaErrorMisalignedAddress;
+  int32_t* sc = (int32_t*)scratch;
+  e.part = sc;
+  const bool local = mode == ONE && e.urb <= EPI_LOCAL_ROWS;
+  e.urows = local ? nullptr : sc + 4 * blocks;
+  void* kargs[] = {(void*)&s, &e};
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)(mode == GRID
+                   ? cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(threads), kargs, 0, st)
+                   : cudaLaunchKernel(fn, dim3(1), dim3(threads), kargs,
+                                      local ? 4 * (size_t)e.urb : 0, st));
+}
+
+// K4: one launch, no host wait. lay: the launch shape (blocks, threads,
+// mode, lanes a thread: window_epilogue_shape), urb, fb, the four retire
+// floors, then the byte offsets in `out` of misc, scal, utab, ftab,
+// ridx, r_i32, r_u32, r_u8, hidx, h_i32, h_u32, h_u8 (each 16-byte
+// aligned); scratch as epilogue_launch's.
+MTT_EXPORT int window_epilogue(void** planes, const int* dims, const void* code, int code_rows,
+                               int budget, int resume_on, const void* canon, void* out,
+                               const int* lay, void* scratch, void* stream) {
+  const Sym s = make_sym(planes, dims);
+  if (s.n == 0) return 0;
+  uint8_t* o = (uint8_t*)out;
+  const int* off = lay + 10;
+  Epi e;
+  e.code = (const int32_t*)code;
+  e.code_rows = code_rows;
+  e.budget = budget;
+  e.resume_on = resume_on;
+  for (int i = 0; i < 4; ++i) e.floors[i] = lay[6 + i];
+  e.canon = (const int32_t*)canon;
+  e.misc = (int32_t*)(o + off[0]);
+  e.scal = (int32_t*)(o + off[1]);
+  e.ucount = e.scal + 2;
+  e.utab = (int32_t*)(o + off[2]);
+  e.ftab = (int32_t*)(o + off[3]);
+  e.ridx = (int32_t*)(o + off[4]);
+  e.r = retire_rows_of(s, e.floors, o + off[5], o + off[6], o + off[7]);
+  e.hidx = (int32_t*)(o + off[8]);
+  e.h.i32 = (int32_t*)(o + off[9]);
+  e.h.u32 = (uint32_t*)(o + off[10]);
+  e.h.u8 = o + off[11];
+  e.h.ws = 0;
+  e.h.wk = 0;
+  e.h.wl = min(RESUME_MLOG, s.MR);
+  e.h.wm = min(RESUME_MEM, s.M);
+  e.urb = lay[4];
+  e.fb = lay[5];
+  e.rcap = min(RCAP, s.n);
+  e.hcap = min(HOLD_CAP, s.n);
+  e.phases = EPI_SELECT | EPI_UNIQUE | EPI_FORK;
+  e.flog = flog_of(s);
+  return epilogue_launch(s, e, lay, scratch, stream);
+}
+
+// _retire_rows: gather the rows of idx[0..k) and mark their lanes DEAD,
+// one launch
 MTT_EXPORT int retire_rows(void** planes, const int* dims, const void* idx, int k,
                            const int* floors, void* i32, void* u32, void* u8, void* stream) {
-  Sym s = make_sym(planes, dims);
-  cudaStream_t st = (cudaStream_t)stream;
+  const Sym s = make_sym(planes, dims);
   if (k > 0 && s.n > 0) {
-    k_retire_gather<<<k, 256, 0, st>>>(s, (const int32_t*)idx,
-                                       retire_rows_of(s, floors, i32, u32, u8));
-    k_mark_dead<<<nblocks_for(k, 256), 256, 0, st>>>(s, (const int32_t*)idx, k);
+    const RowSet r = row_set(s, (const int32_t*)idx, k, false,
+                             retire_rows_of(s, floors, i32, u32, u8));
+    k_retire_rows<<<nblocks_for(32LL * k, 256), 256, 0, (cudaStream_t)stream>>>(s, r);
   }
   return (int)cudaGetLastError();
 }
 
-// _unique_table_big's table (after window_dedup without writes).
-// scratch: n*R + urb + ceil(n*R/256) + 8 ints.
-MTT_EXPORT int unique_table(void** planes, const int* dims, const void* canon, int urb,
-                            void* tab, void* count, void* scratch, void* stream) {
-  Sym s = make_sym(planes, dims);
-  unique_table_launch(s, (const int32_t*)canon, urb, (int32_t*)tab, (int32_t*)count,
-                      (int32_t*)scratch, (cudaStream_t)stream);
-  return (int)cudaGetLastError();
+// _unique_table_big's table (after window_dedup without writes): K4's
+// unique phase alone, in shape {blocks, threads, mode, lanes a thread}
+// (window_epilogue_shape); scratch as epilogue_launch's.
+MTT_EXPORT int unique_table(void** planes, const int* dims, const void* canon, int urb, void* tab,
+                            void* count, const int* shape, void* scratch, void* stream) {
+  const Sym s = make_sym(planes, dims);
+  if (s.n == 0) return 0;
+  Epi e = {};
+  e.canon = (const int32_t*)canon;
+  e.utab = (int32_t*)tab;
+  e.ucount = (int32_t*)count;
+  e.urb = urb;
+  e.phases = EPI_UNIQUE;
+  return epilogue_launch(s, e, shape, scratch, stream);
 }
 
 // the first fb fork-table rows (fb = F: _gather_full_flog). flog: the

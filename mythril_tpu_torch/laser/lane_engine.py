@@ -61,6 +61,7 @@ import os
 import threading
 import time
 from collections import deque
+from collections.abc import Sequence
 from contextlib import contextmanager
 from copy import copy
 from typing import Dict, List, Optional, Tuple
@@ -265,7 +266,8 @@ def prov_table(st: SymLaneState, prov_pairs):
     """The dense (lane, record slot) -> oid table of the sparse
     resolution pairs (int32 min where none), as the JAX
     ``.at[slot].set(oid, mode="drop")`` builds it: a negative slot
-    counts from the end, a slot out of range either way is dropped."""
+    counts from the end, a slot out of range either way is dropped, and
+    of the pairs naming one slot the last wins."""
     d_recs = st.dlog_op.shape[1]
     n = st.pc.shape[0]
     size = n * d_recs
@@ -274,7 +276,11 @@ def prov_table(st: SymLaneState, prov_pairs):
     slot = prov_pairs[:, 0].long()
     slot = torch.where(slot < 0, slot + size, slot)
     ok = (slot >= 0) & (slot < size)
-    dense[slot[ok]] = prov_pairs[:, 1][ok]
+    last = torch.full((size,), -1, dtype=torch.int64, device=st.device)
+    last.scatter_reduce_(0, slot[ok], torch.nonzero(ok).reshape(-1),
+                         reduce="amax")
+    has = last >= 0
+    dense[has] = prov_pairs[:, 1][last[has]]
     return dense.reshape(n, d_recs)
 
 
@@ -292,9 +298,15 @@ def _remap_reset_core(st: SymLaneState, prov_pairs) -> SymLaneState:
 
 
 def _rows(idx, n):
-    """Seed/resume row indices in range (padding holds n: dropped)."""
-    keep = (idx >= 0) & (idx < n)
-    return idx.long()[keep], keep
+    """The rows a JAX ``.at[idx].set(..., mode="drop")`` writes: a
+    negative index counts from the end, one out of range either way
+    (the padding, n) is dropped. Returns (rows, mask of the entries
+    kept); where two entries name one element, the later is written
+    last, as JAX's scatter leaves it."""
+    i = idx.long()
+    i = torch.where(i < 0, i + n, i)
+    keep = (i >= 0) & (i < n)
+    return i[keep], keep
 
 
 def _prologue_core(st: SymLaneState, idx, i32p, u32p, u8p, stack_v,
@@ -631,14 +643,16 @@ def gather_full_flog_plain(st: SymLaneState):
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _WINDOW_SIGS = {
-    "window_prologue": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "window_prologue_shape": [_I, _I, _P],
+    "window_prologue": [_P, _P, _P, _P, _P, _U, _P, _P],
     "window_dedup": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "window_dedup_shape": [_I, _P],
-    "window_epilogue": [_P, _P, _P, _I, _I, _I] + [_P] * 14
-    + [_I, _I, _P, _P],
+    "window_epilogue_shape": [_I, _P],
+    "window_epilogue": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "retire_rows": [_P, _P, _P, _I, _P, _P, _P, _P, _P],
-    "unique_table": [_P, _P, _P, _I, _P, _P, _P, _P],
+    "unique_table": [_P, _P, _P, _I, _P, _P, _P, _P, _P],
     "fork_table": [_P, _I, _P, _P],
 }
 
@@ -656,24 +670,123 @@ def _kw():
     return _WINDOW_LIB[0], _WINDOW_LIB[1]
 
 
-def prologue_kernel(st, i32buf, u8buf, k, pv):
-    """K2 on the card; updates the state's planes in place."""
+#: K2's and K4's launch shapes ({kernel: {key: shape}}, see
+#: ``window_shape``)
+_WIN_SHAPES = {"prologue": {}, "epilogue": {}}
+#: K2's and K4's argument blocks by call shape (``_k2_plan``,
+#: ``_k4_plan``)
+_WIN_PLANS = {}
+#: scratch by (kernel, device, stream, layout): [tensor, K2's last epoch,
+#: lock]; K2's is zeroed once, when it is allocated
+_WIN_SCRATCH = {}
+_WIN_LOCK = threading.Lock()
+#: ``csrc/window.cu`` PROV_LOCAL: past it K2's provisional table is dense
+_K2_PROV_LOCAL = 4096
+
+
+def window_shape(kernel: str, n: int, dev: torch.device, nbytes=0):
+    """K2's (``kernel`` "prologue", its sid planes and seed rows
+    ``nbytes``) or K4's ("epilogue") launch shape over ``n`` lanes on
+    ``dev``
+    (``csrc/window.cu`` ``window_prologue_shape``,
+    ``window_epilogue_shape``): (blocks, threads a block, mode: 0 one
+    block, 1 a cooperative grid[, lanes a thread for K4]). Raises where
+    the card cannot launch the one the batch needs."""
+    shapes = _WIN_SHAPES[kernel]
+    key = (n, nbytes, dev.index)
+    if key not in shapes:
+        _build, lib = _kw()
+        out = (ctypes.c_int * 4)()
+        with torch.cuda.device(dev):
+            rc = lib.window_prologue_shape(n, nbytes, out) \
+                if kernel == "prologue" else lib.window_epilogue_shape(n, out)
+        _build.check(lib, rc, f"window_{kernel}_shape (a wide batch needs "
+                     "a cooperative launch)")
+        shapes[key] = tuple(out)[:3 if kernel == "prologue" else 4]
+    return shapes[key]
+
+
+def _scratch(kernel, dev, stream, layout, nbytes):
+    """[tensor of at least nbytes, epoch, lock] of ``kernel`` on dev's
+    ``stream`` (a raw handle) for this layout: K2's zeroed at its
+    allocation, its epoch the number of K2 calls on it (each call's
+    table entries carry it, so none has to clear them); None for no
+    bytes."""
+    if not nbytes:
+        return None
+    key = (kernel, dev.index, stream, layout)
+    hit = _WIN_SCRATCH.get(key)
+    if hit is not None and hit[0].numel() >= nbytes:
+        return hit
+    with _WIN_LOCK:
+        hit = _WIN_SCRATCH.get(key)
+        if hit is None or hit[0].numel() < nbytes:
+            buf = torch.zeros(nbytes, dtype=torch.uint8, device=dev)
+            hit = _WIN_SCRATCH[key] = [buf, hit[1] if hit else 0,
+                                       threading.Lock()]
+        return hit
+
+
+def _k2_bytes(st, k):
+    """K2's sid planes and the rows k seeds write (what decides its
+    launch shape)."""
+    d, m, c, s_, e, mr = (st.stack.shape[1], st.memory.shape[1],
+                          st.calldata.shape[1], st.skeys.shape[1],
+                          st.env.shape[1], st.mlog_off.shape[1])
+    return 4 * st.pc.shape[0] * (d + 2 * s_ + mr) \
+        + k * (36 * d + 2 * m + c + 36 * e + 84 * s_)
+
+
+def _k2_plan(st, k, pv, shape):
+    """K2's argument block for these planes, k seeds and pv pairs:
+    (C int array, scratch bytes, i32 buffer length, u8 buffer length)."""
+    n, d_recs = st.pc.shape[0], st.dlog_op.shape[1]
+    key = ("prologue", n, d_recs, st.stack.shape[1], st.memory.shape[1],
+           st.calldata.shape[1], st.skeys.shape[1], st.env.shape[1],
+           st.mlog_off.shape[1], k, pv, st.device.index, shape)
+    plan = _WIN_PLANS.get(key)
+    if plan is None:
+        from .. import _build
+
+        sd, mc, ccw = _seed_widths(st)
+        offs, total = _section_offsets(
+            _seed_sections(n, k, st.env.shape[1], sd, pv))
+        blocks, threads, mode = shape or window_shape(
+            "prologue", n, st.device, _k2_bytes(st, k))
+        dense = 8 * n * d_recs if pv > _K2_PROV_LOCAL else 0
+        scratch = dense + (20 * n if mode == 1 else 0)
+        plan = _WIN_PLANS[key] = (
+            _build.int_array([blocks, threads, mode, k, pv, sd, mc, ccw]
+                             + list(offs.values())),
+            scratch, total, k * (ccw + 2 * mc), (n, d_recs, bool(dense)))
+    return plan
+
+
+def prologue_kernel(st, i32buf, u8buf, k, pv, shape=None):
+    """K2 on the card, one launch that does not wait on the card;
+    updates the state's planes in place. ``shape`` (blocks, threads,
+    mode) overrides ``window_shape``'s."""
     _build, lib = _kw()
     planes, dims = symstep.state_args(st)
-    n, d_recs = st.pc.shape[0], st.dlog_op.shape[1]
-    sd, mc, ccw = _seed_widths(st)
-    offs, total = _section_offsets(
-        _seed_sections(n, k, st.env.shape[1], sd, pv))
-    if i32buf.numel() != total or u8buf.numel() != k * (ccw + 2 * mc):
+    args, nscratch, total, nu8, layout = _k2_plan(st, k, pv, shape)
+    if i32buf.numel() != total or u8buf.numel() != nu8:
         raise ValueError("seed buffers do not match the seed sections")
-    _build.need_cuda(i32buf, torch.int32, "i32buf")
-    _build.need_cuda(u8buf, torch.uint8, "u8buf")
-    order = list(offs.values())  # section order
-    dense = torch.empty(n * d_recs, dtype=torch.int32, device=st.device)
-    rc = lib.window_prologue(planes, dims, _build.ptr(i32buf),
-                             _build.ptr(u8buf), _build.int_array(order), k,
-                             pv, sd, mc, ccw, _build.ptr(dense),
-                             _build.stream(st.device))
+    for buf, dtype, name in ((i32buf, torch.int32, "i32buf"),
+                             (u8buf, torch.uint8, "u8buf")):
+        if not (buf.is_cuda and buf.dtype is dtype and buf.is_contiguous()):
+            _build.need_cuda(buf, dtype, name)
+    dev = st.device
+    stream = _build.stream(dev)
+    scratch = _scratch("prologue", dev, stream.value, layout, nscratch)
+    if scratch is None:
+        rc = lib.window_prologue(planes, dims, i32buf.data_ptr(),
+                                 u8buf.data_ptr(), args, 1, None, stream)
+    else:
+        with scratch[2]:  # epochs reach the stream in their order
+            scratch[1] += 1
+            rc = lib.window_prologue(planes, dims, i32buf.data_ptr(),
+                                     u8buf.data_ptr(), args, scratch[1],
+                                     scratch[0].data_ptr(), stream)
     _build.LAUNCHES["window_prologue"] += 1
     _build.check(lib, rc, "window_prologue")
 
@@ -738,51 +851,125 @@ def dedup_kernel(st: SymLaneState, write_sids: bool = True, shape=None,
     return canon
 
 
-def _row_outputs(st, k, dstack, dmem, dmlog, dslot):
-    ws, wm, wl, wk = _retire_widths(st, dstack, dmem, dmlog, dslot)
-    dev = st.device
-    return (torch.empty((k, 10 + 3 * wl + ws + 5 * wk), dtype=torch.int32,
-                        device=dev),
-            torch.empty((k, NLIMBS * (ws + 2 * wk)), dtype=torch.int32,
-                        device=dev),
-            torch.empty((k, 2 * wm), dtype=torch.uint8, device=dev))
+def _views(base, sections):
+    """Views of one int32 device buffer: sections [(uint8?, shape,
+    strides, offset in the section's elements)] (``_layout``'s)."""
+    as_u8 = base.view(torch.uint8)
+    return tuple((as_u8 if u8 else base).as_strided(shape, stride, off)
+                 for u8, shape, stride, off in sections)
 
 
-def epilogue_kernel(st, cc, canon, budget, resume_on):
-    """K4 on the card; marks retired lanes DEAD in place and returns
-    the outputs."""
+class Outputs(Sequence):
+    """Arrays that are sections of one device buffer (K4's 12 outputs,
+    a retire's 3 rows), as a sequence of tensors. The views are made
+    when first read (each costs the host microseconds); ``_start_pull``
+    copies the buffer whole and reads none."""
+
+    __slots__ = ("base", "sections", "_made")
+
+    def __init__(self, base, sections):
+        self.base, self.sections, self._made = base, sections, None
+
+    def __len__(self):
+        return len(self.sections)
+
+    def __getitem__(self, i):
+        if self._made is None:
+            self._made = _views(self.base, self.sections)
+        return self._made[i]
+
+
+def _layout(shapes):
+    """Sections [(uint8?, shape, strides, offset in the section's
+    elements)] of the (dtype, shape) arrays placed one after the other
+    in one buffer, each 16-byte aligned and contiguous; and the bytes in
+    all (a multiple of 16)."""
+    off, out = 0, []
+    for dtype, shape in shapes:
+        u8 = dtype is torch.uint8
+        unit = 1 if u8 else 4
+        stride = tuple(int(np.prod(shape[i + 1:])) for i in range(len(shape)))
+        out.append((u8, tuple(shape), stride, off // unit))
+        off += -(-int(np.prod(shape)) * unit // 16) * 16
+    return out, max(off, 16)
+
+
+def _row_shapes(k, ws, wm, wl, wk):
+    """(dtype, shape) of the three arrays of k retire rows of these
+    widths (``_retire_gather_core``'s packing)."""
+    return [(torch.int32, (k, 10 + 3 * wl + ws + 5 * wk)),
+            (torch.int32, (k, NLIMBS * (ws + 2 * wk))),
+            (torch.uint8, (k, 2 * wm))]
+
+
+@functools.lru_cache(maxsize=256)
+def _row_layout(k, ws, wm, wl, wk):
+    """``_layout`` of ``_row_shapes``, kept by shape."""
+    return _layout(_row_shapes(k, ws, wm, wl, wk))
+
+
+def _k4_plan(st, shape):
+    """K4's argument block for these planes: (C int array, output
+    sections, output bytes, scratch bytes)."""
+    n, d_recs = st.pc.shape[0], st.dlog_op.shape[1]
+    key = ("epilogue", n, d_recs, st.stack.shape[1], st.memory.shape[1],
+           st.mlog_off.shape[1], st.skeys.shape[1], st.device.index, shape)
+    plan = _WIN_PLANS.get(key)
+    if plan is None:
+        from .. import _build
+
+        rcap, hcap = min(RCAP, n), min(HOLD_CAP, n)
+        urb, fb = min(URB, n * d_recs), min(FB, n)
+        wl = min(RESUME_MLOG, st.mlog_off.shape[1])
+        wm = min(RESUME_MEM, st.memory.shape[1])
+        sections, nbytes = _layout(
+            [(torch.int32, (n, 8)), (torch.int32, (3,)),
+             (torch.int32, (urb, 3 * NLIMBS + 9)), (torch.int32, (fb, 9)),
+             (torch.int32, (rcap,))]
+            + _row_shapes(rcap, *_retire_widths(st, *RETIRE_FLOORS))
+            + [(torch.int32, (hcap,)), (torch.int32, (hcap, 7 + 3 * wl)),
+               (torch.int32, (hcap, 2 * NLIMBS)),
+               (torch.uint8, (hcap, 2 * wm))])
+        shape = shape or window_shape("epilogue", n, st.device)
+        plan = _WIN_PLANS[key] = (
+            _build.int_array(list(shape) + [urb, fb, *RETIRE_FLOORS]
+                             + [off * (1 if u8 else 4)
+                                for u8, _, _, off in sections]),
+            sections, nbytes, _k4_scratch(shape, urb))
+    return plan
+
+
+def _k4_scratch(shape, urb):
+    """Bytes of K4's scratch (``csrc/window.cu`` ``epilogue_launch``):
+    a grid's scan sums, and the unique rows' indices where one block's
+    shared memory does not hold them."""
+    blocks, _, mode, _ = shape
+    return 4 * (4 * blocks + urb) if mode == 1 or urb > 11 * 1024 else 0
+
+
+def epilogue_kernel(st, cc, canon, budget, resume_on, shape=None):
+    """K4 on the card, one launch that does not wait on the card: marks
+    retired lanes DEAD in place and returns the 12 outputs, views of one
+    device allocation. ``shape`` (blocks, threads, mode, lanes a thread)
+    overrides ``window_shape``'s."""
     _build, lib = _kw()
     planes, dims = symstep.state_args(st)
     dev = st.device
-    n, d_recs = st.pc.shape[0], st.dlog_op.shape[1]
-    rcap, hcap = min(RCAP, n), min(HOLD_CAP, n)
-    urb, fb = min(URB, n * d_recs), min(FB, n)
-    wl = min(RESUME_MLOG, st.mlog_off.shape[1])
-    wm = min(RESUME_MEM, st.memory.shape[1])
-
-    def i32(*shape):
-        return torch.empty(shape, dtype=torch.int32, device=dev)
-
-    misc, scal, utab, ftab = i32(n, 8), i32(3), i32(urb, 3 * NLIMBS + 9), \
-        i32(fb, 9)
-    ridx, hidx = i32(rcap), i32(hcap)
-    rows = _row_outputs(st, rcap, *RETIRE_FLOORS)
-    hrows = (i32(hcap, 7 + 3 * wl), i32(hcap, 2 * NLIMBS),
-             torch.empty((hcap, 2 * wm), dtype=torch.uint8, device=dev))
-    scratch = i32(3 * n + n * d_recs + urb + (n * d_recs + 255) // 256 + 16)
-    packed = cc.packed.contiguous()
-    _build.need_cuda(packed, torch.int32, "code.packed")
-    _build.need_cuda(canon, torch.int32, "canon")
+    lay, sections, nbytes, nscratch = _k4_plan(st, shape)
+    packed = cc.packed
+    for t, name in ((canon, "canon"), (packed, "code.packed")):
+        if not (t.is_cuda and t.dtype is torch.int32 and t.is_contiguous()):
+            _build.need_cuda(t, torch.int32, name)
+    out = torch.empty(nbytes // 4, dtype=torch.int32, device=dev)
+    stream = _build.stream(dev)
+    scratch = _scratch("epilogue", dev, stream.value, None, nscratch)
     rc = lib.window_epilogue(
-        planes, dims, _build.ptr(packed), packed.shape[0], int(budget),
-        int(resume_on), _build.ptr(canon), _build.ptr(misc),
-        _build.ptr(scal), _build.ptr(utab), _build.ptr(ftab),
-        _build.ptr(ridx), *[_build.ptr(x) for x in rows], _build.ptr(hidx),
-        *[_build.ptr(x) for x in hrows], _build.int_array(RETIRE_FLOORS),
-        urb, fb, _build.ptr(scratch), _build.stream(dev))
+        planes, dims, packed.data_ptr(), packed.shape[0], int(budget),
+        int(resume_on), canon.data_ptr(), out.data_ptr(), lay,
+        scratch[0].data_ptr() if scratch else None, stream)
     _build.LAUNCHES["window_epilogue"] += 1
     _build.check(lib, rc, "window_epilogue")
-    return (misc, scal, utab, ftab, ridx) + rows + (hidx,) + hrows
+    return Outputs(out, sections)
 
 
 def window_exec_kernel(st: SymLaneState, cc: CompiledCode, i32buf, u8buf,
@@ -814,14 +1001,18 @@ def _retire_rows_kernel(st, ridx, dstack, dmem, dmlog, dslot):
     planes, dims = symstep.state_args(st)
     ridx = ridx.contiguous()
     _build.need_cuda(ridx, torch.int32, "ridx")
-    rows = _row_outputs(st, ridx.shape[0], dstack, dmem, dmlog, dslot)
-    rc = lib.retire_rows(planes, dims, _build.ptr(ridx), ridx.shape[0],
+    sections, nbytes = _row_layout(ridx.shape[0], *_retire_widths(
+        st, dstack, dmem, dmlog, dslot))
+    out = torch.empty(nbytes // 4, dtype=torch.int32, device=st.device)
+    ptr = out.data_ptr()
+    rc = lib.retire_rows(planes, dims, ridx.data_ptr(), ridx.shape[0],
                          _build.int_array((dstack, dmem, dmlog, dslot)),
-                         *[_build.ptr(x) for x in rows],
+                         *[ptr + off * (1 if u8 else 4)
+                           for u8, _, _, off in sections],
                          _build.stream(st.device))
     _build.LAUNCHES["window_epilogue"] += 1
     _build.check(lib, rc, "retire_rows")
-    return st, rows
+    return st, Outputs(out, sections)
 
 
 def _retire_rows(st, ridx, dstack, dmem, dmlog, dslot):
@@ -836,18 +1027,21 @@ def _unique_table_big(st: SymLaneState, urb: int):
     canon = dedup_kernel(st, write_sids=False)
     _build, lib = _kw()
     planes, dims = symstep.state_args(st)
-    n, d_recs = st.pc.shape[0], st.dlog_op.shape[1]
-    tab = torch.empty((urb, 3 * NLIMBS + 9), dtype=torch.int32,
+    n = st.pc.shape[0]
+    shape = window_shape("epilogue", n, st.device)
+    out = torch.empty(urb * (3 * NLIMBS + 9) + 1, dtype=torch.int32,
                       device=st.device)
-    count = torch.empty(1, dtype=torch.int32, device=st.device)
-    scratch = torch.empty(n * d_recs + urb + (n * d_recs + 255) // 256 + 8,
-                          dtype=torch.int32, device=st.device)
-    rc = lib.unique_table(planes, dims, _build.ptr(canon), urb,
-                          _build.ptr(tab), _build.ptr(count),
-                          _build.ptr(scratch), _build.stream(st.device))
+    tab, count = out[:-1].view(urb, 3 * NLIMBS + 9), out[-1]
+    stream = _build.stream(st.device)
+    scratch = _scratch("epilogue", st.device, stream.value, None,
+                       _k4_scratch(shape, urb))
+    rc = lib.unique_table(planes, dims, canon.data_ptr(), urb,
+                          tab.data_ptr(), count.data_ptr(),
+                          _build.int_array(shape),
+                          scratch[0].data_ptr() if scratch else None, stream)
     _build.LAUNCHES["window_epilogue"] += 1
     _build.check(lib, rc, "unique_table")
-    return tab, count[0]
+    return tab, count
 
 
 #: the fork log's planes in the fork table's column order
@@ -1176,6 +1370,19 @@ class _LazyOState:
             self._gs = self._site.build_state()
         return getattr(self._gs, name)
 
+    def __reduce__(self):
+        # pickled (a round-boundary checkpoint, a migration batch) as
+        # the state it stands for: the site holds the lane engine, whose
+        # locks do not pickle
+        if self._gs is None:
+            self._gs = self._site.build_state()
+        return _same, (self._gs,)
+
+
+def _same(x):
+    """Unpickles a ``_LazyOState`` as its materialized state."""
+    return x
+
 
 #: phase wall-clock accumulator (seconds), enabled by MYTHRIL_TPU_PROF=1.
 #: In profiling mode the card is synchronized inside a phase that
@@ -1359,28 +1566,58 @@ def _u32(x) -> np.ndarray:
     return x.view(np.uint32) if x.dtype == np.int32 else x
 
 
+def _one_buffer(out):
+    """(a uint8 tensor over ``Outputs``' buffer, [(byte offset, bytes,
+    numpy dtype, shape)] of its arrays)."""
+    return out.base.view(torch.uint8), [
+        (off * (1 if u8 else 4), int(np.prod(shape)) * (1 if u8 else 4),
+         np.uint8 if u8 else np.int32, shape)
+        for u8, shape, _, off in out.sections]
+
+
+def _host_views(raw, parts):
+    """The arrays of ``_one_buffer``'s parts in a host copy of the
+    buffer (``raw``: its bytes as a numpy uint8 array)."""
+    return [raw[off:off + size].view(dtype).reshape(shape)
+            for off, size, dtype, shape in parts]
+
+
 def _start_pull(tensors):
     """Start the copies of device output tensors to the host now, on
-    the current stream, into pinned buffers, and return ``pull()``,
+    the current stream, into pinned memory, and return ``pull()``,
     which waits for those copies only (an event recorded after them)
-    and gives the host arrays. A pull on another thread (the retire
-    ring's workers) never waits for, or races with, launches made
-    after this call. CPU tensors come back as they are."""
-    tensors = list(tensors)
-    if not tensors or tensors[0].device.type == "cpu":
-        outs = [t.numpy() for t in tensors]
-        return lambda: outs
-    dev = tensors[0].device
-    hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-             for t in tensors]
-    for h, t in zip(hosts, tensors):
-        h.copy_(t, non_blocking=True)
+    and gives the host arrays. ``Outputs`` (views of one buffer) come
+    back in one copy into one pinned buffer, each array a view of it;
+    other tensors in a copy each. A pull on another thread (the
+    retire ring's workers) never waits for, or races with, launches
+    made after this call. CPU tensors come back as they are."""
+    if isinstance(tensors, Outputs):
+        dev = tensors.base.device
+        raw, parts = _one_buffer(tensors)
+        host = torch.empty(raw.shape, dtype=torch.uint8, pin_memory=True)
+        host.copy_(raw, non_blocking=True)
+
+        def arrays():
+            return _host_views(host.numpy(), parts)
+    else:
+        tensors = list(tensors)
+        if not tensors or tensors[0].device.type == "cpu":
+            outs = [t.numpy() for t in tensors]
+            return lambda: outs
+        dev = tensors[0].device
+        hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                 for t in tensors]
+        for h, t in zip(hosts, tensors):
+            h.copy_(t, non_blocking=True)
+
+        def arrays():
+            return [h.numpy() for h in hosts]
     done = torch.cuda.Event()
     done.record(torch.cuda.current_stream(dev))
 
     def pull():
         done.synchronize()
-        return [h.numpy() for h in hosts]
+        return arrays()
 
     return pull
 

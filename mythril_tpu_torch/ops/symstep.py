@@ -21,6 +21,7 @@ gate ran, which is what lets K1 compute each lane on its own.
 
 import ctypes
 import operator
+import weakref
 from dataclasses import dataclass, fields, replace
 
 import numpy as np
@@ -1067,17 +1068,34 @@ def plane_args(st: SymLaneState, names: tuple) -> ctypes.Array:
     return array(*[t.data_ptr() for t in planes])
 
 
+#: by id of a state: (a weak reference to it, its planes, its void**
+#: array, its dims array); an entry leaves with its state
+_STATE_ARGS = {}
+_ALL_PLANES = operator.attrgetter(*FIELDS)
+
+
 def state_args(st: SymLaneState):
     """(void** array, int dims array) of a CUDA state for the kernels
     that take the whole state (``csrc/common.cuh`` ``Sym``); the caller
-    keeps ``st`` alive while they run."""
+    keeps ``st`` alive while they run. The arrays are built, and the
+    planes checked, once a state: later calls reuse them while every
+    plane is the same tensor."""
     from .. import _build
 
+    planes = _ALL_PLANES(st)
+    key = id(st)
+    hit = _STATE_ARGS.get(key)
+    if hit is not None and hit[0]() is st \
+            and all(map(operator.is_, planes, hit[1])):
+        return hit[2], hit[3]
     n, d, _ = st.stack.shape
     dims = [n, d, st.memory.shape[1], st.mlog_off.shape[1],
             st.skeys.shape[1], st.calldata.shape[1], st.dlog_op.shape[1],
             st.flog_parent.shape[0], st.env.shape[1]]
-    return plane_args(st, FIELDS), _build.int_array(dims)
+    out = plane_args(st, FIELDS), _build.int_array(dims)
+    _STATE_ARGS[key] = (weakref.ref(st, lambda _, k=key: _STATE_ARGS.pop(
+        k, None)), planes) + out
+    return out
 
 
 def sym_run_kernel(code: CompiledCode, st: SymLaneState, max_steps: int,

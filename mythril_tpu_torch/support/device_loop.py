@@ -89,7 +89,7 @@ class DeviceLoop:
             idx[:len(part)] = part
             st, rows = self.ops["retire_rows"](
                 st, torch.from_numpy(idx).to(self.device), *floors)
-            chunks.append((part, floors, [x.cpu().numpy() for x in rows]))
+            chunks.append((part, floors, le._start_pull(rows)()))
         return st, chunks
 
     def explore(self, code_bytes: bytes, seeds, func_entries=()) -> dict:
@@ -123,7 +123,7 @@ class DeviceLoop:
                 torch.from_numpy(u8b).to(self.device), self.exec_table,
                 self.taint_table, self.window, k, self.step_budget, pv,
                 visited, self.resume_on)
-            outs = [x.cpu().numpy() for x in out]
+            outs = le._start_pull(out)()
             misc, scal, utab, ftab, ridx = outs[:5]
             self.stats["windows"] += 1
             counts = {"dlog_count": misc[:, 0], "status": misc[:, 1],
@@ -619,3 +619,284 @@ def k3_case_state(case: K3Case, device) -> SymLaneState:
     planes = interop.state_to_numpy(st)
     planes.update(case.planes)
     return interop.state_from_numpy(planes, resolve(device))
+
+
+#: the inputs K2 (``window_prologue``) is held to on both sides
+#: (``k2_edge_cases``): a batch's lanes and plane widths, its planes
+#: (numpy, the JAX dtypes), and the window's packed buffers
+K2Case = namedtuple("K2Case", "name lanes widths planes i32buf u8buf k pv")
+#: the inputs K4 (``window_epilogue``) is held to (``k4_edge_cases``):
+#: the planes, the canon (n, R), the code's bytes, the step budget and
+#: the resume flag
+K4Case = namedtuple("K4Case",
+                    "name lanes widths planes canon code budget resume_on")
+
+#: plane widths of the K2 and K4 cases: equal to the seed caps
+#: (``lane_engine.SEED_STACK``, ``SEED_MEM``, ``SEED_CD``: a seed's
+#: prefix is its whole row), wider (rows of bytes that are no multiple of
+#: 4) and narrower
+WINDOW_WIDTHS = {
+    "caps": dict(stack_depth=16, memory_bytes=256, mem_records=8,
+                 storage_slots=8, calldata_bytes=160, dlog_records=16),
+    "wide": dict(stack_depth=24, memory_bytes=302, mem_records=10,
+                 storage_slots=9, calldata_bytes=170, dlog_records=8),
+    "narrow": dict(stack_depth=8, memory_bytes=64, mem_records=4,
+                   storage_slots=4, calldata_bytes=64, dlog_records=64),
+}
+
+_SID_PLANES = ("ssid", "sval_sid", "skey_sid", "mlog_sid", "flog_sid",
+               "dlog_sid", "env_sid", "cd_size_sid")
+
+
+def window_planes(n: int, widths: dict, rng) -> dict:
+    """Every plane of an n-lane batch of ``widths`` filled at random
+    (numpy, the JAX dtypes): sid planes mix object ids, provisional sids
+    of every (lane, record), provisional sids past the last lane and
+    unresolved ones (int32 min); statuses, counts and positions range
+    past their planes on both sides."""
+    i32 = np.iinfo(np.int32)
+    r = widths["dlog_records"]
+    shapes = symstep._plane_shapes(
+        n, widths["stack_depth"], widths["memory_bytes"],
+        widths["mem_records"], widths["storage_slots"],
+        widths["calldata_bytes"], r)
+    nr = n * r
+    out = {}
+    for f, shape in shapes.items():
+        if f in symstep.U8_FIELDS:
+            out[f] = rng.integers(0, 256, shape, dtype=np.uint8)
+        elif f in symstep.U32_FIELDS:
+            out[f] = rng.integers(0, 1 << 32, shape,
+                                  dtype=np.uint64).astype(np.uint32)
+        elif f in _SID_PLANES:
+            kind = rng.integers(0, 8, shape)
+            out[f] = np.where(
+                kind < 4, -rng.integers(1, nr + 1, shape),
+                np.where(kind < 6, rng.integers(0, 1000, shape),
+                         np.where(kind == 6, -rng.integers(
+                             nr + 1, nr + 4 * r + 2, shape),
+                             i32.min))).astype(np.int32)
+        else:
+            out[f] = rng.integers(-3, 600, shape).astype(np.int32)
+    out["status"] = rng.choice(np.array([0, 0, 1, 2, 3, 4, 5, 5, 5, 6, 7],
+                                        np.int32), n)
+    out["dlog_count"] = rng.integers(-1, r + 3, n).astype(np.int32)
+    out["flog_count"] = np.array(rng.integers(0, n + 1), np.int32)
+    out["free_count"] = np.array(rng.integers(0, n + 1), np.int32)
+    return out
+
+
+def _k2_buffers(n, widths, rng, k, pv, prov, kill, resumes, seeds):
+    """A window's packed buffers (``lane_engine._seed_sections``) with
+    random contents, then the given index entries: ``prov`` [(slot,
+    oid)], ``kill`` [lane], ``resumes`` / ``seeds`` [lane]; unlisted
+    entries are padding (n, or slot n * R)."""
+    r = widths["dlog_records"]
+    sd = min(le.SEED_STACK, widths["stack_depth"])
+    mc = min(le.SEED_MEM, widths["memory_bytes"])
+    ccw = min(le.SEED_CD, widths["calldata_bytes"])
+    n_env = symstep.N_ENV
+    sections = le._seed_sections(n, k, n_env, sd, pv)
+    offs, total = le._section_offsets(sections)
+    buf = rng.integers(-(1 << 31), 1 << 31, total,
+                       dtype=np.int64).astype(np.int32)
+
+    def put(name, values):
+        values = np.asarray(values, np.int64).astype(np.int32).reshape(-1)
+        buf[offs[name]:offs[name] + values.size] = values
+
+    def index(values, size, pad):
+        out = np.full(size, pad, np.int64)
+        out[:len(values)] = values
+        return out
+
+    put("idx", index(seeds, k, n))
+    put("r_idx", index(resumes, k, n))
+    put("kill", index(kill, n, n))
+    pairs = np.full((pv, 2), n * r, np.int64)
+    pairs[:, 1] = rng.integers(1, 1 << 20, pv)
+    for j, (slot, oid) in enumerate(prov):
+        pairs[j] = (slot, oid)
+    put("prov", pairs)
+    put("fcount", [rng.integers(0, n + 1)])
+    put("fs", rng.integers(0, n, n))
+    i32p = rng.integers(-5, 400, (k, 8 + n_env))
+    i32p[:, 5] = rng.integers(0, sd + 1, k)  # sp: empty to a full prefix
+    put("i32p", i32p)
+    r_i32 = rng.integers(-3, 300, (k, 6))
+    r_i32[:, 1] = rng.integers(-1, widths["stack_depth"] + 3, k)
+    put("r_i32", r_i32)
+    u8 = rng.integers(0, 256, k * (ccw + 2 * mc), dtype=np.uint8)
+    if k:  # seed 0's calldata, memory and kinds: zeros
+        u8[:ccw] = 0
+        u8[k * ccw:k * ccw + mc] = 0
+        u8[k * (ccw + mc):k * (ccw + mc) + mc] = 0
+    return buf, u8
+
+
+def k2_edge_cases():
+    """The edge inputs of K2 (``window_prologue``): on the card
+    ``chip_smoke.py`` holds K2 to ``prologue_plain`` on them, in one
+    block and on a cooperative grid; on the CPU
+    ``tests/test_torch_window_edges.py`` holds ``prologue_plain`` to the
+    JAX package's remap, kill, resume and seed scatters
+    (``_remap_reset_core``, ``_prologue_core``), bit for bit. Every case
+    has provisional sids of every kind in its sid planes.
+
+    - ``indices`` (33 lanes, seed-cap widths): provisional pairs with a
+      negative slot, one of -n*R (slot 0), one below it and one past
+      n*R (dropped), a slot named twice (the last pair wins) and
+      padding; kills, resumes and seeds at -1, -n, -n-1, n+3 and
+      padding; a lane killed and resumed (RUNNING), one killed and
+      seeded, one resumed and seeded (the seed wins), a lane seeded
+      twice and one resumed twice (the last entry wins); resumes with sp
+      0 and past the stack;
+    - ``lanes_1``, ``lanes_8``, ``lanes_64``: random entries at 1, 8 and
+      64 lanes;
+    - ``wide_rows``, ``narrow_rows``: seeds into rows wider than the
+      seed caps (bytes no multiple of 4) and narrower;
+    - ``empty``: k = 0 and pv = 0 (every provisional sid unresolved);
+    - ``dense``: more pairs than K2's shared table holds
+      (``lane_engine._K2_PROV_LOCAL``): pv = n * R, the escalated
+      form."""
+    cases = []
+
+    def case(name, n, wname, k, pv, seed, prov=None, kill=None,
+             resumes=None, seeds=None):
+        rng = np.random.default_rng(seed)
+        widths = WINDOW_WIDTHS[wname]
+        r = widths["dlog_records"]
+        planes = window_planes(n, widths, rng)
+        if prov is None:
+            m = int(rng.integers(0, pv + 1))
+            slots = rng.choice(n * r, min(m, n * r), replace=False)
+            prov = [(int(sl), int(rng.integers(1, 1 << 20))) for sl in slots]
+        if kill is None:
+            kill = rng.choice(n, int(rng.integers(0, n + 1)), replace=False)
+        if resumes is None:
+            resumes = rng.choice(n, int(rng.integers(0, min(k, n) + 1)),
+                                 replace=False)
+        if seeds is None:
+            seeds = rng.choice(n, int(rng.integers(0, min(k, n) + 1)),
+                               replace=False)
+        i32, u8 = _k2_buffers(n, widths, rng, k, pv, prov, list(kill),
+                              list(resumes), list(seeds))
+        cases.append(K2Case(name, n, widths, planes, i32, u8, k, pv))
+
+    n, r = 33, WINDOW_WIDTHS["caps"]["dlog_records"]
+    nr = n * r
+    case("indices", n, "caps", 16, 32, 401,
+         prov=[(-1, 11), (-nr, 12), (-nr - 1, 13), (nr + 2, 14), (5, 15),
+               (40, 16), (5, 17), (nr - 1, 18), (3 * r + 2, 19)],
+         kill=[-1, -n, -n - 1, n + 3, 4, 6, 7, 4],
+         resumes=[4, -2, 9, 9, -n - 1, n, 10, 12],
+         seeds=[6, 10, -3, 12, 12, n + 3, -n, 20])
+    case("lanes_1", 1, "caps", 1, 32, 402)
+    case("lanes_8", 8, "caps", 8, 16, 403)
+    case("lanes_64", 64, "caps", 16, 128, 404)
+    case("wide_rows", 40, "wide", 40, 64, 405)
+    case("narrow_rows", 40, "narrow", 16, 64, 406)
+    case("empty", 33, "caps", 0, 0, 407)
+    n, r = 128, WINDOW_WIDTHS["narrow"]["dlog_records"]
+    case("dense", n, "narrow", 16, n * r, 408, prov=None)
+    return cases
+
+
+def k2_case_state(case: K2Case, device):
+    """A K2 case's (state, i32buf, u8buf, k, pv) on ``device``."""
+    from .. import interop
+
+    dev = resolve(device)
+    return (interop.state_from_numpy(case.planes, dev),
+            torch.from_numpy(case.i32buf).to(dev),
+            torch.from_numpy(case.u8buf).to(dev), case.k, case.pv)
+
+
+#: K4 cases' code: PUSH1 1, SHA3, SHA3, STOP, SHA3 (SHA3 at pcs 2, 3, 5)
+K4_CODE = bytes([0x60, 0x01, 0x20, 0x20, 0x00, 0x20])
+
+
+def k4_edge_cases():
+    """The edge inputs of K4 (``window_epilogue``): on the card
+    ``chip_smoke.py`` holds K4 to ``epilogue_plain`` on them, in one
+    block and on a cooperative grid; on the CPU
+    ``tests/test_torch_window_edges.py`` holds ``epilogue_plain`` to the
+    JAX package's selection and its cores (``_resume_gather_core``,
+    ``_retire_gather_core``, ``_counts_core``, ``_unique_table``,
+    ``_fork_table``), bit for bit.
+
+    - ``caps_over`` (200 lanes, resume on): 80 lanes in the hold
+      envelope (more than ``HOLD_CAP``) and 40 more parked lanes that fit
+      the retire floors (more than ``RCAP``): held lanes are not retired,
+      the holds past the cap are; pcs past the code and below it;
+    - ``resume_off``: the same planes with resume off (no hold);
+    - ``lanes_1``, ``lanes_8``, ``lanes_33``, ``lanes_64``: random
+      planes and canon;
+    - ``urb_over``: 64 lanes of 16 records, every record its own
+      canon: 1024 unique records, more than ``URB``;
+    - ``fb_over``: 600 lanes, 600 fork rows: more than ``FB``."""
+    cases = []
+    code_rows = len(K4_CODE) + 1
+
+    def case(name, n, wname, seed, resume_on=1, budget=64, envelope=0,
+             parked=0, canon_all=False):
+        rng = np.random.default_rng(seed)
+        widths = WINDOW_WIDTHS[wname]
+        r = widths["dlog_records"]
+        p = window_planes(n, widths, rng)
+        # the counts the selection reads, mostly inside the envelope
+        p["sp"] = rng.integers(-1, 30, n).astype(np.int32)
+        p["msize"] = rng.integers(0, 700, n).astype(np.int32)
+        p["mlog_count"] = rng.integers(0, 11, n).astype(np.int32)
+        p["scount"] = rng.integers(0, 11, n).astype(np.int32)
+        p["steps"] = rng.integers(0, 2 * budget, n).astype(np.int32)
+        p["pc"] = rng.integers(-2, code_rows + 3, n).astype(np.int32)
+        lanes = rng.permutation(n)
+        hold, fit = lanes[:envelope], lanes[envelope:envelope + parked]
+        p["status"][hold] = Status.NEEDS_HOST
+        p["pc"][hold] = rng.choice([2, 3, 5], len(hold))
+        p["sp"][hold] = rng.integers(2, 17, len(hold))
+        p["msize"][hold] = rng.integers(0, 257, len(hold))
+        p["mlog_count"][hold] = rng.integers(0, 9, len(hold))
+        p["scount"][hold] = rng.integers(0, 9, len(hold))
+        p["status"][fit] = rng.choice([0, 5], len(fit))
+        p["steps"][fit] = budget + rng.integers(0, 5, len(fit))
+        p["sp"][fit] = rng.integers(0, 25, len(fit))
+        p["msize"][fit] = rng.integers(0, 513, len(fit))
+        p["mlog_count"][fit] = rng.integers(0, 9, len(fit))
+        p["scount"][fit] = rng.integers(0, 9, len(fit))
+        own = -(np.arange(n)[:, None] * r + np.arange(r)[None, :] + 1)
+        if canon_all:
+            p["dlog_count"][:] = r
+            canon = own.astype(np.int32)
+        else:
+            pick = rng.integers(0, 3, (n, r))
+            canon = np.where(pick == 0, own, np.where(
+                pick == 1, -rng.integers(1, n * r + 1, (n, r)), 0))
+            canon = canon.astype(np.int32)
+        cases.append(K4Case(name, n, widths, p, canon, K4_CODE, budget,
+                            resume_on))
+
+    case("caps_over", 200, "caps", 501, envelope=80, parked=40)
+    case("resume_off", 200, "caps", 501, resume_on=0, envelope=80,
+         parked=40)
+    case("lanes_1", 1, "caps", 502, envelope=1)
+    case("lanes_8", 8, "wide", 503, envelope=3, parked=3)
+    case("lanes_33", 33, "narrow", 504, envelope=10, parked=10)
+    case("lanes_64", 64, "caps", 505, envelope=20, parked=20)
+    case("urb_over", 64, "caps", 506, canon_all=True)
+    case("fb_over", 600, "narrow", 507, envelope=100, parked=100)
+    cases[-1].planes["flog_count"][...] = 600
+    return cases
+
+
+def k4_case_inputs(case: K4Case, device):
+    """A K4 case's (state, code, canon, budget, resume_on) on
+    ``device``."""
+    from .. import interop
+
+    dev = resolve(device)
+    return (interop.state_from_numpy(case.planes, dev),
+            compile_code(case.code, device=dev),
+            torch.from_numpy(case.canon).to(dev), case.budget,
+            case.resume_on)

@@ -7,6 +7,7 @@
     python3 tools/prof_torch_port.py --kernels
     python3 tools/prof_torch_port.py --dedup
     python3 tools/prof_torch_port.py --tables
+    python3 tools/prof_torch_port.py --window
 
 Without ``--screen`` or ``--analyze``: builds the kernels, runs the
 device loop (``support/device_loop.DeviceLoop``) on
@@ -26,7 +27,16 @@ timed to their verdicts), the solver's queries and the rest of the
 host; then once under ``torch.profiler`` for the device busy share;
 then once more with K6's and K7's calls timed one by one, on copies of
 their inputs (a call on CUDA events and its device time behind a spin
-kernel), grouped by (states, table rows, real entries).
+kernel), grouped by (states, table rows, real entries), and K2's and
+K4's the same way, grouped by (lanes, seeds, pairs), after the
+compiler's register and spill lines of ``csrc/window.cu``.
+
+With ``--window``: K2 (``window_prologue``) and K4 (``window_epilogue``)
+as chip_smoke.py holds them (``check_window``, with K3's checks, and
+``check_k2_k4``: the edge inputs in each launch mode, real windows at
+64-131072 lanes, one CUDA launch a call, no host wait, the call and
+device times at 64, 512 and 4096 lanes), after the compiler's
+register and spill lines of ``csrc/window.cu``.
 
 With ``--tables``: K5-K8 against their plain versions and timed as
 ``chip_smoke.py``'s screen phase does it (``check_screens``, then the
@@ -139,6 +149,91 @@ def _time_screen_kernels(records):
     return undo
 
 
+def _time_window_kernels(records):
+    """Wrap K2's and K4's wrappers for one analysis, as
+    ``_time_screen_kernels`` wraps K6's and K7's (on a copy of the state
+    that a first untimed call has met, as the engine's state is met by
+    every window after its first): ``records`` gets (kernel, lanes,
+    seeds, pairs, call ms, device ms) a call. Returns the undo."""
+    from chip_smoke import SPIN_CYCLES, clone_state, restore
+
+    def timed(name, kern, key):
+        def call(st, *rest, **kw):
+            out = []
+            x = clone_state(st)
+            kern(x, *rest)  # its argument block built, as the engine's
+            for spin in (False, True):
+                restore(x, st)
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                if spin:
+                    torch.cuda._sleep(SPIN_CYCLES)
+                a.record()
+                kern(x, *rest)
+                b.record()
+                torch.cuda.synchronize()
+                out.append(a.elapsed_time(b))
+            got = kern(st, *rest, **kw)
+            records.append((name, st.pc.shape[0], *key(rest), *out))
+            return got
+        return call
+
+    saved = (le.prologue_kernel, le.epilogue_kernel)
+    le.prologue_kernel = timed("window_prologue", saved[0],
+                               lambda rest: (rest[2], rest[3]))
+    le.epilogue_kernel = timed("window_epilogue", saved[1],
+                               lambda rest: (0, 0))
+
+    def undo():
+        le.prologue_kernel, le.epilogue_kernel = saved
+    return undo
+
+
+def _print_window_shapes(records):
+    """K2's and K4's calls of one analysis by (lanes, seeds, pairs): the
+    count, the median call and device ms, the device ms summed."""
+    import statistics
+
+    groups = {}
+    for name, n, k, pv, call_ms, dev_ms in records:
+        groups.setdefault((name, n, k, pv), []).append((call_ms, dev_ms))
+    print(f"  {'kernel':16s} {'lanes':>6s} {'seeds':>6s} {'pairs':>6s} "
+          f"{'calls':>6s} {'call ms':>9s} {'device ms':>10s} "
+          f"{'device sum':>11s}")
+    for key, got in sorted(groups.items()):
+        print(f"  {key[0]:16s} {key[1]:6d} {key[2]:6d} {key[3]:6d} "
+              f"{len(got):6d} {statistics.median(c for c, _ in got):9.4f} "
+              f"{statistics.median(d for _, d in got):10.4f} "
+              f"{sum(d for _, d in got):11.4f}")
+
+
+def _print_build_lines(src):
+    """The compiler's register, stack and spill lines of one source."""
+    from mythril_tpu_torch import _build
+
+    for line in _build.build_log(src).splitlines():
+        if "registers" in line or "spill" in line or "Function" in line:
+            print(f"  {src}: {line.strip()}")
+
+
+def _window(card):
+    """K2 and K4 as chip_smoke.py holds them (``check_window``: the
+    window at 512 lanes and its escalations, K3's checks, then
+    ``check_k2_k4``), with the compiler's lines of ``csrc/window.cu``."""
+    import chip_smoke as cs
+    from mythril_tpu_torch import _build
+
+    dev = torch.device("cuda", 0)
+    _build.build_all()
+    print(f"card: {card}")
+    _print_build_lines("window.cu")
+    report = {}
+    cs.check_window(dev, report)
+    for name in ("window_prologue", "window_epilogue"):
+        print(f"{name}: {report[name]} on {card}")
+
+
 def _print_screen_shapes(records):
     """K6's and K7's calls of one analysis by (S, T, real entries): the
     count, the median call and device ms, the device ms summed."""
@@ -182,8 +277,9 @@ def _tables(card):
 
 def _analyze_parts(name, shapes=None):
     """One timed ``myth analyze`` of fixture ``name``: (wall s, {part:
-    s}, issues, engine stats); with ``shapes`` (a list), K6's and K7's
-    calls timed into it (``_time_screen_kernels``)."""
+    s}, issues, engine stats); with ``shapes`` (two lists), K6's and
+    K7's calls timed into the first (``_time_screen_kernels``), K2's and
+    K4's into the second (``_time_window_kernels``)."""
     from mythril_tpu_torch.ops import intervals, propagate
     from mythril_tpu_torch.smt.solver.solver_statistics import (
         SolverStatistics,
@@ -213,8 +309,8 @@ def _analyze_parts(name, shapes=None):
         (propagate, "prefilter_feasible"), (propagate, "abstraction_sets"),
         (intervals, "prefilter_feasible"), (intervals, "shadow_prefilter"))]
     if shapes is not None:
-        undo = _time_screen_kernels(shapes)
-        saved.append((None, None, undo))
+        saved.append((None, None, _time_screen_kernels(shapes[0])))
+        saved.append((None, None, _time_window_kernels(shapes[1])))
     ss = SolverStatistics()
     ss.enabled, ss.solver_time = True, 0.0
     le.PROF_ON = True
@@ -553,6 +649,7 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels", action="store_true")
     ap.add_argument("--dedup", action="store_true")
     ap.add_argument("--tables", action="store_true")
+    ap.add_argument("--window", action="store_true")
     args = ap.parse_args(argv)
     dev = resolve()
     card = subprocess.run(
@@ -571,10 +668,14 @@ def main(argv=None) -> int:
     if args.tables:
         _tables(card)
         return 0
+    if args.window:
+        _window(card)
+        return 0
     if args.analyze:
         _analyze_parts(args.analyze)  # warm: builds, allocator, caches
         wall, parts, n_issues, stats = _analyze_parts(args.analyze)
         print(f"card: {card}")
+        _print_build_lines("window.cu")
         print(f"analyze {args.analyze}: {n_issues} issues, wall "
               f"{wall:.3f} s, {stats.get('windows', 0)} windows, "
               f"{stats.get('forks', 0)} forks, "
@@ -588,11 +689,14 @@ def main(argv=None) -> int:
         for e in rows[:15]:
             print(f"  {e.key[:60]:60s} {e.count:7d} "
                   f"{e.self_device_time_total / 1e3:10.3f}")
-        shapes = []
+        shapes = ([], [])
         _analyze_parts(args.analyze, shapes)
-        print(f"K6 and K7 by call shape ({len(shapes)} calls; a fourth "
+        print(f"K6 and K7 by call shape ({len(shapes[0])} calls; a fourth "
               f"run, each call timed on copies of its input) on {card}:")
-        _print_screen_shapes(shapes)
+        _print_screen_shapes(shapes[0])
+        print(f"K2 and K4 by call shape ({len(shapes[1])} calls, the same "
+              f"run) on {card}:")
+        _print_window_shapes(shapes[1])
         return 0
     if args.screen:
         from mythril_tpu_torch.models import pruner
