@@ -14,7 +14,8 @@ Run from the repository root on a machine with one CUDA card:
 process the corpus phase starts, ``--analyze-held FIXTURE STATS`` the
 same with K6 and K7 held against their plain versions, ``--serve DIR
 STATS`` the daemon process of the daemon phase, ``--corpus-rank STATS
-ARGS`` a rank of the corpus-mode phase.)
+ARGS`` a rank of the corpus-mode phase. ``--cards``, on a machine with
+two or more cards, is ``check_cards`` alone.)
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -44,7 +45,10 @@ Phases (any failure exits non-zero and prints no result):
    launches a call, its rounds and device time, and a call that returns
    while a spin kernel queued ahead of it still runs; K9 on the k=12
    main path's state after its first window with that window's
-   resolution pairs, and on two seeded random 4096-lane states;
+   resolution pairs at 4096 lanes and at the corpus's 64, on two seeded
+   random 4096-lane states (past its shared hash) and on
+   ``device_loop.k9_edge_cases``, each call with its plan's CUDA
+   launches, its times at 4096 and 64 lanes;
 3. the symbolic path: every path of the k=12 contract through the
    port's ``SymExecWrapper`` at 4096 lanes (the main path of K0-K4:
    launch counts reset before it and read after); its open states must
@@ -122,7 +126,11 @@ Phases (any failure exits non-zero and prints no result):
     launch a run, counts reset before the warm run and three timed
     runs), every lane's status, steps and slot 0 equal to a closed form
     in Python ints; K10 bit for bit against ``run_plain`` at 1024 lanes
-    through a whole run and over single steps at full width; paths/s,
+    through a whole run, over single steps at full width and on
+    ``device_loop.k10_edge_cases(full=True)`` (every result class and
+    status cause, 1-131072 lanes, default planes read in place, a shard
+    view at an offset); its times on the batch and on a 4096-lane shard
+    of it; paths/s,
     lane instructions/s, the busy share (where the profiler records no
     device event, the stream-interval share, an upper bound); K10's
     bound from a traced run of the timed inputs, whose single steps
@@ -130,7 +138,7 @@ Phases (any failure exits non-zero and prints no result):
     ``init_lanes``' default planes (~11.2 KB a lane) on
     ``__graft_entry__._build_fixture``'s loop contract and on the lane
     mix contract (loop, memory and storage arms), 512 sampled lanes of
-    each equal to ``run_plain``; then the mesh (``parallel/mesh.py``):
+    each equal to ``run_plain``, K10's times on the lane mix; then the mesh (``parallel/mesh.py``):
     that batch on 8 shards of this card, K12 ``lane_live``, K13
     ``lane_order`` and K14 ``lane_gather`` bit for bit against their
     plain versions (K14 also on an empty order, negative and
@@ -158,11 +166,12 @@ Phases (any failure exits non-zero and prints no result):
 
 ``ms`` is a wrapper call on CUDA events, the host's argument packing
 and launch gaps included; ``device_ms`` is the device time of the same
-call: for K0-K2, K4, K9, K10 and bv256 its kernels and copies in
-torch.profiler, for K3, K5-K8, K11 and K12-K14 CUDA events around the
+call: for K0-K2, K4 and bv256 its kernels and copies in
+torch.profiler, for K3, K5-K11 and K12-K14 CUDA events around the
 call queued behind a spin kernel after an L2 flush (``queued_ms``), on
 the inputs its bound is counted from. The run fails where a device
-time is below its bound.
+time is below its bound (each timed shape's ``*_device_ms`` against its
+own ``*_bound_ms`` where it has one).
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -2315,6 +2324,48 @@ def lane_run_bound(before, after, code, fp):
     return bms, by, nbytes, nops
 
 
+def check_k10_edges(dev):
+    """K10 on ``device_loop.k10_edge_cases(full=True)`` against
+    ``run_plain``, bit for bit on every plane: the whole batch, or the
+    case's shard view of it (the lanes around the view unchanged). The
+    cases must take each of the kernel's four branches (the code's rows
+    in shared memory or in place, the lanes' rows on chip or in
+    place)."""
+    import torch
+
+    from mythril_tpu_torch import _build
+    from mythril_tpu_torch.ops import stepper as S
+    from mythril_tpu_torch.support import device_loop as dl
+
+    names, branches = [], set()
+    for case in dl.k10_edge_cases(full=True):
+        cc, st = dl.k10_case_inputs(case, dev)
+        v = dl.view_of(st, case.view)
+        plan = S.lane_run_plan(v.pc.shape[0], v.stack.shape[1],
+                               v.memory.shape[1], v.skeys.shape[1], cc.size,
+                               *_build.device_limits(st.device))
+        branches.add((plan["code_shared"], plan["local"]))
+        del v
+        want = S.clone_lanes(st)
+        x = dl.view_of(want, case.view)
+        ran = S.run_plain(cc, S.clone_lanes(x), case.max_steps)
+        for f in S.LANE_FIELDS:
+            getattr(x, f).copy_(getattr(ran, f))
+        S.run_kernel(cc, dl.view_of(st, case.view), case.max_steps)
+        torch.cuda.synchronize()
+        same_lanes(st, want, f"K10 edge case {case.name}")
+        names.append(f"{case.name} ({st.pc.shape[0]} lanes, code "
+                     f"{'shared' if plan['code_shared'] else 'in place'}, "
+                     f"rows {'on chip' if plan['local'] else 'in place'})")
+        del st, want, x, ran
+    torch.cuda.empty_cache()
+    if branches != {(0, 0), (0, 1), (1, 0), (1, 1)}:
+        raise AssertionError(f"K10 edge cases took the branches {branches} "
+                             f"of four")
+    log(f"K10 lane_run: equal to run_plain on k10_edge_cases: "
+        f"{', '.join(names)}")
+
+
 def concrete_path(dev, card, report):
     """The concrete path of bench.py's headline (bench_device): the
     bench contract over 32768 lanes through the port's ``run`` (K10),
@@ -2360,6 +2411,7 @@ def concrete_path(dev, card, report):
     log(f"K10 lane_run: equal to run_plain on every plane at "
         f"{CONCRETE_PLAIN_N} lanes through a whole run (plain {plain_s:.3f}"
         f" s) and over 9 single steps at {CONCRETE_N} lanes")
+    check_k10_edges(dev)
 
     # the main path: counts reset, one warm run, three timed
     _build.reset_launches()
@@ -2395,11 +2447,13 @@ def concrete_path(dev, card, report):
     # K10's times on the main path's inputs, the busy share
     fresh = lambda: C.bench_batch(CONCRETE_N, dev)  # noqa: E731
     call = cuda_ms(lambda x: S.run_kernel(cc, x, cap), reps=3, setup=fresh)
-    dev_ms = device_ms(lambda x: S.run_kernel(cc, x, cap), setup=fresh)
-    dev_src = "torch.profiler"
-    if dev_ms is None:
-        dev_ms = queued_ms(lambda x: S.run_kernel(cc, x, cap), fresh)
-        dev_src = "CUDA events behind a spin kernel"
+    dev_ms = queued_ms(lambda x: S.run_kernel(cc, x, cap), fresh)
+    dev_src = "CUDA events behind a spin kernel after an L2 flush"
+    # a 4096-lane shard of the batch (sharded_run's launch on 8 shards)
+    shard = lambda: C.bench_batch(CONCRETE_N // 8, dev)  # noqa: E731
+    shard_ms = cuda_ms(lambda x: S.run_kernel(cc, x, cap), reps=3,
+                       setup=shard)
+    shard_dms = queued_ms(lambda x: S.run_kernel(cc, x, cap), shard)
     # the busy share of one more run: its device time under the profiler
     # over its wall (a session that records no device event is run
     # again, up to 3; with none, the share of the wall between CUDA
@@ -2447,7 +2501,8 @@ def concrete_path(dev, card, report):
                              f"timed run retired {total}")
     report["lane_run"] = dict(max_abs_err=err, ms=call, device_ms=dev_ms,
                               plain_ms=plain_s * 1e3, bound_ms=bms,
-                              bound_by=by)
+                              bound_by=by, shard_ms=shard_ms,
+                              shard_device_ms=shard_dms)
     log(f"concrete path ({CONCRETE_N} lanes, bench contract, max_steps "
         f"{cap}): {CONCRETE_N / med:.1f} paths/s, {total / med:.1f} lane "
         f"instructions/s; median {med * 1e3:.3f} ms (runs "
@@ -2459,7 +2514,8 @@ def concrete_path(dev, card, report):
         f"{nops / CONCRETE_N:.1f} operations a lane); device busy "
         f"{busy:.6f} of {pwall:.6f} s ({busy_src}; share "
         f"{busy / pwall:.4f}); plain at {CONCRETE_PLAIN_N} lanes "
-        f"{plain_s:.3f} s; on {card}")
+        f"{plain_s:.3f} s; a {CONCRETE_N // 8}-lane shard {shard_ms:.4f} "
+        f"ms a call, {shard_dms:.4f} ms device; on {card}")
     del st, x, before, after, fp
 
     # the wide runs at default planes: __graft_entry__._build_fixture's
@@ -2497,6 +2553,17 @@ def concrete_path(dev, card, report):
         if not all(counts[k] for k in want):
             raise AssertionError(f"wide run ({name}): statuses {counts}")
         del st, sample
+        if name == "lane mix":
+            wide = lambda: C.lane_mix_batch(  # noqa: E731
+                WIDE_CONCRETE_N, SEED, device=dev)
+            run = lambda x: S.run_kernel(  # noqa: E731
+                wcc, x, WIDE_CONCRETE_STEPS)
+            w_ms = cuda_ms(run, reps=2, setup=wide)
+            w_dms = queued_ms(run, wide, reps=2)
+            report["lane_run"].update(wide_ms=w_ms, wide_device_ms=w_dms)
+            log(f"  K10 at {WIDE_CONCRETE_N} lanes of default planes (lane "
+                f"mix): {w_ms:.4f} ms a call, {w_dms:.4f} ms device; on "
+                f"{card}")
     torch.cuda.empty_cache()
     return launches
 
@@ -2869,11 +2936,12 @@ def fused_screen(dev, wave, card, report):
 # the host bridge: K9, the analyzer end to end
 # ---------------------------------------------------------------------------
 
-def main_path_state(dev):
-    """The k=12 main path's 4096-lane state after its first window (one
-    fresh transaction entry, window 256), and that window's resolution
-    pairs: each canonical record gets the next object id, as the
-    engine's drain assigns them."""
+def main_path_state(dev, n=MAIN_LANES):
+    """The k=12 main path's n-lane state (4096: the symbolic path's; 64:
+    the corpus's) after its first window (one fresh transaction entry,
+    window 256), and that window's resolution pairs: each canonical
+    record gets the next object id, as the engine's drain assigns them,
+    padded to ``PROV_BUCKET`` rows."""
     import numpy as np
     import torch
 
@@ -2883,7 +2951,6 @@ def main_path_state(dev):
     from mythril_tpu_torch.support import device_loop
     from mythril_tpu_torch.support.contracts import build_symbolic_contract
 
-    n = MAIN_LANES
     code, _ = build_symbolic_contract(MAIN_K)
     cc = compile_code(code, device=dev)
     st = symstep.init_sym_lanes(n, device=dev)
@@ -2992,37 +3059,77 @@ def merge_bytes(st, pairs):
             + 8 * pairs.shape[0] + 16 * n)
 
 
-def check_merge_fp(dev, report):
-    """K9 against its plain version, bit for bit, on the main path's
-    state after a window and on a seeded random state; times on the
-    main path's state."""
+def hold_k9(st, pairs, what):
+    """K9 on (st, pairs) against its plain version, bit for bit; its
+    CUDA launches must be its plan's (one where the pairs fit its
+    shared hash). Returns the launches."""
+    from mythril_tpu_torch import _build
     from mythril_tpu_torch.laser import lane_engine as le
 
-    st, pairs, ucount = main_path_state(dev)
-    err = max_err(le.merge_fingerprint_kernel(st, pairs),
-                  le.merge_fingerprint_plain(st, pairs))
+    before = _build.LAUNCHES["merge_fingerprint"]
+    got = le.merge_fingerprint_kernel(st, pairs)
+    launches = _build.LAUNCHES["merge_fingerprint"] - before
+    err = max_err(got, le.merge_fingerprint_plain(st, pairs))
     if err:
-        raise AssertionError(f"K9 merge_fingerprint: main path state "
-                             f"differs (max {err})")
+        raise AssertionError(f"K9 merge_fingerprint: {what} differs "
+                             f"(max {err})")
+    plan = le.merge_fp_plan(st.pc.shape[0], pairs.shape[0],
+                            st.stack.shape[1], st.skeys.shape[1],
+                            _build.device_limits(st.device)[1])
+    if launches != plan["launches"]:
+        raise AssertionError(f"K9 {what}: {launches} CUDA launches, its "
+                             f"plan {plan}")
+    return launches
+
+
+def k9_times(st, pairs, reps=5):
+    """(call ms on CUDA events, device ms queued behind a spin kernel
+    after an L2 flush) of K9 on (st, pairs)."""
+    from mythril_tpu_torch.laser import lane_engine as le
+
+    call = lambda _=None: le.merge_fingerprint_kernel(st, pairs)  # noqa
+    return (cuda_ms(call, reps=reps),
+            queued_ms(call, lambda: None, reps=reps))
+
+
+def check_merge_fp(dev, report):
+    """K9 against its plain version, bit for bit, with its plan's CUDA
+    launches: on the main path's state after a window at 4096 lanes and
+    at the corpus's 64, on two seeded random states (past its shared
+    hash: the dense table) and on ``device_loop.k9_edge_cases``; times
+    at 4096 and 64 lanes."""
+    from mythril_tpu_torch.laser import lane_engine as le
+    from mythril_tpu_torch.support import device_loop
+
+    st, pairs, ucount = main_path_state(dev)
+    hold_k9(st, pairs, "main path state")
+    small, spairs, _ = main_path_state(dev, 64)
+    k64 = hold_k9(small, spairs, "the corpus's 64-lane state")
     for seed in (SEED, SEED + 1):
         rs, rp = random_merge_state(dev, seed)
-        e = max_err(le.merge_fingerprint_kernel(rs, rp),
-                    le.merge_fingerprint_plain(rs, rp))
-        if e:
-            raise AssertionError(f"K9 merge_fingerprint: random state "
-                                 f"{seed} differs (max {e})")
-    k_ms = cuda_ms(lambda: le.merge_fingerprint_kernel(st, pairs), reps=5)
-    d_ms = device_ms(lambda: le.merge_fingerprint_kernel(st, pairs))
+        hold_k9(rs, rp, f"random state {seed}")
+    edges = []
+    for case in device_loop.k9_edge_cases():
+        cst, cpairs = device_loop.k9_case_inputs(case, dev)
+        edges.append(f"{case.name}: {hold_k9(cst, cpairs, case.name)}")
+    k_ms, d_ms = k9_times(st, pairs)
+    k64_ms, d64_ms = k9_times(small, spairs)
     p_ms = cuda_ms(lambda: le.merge_fingerprint_plain(st, pairs), reps=1)
     nbytes = merge_bytes(st, pairs)
     bms, by = bound_ms(nbytes)
-    report["merge_fingerprint"] = dict(max_abs_err=err, ms=k_ms,
-                                       plain_ms=p_ms, device_ms=d_ms,
-                                       bound_ms=bms, bound_by=by)
+    b64, _ = bound_ms(merge_bytes(small, spairs))
+    report["merge_fingerprint"] = dict(
+        max_abs_err=0, ms=k_ms, plain_ms=p_ms, device_ms=d_ms,
+        bound_ms=bms, bound_by=by, lanes64_ms=k64_ms,
+        lanes64_device_ms=d64_ms, lanes64_bound_ms=b64)
     log(f"K9 merge_fingerprint: equal on the main path's state after a "
-        f"window ({ucount} records resolved) and on 2 random states; "
-        f"{k_ms:.4f} ms kernel ({d_ms} ms on the device), {p_ms:.1f} ms "
-        f"plain, bound {bms:.6f} ms ({nbytes} bytes)")
+        f"window ({ucount} records resolved), at 64 lanes, on 2 random "
+        f"states and on k9_edge_cases (CUDA launches a call: "
+        f"{', '.join(edges)}; at the corpus's 64 lanes with "
+        f"{spairs.shape[0]} pairs: {k64}); 4096 lanes {k_ms:.4f} ms a call, "
+        f"{d_ms:.4f} ms device, bound {bms:.6f} ms ({nbytes} bytes); 64 "
+        f"lanes {k64_ms:.4f} ms a call, {d64_ms:.4f} ms device, bound "
+        f"{b64:.6f} ms; plain {p_ms:.1f} ms")
 
 
 def symbolic_path(dev, card):
@@ -3752,6 +3859,56 @@ def corpus_mode(card):
     return makespan
 
 
+def check_cards() -> int:
+    """``--cards``: K10 and K9 on every card of a machine with two or
+    more, each card's first launch past 48 KB of shared memory included
+    (a kernel opts in to it once a device): ``sharded_run`` of
+    CONCRETE_N lanes of the bench batch a card (57 KB blocks) on a mesh
+    of every card, each shard a copy on its own card, equal on every
+    plane to one K10 run on card 0; then on each card K9 on
+    ``device_loop.k9_edge_cases`` (66 KB blocks at 600 and 4096 lanes)
+    against its plain version, with its plan's launches."""
+    import torch
+
+    from mythril_tpu_torch import _build
+    from mythril_tpu_torch.ops import stepper as S
+    from mythril_tpu_torch.parallel import mesh as M
+    from mythril_tpu_torch.support import contracts as C
+    from mythril_tpu_torch.support import device_loop
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"chip_smoke --cards: {cards} card(s), two needed",
+              file=sys.stderr)
+        return 2
+    _build.build_all()
+    devs = [torch.device("cuda", i) for i in range(cards)]
+    mesh = M.Mesh(devs)
+    n = CONCRETE_N * cards
+    cc = S.compile_code(C.build_bench_contract(), device=devs[0])
+    cap = C.BENCH_MAX_STEPS
+    ref = S.run_kernel(cc, C.bench_batch(n, devs[0]), cap)
+    whole = M.sharded_run(cc, M.shard_lanes(C.bench_batch(n, devs[0]),
+                                            mesh), cap, mesh)
+    for d in devs:
+        torch.cuda.synchronize(d)
+    same_lanes(whole.lanes(), ref, f"sharded_run over {cards} cards")
+    edges = []
+    for d in devs:
+        with torch.cuda.device(d):
+            for case in device_loop.k9_edge_cases():
+                st, pairs = device_loop.k9_case_inputs(case, d)
+                hold_k9(st, pairs, f"{case.name} on {d}")
+            edges.append(str(d))
+    log(f"cards: sharded_run of {n} lanes over {cards} cards equal to one "
+        f"K10 run on {devs[0]}; K9 equal to its plain version on "
+        f"k9_edge_cases on {', '.join(edges)} ({smi()})")
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": cards}}))
+    return 0
+
+
 def main() -> int:
     try:
         return run()
@@ -3777,6 +3934,8 @@ def run() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if sys.argv[1:] == ["--cards"]:
+        return check_cards()
     from mythril_tpu_torch import _build
 
     dev = torch.device("cuda", 0)
@@ -3909,6 +4068,8 @@ def run() -> int:
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r.get("library_ms"),
                 **{k: r[k] for k in r if k.startswith(("unpacked_",
+                                                       "shard_",
+                                                       "lanes64_",
                                                        "wide_",
                                                        "narrow_",
                                                        "mid_",
@@ -3940,8 +4101,12 @@ def run() -> int:
               f"mythril_tpu/parallel/mesh.py:{line}", mesh_launches)
         for name, line in (("lane_live", 110), ("lane_order", 138),
                            ("lane_gather", 139))]
-    fast = [r["name"] for r in rows + [inlined]
-            if r["device_ms"] is not None and r["device_ms"] < r["bound_ms"]]
+    # every timed shape with its own bound: device_ms against bound_ms,
+    # lanes64_device_ms against lanes64_bound_ms, ...
+    fast = [f"{r['name']} {k}" for r in rows + [inlined] for k in r
+            if k.endswith("device_ms") and r[k] is not None
+            and r.get(k[:-9] + "bound_ms") is not None
+            and r[k] < r[k[:-9] + "bound_ms"]]
     if fast:
         raise AssertionError(f"device time below the bound for {fast}: "
                              f"the byte or operation count is wrong")

@@ -155,6 +155,21 @@ def stream(device: torch.device) -> ctypes.c_void_p:
         torch.cuda.current_device() if index is None else index))
 
 
+_LIMITS = {}
+
+
+def device_limits(device: torch.device):
+    """(dynamic shared bytes a block may opt into, SM count) of a card,
+    read once: what the launch plans size their blocks and grids by."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _LIMITS:
+        props = torch.cuda.get_device_properties(index)
+        _LIMITS[index] = (int(props.shared_memory_per_block_optin),
+                          int(props.multi_processor_count))
+    return _LIMITS[index]
+
+
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

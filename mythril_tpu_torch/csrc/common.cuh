@@ -127,3 +127,22 @@ __global__ void compact_scan(int32_t* block_off, int nblocks, int32_t* count) {
 inline unsigned nblocks_for(long long len, int block) {
   return (unsigned)((len + block - 1) / block);
 }
+
+// The devices a process may hold for the per-device flags below.
+constexpr int MAX_DEVICES = 64;
+
+// Lets kernel `fn` take `smem` bytes of dynamic shared memory on the
+// current device. cudaFuncSetAttribute holds only for the device current
+// when it is called, so the limit is kept per device in `opted` (one entry
+// a device, zero at first, one array a kernel): a process that launches on
+// several cards opts in once on each.
+inline cudaError_t allow_smem(const void* fn, int smem, int* opted) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  if (dev < MAX_DEVICES && opted[dev] >= smem) return cudaSuccess;
+  rc = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc == cudaSuccess && dev < MAX_DEVICES) opted[dev] = smem;
+  return rc;
+}

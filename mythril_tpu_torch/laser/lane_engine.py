@@ -1187,24 +1187,111 @@ def merge_fingerprint_plain(st: SymLaneState, prov_pairs):
     return torch.where(out >= 1 << 31, out - (1 << 32), out).to(torch.int32)
 
 
-def merge_fingerprint_kernel(st: SymLaneState, prov_pairs):
-    """K9 on the card (``csrc/merge.cu``): ``merge_fingerprint_plain``
-    of a CUDA state. Launches on the current stream of the state's
-    device."""
+#: K9 (``csrc/merge.cu``): threads a block, pairs its shared hash holds
+#: (past them the dense table and three launches), the shared bytes of
+#: an SM that its resident blocks share
+K9_THREADS = 256
+K9_PROV_LOCAL = 4096
+K9_SM_SMEM = 233472
+
+
+def _prov_cap(pv: int) -> int:
+    """K9's (and K2's) hash entries for pv pairs: a power of two, at
+    most half full."""
+    c = 32
+    while c < 2 * pv:
+        c *= 2
+    return c
+
+
+def _k9_smem(cap, team, depth, slots) -> int:
+    """``csrc/merge.cu`` ``fp_smem``: the pair hash, each team's stage,
+    the warps' sums and each team's fold sums."""
+    stage = (depth + 4 * slots + 3) // 4 * 4
+    warps = K9_THREADS // 32
+    teams = warps // team
+    return 8 * cap + 4 * (teams * stage + warps * 28 + teams * 2 * 28)
+
+
+def merge_fp_plan(n: int, pv: int, depth: int, slots: int,
+                  sms: int = 132) -> dict:
+    """K9's launch for n lanes and pv resolution pairs: ``team`` warps a
+    lane (8, the block, up to two lanes an SM; else 1, eight lanes a
+    block at a time), ``blocks`` (at most as many as fit the card at
+    once, each walking over lanes), the hash's entries (``cap``; 0 past
+    ``K9_PROV_LOCAL`` pairs: the dense table), the shared bytes of a
+    block (``smem``) and the CUDA launches a call makes (1 with the
+    hash, 3 with the dense table)."""
+    cap = _prov_cap(pv) if pv <= K9_PROV_LOCAL else 0
+    warps = K9_THREADS // 32
+    team = warps if n <= 2 * sms else 1
+    teams = warps // team
+    smem = _k9_smem(cap, team, depth, slots)
+    per_sm = max(1, min(8, K9_SM_SMEM // (smem + 1024)))
+    blocks = max(1, min(-(-n // teams), per_sm * sms))
+    return dict(team=team, blocks=blocks, cap=cap, smem=smem,
+                launches=1 if cap else 3)
+
+
+_K9_SIGS = {"merge_fingerprint": [_P, _P, _P, _I, _P, _P, _P, _P],
+            "merge_fp_smem": [_I, _I, _I, _I]}
+#: K9's plan and launch arguments by (device, lanes, pairs, planes,
+#: 16-byte rows), checked against the library once
+_K9_LAUNCH = {}
+
+
+def _k9_launch(lib, st: SymLaneState, pv: int):
+    """K9's plan for this state and pair count, and its C argument
+    array: made and checked (the library's own shared-memory size, the
+    card's limit) once for each shape."""
     from .. import _build
 
-    lib = _build.lib("merge.cu", {
-        "merge_fingerprint": [_P, _P, _P, _I, _P, _P, _P]})
+    vec = int(st.memory.shape[1] % 16 == 0
+              and st.memory.data_ptr() % 16 == 0
+              and st.mkind.data_ptr() % 16 == 0)
+    n, depth, slots = st.pc.shape[0], st.stack.shape[1], st.skeys.shape[1]
+    key = (st.device, n, pv, depth, slots, vec)
+    hit = _K9_LAUNCH.get(key)
+    if hit is None:
+        smem_limit, sms = _build.device_limits(st.device)
+        plan = merge_fp_plan(n, pv, depth, slots, sms)
+        if lib.merge_fp_smem(plan["cap"], plan["team"], depth, slots) \
+                != plan["smem"]:
+            raise RuntimeError("csrc/merge.cu sizes its shared memory "
+                               "otherwise than merge_fp_plan")
+        if plan["smem"] > smem_limit:
+            raise ValueError(f"K9: {plan['smem']} shared bytes a block for "
+                             f"{depth} stack and {slots} storage slots")
+        hit = _K9_LAUNCH[key] = (plan, _build.int_array(
+            [plan["blocks"], plan["team"], plan["cap"], vec]))
+    return hit
+
+
+def merge_fingerprint_kernel(st: SymLaneState, prov_pairs):
+    """K9 on the card (``csrc/merge.cu``): ``merge_fingerprint_plain``
+    of a CUDA state, in one launch where the pairs fit its shared hash
+    (``merge_fp_plan``). Launches on the current stream of the state's
+    device; ``LAUNCHES["merge_fingerprint"]`` counts CUDA launches."""
+    from .. import _build
+
+    lib = _build.lib("merge.cu", _K9_SIGS)
     planes, dims = symstep.state_args(st)
     n, d_recs = st.pc.shape[0], st.dlog_op.shape[1]
     pairs = prov_pairs.contiguous()
     _build.need_cuda(pairs, torch.int32, "prov_pairs")
-    dense = torch.empty(n * d_recs, dtype=torch.int32, device=st.device)
+    if pairs.dim() != 2 or pairs.shape[1] != 2:
+        raise ValueError(f"prov_pairs: shape {tuple(pairs.shape)}")
+    pv = pairs.shape[0]
     out = torch.empty((n, 4), dtype=torch.int32, device=st.device)
-    rc = lib.merge_fingerprint(planes, dims, _build.ptr(pairs),
-                               pairs.shape[0], _build.ptr(dense),
+    if n == 0:
+        return out
+    plan, args = _k9_launch(lib, st, pv)
+    dense = None if plan["cap"] else torch.empty(
+        n * d_recs, dtype=torch.int32, device=st.device)
+    rc = lib.merge_fingerprint(planes, dims, _build.ptr(pairs), pv, args,
+                               None if dense is None else _build.ptr(dense),
                                _build.ptr(out), _build.stream(st.device))
-    _build.LAUNCHES["merge_fingerprint"] += 1
+    _build.LAUNCHES["merge_fingerprint"] += plan["launches"]
     _build.check(lib, rc, "merge_fingerprint")
     return out
 
@@ -1215,6 +1302,30 @@ def merge_fingerprint(st: SymLaneState, prov_pairs):
     if st.device.type == "cpu":
         return merge_fingerprint_plain(st, prov_pairs)
     return merge_fingerprint_kernel(st, prov_pairs)
+
+
+def _prov_pairs(prov: dict, n: int, d_recs: int, device) -> torch.Tensor:
+    """The (pv, 2) int32 resolution pairs of a window boundary, [lane *
+    d_recs + slot, oid] in the order of ``prov`` ({(lane, slot): oid}),
+    then padding (slot n * d_recs, dropped): pv is ``PROV_BUCKET`` (or
+    n * d_recs when smaller) up to that many pairs, n * d_recs past it.
+    Packed by numpy from the dict's views (no Python loop over the
+    pairs) into pinned memory on a card, and copied there in one
+    asynchronous copy."""
+    import itertools
+
+    k = len(prov)
+    pv = min(PROV_BUCKET, n * d_recs) if k <= PROV_BUCKET else n * d_recs
+    cuda = torch.device(device).type == "cuda"
+    host = torch.empty((pv, 2), dtype=torch.int32, pin_memory=cuda)
+    arr = host.numpy()
+    arr[:] = n * d_recs
+    if k:
+        keys = np.fromiter(itertools.chain.from_iterable(prov.keys()),
+                           dtype=np.int64, count=2 * k).reshape(k, 2)
+        arr[:k, 0] = keys[:, 0] * d_recs + keys[:, 1]
+        arr[:k, 1] = np.fromiter(prov.values(), dtype=np.int64, count=k)
+    return host.to(device, non_blocking=cuda)
 
 
 class ObjectTable:
@@ -3298,18 +3409,12 @@ class LaneEngine:
         kernel."""
         if self._fp_boundary is None:
             d_recs = self.lane_kwargs.get("dlog_records", 64)
-            n = self.n_lanes
-            pv = min(PROV_BUCKET, n * d_recs) \
-                if len(self._prov) <= PROV_BUCKET else n * d_recs
-            prov_pairs = np.full((pv, 2), n * d_recs, np.int32)
-            for j, ((lane, slot), oid) in enumerate(self._prov.items()):
-                prov_pairs[j, 0] = lane * d_recs + slot
-                prov_pairs[j, 1] = oid
             with _prof("merge_fp"), \
                     trace.span("merge.fingerprint", groups=groups):
-                fp = merge_fingerprint(
-                    st, torch.from_numpy(prov_pairs).to(self.device))
-                self._fp_boundary = fp.cpu().numpy().view(np.uint32)
+                pairs = _prov_pairs(self._prov, self.n_lanes, d_recs,
+                                    self.device)
+                fp = merge_fingerprint(st, pairs)
+                self._fp_boundary = _start_pull([fp])()[0].view(np.uint32)
         return self._fp_boundary
 
     def _collapse_twins(self, pre, fp, ctxs):

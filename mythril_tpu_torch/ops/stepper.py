@@ -19,6 +19,7 @@ the symbolic stepper resolves each lane's own member through.
 """
 
 import ctypes
+import math
 from dataclasses import dataclass, fields, replace
 from typing import Optional
 
@@ -707,8 +708,75 @@ def run_plain(code: CompiledCode, st: LaneState, max_steps: int) -> LaneState:
 _LANE_SIGS = {
     "lane_run": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                  ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                 ctypes.c_void_p],
+                 ctypes.c_void_p, ctypes.c_void_p],
 }
+
+#: K10's launch (``csrc/stepper.cu``, one thread a lane): lanes a
+#: block at most and at least
+K10_MAX_LPB, K10_MIN_LPB = 64, 32
+#: the shared bytes of a block past which a lane's stack, memory and
+#: storage log stay in place (global memory) instead of on chip: up to
+#: it, at least 3 blocks share an SM (the bench batch's 57 KB: 4)
+K10_LOCAL_BUDGET = 64 * 1024
+#: the code's rows (8 bytes each) go to shared memory up to this size;
+#: past it they are read through the read-only path
+K10_CODE_BUDGET = 16 * 1024
+#: the op table and each op's gas (where the code's rows are not in
+#: shared memory, whose rows carry both); a lane's word of scratch
+K10_HEAD = 2 * 256 * 4
+K10_SCRATCH = 32
+#: the order of the plan array the kernel reads (``P_*`` there)
+K10_PLAN_KEYS = ("lanes_per_block", "local", "code_shared", "stack_words",
+                 "store_words", "mem_bytes", "head_bytes", "smem", "vec")
+#: the default dynamic shared memory of a block (an H100's opt-in limit)
+#: and SM count, for a plan made without a card
+H100_SMEM_OPTIN, H100_SMS = 232448, 132
+
+
+def _up16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def lane_run_plan(n: int, depth: int, mem_bytes: int, slots: int,
+                  code_size: int, smem_limit: int = H100_SMEM_OPTIN,
+                  sms: int = H100_SMS) -> dict:
+    """K10's launch shape for ``n`` lanes of these plane sizes, as a
+    plain dict (``K10_PLAN_KEYS``; ``vec`` is the wrapper's). Lanes (a
+    thread each) a block: ``K10_MAX_LPB``, halved down to
+    ``K10_MIN_LPB`` while the batch would give fewer than two blocks an
+    SM. A lane's stack, memory and storage log sit in shared memory for
+    the whole run (``local``) where the block's rows fit
+    ``K10_LOCAL_BUDGET``, otherwise the lane reads them in place; the
+    code's rows go to shared memory where they fit ``K10_CODE_BUDGET``
+    (else the op table does). A stack row is 4 words past a multiple of
+    8 (8 lanes' 16-byte reads of one slot hit 8 bank groups), a storage
+    row one word past its slots (read 4 bytes at a time, an odd
+    stride); each lane has a word of scratch for the division family.
+    Raises ValueError where the block's shared memory passes
+    ``smem_limit``."""
+    if min(depth, mem_bytes, slots) < 1 or n < 0 or code_size < 0:
+        raise ValueError(f"K10 plan: unsupported sizes n={n} D={depth} "
+                         f"M={mem_bytes} S={slots} code={code_size}")
+    code_rows = code_size + 1
+    code_shared = code_rows * 8 <= K10_CODE_BUDGET
+    head = _up16(code_rows * 8) if code_shared else K10_HEAD
+    stack_w = 8 * depth + 4
+    store_w = 8 * slots + 1
+    mem_b = _up16(mem_bytes)
+    lpb = K10_MAX_LPB
+    while lpb > K10_MIN_LPB and -(-n // lpb) < 2 * sms:
+        lpb //= 2
+    on_chip = 4 * stack_w + 8 * store_w + mem_b
+    local = head + lpb * (K10_SCRATCH + on_chip) <= K10_LOCAL_BUDGET
+    smem = head + lpb * (K10_SCRATCH + (on_chip if local else 0))
+    if smem > smem_limit:
+        raise ValueError(f"K10 plan: {smem} shared bytes a block pass the "
+                         f"limit of {smem_limit}")
+    return dict(lanes_per_block=lpb, local=int(local),
+                code_shared=int(code_shared), stack_words=stack_w,
+                store_words=store_w, mem_bytes=mem_b, head_bytes=head,
+                smem=smem, vec=0, blocks=-(-n // lpb))
+
 
 #: per-opcode table K10 reads, (256, 6) int32: npop, npush, static gas,
 #: supported, env slot, result class
@@ -728,7 +796,38 @@ def _k10():
     if tuple(built) != LANE_FIELDS:
         raise RuntimeError("csrc/stepper.cu LANE_FIELDS differs from "
                            "LaneState")
+    if lib.mtt_lane_plan_len() != len(K10_PLAN_KEYS):
+        raise RuntimeError("csrc/stepper.cu reads another plan layout")
     return lib
+
+
+#: K10's plan arrays by (device, dims, code size, 16-byte rows)
+_PLANS = {}
+
+
+def _plan_args(st: LaneState, dims: tuple, code_size: int):
+    """The C plan array of ``lane_run_plan`` for this batch, with the
+    planes that 16-byte copies may move (``vec``: 1 the stack, 4
+    memory), made once for each shape."""
+    from .. import _build
+
+    vec = 1 * _aligned(st.stack) + 4 * _aligned(st.memory)
+    key = (st.device, dims, code_size, vec)
+    if key not in _PLANS:
+        smem_limit, sms = _build.device_limits(st.device)
+        plan = lane_run_plan(dims[0], dims[1], dims[2], dims[3], code_size,
+                             smem_limit, sms)
+        plan["vec"] = vec
+        _PLANS[key] = _build.int_array([plan[k] for k in K10_PLAN_KEYS])
+    return _PLANS[key]
+
+
+def _aligned(*tensors) -> bool:
+    """Every tensor starts on a 16-byte boundary and its lane rows are
+    whole multiples of 16 bytes: K10 may move them 16 bytes a thread."""
+    return all(t.data_ptr() % 16 == 0
+               and (math.prod(t.shape[1:]) * t.element_size()) % 16 == 0
+               for t in tensors)
 
 
 def lane_args(st: LaneState):
@@ -751,8 +850,8 @@ def lane_args(st: LaneState):
 def run_kernel(code: CompiledCode, st: LaneState, max_steps: int
                ) -> LaneState:
     """``run`` through kernel K10: one launch, every lane stepping on
-    its own until it leaves RUNNING or ``max_steps`` steps; the planes
-    are updated in place."""
+    its own thread until it leaves RUNNING or ``max_steps`` steps,
+    shaped by ``lane_run_plan``; the planes are updated in place."""
     from .. import _build
 
     planes, dims = lane_args(st)
@@ -768,6 +867,7 @@ def run_kernel(code: CompiledCode, st: LaneState, max_steps: int
         _OPTAB[key] = torch.from_numpy(LANE_OP_TABLE).to(st.device)
     rc = lib.lane_run(planes, dims, _build.ptr(packed), code.size,
                       _build.ptr(_OPTAB[key]), int(max_steps),
+                      _plan_args(st, tuple(dims), code.size),
                       _build.stream(st.device))
     _build.LAUNCHES["lane_run"] += 1
     _build.check(lib, rc, "lane_run")

@@ -900,3 +900,407 @@ def k4_case_inputs(case: K4Case, device):
             compile_code(case.code, device=dev),
             torch.from_numpy(case.canon).to(dev), case.budget,
             case.resume_on)
+
+
+# ---------------------------------------------------------------------------
+# K10 lane_run and K9 merge_fingerprint edge inputs
+# ---------------------------------------------------------------------------
+
+#: the inputs K10 is held to on both sides (``k10_edge_cases``): a
+#: contract's bytes, every plane of the batch (numpy, the JAX dtypes),
+#: the run's step cap, and ``view`` (offset, lanes) where the run takes a
+#: shard view of the batch (None: the whole batch)
+K10Case = namedtuple("K10Case", "name code planes max_steps view")
+
+#: plane sizes of the K10 cases: ``arms`` holds every arm's stores and
+#: stacks, ``odd`` has a memory width no multiple of 4, ``bench`` is
+#: ``contracts.BENCH_LANE_KW``, ``default`` ``init_lanes``' defaults
+#: (past K10's on-chip budget: memory and storage read in place)
+K10_SHAPES = {
+    "arms": dict(stack_depth=24, memory_bytes=1024, storage_slots=6,
+                 calldata_bytes=160),
+    "odd": dict(stack_depth=20, memory_bytes=95, storage_slots=5,
+                calldata_bytes=130),
+    "bench": dict(stack_depth=16, memory_bytes=64, storage_slots=4,
+                  calldata_bytes=32),
+    "default": dict(stack_depth=64, memory_bytes=4096, storage_slots=64,
+                    calldata_bytes=512),
+}
+
+_M256 = (1 << 256) - 1
+#: operand words of the binary-op arm: carries and borrows across every
+#: limb, signs, one-limb and wide divisors, shift amounts at and past 256
+_K10_WORDS = (0, 1, 2, 3, 7, 31, 32, 97, 255, 256, 257, (1 << 32) - 1,
+              1 << 32, (1 << 64) - 1, (1 << 128) + 5, 1 << 255,
+              (1 << 255) - 1, _M256, _M256 - 1, _M256 - 96,
+              0x0123456789ABCDEF0011223344556677_8899AABBCCDDEEFF0F1E2D3C4B5A6978)
+_BINOPS = ("ADD", "MUL", "SUB", "DIV", "SDIV", "MOD", "SMOD", "EXP",
+           "SIGNEXTEND", "LT", "GT", "SLT", "SGT", "EQ", "AND", "OR", "XOR",
+           "BYTE", "SHL", "SHR", "SAR")
+_ENV_OPS = ("ADDRESS", "ORIGIN", "CALLER", "CALLVALUE", "GASPRICE",
+            "COINBASE", "TIMESTAMP", "NUMBER", "DIFFICULTY", "GASLIMIT",
+            "CHAINID", "SELFBALANCE", "BASEFEE")
+
+
+def k10_arms(depth: int, mem: int, slots: int, cd: int, pad: int = 0):
+    """The arms contract of the K10 cases for these plane sizes, and its
+    arm names in order: a switch on calldata word 0 (arm i at value
+    i + 1; 0 runs the bench loop on word 1 % 97). ``pad`` bytes of code
+    no lane reaches (PUSH32s of JUMPDEST bytes, then JUMPDESTs) sit
+    between the bench loop and the arms, so every arm's jump goes that
+    far. Each arm ends in one status cause or result class:
+
+    - ``binops``: every binary op on calldata words 1 and 2 (``_BINOPS``),
+      ADDMOD and MULMOD with word 3, ISZERO and NOT, each result stored
+      at its own memory word; then RETURN of the first 64 bytes;
+    - ``env``: the env words, PC, GAS, MSIZE, CALLDATASIZE and CODESIZE
+      stored, then STOP;
+    - ``mem_edge``: MSTORE and MLOAD at M - 32, MSTORE8 at M - 1, MLOAD
+      back, then REVERT of 8 bytes;
+    - ``mload_oob``, ``mstore_oob``: a word at M - 31 (parks);
+      ``mstore8_oob``: a byte at M; ``mem_big``: MLOAD at 2**40;
+    - ``mstore_underflow``: MSTORE of one item (INVALID; msize still
+      rounds up to its offset);
+    - ``storage_full``: SSTOREs to S distinct keys, a rewrite of the
+      first, SLOADs, then a new key (parks);
+    - ``cdl_edge``: CALLDATALOAD at CALLDATASIZE - 1, past it, at 2**40
+      and across the word; ``cdl_oob``: at C - 16 (parks where
+      cd_size passes it);
+    - ``ret_oob``, ``revert_oob``: a range past M (parks);
+      ``ret_empty``: RETURN of 0 bytes at 2**40 (RETURNED, 0, 0);
+    - ``dup16_under``, ``swap16_under``: one item short (INVALID);
+      ``dup16``, ``swap16``: enough items (STOP);
+    - ``overflow``: D + 1 pushes (parks at D);
+    - ``bad_jump``, ``bad_jumpi``, ``wide_jump``: a destination that is
+      no JUMPDEST, and one past 32 bits (INVALID);
+    - ``invalid``, ``underflow`` (POP of nothing), ``unsupported``
+      (BALANCE parks), ``sha3`` (parks), ``selfdestruct``, ``stop``,
+      ``oog`` (a loop until the lane's gas runs out)."""
+    from .contracts import assemble
+
+    def store_all(ops):
+        out = []
+        for i, op in enumerate(ops):
+            out += op + [32 * i, "MSTORE"]
+        return out
+
+    def cdl(word):
+        return [32 * word, "CALLDATALOAD"]
+
+    binops = [cdl(2) + cdl(1) + [op] for op in _BINOPS]
+    binops += [cdl(3) + cdl(2) + cdl(1) + [op] for op in ("ADDMOD", "MULMOD")]
+    binops += [cdl(1) + ["ISZERO"], cdl(1) + ["NOT"], cdl(2) + ["ISZERO"]]
+    arms = {
+        "binops": store_all(binops) + [64, 0, "RETURN"],
+        "env": store_all([[op] for op in _ENV_OPS + (
+            "PC", "GAS", "MSIZE", "CALLDATASIZE", "CODESIZE")]) + ["STOP"],
+        "mem_edge": cdl(1) + [mem - 32, "MSTORE", mem - 32, "MLOAD",
+                              0xAB, mem - 1, "MSTORE8", mem - 32, "MLOAD",
+                              8, 0, "REVERT"],
+        "mload_oob": [mem - 31, "MLOAD", "STOP"],
+        "mstore_oob": [7, mem - 31, "MSTORE", "STOP"],
+        "mstore8_oob": [7, mem, "MSTORE8", "STOP"],
+        "mem_big": [1 << 40, "MLOAD", "STOP"],
+        "mstore_underflow": [64, "MSTORE", "STOP"],
+        "storage_full": sum(([k + 11, k + 1, "SSTORE"] for k in range(slots)),
+                            []) + [99, 1, "SSTORE", 1, "SLOAD", slots,
+                                   "SLOAD", 77, "SLOAD", 5, slots + 1,
+                                   "SSTORE", "STOP"],
+        "cdl_edge": ["CALLDATASIZE", 1, "SWAP1", "SUB", "CALLDATALOAD",
+                     "CALLDATASIZE", "CALLDATALOAD", 1 << 40, "CALLDATALOAD",
+                     "CALLDATASIZE", 20, "SWAP1", "SUB", "CALLDATALOAD",
+                     "STOP"],
+        "cdl_oob": [cd - 16, "CALLDATALOAD", "STOP"],
+        "ret_oob": [32, mem - 16, "RETURN"],
+        "revert_oob": [1 << 31, 0, "REVERT"],
+        "ret_empty": [0, 1 << 40, "RETURN"],
+        "dup16_under": [1] * 15 + ["DUP16", "STOP"],
+        "dup16": [1] * 16 + ["DUP16", "STOP"],
+        "swap16_under": [1] * 16 + ["SWAP16", "STOP"],
+        "swap16": list(range(1, 18)) + ["SWAP16", "STOP"],
+        "overflow": [2] * (depth + 1) + ["STOP"],
+        "bad_jump": [3, "JUMP"],
+        "bad_jumpi": [1, 5, "JUMPI"],
+        "wide_jump": [(1 << 40) + 3, "JUMP"],
+        "invalid": ["INVALID"],
+        "underflow": ["POP"],
+        "unsupported": [5, "BALANCE", "STOP"],
+        "sha3": [32, 0, "SHA3", "STOP"],
+        "selfdestruct": [0, "SELFDESTRUCT"],
+        "stop": ["STOP"],
+        "oog": [("label", "spin"), ("ref", "spin"), "JUMP"],
+    }
+    items = [0, "CALLDATALOAD"]
+    for i, name in enumerate(arms):
+        items += ["DUP1", i + 1, "EQ", ("ref", name), "JUMPI"]
+    # word 0 matched no arm: the bench loop on word 1 % 97
+    items += ["POP", 32, "CALLDATALOAD", 97, "SWAP1", "MOD", 1,
+              ("label", "loop"), "DUP2", "ISZERO", ("ref", "done"), "JUMPI",
+              3, "MUL", "DUP2", "ADD", "SWAP1", 1, "SWAP1", "SUB", "SWAP1",
+              ("ref", "loop"), "JUMP", ("label", "done"), 0, "SSTORE",
+              "STOP"]
+    items += [int.from_bytes(b"\x5b" * 32, "big")] * (pad // 33)
+    items += ["JUMPDEST"] * (pad % 33)
+    for name, body in arms.items():
+        items += [("label", name)] + body
+    return assemble(items), tuple(arms)
+
+
+def _k10_planes(n: int, shape: dict) -> dict:
+    """An n-lane batch of ``shape`` (``K10_SHAPES``): numpy planes in the
+    JAX dtypes, every lane RUNNING at pc 0 with the largest gas limit."""
+    from ..ops.stepper import N_ENV
+
+    d, m = shape["stack_depth"], shape["memory_bytes"]
+    s, c = shape["storage_slots"], shape["calldata_bytes"]
+    i32 = lambda: np.zeros(n, np.int32)  # noqa: E731
+    return dict(
+        pc=i32(), sp=i32(), stack=np.zeros((n, d, NLIMBS), np.uint32),
+        memory=np.zeros((n, m), np.uint8), msize=i32(),
+        skeys=np.zeros((n, s, NLIMBS), np.uint32),
+        svals=np.zeros((n, s, NLIMBS), np.uint32), scount=i32(),
+        calldata=np.zeros((n, c), np.uint8), cd_size=i32(),
+        env=np.zeros((n, N_ENV, NLIMBS), np.uint32),
+        gas_used=np.zeros(n, np.uint32),
+        gas_limit=np.full(n, 0xFFFFFFFF, np.uint32), status=i32(),
+        ret_offset=i32(), ret_len=i32(), steps=i32())
+
+
+def _put_word(row: np.ndarray, at: int, value: int) -> None:
+    """value as 32 big-endian bytes into row[at:at + 32] (clipped)."""
+    b = np.frombuffer(int(value).to_bytes(32, "big"), np.uint8)
+    end = min(at + 32, row.shape[0])
+    if end > at:
+        row[at:end] = b[:end - at]
+
+
+def _arms_batch(n: int, shape: dict, names, seed: int) -> dict:
+    """A batch for ``k10_arms``: lane i takes arm i % (len(names) + 1)
+    (0: the bench loop), operand words from ``_K10_WORDS`` and seeded
+    random words, cd_size from 0 past the buffer, seeded env words; the
+    ``oog`` arm's lanes a gas limit that runs out; past the first round
+    of arms, one lane in ten not RUNNING (every status), some at a pc
+    past the code and some with a small gas limit."""
+    rng = np.random.default_rng(seed)
+    p = _k10_planes(n, shape)
+    c = shape["calldata_bytes"]
+    pool = list(_K10_WORDS)
+    arms = np.arange(n) % (len(names) + 1)
+    for i in range(n):
+        row = p["calldata"][i]
+        _put_word(row, 0, int(arms[i]))
+        for w in (1, 2, 3):
+            v = pool[int(rng.integers(len(pool)))] if rng.random() < 0.7 \
+                else int.from_bytes(rng.bytes(32), "big")
+            _put_word(row, 32 * w, v)
+        p["cd_size"][i] = c if arms[i] == 0 else \
+            rng.choice([c, c, c, c - 13, 40, 0, c + 9])
+    words = rng.integers(0, 1 << 32, p["env"].shape, dtype=np.uint64)
+    p["env"][:] = words.astype(np.uint32)
+    p["env"][::3, :, 1:] = 0  # small env words on a third of the lanes
+    p["gas_limit"][arms == names.index("oog") + 1] = 300
+    rest = np.arange(n) > len(names)
+    off = rest & (rng.random(n) < 0.1)
+    p["status"][off] = rng.integers(1, 7, int(off.sum()))
+    p["pc"][rest & (rng.random(n) < 0.03)] = 1 << 20
+    poor = rest & (rng.random(n) < 0.05)
+    p["gas_limit"][poor] = rng.integers(0, 400, int(poor.sum()))
+    return p
+
+
+def k10_edge_cases(full: bool = False):
+    """The edge inputs of K10 (``lane_run``): on the card
+    ``chip_smoke.py`` holds K10 to ``run_plain`` on them (``full``: at
+    the lane counts of the card's paths); on the CPU
+    ``tests/test_torch_k10_edges.py`` holds ``run_plain`` to the JAX
+    ``run_jit``, bit for bit. Each is a ``K10Case``.
+
+    - ``arms_33`` (33 lanes, ``arms`` planes): every arm of ``k10_arms``
+      (each result class and status cause, MSTORE/MLOAD at M - 32 and
+      M - 31, storage full at S, CALLDATALOAD across cd_size and C,
+      RETURN out of range, DUP16/SWAP16 underflow, overflow at D) beside
+      bench loops of different counts in one warp, lanes not RUNNING
+      at the start, a pc past the code, gas running out;
+    - ``arms_1``: one lane; ``steps_0`` and ``steps_1``: ``arms_33``
+      with max_steps 0 and 1;
+    - ``loop_counts`` (33 lanes, the bench contract and planes): every
+      lane a different loop count, some not RUNNING;
+    - ``odd_memory``: the arms at a memory width of 95 bytes;
+    - ``default_planes``: the arms at ``init_lanes``' defaults, past
+      K10's on-chip budget (memory and storage read in place): 33 lanes,
+      131072 with ``full``;
+    - ``lanes_4096``: the arms at 4096 lanes (``full``: also
+      ``lanes_32768``, whose rows pass K10's on-chip budget);
+    - ``long_code`` and ``long_code_default``: the arms past
+      ``K10_LONG_PAD`` bytes of unreached code, so the code's rows pass
+      K10's code budget and are read in place (``odd`` planes on chip,
+      the default planes in place);
+    - ``shard_view``: lanes 5-32 of a 40-lane ``odd`` batch, run as a
+      view at that offset (its memory rows then start off 16 bytes)."""
+    from ..support.contracts import build_bench_contract, bench_calldata
+
+    cases = []
+    for name, n, shape_name, seed, max_steps, view, pad in _k10_specs(full):
+        if name == "loop_counts":
+            p = _k10_planes(n, K10_SHAPES[shape_name])
+            p["calldata"][:] = bench_calldata(n)
+            p["calldata"][:, 31] = np.arange(n) * 3  # word % 97: n counts
+            p["cd_size"][:] = 32
+            p["status"][[4, 9, 30]] = [Status.STOPPED, Status.NEEDS_HOST,
+                                       Status.INVALID]
+            cases.append(K10Case(name, build_bench_contract(), p,
+                                 max_steps, view))
+            continue
+        shape = K10_SHAPES[shape_name]
+        code, names = k10_arms(shape["stack_depth"], shape["memory_bytes"],
+                               shape["storage_slots"],
+                               shape["calldata_bytes"], pad)
+        p = _arms_batch(n, shape, names, seed)
+        if name == "arms_33":
+            p["status"][[31, 32]] = [Status.STOPPED, Status.NEEDS_HOST]
+        cases.append(K10Case(name, code, p, max_steps, view))
+    return cases
+
+
+#: the unreached code of the ``long_code`` cases: the arms contract then
+#: passes ``ops/stepper.K10_CODE_BUDGET`` (2047 bytes)
+K10_LONG_PAD = 2100
+
+
+def _k10_specs(full: bool):
+    """(name, lanes, ``K10_SHAPES`` key, seed, max_steps, view, pad) of
+    each K10 case, in order."""
+    specs = [("arms_33", 33, "arms", 1001, 400, None),
+             ("arms_1", 1, "arms", 1002, 400, None),
+             ("steps_0", 33, "arms", 1001, 0, None),
+             ("steps_1", 33, "arms", 1001, 1, None),
+             ("loop_counts", 33, "bench", 0, 1800, None),
+             ("odd_memory", 33, "odd", 1003, 400, None),
+             ("default_planes", 131072 if full else 33, "default", 1004,
+              400, None),
+             ("lanes_4096", 4096, "arms", 1005, 400, None)]
+    if full:
+        specs.append(("lanes_32768", 32768, "arms", 1006, 400, None))
+    specs += [("shard_view", 40, "odd", 1007, 400, (5, 28)),
+              ("long_code", 33, "odd", 1008, 400, None),
+              ("long_code_default", 33, "default", 1009, 400, None)]
+    return [s + (K10_LONG_PAD if s[0].startswith("long_code") else 0,)
+            for s in specs]
+
+
+def k10_case_sizes(full: bool = False):
+    """(name, lanes run, D, M, S, code bytes) of each K10 case, without
+    building its planes."""
+    from ..support.contracts import build_bench_contract
+
+    out = []
+    for name, n, shape_name, _, _, view, pad in _k10_specs(full):
+        sh = K10_SHAPES[shape_name]
+        code = build_bench_contract() if name == "loop_counts" else k10_arms(
+            sh["stack_depth"], sh["memory_bytes"], sh["storage_slots"],
+            sh["calldata_bytes"], pad)[0]
+        out.append((name, view[1] if view else n, sh["stack_depth"],
+                    sh["memory_bytes"], sh["storage_slots"], len(code)))
+    return out
+
+
+def k10_case_inputs(case: K10Case, device):
+    """A K10 case's (code, whole batch) on ``device``; the run takes
+    ``view_of(batch, case.view)``."""
+    from .. import interop
+
+    dev = resolve(device)
+    return (compile_code(case.code, device=dev),
+            interop.state_from_numpy(case.planes, dev))
+
+
+def view_of(st, view):
+    """The lanes [offset, offset + count) of a ``LaneState`` as views
+    (no copy), or ``st`` where view is None."""
+    from ..ops.stepper import LANE_FIELDS, LaneState
+
+    if view is None:
+        return st
+    a, k = view
+    return LaneState(**{f: getattr(st, f)[a:a + k] for f in LANE_FIELDS})
+
+
+#: the inputs K9 is held to on both sides (``k9_edge_cases``): every
+#: plane of a symbolic batch (numpy, the JAX dtypes) and the resolution
+#: pairs ((pv, 2) int32)
+K9Case = namedtuple("K9Case", "name lanes widths planes pairs")
+
+
+def k9_edge_cases():
+    """The edge inputs of K9 (``merge_fingerprint``): on the card
+    ``chip_smoke.py`` holds K9 to ``merge_fingerprint_plain`` on them;
+    on the CPU ``tests/test_torch_k9_edges.py`` holds the plain version
+    to the JAX ``_merge_fingerprint``, bit for bit. Planes as
+    ``window_planes`` (sids of every kind), memory kinds 0-3.
+
+    - ``lanes_1``, ``lanes_33``, ``lanes_64``, ``lanes_600``,
+      ``lanes_4096``: a padded pair bucket (``PROV_BUCKET`` rows or
+      n * R where smaller);
+    - ``no_pairs``: pv = 0 (every provisional sid unresolved);
+    - ``slots``: negative slots (-1, -n*R, below -n*R: dropped), one
+      past n*R (dropped), a slot named twice (the last pair wins);
+    - ``past_shared``: more pairs than K9's shared hash holds
+      (``K9_PROV_LOCAL``): n * R + 8 rows, K9's dense table;
+    - ``scount_0``, ``scount_full``: every lane's storage table empty,
+      and full at S, with write stamps from two values (ties);
+    - ``odd_memory``: a memory width no multiple of 16 (K9 reads it a
+      byte at a time)."""
+    cases = []
+
+    def case(name, n, wname, seed, pv=None, extra=(), scount=None):
+        rng = np.random.default_rng(seed)
+        widths = WINDOW_WIDTHS[wname]
+        r, s = widths["dlog_records"], widths["storage_slots"]
+        p = window_planes(n, widths, rng)
+        p["mkind"] = rng.integers(0, 4, p["mkind"].shape, dtype=np.uint8)
+        p["sp"] = rng.integers(0, widths["stack_depth"] + 1, n
+                               ).astype(np.int32)
+        p["mlog_count"] = rng.integers(
+            0, widths["mem_records"] + 1, n).astype(np.int32)
+        p["scount"] = (rng.integers(0, s + 1, n) if scount is None
+                       else np.full(n, scount)).astype(np.int32)
+        p["s_written"] = rng.integers(0, 2, p["s_written"].shape
+                                      ).astype(np.int32)
+        p["s_wstep"] = rng.integers(0, 2 if scount else 4,
+                                    p["s_wstep"].shape).astype(np.int32)
+        nr = n * r
+        if pv is None:
+            pv = min(le.PROV_BUCKET, nr)
+        pairs = np.full((pv, 2), nr, np.int32)
+        m = min(pv - len(extra), nr, int(rng.integers(pv // 4, pv // 2 + 2)))
+        m = max(m, 0)
+        pairs[:m, 0] = rng.choice(nr, m, replace=False)
+        pairs[:m, 1] = rng.integers(1, 1 << 20, m)
+        for j, (slot, oid) in enumerate(extra):
+            pairs[m + j] = (slot, oid)
+        cases.append(K9Case(name, n, widths, p, pairs))
+
+    for n, seed in ((1, 901), (33, 902), (64, 903), (600, 904),
+                    (4096, 905)):
+        case(f"lanes_{n}", n, "caps" if n < 600 else "narrow", seed)
+    case("no_pairs", 33, "caps", 906, pv=0)
+    nr = 33 * WINDOW_WIDTHS["caps"]["dlog_records"]
+    case("slots", 33, "caps", 907, pv=64,
+         extra=((-1, 11), (-nr, 12), (-nr - 1, 13), (nr + 2, 14), (5, 15),
+                (5, 16), (nr - 1, 17)))
+    n, r = 300, WINDOW_WIDTHS["narrow"]["dlog_records"]
+    case("past_shared", n, "narrow", 908, pv=n * r + 8)
+    case("scount_0", 33, "caps", 909, scount=0)
+    case("scount_full", 33, "caps", 910,
+         scount=WINDOW_WIDTHS["caps"]["storage_slots"])
+    case("odd_memory", 40, "wide", 911)
+    return cases
+
+
+def k9_case_inputs(case: K9Case, device):
+    """A K9 case's (state, pairs) on ``device``."""
+    from .. import interop
+
+    dev = resolve(device)
+    return (interop.state_from_numpy(case.planes, dev),
+            torch.from_numpy(case.pairs).to(dev))
