@@ -111,7 +111,14 @@ Phases (any failure exits non-zero and prints no result):
    one entry, a round whose staging outgrows a block's shared memory, a
    level of UDIV, UREM and MUL beside ULE nodes, bool and numeric
    targets in one round) at 1, 33 and 8192 states and past K7's grid,
-   and a level and a round of pads only;
+   and a level and a round of pads only; K5 over every level of each of
+   those waves in one call (``check_k5``: its layout, the seeds in the
+   call, bit for bit against the plain driver, its CUDA launches as
+   planned; timed on the 8192-system wave with its own byte bound and
+   the per-level count beside it), and on ``screen_waves.k5_edge_cases``
+   (negative operand rows and nodes, a level that reads a row it
+   writes, a level past a block, 8192 states, one state; also level by
+   level);
 8. the screen path: ``models/pruner._screen_interval`` over that wave
    with propagation on (K6-K8) and off (K5): 2731 kept each time,
    ``device_screened`` up by 8192, no device failure, keep masks, sweep
@@ -141,7 +148,10 @@ Phases (any failure exits non-zero and prints no result):
     each equal to ``run_plain``, K10's times on the lane mix; then the mesh (``parallel/mesh.py``):
     that batch on 8 shards of this card, K12 ``lane_live``, K13
     ``lane_order`` and K14 ``lane_gather`` bit for bit against their
-    plain versions (K14 also on an empty order, negative and
+    plain versions (K13 also on ``device_loop.k13_edge_cases`` as
+    launched and on a grid of at most 3 blocks, one launch a call; K14
+    also on
+    an empty order, negative and
     out-of-range indices and more rows than lanes, its output disjoint
     aligned views of one allocation), ``sharded_run`` equal to one K10
     run (and its device time), the live
@@ -1778,8 +1788,9 @@ def changed_bytes(before, after):
 def check_tables(name, core, start, interval_start, accs=None):
     """K5-K8 on one plan, chained from ``start`` (product tables) and
     ``interval_start`` (interval tables): every kernel call bit for bit
-    against its plain version on the same input. K5 and K6 run each
-    forward level, K8's exchange follows, K7 runs each backward round
+    against its plain version on the same input. K5 (a one-level
+    layout that assumes nothing of the tables) and K6 run each forward
+    level, K8's exchange follows, K7 runs each backward round
     from the last level down, K8's verdicts close; K8's init and one
     sweep's changed flag against the plain comparison come first. K6
     and K7 take the plan's kernel layout, their plain versions the plan
@@ -1792,9 +1803,11 @@ def check_tables(name, core, start, interval_start, accs=None):
     call's input; and the bytes the function must move on that input
     are counted (``bytes``): what it reads, once each (K6 and K7 the
     parts of rows each op or rule reads on that input, ``level_parts``,
-    ``round_parts``; K5 and K8 the rows: numeric rows 32 bytes per
-    table, bool rows the 4-byte limb 0 of lo and hi), and the limbs that
-    its call changed; ``rows_bytes`` is K6's and K7's earlier count,
+    ``round_parts``; K8 the rows: numeric rows 32 bytes per table, bool
+    rows the 4-byte limb 0 of lo and hi), and the limbs that its call
+    changed; K5 a level at a time is not timed (``check_k5`` times its
+    one call over every level), its rows so counted are summed level by
+    level (``levels_bytes``, the per-level count of PRs 2-11); ``rows_bytes`` is K6's and K7's earlier count,
     each row they touch whole, so the rows stay comparable; K8's init writes the four tables whole, and its
     verdicts read each state's rows up to the first row in conflict (all
     of them in a state without one), then the assertion slots of a state
@@ -1816,17 +1829,21 @@ def check_tables(name, core, start, interval_start, accs=None):
     err = dict.fromkeys(("interval_level", "prop_fwd_level",
                          "prop_back_round", "prop_tables"), 0)
 
-    def call(key, what, kern, plain, x, nbytes=None, rows_nbytes=None):
+    def call(key, what, kern, plain, x, nbytes=None, rows_nbytes=None,
+             timed=True):
         """Run kern and plain on copies of x, require equal outputs,
         time the pair when accs is given, with the bytes it must move
         (``nbytes``; ``rows_nbytes``, where given, the rows' count of
-        PRs 4-8); returns the kernel's output."""
+        PRs 4-8); untimed, only its bytes are summed (``levels_bytes``);
+        returns the kernel's output."""
         a, b = clone_all(x), clone_all(x)
         out_k, out_p = kern(a), plain(b)
         out_k, out_p = (a, b) if out_k is None else (out_k, out_p)
         torch.cuda.synchronize()
         err[key] = max(err[key], same_outputs(out_k, out_p, f"{name}: {what}"))
-        if accs is not None:
+        if accs is not None and not timed:
+            accs[key]["levels_bytes"] += nbytes(x, out_k)
+        elif accs is not None:
             acc = accs[key]
             acc["ms"] += cuda_ms(kern, reps=3, setup=lambda: clone_all(x))
             acc["device_ms"] += queued_ms(kern, lambda: clone_all(x))
@@ -1862,7 +1879,7 @@ def check_tables(name, core, start, interval_start, accs=None):
                   lambda x, lv=lvl: I.eval_level_kernel(lv, *x),
                   lambda x, lv=lvl: I.eval_level_plain(lv, *x), iv,
                   lambda x, o, r=reads: n_s * sum(row_iv[i] for i in r)
-                  + changed_bytes(x, o))
+                  + changed_bytes(x, o), timed=False)
         tabs = call("prop_fwd_level", f"K6 prop_fwd_level {li}",
                     lambda x, lv=klv: P.fwd_level_kernel(lv, x, flag),
                     lambda x, lv=lvl: P.fwd_level_plain(lv, x), tabs,
@@ -1908,6 +1925,171 @@ def check_tables(name, core, start, interval_start, accs=None):
     return err
 
 
+def k5_call_bytes(lay, out_lo):
+    """Bytes one K5 call over a bound layout must move: the layout once
+    (every entry's two int4, the mask of the ops that read it, the aux of
+    those that read it, 4 bytes of CONCAT's); the seed slots, each kept
+    slot's seed rows read once and written once; each operand row that
+    no earlier level of the call wrote, once for all states (the init
+    tables': a state's row there is the init row or a seed, counted
+    above), limb 0 of lo and hi (8 bytes) where every read of it takes
+    limb 0, else both rows (64); each row a level writes, once a state,
+    64 bytes (a bool row's limb 0 alone is 8 bytes of data, but a write of
+    less than a 32-byte sector makes the card read the sector back).
+    What each op reads is the kernel's own table (``I.iv_reads``, from
+    csrc/screen.cu), whose operand counts must be the layout's
+    (``I.operand_reads``)."""
+    import numpy as np
+
+    from mythril_tpu_torch.ops import intervals as I
+
+    reads = np.asarray(I.iv_reads())
+    known = np.nonzero(reads)[0]
+    if (reads[known] & 3 != I.operand_reads(known)).any():
+        raise AssertionError(f"K5: the kernel's operand counts "
+                             f"{(reads[known] & 3).tolist()} are not the "
+                             f"layout's {I.operand_reads(known).tolist()} "
+                             f"for ops {known.tolist()}")
+    ent = lay["ent"].cpu().numpy()
+    op, n_rows = ent[:, 1], lay["n_rows"]
+    n_s = out_lo.shape[0]
+    r = reads[op]
+    if not r.all():
+        raise AssertionError(f"K5: the layout holds ops with no transfer: "
+                             f"{sorted(set(op[r == 0].tolist()))}")
+    nbytes = 32 * len(op) + 32 * int((r & I.IV_R_MASK != 0).sum()) \
+        + 32 * int((r & I.IV_R_AUX != 0).sum()) \
+        + 4 * int((r & I.IV_R_AUX0 != 0).sum()) + 16 * lay["lv"].shape[0]
+    if "seed_idx" in lay:
+        idx = lay["seed_idx"].cpu().long()
+        rows, ok = I.scatter_index(idx, n_rows)
+        ss, vv = np.nonzero(ok.numpy())
+        kept = set(zip(ss.tolist(), rows.numpy()[ss, vv].tolist()))
+        nbytes += 4 * idx.numel() + 64 * len(ss) + 64 * len(kept)
+    need = {}  # row -> 8 (limb 0) or 64 (whole)
+    written = set()
+    limb0 = (I.IV_R_A0, I.IV_R_B0, I.IV_R_C0)
+    for a, b, _, _ in lay["lv"]:
+        for j in range(a, b):
+            for k in range(r[j] & 3):
+                row = int(ent[j, 2 + k])
+                if row in written:
+                    continue
+                part = 8 if r[j] & limb0[k] else 64
+                need[row] = max(need.get(row, 0), part)
+        for j in range(a, b):
+            written.add(int(ent[j, 0]))
+    return nbytes + sum(need.values()) + 64 * n_s * len(written)
+
+
+def check_k5(name, enc, dev, acc=None):
+    """K5 over every level of an encoding (its bound layout, from the
+    init tables: the seeds scattered in the same call) against the plain
+    driver (``seed_tables``, then ``eval_level_plain`` level by level),
+    bit for bit, its CUDA launches (as ``interval_levels`` in
+    csrc/screen.cu counts them) those ``iv_launch_shape`` plans; and
+    ``eval_feasible`` with the kernel against the plain version. With
+    ``acc``, the call is timed (call, device, plain ms), its launches
+    kept and its bytes counted (``k5_call_bytes``). Returns the largest
+    difference."""
+    import torch
+
+    from mythril_tpu_torch import _build
+    from mythril_tpu_torch.ops import intervals as I
+
+    lay = I.encoding_layout(enc, dev)
+    shape = (enc.seed_idx.shape[0],) + enc.init_lo.shape
+
+    def fresh():
+        return (lay["init_lo"].expand(shape).clone(),
+                lay["init_hi"].expand(shape).clone())
+
+    def kern(x):
+        I.eval_levels_kernel(lay, *x)
+        return x
+
+    def plain(_=None):
+        return I._run_tables(enc, dev, plain=True)[:2]
+
+    n_s = shape[0]
+    plan, _ = I.iv_launch_shape(lay, n_s, 1)
+    want_launches = len(plan) + int("seed_idx" in lay and enc.seed_idx.shape[1]
+                                    > 0) + int(lay["lv"][:, 2].sum())
+    before = _build.LAUNCHES["interval_level"]
+    got = kern(fresh())
+    torch.cuda.synchronize()
+    launched = _build.LAUNCHES["interval_level"] - before
+    if launched != want_launches:
+        raise AssertionError(f"{name}: K5 counted {launched} launches a "
+                             f"call, planned {want_launches}")
+    want = plain()
+    err = same_outputs(got, want, f"{name}: K5 over every level")
+    if list(I.eval_feasible(enc, dev)) != list(I.eval_feasible(enc, dev,
+                                                                plain=True)):
+        raise AssertionError(f"{name}: eval_feasible differs from the plain "
+                             f"version")
+    if acc is not None:
+        acc["ms"] = cuda_ms(kern, reps=5, setup=fresh)
+        acc["device_ms"] = queued_ms(kern, fresh, reps=5)
+        acc["plain_ms"] = cuda_ms(plain, reps=1)
+        acc["bytes"] = k5_call_bytes(lay, got[0])
+        acc["launches_a_call"] = launched
+    return err
+
+
+def check_k5_edges(dev):
+    """K5 on ``screen_waves.k5_edge_cases`` (``check_k5``), and level by
+    level (``eval_level_kernel``) from the seeded tables against the
+    plain version after every level; the cases must take the paths they
+    are for: a level wider than a block, a level that reads a row it
+    writes (the staged launch), more states than the staged grid's
+    resident blocks, one state."""
+    import torch
+
+    from mythril_tpu_torch.ops import intervals as I
+    from mythril_tpu_torch.support.screen_waves import k5_edge_cases
+
+    t0 = time.perf_counter()
+    seen = []
+    _, lib = I.screen_lib()
+    resident = lib.interval_levels_blocks(I.IV_THREADS)
+    for name, enc in k5_edge_cases().items():
+        check_k5(f"K5 edge {name}", enc, dev)
+        lay = I.encoding_layout(enc, dev)
+        n_s = enc.seed_idx.shape[0]
+        launches, (threads, blocks) = I.iv_launch_shape(lay, n_s, resident)
+        seen.append(f"{name} ({n_s} states, levels "
+                    f"{[int(b - a) for a, b, _, _ in lay['lv']]}, "
+                    f"{len(launches)} level launches"
+                    + (f", staged: {threads} threads, {blocks} blocks"
+                       if lay["stage_words"] else "") + ")")
+        widest = max((b - a for a, b, _, _ in lay["lv"]), default=0)
+        if name == "wide_level" and widest <= I.IV_LEVEL_THREADS:
+            raise AssertionError("K5 edge wide_level: not past one block")
+        if (name == "reads_own_level") != bool(lay["stage_words"]):
+            raise AssertionError(f"K5 edge {name}: staging "
+                                 f"{lay['stage_words']} words")
+        if name == "many_states" and n_s <= resident:
+            raise AssertionError("K5 edge many_states: within one grid")
+        a = I.seed_tables(*(I.words_to_device(x, dev)
+                            for x in (enc.init_lo, enc.init_hi)),
+                          I.ints_to_device(enc.seed_idx, dev),
+                          *(I.words_to_device(x, dev)
+                            for x in (enc.seed_lo, enc.seed_hi)))
+        b = clone_all(a)
+        for li, level in enumerate(enc.levels):
+            lv = I.level_to_device(level, dev)
+            I.eval_level_kernel(lv, *a)
+            I.eval_level_plain(lv, *b)
+            torch.cuda.synchronize()
+            same_outputs(a, b, f"K5 edge {name}: level {li} alone")
+        del a, b
+    torch.cuda.empty_cache()
+    log(f"K5 edges: equal to the plain versions over every level in one "
+        f"call and level by level: {'; '.join(seen)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def check_screens(dev, report, wave):
     """K5-K8 against their plain versions on the card: on the all-opcode
     wave (every opcode and backward rule) from its init tables and from
@@ -1923,6 +2105,7 @@ def check_screens(dev, report, wave):
     sets, l_enc, l_core = layered_wave(dev)
     init = P.init_tables_kernel(l_core)
     errs = [check_tables("all-opcode wave", l_core, init, init[:2])]
+    k5_err = check_k5("all-opcode wave", l_enc, dev)
     for seed in (SEED, SEED + 1):
         rnd = random_tables(l_core, seed)
         errs.append(check_tables(f"all-opcode wave, random tables {seed}",
@@ -1947,13 +2130,16 @@ def check_screens(dev, report, wave):
         f"rows, levels {[lv['op'].shape[0] for lv in core['levels']]}, "
         f"rounds {[[r['op'].shape[0] for r in rs] for rs in core['back']]}")
     accs = {k: dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bytes=0,
-                    rows_bytes=0) for k in errs[0]}
+                    rows_bytes=0, levels_bytes=0) for k in errs[0]}
     start = P.init_tables_kernel(core)
     seeded = I.seed_tables(core["init_lo"], core["init_hi"],
                            core["seed_idx"], core["seed_lo"],
                            core["seed_hi"])
     errs.append(check_tables("screen wave", core, start, seeded, accs))
     del start, seeded
+    torch.cuda.empty_cache()
+    k5_err = max(k5_err, check_k5("screen wave", enc, dev,
+                                  accs["interval_level"]))
     torch.cuda.empty_cache()
     for name, acc in accs.items():
         bms, by = bound_ms(acc["bytes"])
@@ -1962,7 +2148,16 @@ def check_screens(dev, report, wave):
                             device_ms=acc["device_ms"], bound_ms=bms,
                             bound_by=by)
         rows = ""
-        if acc["rows_bytes"] != acc["bytes"]:
+        if name == "interval_level":
+            report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
+                                              k5_err)
+            report[name]["levels_bound_ms"] = bound_ms(
+                acc["levels_bytes"])[0]
+            rows = (f"; one call over every level, "
+                    f"{acc['launches_a_call']} CUDA launches (the per-level "
+                    f"count {report[name]['levels_bound_ms']:.6f} ms, "
+                    f"{acc['levels_bytes']} bytes)")
+        elif acc["rows_bytes"] != acc["bytes"]:
             report[name]["bound_rows_ms"] = bound_ms(acc["rows_bytes"])[0]
             rows = (f"; rows whole {report[name]['bound_rows_ms']:.6f} ms "
                     f"({acc['rows_bytes']} bytes)")
@@ -1978,13 +2173,14 @@ EDGE_STATES = (1, 33, 8192)
 
 
 def edge_wave(dev, sets, n):
-    """``sets`` repeated to n states: (the states' sets, their plan on
-    the card)."""
+    """``sets`` repeated to n states: (the states' sets, their encoding,
+    their plan on the card)."""
     from mythril_tpu_torch.ops import intervals as I
     from mythril_tpu_torch.ops import propagate as P
 
     wave = (sets * -(-n // len(sets)))[:n]
-    return wave, P.plan_to_device(P.build_plan(I.linearize(wave)), dev)
+    enc = I.linearize(wave)
+    return wave, enc, P.plan_to_device(P.build_plan(enc), dev)
 
 
 def check_screen_edges(dev):
@@ -2008,9 +2204,10 @@ def check_screen_edges(dev):
     for name, sets in edge_sets().items():
         counts = EDGE_STATES
         if name == "staging":
-            counts = (1, 33, 2 * widest_grid(edge_wave(dev, sets, 1)[1]) + 1)
+            counts = (1, 33, 2 * widest_grid(edge_wave(dev, sets, 1)[2]) + 1)
         for n in counts:
-            wave, core = edge_wave(dev, sets, n)
+            wave, enc, core = edge_wave(dev, sets, n)
+            check_k5(f"edge {name}, {n} states", enc, dev)
             lay = P.kernel_layout(core)
             grid = widest_grid(core)
             glob = sum(r["launch"][7] is not None for rs in lay["back"]
@@ -2031,7 +2228,7 @@ def check_screen_edges(dev):
                     or _facts_key(got.facts) != _facts_key(want.facts)):
                 raise AssertionError(f"edge {name}, {n} states: the screen "
                                      f"differs from the plain versions")
-            del init, rnd, core
+            del init, rnd, core, enc
             torch.cuda.empty_cache()
         log(f"edge {name}: K5-K8 and the screen equal to the plain versions "
             f"at {list(counts)} states (the grid of K7's widest round {grid} "
@@ -2071,7 +2268,7 @@ def _facts_key(facts):
 
 
 #: the screens' kernels by their symbols in a profile
-SCREEN_SYMBOLS = ("level_kernel", "fwd_kernel", "back_kernel",
+SCREEN_SYMBOLS = ("iv_level_kernel", "fwd_kernel", "back_kernel",
                   "init_kernel", "exchange_kernel", "verdicts_kernel")
 
 
@@ -2167,11 +2364,14 @@ def screen_path(dev, wave, card):
                 sym_ms.update(got)
                 break
         dev_s = sum(e.self_device_time_total for e in rows) / 1e6
+        busy = (f"device busy {dev_s:.4f} of {pwall:.3f} s under the "
+                f"profiler (share {dev_s / pwall:.4f})" if dev_s else
+                "device busy not measured (the profiler recorded no CUDA "
+                "event)")
         log(f"screen path ({tag}): kept {len(kept)} of {SCREEN_N}, "
             f"device_screened +{delta['device_screened']}, 0 device "
             f"failures, {detail}; {wall:.3f} s, {SCREEN_N / wall:.1f} "
-            f"systems/s; device busy {dev_s:.4f} of {pwall:.3f} s under the "
-            f"profiler (share {dev_s / pwall:.4f}); launches "
+            f"systems/s; {busy}; launches "
             f"{ {k: v for k, v in launches[prop].items() if v} } on {card}")
     P.FORCE = None
     missing = set(SCREEN_SYMBOLS) - set(sym_ms)
@@ -2639,6 +2839,50 @@ def mesh_kernel_times(dev, st, n_dev, reps):
     }
 
 
+def check_k13_edges(dev):
+    """K13 on ``device_loop.k13_edge_cases`` with each case's shard
+    counts, as ``lane_order`` launches it (a tile a block past 4096
+    lanes) and on a grid of at most 3 blocks (several tiles a block),
+    against ``lane_order_plain``: equal, one CUDA launch a call."""
+    import torch
+
+    from mythril_tpu_torch import _build
+    from mythril_tpu_torch.parallel import mesh as M
+    from mythril_tpu_torch.support.device_loop import k13_edge_cases
+
+    t0 = time.perf_counter()
+    calls = 0
+    resident = M._ORDER_RESIDENT.get(dev.index)
+    try:
+        for name, status, devs in k13_edge_cases():
+            st = torch.from_numpy(status).to(dev)
+            for n_dev in devs:
+                want = M.lane_order_plain(st, n_dev)
+                for form in ("as launched", "at most 3 blocks"):
+                    M._ORDER_RESIDENT.pop(dev.index, None)
+                    if form != "as launched":
+                        M._ORDER_RESIDENT[dev.index] = 3
+                    before = _build.LAUNCHES["lane_order"]
+                    got = M.lane_order(st, n_dev)
+                    torch.cuda.synchronize()
+                    if _build.LAUNCHES["lane_order"] - before != 1:
+                        raise AssertionError(f"K13 edge {name}: not one "
+                                             f"launch")
+                    if max_err(got, want):
+                        raise AssertionError(
+                            f"K13 edge {name}, {n_dev} shards, {form}: "
+                            f"differs from the plain version")
+                    calls += 1
+    finally:
+        M._ORDER_RESIDENT.pop(dev.index, None)
+        if resident is not None:
+            M._ORDER_RESIDENT[dev.index] = resident
+    log(f"K13 edges: {calls} calls (every case of k13_edge_cases with its "
+        f"shard counts, as launched and on a grid of at most 3 blocks) "
+        f"equal to the plain version, one launch each; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def mesh_path(dev, card, report):
     """The scale-out path (``parallel/mesh.py``) at full width:
     ``bench_device``'s batch (32768 lanes of 1324 bytes) on a mesh of 8
@@ -2721,6 +2965,8 @@ def mesh_path(dev, card, report):
         f"{MESH_LANES}) equal to their plain versions on {MESH_LANES} "
         f"lanes ({n_run} running); K14's planes are disjoint 16-byte "
         f"aligned views of one allocation")
+
+    check_k13_edges(dev)
 
     # the main path
     _build.reset_launches()
@@ -3940,7 +4186,7 @@ def run() -> int:
 
     dev = torch.device("cuda", 0)
     card = smi()
-    t0 = time.perf_counter()
+    t_run = t0 = time.perf_counter()
     built = _build.build_all()
     log(f"build: {len(built)} sources in {time.perf_counter() - t0:.1f} s "
         f"({', '.join(sorted(built))}) on {card}")
@@ -3965,16 +4211,24 @@ def run() -> int:
     log(f"lane default on this card: {default_lanes(lane_bytes(), dev)} "
         f"lanes of {lane_bytes()} bytes")
     report = {}
-    check_bv256(dev, report)
-    check_init(dev, report)
-    check_k1(dev, report)
-    check_k1_packed(dev, report)
-    check_window(dev, report)
-    check_merge_fp(dev, report)
+    laps, last = [], [time.perf_counter()]
+
+    def lap(name):
+        """Seconds since the last lap, kept for the closing line."""
+        now = time.perf_counter()
+        laps.append(f"{name} {now - last[0]:.1f}")
+        last[0] = now
+
+    lap("build and set-up")
+    for check in (check_bv256, check_init, check_k1, check_k1_packed,
+                  check_window, check_merge_fp):
+        check(dev, report)
+        lap(check.__name__)
 
     # the symbolic path at full width: its launch counts are the main
     # path's for K0-K4
     n_open, launches = symbolic_path(dev, card)
+    lap("symbolic path")
 
     # the corpus, each fixture its own process, while this process runs
     # the symbolic path's host-only reference (no card work here, so the
@@ -4015,10 +4269,15 @@ def run() -> int:
         f"({sum(len(v) for v in queue_on.values())} issues); packed "
         f"{delta_on}, MTPU_PACK=0 {delta_off}; daemon launches "
         f"{daemon_launches}")
+    lap("corpus, daemon, queues")
     packed_explore(dev, card)
+    lap("packed explore")
     resume_and_spill(card)
+    lap("resume and spill")
     k9_launches = merge_path(card)
+    lap("merge rig")
     corpus_mode(card)
+    lap("corpus mode")
 
     res, paths, wall, stats = explore(dev, MAIN_LANES, MAIN_K)
     if res["paths"] != paths or res["forks"] != paths - 1:
@@ -4042,16 +4301,26 @@ def run() -> int:
         f"{len(res_w['windows'])} windows, {res_w['paths']} paths, "
         f"{wall_w:.3f} s, {res_w['paths'] / wall_w:.1f} paths/s on {card}")
     check_k1_wide(dev, WIDE_LANES, WIDE_K)
+    lap("device loop")
 
     concrete_launches = concrete_path(dev, card, report)
+    lap("concrete path")
     mesh_launches = mesh_path(dev, card, report)
+    lap("mesh")
 
     wave = screen_wave(dev)
     check_screens(dev, report, wave)
+    lap("screen kernels")
     check_screen_edges(dev)
+    lap("screen edges")
+    check_k5_edges(dev)
+    lap("K5 edges")
     screen_launches = screen_path(dev, wave, card)
+    lap("screen path")
     screen_mix(dev)
+    lap("propagation mix")
     fused_launches = fused_screen(dev, wave, card, report)
+    lap("fused screen")
 
     def entry(name, source, replaces, counts=None):
         r = report[name]
@@ -4076,7 +4345,8 @@ def run() -> int:
                                                        "cold_",
                                                        "loop_",
                                                        "copy_",
-                                                       "bound_rows_"))}}
+                                                       "bound_rows_",
+                                                       "levels_"))}}
 
     # bv256 has no launch of its own on the main path: its word ops run
     # inside K1's launches, so it is listed apart with its test launch's
@@ -4110,6 +4380,9 @@ def run() -> int:
     if fast:
         raise AssertionError(f"device time below the bound for {fast}: "
                              f"the byte or operation count is wrong")
+    log(f"chip_smoke: every phase passed in "
+        f"{time.perf_counter() - t_run:.1f} s, the build included; by "
+        f"phase (s): {', '.join(laps)}")
     log(json.dumps({"kernels": rows, "inlined": [inlined]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

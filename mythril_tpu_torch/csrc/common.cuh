@@ -1,5 +1,5 @@
 // Shared by the port's kernels: the lane-state view, the C-side error
-// string, and the block-level prefix scan the ordered compactions use.
+// string, launch-shape helpers and the per-device shared-memory opt-in.
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -69,59 +69,6 @@ MTT_EXPORT const char* mtt_sym_fields() { return SYM_FIELDS(SYM_NAME); }
 
 __host__ __device__ inline int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
-}
-
-constexpr int SCAN_BLOCK = 256;
-
-// Exclusive prefix of `flag` over the threads of a SCAN_BLOCK-thread
-// block (thread order). Writes the block's total to *total. Every
-// thread of the block must call it.
-__device__ inline int block_exclusive_scan(int flag, int* total) {
-  __shared__ int warp_sums[SCAN_BLOCK / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  unsigned ballot = __ballot_sync(0xFFFFFFFFu, flag != 0);
-  int in_warp = __popc(ballot & ((1u << lane) - 1u));
-  if (lane == 0) warp_sums[warp] = __popc(ballot);
-  __syncthreads();
-  int before = 0, sum = 0;
-  for (int w = 0; w < SCAN_BLOCK / 32; ++w) {
-    if (w < warp) before += warp_sums[w];
-    sum += warp_sums[w];
-  }
-  __syncthreads();
-  *total = sum;
-  return before + in_warp;
-}
-
-// One block: the exclusive prefix over block_off[0..nblocks) of the
-// blocks' counts, in place (block_off[nblocks] and *count, where not
-// null, get the total): the middle pass of a compaction over many
-// blocks (K13's).
-__global__ void compact_scan(int32_t* block_off, int nblocks, int32_t* count) {
-  __shared__ int carry;
-  __shared__ int buf[SCAN_BLOCK];
-  if (threadIdx.x == 0) carry = 0;
-  __syncthreads();
-  for (int base = 0; base < nblocks; base += SCAN_BLOCK) {
-    int i = base + threadIdx.x;
-    int v = i < nblocks ? block_off[i] : 0;
-    buf[threadIdx.x] = v;
-    __syncthreads();
-    for (int off = 1; off < SCAN_BLOCK; off <<= 1) {
-      int t = threadIdx.x >= off ? buf[threadIdx.x - off] : 0;
-      __syncthreads();
-      buf[threadIdx.x] += t;
-      __syncthreads();
-    }
-    if (i < nblocks) block_off[i] = carry + buf[threadIdx.x] - v;
-    __syncthreads();
-    if (threadIdx.x == SCAN_BLOCK - 1) carry += buf[SCAN_BLOCK - 1];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    block_off[nblocks] = carry;
-    if (count) *count = carry;
-  }
 }
 
 inline unsigned nblocks_for(long long len, int block) {

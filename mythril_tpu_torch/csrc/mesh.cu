@@ -12,11 +12,15 @@
 //    the same launch. A stable sort on a 0/1 key is a stable partition:
 //    lane i goes to sorted position q = (running lanes before i) if it
 //    runs, else R + (lanes before i that do not run), R the running
-//    total. The count before i is a prefix scan (block ranks by ballot,
-//    block offsets by one scan block), so no two lanes race for a slot
-//    and the order is JAX's bit for bit at every n. The deal sends
-//    sorted position q = s * n_dev + d to output position
-//    d * (n / n_dev) + s.
+//    total. The count before i is a prefix scan (warp scans over the
+//    threads, 16 lanes a thread as a bit mask from four 16-byte loads;
+//    on a grid the blocks' sums through one grid barrier), so no two
+//    lanes race for a slot and the order is JAX's bit for bit at every n.
+//    The deal sends sorted position q = s * n_dev + d to output position
+//    d * (n / n_dev) + s. One launch a call (were three): a cooperative
+//    grid of 256-thread blocks, one block for up to 4096 lanes
+//    (parallel/mesh.py lane_order_shape); the blocks' sums in the output
+//    allocation's tail.
 //  - K14: :139 `x[order]` and :156 `x[dealt]` over every plane of the
 //    LaneState (17 planes of their own row widths, int32 and uint8),
 //    with JAX's index rule: a negative index wraps once (i + n), then an index out
@@ -26,7 +30,10 @@
 // arithmetic. K12 and K13 read the status plane (4 bytes a lane) and
 // K13 writes the order (4 bytes a lane): under 1.1 MB at 131072 lanes,
 // so their time is launch latency and the scan's dependent steps, not
-// bandwidth. K14 reads every byte of the gathered rows once and writes
+// bandwidth. K13's stores scatter (a thread's lanes go to two runs of
+// sorted positions), so they are spread over a grid of blocks: one
+// block of them took 0.035 ms at 32768 lanes, a grid of 8 blocks 0.0116
+// (PERF.md §6). K14 reads every byte of the gathered rows once and writes
 // it once: at 131072 default lanes (11212 bytes) 2.94 GB, 0.88 ms at
 // 3.35 TB/s. Its design aims at that bound: one launch over every
 // plane, each block a run of one plane's output rows; each plane copies
@@ -45,7 +52,11 @@
 // gather_outputs).
 #include <algorithm>
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -93,30 +104,132 @@ k_lane_live(const int32_t* status, long long per, int32_t* out) {
   }
 }
 
-// K13, pass 1: each block's count of RUNNING lanes
-__global__ void k_order_count(const int32_t* status, long long n, int32_t* block_off) {
-  long long i = (long long)blockIdx.x * SCAN_BLOCK + threadIdx.x;
-  int f = i < n ? status[i] == RUNNING : 0;
-  int total;
-  block_exclusive_scan(f, &total);
-  if (threadIdx.x == 0) block_off[blockIdx.x] = total;
+// K13: lanes a thread holds in a tile, read as four 16-byte loads, and
+// the threads of a block
+constexpr int ORDER_VEC = 16;
+constexpr int ORDER_THREADS = 256;
+
+// the RUNNING flags of lanes [i, i + ORDER_VEC) as bits (lanes past n: 0)
+__device__ __forceinline__ unsigned order_flags(const int32_t* status, long long i, long long n,
+                                                bool vec) {
+  unsigned m = 0;
+  if (vec && i + ORDER_VEC <= n) {
+    const int4* p = reinterpret_cast<const int4*>(status + i);
+#pragma unroll
+    for (int k = 0; k < ORDER_VEC / 4; ++k) {
+      const int4 v = p[k];
+      m |= (unsigned)(v.x == RUNNING) << (4 * k) | (unsigned)(v.y == RUNNING) << (4 * k + 1) |
+           (unsigned)(v.z == RUNNING) << (4 * k + 2) | (unsigned)(v.w == RUNNING) << (4 * k + 3);
+    }
+  } else {
+    for (int k = 0; k < ORDER_VEC && i + k < n; ++k) m |= (unsigned)(status[i + k] == RUNNING) << k;
+  }
+  return m;
 }
 
-// K13, pass 3 (after compact_scan turned the counts into exclusive
-// offsets and block_off[nblocks] into the total): each lane's sorted
-// position, dealt over n_dev shards.
-__global__ void k_order_write(const int32_t* status, long long n, int n_dev,
-                              const int32_t* block_off, int32_t* out) {
-  long long i = (long long)blockIdx.x * SCAN_BLOCK + threadIdx.x;
-  int f = i < n ? status[i] == RUNNING : 0;
-  int total;
-  int rank = block_exclusive_scan(f, &total);
-  if (i >= n) return;
-  long long before = (long long)block_off[blockIdx.x] + rank;
-  long long running = block_off[gridDim.x];
-  long long q = f ? before : running + (i - before);
-  long long per = n / n_dev;
-  out[(q % n_dev) * per + q / n_dev] = (int32_t)i;
+// exclusive prefix of c over the block's threads (thread order); *total
+// gets the block's sum. Every thread of the block calls it.
+__device__ __forceinline__ int order_scan(int c, int* total) {
+  __shared__ int sums[ORDER_THREADS / 32];
+  constexpr int nw = ORDER_THREADS / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = c;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xFFFFFFFFu, x, off);
+    if (lane >= off) x += y;
+  }
+  if (lane == 31) sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < nw ? sums[lane] : 0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(0xFFFFFFFFu, w, off);
+      if (lane >= off) w += y;
+    }
+    if (lane < nw) sums[lane] = w;  // inclusive over warps
+  }
+  __syncthreads();
+  const int before = (warp ? sums[warp - 1] : 0) + x - c;
+  *total = sums[nw - 1];
+  __syncthreads();  // sums is reused by the next call
+  return before;
+}
+
+// K13: the stable "running first" order of n lanes, dealt over n_dev
+// shards, in one cooperative launch. The lanes are cut into tiles of
+// ORDER_VEC lanes a thread (thread t of a tile holds lanes tile *
+// ORDER_VEC * ORDER_THREADS + t * ORDER_VEC onward); block b takes tiles
+// [b * tiles, (b + 1) * tiles). Pass 1: each thread counts its running
+// lanes (keeping its first tile's flags), the block sums them into
+// buf[b]; one grid barrier, and every block reads its offset (the sums
+// of the blocks before it) and the total R. Pass 2, tile by tile: a
+// thread's running lanes before it in the block come from a scan over
+// the threads; lane i that runs goes to sorted position q = (running
+// lanes before i), one that does not to R + (lanes before i that do not
+// run); then the deal (q = s * n_dev + d to d * (n / n_dev) + s).
+__global__ void __launch_bounds__(ORDER_THREADS)
+k_order(const int32_t* status, long long n, int n_dev, int tiles, int vec, int32_t* buf,
+        int32_t* out) {
+  const long long tile_lanes = (long long)ORDER_VEC * ORDER_THREADS;
+  const long long first = (long long)blockIdx.x * tiles;
+  unsigned m0 = 0;
+  int c = 0;
+  for (int k = 0; k < tiles; ++k) {
+    const long long i = (first + k) * tile_lanes + (long long)threadIdx.x * ORDER_VEC;
+    const unsigned m = i < n ? order_flags(status, i, n, vec) : 0u;
+    if (k == 0) m0 = m;
+    c += __popc(m);
+  }
+  __shared__ long long head[2];  // the block's offset, the running total
+  int block_total;
+  order_scan(c, &block_total);
+  if (threadIdx.x == 0) buf[blockIdx.x] = block_total;
+  cg::this_grid().sync();
+  if (threadIdx.x < 32) {
+    long long before = 0, all = 0;
+    for (int b = threadIdx.x; b < (int)gridDim.x; b += 32) {
+      const long long v = buf[b];
+      all += v;
+      if (b < (int)blockIdx.x) before += v;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      before += __shfl_down_sync(0xFFFFFFFFu, before, off);
+      all += __shfl_down_sync(0xFFFFFFFFu, all, off);
+    }
+    if (threadIdx.x == 0) {
+      head[0] = before;
+      head[1] = all;
+    }
+  }
+  __syncthreads();
+  long long carry = head[0];
+  const unsigned running = (unsigned)head[1], nd = (unsigned)n_dev;
+  const unsigned per = (unsigned)(n / n_dev);
+  for (int k = 0; k < tiles; ++k) {
+    const long long i = (first + k) * tile_lanes + (long long)threadIdx.x * ORDER_VEC;
+    const unsigned m = k == 0 ? m0 : (i < n ? order_flags(status, i, n, vec) : 0u);
+    int tile_total;
+    const unsigned before = (unsigned)(carry + order_scan(__popc(m), &tile_total));
+    carry += tile_total;
+    if (i >= n) continue;
+    // the sorted positions of this thread's running lanes count up from
+    // before, of the others from running + (i - before): each kept as
+    // (shard, slot) of the deal, so no lane divides
+    const unsigned q1 = before, q0 = running + (unsigned)i - before;
+    unsigned d1 = q1 % nd, s1 = q1 / nd, d0 = q0 % nd, s0 = q0 / nd;
+    for (int j = 0; j < ORDER_VEC && i + j < n; ++j) {
+      if ((m >> j) & 1u) {
+        out[d1 * per + s1] = (int32_t)(i + j);
+        if (++d1 == nd) d1 = 0, ++s1;
+      } else {
+        out[d0 * per + s0] = (int32_t)(i + j);
+        if (++d0 == nd) d0 = 0, ++s0;
+      }
+    }
+  }
 }
 
 // JAX's gather index rule: a negative index wraps once, then clamps
@@ -203,20 +316,33 @@ MTT_EXPORT int lane_live(const void* status, long long n, int n_dev, void* out,
 }
 
 // K13: out = the stable "running first" order of the n lanes, dealt
-// round-robin over n_dev shards (n_dev 1: compact_lanes' order).
-// scratch holds ceil(n / SCAN_BLOCK) + 1 ints.
-MTT_EXPORT int lane_order(const void* status, long long n, int n_dev, void* scratch,
-                          void* out, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  unsigned nb = nblocks_for(n, SCAN_BLOCK);
-  if (nb > 0 && n_dev > 0) {
-    int32_t* off = (int32_t*)scratch;
-    k_order_count<<<nb, SCAN_BLOCK, 0, st>>>((const int32_t*)status, n, off);
-    compact_scan<<<1, SCAN_BLOCK, 0, st>>>(off, (int)nb, nullptr);
-    k_order_write<<<nb, SCAN_BLOCK, 0, st>>>((const int32_t*)status, n, n_dev, off,
-                                             (int32_t*)out);
-  }
-  return (int)cudaGetLastError();
+// round-robin over n_dev shards (n_dev 1: compact_lanes' order), in one
+// cooperative launch of blocks blocks of ORDER_THREADS threads, each
+// taking tiles tiles (parallel/mesh.lane_order_shape); buf holds the
+// blocks' sums (blocks ints: the output allocation's tail). vec: status
+// is 16-byte aligned (four 16-byte loads a thread).
+MTT_EXPORT int lane_order(const void* status, long long n, int n_dev, int blocks, int tiles,
+                          int vec, void* buf, void* out, void* stream) {
+  if (n <= 0 || n_dev <= 0 || blocks <= 0 || tiles <= 0) return 0;
+  const int32_t* s = (const int32_t*)status;
+  int32_t* b = (int32_t*)buf;
+  int32_t* o = (int32_t*)out;
+  void* args[] = {(void*)&s, (void*)&n, (void*)&n_dev, (void*)&tiles, (void*)&vec,
+                  (void*)&b, (void*)&o};
+  cudaError_t rc = cudaLaunchCooperativeKernel((const void*)k_order, dim3(blocks),
+                                               dim3(ORDER_THREADS), args, 0,
+                                               (cudaStream_t)stream);
+  return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
+}
+
+// blocks of K13 resident at once on the current device (the most its
+// cooperative launch may take)
+MTT_EXPORT int lane_order_blocks() {
+  int dev = 0, sms = 0, per = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, k_order, ORDER_THREADS, 0);
+  return sms * per;
 }
 
 // K14's layout of an output batch, prepared once by the wrapper for a

@@ -4,8 +4,10 @@
 // mythril_tpu/ops/propagate.py:
 //
 //   K5 interval_level   intervals.py:611 _eval_level (_transfer_level
-//                       :403, _smear :394): one forward interval level,
-//                       overwriting its nodes' rows.
+//                       :403, _smear :394), driven over every level by
+//                       _run_tables (:623): the seeds and then every
+//                       forward interval level of an encoding,
+//                       overwriting the nodes' rows.
 //   K6 prop_fwd_level   propagate.py:340 _fwd_level: the same interval
 //                       transfer plus the known-bits transfer, MET with
 //                       the node's current row.
@@ -58,6 +60,24 @@
 //       multiple of 4 words, so every block's part, and in it every
 //       slot of 16 or 32 words, is 16-byte aligned for ldw and stw.
 //   K11 runs K6's fwd_node and K7's back_block over the same layout.
+//
+// K5 takes its own layout (ops/intervals.interval_layout, built once an
+// encoding and copied to the card in one copy of one pinned buffer): each
+// level's real entries in (class, op) order, every index resolved by
+// JAX's rules (an operand row wrapped once and clamped, a node wrapped
+// once and dropped when still outside), and a flag on each operand row
+// that no seed and no level writes: that row is the init table's in every
+// state, so it is read from the one shared init table (in L2 across the
+// states) and not from the state's table. Launches: the seeds, a thread a
+// state; then a launch a level and op class present (iv_level_kernel<CLS>,
+// a thread a (state, entry), K6's form), each op loading only the operands
+// and mask and aux words its transfer reads; a level that reads a row it
+// writes (only a wrapped index makes one) in one staged launch instead.
+// One launch over every level (a block a state, a barrier between levels)
+// was measured and was slower: 0.1754 against 0.1481 ms on the screen wave
+// (PERF.md §6), each block walking its states' levels in turn. Rows
+// are stored whole: limb 0 of a bool row alone made every 32-byte sector a
+// partial write that the card reads back (0.2956 against 0.1754 ms).
 //
 // The bool-row invariant: a bool row holds (may_false, may_true) in
 // limb 0 of lo and hi and zeros above. The init rows are so, and every
@@ -395,48 +415,6 @@ __device__ __forceinline__ bool put(uint32_t* p, const W& w, const W& old) {
 }
 
 // ---------------------------------------------------------------------------
-// K5: one forward interval level, (state, node) at a time
-// ---------------------------------------------------------------------------
-
-struct Level {
-  const int32_t *node, *op, *args;
-  const uint32_t *mask, *aux;
-  int W;
-};
-
-// entry j of a level for state s: its interval rows, overwritten
-__device__ void fwd_interval(const Tabs& t, const Level& L, int s, int j) {
-  int o = L.op[j], nd = L.node[j];
-  if (o == NOP || nd < 0 || nd >= t.T) return;  // NOP/pad rows keep their value
-  const int32_t* args = L.args;
-  int a0 = clampi(args[3 * j], 0, t.T - 1);
-  int a1 = clampi(args[3 * j + 1], 0, t.T - 1);
-  int a2 = clampi(args[3 * j + 2], 0, t.T - 1);
-  W m = ldw(L.mask + 8 * j), x = ldw(L.aux + 8 * j);
-  W alo = ldw(t.lo + t.row(s, a0)), ahi = ldw(t.hi + t.row(s, a0));
-  W blo = ldw(t.lo + t.row(s, a1)), bhi = ldw(t.hi + t.row(s, a1));
-  W clo = bv::zero(), chi = bv::zero();
-  if (o == ITE || o == BITE) {
-    clo = ldw(t.lo + t.row(s, a2));
-    chi = ldw(t.hi + t.row(s, a2));
-  }
-  W lo, hi;
-  if (!transfer(o, alo, ahi, blo, bhi, clo, chi, m, x, args[3 * j + 1],
-                args[3 * j + 2], lo, hi))
-    return;
-  size_t r = t.row(s, nd);
-  stw(t.lo + r, lo);
-  stw(t.hi + r, hi);
-}
-
-// K5: one thread per (state, node), the node fastest
-__global__ void __launch_bounds__(128) level_kernel(Tabs t, Level L) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)t.S * L.W) return;
-  fwd_interval(t, L, (int)(i / L.W), (int)(i % L.W));
-}
-
-// ---------------------------------------------------------------------------
 // K6: one forward level over the layout's real nodes, a launch an op class
 // ---------------------------------------------------------------------------
 
@@ -455,7 +433,7 @@ enum { FL_BOOL = 1, FL_NUM = 2 };
 // K6's op classes, one instantiation (and launch) each, so that the heavy
 // transfers do not set the light ones' register count: 0 the bool-valued
 // ops, 2 MUL, UDIV, UREM and BOR/BXOR's smear, 1 the rest. The layout
-// builder orders nodes by these classes (ops/propagate.py fwd_classes
+// builder orders nodes by these classes (ops/intervals.py fwd_classes
 // reads them through prop_fwd_class).
 __host__ __device__ constexpr int fwd_class(int op) {
   return (op == EQ || op == ULT || op == ULE || op == BAND2 || op == BOR2 ||
@@ -591,6 +569,175 @@ fwd_kernel(Tabs t, FwdNodes L, int base, int n, int32_t* changed) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)n * t.S) return;
   if (fwd_node<CLS>(t, L, (int)(i / n), base + (int)(i % n)) && changed) *changed = 1;
+}
+
+// ---------------------------------------------------------------------------
+// K5: every forward interval level of an encoding
+// ---------------------------------------------------------------------------
+
+// K5's layout (ops/intervals.interval_layout): each level's real entries
+// (not NOP, a node JAX's scatter keeps), ordered by (class, op), two int4
+// an entry: {node, op, a, b} and {c, arg1, arg2, flags}, the node's row
+// wrapped once (JAX's mode="drop"), the operand rows wrapped once and
+// clamped (JAX's gather), arg1 and arg2 as the encoding holds them
+// (EXTRACT's immediates); mask and aux eight words an entry; the init
+// tables and the seeds where the tables are the init tables with the
+// seeds scattered in.
+struct IvLayout {
+  const int4* ent;
+  const uint32_t *mask, *aux;
+  const uint32_t *ilo, *ihi;  // (T, 8) init tables, or null
+  const int32_t* seed_idx;    // (S, V) seed rows, or null
+  const uint32_t *seed_lo, *seed_hi;
+  int V;
+};
+
+// an entry's flags: operand a, b or c is a row no seed and no level
+// writes, read from the shared init tables (one copy for every state)
+enum { IV_SA = 1, IV_SB = 2, IV_SC = 4 };
+
+// what K5's transfer of an op reads (iv_op; ops/intervals.py iv_reads
+// reads it through interval_reads for K5's byte bound): bits 0-1 the
+// operand rows it reads (1-3; 0 for an op K5 has no transfer for);
+// IV_R_A0, IV_R_B0, IV_R_C0 operand a, b or c read as a bool (limb 0 of
+// lo and hi: the transfer reads nothing else of it); IV_R_MASK the
+// mask; IV_R_AUX the aux; IV_R_AUX0 the aux's word 0 alone (CONCAT2's
+// low part's width).
+enum { IV_R_A0 = 4, IV_R_B0 = 8, IV_R_C0 = 16, IV_R_MASK = 32, IV_R_AUX = 64, IV_R_AUX0 = 128 };
+__host__ __device__ constexpr int iv_reads(int op) {
+  const bool handled = op == ADD || op == SUB || op == MUL || op == UDIV || op == UREM ||
+                       op == BAND || op == BOR || op == BXOR || op == BNOT || op == NEG ||
+                       op == SHL || op == LSHR || op == COPY || op == SEXT || op == EXTRACT ||
+                       op == CONCAT2 || op == ITE || op == EQ || op == ULT || op == ULE ||
+                       op == BAND2 || op == BOR2 || op == BNOT1 || op == BXOR2 || op == BITE;
+  const int nargs = (op == BNOT || op == NEG || op == COPY || op == SEXT || op == EXTRACT ||
+                     op == BNOT1)
+                        ? 1
+                        : (op == ITE || op == BITE) ? 3 : 2;
+  const bool a0 = op == BAND2 || op == BOR2 || op == BNOT1 || op == BXOR2 || op == BITE ||
+                  op == ITE;
+  const bool b0 = op == BAND2 || op == BOR2 || op == BXOR2 || op == BITE;
+  const bool mask = op == ADD || op == SUB || op == MUL || op == UDIV || op == UREM ||
+                    op == BOR || op == BXOR || op == BNOT || op == NEG || op == SHL ||
+                    op == SEXT || op == EXTRACT;
+  return !handled ? 0
+                  : nargs | (a0 ? IV_R_A0 : 0) | (b0 ? IV_R_B0 : 0) | (op == BITE ? IV_R_C0 : 0) |
+                        (mask ? IV_R_MASK : 0) |
+                        (op == SEXT || op == EXTRACT ? IV_R_AUX : 0) |
+                        (op == CONCAT2 ? IV_R_AUX0 : 0);
+}
+
+// operand row r of state s: the state's table, or the init table
+template <bool LIMB0>
+__device__ __forceinline__ void iv_arg(const Tabs& t, const IvLayout& L, int s, int r, bool stat,
+                                       W& lo, W& hi) {
+  const size_t off = stat ? (size_t)r * bv::NL : t.row(s, r);
+  lo = ldrow<LIMB0>((stat ? L.ilo : t.lo) + off);
+  hi = ldrow<LIMB0>((stat ? L.ihi : t.hi) + off);
+}
+
+// entry j of state s under opcode OP: loads only the operands OP reads
+// (limb 0 of those it reads as bools: the transfer reads nothing else of
+// them) and the mask and aux words it uses; stores the node's rows whole
+// (two full 32-byte sectors: a 4-byte store of limb 0 alone makes the
+// card read each sector back, and ran slower), or, with a staging slot,
+// into the slot
+template <int OP>
+__device__ __forceinline__ void iv_op(const Tabs& t, const IvLayout& L, int s, int j,
+                                      const int4& e0, const int4& e1, uint32_t* slot) {
+  constexpr int R = iv_reads(OP), NARGS = R & 3;
+  const W z = bv::zero();
+  W alo, ahi, blo = z, bhi = z, clo = z, chi = z;
+  iv_arg<(R & IV_R_A0) != 0>(t, L, s, e0.z, e1.w & IV_SA, alo, ahi);
+  if (NARGS > 1) iv_arg<(R & IV_R_B0) != 0>(t, L, s, e0.w, e1.w & IV_SB, blo, bhi);
+  if (NARGS > 2) iv_arg<(R & IV_R_C0) != 0>(t, L, s, e1.x, e1.w & IV_SC, clo, chi);
+  const W m = (R & IV_R_MASK) ? ldw(L.mask + 8 * (size_t)j) : z;
+  W x = (R & IV_R_AUX) ? ldw(L.aux + 8 * (size_t)j) : z;
+  if (R & IV_R_AUX0) x.l[0] = L.aux[8 * (size_t)j];  // the low part's width
+  W lo, hi;
+  transfer(OP, alo, ahi, blo, bhi, clo, chi, m, x, e1.y, e1.z, lo, hi);
+  uint32_t *plo = slot, *phi = slot + 8;
+  if (!slot) {
+    plo = t.lo + t.row(s, e0.x);
+    phi = t.hi + t.row(s, e0.x);
+  }
+  stw(plo, lo);
+  stw(phi, hi);
+}
+
+// entry j of state s, by its op; CLS: the op class compiled in (K6's
+// fwd_class: a launch a class, so the heavy transfers do not set the
+// light ones' registers), -1 every class
+template <int CLS>
+__device__ __forceinline__ void iv_node(const Tabs& t, const IvLayout& L, int s, int j,
+                                        uint32_t* slot) {
+  const int4 e0 = L.ent[2 * (size_t)j], e1 = L.ent[2 * (size_t)j + 1];
+  switch (e0.y) {
+#define IV_CASE(OP)                                   \
+  case OP:                                            \
+    if constexpr (CLS < 0 || fwd_class(OP) == CLS)    \
+      iv_op<OP>(t, L, s, j, e0, e1, slot);            \
+    break;
+    IV_CASE(ADD) IV_CASE(SUB) IV_CASE(MUL) IV_CASE(UDIV) IV_CASE(UREM)
+    IV_CASE(BAND) IV_CASE(BOR) IV_CASE(BXOR) IV_CASE(BNOT) IV_CASE(NEG)
+    IV_CASE(SHL) IV_CASE(LSHR) IV_CASE(COPY) IV_CASE(SEXT) IV_CASE(EXTRACT)
+    IV_CASE(CONCAT2) IV_CASE(ITE) IV_CASE(EQ) IV_CASE(ULT) IV_CASE(ULE)
+    IV_CASE(BAND2) IV_CASE(BOR2) IV_CASE(BNOT1) IV_CASE(BXOR2) IV_CASE(BITE)
+#undef IV_CASE
+    default:
+      break;
+  }
+}
+
+// a seed slot's row by JAX's mode="drop" rule: wrapped once where
+// negative; -1 where it is dropped
+__device__ __forceinline__ int seed_row(int r, int T) {
+  if (r < 0) r += T;
+  return r < 0 || r >= T ? -1 : r;
+}
+
+// K5's seeds: a thread a state, its slots in order (a later slot naming
+// the same row wins, as the scatter applies them)
+__global__ void __launch_bounds__(128) iv_seed_kernel(Tabs t, IvLayout L) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= t.S) return;
+  for (int v = 0; v < L.V; ++v) {
+    const size_t k = (size_t)s * L.V + v;
+    const int r = seed_row(L.seed_idx[k], t.T);
+    if (r < 0) continue;
+    stw(t.lo + t.row(s, r), ldw(L.seed_lo + 8 * k));
+    stw(t.hi + t.row(s, r), ldw(L.seed_hi + 8 * k));
+  }
+}
+
+// K5, a level's entries [base, base + n), all of class CLS: a thread a
+// (state, entry), the entry fastest, so a warp runs 32 neighbouring
+// entries of one op and one state, whose node rows the plan numbers side
+// by side (a warp's stores: 1 KB of each table)
+template <int CLS>
+__global__ void __launch_bounds__(128) iv_level_kernel(Tabs t, IvLayout L, int base, int n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)n * t.S) return;
+  iv_node<CLS>(t, L, (int)(i / n), base + (int)(i % n), nullptr);
+}
+
+// K5, a level [base, base + n) that reads a row it writes (only a wrapped
+// index makes one; JAX reads every operand before it scatters): a block a
+// state at a time, every entry computed into the block's staging (16
+// words an entry), one barrier, then stored
+__global__ void __launch_bounds__(256)
+iv_staged_kernel(Tabs t, IvLayout L, int base, int n, uint32_t* stage, int stage_w) {
+  uint32_t* st = stage + (size_t)blockIdx.x * stage_w;
+  for (int s = blockIdx.x; s < t.S; s += gridDim.x) {
+    for (int j = threadIdx.x; j < n; j += blockDim.x) iv_node<-1>(t, L, s, base + j, st + 16 * j);
+    __syncthreads();
+    for (int j = threadIdx.x; j < n; j += blockDim.x) {
+      const size_t r = t.row(s, L.ent[2 * (size_t)(base + j)].x);
+      stw(t.lo + r, ldw(st + 16 * j));
+      stw(t.hi + r, ldw(st + 16 * j + 8));
+    }
+    __syncthreads();
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1142,15 +1289,68 @@ inline unsigned state_grid(int S) { return (unsigned)(S < 4096 ? S : 4096); }
 
 using namespace scr;
 
-MTT_EXPORT int interval_level(void* lo, void* hi, int S, int T, int Wd, const void* node,
-                              const void* op, const void* args, const void* mask,
-                              const void* aux, void* stream) {
+// K5. ent, mask, aux: the layout (IvLayout); init_lo, init_hi: the init
+// tables it reads its static rows from (null where it has none);
+// seed_idx, seed_lo, seed_hi, V: the seeds to scatter first (null and 0
+// for none); L levels, host arrays: counts (L x 3, each level's entries
+// of op classes 0, 1, 2, in that order in the layout) and hazard (1 for a
+// level that reads a row it writes); threads, blocks: the staged block
+// and grid (ops/intervals.iv_launch_shape; blocks no more than
+// interval_levels_blocks gives); stage: blocks x stage_w words, or null
+// where no level is staged. Launches: the seeds (a thread a state), then
+// a launch a level and class present, or one staged launch a level;
+// *launched gets the kernels it launched.
+MTT_EXPORT int interval_levels(void* lo, void* hi, int S, int T, const void* ent,
+                               const void* mask, const void* aux, const void* init_lo,
+                               const void* init_hi, const void* seed_idx, const void* seed_lo,
+                               const void* seed_hi, int V, int L, const int* counts,
+                               const int* hazard, int threads, int blocks, void* stage,
+                               int stage_w, int* launched, void* stream) {
   Tabs t{(uint32_t*)lo, (uint32_t*)hi, nullptr, nullptr, S, T};
-  Level L{(const int32_t*)node, (const int32_t*)op, (const int32_t*)args,
-          (const uint32_t*)mask, (const uint32_t*)aux, Wd};
-  long long n = (long long)S * Wd;
-  if (n > 0) level_kernel<<<grid_for(n, 128), 128, 0, (cudaStream_t)stream>>>(t, L);
+  IvLayout lay{(const int4*)ent,         (const uint32_t*)mask,     (const uint32_t*)aux,
+               (const uint32_t*)init_lo, (const uint32_t*)init_hi, (const int32_t*)seed_idx,
+               (const uint32_t*)seed_lo, (const uint32_t*)seed_hi, V};
+  cudaStream_t st = (cudaStream_t)stream;
+  *launched = 0;
+  if (S <= 0 || T <= 0) return 0;
+  if (seed_idx != nullptr && V > 0) {
+    iv_seed_kernel<<<grid_for(S, 128), 128, 0, st>>>(t, lay);
+    ++*launched;
+  }
+  int base = 0;
+  for (int l = 0; l < L; ++l) {
+    const int* c = counts + 3 * l;
+    if (hazard[l]) {
+      const int n = c[0] + c[1] + c[2];
+      if (threads < 32 || threads > 256 || blocks <= 0 || stage == nullptr ||
+          stage_w < 16 * n)
+        return (int)cudaErrorInvalidValue;
+      iv_staged_kernel<<<blocks, threads, 0, st>>>(t, lay, base, n, (uint32_t*)stage, stage_w);
+      ++*launched;
+      base += n;
+      continue;
+    }
+    for (int k = 0; k < 3; ++k) {
+      if (c[k] <= 0) continue;
+      const unsigned g = grid_for((long long)c[k] * S, 128);
+      if (k == 0) iv_level_kernel<0><<<g, 128, 0, st>>>(t, lay, base, c[k]);
+      else if (k == 1) iv_level_kernel<1><<<g, 128, 0, st>>>(t, lay, base, c[k]);
+      else iv_level_kernel<2><<<g, 128, 0, st>>>(t, lay, base, c[k]);
+      ++*launched;
+      base += c[k];
+    }
+  }
   return (int)cudaGetLastError();
+}
+
+// blocks of K5's staged kernel, of threads threads, resident at once on
+// the current device (the most its grid takes)
+MTT_EXPORT int interval_levels_blocks(int threads) {
+  int dev = 0, sms = 0, per = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, iv_staged_kernel, threads, 0);
+  return sms * (per > 0 ? per : 1);
 }
 
 // K6. ent, mask, aux: the level's kernel layout (FwdNodes); counts: the
@@ -1175,6 +1375,9 @@ MTT_EXPORT int prop_fwd_level(void* lo, void* hi, void* k0, void* k1, int S, int
 // K6's op class of op (fwd_class), for the layout builder to order a
 // level's nodes by
 MTT_EXPORT int prop_fwd_class(int op) { return fwd_class(op); }
+
+// K5: what its transfer of op reads (iv_reads)
+MTT_EXPORT int interval_reads(int op) { return iv_reads(op); }
 
 // dynamic shared memory a block of K7 may take (the opt-in maximum)
 static int back_smem_max() {

@@ -13,15 +13,26 @@ This module gives, beside the host part:
 
 - ``transfer_level_plain``: the interval transfer of one level in plain
   PyTorch, a line-by-line mirror of the JAX ``_transfer_level``;
+- JAX's index rules (``gather_index``: a negative row wraps once, then
+  clamps; ``scatter_index``: a negative node or seed slot wraps once,
+  one still out of range is dropped), which K5, K6 and K7 all follow;
+- K5 (``interval_levels`` in ``csrc/screen.cu``): ``interval_layout``,
+  built once an encoding (``encoding_layout``) and copied to the card
+  in one copy (``bind_layout``), and ``eval_levels_kernel``, the seeds
+  and every level of it in one call; ``eval_levels_plain`` is its plain
+  version (``scatter_seeds``, then ``eval_level_plain`` level by level);
 - ``eval_level``: one forward level in place on the tables. On CPU
-  tables it runs the plain version; on CUDA tables it launches K5,
-  ``interval_level`` in ``csrc/screen.cu``, and never the plain version;
+  tables it runs the plain version; on CUDA tables it launches K5 on
+  the level's own layout, and never the plain version;
 - the drivers ``eval_feasible``, ``eval_shadow``, ``prefilter_feasible``
-  and ``shadow_prefilter``.
+  and ``shadow_prefilter``; on a card ``_run_tables`` clones the init
+  tables once and calls K5 once, with no host wait.
 
 Tables hold uint32 limbs as int32 bit patterns. The JAX functions return
 new tables; the port updates them in place (a level's nodes are never
-arguments of the same level, so no node reads a row its level writes).
+arguments of the same level in an encoding ``linearize`` makes; where a
+wrapped index makes a level read a row it writes, the plain version
+computes the level before it stores, and K5 stages it).
 The state axis and the table rows pad to powers of two as in the JAX
 package (its ``MYTHRIL_TPU_INTERVAL_CANONICAL`` default), so both
 packages give the same encodings.
@@ -406,11 +417,37 @@ def _mk_bool(mf, mt):
     return lo, hi
 
 
+def gather_index(idx, n: int):
+    """JAX's gather rule for row indices into ``n`` rows: a negative
+    index wraps once (``i + n``), then an index out of range clamps into
+    ``[0, n)``."""
+    idx = torch.as_tensor(idx).long()
+    return torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+
+
+def scatter_index(idx, n: int):
+    """JAX's ``mode="drop"`` scatter rule for row indices into ``n``
+    rows: (each index wrapped once where negative, whether it then lies
+    in ``[0, n)``); the others are dropped."""
+    idx = torch.as_tensor(idx).long()
+    rows = torch.where(idx < 0, idx + n, idx)
+    return rows, (rows >= 0) & (rows < n)
+
+
+def last_of_each_row(rows, n: int):
+    """Of entries naming rows ``rows`` (each in ``[0, n)``), whether each
+    is the last to name its row: the write that stands where a scatter
+    applies its updates in order."""
+    pos = torch.arange(rows.numel(), device=rows.device)
+    last = torch.full((n,), -1, dtype=torch.long, device=rows.device)
+    last.scatter_reduce_(0, rows, pos, "amax")
+    return last[rows] == pos
+
+
 def gather_rows(tab, s, idx):
-    """``tab[s][:, idx]`` as u32-form words, out-of-range rows clamped
-    (the JAX gather clamps)."""
-    idx = idx.clamp(0, tab.shape[1] - 1).long()
-    return u32(tab[s][:, idx])
+    """``tab[s][:, idx]`` as u32-form words, by JAX's gather rule
+    (``gather_index``)."""
+    return u32(tab[s][:, gather_index(idx, tab.shape[1]).to(tab.device)])
 
 
 def transfer_level_plain(level, lo_tab, hi_tab, s=slice(None)):
@@ -584,11 +621,16 @@ def transfer_level_plain(level, lo_tab, hi_tab, s=slice(None)):
 
 
 def written_rows(level, n_rows: int):
-    """(row positions, table rows) a level writes: its non-NOP nodes.
-    A NOP or pad row would write back the value it read."""
-    sel = torch.nonzero((level["op"] != NOP)
-                        & (level["node"] < n_rows)).reshape(-1)
-    return sel, level["node"][sel].long()
+    """(row positions, table rows) a level writes: its non-NOP nodes,
+    by JAX's ``mode="drop"`` rule (``scatter_index``: a negative node
+    wraps once, one still out of range is dropped). A NOP or pad row
+    would write back the value it read. Of two nodes naming one row,
+    the later one's write stands (``linearize`` never makes two)."""
+    rows, ok = scatter_index(level["node"], n_rows)
+    sel = torch.nonzero((level["op"] != NOP) & ok).reshape(-1)
+    rows = rows[sel]
+    keep = last_of_each_row(rows, n_rows)
+    return sel[keep], rows[keep]
 
 
 def eval_level_plain(level, lo_tab, hi_tab) -> None:
@@ -610,11 +652,14 @@ _I = ctypes.c_int
 #: every C entry of csrc/screen.cu with its argument types (K5-K8 all
 #: bind through ``screen_lib``, so the library gets them all at once)
 SCREEN_SIGS = {
-    "interval_level": [_P, _P, _I, _I, _I] + [_P] * 6,
+    "interval_levels": [_P, _P, _I, _I] + [_P] * 8 + [_I, _I, _P, _P, _I,
+                                                     _I, _P, _I, _P, _P],
+    "interval_levels_blocks": [_I],
     "prop_fwd_level": [_P] * 4 + [_I] * 2 + [_P] * 3 + [_I] * 3 + [_P] * 2,
     "prop_back_round": [_P] * 4 + [_I] * 2 + [_P] * 3 + [_I] * 4 + [_P] * 3,
     "prop_back_shape": [_I, _I, _P],
     "prop_fwd_class": [_I],
+    "interval_reads": [_I],
     "prop_init": [_P] * 4 + [_I] * 2 + [_P] * 7 + [_I, _P, _P, _I, _P],
     "prop_exchange": [_P] * 4 + [_I] * 2 + [_P] * 3,
     "prop_verdicts": [_P] * 4 + [_I] * 2 + [_P] * 4 + [_I] + [_P] * 3,
@@ -631,6 +676,39 @@ def screen_lib():
     return _build, _build.lib("screen.cu", SCREEN_SIGS)
 
 
+def fwd_classes() -> list:
+    """The op class of each opcode (``fwd_class`` in csrc/screen.cu), by
+    which K5's and K6's layouts order a level: 0 the bool-valued ops, 2
+    the heavy transfers (MUL's 512-bit product, UDIV's and UREM's
+    division, BOR's and BXOR's smear), 1 the rest."""
+    if not _CLASSES:
+        _build, lib = screen_lib()
+        _CLASSES.extend(lib.prop_fwd_class(op) for op in range(32))
+    return list(_CLASSES)
+
+
+_CLASSES = []
+
+#: what K5's transfer of an op reads (``iv_reads`` in csrc/screen.cu):
+#: the low two bits the operand rows (0 for an op K5 has no transfer
+#: for), then operand a, b or c read as a bool (limb 0 of lo and hi), the
+#: mask, the aux, the aux's word 0 alone
+IV_R_A0, IV_R_B0, IV_R_C0, IV_R_MASK, IV_R_AUX, IV_R_AUX0 = (
+    4, 8, 16, 32, 64, 128)
+
+
+def iv_reads() -> list:
+    """What K5's transfer of each opcode reads (``IV_R_*`` bits), as the
+    kernel compiles it (``interval_reads`` in csrc/screen.cu)."""
+    if not _READS:
+        _build, lib = screen_lib()
+        _READS.extend(lib.interval_reads(op) for op in range(32))
+    return list(_READS)
+
+
+_READS = []
+
+
 def check_tables(tabs, names) -> None:
     """Kernel arguments: CUDA int32 (S, T, 8) tables of one shape."""
     from .. import _build
@@ -643,29 +721,259 @@ def check_tables(tabs, names) -> None:
                              f"{tuple(tabs[0].shape)}")
 
 
-def check_level(level, width: int) -> None:
+#: K5's entry flags (``IV_*`` in csrc/screen.cu): operand a, b or c is a
+#: row that no seed and no level of the layout writes, read from the
+#: shared init tables (one copy for every state)
+IV_SA, IV_SB, IV_SC = 1, 2, 4
+#: K5's staged block (a level that reads a row it writes): a state at a
+#: time, at most this many threads
+IV_THREADS = 256
+_UNARY = (BNOT, NEG, COPY, SEXT, EXTRACT, BNOT1)
+_TERNARY = (ITE, BITE)
+
+
+def _host_i32(x) -> np.ndarray:
+    """A level array or a table as host int32 (uint32 words by their bit
+    patterns)."""
+    if torch.is_tensor(x):
+        x = x.cpu().numpy()
+    x = np.ascontiguousarray(np.asarray(x))
+    return x.view(np.int32) if x.dtype == np.uint32 \
+        else x.astype(np.int32, copy=False)
+
+
+_NREAD = np.full(32, 2, np.int64)
+_NREAD[list(_UNARY)] = 1
+_NREAD[list(_TERNARY)] = 3
+
+
+def operand_reads(op) -> np.ndarray:
+    """Operand rows each opcode reads: 1 (EXTRACT's second and third
+    slots are immediates), 3 for ITE and BITE, else 2."""
+    return _NREAD[np.asarray(op)]
+
+
+def interval_layout(levels, n_rows: int, classes=None, init=None,
+                    seed_idx=None) -> dict:
+    """K5's layout of a run of forward levels over tables of ``n_rows``
+    rows, built once an encoding, a plain function.
+
+    Each level keeps its real entries only: not NOP, and a node that
+    JAX's ``mode="drop"`` rule keeps (``scatter_index``; of two naming
+    one row the later), ordered by (class, op), ``classes[op]`` the class
+    of each opcode (``fwd_classes``; None: one class, 0), so each class
+    of a level is one contiguous launch and a warp runs one op. Returns:
+
+    - ``levels``: each level's own keys (``node``, ``op``, ``args``,
+      ``mask``, ``aux``, ``ops_present``) in that order, as tensors,
+      which the plain version takes as it takes the level;
+    - ``ent`` ((N, 8) int32, the levels one after another): the node's
+      row, op, the three operand rows by JAX's gather rule
+      (``gather_index``), the raw second and third arguments (EXTRACT's
+      immediates) and the ``IV_*`` flags; ``mask``, ``aux`` (N, 8);
+    - ``lv`` ((L, 4) int32): each level's first entry, its end, and 1
+      where one of its entries reads a row the level writes (K5 then
+      computes the whole level before it stores, as JAX reads every
+      operand before it scatters), 0;
+    - ``counts`` (each level's entries a class), ``threads`` (the staged
+      block) and ``stage_words`` (a staged block's slots, 16 words an
+      entry; 0 where no level reads a row it writes).
+
+    ``init`` ((init_lo, init_hi), each (n_rows, 8)) and ``seed_idx``
+    ((S, V)) describe the tables the layout will run on, where they are
+    the init tables with the seeds scattered in (``_run_tables``): a row
+    that no seed and no level writes is then read from ``init``
+    (``IV_SA``, ``IV_SB``, ``IV_SC``). Without them every operand is
+    read from the state's table."""
+    cls_of = np.zeros(32, np.int64) if classes is None \
+        else np.asarray(classes, np.int64)
+    static = np.zeros(n_rows, bool)
+    if init is not None:
+        static[:] = True
+        if seed_idx is not None:
+            rows, ok = scatter_index(_host_i32(seed_idx), n_rows)
+            static[rows.numpy()[ok.numpy()]] = False
+    picked = []
+    for level in levels:
+        op = _host_i32(level["op"])
+        rows, ok = scatter_index(_host_i32(level["node"]), n_rows)
+        sel = torch.from_numpy(np.flatnonzero((op != NOP) & ok.numpy()))
+        keep = last_of_each_row(rows[sel], n_rows)
+        sel, rows = sel[keep].numpy(), rows[sel][keep].numpy()
+        order = np.argsort(cls_of[op[sel]] * 32 + op[sel], kind="stable")
+        sel, rows = sel[order], rows[order]
+        picked.append((sel, rows))
+        static[rows] = False
+    out = dict(levels=[], counts=[], n_rows=n_rows, stage_words=0)
+    ent, masks, auxs, lv = [], [], [], []
+    start = 0
+    for level, (sel, rows) in zip(levels, picked):
+        op = _host_i32(level["op"])[sel]
+        node = _host_i32(level["node"])[sel]
+        args = _host_i32(level["args"]).reshape(-1, 3)[sel]
+        mask = _host_i32(level["mask"]).reshape(-1, bv256.NLIMBS)[sel]
+        aux = _host_i32(level["aux"]).reshape(-1, bv256.NLIMBS)[sel]
+        out["levels"].append(dict(
+            node=torch.from_numpy(node), op=torch.from_numpy(op),
+            args=torch.from_numpy(args), mask=torch.from_numpy(mask),
+            aux=torch.from_numpy(aux),
+            ops_present=tuple(sorted(set(op.tolist())))))
+        opnd = gather_index(args, n_rows).numpy()
+        nread = operand_reads(op)
+        read = np.concatenate([opnd[nread > k, k] for k in range(3)])
+        writes = np.zeros(n_rows, bool)
+        writes[rows] = True
+        hazard = bool(writes[read].any())
+        flags = (np.where(static[opnd[:, 0]], IV_SA, 0)
+                 | np.where((nread > 1) & static[opnd[:, 1]], IV_SB, 0)
+                 | np.where((nread > 2) & static[opnd[:, 2]], IV_SC, 0))
+        ent.append(np.stack([rows, op, opnd[:, 0], opnd[:, 1], opnd[:, 2],
+                             args[:, 1], args[:, 2], flags], 1))
+        masks.append(mask)
+        auxs.append(aux)
+        n = len(sel)
+        lv.append([start, start + n, int(hazard), 0])
+        start += n
+        out["counts"].append(np.bincount(cls_of[op], minlength=3).tolist())
+        if hazard:
+            out["stage_words"] = max(out["stage_words"], 16 * n)
+    width = max((e - s for s, e, h, _ in lv if h), default=0)
+    out["ent"] = np.concatenate(ent).astype(np.int32) if ent \
+        else np.zeros((0, 8), np.int32)
+    out["mask"] = np.concatenate(masks) if masks \
+        else np.zeros((0, 8), np.int32)
+    out["aux"] = np.concatenate(auxs) if auxs else np.zeros((0, 8), np.int32)
+    out["lv"] = np.asarray(lv, np.int32).reshape(-1, 4)
+    out["threads"] = min(IV_THREADS, max(32, -(-width // 32) * 32))
+    return out
+
+
+def iv_launch_shape(lay: dict, n_states: int, resident: int):
+    """K5's launches for ``n_states`` states: [(level, class, blocks of
+    ``IV_LEVEL_THREADS``)] for each class of a level, a thread a (state,
+    entry) (the ``counts[level][class]`` entries from the level's first
+    entry on, class by class), then (threads, blocks) of the staged
+    block, a state a block at a time (block b takes states b, b +
+    blocks, ...), no more blocks than states or than are resident at
+    once (``resident``), so a staging buffer of ``blocks x
+    stage_words`` words holds every block's."""
+    launches = [(li, c, -(-n * n_states // IV_LEVEL_THREADS))
+                for li, (cs, (_, _, hazard, _)) in enumerate(
+                    zip(lay["counts"], lay["lv"])) if not hazard
+                for c, n in enumerate(cs) if n and n_states]
+    return launches, (lay["threads"], max(0, min(n_states, resident)))
+
+
+#: the threads of a block of K5's level launches (``iv_level_kernel``)
+IV_LEVEL_THREADS = 128
+#: the sections of a bound layout, in the one buffer's order
+_SECTIONS = ("ent", "mask", "aux")
+
+
+def bind_layout(lay: dict, device, **arrays) -> dict:
+    """The layout on ``device`` in one allocation, from one copy of one
+    pinned host buffer: its ``ent``, ``mask`` and ``aux`` and the
+    int32-convertible ``arrays`` (the init tables, seeds and assertion
+    slots of ``_run_tables``), each a 16-byte-aligned view of the
+    allocation under its own name, in its own shape; ``lv`` and
+    ``counts`` stay on the host, which launches by them."""
+    device = torch.device(device)
+    # each part goes straight into the pinned buffer, numpy's assignment
+    # casting it to int32 (uint32 words and bools by their bit patterns):
+    # no intermediate copy, whose fresh host pages are slow to touch on a
+    # card's host (PERF.md §6)
+    parts = [(k, np.asarray(v.cpu() if torch.is_tensor(v) else v))
+             for k, v in [(k, lay[k]) for k in _SECTIONS]
+             + list(arrays.items())]
+    offs, total = [], 0
+    for _, x in parts:
+        offs.append(total)
+        total += -(-x.size // 4) * 4
+    host = torch.empty(max(total, 4), dtype=torch.int32,
+                       pin_memory=device.type == "cuda")
+    flat = host.numpy()
+    for (_, x), off in zip(parts, offs):
+        flat[off:off + x.size] = x.reshape(-1)
+    buf = host.to(device, non_blocking=True)
+    out = {k: v for k, v in lay.items() if k not in _SECTIONS}
+    out.update(buf=buf, host=host, device=device)
+    for (k, x), off in zip(parts, offs):
+        out[k] = buf[off:off + x.size].view(x.shape)
+    return out
+
+
+_RESIDENT = {}
+
+
+def eval_levels_kernel(lay: dict, lo_tab, hi_tab) -> None:
+    """K5: a bound layout's seeds (where it has them, ``seed_idx``,
+    ``seed_lo``, ``seed_hi``: a launch, a thread a state) and then every
+    level of it, in place on CUDA tables: a launch a level and op class,
+    a thread a (state, entry) (``csrc/screen.cu`` ``iv_level_kernel``),
+    or for a level that reads a row it writes, one staged launch, a block
+    a state (``iv_staged_kernel``). ``LAUNCHES["interval_level"]`` counts
+    the CUDA launches, as the C side reports them."""
+    check_tables((lo_tab, hi_tab), ("lo", "hi"))
+    s, t = lo_tab.shape[:2]
+    if t != lay["n_rows"] or lay["buf"].device != lo_tab.device:
+        raise ValueError(f"K5: a layout of {lay['n_rows']} rows on "
+                         f"{lay['buf'].device}, tables of {t} on "
+                         f"{lo_tab.device}")
+    if "seed_idx" in lay and lay["seed_idx"].shape[0] != s:
+        raise ValueError(f"K5: seeds of {lay['seed_idx'].shape[0]} states "
+                         f"for {s}")
+    _build, lib = screen_lib()
+    dev = lo_tab.device.index
+    if dev not in _RESIDENT:
+        _RESIDENT[dev] = lib.interval_levels_blocks(IV_THREADS)
+    fixed, staged = _launch_args(lay, s, _RESIDENT[dev])
+    blocks = staged[1]
+    stage = torch.empty(blocks * lay["stage_words"], dtype=torch.int32,
+                        device=lo_tab.device) \
+        if lay["stage_words"] and s else None
+    launched = ctypes.c_int(0)
+    rc = lib.interval_levels(
+        _build.ptr(lo_tab), _build.ptr(hi_tab), s, t, *fixed, *staged,
+        None if stage is None else _build.ptr(stage), lay["stage_words"],
+        ctypes.byref(launched), _build.stream(lo_tab.device))
+    _build.LAUNCHES["interval_level"] += launched.value
+    _build.check(lib, rc, "interval_levels")
+
+
+def _launch_args(lay: dict, n_states: int, resident: int):
+    """A bound layout's launch arguments, made once and kept on it: the
+    pointers, seed slots, level count and the host arrays of class
+    counts and staged levels; for ``n_states`` states the staged
+    (threads, blocks)."""
     from .. import _build
 
-    for key in ("node", "op", "args", "mask", "aux"):
-        _build.need_cuda(level[key], torch.int32, f"level[{key!r}]")
-    if level["op"].shape[0] != width or level["args"].shape != (width, 3):
-        raise ValueError("level arrays of unequal widths")
+    if "launch" not in lay:
+        hazards = [int(h) for h in lay["lv"][:, 2]]
+        lay["launch"] = (
+            (_build.ptr(lay["ent"]), _build.ptr(lay["mask"]),
+             _build.ptr(lay["aux"]),
+             *(_build.ptr(lay[k]) if k in lay else None
+               for k in ("init_lo", "init_hi", "seed_idx", "seed_lo",
+                         "seed_hi")),
+             lay["seed_idx"].shape[1] if "seed_idx" in lay else 0,
+             len(hazards),
+             _build.int_array([c for cs in lay["counts"] for c in cs]),
+             _build.int_array(hazards)), {})
+    fixed, shapes = lay["launch"]
+    if n_states not in shapes:
+        shapes[n_states] = iv_launch_shape(lay, n_states, resident)[1]
+    return fixed, shapes[n_states]
 
 
 def eval_level_kernel(level, lo_tab, hi_tab) -> None:
-    """K5: one forward level in place, one thread per (state, node)."""
+    """K5 on one level of any tables: the level's layout, which assumes
+    nothing of the tables (every operand from the state's table)."""
     check_tables((lo_tab, hi_tab), ("lo", "hi"))
-    s, t = lo_tab.shape[:2]
-    w = level["op"].shape[0]
-    check_level(level, w)
-    _build, lib = screen_lib()
-    rc = lib.interval_level(
-        _build.ptr(lo_tab), _build.ptr(hi_tab), s, t, w,
-        _build.ptr(level["node"]), _build.ptr(level["op"]),
-        _build.ptr(level["args"]), _build.ptr(level["mask"]),
-        _build.ptr(level["aux"]), _build.stream(lo_tab.device))
-    _build.LAUNCHES["interval_level"] += 1
-    _build.check(lib, rc, "interval_level")
+    for key in ("node", "op", "args", "mask", "aux"):
+        if not torch.is_tensor(level[key]) or not level[key].is_cuda:
+            raise ValueError(f"K5: level[{key!r}] is not a CUDA tensor")
+    lay = interval_layout([level], lo_tab.shape[1], fwd_classes())
+    eval_levels_kernel(bind_layout(lay, lo_tab.device), lo_tab, hi_tab)
 
 
 def eval_level(level, lo_tab, hi_tab, plain: bool = False) -> None:
@@ -682,44 +990,98 @@ def eval_level(level, lo_tab, hi_tab, plain: bool = False) -> None:
 # ---------------------------------------------------------------------------
 
 
+def scatter_seeds(lo, hi, seed_idx, seed_lo, seed_hi) -> None:
+    """Each state's variable-bound seeds into its rows of the tables, in
+    place, by JAX's ``mode="drop"`` rule (``scatter_index``: a negative
+    slot wraps once, one still out of range is dropped), slot by slot,
+    so a later slot naming the same row wins."""
+    rows, ok = scatter_index(seed_idx, lo.shape[1])
+    for v in range(seed_idx.shape[1]):
+        s = torch.nonzero(ok[:, v]).reshape(-1)
+        r = rows[s, v]
+        lo[s, r] = seed_lo[s, v]
+        hi[s, r] = seed_hi[s, v]
+
+
 def seed_tables(init_lo, init_hi, seed_idx, seed_lo, seed_hi):
     """Per-state copies of the shared init tables with each state's
-    variable-bound seeds scattered in; seed slots at rows past the
-    table (the JAX ``mode="drop"``) are dropped."""
-    n_states = seed_idx.shape[0]
-    shape = (n_states,) + tuple(init_lo.shape)
+    seeds scattered in (``scatter_seeds``): the plain version of K5's
+    seeding."""
+    shape = (seed_idx.shape[0],) + tuple(init_lo.shape)
     lo = init_lo.expand(shape).clone()
     hi = init_hi.expand(shape).clone()
-    s_idx, v_idx = torch.nonzero(seed_idx < lo.shape[1], as_tuple=True)
-    rows = seed_idx[s_idx, v_idx].long()
-    lo[s_idx, rows] = seed_lo[s_idx, v_idx]
-    hi[s_idx, rows] = seed_hi[s_idx, v_idx]
+    scatter_seeds(lo, hi, seed_idx, seed_lo, seed_hi)
     return lo, hi
+
+
+def eval_levels_plain(lay: dict, lo_tab, hi_tab) -> None:
+    """The plain version of ``eval_levels_kernel`` on the same layout:
+    its seeds (where it has them) scattered in, then
+    ``eval_level_plain`` over its levels in order."""
+    dev = lo_tab.device
+    if "seed_idx" in lay:
+        scatter_seeds(lo_tab, hi_tab, *(lay[k].to(dev) for k in (
+            "seed_idx", "seed_lo", "seed_hi")))
+    for level in lay["levels"]:
+        eval_level_plain({k: v.to(dev) if torch.is_tensor(v) else v
+                          for k, v in level.items()}, lo_tab, hi_tab)
+
+
+def encoding_layout(enc: EncodedDAG, device) -> dict:
+    """K5's bound layout of an encoding (``interval_layout`` with the
+    init tables and seeds it starts from, ordered by ``fwd_classes``), on
+    ``device`` with the init tables, seeds and assertion slots in its one
+    allocation; built at the first call and kept on the encoding."""
+    key = ("k5", str(device))
+    if key not in enc.host:
+        lay = interval_layout(enc.levels, enc.init_lo.shape[0],
+                              fwd_classes(), (enc.init_lo, enc.init_hi),
+                              enc.seed_idx)
+        enc.host[key] = bind_layout(
+            lay, device, init_lo=enc.init_lo, init_hi=enc.init_hi,
+            seed_idx=enc.seed_idx, seed_lo=enc.seed_lo, seed_hi=enc.seed_hi,
+            assert_idx=enc.assert_idx, assert_mask=enc.assert_mask)
+    return enc.host[key]
 
 
 def _run_tables(enc: EncodedDAG, device, plain: bool = False):
     """Seed the per-state interval tables and sweep every level; returns
     (lo_tab, hi_tab, assert_idx, assert_mask) on ``device``, the shared
-    core of the feasibility and shadow evaluations."""
-    lo, hi = seed_tables(
-        words_to_device(enc.init_lo, device),
-        words_to_device(enc.init_hi, device),
-        ints_to_device(enc.seed_idx, device),
-        words_to_device(enc.seed_lo, device),
-        words_to_device(enc.seed_hi, device))
+    core of the feasibility and shadow evaluations. On a card (unless
+    ``plain``): the init tables cloned once a table and K5 once, which
+    scatters the seeds and runs every level; no host wait before the
+    launch."""
+    device = torch.device(device)
+    if plain or device.type == "cpu":
+        lo, hi = seed_tables(
+            words_to_device(enc.init_lo, device),
+            words_to_device(enc.init_hi, device),
+            ints_to_device(enc.seed_idx, device),
+            words_to_device(enc.seed_lo, device),
+            words_to_device(enc.seed_hi, device))
+        with trace.span("intervals.eval", states=enc.n_real,
+                        levels=len(enc.levels)):
+            for level in enc.levels:
+                trace.call_jit("intervals.eval_level", eval_level_plain,
+                               level_to_device(level, device), lo, hi)
+        return (lo, hi, ints_to_device(enc.assert_idx, device).long(),
+                ints_to_device(enc.assert_mask, device, torch.bool))
+    lay = encoding_layout(enc, device)
+    shape = (enc.seed_idx.shape[0],) + tuple(lay["init_lo"].shape)
+    lo = lay["init_lo"].expand(shape).clone()
+    hi = lay["init_hi"].expand(shape).clone()
     with trace.span("intervals.eval", states=enc.n_real,
                     levels=len(enc.levels)):
-        for level in enc.levels:
-            trace.call_jit("intervals.eval_level", eval_level,
-                           level_to_device(level, device), lo, hi, plain)
-    return (lo, hi, ints_to_device(enc.assert_idx, device).long(),
-            ints_to_device(enc.assert_mask, device, torch.bool))
+        trace.call_jit("intervals.eval_levels", eval_levels_kernel, lay,
+                       lo, hi)
+    return lo, hi, lay["assert_idx"], lay["assert_mask"] != 0
 
 
 def _assert_rows(tab, assert_idx):
-    """Limb 0 of each state's assertion rows: (S, A)."""
+    """Limb 0 of each state's assertion rows: (S, A), by JAX's gather
+    rule."""
     rows = torch.arange(tab.shape[0], device=tab.device)[:, None]
-    return tab[rows, assert_idx.clamp(0, tab.shape[1] - 1), 0]
+    return tab[rows, gather_index(assert_idx, tab.shape[1]), 0]
 
 
 def eval_feasible(enc: EncodedDAG, device=None,

@@ -71,9 +71,9 @@ from .intervals import (
     ADD, BAND, BAND2, BNOT, BNOT1, BOR, BOR2, BXOR, CONCAT2, COPY, EQ,
     EXTRACT, ITE, LSHR, NOP, SHL, SUB, ULE, ULT,
     EncodedDAG, _next_pow2, _not, _ugt, _where, check_tables,
-    eval_feasible, gather_rows, ints_to_device, linearize, screen_lib,
-    smear_plain, state_chunks, transfer_level_plain, words_to_device,
-    written_rows,
+    eval_feasible, fwd_classes, gather_index, gather_rows, ints_to_device,
+    last_of_each_row, linearize, scatter_index, screen_lib, smear_plain,
+    state_chunks, transfer_level_plain, words_to_device, written_rows,
 )
 
 log = logging.getLogger(__name__)
@@ -701,9 +701,15 @@ def _back_rows(rnd, tabs, s):
 def back_round_plain(rnd, tabs, changed=None) -> None:
     """One backward round in place (the JAX ``_back_round``): every
     candidate is computed from the pre-round tables, then written to
-    its target; pad entries (target past the table) are dropped."""
-    sel = torch.nonzero(rnd["tgt"] < tabs[0].shape[1]).reshape(-1)
-    rows = rnd["tgt"][sel].long()
+    its target by JAX's ``mode="drop"`` rule (``scatter_index``: a
+    negative target wraps once; pads, past the table, are dropped; of
+    two naming one row the later)."""
+    n_rows = tabs[0].shape[1]
+    rows, ok = scatter_index(rnd["tgt"], n_rows)
+    sel = torch.nonzero(ok).reshape(-1)
+    rows = rows[sel]
+    keep = last_of_each_row(rows, n_rows)
+    sel, rows = sel[keep], rows[keep]
     for s in state_chunks(tabs[0].shape[0], rnd["op"].shape[0]):
         out = _back_rows(rnd, tabs, s)
         for t, x in zip(tabs, out):
@@ -770,26 +776,29 @@ def _take(d: dict, order) -> dict:
 
 
 def level_layout(level: dict, n_rows: int, classes=None) -> dict:
-    """A level's real nodes (not NOP, inside the table: the rows the
-    JAX ``_fwd_level`` writes), ordered by (class, op), ``classes[op]``
-    the class of each opcode (K6's, ``fwd_classes``; None: one class,
-    0): the level's own keys in that order, which the plain version
-    takes as it takes the level, and K6's ``ent`` ((n, 8) int32: node,
-    op, the three argument rows clamped into the table, the raw second
-    and third arguments, the row flags) and ``counts`` (nodes a class).
-    A level's nodes are distinct and each writes only its own row, so
-    their order does not change the result."""
+    """A level's real nodes (not NOP, a node JAX's ``mode="drop"``
+    scatter keeps, ``scatter_index``: the rows the JAX ``_fwd_level``
+    writes; of two naming one row the later), ordered by (class, op),
+    ``classes[op]`` the class of each opcode (K6's, ``fwd_classes``;
+    None: one class, 0): the level's own keys in that order, which the
+    plain version takes as it takes the level, and K6's ``ent`` ((n, 8)
+    int32: the node's row, op, the three argument rows by JAX's gather
+    rule, ``gather_index``, the raw second and third arguments, the row
+    flags) and ``counts`` (nodes a class). A level's nodes are distinct
+    and each writes only its own row, so their order does not change
+    the result."""
     op, node = level["op"], level["node"]
-    real = torch.nonzero((op != NOP) & (node >= 0)
-                         & (node < n_rows)).reshape(-1)
+    node_rows, ok = scatter_index(node, n_rows)
+    real = torch.nonzero((op != NOP) & ok).reshape(-1)
+    real = real[last_of_each_row(node_rows[real], n_rows)]
     cls = _lookup(dict(enumerate(classes or ())), op[real])
     order = real[torch.sort(cls * 32 + op[real].long(), stable=True).indices]
     out = _take(level, order)
     args = out["args"].long()
-    rows = args.clamp(0, n_rows - 1)
+    rows = gather_index(args, n_rows)
     flags = (out["lvl_bool"] != 0).long() | ((out["lvl_num"] != 0).long() << 1)
     out["ent"] = torch.stack(
-        [out["node"].long(), out["op"].long(), rows[:, 0], rows[:, 1],
+        [node_rows[order], out["op"].long(), rows[:, 0], rows[:, 1],
          rows[:, 2], args[:, 1], args[:, 2], flags], 1).to(torch.int32)
     out["counts"] = torch.bincount(cls, minlength=3).tolist()
     out["n_rows"] = n_rows
@@ -807,9 +816,12 @@ def round_layout(rnd: dict, n_rows: int) -> dict:
     2-word slots; the whole rounded to four, so that a block's part of
     a global buffer starts 16-byte aligned). A round's targets are
     distinct, and every entry reads the pre-round rows, so the order
-    does not change the result."""
-    tgt = rnd["tgt"]
-    real = torch.nonzero((tgt >= 0) & (tgt < n_rows)).reshape(-1)
+    does not change the result. Targets follow JAX's ``mode="drop"``
+    rule (``scatter_index``; of two naming one row the later), the
+    other rows its gather rule (``gather_index``)."""
+    tgt_rows, ok = scatter_index(rnd["tgt"], n_rows)
+    real = torch.nonzero(ok).reshape(-1)
+    real = real[last_of_each_row(tgt_rows[real], n_rows)]
     key = (rnd["op"][real].long() * 4 + rnd["role"][real].long()) * 2 \
         + (rnd["tbool"][real] != 0).long()
     order = real[torch.sort(key, stable=True).indices]
@@ -827,10 +839,10 @@ def round_layout(rnd: dict, n_rows: int) -> dict:
                        flags_w + torch.cumsum(num, 0) - num)
     code = op | (out["role"].long() << 8) \
         | ((tb.long() | (tn.long() << 1)) << 16)
-    rows = [out[k].long().clamp(0, n_rows - 1)
+    rows = [gather_index(out[k], n_rows)
             for k in ("parent", "a", "b", "tgt_c")]
     out["ent"] = torch.stack(
-        rows[:3] + [out["tgt"].long(), rows[3], code, soff,
+        rows[:3] + [tgt_rows[order], rows[3], code, soff,
                     out["lob"].long()], 1).to(torch.int32)
     out["stage_words"] = -(-(num_end + int(l0w.sum())) // 4) * 4
     out["n_rows"] = n_rows
@@ -858,15 +870,6 @@ def kernel_layout(core: dict) -> dict:
             _bind(lay, core["seed_idx"].shape[0])
         core["layout"] = lay
     return core["layout"]
-
-
-def fwd_classes() -> list:
-    """K6's op class of each opcode (``fwd_class`` in csrc/screen.cu), a
-    launch each: 0 the bool-valued ops, 2 the heavy transfers (MUL's
-    512-bit product, UDIV's and UREM's division, BOR's and BXOR's
-    smear), 1 the rest."""
-    _build, lib = screen_lib()
-    return [lib.prop_fwd_class(op) for op in range(32)]
 
 
 def _bind(lay: dict, n_states: int) -> None:

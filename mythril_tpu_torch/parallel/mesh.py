@@ -357,15 +357,71 @@ def gather_outputs(state: LaneState, n_out: int):
 _SIGS = {
     "lane_live": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                   ctypes.c_void_p, ctypes.c_void_p],
-    "lane_order": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+    "lane_order": [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 4
+    + [ctypes.c_void_p] * 3,
+    "lane_order_blocks": [],
     "lane_gather": [ctypes.POINTER(GatherLayout), ctypes.c_void_p,
                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                     ctypes.c_void_p],
 }
 
-#: the scan block of csrc/common.cuh (K13's scratch is a count a block)
-SCAN_BLOCK = 256
+#: K13 (csrc/mesh.cu ``k_order``): lanes a thread holds in a tile (four
+#: 16-byte loads of the status plane) and the threads of a block
+ORDER_VEC = 16
+ORDER_THREADS = 256
+
+
+def lane_order_shape(n: int, resident: int):
+    """K13's cooperative launch for ``n`` lanes: (blocks, tiles). A tile
+    is ``ORDER_VEC`` lanes a thread of ``ORDER_THREADS``; block ``b``
+    takes tiles ``[b * tiles, (b + 1) * tiles)``, a tile a block where
+    the ``resident`` blocks (the card's blocks resident at once, which a
+    cooperative launch needs) suffice; one block up to 4096 lanes."""
+    tiles = max(1, -(-n // (ORDER_VEC * ORDER_THREADS)))
+    each = -(-tiles // max(1, resident))
+    return -(-tiles // each), each
+
+
+def order_tile_lanes(shape, block: int, tile: int):
+    """The first lane of each thread of block ``block`` in its tile
+    ``tile`` (``k_order``'s indexing): thread t holds the ``ORDER_VEC``
+    lanes from ``((block * tiles + tile) * ORDER_THREADS + t) *
+    ORDER_VEC``."""
+    _, tiles = shape
+    return [((block * tiles + tile) * ORDER_THREADS + t) * ORDER_VEC
+            for t in range(ORDER_THREADS)]
+
+
+def lane_order_tiled(status: torch.Tensor, n_dev: int, shape) -> torch.Tensor:
+    """K13's arithmetic in plain PyTorch, block by block and tile by tile
+    as ``k_order`` walks them (``order_tile_lanes``): each block's offset
+    is the running lanes of the blocks before it, a thread's the running
+    lanes of the threads before it in its tile; equal to
+    ``lane_order_plain`` wherever the shape covers the lanes."""
+    n = status.shape[0]
+    blocks, tiles = shape
+    run = (status == Status.RUNNING).tolist() + [False] * ORDER_VEC
+    lanes = [order_tile_lanes(shape, b, k) for b in range(blocks)
+             for k in range(tiles)]
+    counts = [[sum(run[i:min(i + ORDER_VEC, n)]) if i < n else 0
+               for i in tile] for tile in lanes]
+    sums = [sum(sum(c) for c in counts[b * tiles:(b + 1) * tiles])
+            for b in range(blocks)]
+    total = sum(sums)
+    out = torch.full((n,), -1, dtype=torch.int32)
+    per = n // n_dev
+    for b in range(blocks):
+        carry = sum(sums[:b])
+        for k in range(tiles):
+            tile, count = lanes[b * tiles + k], counts[b * tiles + k]
+            for t, i in enumerate(tile):
+                before = carry + sum(count[:t])
+                for j in range(i, min(i + ORDER_VEC, n)):
+                    q = before if run[j] else total + (j - before)
+                    before += run[j]
+                    out[(q % n_dev) * per + q // n_dev] = j
+            carry += sum(count)
+    return out
 
 
 def _lib():
@@ -392,9 +448,14 @@ def lane_live(status: torch.Tensor, n_dev: int) -> torch.Tensor:
     return out
 
 
+_ORDER_RESIDENT = {}
+
+
 def lane_order(status: torch.Tensor, n_dev: int) -> torch.Tensor:
     """The stable "running first" order dealt over ``n_dev`` shards: K13
-    on a CUDA ``status``, the plain version on a CPU one."""
+    on a CUDA ``status`` (one cooperative launch, ``lane_order_shape``;
+    its blocks' sums in the output allocation's tail), the plain version
+    on a CPU one."""
     n = status.shape[0]
     _per_shard(n, n_dev)
     if status.device.type == "cpu":
@@ -402,11 +463,20 @@ def lane_order(status: torch.Tensor, n_dev: int) -> torch.Tensor:
     from .. import _build
 
     _build.need_cuda(status, torch.int32, "status")
-    out = torch.empty(n, dtype=torch.int32, device=status.device)
-    scratch = torch.empty(-(-n // SCAN_BLOCK) + 1, dtype=torch.int32,
-                          device=status.device)
     lib = _lib()
-    rc = lib.lane_order(_build.ptr(status), n, n_dev, _build.ptr(scratch),
+    dev = status.device.index if status.device.index is not None \
+        else torch.cuda.current_device()
+    if dev not in _ORDER_RESIDENT:
+        with torch.cuda.device(dev):
+            _ORDER_RESIDENT[dev] = lib.lane_order_blocks()
+    blocks, tiles = lane_order_shape(n, _ORDER_RESIDENT[dev])
+    buf = torch.empty(n + blocks, dtype=torch.int32, device=status.device)
+    out = buf[:n]
+    if n == 0:
+        return out
+    rc = lib.lane_order(_build.ptr(status), n, n_dev, blocks, tiles,
+                        int(status.data_ptr() % 16 == 0),
+                        ctypes.c_void_p(buf.data_ptr() + 4 * n),
                         _build.ptr(out), _build.stream(status.device))
     _build.LAUNCHES["lane_order"] += 1
     _build.check(lib, rc, "lane_order")

@@ -1304,3 +1304,63 @@ def k9_case_inputs(case: K9Case, device):
     dev = resolve(device)
     return (interop.state_from_numpy(case.planes, dev),
             torch.from_numpy(case.pairs).to(dev))
+
+
+#: K13's edge widths: around a warp, around a block of 256 threads of 16
+#: lanes (4096), and the mesh phase's wide deal
+K13_WIDTHS = (1, 31, 32, 33, 4095, 4096, 4097, 131072)
+K13_DEVS = (1, 2, 4, 8)
+
+
+def k13_edge_cases():
+    """The edge inputs of K13 (``parallel/mesh.lane_order``): on the card
+    ``chip_smoke.py`` holds K13 to ``lane_order_plain`` on them; on the
+    CPU ``tests/test_torch_k13_edges.py`` holds the plain version to the
+    JAX ``jnp.argsort(-running, stable=True)`` and ``steal_balance``'s
+    deal, bit for bit. Each case: (name, status plane as int32 numpy,
+    the shard counts ``n_dev`` to deal over: those of ``K13_DEVS`` that
+    divide n).
+
+    - ``n`` 1, 31, 32, 33, 4095, 4096, 4097 and 131072 lanes, each
+      ``all`` running, ``none`` running (every halting status in turn),
+      ``alternating`` (even lanes run) and ``last`` (only the last lane
+      runs);
+    - ``runs_across``: runs of running lanes that start one lane before
+      and end one lane after each boundary of K13's tiles (16 lanes a
+      thread, 4096 a 256-thread block's tile), at 32768 and 131072 lanes
+      (grids of 8 and 32 blocks), and a seeded mix of every status at
+      131072."""
+    halts = [Status.STOPPED, Status.RETURNED, Status.REVERTED,
+             Status.INVALID, Status.NEEDS_HOST, Status.SELFDESTRUCT]
+    cases = []
+
+    def devs(n):
+        return tuple(d for d in K13_DEVS if n % d == 0)
+
+    for n in K13_WIDTHS:
+        idx = np.arange(n)
+        none = np.array([halts[i % len(halts)] for i in range(min(n, 64))]
+                        * (-(-n // 64)))[:n]
+        pats = {
+            "all": np.full(n, Status.RUNNING),
+            "none": none,
+            "alternating": np.where(idx % 2 == 0, Status.RUNNING, none),
+            "last": np.where(idx == n - 1, Status.RUNNING, none),
+        }
+        for pat, st in pats.items():
+            cases.append((f"n{n}_{pat}", st.astype(np.int32), devs(n)))
+    for n in (32768, 131072):
+        st = np.full(n, halts[0], np.int32)
+        for edge in range(16, n, 4096):
+            st[edge - 1:edge + 1] = Status.RUNNING
+        for edge in range(4096, n, 4096):
+            st[edge - 2:edge + 2] = Status.RUNNING
+        for edge in range(16384, n, 16384):
+            st[edge - 1:edge + 2] = halts[-1]
+            st[edge:edge + 1] = Status.RUNNING
+        cases.append((f"runs_across_{n}", st, devs(n)))
+    rng = np.random.default_rng(13)
+    every = [Status.RUNNING] + halts
+    cases.append(("mixed_131072",
+                  rng.choice(every, 131072).astype(np.int32), devs(131072)))
+    return cases

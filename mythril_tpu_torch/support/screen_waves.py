@@ -23,6 +23,10 @@ level (smt/terms.py).
   opcode and every backward rule of the screens, for holding the
   kernels against their plain versions on every branch. It takes a
   term module, so the JAX package's can build the same sets.
+- ``edge_sets`` and ``k5_edge_cases``: the edge inputs of K6 and K7, and
+  of K5 (encodings, some with their levels or seeds edited past what
+  ``linearize`` makes: negative indices, a level that reads a row it
+  writes).
 
 The first two builders return (systems, expected keep).
 """
@@ -275,3 +279,137 @@ def edge_sets(T=T):
         "bool_num": [[T.mk_bool_and(p, q), T.mk_ule(x, c(7))],
                      [T.mk_bool_or(p, q), T.mk_not(p), T.mk_ule(c(5), x)]],
     }
+
+
+#: K5's edge case of many states (past the card's resident blocks, so a
+#: block takes several states) and its level wider than one block
+K5_MANY_STATES = 8192
+K5_WIDE = 300
+
+
+def _edited(enc, **levels):
+    """A copy of an encoding whose levels are replaced by ``levels``
+    (index -> level dict) and whose seed slots, where given as
+    ``seed_idx``, by it."""
+    import copy
+
+    import numpy as np
+
+    out = copy.copy(enc)
+    out.levels = [dict(lv) for lv in enc.levels]
+    out.seed_idx = np.array(enc.seed_idx)
+    for key, lv in levels.items():
+        out.levels[int(key[1:])] = lv
+    out.host = {}
+    return out
+
+
+def _ops_present(op):
+    from ..ops.intervals import NOP, _canonical_ops
+
+    return _canonical_ops(set(op.tolist()) - {NOP})
+
+
+def k5_edge_cases() -> dict:
+    """The edge inputs of K5 (``ops/intervals`` ``eval_levels_kernel``), by
+    name, each an encoding of ``ops/intervals.linearize`` (numpy arrays:
+    the JAX ``_eval_level`` takes them as they are), some with their
+    levels or seed slots edited:
+
+    - ``pads_only``: a level of pads only (every op NOP) before a level
+      of one ULT;
+    - ``one_entry``: levels of one entry each (a ULT, then a NOT of it),
+      one state;
+    - ``every_class``: one level holding every op class (comparisons,
+      ADD, SUB, AND, shifts, MUL, UDIV, UREM, OR, XOR), 3 states;
+    - ``negative_index``: the all-opcode wave (``layered_sets``, T
+      rows) with level 1 edited: a CONCAT's first operand row -T + r
+      (wraps to a leaf's row r), a MUL's second -T - 5 (wraps to -5,
+      clamps to row 0), an ITE's third -T + r, an EQ's node -T + its
+      row (wraps onto itself) and a ULT's node -T - 1 (dropped); seed
+      slots -T + r (wraps) and -T - 3 (dropped); no level reads a row
+      it writes;
+    - ``reads_own_level``: the all-opcode wave with the MUL's second
+      operand of level 1 wrapped onto the CONCAT's node of the same
+      level, so the level reads a row it writes (JAX reads every
+      operand first);
+    - ``one_state``: one system of bounds on a 64-bit variable, an ADD
+      and a NOT;
+    - ``many_states``: ``K5_MANY_STATES`` states of four bound systems
+      over one 64-bit variable (seeds differ by state);
+    - ``wide_level``: a level of ``K5_WIDE`` comparisons, wider than
+      K5's block of 256 threads, 2 states;
+    - ``bool_operands``: the bool connectives (AND, OR, NOT, XOR, a bool
+      ITE) and an ITE over bool conditions, on comparisons and bool
+      variables, 4 states.
+    """
+    import numpy as np
+
+    from ..ops import intervals as I
+
+    x, y = T.bv_var("kx", 256), T.bv_var("ky", 256)
+    w = T.bv_var("kw", 64)
+    p, q = T.bool_var("kp"), T.bool_var("kq")
+
+    def c(v, width=256):
+        return T.bv_const(v, width)
+
+    cases = {}
+    base = I.linearize([[T.mk_ult(x, c(9))]])
+    pads = dict(base.levels[0])
+    pads["op"] = np.zeros_like(pads["op"])
+    pads["ops_present"] = _ops_present(pads["op"])
+    cases["pads_only"] = _edited(base)
+    cases["pads_only"].levels = [pads] + cases["pads_only"].levels
+    cases["one_entry"] = I.linearize([[T.mk_not(T.mk_ult(x, c(5)))]])
+    mixed = [T.mk_ule(T.mk_add(x, y), c(50)), T.mk_ule(T.mk_sub(x, y), c(9)),
+             T.mk_ult(T.mk_and(x, y), c(7)), T.mk_ule(T.mk_shl(x, c(2)), c(99)),
+             T.mk_ule(T.mk_lshr(x, c(1)), c(3)), T.mk_ule(T.mk_mul(x, c(3)), c(60)),
+             T.mk_ule(T.mk_udiv(x, y), c(4)), T.mk_ule(T.mk_urem(x, y), c(2)),
+             T.mk_ult(T.mk_or(x, y), c(64)), T.mk_ult(T.mk_xor(x, y), c(64))]
+    cases["every_class"] = I.linearize([mixed + [T.mk_ule(x, c(20))],
+                                        mixed + [T.mk_ule(c(3), y)], mixed])
+
+    layered = I.linearize(layered_sets())
+    n_rows = layered.init_lo.shape[0]
+    lv = {k: np.array(v) for k, v in layered.levels[1].items()
+          if k != "ops_present"}
+    real = np.nonzero(lv["op"] != I.NOP)[0]
+    by_op = {int(lv["op"][j]): j for j in real}
+    leaf = int(layered.levels[0]["args"][0, 0])  # a row no level writes
+    lv["args"][by_op[I.CONCAT2], 0] = leaf - n_rows
+    lv["args"][by_op[I.MUL], 1] = -n_rows - 5
+    lv["args"][by_op[I.ITE], 2] = leaf - n_rows
+    lv["node"][by_op[I.EQ]] -= n_rows
+    lv["node"][by_op[I.ULT]] = -n_rows - 1
+    lv["ops_present"] = layered.levels[1]["ops_present"]
+    neg = _edited(layered, l1=lv)
+    seeded = np.nonzero(neg.seed_idx[:, 0] < layered.n_nodes)[0]
+    neg.seed_idx[seeded[0], 0] -= n_rows
+    neg.seed_idx[seeded[-1], 0] = -n_rows - 3
+    cases["negative_index"] = neg
+    own = {k: np.array(v) for k, v in layered.levels[1].items()
+           if k != "ops_present"}
+    own["args"][by_op[I.MUL], 1] = int(own["node"][by_op[I.CONCAT2]]) - n_rows
+    own["ops_present"] = layered.levels[1]["ops_present"]
+    cases["reads_own_level"] = _edited(layered, l1=own)
+
+    bounds = [[T.mk_ule(c(3, 64), w), T.mk_ult(w, c(40, 64)),
+               T.mk_ule(T.mk_add(w, c(1, 64)), c(30, 64))],
+              [T.mk_ult(w, c(2, 64)), T.mk_ule(c(7, 64), T.mk_add(w, c(1, 64)))],
+              [T.mk_ule(c(41, 64), w), T.mk_ule(T.mk_add(w, c(1, 64)), c(30, 64))],
+              [T.mk_ule(T.mk_add(w, c(1, 64)), c(30, 64))]]
+    cases["one_state"] = I.linearize([bounds[0] + [T.mk_not(
+        T.mk_ult(w, c(5, 64)))]])
+    cases["many_states"] = I.linearize(
+        [bounds[i % 4] for i in range(K5_MANY_STATES)])
+    wide = [T.mk_ule(x, c(1000 + i)) for i in range(K5_WIDE)]
+    cases["wide_level"] = I.linearize([wide, wide[:7] + [T.mk_ult(x, c(3))]])
+    lt, le = T.mk_ult(x, c(5)), T.mk_ule(c(2), y)
+    bools = [T.mk_bool_and(lt, p), T.mk_bool_or(le, q), T.mk_not(lt),
+             T.mk_bool_xor(p, le), T.mk_bool_ite(q, lt, le),
+             T.mk_ule(T.mk_ite(lt, x, y), c(8)),
+             T.mk_ult(T.mk_ite(p, c(4), y), c(3))]
+    cases["bool_operands"] = I.linearize(
+        [bools, bools[:3], [T.mk_ult(x, c(2))] + bools[3:], [p, q]])
+    return cases

@@ -1,7 +1,7 @@
 """One kernel group's call and device times of one tree of this repo, to
 compare two commits in turns on one card.
 
-    python3 tools/window_turns.py [window|k9k10] [--tree DIR]
+    python3 tools/window_turns.py [window|k9k10|k5k13|e2e] [--tree DIR]
 
 Imports ``mythril_tpu_torch`` from ``DIR`` (default: this checkout; an
 older commit unpacked with ``git archive`` works the same way, as long
@@ -20,12 +20,35 @@ as the group's functions take the arguments they take here) and
   contract, 4096 steps); ``sharded_run`` of the 32768 lanes on 8 shards
   of the card; K9's ``merge_fingerprint_kernel`` on the k=12 main
   path's state after its first window at 4096 lanes and at the corpus's
-  64. Means of 3 (K9's of 5), each K10 run on a fresh batch.
+  64. Means of 3 (K9's of 5), each K10 run on a fresh batch;
+- ``k5k13``: K5 on the 8192-system screen wave's encoding: every level
+  of it from the tables the driver seeds (where the tree has K5's
+  layout, ``eval_levels_kernel`` from the init tables, the seeds
+  scattered in the call; else ``eval_level_kernel`` level by level
+  from ``seed_tables``' tables), and the driver whole
+  (``_run_tables``: the tables, the seeds and every level), on one
+  encoding (a layout, where the tree keeps one, built once) and on a
+  fresh ``linearize`` of the wave each call (the linearize untimed, the
+  layout's build and copy in the call: the screen path's case), and
+  where the tree has it that build and copy alone, then the layout
+  alone and its binding alone; the
+  screen path with propagation off (``pruner._screen_interval`` over
+  the wave, its call only); K13's ``lane_order`` on 131072 seeded
+  statuses of every kind (those of ``device_loop.k13_edge_cases``
+  ``mixed_131072``), and their first 32768, with 1 and 8 shards. Means
+  of 5;
+- ``e2e``: ``chip_smoke.py``'s end-to-end phases that run neither K5
+  nor K13, with the tree's own ``chip_smoke.py``: the symbolic path
+  (k=12 contract at 4096 lanes through ``support/runs.explore``) and
+  its host-only run, the device loop alone (k=12 at 4096 lanes, k=17
+  at 131072), the corpus mode (its four ranks, the tree's
+  ``corpus_mode``), each once, after a warm-up explore at 64 lanes;
+  walls in seconds.
 
-For each: the call on CUDA events and the device time queued behind a
-spin kernel after an L2 flush. Prints one JSON line with the card's
-name and power limit. Run e.g. parent, change, change, parent, each in
-its own process.
+For each kernel time: the call on CUDA events and, unless the group
+says otherwise, the device time queued behind a spin kernel after an L2
+flush. Prints one JSON line with the card's name and power limit. Run
+e.g. parent, change, change, parent, each in its own process.
 """
 
 import argparse
@@ -100,7 +123,124 @@ def k9k10_times(cs, dev, timed) -> None:
               lambda: None, reps=5)
 
 
-GROUPS = {"window": window_times, "k9k10": k9k10_times}
+def k5k13_times(cs, dev, timed) -> None:
+    """K5's, the screen path's and K13's times (the ``k5k13`` group)."""
+    import numpy as np
+    import torch
+
+    from mythril_tpu_torch.models import pruner
+    from mythril_tpu_torch.ops import intervals as I
+    from mythril_tpu_torch.ops import propagate as P
+    from mythril_tpu_torch.parallel import mesh as M
+    from mythril_tpu_torch.support.screen_waves import prefilter_wave
+
+    systems = prefilter_wave(cs.SCREEN_N)[0]
+    enc = I.linearize(systems)
+    shape = (enc.seed_idx.shape[0],) + enc.init_lo.shape
+    if hasattr(I, "eval_levels_kernel"):
+        lay = I.encoding_layout(enc, dev)
+
+        def fresh():
+            return (lay["init_lo"].expand(shape).clone(),
+                    lay["init_hi"].expand(shape).clone())
+
+        timed("interval_level, screen wave, every level",
+              lambda x: I.eval_levels_kernel(lay, *x), fresh, reps=5)
+    else:
+        levels = [I.level_to_device(lv, dev) for lv in enc.levels]
+        parts = [I.words_to_device(enc.init_lo, dev),
+                 I.words_to_device(enc.init_hi, dev),
+                 I.ints_to_device(enc.seed_idx, dev),
+                 I.words_to_device(enc.seed_lo, dev),
+                 I.words_to_device(enc.seed_hi, dev)]
+
+        def every_level(x):
+            for lv in levels:
+                I.eval_level_kernel(lv, *x)
+
+        timed("interval_level, screen wave, every level",
+              every_level, lambda: I.seed_tables(*parts), reps=5)
+    timed("intervals._run_tables, screen wave (the driver), one encoding",
+          lambda _=None: I._run_tables(enc, dev), lambda: None, reps=5)
+    timed("intervals._run_tables, screen wave (the driver), a fresh "
+          "linearize each call",
+          lambda e: I._run_tables(e, dev), lambda: I.linearize(systems),
+          reps=5, device=False)
+    if hasattr(I, "encoding_layout"):
+        timed("K5's layout built and copied (encoding_layout), a fresh "
+              "linearize each call",
+              lambda e: I.encoding_layout(e, dev),
+              lambda: I.linearize(systems), reps=5, device=False)
+
+        def layout(e):
+            return I.interval_layout(e.levels, e.init_lo.shape[0],
+                                     I.fwd_classes(), (e.init_lo, e.init_hi),
+                                     e.seed_idx)
+
+        def bound(e):
+            return layout(e), dict(
+                init_lo=e.init_lo, init_hi=e.init_hi, seed_idx=e.seed_idx,
+                seed_lo=e.seed_lo, seed_hi=e.seed_hi, assert_idx=e.assert_idx,
+                assert_mask=e.assert_mask)
+
+        timed("K5's layout alone (interval_layout), a fresh linearize each "
+              "call", layout, lambda: I.linearize(systems), reps=5,
+              device=False)
+        timed("K5's layout bound alone (bind_layout: packed, pinned, "
+              "copied), a fresh linearize and layout each call",
+              lambda x: I.bind_layout(x[0], dev, **x[1]),
+              lambda: bound(I.linearize(systems)), reps=5, device=False)
+
+    P.FORCE = False
+    try:
+        timed("screen path, propagation off (pruner._screen_interval)",
+              lambda _=None: pruner._screen_interval(systems, lambda x: x),
+              lambda: None, reps=5, device=False)
+    finally:
+        P.FORCE = None
+    torch.cuda.empty_cache()
+    # every status, seeded (device_loop.k13_edge_cases' mixed_131072)
+    mixed = np.random.default_rng(13).choice(7, 131072).astype(np.int32)
+    for n in (32768, 131072):
+        status = torch.from_numpy(mixed[:n]).to(dev)
+        for n_dev in (1, 8):
+            timed(f"lane_order, {n} lanes, {n_dev} shards",
+                  lambda _=None, s=status, d=n_dev: M.lane_order(s, d),
+                  lambda: None, reps=5)
+
+
+def e2e_walls(cs, dev, timed) -> dict:
+    """The ``e2e`` group's walls (s), with the tree's ``chip_smoke.py``
+    (``cs``; ``timed`` unused)."""
+    import torch
+
+    from mythril_tpu_torch.laser import lane_engine as le
+    from mythril_tpu_torch.support import runs
+    from mythril_tpu_torch.support.contracts import build_symbolic_contract
+
+    card = cs.smi()
+    cs.explore(dev, 64, 6)  # warm: allocator, libraries
+    code, paths = build_symbolic_contract(cs.MAIN_K)
+    le.PATH_HISTORY[code] = paths
+    torch.cuda.synchronize()
+    n_open, _, wall = runs.explore(code, cs.MAIN_LANES)
+    out = {f"symbolic path k={cs.MAIN_K}, {cs.MAIN_LANES} lanes": wall,
+           "symbolic path paths/s": paths / wall}
+    host_open, _, out["symbolic path host-only"] = runs.explore(code, 0)
+    if host_open != n_open:
+        raise AssertionError(f"{n_open} open states, host-only {host_open}")
+    for n, k in ((cs.MAIN_LANES, cs.MAIN_K), (cs.WIDE_LANES, cs.WIDE_K)):
+        res, want, wall, _ = cs.explore(dev, n, k)
+        if res["paths"] != want:
+            raise AssertionError(f"device loop k={k}: {res['paths']} paths")
+        out[f"device loop k={k}, {n} lanes"] = wall
+    out["corpus mode makespan"] = cs.corpus_mode(card)
+    return out
+
+
+#: each group times through ``timed``, or returns its numbers
+GROUPS = {"window": window_times, "k9k10": k9k10_times, "k5k13": k5k13_times,
+          "e2e": e2e_walls}
 
 
 def main(argv=None) -> int:
@@ -117,8 +257,10 @@ def main(argv=None) -> int:
         print("window_turns: no CUDA device", file=sys.stderr)
         return 2
     # this checkout's chip_smoke.py, whichever tree the package is from
+    # (e2e: the tree's own, whose corpus mode starts the tree's ranks)
+    smoke = tree if args.group == "e2e" else ROOT
     spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+        "chip_smoke", os.path.join(smoke, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     from mythril_tpu_torch import _build
@@ -130,12 +272,13 @@ def main(argv=None) -> int:
     _build.build_all()
     times = {}
 
-    def timed(what, fn, setup, reps=3):
-        times[what] = {"call_ms": cs.cuda_ms(fn, reps=reps, setup=setup),
-                       "device_ms": cs.queued_ms(fn, setup, reps=reps)}
+    def timed(what, fn, setup, reps=3, device=True):
+        times[what] = {"call_ms": cs.cuda_ms(fn, reps=reps, setup=setup)}
+        if device:
+            times[what]["device_ms"] = cs.queued_ms(fn, setup, reps=reps)
         torch.cuda.synchronize()
 
-    GROUPS[args.group](cs, dev, timed)
+    times.update(GROUPS[args.group](cs, dev, timed) or {})
     print(json.dumps({"tree": tree, "group": args.group, "card": cs.smi(),
                       "times": times}))
     return 0
