@@ -118,7 +118,11 @@ Phases (any failure exits non-zero and prints no result):
    the per-level count beside it), and on ``screen_waves.k5_edge_cases``
    (negative operand rows and nodes, a level that reads a row it
    writes, a level past a block, 8192 states, one state; also level by
-   level);
+   level); then K6 level by level, the K6-K8 driver and K11 over the
+   whole fixpoint on the propagation plan of each of those cases
+   (``screen_waves.k5_edge_plans``), from the init, seeded random and
+   once-swept tables, against their plain versions, the level that
+   reads a row it writes staged by both (one K6 launch);
 8. the screen path: ``models/pruner._screen_interval`` over that wave
    with propagation on (K6-K8) and off (K5): 2731 kept each time,
    ``device_screened`` up by 8192, no device failure, keep masks, sweep
@@ -148,7 +152,10 @@ Phases (any failure exits non-zero and prints no result):
     each equal to ``run_plain``, K10's times on the lane mix; then the mesh (``parallel/mesh.py``):
     that batch on 8 shards of this card, K12 ``lane_live``, K13
     ``lane_order`` and K14 ``lane_gather`` bit for bit against their
-    plain versions (K13 also on ``device_loop.k13_edge_cases`` as
+    plain versions (K12 also on ``device_loop.k12_edge_cases``, through
+    ``lane_live`` and ``live_lane_counts`` over views and over copies,
+    as launched and on a grid of at most 3 blocks, one launch a call;
+    K13 also on ``device_loop.k13_edge_cases`` as
     launched and on a grid of at most 3 blocks, one launch a call; K14
     also on
     an empty order, negative and
@@ -157,13 +164,15 @@ Phases (any failure exits non-zero and prints no result):
     run (and its device time), the live
     counts, ``compact_lanes`` and ``steal_balance`` equal to the plain
     versions after 400 steps (the main path of K12-K14: counts reset
-    before it and read after), the balanced shards within one running
+    before it and read after; K12 one launch a live_lane_counts call),
+    the balanced shards within one running
     lane of each other, ``make_mesh()`` equal to K10 alone, and one
     ``steal_balance`` of 131072 lanes at the default planes; K12-K14's
     call, device, plain and library times (the per-shard sum,
     ``torch.argsort(stable=True)``, ``index_select``; call and library
-    in turns) at both sizes, and beside K14 a contiguous copy of as many
-    bytes;
+    in turns) at both sizes, beside K12 ``live_lane_counts``' call (the
+    counts on the host) and the launch floor (an empty kernel), and
+    beside K14 a contiguous copy of as many bytes;
 11. the fused screen: K11 on the 8192-system wave, equal to
     ``_fixpoint_plain`` and to the host-sequenced K6-K8 driver (tables,
     ok, contra, keep, sweeps); the pruner's screen with
@@ -2090,6 +2099,130 @@ def check_k5_edges(dev):
         f"{time.perf_counter() - t0:.1f} s")
 
 
+def prop_starts(core):
+    """The tables K6 starts from on an edge plan, by name: the plan's
+    init tables, seeded random tables (``random_tables``) and the init
+    tables after one plain sweep (refined rows, where a level that reads
+    a row it writes shows), all made by the plain versions."""
+    from mythril_tpu_torch.ops import propagate as P
+
+    init = P.init_tables(core, plain=True)
+    swept = clone_all(init)
+    P.sweep(core, swept, plain=True)
+    return [("init", init), ("random", random_tables(core, SEED)),
+            ("one sweep", swept)]
+
+
+def prop_edge_diffs(dev, core, starts):
+    """K6 level by level (from each of ``starts``, (name, tables); each
+    level's plain output the next level's input), the host-sequenced
+    driver (K6-K8, ``_run_host``) and K11 (``fixpoint_kernel``, the
+    whole fixpoint) on one plan on the card against their plain
+    versions (``_fixpoint_plain`` for K11): every difference, as (pass,
+    table or output, the first (state, row) pairs that differ, how many
+    differ); none where the kernels are exact."""
+    import torch
+
+    from mythril_tpu_torch.ops import propagate as P
+
+    lay = P.kernel_layout(core)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    out = []
+
+    def diff(what, names, got, want):
+        torch.cuda.synchronize()
+        for name, g, w in zip(names, got, want):
+            g, w = torch.as_tensor(g), torch.as_tensor(w)
+            bad = (g != w).flatten(2).any(-1) if g.dim() == 3 else g != w
+            if bool(bad.any()):
+                out.append((what, name, bad.nonzero().tolist()[:8],
+                            int(bad.sum())))
+
+    for name, start in starts:
+        tabs = start
+        for li, (lvl, klv) in enumerate(zip(core["levels"], lay["levels"])):
+            a, b = clone_all(tabs), clone_all(tabs)
+            P.fwd_level_kernel(klv, a, flag)
+            P.fwd_level_plain(lvl, b)
+            diff(f"K6 level {li} from {name}", ("lo", "hi", "k0", "k1"), a, b)
+            tabs = b
+    cap = P.SWEEP_CAP
+    for what, kern, plain in (
+            ("K6-K8 driver", P._run_host(core, cap),
+             P._run_host(core, cap, plain=True)),
+            ("K11", P.fixpoint_kernel(core, cap)[:4],
+             P._fixpoint_plain(core, cap)[:4])):
+        diff(what, ("lo", "hi", "k0", "k1"), kern[0], plain[0])
+        diff(what, ("ok", "contra", "sweeps"),
+             (kern[1], kern[2], torch.tensor(kern[3])),
+             (plain[1], plain[2], torch.tensor(plain[3])))
+    return out
+
+
+#: the edge plans with a level that reads a row it writes: (that level,
+#: where K6 stages it)
+STAGED_EDGES = {"reads_own_level": (1, "shared"),
+                "staged_wide": (0, "global")}
+
+
+def check_prop_edges(dev):
+    """K6 level by level and K11 over the whole fixpoint (with the
+    host-sequenced driver beside it) on the propagation plan of every
+    ``screen_waves.k5_edge_cases`` encoding and on a level of 2048
+    comparisons that reads a row it writes (``k5_edge_plans``), against
+    their plain versions from the init tables, seeded random tables and
+    the tables after one sweep (``prop_edge_diffs``): no difference.
+    The staged path is taken on ``reads_own_level`` and ``staged_wide``
+    alone (``STAGED_EDGES``): K6's layout and K11's fused plan flag that
+    level and no other (K11 runs its staging instance on those plans
+    alone), and K6 runs it in one launch, staging in shared memory and
+    in its global buffer."""
+    import torch
+
+    from mythril_tpu_torch import _build
+    from mythril_tpu_torch.ops import propagate as P
+    from mythril_tpu_torch.support.screen_waves import k5_edge_plans
+
+    t0 = time.perf_counter()
+    seen = []
+    for name, plan in k5_edge_plans().items():
+        core = P.plan_to_device(plan, dev)
+        lay = P.kernel_layout(core)
+        flags = [lv["hazard"] for lv in lay["levels"]]
+        if flags != [li == STAGED_EDGES.get(name, (None,))[0]
+                     for li in range(len(flags))]:
+            raise AssertionError(f"K6 edge {name}: levels flagged {flags}")
+        fp = P._fused_plan(core)
+        lhaz = fp["lhaz"].tolist()[:len(flags)]
+        if lhaz != [int(f) for f in flags] or fp["haz"] != any(flags):
+            raise AssertionError(f"K11 edge {name}: levels flagged {lhaz}, "
+                                 f"the staging instance {fp['haz']}")
+        for li, lv in enumerate(lay["levels"]):
+            if not lv["hazard"]:
+                continue
+            before = _build.LAUNCHES["prop_fwd_level"]
+            P.fwd_level_kernel(lv, P.init_tables(core, plain=True))
+            torch.cuda.synchronize()
+            where = "global" if lv["launch"][7] else "shared"
+            if _build.LAUNCHES["prop_fwd_level"] - before != 1 \
+                    or where != STAGED_EDGES[name][1]:
+                raise AssertionError(f"K6 edge {name}: level {li} not one "
+                                     f"staged launch in "
+                                     f"{STAGED_EDGES[name][1]} memory")
+            seen.append(f"{name} level {li} staged ({lv['ent'].shape[0]} "
+                        f"nodes, {lv['stage_words']} words, {where} "
+                        f"memory, {lv['launch'][6]} blocks)")
+        diffs = prop_edge_diffs(dev, core, prop_starts(core))
+        if diffs:
+            raise AssertionError(f"K6/K11 edge {name}: {diffs}")
+        del core, lay
+        torch.cuda.empty_cache()
+    log(f"K6 and K11 edges: on every k5_edge_cases plan, K6 level by level "
+        f"(from the init, random and once-swept tables), the K6-K8 driver "
+        f"and K11 equal to their plain versions; {'; '.join(seen)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def check_screens(dev, report, wave):
     """K5-K8 against their plain versions on the card: on the all-opcode
     wave (every opcode and backward rule) from its init tables and from
@@ -2787,7 +2920,11 @@ def mesh_kernel_times(dev, st, n_dev, reps):
     {kernel: {...}}. The library calls: the per-shard sum of
     ``status == RUNNING``, ``torch.argsort(stable=True)`` of the
     not-running key (the order of compact_lanes) and ``index_select``
-    of every plane."""
+    of every plane. K12 also: ``live_lane_counts``' call over n_dev
+    shards that are views of ``st`` (``counts_ms``; the counts on the
+    host) against the library's sum pulled to the host
+    (``counts_library_ms``), in turns, and the launch floor, an empty
+    kernel under the same timer (``floor_device_ms``)."""
     import torch
 
     from mythril_tpu_torch.ops import stepper as S
@@ -2818,12 +2955,26 @@ def mesh_kernel_times(dev, st, n_dev, reps):
                     library_ms=(turns[1] + turns[2]) / 2, bound_ms=bms,
                     bound_by=by)
 
+    mesh = M.Mesh([dev] * n_dev)
+    sh = M.shard_lanes(st, mesh)
+    live = timed(lambda: M.lane_live(status, n_dev),
+                 lambda: M.lane_live_plain(status, n_dev),
+                 lambda: (status.view(n_dev, -1) == S.Status.RUNNING).sum(1),
+                 4 * n + 4 * n_dev)
+    # the counts on the host: live_lane_counts (K12 into the mapped host
+    # buffer, one wait) against the library's sum and a pageable pull,
+    # in turns; and the launch floor: an empty kernel, queued as K12 is
+    counts = [cuda_ms(f, reps=reps) for f in (
+        lambda: M.live_lane_counts(sh, mesh),
+        lambda: (status.view(n_dev, -1) == S.Status.RUNNING).sum(1).cpu(),
+        lambda: (status.view(n_dev, -1) == S.Status.RUNNING).sum(1).cpu(),
+        lambda: M.live_lane_counts(sh, mesh))]
+    live.update(counts_ms=(counts[0] + counts[3]) / 2,
+                counts_library_ms=(counts[1] + counts[2]) / 2,
+                floor_device_ms=queued_ms(lambda _: M.empty_launch(dev),
+                                          lambda: None, reps=reps))
     return {
-        "lane_live": timed(
-            lambda: M.lane_live(status, n_dev),
-            lambda: M.lane_live_plain(status, n_dev),
-            lambda: (status.view(n_dev, -1) == S.Status.RUNNING).sum(1),
-            4 * n + 4 * n_dev),
+        "lane_live": live,
         "lane_order": timed(
             lambda: M.lane_order(status, n_dev),
             lambda: M.lane_order_plain(status, n_dev),
@@ -2837,6 +2988,81 @@ def mesh_kernel_times(dev, st, n_dev, reps):
             2 * n * S.lane_bytes(st)),
             copy_device_ms=copy_ms(n * S.lane_bytes(st))),
     }
+
+
+def check_k12_edges(dev):
+    """K12 on ``device_loop.k12_edge_cases`` with each case's shard
+    counts, against ``lane_live_plain``: ``lane_live`` on the case's
+    status view, ``live_lane_counts`` over the shards as views of one
+    batch and as copies (an array a shard), each as launched and on a
+    grid of at most 3 blocks (several tiles a thread, through
+    ``mesh._LIVE_RESIDENT``, the launch plans made anew): equal, one
+    CUDA launch a call (one device)."""
+    import torch
+
+    from mythril_tpu_torch import _build
+    from mythril_tpu_torch.ops import stepper as S
+    from mythril_tpu_torch.parallel import mesh as M
+    from mythril_tpu_torch.support.device_loop import (k12_edge_cases,
+                                                       k12_status)
+
+    t0 = time.perf_counter()
+    calls = 0
+    saved = dict(M._LIVE_RESIDENT)
+
+    def one_launch(what, fn):
+        before = _build.LAUNCHES["lane_live"]
+        got = fn()
+        torch.cuda.synchronize()
+        if _build.LAUNCHES["lane_live"] - before != 1:
+            raise AssertionError(f"K12 edge {what}: not one launch")
+        return got
+
+    try:
+        for case in k12_edge_cases():
+            name, _, devs, _ = case
+            st = k12_status(case, dev)
+            batch = S.init_lanes(st.shape[0], stack_depth=1, memory_bytes=4,
+                                 storage_slots=1, calldata_bytes=4,
+                                 device=dev).replace(status=st)
+            for n_dev in devs:
+                want = M.lane_live_plain(st, n_dev)
+                mesh = M.Mesh([dev] * n_dev)
+                views = M.shard_lanes(batch, mesh)
+                copies = M.ShardedLanes(mesh, tuple(
+                    x.replace(status=x.status.clone())
+                    for x in views.shards))
+                for form in ("as launched", "at most 3 blocks"):
+                    M._LIVE_PLANS.clear()  # each form's own grid
+                    M._LIVE_RESIDENT.clear()
+                    M._LIVE_RESIDENT.update(saved)
+                    if form != "as launched":
+                        M._LIVE_RESIDENT.update(
+                            {(dev.index, t): 3 for t in range(32, 1025, 32)})
+                    what = f"{name}, {n_dev} shards, {form}"
+                    got = one_launch(what, lambda: M.lane_live(st, n_dev))
+                    if max_err(got, want):
+                        raise AssertionError(f"K12 edge {what}: differs "
+                                             f"from the plain version")
+                    for kind, sh in (("views", views), ("copies", copies)):
+                        per, total = one_launch(
+                            f"{what}, {kind}",
+                            lambda: M.live_lane_counts(sh, mesh))
+                        if per.tolist() != want.tolist() \
+                                or total != int(want.sum()):
+                            raise AssertionError(
+                                f"K12 edge {what}, {kind}: live_lane_counts "
+                                f"{per.tolist()}, plain {want.tolist()}")
+                    calls += 3
+    finally:
+        M._LIVE_PLANS.clear()
+        M._LIVE_RESIDENT.clear()
+        M._LIVE_RESIDENT.update(saved)
+    log(f"K12 edges: {calls} calls (every case of k12_edge_cases with its "
+        f"shard counts: lane_live, live_lane_counts over views of one batch "
+        f"and over shard copies, as launched and on a grid of at most 3 "
+        f"blocks) equal to the plain version, one launch each; "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def check_k13_edges(dev):
@@ -2966,6 +3192,7 @@ def mesh_path(dev, card, report):
         f"lanes ({n_run} running); K14's planes are disjoint 16-byte "
         f"aligned views of one allocation")
 
+    check_k12_edges(dev)
     check_k13_edges(dev)
 
     # the main path
@@ -3033,6 +3260,10 @@ def mesh_path(dev, card, report):
         if launches[name] <= 0:
             raise AssertionError(f"mesh path: {name} never launched "
                                  f"({launches})")
+    # three live_lane_counts calls, each over shards on one device
+    if launches["lane_live"] != 3:
+        raise AssertionError(f"mesh path: {launches['lane_live']} K12 "
+                             f"launches for 3 calls on one device")
     log(f"mesh path ({MESH_LANES} lanes, {MESH_SHARDS} shards on {dev}): "
         f"sharded_run equal to one K10 run on every plane; after "
         f"{MESH_STEPS} steps {total} running, per shard {per.tolist()}, "
@@ -3065,7 +3296,9 @@ def mesh_path(dev, card, report):
         report[name] = dict(t, max_abs_err=err[name],
                             **{f"wide_{k}": w[k] for k in
                                ("ms", "device_ms", "plain_ms", "library_ms",
-                                "bound_ms", "copy_device_ms") if k in w})
+                                "bound_ms", "copy_device_ms", "counts_ms",
+                                "counts_library_ms", "floor_device_ms")
+                               if k in w})
         log(f"  {name}: {MESH_LANES} lanes {t['ms']:.4f} ms a call, "
             f"{t['device_ms']:.4f} ms device, bound {t['bound_ms']:.6f} ms "
             f"({t['bound_by']}), plain {t['plain_ms']:.4f} ms, library "
@@ -3075,7 +3308,13 @@ def mesh_path(dev, card, report):
             f"{w['library_ms']:.4f} ms; on {card}"
             + (f"; a contiguous copy of as many bytes {t['copy_device_ms']:.4f}"
                f" and {w['copy_device_ms']:.4f} ms device"
-               if "copy_device_ms" in t else ""))
+               if "copy_device_ms" in t else "")
+            + (f"; live_lane_counts {t['counts_ms']:.4f} and "
+               f"{w['counts_ms']:.4f} ms a call (the library's sum and a "
+               f"pageable pull {t['counts_library_ms']:.4f} and "
+               f"{w['counts_library_ms']:.4f}); an empty kernel queued "
+               f"{t['floor_device_ms']:.4f} and {w['floor_device_ms']:.4f} "
+               f"ms device" if "counts_ms" in t else ""))
     del wide, mid, ref
     torch.cuda.empty_cache()
     return launches
@@ -4315,6 +4554,8 @@ def run() -> int:
     lap("screen edges")
     check_k5_edges(dev)
     lap("K5 edges")
+    check_prop_edges(dev)
+    lap("K6 and K11 edges")
     screen_launches = screen_path(dev, wave, card)
     lap("screen path")
     screen_mix(dev)
@@ -4345,6 +4586,8 @@ def run() -> int:
                                                        "cold_",
                                                        "loop_",
                                                        "copy_",
+                                                       "counts_",
+                                                       "floor_",
                                                        "bound_rows_",
                                                        "levels_"))}}
 

@@ -3,7 +3,14 @@
 //
 // Replace mythril_tpu/parallel/mesh.py (kernel row 14):
 //  - K12: :110 live_lane_counts, a shard_map'd jnp.sum(status == RUNNING)
-//    per device and its psum. One block a shard counts its own lanes;
+//    per device and its psum. One launch a device over every shard on
+//    it (16 lanes a thread from four 16-byte loads, each a warp's 512
+//    contiguous bytes; block sums): a block a shard where a shard is a
+//    whole number of a warp's 512 lanes (up to a bound), else
+//    a grid sized to the card whose shards' counts meet in the same
+//    launch (64-bit atomic adds that also count themselves: the add that
+//    completes a shard writes its total and clears it); the counts also
+//    go into a pinned host buffer mapped into the card's address space;
 //    the total is the wrapper's sum of the n_dev counts in the process
 //    (the psum is over the devices of one process, not between ranks).
 //  - K13: :138 compact_lanes' and :150 steal_balance's
@@ -30,7 +37,10 @@
 // arithmetic. K12 and K13 read the status plane (4 bytes a lane) and
 // K13 writes the order (4 bytes a lane): under 1.1 MB at 131072 lanes,
 // so their time is launch latency and the scan's dependent steps, not
-// bandwidth. K13's stores scatter (a thread's lanes go to two runs of
+// bandwidth: K12's bound at 131072 lanes is 0.16 us, far below a
+// launch's own floor (an empty kernel, empty_launch), so its design
+// aims at one launch that every SM takes part in and no copy after it.
+// K13's stores scatter (a thread's lanes go to two runs of
 // sorted positions), so they are spread over a grid of blocks: one
 // block of them took 0.035 ms at 32768 lanes, a grid of 8 blocks 0.0116
 // (PERF.md §6). K14 reads every byte of the gathered rows once and writes
@@ -61,7 +71,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int RUNNING = 0;
-constexpr int LIVE_BLOCK = 256;
 constexpr int MAX_PLANES = 32;
 constexpr int GATHER_THREADS = 256;
 constexpr int GATHER_WARPS = GATHER_THREADS / 32;
@@ -86,24 +95,6 @@ struct Planes {
   int n;
 };
 
-// K12: block b counts the RUNNING lanes of shard b (lanes
-// [b * per, (b + 1) * per)).
-__global__ void __launch_bounds__(LIVE_BLOCK)
-k_lane_live(const int32_t* status, long long per, int32_t* out) {
-  const int32_t* s = status + (long long)blockIdx.x * per;
-  int c = 0;
-  for (long long i = threadIdx.x; i < per; i += LIVE_BLOCK) c += s[i] == RUNNING;
-  for (int off = 16; off > 0; off >>= 1) c += __shfl_down_sync(0xFFFFFFFFu, c, off);
-  __shared__ int warp_sums[LIVE_BLOCK / 32];
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = c;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int total = 0;
-    for (int w = 0; w < LIVE_BLOCK / 32; ++w) total += warp_sums[w];
-    out[blockIdx.x] = total;
-  }
-}
-
 // K13: lanes a thread holds in a tile, read as four 16-byte loads, and
 // the threads of a block
 constexpr int ORDER_VEC = 16;
@@ -126,6 +117,142 @@ __device__ __forceinline__ unsigned order_flags(const int32_t* status, long long
   }
   return m;
 }
+
+// K12: the RUNNING lanes of each shard of one device, in one launch. The
+// device's shards lie in `arrays` status arrays (mesh order) of `spp`
+// shards of `per` lanes each: one array of every shard where the shards
+// are views of one batch, an array a shard where each is its own copy.
+// The lanes are cut into warp tiles of LIVE_TILE lanes, array by array
+// (warp tile w: array w / tiles, lanes from (w % tiles) * LIVE_TILE):
+// thread t of a warp holds the 16 lanes from 4 t + 128 k (k < 4) of its
+// tile, as live_flags' bit mask from four 16-byte loads, each a warp's
+// 512 contiguous bytes. A block's warps take a chunk of as many tiles:
+// block b chunk b, then the chunks a grid further on. For each shard its
+// chunk holds lanes of (a block-uniform loop: one shard, or several
+// where a shard boundary falls inside the chunk, per no multiple of
+// LIVE_TILE), the block sums its running lanes (warp sums, then the
+// warps' in shared memory). A shard that lies in one chunk is written out
+// by the block; otherwise its chunks' sums meet in the shard's counter,
+// a 64-bit atomic add that also counts the adds (high word), and the add
+// that completes it (its chunks, known from the geometry) writes the
+// total and clears the counter for the next launch: no grid-wide ticket,
+// no fence, no memset launch. Integer adds are exact in any order. The
+// block (parallel/mesh.lane_live_threads) is a shard's warp tiles where
+// it is a whole number of them, a warp each, up to mesh.py's
+// LIVE_SHARD_THREADS, so a shard is one chunk and takes no atomic; else
+// LIVE_THREADS, a grid sized to the card. The counts go to out and host
+// (either may be null); a launch of no lanes writes zeros.
+constexpr int LIVE_TILE = 32 * ORDER_VEC;
+constexpr int LIVE_THREADS = 64;
+constexpr int LIVE_MAX_THREADS = 1024;
+constexpr int MAX_LIVE_ARRAYS = 64;
+
+// the RUNNING flags of a thread's lanes base + 128 k + r (k, r < 4; lanes
+// past n: 0) as bits 4 k + r: four 16-byte loads issued together where
+// the thread's lanes are all inside the array, else 4-byte loads
+__device__ __forceinline__ unsigned live_flags(const int32_t* status, unsigned base, unsigned n,
+                                               bool vec) {
+  unsigned m = 0;
+  if (vec && base + 128 * 3 + 4 <= n) {
+    int4 v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = *reinterpret_cast<const int4*>(status + base + 128 * k);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      m |= ((unsigned)(v[k].x == RUNNING) | (unsigned)(v[k].y == RUNNING) << 1 |
+            (unsigned)(v[k].z == RUNNING) << 2 | (unsigned)(v[k].w == RUNNING) << 3)
+           << (4 * k);
+    return m;
+  }
+  for (unsigned k = 0; k < 4; ++k)
+    for (unsigned r = 0; r < 4 && base + 128 * k + r < n; ++r)
+      m |= (unsigned)(status[base + 128 * k + r] == RUNNING) << (4 * k + r);
+  return m;
+}
+
+// the status arrays of a launch: NA 1 (the shards are views of one batch:
+// a launch's parameters stay small, and every tile is the one array's) or
+// MAX_LIVE_ARRAYS
+template <int NA>
+struct LiveArrays {
+  const int32_t* status[NA];
+};
+
+template <int NA>
+__global__ void __launch_bounds__(LIVE_MAX_THREADS)
+k_lane_live(const __grid_constant__ LiveArrays<NA> a, unsigned arrays, unsigned spp,
+            unsigned per, int vec, unsigned long long* counters, int32_t* out, int32_t* host) {
+  constexpr unsigned FULL = 0xFFFFFFFFu;
+  __shared__ unsigned warp_sums[LIVE_MAX_THREADS / 32];
+  const unsigned lanes = per * spp, tiles = (lanes + LIVE_TILE - 1) / LIVE_TILE;
+  const unsigned total = tiles * arrays, shards = arrays * spp;
+  const unsigned W = blockDim.x >> 5, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lanes == 0) {
+    for (unsigned k = blockIdx.x * blockDim.x + threadIdx.x; k < shards;
+         k += gridDim.x * blockDim.x) {
+      if (out) out[k] = 0;
+      if (host) host[k] = 0;
+    }
+    return;
+  }
+  // the chunks over shard k's tiles: the sums that complete it
+  auto chunks_over = [&](unsigned k) {
+    const unsigned j = k / spp, q = k - j * spp;
+    const unsigned t0 = j * tiles + q * per / LIVE_TILE;
+    const unsigned t1 = j * tiles + ((q + 1) * per - 1) / LIVE_TILE;
+    return t1 / W - t0 / W + 1;
+  };
+  // c0: the chunk's first warp tile, the same in the whole block
+  for (unsigned c0 = blockIdx.x * W; c0 < total; c0 += gridDim.x * W) {
+    // the chunk's first and last shards
+    const unsigned c1 = min(c0 + W, total) - 1;
+    const unsigned a0 = NA > 1 ? c0 / tiles : 0, a1 = NA > 1 ? c1 / tiles : 0;
+    const unsigned k0 = a0 * spp + (c0 - a0 * tiles) * LIVE_TILE / per;
+    const unsigned k1 = a1 * spp + (min((c1 - a1 * tiles + 1) * LIVE_TILE, lanes) - 1) / per;
+    const unsigned g = c0 + warp;
+    const bool has = g < total;
+    const unsigned arr = NA > 1 && has ? g / tiles : 0;
+    const unsigned base = (g - arr * tiles) * LIVE_TILE + 4 * lane;
+    unsigned want = threadIdx.x == 0 ? chunks_over(k0) : 0;  // ahead of the loads
+    const unsigned m = has ? live_flags(a.status[arr], base, lanes, vec) : 0u;
+    for (unsigned k = k0; k <= k1; ++k) {
+      if (k != k0 && threadIdx.x == 0) want = chunks_over(k);
+      unsigned c = 0;
+      if (k0 == k1) {
+        c = __popc(m);
+      } else if (has && k / spp == arr) {  // this thread's lanes of shard k
+        const unsigned q = k - arr * spp, lo = q * per, hi = lo + per;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const unsigned i = base + 128 * j, x = max(i, lo), y = min(i + 4, hi);
+          if (x < y) c += __popc((m >> (4 * j + x - i)) & ((1u << (y - x)) - 1u));
+        }
+      }
+      c = __reduce_add_sync(FULL, c);
+      if (lane == 0) warp_sums[warp] = c;
+      __syncthreads();
+      if (warp == 0) c = __reduce_add_sync(FULL, lane < W ? warp_sums[lane] : 0u);
+      if (threadIdx.x == 0) {
+        int n = (int)c;
+        bool done = want == 1;
+        if (!done) {
+          const unsigned long long old = atomicAdd(counters + k, (1ull << 32) | c);
+          done = (old >> 32) + 1 == want;
+          n = (int)((unsigned)old + c);
+          if (done) counters[k] = 0;
+        }
+        if (done) {
+          if (out) out[k] = n;
+          if (host) host[k] = n;
+        }
+      }
+      __syncthreads();  // warp_sums is the next pass's
+    }
+  }
+}
+
+// an empty kernel: the launch floor that K12's time is judged against
+__global__ void k_empty() {}
 
 // exclusive prefix of c over the block's threads (thread order); *total
 // gets the block's sum. Every thread of the block calls it.
@@ -305,13 +432,67 @@ k_lane_gather(const __grid_constant__ Planes ps, const int32_t* order, long long
 
 }  // namespace
 
-// K12: out[b] = RUNNING lanes of shard b, for n_dev shards of n / n_dev
-// lanes (n % n_dev == 0, checked by the wrapper).
-MTT_EXPORT int lane_live(const void* status, long long n, int n_dev, void* out,
+// K12: the RUNNING lanes of each shard on one device: status, a host
+// array of `arrays` device pointers (mesh order, at most
+// MAX_LIVE_ARRAYS), each of spp shards of per lanes, shard k of array j
+// counted as shard j * spp + k (fewer than 2^31 lanes in all); one
+// launch of `blocks` blocks of `threads` threads (a multiple of 32, at
+// most LIVE_MAX_THREADS: parallel/mesh.lane_live_threads and
+// lane_live_shape; a block's chunk is a warp tile a warp). counters:
+// arrays * spp 64-bit words, zero before the first call (every call
+// leaves them so); out (device) and host (pinned and mapped,
+// live_host_alloc) get the counts, either may be null. vec: every array
+// 16-byte aligned (16-byte loads). sync: wait for the launch
+// before returning (the counts are then in host).
+MTT_EXPORT int lane_live(void* const* status, int arrays, int spp, long long per, int blocks,
+                         int threads, int vec, void* counters, void* out, void* host, int sync,
                          void* stream) {
-  if (n_dev > 0)
-    k_lane_live<<<n_dev, LIVE_BLOCK, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)status, n / n_dev, (int32_t*)out);
+  if (arrays < 1 || arrays > MAX_LIVE_ARRAYS || spp < 1 || per < 0 || blocks < 1 ||
+      threads < 32 || threads > LIVE_MAX_THREADS || threads % 32 ||
+      per * spp * arrays >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (arrays == 1) {
+    const LiveArrays<1> a{{(const int32_t*)status[0]}};
+    k_lane_live<1><<<blocks, threads, 0, st>>>(a, 1, spp, (unsigned)per, vec,
+                                               (unsigned long long*)counters, (int32_t*)out,
+                                               (int32_t*)host);
+  } else {
+    LiveArrays<MAX_LIVE_ARRAYS> a;
+    for (int j = 0; j < arrays; ++j) a.status[j] = (const int32_t*)status[j];
+    k_lane_live<MAX_LIVE_ARRAYS><<<blocks, threads, 0, st>>>(
+        a, arrays, spp, (unsigned)per, vec, (unsigned long long*)counters, (int32_t*)out,
+        (int32_t*)host);
+  }
+  cudaError_t rc = cudaGetLastError();
+  if (rc == cudaSuccess && sync) rc = cudaStreamSynchronize(st);
+  return (int)rc;
+}
+
+// blocks of K12 of `threads` threads resident at once on the current
+// device (the most its grid takes)
+MTT_EXPORT int lane_live_blocks(int threads) {
+  int dev = 0, sms = 0, per = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, k_lane_live<MAX_LIVE_ARRAYS>, threads, 0);
+  return sms * (per > 0 ? per : 1);
+}
+
+// K12's host buffer: n ints of pinned host memory mapped into the
+// address space of every device (*dev: its device address, which with
+// unified addressing is *host); K12's last block writes the counts there
+MTT_EXPORT int live_host_alloc(int n, void** host, void** dev) {
+  cudaError_t rc = cudaHostAlloc(host, sizeof(int32_t) * (size_t)(n > 0 ? n : 1),
+                                 cudaHostAllocMapped | cudaHostAllocPortable);
+  if (rc == cudaSuccess) rc = cudaHostGetDevicePointer(dev, *host, 0);
+  return (int)rc;
+}
+
+// an empty kernel of one thread on the stream: the launch floor
+// (chip_smoke.py times it beside K12)
+MTT_EXPORT int empty_launch(void* stream) {
+  k_empty<<<1, 1, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

@@ -44,7 +44,12 @@
 //       heavy transfers do not set the light ones' registers; a thread a
 //       (state, node), the node fastest, so a warp runs neighbouring
 //       nodes of one op and one state. Each op loads only what its
-//       transfer, its known-bits transfer and the meet read.
+//       transfer, its known-bits transfer and the meet read. A level
+//       that reads a row it writes (the layout's hazard flag; only a
+//       wrapped index makes one) is one staged launch instead, under
+//       K7's staging rule (fwd_staged_kernel: a block a state, every
+//       node's candidate into the staging, one barrier, then met and
+//       stored), since JAX reads every operand before it scatters.
 //   K7: a block a state at a time, the grid the blocks resident at once
 //       (prop_back_shape's occupancy query). Each rule loads only what
 //       it and the meet read (the bool gate first where there is one);
@@ -59,7 +64,8 @@
 //       or the plan's states, the fewer). A round's staging is a
 //       multiple of 4 words, so every block's part, and in it every
 //       slot of 16 or 32 words, is 16-byte aligned for ldw and stw.
-//   K11 runs K6's fwd_node and K7's back_block over the same layout.
+//   K11 runs K6's fwd_node (fwd_block on a hazardous level, in its own
+//       instance) and K7's back_block over the same layout.
 //
 // K5 takes its own layout (ops/intervals.interval_layout, built once an
 // encoding and copied to the card in one copy of one pinned buffer): each
@@ -479,10 +485,13 @@ __device__ __forceinline__ bool fwd_store(const Tabs& t, size_t r, int flags, co
 }
 
 // node j of state s under opcode OP: loads only what OP's transfer, its
-// known-bits transfer and the meet read
-template <int OP>
+// known-bits transfer and the meet read, and stores the met rows that
+// differ; returns whether it did. STAGED: it leaves the candidate (lo,
+// hi, nk0, nk1: 32 words) in the slot sl instead, for fwd_block to meet
+// and store after a barrier, and returns false.
+template <int OP, bool STAGED>
 __device__ __forceinline__ bool fwd_op(const Tabs& t, const FwdNodes& L, int s, int j,
-                                       const int4& e0, const int4& e1) {
+                                       const int4& e0, const int4& e1, uint32_t* sl) {
   // bool arguments: limb 0 only (ITE's condition too)
   constexpr bool A0 = OP == BAND2 || OP == BOR2 || OP == BNOT1 || OP == BXOR2 ||
                       OP == BITE || OP == ITE;
@@ -530,19 +539,28 @@ __device__ __forceinline__ bool fwd_op(const Tabs& t, const FwdNodes& L, int s, 
   if (KB) kbits(OP, alo, ahi, blo, bhi, ak0, ak1, bk0, bk1, ck0, ck1, m, x, e1.y, nk0, nk1);
   if (OP == EQ && !bv::is_zero(bv::bor(bv::band(ak1, bk0), bv::band(ak0, bk1))))
     hi.l[0] = 0;  // known-bits refutation of EQ
+  if constexpr (STAGED) {
+    stw(sl, lo);
+    stw(sl + 8, hi);
+    stw(sl + 16, nk0);  // zero without a known-bits transfer
+    stw(sl + 24, nk1);
+    return false;
+  }
   return fwd_store(t, t.row(s, e0.x), e1.w, lo, hi, nk0, nk1, KB);
 }
 
 // node j of state s, by its op; CLS: the op class compiled in (the
-// nodes of other classes are not this instantiation's), -1 every class
-template <int CLS>
-__device__ __forceinline__ bool fwd_node(const Tabs& t, const FwdNodes& L, int s, int j) {
+// nodes of other classes are not this instantiation's), -1 every class;
+// STAGED: fwd_op's staged form, into the slot sl
+template <int CLS, bool STAGED = false>
+__device__ __forceinline__ bool fwd_node(const Tabs& t, const FwdNodes& L, int s, int j,
+                                         uint32_t* sl = nullptr) {
   const int4 e0 = L.ent[2 * j], e1 = L.ent[2 * j + 1];
   switch (e0.y) {
-#define FWD_CASE(OP)                                  \
-  case OP:                                            \
-    if constexpr (CLS < 0 || fwd_class(OP) == CLS)    \
-      return fwd_op<OP>(t, L, s, j, e0, e1);          \
+#define FWD_CASE(OP)                                      \
+  case OP:                                                \
+    if constexpr (CLS < 0 || fwd_class(OP) == CLS)        \
+      return fwd_op<OP, STAGED>(t, L, s, j, e0, e1, sl);  \
     break;
     FWD_CASE(ADD) FWD_CASE(SUB) FWD_CASE(MUL) FWD_CASE(UDIV) FWD_CASE(UREM)
     FWD_CASE(BAND) FWD_CASE(BOR) FWD_CASE(BXOR) FWD_CASE(BNOT) FWD_CASE(NEG)
@@ -569,6 +587,48 @@ fwd_kernel(Tabs t, FwdNodes L, int base, int n, int32_t* changed) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)n * t.S) return;
   if (fwd_node<CLS>(t, L, (int)(i / n), base + (int)(i % n)) && changed) *changed = 1;
+}
+
+// The nodes [lo, hi) of a level that reads a row it writes, for state s,
+// by the whole block (every thread calls it), in two phases: each thread
+// computes its nodes' candidates from the pre-level rows into their
+// slots of the staging (32 words a node), one barrier, then the same
+// thread meets each candidate into its node's row and stores the words
+// that differ (fwd_store, as in place). So every read of the level's
+// operands comes before every write, as in JAX's gather-then-scatter; a
+// node's own row, read by the meet after the barrier, is the pre-level
+// row: the level writes it only there. Returns whether this thread
+// stored a word that differs. A thread reads back only the slots it
+// wrote, so the staging can take the next state without a second
+// barrier (a pass that then reads the tables needs one).
+__device__ __forceinline__ bool fwd_block(const Tabs& t, const FwdNodes& L, int lo, int hi,
+                                          uint32_t* stage, int s) {
+  for (int j = lo + threadIdx.x; j < hi; j += blockDim.x)
+    fwd_node<-1, true>(t, L, s, j, stage + 32 * (size_t)(j - lo));
+  __syncthreads();
+  bool d = false;
+  for (int j = lo + threadIdx.x; j < hi; j += blockDim.x) {
+    const uint32_t* sl = stage + 32 * (size_t)(j - lo);
+    d |= fwd_store(t, t.row(s, L.ent[2 * j].x), L.ent[2 * j + 1].w, ldw(sl), ldw(sl + 8),
+                   ldw(sl + 16), ldw(sl + 24), true);
+  }
+  return d;
+}
+
+// K6 on a hazardous level of n nodes: a block takes a state at a time
+// (grid-stride), the level by fwd_block. SMEM: the staging is the
+// block's dynamic shared memory, else its part of a global buffer (K7's
+// staging rule).
+template <bool SMEM>
+__global__ void __launch_bounds__(256)
+fwd_staged_kernel(Tabs t, FwdNodes L, int n, uint32_t* gstage, int stage_words,
+                  int32_t* changed) {
+  extern __shared__ uint4 smem_stage[];
+  uint32_t* stage =
+      SMEM ? reinterpret_cast<uint32_t*>(smem_stage) : gstage + (size_t)blockIdx.x * stage_words;
+  bool any = false;
+  for (int s = blockIdx.x; s < t.S; s += gridDim.x) any |= fwd_block(t, L, 0, n, stage, s);
+  if (any && changed) *changed = 1;
 }
 
 // ---------------------------------------------------------------------------
@@ -1113,8 +1173,9 @@ struct Init {
 };
 
 // state s by the whole block: broadcast the init rows, scatter the
-// seeds, pin asserted roots TRUE; slots at rows past the table are
-// dropped (mode="drop"). Ends with a barrier.
+// seeds, pin asserted roots TRUE; seed and assertion slots by JAX's
+// mode="drop" rule (seed_row: a negative slot wraps once, one still
+// outside the table is dropped). Ends with a barrier.
 __device__ void init_state(const Tabs& t, const Init& in, int s) {
   const int n4 = t.T * 2;  // 16-byte vectors per table
   size_t base = t.row(s, 0) / 4;
@@ -1126,15 +1187,15 @@ __device__ void init_state(const Tabs& t, const Init& in, int s) {
   }
   __syncthreads();
   for (int v = threadIdx.x; v < in.V; v += blockDim.x) {
-    int r = in.seed_idx[(size_t)s * in.V + v];
-    if (r < 0 || r >= t.T) continue;
+    const int r = seed_row(in.seed_idx[(size_t)s * in.V + v], t.T);
+    if (r < 0) continue;
     stw(t.lo + t.row(s, r), ldw(in.seed_lo + ((size_t)s * in.V + v) * 8));
     stw(t.hi + t.row(s, r), ldw(in.seed_hi + ((size_t)s * in.V + v) * 8));
   }
   __syncthreads();
   for (int a = threadIdx.x; a < in.A; a += blockDim.x) {
-    int r = in.aidx[(size_t)s * in.A + a];
-    if (!in.amask[(size_t)s * in.A + a] || r < 0 || r >= t.T) continue;
+    const int r = seed_row(in.aidx[(size_t)s * in.A + a], t.T);
+    if (!in.amask[(size_t)s * in.A + a] || r < 0) continue;
     t.lo[t.row(s, r)] = 0;
   }
   __syncthreads();
@@ -1186,7 +1247,8 @@ __device__ void verdict_state(const Tabs& t, const uint8_t* numeric, const uint8
   }
   for (int a = threadIdx.x; a < A; a += blockDim.x) {
     if (amask[(size_t)s * A + a]) {
-      int r = clampi(aidx[(size_t)s * A + a], 0, t.T - 1);
+      int r = aidx[(size_t)s * A + a];  // JAX's gather: wrap once, clamp
+      r = clampi(r < 0 ? r + t.T : r, 0, t.T - 1);
       bad |= t.hi[t.row(s, r)] == 0;
     }
   }
@@ -1236,17 +1298,25 @@ verdicts_kernel(Tabs t, const uint8_t* numeric, const uint8_t* isbool,
 // that change written) by its passes; chip_smoke.py counts each
 // system's tables once per sweep it ran. The backward rounds stage in
 // the block's own part of a global buffer (L1/L2 resident), each round
-// as K7 lays it out.
+// as K7 lays it out, and so does a level that reads a row it writes
+// (fwd_block, as K6's staged launch; fixpoint_kernel<true>, launched
+// only for a plan that has one); the other levels run in place.
 
 struct Passes {
   int L;
   const int32_t* loff;  // L+1 node offsets of the levels
+  const int32_t* lhaz;  // L: 1 where a level reads a row it writes
   FwdNodes lv;          // the levels' kernel layout, concatenated
   int R;
   const int32_t* roff;  // R+1 entry offsets of the rounds, run order
   BackEntries rd;       // the rounds' kernel layout, concatenated (n unused)
 };
 
+// HAZ: the plan has a level that reads a row it writes (Passes.lhaz),
+// which this instance stages (fwd_block); the other instance, for every
+// other plan, is the in-place kernel alone, so the staged code does not
+// set its registers.
+template <bool HAZ>
 __global__ void __launch_bounds__(128)
 fixpoint_kernel(Tabs t, Passes P, Init in, const uint8_t* numeric, const uint8_t* isbool,
                 int cap, uint32_t* stage, int stage_w, uint8_t* ok, uint8_t* contra,
@@ -1258,8 +1328,12 @@ fixpoint_kernel(Tabs t, Passes P, Init in, const uint8_t* numeric, const uint8_t
     while (n < cap) {
       bool diff = false;
       for (int l = 0; l < P.L; ++l) {
-        for (int j = P.loff[l] + threadIdx.x; j < P.loff[l + 1]; j += blockDim.x)
-          diff |= fwd_node<-1>(t, P.lv, s, j);
+        if (HAZ && P.lhaz[l]) {
+          diff |= fwd_block(t, P.lv, P.loff[l], P.loff[l + 1], slot, s);
+        } else {
+          for (int j = P.loff[l] + threadIdx.x; j < P.loff[l + 1]; j += blockDim.x)
+            diff |= fwd_node<-1>(t, P.lv, s, j);
+        }
         __syncthreads();
       }
       for (int r = threadIdx.x; r < t.T; r += blockDim.x) diff |= exchange_row(t, numeric, s, r);
@@ -1355,14 +1429,33 @@ MTT_EXPORT int interval_levels_blocks(int threads) {
 
 // K6. ent, mask, aux: the level's kernel layout (FwdNodes); counts: the
 // nodes of op classes 0, 1, 2, in that order in the layout. One launch
-// a class that has nodes.
+// a class that has nodes; for a level that reads a row it writes
+// (stage_words > 0: its staging a block), one staged launch of threads
+// and blocks (prop_fwd_shape's block and grid), staging in shared
+// memory where gstage is null, else in gstage (blocks x stage_words
+// words).
 MTT_EXPORT int prop_fwd_level(void* lo, void* hi, void* k0, void* k1, int S, int T,
                               const void* ent, const void* mask, const void* aux, int n0,
-                              int n1, int n2, void* changed, void* stream) {
+                              int n1, int n2, int stage_words, int threads, int blocks,
+                              void* gstage, void* changed, void* stream) {
   Tabs t{(uint32_t*)lo, (uint32_t*)hi, (uint32_t*)k0, (uint32_t*)k1, S, T};
   FwdNodes L{(const int4*)ent, (const uint32_t*)mask, (const uint32_t*)aux};
   cudaStream_t st = (cudaStream_t)stream;
   int32_t* ch = (int32_t*)changed;
+  const int n = n0 + n1 + n2;
+  if (stage_words > 0) {
+    if (threads < 32 || threads > 256 || stage_words < 32 * n)
+      return (int)cudaErrorInvalidValue;
+    if (S > 0 && n > 0 && blocks > 0) {
+      if (gstage == nullptr)
+        fwd_staged_kernel<true><<<blocks, threads, 4 * (size_t)stage_words, st>>>(
+            t, L, n, nullptr, stage_words, ch);
+      else
+        fwd_staged_kernel<false><<<blocks, threads, 0, st>>>(t, L, n, (uint32_t*)gstage,
+                                                              stage_words, ch);
+    }
+    return (int)cudaGetLastError();
+  }
   if (n0 > 0 && S > 0)
     fwd_kernel<0><<<grid_for((long long)n0 * S, 128), 128, 0, st>>>(t, L, 0, n0, ch);
   if (n1 > 0 && S > 0)
@@ -1387,29 +1480,42 @@ static int back_smem_max() {
   return bytes;
 }
 
-// K7's launch shape for a round of stage_words staging words and blocks
-// of threads: out[0] the blocks resident at once (the grid), out[1] 1
-// where the staging fits a block's shared memory, else 0 (it then
-// stages in a global buffer of out[0] x stage_words words). Called for
-// every round before its first launch (ops/propagate.kernel_layout).
-MTT_EXPORT int prop_back_shape(int threads, int stage_words, int* out) {
+// The launch shape of a staged kernel (SK: its shared-memory instance,
+// GK: its global one) for stage_words staging words and blocks of
+// threads: out[0] the blocks resident at once (the grid), out[1] 1 where
+// the staging fits a block's shared memory, else 0 (it then stages in a
+// global buffer of out[0] x stage_words words).
+template <typename Kernel>
+static int staged_shape(Kernel SK, Kernel GK, int threads, int stage_words, int* out) {
   int dev = 0, sms = 0, per = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const long long bytes = 4LL * stage_words;
   const int cap = back_smem_max(), smem = bytes <= cap;
   if (smem) {
-    // the cap every round's launch may then take (an attribute of the
-    // kernel, not of a launch)
-    cudaFuncSetAttribute(back_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, cap);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, back_kernel<true>, threads,
-                                                  (size_t)bytes);
+    // the cap every launch may then take (an attribute of the kernel,
+    // not of a launch)
+    cudaFuncSetAttribute(SK, cudaFuncAttributeMaxDynamicSharedMemorySize, cap);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, SK, threads, (size_t)bytes);
   } else {
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, back_kernel<false>, threads, 0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, GK, threads, 0);
   }
   out[0] = sms * (per > 0 ? per : 1);
   out[1] = smem;
   return (int)cudaGetLastError();
+}
+
+// K7's launch shape for a round (staged_shape). Called for every round
+// before its first launch (ops/propagate.kernel_layout).
+MTT_EXPORT int prop_back_shape(int threads, int stage_words, int* out) {
+  return staged_shape(back_kernel<true>, back_kernel<false>, threads, stage_words, out);
+}
+
+// K6's launch shape for a level that reads a row it writes
+// (staged_shape), called for each such level before its first launch
+MTT_EXPORT int prop_fwd_shape(int threads, int stage_words, int* out) {
+  return staged_shape(fwd_staged_kernel<true>, fwd_staged_kernel<false>, threads, stage_words,
+                      out);
 }
 
 // K7. ent, pmask, paux, n: the round's kernel layout (BackEntries);
@@ -1483,15 +1589,19 @@ MTT_EXPORT int prop_verdicts(void* lo, void* hi, void* k0, void* k1, int S, int 
 // aux of every level's kernel layout (FwdNodes), concatenated; rd: ent,
 // pmask, paux of every round's (BackEntries) in run order (levels from
 // the last, each level's rounds in order), concatenated; loff, roff:
-// device offsets (L+1, R+1) of each level and round; init: init_lo,
+// device offsets (L+1, R+1) of each level and round; lhaz: device
+// flags (L), 1 for a level that reads a row it writes, read where haz
+// (some level is flagged: the staging instance); init: init_lo,
 // init_hi, init_k0, init_k1, seed_idx, seed_lo, seed_hi, assert_idx,
 // assert_mask. stage: blocks x stage_w words (stage_w a multiple of 4,
-// at least the largest staging of a round); blocks: the grid
+// at least the largest staging of a round or of a flagged level, 32
+// words a node); blocks: the grid
 // (prop_fixpoint_blocks gives the count resident at once). Writes ok,
 // contra and each system's sweep count.
-MTT_EXPORT int prop_fixpoint(void** tabs, int S, int T, void** lv, const void* loff, int L,
-                             void** rd, const void* roff, int R, void** init, int V, int A,
-                             const void* numeric, const void* isbool, int cap, void* stage,
+MTT_EXPORT int prop_fixpoint(void** tabs, int S, int T, void** lv, const void* loff,
+                             const void* lhaz, int haz, int L, void** rd, const void* roff, int R,
+                             void** init, int V, int A, const void* numeric,
+                             const void* isbool, int cap, void* stage,
                              int stage_w, int blocks, void* ok, void* contra, void* sweeps,
                              void* stream) {
   Tabs t{(uint32_t*)tabs[0], (uint32_t*)tabs[1], (uint32_t*)tabs[2], (uint32_t*)tabs[3],
@@ -1499,24 +1609,29 @@ MTT_EXPORT int prop_fixpoint(void** tabs, int S, int T, void** lv, const void* l
   Passes P;
   P.L = L;
   P.loff = (const int32_t*)loff;
+  P.lhaz = (const int32_t*)lhaz;
   P.lv = FwdNodes{(const int4*)lv[0], (const uint32_t*)lv[1], (const uint32_t*)lv[2]};
   P.R = R;
   P.roff = (const int32_t*)roff;
   P.rd = BackEntries{(const int4*)rd[0], (const uint32_t*)rd[1], (const uint32_t*)rd[2], 0};
   Init in = make_init(init[0], init[1], init[2], init[3], init[4], init[5], init[6], V,
                       init[7], init[8], A);
-  if (S > 0 && T > 0 && blocks > 0)
-    fixpoint_kernel<<<blocks, 128, 0, (cudaStream_t)stream>>>(
+  if (S > 0 && T > 0 && blocks > 0) {
+    auto kernel = haz ? fixpoint_kernel<true> : fixpoint_kernel<false>;
+    kernel<<<blocks, 128, 0, (cudaStream_t)stream>>>(
         t, P, in, (const uint8_t*)numeric, (const uint8_t*)isbool, cap, (uint32_t*)stage,
         stage_w, (uint8_t*)ok, (uint8_t*)contra, (int32_t*)sweeps);
+  }
   return (int)cudaGetLastError();
 }
 
-// blocks of K11 resident at once on the current device (its grid)
-MTT_EXPORT int prop_fixpoint_blocks() {
+// blocks of K11 resident at once on the current device (its grid); haz:
+// the instance for a plan with a flagged level
+MTT_EXPORT int prop_fixpoint_blocks(int haz) {
   int dev = 0, sms = 0, per = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, fixpoint_kernel, 128, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per, haz ? fixpoint_kernel<true> : fixpoint_kernel<false>, 128, 0);
   return sms * (per > 0 ? per : 1);
 }

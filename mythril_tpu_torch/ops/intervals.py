@@ -655,17 +655,18 @@ SCREEN_SIGS = {
     "interval_levels": [_P, _P, _I, _I] + [_P] * 8 + [_I, _I, _P, _P, _I,
                                                      _I, _P, _I, _P, _P],
     "interval_levels_blocks": [_I],
-    "prop_fwd_level": [_P] * 4 + [_I] * 2 + [_P] * 3 + [_I] * 3 + [_P] * 2,
+    "prop_fwd_level": [_P] * 4 + [_I] * 2 + [_P] * 3 + [_I] * 6 + [_P] * 3,
     "prop_back_round": [_P] * 4 + [_I] * 2 + [_P] * 3 + [_I] * 4 + [_P] * 3,
     "prop_back_shape": [_I, _I, _P],
+    "prop_fwd_shape": [_I, _I, _P],
     "prop_fwd_class": [_I],
     "interval_reads": [_I],
     "prop_init": [_P] * 4 + [_I] * 2 + [_P] * 7 + [_I, _P, _P, _I, _P],
     "prop_exchange": [_P] * 4 + [_I] * 2 + [_P] * 3,
     "prop_verdicts": [_P] * 4 + [_I] * 2 + [_P] * 4 + [_I] + [_P] * 3,
-    "prop_fixpoint": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _P, _I, _I, _P, _P,
-                      _I, _P, _I, _I, _P, _P, _P, _P],
-    "prop_fixpoint_blocks": [],
+    "prop_fixpoint": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _I,
+                      _P, _P, _I, _P, _I, _I, _P, _P, _P, _P],
+    "prop_fixpoint_blocks": [_I],
 }
 
 
@@ -753,6 +754,21 @@ def operand_reads(op) -> np.ndarray:
     return _NREAD[np.asarray(op)]
 
 
+def reads_own_rows(op, opnd, rows, n_rows: int) -> bool:
+    """Whether a level reads a row it writes: one of its real entries
+    (ops ``op``) reads an operand row (``opnd``, (n, 3) rows resolved by
+    JAX's gather rule, ``gather_index``; as many as ``operand_reads``
+    gives its op) that one of them writes (``rows``, resolved by the
+    scatter rule, ``scatter_index``). JAX reads every operand before it
+    scatters, so K5 and K6 then compute the whole level before they
+    store (their staged launch). Numpy arrays."""
+    nread = operand_reads(op)
+    read = np.concatenate([opnd[nread > k, k] for k in range(3)])
+    writes = np.zeros(n_rows, bool)
+    writes[rows] = True
+    return bool(writes[read].any())
+
+
 def interval_layout(levels, n_rows: int, classes=None, init=None,
                     seed_idx=None) -> dict:
     """K5's layout of a run of forward levels over tables of ``n_rows``
@@ -820,10 +836,7 @@ def interval_layout(levels, n_rows: int, classes=None, init=None,
             ops_present=tuple(sorted(set(op.tolist())))))
         opnd = gather_index(args, n_rows).numpy()
         nread = operand_reads(op)
-        read = np.concatenate([opnd[nread > k, k] for k in range(3)])
-        writes = np.zeros(n_rows, bool)
-        writes[rows] = True
-        hazard = bool(writes[read].any())
+        hazard = reads_own_rows(op, opnd, rows, n_rows)
         flags = (np.where(static[opnd[:, 0]], IV_SA, 0)
                  | np.where((nread > 1) & static[opnd[:, 1]], IV_SB, 0)
                  | np.where((nread > 2) & static[opnd[:, 2]], IV_SC, 0))

@@ -18,7 +18,9 @@ The host part (``build_plan``, ``harvest``, ``abstraction_sets``,
 a line-by-line mirror of the JAX function, and a kernel in
 ``csrc/screen.cu``:
 
-- ``fwd_level`` (JAX ``_fwd_level``): K6 ``prop_fwd_level``;
+- ``fwd_level`` (JAX ``_fwd_level``): K6 ``prop_fwd_level``, which
+  stages a level that reads a row it writes (``level_layout``'s
+  ``hazard``), as JAX reads every operand before it scatters;
 - ``back_round`` (JAX ``_back_round``): K7 ``prop_back_round``;
   both take the plan's kernel layout (``kernel_layout``: each level's
   and round's real entries only, ordered by op), built once a plan;
@@ -72,7 +74,8 @@ from .intervals import (
     EXTRACT, ITE, LSHR, NOP, SHL, SUB, ULE, ULT,
     EncodedDAG, _next_pow2, _not, _ugt, _where, check_tables,
     eval_feasible, fwd_classes, gather_index, gather_rows, ints_to_device,
-    last_of_each_row, linearize, scatter_index, screen_lib, smear_plain,
+    last_of_each_row, linearize, reads_own_rows, scatter_index,
+    scatter_seeds, screen_lib, smear_plain,
     state_chunks, transfer_level_plain, words_to_device, written_rows,
 )
 
@@ -338,21 +341,19 @@ def _meet(cur, new, isbool, isnum):
 def init_tables_plain(core):
     """Per-state product tables: the shared init rows, the seeds
     scattered in, every asserted root pinned TRUE (may_false := 0).
-    Seed and assertion slots at rows past the table are dropped (the
-    JAX ``mode="drop"``)."""
+    Seed and assertion slots follow the JAX ``mode="drop"`` rule
+    (``scatter_index``: a negative slot wraps once, one still outside
+    the table is dropped), the seeds slot by slot (``scatter_seeds``)."""
     seed_idx = core["seed_idx"]
     n_states, n_rows = seed_idx.shape[0], core["init_lo"].shape[0]
     shape = (n_states,) + tuple(core["init_lo"].shape)
     lo, hi, k0, k1 = (core[k].expand(shape).clone()
                       for k in ("init_lo", "init_hi", "init_k0", "init_k1"))
-    s_idx, v_idx = torch.nonzero(seed_idx < n_rows, as_tuple=True)
-    rows = seed_idx[s_idx, v_idx].long()
-    lo[s_idx, rows] = core["seed_lo"][s_idx, v_idx]
-    hi[s_idx, rows] = core["seed_hi"][s_idx, v_idx]
-    aidx = core["assert_idx"]
-    s_idx, a_idx = torch.nonzero((core["assert_mask"] != 0)
-                                 & (aidx < n_rows), as_tuple=True)
-    lo[s_idx, aidx[s_idx, a_idx].long(), 0] = 0
+    scatter_seeds(lo, hi, seed_idx, core["seed_lo"], core["seed_hi"])
+    rows, ok = scatter_index(core["assert_idx"], n_rows)
+    s_idx, a_idx = torch.nonzero((core["assert_mask"] != 0) & ok,
+                                 as_tuple=True)
+    lo[s_idx, rows[s_idx, a_idx], 0] = 0
     return lo, hi, k0, k1
 
 
@@ -737,7 +738,7 @@ def verdicts_plain(core, tabs):
         torch.any(conflict_rows(core, tabs, s), dim=1)
         for s in state_chunks(tabs[0].shape[0], tabs[0].shape[1])])
     rows = torch.arange(tabs[1].shape[0], device=tabs[1].device)[:, None]
-    aidx = core["assert_idx"].long().clamp(0, tabs[1].shape[1] - 1)
+    aidx = gather_index(core["assert_idx"], tabs[1].shape[1])
     may_true = tabs[1][rows, aidx, 0] != 0
     ok = torch.all(may_true | (core["assert_mask"] == 0), dim=1) & ~contra
     return ok, contra
@@ -760,8 +761,23 @@ _NUM_SLOT = {ULT: 16, ULE: 16, ADD: 16, SUB: 16, BAND: 16, BOR: 16,
              BXOR: 16, BNOT: 16, SHL: 16, LSHR: 16, EXTRACT: 16,
              CONCAT2: 16, EQ: 32, COPY: 32, ITE: 32}
 _BOOL_RULES = (BAND2, BOR2, BNOT1)
-#: K7's block: at most this many threads, a warp at least
+#: K7's block (and K6's on a staged level): at most this many threads,
+#: a warp at least
 BACK_THREADS = 256
+
+
+def staged_threads(n: int) -> int:
+    """The block of a staged launch of ``n`` entries (K7's rounds, K6's
+    hazardous levels): enough warps for an entry a thread, at most
+    ``BACK_THREADS``."""
+    return min(BACK_THREADS, max(32, -(-n // 32) * 32))
+
+
+def fwd_stage_words(n: int) -> int:
+    """K6's staging a block for a staged level of ``n`` nodes
+    (``fwd_block``): a slot of 32 words a node (the candidate's lo, hi
+    and known bits), each 16-byte aligned."""
+    return 32 * n
 
 
 def _lookup(table, ops):
@@ -786,7 +802,11 @@ def level_layout(level: dict, n_rows: int, classes=None) -> dict:
     rule, ``gather_index``, the raw second and third arguments, the row
     flags) and ``counts`` (nodes a class). A level's nodes are distinct
     and each writes only its own row, so their order does not change
-    the result."""
+    the result. ``hazard``: whether a node reads a row the level writes
+    (``intervals.reads_own_rows``, K5's rule: only a wrapped index makes
+    one); K6 then runs the level as one staged launch of ``threads``
+    threads a block and ``stage_words`` words of staging a block
+    (``fwd_stage_words``; 0 without the hazard)."""
     op, node = level["op"], level["node"]
     node_rows, ok = scatter_index(node, n_rows)
     real = torch.nonzero((op != NOP) & ok).reshape(-1)
@@ -802,6 +822,12 @@ def level_layout(level: dict, n_rows: int, classes=None) -> dict:
          rows[:, 2], args[:, 1], args[:, 2], flags], 1).to(torch.int32)
     out["counts"] = torch.bincount(cls, minlength=3).tolist()
     out["n_rows"] = n_rows
+    n = order.numel()
+    out["hazard"] = reads_own_rows(out["op"].cpu().numpy(),
+                                   rows.cpu().numpy(),
+                                   node_rows[order].cpu().numpy(), n_rows)
+    out["threads"] = staged_threads(n)
+    out["stage_words"] = fwd_stage_words(n) if out["hazard"] else 0
     return out
 
 
@@ -874,44 +900,53 @@ def kernel_layout(core: dict) -> dict:
 
 def _bind(lay: dict, n_states: int) -> None:
     """Each level's and round's launch arguments: checked pointers, the
-    class counts; for a round its block, ``grid`` (the blocks resident
-    at once, an occupancy query), its blocks (the grid, and no more
-    than the plan's ``n_states`` where it stages in global memory) and
-    where it stages."""
+    class counts; for a round and a staged level its block, ``grid``
+    (the blocks resident at once, an occupancy query), its blocks (the
+    grid, and no more than the plan's ``n_states`` where it stages in
+    global memory) and where it stages: the rounds and levels whose
+    staging outgrows a block's shared memory share one global buffer
+    (``stage``), launched one after another on one stream."""
     import ctypes
 
     _build, lib = screen_lib()
+    rounds = [r for rs in lay["back"] for r in rs]
+    staged = [lv for lv in lay["levels"] if lv["hazard"]]
     for lv in lay["levels"]:
         _build.need_cuda(lv["ent"], torch.int32, "level ent")
         for key in ("mask", "aux"):
             _build.need_cuda(lv[key], torch.int32, f"level[{key!r}]")
-        lv["launch"] = (_build.ptr(lv["ent"]), _build.ptr(lv["mask"]),
-                        _build.ptr(lv["aux"]), lv["counts"])
-    rounds = [r for rs in lay["back"] for r in rs]
-    shapes = []
     for rnd in rounds:
         for key in ("ent", "pmask", "paux"):
             _build.need_cuda(rnd[key], torch.int32, f"round[{key!r}]")
-        n = rnd["ent"].shape[0]
-        threads = min(BACK_THREADS, max(32, -(-n // 32) * 32))
+    shapes = []
+    for x in rounds + staged:
+        threads = staged_threads(x["ent"].shape[0])
         out = (ctypes.c_int * 2)()
-        _build.check(lib, lib.prop_back_shape(threads, rnd["stage_words"],
-                                              out), "prop_back_shape")
-        rnd["grid"], smem = out[0], bool(out[1])
+        shape = lib.prop_fwd_shape if "hazard" in x else lib.prop_back_shape
+        _build.check(lib, shape(threads, x["stage_words"], out),
+                     "prop_fwd_shape" if "hazard" in x else "prop_back_shape")
+        x["grid"], smem = out[0], bool(out[1])
         shapes.append((threads, out[0] if smem else min(out[0], n_states),
                        smem))
-    glob = [r["stage_words"] * blocks
-            for r, (_, blocks, smem) in zip(rounds, shapes) if not smem]
+    glob = [x["stage_words"] * blocks for x, (_, blocks, smem)
+            in zip(rounds + staged, shapes) if not smem]
     stage = None
     if glob:
         lay["stage"] = torch.empty(max(max(glob), 1), dtype=torch.int32,
-                                   device=rounds[0]["ent"].device)
+                                   device=(rounds + staged)[0]["ent"].device)
         stage = _build.ptr(lay["stage"])
     for rnd, (threads, blocks, smem) in zip(rounds, shapes):
         rnd["launch"] = (_build.ptr(rnd["ent"]), _build.ptr(rnd["pmask"]),
                          _build.ptr(rnd["paux"]), rnd["ent"].shape[0],
                          rnd["stage_words"], threads, blocks,
                          None if smem else stage)
+    shaped = {id(lv): sh for lv, sh in zip(staged, shapes[len(rounds):])}
+    for lv in lay["levels"]:
+        threads, blocks, smem = shaped.get(id(lv), (0, 0, True))
+        lv["launch"] = (_build.ptr(lv["ent"]), _build.ptr(lv["mask"]),
+                        _build.ptr(lv["aux"]), lv["counts"],
+                        lv["stage_words"], threads, blocks,
+                        None if smem else stage)
 
 
 # ---------------------------------------------------------------------------
@@ -932,19 +967,26 @@ def fwd_level_kernel(level, tabs, changed=None) -> None:
     """K6: one forward level, ``level`` a level of ``kernel_layout``:
     a launch per op class present (``fwd_classes``), a thread per (state,
     real node), the node fastest, so a warp runs neighbouring nodes of
-    one op; each op loads only what its transfer and the meet read.
-    Sets ``changed[0]`` when it stores a word that differs."""
+    one op; each op loads only what its transfer and the meet read. A
+    level that reads a row it writes (``hazard``) is one staged launch,
+    a block a state: every node's met rows into the block's staging
+    (shared memory, or the plan's global buffer past a block's), one
+    barrier, then the stores. Sets ``changed[0]`` when it stores a word
+    that differs."""
     from .. import _build
 
     check_tables(tabs, _TAB_NAMES)
     s, t = tabs[0].shape[:2]
-    ent, mask, aux, counts = _bound(level, t, "K6")
+    ent, mask, aux, counts, words, threads, blocks, stage = _bound(
+        level, t, "K6")
     flag = _flag_ptr(_build, changed)
     _build, lib = screen_lib()
     rc = lib.prop_fwd_level(*[_build.ptr(x) for x in tabs], s, t, ent, mask,
-                            aux, *counts, flag, _build.stream(tabs[0].device))
+                            aux, *counts, words, threads, min(s, blocks),
+                            stage, flag, _build.stream(tabs[0].device))
     if s:
-        _build.LAUNCHES["prop_fwd_level"] += sum(1 for c in counts if c)
+        _build.LAUNCHES["prop_fwd_level"] += (
+            int(sum(counts) > 0) if words else sum(1 for c in counts if c))
     _build.check(lib, rc, "prop_fwd_level")
 
 
@@ -1172,8 +1214,10 @@ def _fused_plan(core) -> dict:
     """What K11 reads of the plan: the kernel layout's levels and rounds
     (in run order: levels from the last, each level's rounds in order),
     their ``ent``, ``mask``, ``aux`` (``pmask``, ``paux``) arrays
-    concatenated, their offsets and the largest staging of a round.
-    Built at the first fused call on ``core`` and kept there."""
+    concatenated, their offsets, each level's ``hazard`` flag (``lhaz``:
+    K11 stages that level, as K6 does, in its own instance, ``haz``)
+    and the largest staging of a round or a flagged level. Built at the
+    first fused call on ``core`` and kept there."""
     if "fused" not in core:
         from .. import _build
 
@@ -1190,11 +1234,15 @@ def _fused_plan(core) -> dict:
             rd_ptrs=_build.ptr_array(rd), loff=_offsets(levels, dev),
             roff=_offsets(rounds, dev), n_levels=len(levels),
             n_rounds=len(rounds),
-            stage_w=max([r["stage_words"] for r in rounds] + [4]))
+            lhaz=torch.tensor([int(x["hazard"]) for x in levels] or [0],
+                              dtype=torch.int32, device=dev),
+            haz=any(x["hazard"] for x in levels),
+            stage_w=max([x["stage_words"] for x in rounds + levels] + [4]))
     return core["fused"]
 
 
-#: K11's resident blocks on each device (an occupancy query)
+#: K11's resident blocks by (device, the staging instance) (an occupancy
+#: query)
 _FIXPOINT_BLOCKS = {}
 
 
@@ -1215,9 +1263,10 @@ def fixpoint_kernel(core, cap: int):
                              dtype=torch.int32, device=dev)
                  for _ in range(4))
     _build, lib = screen_lib()
-    if str(dev) not in _FIXPOINT_BLOCKS:
-        _FIXPOINT_BLOCKS[str(dev)] = lib.prop_fixpoint_blocks()
-    blocks = min(n_states, _FIXPOINT_BLOCKS[str(dev)])
+    key = (str(dev), fp["haz"])
+    if key not in _FIXPOINT_BLOCKS:
+        _FIXPOINT_BLOCKS[key] = lib.prop_fixpoint_blocks(int(fp["haz"]))
+    blocks = min(n_states, _FIXPOINT_BLOCKS[key])
     stage_w = fp["stage_w"]
     stage = torch.empty((max(blocks, 1), stage_w), dtype=torch.int32,
                         device=dev)
@@ -1226,7 +1275,8 @@ def fixpoint_kernel(core, cap: int):
     per = torch.zeros(n_states, dtype=torch.int32, device=dev)
     rc = lib.prop_fixpoint(
         _build.ptr_array(tabs), n_states, n_rows, fp["lv_ptrs"],
-        _build.ptr(fp["loff"]), fp["n_levels"], fp["rd_ptrs"],
+        _build.ptr(fp["loff"]), _build.ptr(fp["lhaz"]), int(fp["haz"]),
+        fp["n_levels"], fp["rd_ptrs"],
         _build.ptr(fp["roff"]), fp["n_rounds"],
         _build.ptr_array([core[k] for k in keys]), n_v,
         core["assert_idx"].shape[1], _build.ptr(core["numeric"]),

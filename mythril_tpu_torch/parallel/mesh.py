@@ -18,8 +18,10 @@ otherwise that global batch is gathered onto the first device.
   own lanes halt, with no traffic between shards; the shards update in
   place, as ``stepper.run`` does.
 - ``live_lane_counts``: the RUNNING lanes per shard, kernel K12
-  ``lane_live`` (``csrc/mesh.cu``), and their total summed in the
-  process.
+  ``lane_live`` (``csrc/mesh.cu``): one launch a device over every
+  shard on it (``device_groups``), the counts written by the launch
+  into a pinned host buffer mapped into the card's address space, one
+  wait a device, and their total summed in the process.
 - ``compact_lanes``: the stable "running first" order (or a caller's
   ``order``, with JAX's index rule: a negative index wraps once, then
   an index out of range clamps), kernel K13 ``lane_order``, then every
@@ -40,6 +42,7 @@ import math
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..ops import stepper
@@ -203,20 +206,41 @@ def sharded_run(code, state: Union[LaneState, ShardedLanes],
     return sh
 
 
+def device_groups(mesh: Mesh):
+    """Each device of ``mesh`` with its shards: [(device, the shards'
+    indices in mesh order)], the devices in the order they first
+    appear. K12 runs once a device, over its group."""
+    groups = {}
+    for i, dev in enumerate(mesh.devices):
+        groups.setdefault(dev, []).append(i)
+    return list(groups.items())
+
+
 def live_lane_counts(state: Union[LaneState, ShardedLanes], mesh: Mesh):
     """(per-shard running-lane counts as an int32 numpy array, global
-    total): K12 over each device's shards, the total summed here."""
+    total): one K12 launch a device over its shards (the one batch the
+    shards are views of, or each shard's own copy), which writes the
+    counts into a pinned host buffer mapped into the cards' address
+    space and returns when they are there; the total summed here. On CPU
+    shards the plain version."""
     sh = state if isinstance(state, ShardedLanes) \
         else shard_lanes(state, mesh)
     if sh.whole is not None:
-        per = lane_live(sh.whole.status, mesh.size).cpu()
+        groups = [(sh.whole.status.device, [sh.whole.status], mesh.size,
+                   list(range(mesh.size)))]
     else:
-        per = []
-        for shard, dev in zip(sh.shards, mesh.devices):
-            with _on(dev):
-                per.append(lane_live(shard.status, 1).cpu())
-        per = torch.cat(per)
-    per = per.numpy()
+        groups = [(dev, [sh.shards[i].status for i in idx], 1, idx)
+                  for dev, idx in device_groups(mesh)]
+    per = np.zeros(mesh.size, np.int32)
+    for dev, statuses, spp, idx in groups:
+        if dev.type != "cuda":
+            per[idx] = torch.cat([lane_live_plain(x, spp)
+                                  for x in statuses]).numpy()
+            continue
+        view, addr = _live_host(mesh.size)
+        with _on(dev):
+            _live_launch(statuses, spp, host=addr, sync=True)
+        per[idx] = view[:len(idx)]
     return per, int(per.sum())
 
 
@@ -355,8 +379,12 @@ def gather_outputs(state: LaneState, n_out: int):
 
 
 _SIGS = {
-    "lane_live": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                  ctypes.c_void_p, ctypes.c_void_p],
+    "lane_live": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_longlong] + [ctypes.c_int] * 3
+    + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p],
+    "lane_live_blocks": [ctypes.c_int],
+    "live_host_alloc": [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+    "empty_launch": [ctypes.c_void_p],
     "lane_order": [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 4
     + [ctypes.c_void_p] * 3,
     "lane_order_blocks": [],
@@ -369,8 +397,6 @@ _SIGS = {
 #: 16-byte loads of the status plane) and the threads of a block
 ORDER_VEC = 16
 ORDER_THREADS = 256
-
-
 def lane_order_shape(n: int, resident: int):
     """K13's cooperative launch for ``n`` lanes: (blocks, tiles). A tile
     is ``ORDER_VEC`` lanes a thread of ``ORDER_THREADS``; block ``b``
@@ -424,6 +450,99 @@ def lane_order_tiled(status: torch.Tensor, n_dev: int, shape) -> torch.Tensor:
     return out
 
 
+#: K12 (csrc/mesh.cu ``k_lane_live``): the lanes of a warp's tile (16 a
+#: thread, from four 16-byte loads), the threads of a block of the grid
+#: sized to the card, the most a block a shard takes (8 shards of 32768
+#: lanes, 256 threads each, ran faster so than on the grid; 8 of 131072
+#: lanes, 1024 threads each, slower: PERF.md), and the status arrays one
+#: launch takes
+LIVE_TILE = 32 * ORDER_VEC
+LIVE_THREADS = 64
+LIVE_SHARD_THREADS = 256
+MAX_LIVE_ARRAYS = 64
+
+
+def lane_live_threads(per: int) -> int:
+    """K12's block for shards of ``per`` lanes: a warp a ``LIVE_TILE``
+    lanes of a shard, where a shard is a whole number of tiles of at
+    most ``LIVE_SHARD_THREADS`` threads (a block's chunk is then one
+    shard, whose sum the block writes with no atomic), else
+    ``LIVE_THREADS``."""
+    tiles, rest = divmod(per, LIVE_TILE)
+    if not rest and 0 < tiles * 32 <= LIVE_SHARD_THREADS:
+        return tiles * 32
+    return LIVE_THREADS
+
+
+def lane_live_shape(n_tiles: int, threads: int, resident: int) -> int:
+    """K12's grid for ``n_tiles`` warp tiles (``LIVE_TILE`` lanes) on
+    blocks of ``threads``: a tile a warp, no more blocks than
+    ``resident`` (the card's blocks of that size resident at once; each
+    block then takes several chunks), and at least one (a launch of no
+    lanes writes zeros)."""
+    return max(1, min(resident, -(-n_tiles // (threads // 32))))
+
+
+def lane_live_tiled(statuses, spp: int, blocks: int, threads: int):
+    """K12's arithmetic in plain Python, block by block as
+    ``k_lane_live`` walks the warp tiles of ``statuses`` (arrays of
+    ``spp`` shards of equal lanes, mesh order) on a grid of ``blocks``
+    blocks of ``threads``: thread t of a warp holds the lanes 4 t + 128 k
+    + r (k, r < 4) of its tile; each block's chunk (a tile a warp) sums,
+    for each shard it holds lanes of, their running lanes; a shard in
+    one chunk is written at once, the others when the sum that brings
+    them to their count of chunks (from the geometry alone) arrives.
+    Returns (the totals so written, shard ``j * spp + k`` for shard k of
+    array j, None where none was; for each array the shard each lane was
+    counted in, -1 for none; for each array how many times each lane was
+    counted)."""
+    per = statuses[0].shape[0] // spp
+    lanes = per * spp
+    tiles = -(-lanes // LIVE_TILE)
+    total = tiles * len(statuses)
+    warps = threads // 32
+    run = [(x == Status.RUNNING).tolist() for x in statuses]
+    shards = len(statuses) * spp
+    sums, adds, done = [0] * shards, [0] * shards, [None] * shards
+    owner = [[-1] * lanes for _ in statuses]
+    seen = [[0] * lanes for _ in statuses]
+    if lanes == 0:
+        return [0] * shards, owner, seen
+
+    def shard_of(g, lane):
+        arr = g // tiles
+        return arr * spp + ((g % tiles) * LIVE_TILE + lane) // per
+
+    def chunks_of(k):
+        j, q = divmod(k, spp)
+        t0 = j * tiles + q * per // LIVE_TILE
+        t1 = j * tiles + ((q + 1) * per - 1) // LIVE_TILE
+        return t1 // warps - t0 // warps + 1
+
+    for b in range(blocks):
+        for c0 in range(b * warps, total, blocks * warps):
+            c1 = min(c0 + warps, total) - 1
+            k0 = shard_of(c0, 0)
+            k1 = shard_of(c1, min(LIVE_TILE, lanes - (c1 % tiles)
+                                  * LIVE_TILE) - 1)
+            for k in range(k0, k1 + 1):
+                c = 0
+                for g in range(c0, c1 + 1):
+                    arr, start = g // tiles, (g % tiles) * LIVE_TILE
+                    for t in range(32):
+                        for j in range(16):
+                            i = start + 4 * t + 128 * (j // 4) + j % 4
+                            if i < lanes and shard_of(g, i - start) == k:
+                                c += run[arr][i]
+                                owner[arr][i] = k
+                                seen[arr][i] += 1
+                sums[k] += c
+                adds[k] += 1
+                if adds[k] == chunks_of(k):
+                    done[k] = sums[k]
+    return done, owner, seen
+
+
 def _lib():
     from .. import _build
 
@@ -431,21 +550,116 @@ def _lib():
 
 
 def lane_live(status: torch.Tensor, n_dev: int) -> torch.Tensor:
-    """RUNNING lanes per shard: K12 on a CUDA ``status``, the plain
-    version on a CPU one."""
+    """RUNNING lanes in each of ``n_dev`` equal shards of ``status``, a
+    tensor on its device: K12 on a CUDA ``status`` (one launch), the
+    plain version on a CPU one."""
     _per_shard(status.shape[0], n_dev)
     if status.device.type == "cpu":
         return lane_live_plain(status, n_dev)
+    out = torch.empty(n_dev, dtype=torch.int32, device=status.device)
+    _live_launch((status,), n_dev, out=out)
+    return out
+
+
+#: K12's launch arguments by (the status arrays' devices, addresses,
+#: shapes, strides and types, shards an array, stream): the pointer
+#: array, counters (zero between launches, which leave them so), block,
+#: grid and alignment, checked once; its blocks resident at once by
+#: (device, block); its mapped host buffers by shard count
+_LIVE_PLANS = {}
+_LIVE_RESIDENT = {}
+_LIVE_HOST = {}
+
+
+def _live_host(n: int):
+    """K12's host buffer for ``n`` counts, made once: pinned host memory
+    mapped into every card's address space, (an int32 numpy view of it,
+    its device address)."""
+    if n not in _LIVE_HOST:
+        from .. import _build
+
+        lib = _lib()
+        host, dev = ctypes.c_void_p(), ctypes.c_void_p()
+        _build.check(lib, lib.live_host_alloc(n, ctypes.byref(host),
+                                              ctypes.byref(dev)),
+                     "live_host_alloc")
+        view = np.ctypeslib.as_array(
+            (ctypes.c_int32 * max(n, 1)).from_address(host.value))
+        _LIVE_HOST[n] = (view, dev.value)
+    return _LIVE_HOST[n]
+
+
+def _live_plan(statuses, spp: int, stream):
+    """K12's launch arguments for ``statuses`` (contiguous CUDA int32
+    status arrays of one device, mesh order, each of ``spp`` shards of
+    equal lanes) on ``stream``, checked and made at the first launch:
+    (arrays, the pointer array, lanes a shard, blocks, threads, vec,
+    counters)."""
     from .. import _build
 
-    _build.need_cuda(status, torch.int32, "status")
-    out = torch.empty(n_dev, dtype=torch.int32, device=status.device)
+    key = (tuple((x.get_device(), x.data_ptr(), x.shape, x.stride(),
+                  x.dtype) for x in statuses), spp, stream.value)
+    plan = _LIVE_PLANS.get(key)
+    if plan is not None:
+        return plan
+    dev, n = statuses[0].device, statuses[0].shape[0]
+    if len(statuses) > MAX_LIVE_ARRAYS:
+        raise ValueError(f"lane_live: {len(statuses)} shard arrays on "
+                         f"{dev}, at most {MAX_LIVE_ARRAYS}")
+    for x in statuses:
+        _build.need_cuda(x, torch.int32, "status")
+        if x.device != dev or x.shape != (n,):
+            raise ValueError(f"lane_live: status arrays of {n} lanes on "
+                             f"{dev}, got {tuple(x.shape)} on {x.device}")
+    threads = lane_live_threads(n // spp)
+    if (dev.index, threads) not in _LIVE_RESIDENT:
+        with torch.cuda.device(dev):
+            _LIVE_RESIDENT[dev.index, threads] = _lib().lane_live_blocks(
+                threads)
+    if len(_LIVE_PLANS) >= 256:
+        _LIVE_PLANS.clear()
+    plan = _LIVE_PLANS[key] = (
+        len(statuses), _build.ptr_array(statuses), n // spp,
+        lane_live_shape(-(-n // LIVE_TILE) * len(statuses), threads,
+                        _LIVE_RESIDENT[dev.index, threads]), threads,
+        int(all(x.data_ptr() % 16 == 0 for x in statuses)),
+        torch.zeros(len(statuses) * spp, dtype=torch.int64, device=dev))
+    return plan
+
+
+def _live_launch(statuses, spp: int, out=None, host=None,
+                 sync: bool = False) -> None:
+    """One K12 launch over ``statuses`` (``_live_plan``) on the current
+    stream of their device: the counts into ``out`` (a CUDA int32 tensor
+    of a count a shard) and into the mapped host buffer at the device
+    address ``host``, where given; ``sync``: the call returns when the
+    launch has run."""
+    from .. import _build
+
+    stream = _build.stream(statuses[0].device)
+    arrays, ptrs, per, blocks, threads, vec, counters = _live_plan(
+        statuses, spp, stream)
+    if out is not None and (out.dtype != torch.int32 or not out.is_cuda
+                            or out.numel() < arrays * spp):
+        raise ValueError(f"lane_live: out must be a CUDA int32 tensor of "
+                         f"{arrays * spp} counts")
     lib = _lib()
-    rc = lib.lane_live(_build.ptr(status), status.shape[0], n_dev,
-                       _build.ptr(out), _build.stream(status.device))
+    rc = lib.lane_live(ptrs, arrays, spp, per, blocks, threads, vec,
+                       counters.data_ptr(),
+                       None if out is None else out.data_ptr(), host,
+                       int(sync), stream)
     _build.LAUNCHES["lane_live"] += 1
     _build.check(lib, rc, "lane_live")
-    return out
+
+
+def empty_launch(device) -> None:
+    """An empty kernel of one thread on ``device``'s current stream: the
+    launch floor K12 is timed against."""
+    from .. import _build
+
+    lib = _lib()
+    _build.check(lib, lib.empty_launch(_build.stream(torch.device(device))),
+                 "empty_launch")
 
 
 _ORDER_RESIDENT = {}

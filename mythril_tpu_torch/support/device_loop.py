@@ -1364,3 +1364,67 @@ def k13_edge_cases():
     cases.append(("mixed_131072",
                   rng.choice(every, 131072).astype(np.int32), devs(131072)))
     return cases
+
+
+#: K12's shard widths of a lane, 3 lanes and 5 lanes (a shard boundary
+#: inside a 16-lane tile), over 8 shards
+K12_SHARD_LANES = (1, 3, 5)
+
+
+def k12_edge_cases():
+    """The edge inputs of K12 (``parallel/mesh.lane_live`` and
+    ``live_lane_counts``): on the card ``chip_smoke.py`` holds K12 to
+    ``lane_live_plain`` on them, one launch a device a call; on the CPU
+    ``tests/test_torch_k12_edges.py`` holds the plain version and
+    ``live_lane_counts`` to the JAX ``live_lane_counts`` on the virtual
+    CPU devices. Each case: (name, status plane as int32 numpy, the
+    shard counts ``n_dev`` to count over: those of ``K13_DEVS`` that
+    divide n, the lanes of the status's storage before its first lane).
+
+    - every case of ``k13_edge_cases`` (``n`` 1-131072 lanes all, none,
+      alternating and last running; runs across K13's tiles; the seeded
+      mix of every status at 131072 lanes);
+    - ``shards_of_{1,3,5}``: 8 shards of 1, 3 and 5 lanes (K12's tiles
+      are 16 lanes, so several shards share one), a seeded mix of
+      statuses;
+    - ``offset_view``: 4104 lanes read from one lane into their storage
+      (a view only 4-byte aligned: K12's scalar loads), a seeded mix;
+    - ``tiles_and_shards_{32768,131072}``: runs of running lanes from one lane
+      before to one lane after each boundary of K12's tiles (16 lanes),
+      of a warp's tiles (512 lanes), of a block's (1024 lanes) and of
+      each shard count's shards, halted lanes elsewhere."""
+    halts = [Status.STOPPED, Status.RETURNED, Status.REVERTED,
+             Status.INVALID, Status.NEEDS_HOST, Status.SELFDESTRUCT]
+    every = [Status.RUNNING] + halts
+    rng = np.random.default_rng(12)
+
+    def devs(n):
+        return tuple(d for d in K13_DEVS if n % d == 0)
+
+    cases = [(name, st, ds, 0) for name, st, ds in k13_edge_cases()]
+    for w in K12_SHARD_LANES:
+        n = 8 * w
+        cases.append((f"shards_of_{w}",
+                      rng.choice(every, n).astype(np.int32), devs(n), 0))
+    cases.append(("offset_view", rng.choice(every, 4104).astype(np.int32),
+                  devs(4104), 1))
+    for n in (32768, 131072):
+        st = np.full(n, halts[1], np.int32)
+        edges = set(range(16, n, 16 * 67)) | set(range(512, n, 512)) \
+            | set(range(1024, n, 1024))
+        for d in devs(n):
+            edges |= set(range(n // d, n, n // d))
+        for edge in sorted(edges):
+            st[edge - 1:edge + 1] = Status.RUNNING
+        cases.append((f"tiles_and_shards_{n}", st, devs(n), 0))
+    return cases
+
+
+def k12_status(case, device) -> torch.Tensor:
+    """A K12 case's status plane on ``device``: a view ``offset`` lanes
+    into its storage."""
+    _, status, _, offset = case
+    buf = torch.full((offset + status.shape[0],), Status.STOPPED,
+                     dtype=torch.int32, device=resolve(device))
+    buf[offset:] = torch.from_numpy(status).to(buf.device)
+    return buf[offset:]

@@ -26,7 +26,8 @@ level (smt/terms.py).
 - ``edge_sets`` and ``k5_edge_cases``: the edge inputs of K6 and K7, and
   of K5 (encodings, some with their levels or seeds edited past what
   ``linearize`` makes: negative indices, a level that reads a row it
-  writes).
+  writes); ``k5_edge_plans``: the propagation plans of the latter, the
+  edge inputs of K6's staged level and of K11.
 
 The first two builders return (systems, expected keep).
 """
@@ -289,8 +290,9 @@ K5_WIDE = 300
 
 def _edited(enc, **levels):
     """A copy of an encoding whose levels are replaced by ``levels``
-    (index -> level dict) and whose seed slots, where given as
-    ``seed_idx``, by it."""
+    (``l<index>`` -> level dict); its seed slots are a copy to edit. It
+    keeps the host arrays of ``linearize`` (``propagate.build_plan``
+    reads them), not the layouts cached beside them."""
     import copy
 
     import numpy as np
@@ -300,7 +302,7 @@ def _edited(enc, **levels):
     out.seed_idx = np.array(enc.seed_idx)
     for key, lv in levels.items():
         out.levels[int(key[1:])] = lv
-    out.host = {}
+    out.host = {k: v for k, v in enc.host.items() if isinstance(k, str)}
     return out
 
 
@@ -413,3 +415,54 @@ def k5_edge_cases() -> dict:
     cases["bool_operands"] = I.linearize(
         [bools, bools[:3], [T.mk_ult(x, c(2))] + bools[3:], [p, q]])
     return cases
+
+
+#: the comparisons of ``k5_edge_plans``' ``staged_wide`` level: its
+#: staging (128 bytes a node) past a block's 227 KB of shared memory
+K6_STAGED_WIDE = 2048
+
+
+def k5_edge_plans() -> dict:
+    """The propagation plan (``ops/propagate.build_plan``, numpy arrays)
+    of each encoding of ``k5_edge_cases``, by name, and ``staged_wide``:
+    the edge inputs of K6 (level by level) and K11 (the whole fixpoint),
+    which ``chip_smoke.py`` holds to their plain versions.
+    ``reads_own_level``'s level 1 reads a row it writes: K6 and K11 stage
+    it. ``build_plan`` flags each node's row by indexing with it, which
+    ``negative_index``'s ULT node -T - 1 is below, so that case's plan is
+    the all-opcode wave's with level 1's nodes and operands and the seed
+    slots edited as the encoding's (level 1's row flags those of its
+    nodes before the edit, as ``tests/test_torch_k5_edges.py`` edits a
+    plan). ``staged_wide``: a level of ``K6_STAGED_WIDE`` comparisons
+    over one variable, 2 states, whose first comparison's operand wraps
+    onto its second's node (a level that reads a row it writes, staged
+    past a block's shared memory, in K6's global buffer)."""
+    import numpy as np
+
+    from ..ops import intervals as I
+    from ..ops.propagate import build_plan
+
+    cases = k5_edge_cases()
+    out = {name: build_plan(enc) for name, enc in cases.items()
+           if name != "negative_index"}
+    x = T.bv_var("kx", 256)
+    wide = [T.mk_ule(x, T.bv_const(5000 + i, 256))
+            for i in range(K6_STAGED_WIDE)]
+    enc = I.linearize([wide, wide[::-1]])
+    n_rows = enc.init_lo.shape[0]
+    lv = {k: np.array(v) for k, v in enc.levels[0].items()
+          if k != "ops_present"}
+    real = np.nonzero(lv["op"] != I.NOP)[0]
+    lv["args"][real[0], 0] = int(lv["node"][real[1]]) - n_rows
+    lv["ops_present"] = enc.levels[0]["ops_present"]
+    out["staged_wide"] = build_plan(_edited(enc, l0=lv))
+    neg = cases["negative_index"]
+    plan = build_plan(I.linearize(layered_sets()))
+    levels = list(plan.arrays["levels"])
+    for li, (lv, ed) in enumerate(zip(levels, neg.levels)):
+        levels[li] = dict(lv, **{k: np.asarray(ed[k]) for k in (
+            "node", "op", "args", "mask", "aux")})
+    plan.arrays = dict(plan.arrays, levels=tuple(levels),
+                       seed_idx=np.asarray(neg.seed_idx))
+    out["negative_index"] = plan
+    return out

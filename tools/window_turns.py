@@ -1,7 +1,8 @@
 """One kernel group's call and device times of one tree of this repo, to
 compare two commits in turns on one card.
 
-    python3 tools/window_turns.py [window|k9k10|k5k13|e2e] [--tree DIR]
+    python3 tools/window_turns.py [window|k9k10|k5k13|k12k6|k6fault|e2e]
+        [--tree DIR]
 
 Imports ``mythril_tpu_torch`` from ``DIR`` (default: this checkout; an
 older commit unpacked with ``git archive`` works the same way, as long
@@ -37,6 +38,25 @@ as the group's functions take the arguments they take here) and
   statuses of every kind (those of ``device_loop.k13_edge_cases``
   ``mixed_131072``), and their first 32768, with 1 and 8 shards. Means
   of 5;
+- ``k12k6``: K12 on 32768 and 131072 seeded statuses of every kind
+  (those of ``k13_edge_cases``' ``mixed_131072``) over 8 shards of the
+  card: ``lane_live`` (a device tensor), the library's per-shard sum,
+  ``live_lane_counts`` (the counts on the host) and the library's sum
+  pulled to the host; where the tree has K12's one-launch form, the
+  launch with its counts through the mapped host buffer it writes and
+  through one async copy into a pinned buffer, in turns inside the
+  group, its two block sizes forced (a block a shard; the grid of
+  64-thread blocks), and an empty kernel (the launch floor). Then
+  K6 on the 8192-system screen wave, level by level from its init
+  tables (each level's call and device time on fresh copies of its
+  input, summed over the levels), and K11 on the wave. Means of 20 (K6,
+  K11: of 5);
+- ``k6fault``: no times: K6 level by level, the K6-K8 driver and K11
+  against their plain versions on ``k5_edge_cases``' ``reads_own_level``
+  plan (``chip_smoke.prop_edge_diffs`` from the init, random and
+  once-swept tables; on a tree whose edited encodings dropped their
+  host arrays, those of a fresh ``linearize`` of the wave, which
+  numbers its rows the same): every word that differs;
 - ``e2e``: ``chip_smoke.py``'s end-to-end phases that run neither K5
   nor K13, with the tree's own ``chip_smoke.py``: the symbolic path
   (k=12 contract at 4096 lanes through ``support/runs.explore``) and
@@ -209,6 +229,114 @@ def k5k13_times(cs, dev, timed) -> None:
                   lambda: None, reps=5)
 
 
+def k12k6_times(cs, dev, timed) -> None:
+    """K12's, K6's and K11's times (the ``k12k6`` group)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mythril_tpu_torch.ops import propagate as P
+    from mythril_tpu_torch.ops import stepper as S
+    from mythril_tpu_torch.parallel import mesh as M
+
+    mixed = np.random.default_rng(13).choice(7, 131072).astype(np.int32)
+    mesh = M.Mesh([dev] * 8)
+    for n in (32768, 131072):
+        status = torch.from_numpy(mixed[:n]).to(dev)
+        batch = S.init_lanes(n, stack_depth=1, memory_bytes=4,
+                             storage_slots=1, calldata_bytes=4, device=dev)
+        sh = M.shard_lanes(dataclasses.replace(batch, status=status), mesh)
+        timed(f"lane_live, {n} lanes, 8 shards",
+              lambda _=None, s=status: M.lane_live(s, 8), lambda: None,
+              reps=20)
+        timed(f"library sum, {n} lanes, 8 shards",
+              lambda _=None, s=status: (s.view(8, -1) == 0).sum(1),
+              lambda: None, reps=20)
+        timed(f"live_lane_counts, {n} lanes, 8 shards",
+              lambda _=None, x=sh: M.live_lane_counts(x, mesh),
+              lambda: None, reps=20, device=False)
+        timed(f"library sum pulled to the host, {n} lanes, 8 shards",
+              lambda _=None, s=status: (s.view(8, -1) == 0).sum(1).cpu(),
+              lambda: None, reps=20, device=False)
+        if hasattr(M, "_live_launch"):
+            out = torch.empty(8, dtype=torch.int32, device=dev)
+            pinned = torch.empty(8, dtype=torch.int32, pin_memory=True)
+            view, addr = M._live_host(8)
+
+            def copied(_=None, s=status, o=out, h=pinned):
+                M._live_launch((s,), 8, out=o)
+                h.copy_(o, non_blocking=True)
+                torch.cuda.current_stream(dev).synchronize()
+                return h.numpy().copy()
+
+            def mapped(_=None, s=status):
+                M._live_launch((s,), 8, host=addr, sync=True)
+                return view[:8].copy()
+
+            want = M.live_lane_counts(sh, mesh)[0].tolist()
+            if copied().tolist() != want or mapped().tolist() != want:
+                raise AssertionError("K12: the host counts differ")
+            for what, fn in (("one async copy into a pinned buffer", copied),
+                             ("the mapped host buffer", mapped),
+                             ("the mapped host buffer", mapped),
+                             ("one async copy into a pinned buffer", copied)):
+                timed(f"K12 and {what}, {n} lanes, 8 shards", fn,
+                      lambda: None, reps=20, device=False)
+        if hasattr(M, "lane_live_threads"):
+            # K12's two block sizes on the same statuses: a block a
+            # shard, and the grid of 64-thread blocks with the shards'
+            # sums meeting in atomics
+            rule = M.lane_live_threads
+            try:
+                for what, threads in (("a block a shard", n // 8 // 16),
+                                      ("64-thread blocks", 64)):
+                    M.lane_live_threads = lambda per, t=threads: t
+                    M._LIVE_PLANS.clear()
+                    timed(f"lane_live, {n} lanes, 8 shards, {what}",
+                          lambda _=None, s=status: M.lane_live(s, 8),
+                          lambda: None, reps=20)
+            finally:
+                M.lane_live_threads = rule
+                M._LIVE_PLANS.clear()
+    if hasattr(M, "empty_launch"):
+        timed("an empty kernel (the launch floor)",
+              lambda _=None: M.empty_launch(dev), lambda: None, reps=20)
+    torch.cuda.empty_cache()
+    _, _, _, plan, core = cs.screen_wave(dev)
+    lay = P.kernel_layout(core)
+    tabs = P.init_tables_kernel(core)
+    k6 = {"call_ms": 0.0, "device_ms": 0.0}
+    for level in lay["levels"]:
+        k6["call_ms"] += cs.cuda_ms(
+            lambda x, lv=level: P.fwd_level_kernel(lv, x), reps=5,
+            setup=lambda t=tabs: cs.clone_all(t))
+        k6["device_ms"] += cs.queued_ms(
+            lambda x, lv=level: P.fwd_level_kernel(lv, x),
+            lambda t=tabs: cs.clone_all(t), reps=5)
+        tabs = cs.clone_all(tabs)
+        P.fwd_level_kernel(level, tabs)
+    cap = plan.statics[0]
+    timed("prop_fixpoint, screen wave",
+          lambda _=None: P.fixpoint_kernel(core, cap), lambda: None, reps=5)
+    return {"prop_fwd_level, screen wave, every level (summed)": k6}
+
+
+def k6fault_diffs(cs, dev, timed) -> dict:
+    """The ``k6fault`` group's differences (``timed`` unused)."""
+    from mythril_tpu_torch.ops import intervals as I
+    from mythril_tpu_torch.ops import propagate as P
+    from mythril_tpu_torch.support.screen_waves import (k5_edge_cases,
+                                                        layered_sets)
+
+    enc = k5_edge_cases()["reads_own_level"]
+    if not enc.host:
+        enc.host = I.linearize(layered_sets()).host
+    core = P.plan_to_device(P.build_plan(enc), dev)
+    diffs = cs.prop_edge_diffs(dev, core, cs.prop_starts(core))
+    return {"reads_own_level": [list(d) for d in diffs]}
+
+
 def e2e_walls(cs, dev, timed) -> dict:
     """The ``e2e`` group's walls (s), with the tree's ``chip_smoke.py``
     (``cs``; ``timed`` unused)."""
@@ -240,7 +368,7 @@ def e2e_walls(cs, dev, timed) -> dict:
 
 #: each group times through ``timed``, or returns its numbers
 GROUPS = {"window": window_times, "k9k10": k9k10_times, "k5k13": k5k13_times,
-          "e2e": e2e_walls}
+          "k12k6": k12k6_times, "k6fault": k6fault_diffs, "e2e": e2e_walls}
 
 
 def main(argv=None) -> int:
@@ -273,10 +401,15 @@ def main(argv=None) -> int:
     times = {}
 
     def timed(what, fn, setup, reps=3, device=True):
-        times[what] = {"call_ms": cs.cuda_ms(fn, reps=reps, setup=setup)}
+        """Time fn; a thing timed again (turns inside a group) keeps the
+        mean of its timings."""
+        got = {"call_ms": cs.cuda_ms(fn, reps=reps, setup=setup)}
         if device:
-            times[what]["device_ms"] = cs.queued_ms(fn, setup, reps=reps)
+            got["device_ms"] = cs.queued_ms(fn, setup, reps=reps)
         torch.cuda.synchronize()
+        if what in times:
+            got = {k: (v + times[what][k]) / 2 for k, v in got.items()}
+        times[what] = got
 
     times.update(GROUPS[args.group](cs, dev, timed) or {})
     print(json.dumps({"tree": tree, "group": args.group, "card": cs.smi(),
