@@ -90,7 +90,20 @@ Phases (any failure exits non-zero and prints no result):
    a TCPStore on localhost, ``--tpu-lanes 64``, stealing on) over the
    18 fixtures: no rank fails, every fixture is analysed by one rank,
    and the merged report has, fixture by fixture, the JAX package's
-   corpus-mode issues (``tests/torch_data/corpus_issues.json``);
+   corpus-mode issues (``tests/torch_data/corpus_issues.json``); the
+   meshed lane engine (``check_mesh_engine``) on MESH_SHARDS shards of
+   this card: every window and escalation retire of the k=12 sweeps at
+   256 and 64 lanes bit for bit against the same exchange over CPU
+   copies (every phase's plain version), K9 a shard against its plain
+   version and K9 over the gathered batch, then every path of the k=12
+   contract through SymExecWrapper at 4096 lanes with the engine
+   meshed (its launches, counted from a reset, are the meshed main
+   path's: K1's shard phases, its fork rows, K2-K4, K3's remap and
+   K4's rows a shard), its open states equal to the unsharded engine's
+   and the host-only run's, both explores timed, and the new kernels'
+   times; the concolic command: ``python3 -m mythril_tpu_torch
+   concolic`` flips the branch of tests/test_concolic.py's contract
+   and the solved input, replayed concretely, takes it;
 6. the device loop alone (``support/device_loop.DeviceLoop``, raw
    seeds): k=12 at 4096 lanes with the kernels and with the plain
    versions, every window's outputs equal; the wide run, k=17 at 131072
@@ -3109,6 +3122,502 @@ def check_k13_edges(dev):
         f"{time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# the meshed lane engine (a window's phases a shard)
+# ---------------------------------------------------------------------------
+
+#: the meshed engine's shards on one card, and the (width, window) of
+#: the sweeps whose every window is held against the sharded plain
+#: versions
+MESH_SHARDS = 8
+MESH_HOLDS = ((256, None), (64, 32))
+
+
+def mesh_to_cpu(ss):
+    """A copy of a ``SymShards`` on a mesh of CPU shards: the same
+    exchange then runs every phase's plain version."""
+    from mythril_tpu_torch.parallel.mesh import Mesh, SymShards
+
+    return SymShards(Mesh(["cpu"] * ss.mesh.size),
+                     [to_cpu(s) for s in ss.shards], to_cpu(ss.home))
+
+
+def mesh_clone(ss):
+    from mythril_tpu_torch.ops.symstep import FIELDS
+    from mythril_tpu_torch.parallel.mesh import SymShards
+
+    def clone(st):
+        return st.replace(**{f: getattr(st, f).clone() for f in FIELDS})
+
+    return SymShards(ss.mesh, [clone(s) for s in ss.shards], clone(ss.home))
+
+
+def mesh_restore(dst, src):
+    for a, b in zip(dst.shards + [dst.home], src.shards + [src.home]):
+        restore(a, b)
+    return dst
+
+
+def code_to_cpu(cc):
+    from mythril_tpu_torch.ops.stepper import CompiledCode
+
+    return CompiledCode(packed=cc.packed.cpu(), size=cc.size)
+
+
+class MeshSpy:
+    """While installed (``with``): the meshed engine's window dispatches
+    and escalation retires; with ``hold`` each is held bit for bit (its
+    outputs, the whole batch after it, the visited bitmap) against the
+    same exchange over a CPU copy of its input, every phase there the
+    plain version; with ``keep`` the first window's input and outputs
+    and K1's first input are kept (device copies) for the timings."""
+
+    def __init__(self, hold=False, keep=False):
+        self.hold, self.keep = hold, keep
+        self.windows = self.retires = self.err = 0
+        self.first = self.k1 = None
+
+    def __enter__(self):
+        from mythril_tpu_torch.laser import lane_engine as le
+        from mythril_tpu_torch.ops import symstep
+
+        self.le, self.sym = le, symstep
+        self.orig = (le.window_exec_mesh, le.retire_rows_mesh,
+                     symstep.sym_run_mesh)
+        le.window_exec_mesh, le.retire_rows_mesh = self.window, self.retire
+        symstep.sym_run_mesh = self.run
+        return self
+
+    def __exit__(self, *exc):
+        (self.le.window_exec_mesh, self.le.retire_rows_mesh,
+         self.sym.sym_run_mesh) = self.orig
+
+    def run(self, codes, ss, *a, **kw):
+        if self.keep and self.k1 is None:
+            self.k1 = (codes, mesh_clone(ss), a, kw)
+        return self.orig[2](codes, ss, *a, **kw)
+
+    def window(self, ss, codes, i32b, u8b, *rest):
+        import torch
+
+        cpu = mesh_to_cpu(ss) if self.hold else None
+        vis = rest[6]
+        first = self.keep and self.first is None
+        if first:
+            before = mesh_clone(ss)
+        out = self.orig[0](ss, codes, i32b, u8b, *rest)
+        if first:
+            self.first = (before, codes, i32b, u8b, rest, out)
+        if self.hold:
+            codes_cpu = {torch.device("cpu"): code_to_cpu(codes[ss.device])}
+            want = self.orig[0](cpu, codes_cpu, i32b, u8b, *rest[:6],
+                                None if vis is None else vis.cpu(), rest[7])
+            what = f"meshed window {self.windows}"
+            self.err = max(self.err,
+                           same_outputs(list(out[2]), list(want[2]), what),
+                           same_state(to_cpu(out[0].lanes()),
+                                      want[0].lanes(), what))
+            if vis is not None and not torch.equal(out[1].cpu(), want[1]):
+                raise AssertionError(f"{what}: visited differs")
+        self.windows += 1
+        return out
+
+    def retire(self, ss, ridx, *floors):
+        cpu = mesh_to_cpu(ss) if self.hold else None
+        out = self.orig[1](ss, ridx, *floors)
+        if self.hold:
+            want = self.orig[1](cpu, ridx.cpu(), *floors)
+            what = f"meshed retire {self.retires}"
+            self.err = max(self.err,
+                           same_outputs(list(out[1]), list(want[1]), what),
+                           same_state(to_cpu(out[0].lanes()),
+                                      want[0].lanes(), what))
+        self.retires += 1
+        return out
+
+
+def mesh_engine(mesh):
+    """``pick_mesh`` answering ``mesh`` (None: the policy's answer):
+    the card has one device, so the meshed engine's sweeps are asked
+    for over shards of it."""
+    from mythril_tpu_torch.laser import lane_engine as le
+
+    orig = le.pick_mesh
+
+    class Use:
+        def __enter__(self):
+            if mesh is not None:
+                le.pick_mesh = lambda width: mesh
+            return self
+
+        def __exit__(self, *exc):
+            le.pick_mesh = orig
+
+    return Use()
+
+
+def mesh_phase_times(spy, report, launches):
+    """Each new kernel of the meshed window (K1's shard phases, its fork
+    rows, K3's remap and K4's rows a shard) on the main path's first
+    window (K1's phases at its first forking step), all shards of a
+    call together: wrapper call (CUDA events), device (queued behind a
+    spin kernel), plain version (the same exchange on a CPU copy) and a
+    byte bound; exact against the plain version. Fails where the window
+    has no step that forks, or a kernel is not launched in its timed
+    calls."""
+    import numpy as np
+    import torch
+
+    from mythril_tpu_torch import _build
+    from mythril_tpu_torch.laser import lane_engine as le
+    from mythril_tpu_torch.ops import symstep as S
+
+    codes, k1_in = spy.k1[0], spy.k1[1]
+    ex, ta = spy.k1[2][1:3]
+    cpu_codes = {torch.device("cpu"): code_to_cpu(codes[k1_in.device])}
+
+    def phases(state):
+        return S.shard_phases(codes if state.device.type == "cuda"
+                              else cpu_codes, state, ex, ta)
+
+    def decide_all(sh):
+        return [r() for r in [p.decide() for p in sh]]
+
+    # from K1's first input, the first step at which lanes fork
+    for _ in range(spy.k1[2][0]):
+        if sum(c[0] for c in decide_all(phases(k1_in))):
+            break
+        S.sym_run_mesh(codes, k1_in, 1, ex, ta)
+    else:
+        raise AssertionError("meshed window: no step requests a fork")
+    ss = mesh_clone(k1_in)
+    n, m = ss.n, ss.per
+    home = ss.home
+    free_count, flog_count = int(home.free_count), int(home.flog_count)
+    step_no = int(home.step_no)
+    navail = min(free_count, min(S.MAX_FORKS_PER_STEP, n), n - flog_count)
+
+    def exec_all(sh, counts):
+        off, st = 0, []
+        for p, (req, _) in zip(sh, counts):
+            k = max(0, min(req, navail - off))
+            st.append((p.execute(off, navail, free_count, flog_count,
+                                 step_no, k), off, k))
+            off += req
+        return st, max(0, min(off, navail))
+
+    def ready():
+        """the input restored, its shards' phases and decisions made"""
+        mesh_restore(ss, k1_in)
+        sh = phases(ss)
+        return sh, decide_all(sh)
+
+    sh, counts = ready()
+    running = sum(c[1] for c in counts)
+    dec_bytes = sh[0].dec.numel() // m
+    cpu = mesh_to_cpu(k1_in)
+    t0 = time.perf_counter()
+    csh = phases(cpu)
+    ccounts = decide_all(csh)
+    plain_decide = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    cstash, cnf = exec_all(csh, ccounts)
+    plain_exec = (time.perf_counter() - t0) * 1e3
+    if ccounts != counts:
+        raise AssertionError(f"sym_decide: counts {counts} != {ccounts}")
+    stashes, nf = exec_all(sh, counts)
+    if not nf:
+        raise AssertionError(f"meshed window: the forking step forks "
+                             f"nothing (requests {counts}, {navail} "
+                             f"slots)")
+    child = k1_in.home.free_slots.cpu().numpy()[
+        np.clip(free_count - 1 - np.arange(nf), 0, n - 1)]
+    t0 = time.perf_counter()
+    S.fork_rows(csh, cstash, child, m)
+    plain_forks = (time.perf_counter() - t0) * 1e3
+    S.fork_rows(sh, stashes, child, m)
+    torch.cuda.synchronize()
+    err = same_state(to_cpu(ss.lanes()), cpu.lanes(), "K1 a shard, a step")
+    for (a, _, k), (b, _, _) in zip(stashes, cstash):
+        err = max(err, max_err(a[:, :k].cpu(), b[:, :k]))
+    row_bytes = sh[0].row_bytes - 16
+
+    def timed_exec(x):
+        exec_all(*x)
+
+    def timed_forks(x):
+        S.fork_rows(x[0], x[1], child, m)
+
+    def forks_setup():
+        s, c = ready()
+        return s, exec_all(s, c)[0]
+
+    mesh_restore(ss, k1_in)
+    decided = phases(ss)
+    rows = {
+        "sym_decide": (lambda: decide_all(decided), None, plain_decide,
+                       n * (4 + dec_bytes)),
+        "sym_exec": (timed_exec, ready, plain_exec,
+                     n * dec_bytes + running * 16),
+        "sym_fork_rows": (timed_forks, forks_setup, plain_forks,
+                          2 * nf * row_bytes),
+    }
+    # K3's remap and K4's rows a shard, on the first window's end state
+    before, wcodes, i32b, u8b, rest, out = spy.first
+    ss_end = out[0]
+    home_end = ss_end.home
+    canon = le.dedup_kernel(home_end, write_sids=False)
+    ridx, hidx = out[2].home[4], out[2].home[8]
+    end = mesh_clone(ss_end)
+    cend = mesh_to_cpu(end)
+    t0 = time.perf_counter()
+    for i, st in enumerate(cend.shards):
+        cend.shards[i] = le.remap_shard_plain(st, canon.cpu())
+    plain_remap = (time.perf_counter() - t0) * 1e3
+    for st in end.shards:
+        le.remap_shard_kernel(st, canon)
+    err = max(err, same_state(to_cpu(end.lanes()), cend.lanes(),
+                              "K3's remap a shard"))
+    t0 = time.perf_counter()
+    prow = [le.shard_rows_plain(st, i * m, ridx.cpu(), hidx.cpu())[1]
+            for i, st in enumerate(cend.shards)]
+    plain_rows = (time.perf_counter() - t0) * 1e3
+    krow = [le.shard_rows_kernel(st, i * m, ridx, hidx)[1]
+            for i, st in enumerate(end.shards)]
+    for a, b in zip(krow, prow):
+        err = max(err, same_outputs([x.cpu() for x in a], list(b),
+                                    "K4's rows a shard"))
+    st0 = end.shards[0]
+    sid_bytes = 4 * n * (st0.stack.shape[1] + 2 * st0.skeys.shape[1]
+                         + st0.mlog_off.shape[1])
+    row_out = sum(x.numel() * x.element_size() for x in krow[0])
+
+    def remap_all(_=None):
+        for st in end.shards:
+            le.remap_shard_kernel(st, canon)
+
+    def rows_all(_=None):
+        for i, st in enumerate(end.shards):
+            le.shard_rows_kernel(st, i * m, ridx, hidx)
+
+    rows.update({
+        "window_remap": (remap_all, None, plain_remap, sid_bytes),
+        "window_rows": (rows_all, None, plain_rows, 2 * row_out),
+    })
+    for name, (fn, setup, plain, nbytes) in rows.items():
+        before = _build.LAUNCHES[name]
+        ms = cuda_ms(fn, reps=3, setup=setup)
+        dms = queued_ms(fn if setup else (lambda _: fn()),
+                        setup or (lambda: None))
+        if _build.LAUNCHES[name] <= before:
+            raise AssertionError(f"{name}: not launched in its timed calls")
+        b, by = bound_ms(nbytes)
+        report[name] = dict(max_abs_err=err, ms=round(ms, 4),
+                            plain_ms=round(plain, 2),
+                            device_ms=round(dms, 4), bound_ms=round(b, 6),
+                            bound_by=by, library_ms=None)
+        log(f"  {name} (all {len(ss.shards)} shards, main path's first "
+            f"window): call {ms:.4f} ms, device {dms:.4f} ms, plain "
+            f"{plain:.2f} ms, bound {b:.6f} ms ({by}), {launches[name]} "
+            f"launches on the main path")
+    return err
+
+
+def check_mesh_engine(dev, card, report, host_open=None):
+    """The meshed lane engine on one card: first every window and
+    escalation retire of the k=12 contract's sweeps at MESH_HOLDS's
+    widths over MESH_SHARDS shards of this card held bit for bit against
+    the same exchange over CPU copies (each phase's plain version), and
+    K9 a shard on its end state against its plain version and against
+    K9 over the gathered batch; then the main path: every path of the
+    k=12 contract through the port's SymExecWrapper at MAIN_LANES lanes
+    with the engine over MESH_SHARDS shards (counts reset before, read
+    after: K1's shard phases, its fork rows, K2, K3 and its remap, K4
+    and its rows, each launched), its open states equal to the unsharded
+    engine's (run just before it, timed) and to the host-only run's;
+    then the new kernels' times on its first window. Returns the main
+    path's launches."""
+    from copy import deepcopy
+
+    import torch
+
+    from mythril_tpu_torch import _build
+    from mythril_tpu_torch.laser import lane_engine as le
+    from mythril_tpu_torch.parallel.mesh import Mesh
+    from mythril_tpu_torch.support import runs
+    from mythril_tpu_torch.support.contracts import build_symbolic_contract
+
+    mesh = Mesh([dev] * MESH_SHARDS)
+    code, paths = build_symbolic_contract(MAIN_K)
+    if le.pick_mesh(MAIN_LANES) is not None:
+        raise AssertionError("pick_mesh: a mesh on a one-card machine")
+    # the holds: a sweep through the engine at each of MESH_HOLDS
+    from mythril_tpu_torch.laser.lane_engine import LaneEngine
+    from mythril_tpu_torch.support.runs import entry_states
+
+    def sig(gs):
+        return (gs.mstate.pc, tuple(map(repr, gs.mstate.stack)),
+                tuple(map(repr, gs.world_state.constraints)),
+                gs.mstate.min_gas_used, gs.mstate.max_gas_used)
+
+    entries = entry_states(code.hex())
+    for lanes, window in MESH_HOLDS:
+        le._STATE_POOL.clear()
+        with MeshSpy(hold=True) as spy:
+            eng = LaneEngine(n_lanes=lanes, window=window, mesh=mesh)
+            parked = eng.explore(code, deepcopy(entries))
+        one = LaneEngine(n_lanes=lanes, window=window)
+        want = one.explore(code, deepcopy(entries))
+        if list(map(sig, parked)) != list(map(sig, want)) \
+                or eng.stats["windows"] != one.stats["windows"] \
+                or eng.stats["forks"] != one.stats["forks"]:
+            raise AssertionError(f"meshed sweep at {lanes} lanes: "
+                                 f"{len(parked)} states, {eng.stats} "
+                                 f"against the unsharded engine's "
+                                 f"{len(want)}, {one.stats}")
+        log(f"meshed engine held: {spy.windows} windows and "
+            f"{spy.retires} escalation retires of the k={MAIN_K} sweep "
+            f"at {lanes} lanes (window {eng.window}) over {MESH_SHARDS} "
+            f"shards of this card equal to the sharded plain versions "
+            f"(outputs, batch, visited); {len(parked)} states, "
+            f"{eng.stats['windows']} windows, {eng.stats['forks']} "
+            f"forks, as the unsharded engine")
+    # K9 a shard on a held end state: a mesh window's end state of the
+    # main path is taken below; here the engine's pooled batch
+    ss = le._STATE_POOL[eng._shape_key()][-1]
+    pairs = [le._prov_pairs(eng._prov, eng.n_lanes,
+                            eng.lane_kwargs.get("dlog_records", 64), s.device)
+             for s in ss.shards]
+    fp = torch.cat([le.merge_fingerprint(s, p, ss.n)
+                    for s, p in zip(ss.shards, pairs)]).cpu()
+    cpu = mesh_to_cpu(ss)
+    fp_plain = torch.cat([le.merge_fingerprint(s, p.cpu(), ss.n)
+                          for s, p in zip(cpu.shards, pairs)])
+    fp_whole = le.merge_fingerprint(ss.lanes(), pairs[0]).cpu()
+    err = max(max_err(fp, fp_plain), max_err(fp, fp_whole))
+    if err:
+        raise AssertionError("K9 a shard differs")
+    log(f"K9 a shard ({MESH_SHARDS} launches) equal to its plain version "
+        f"and to K9 over the gathered batch")
+
+    # the main path: unsharded, then meshed, each timed (runs.explore
+    # leaves the lane width at 0: the later phases get theirs back)
+    from mythril_tpu_torch.support.support_args import args
+
+    lanes = args.tpu_lanes
+    le.PATH_HISTORY[code] = paths
+    torch.cuda.synchronize()
+    n_one, _, wall_one = runs.explore(code, MAIN_LANES)
+    le._STATE_POOL.clear()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with mesh_engine(mesh), MeshSpy(keep=True) as spy:
+        n_mesh, stats, wall = runs.explore(code, MAIN_LANES)
+        torch.cuda.synchronize()
+    args.tpu_lanes = lanes
+    launches = dict(_build.LAUNCHES)
+    new = ("sym_decide", "sym_exec", "sym_fork_rows", "window_remap",
+           "window_rows", "window_prologue", "window_dedup",
+           "window_epilogue", "sym_init")
+    missing = [k for k in new if launches[k] <= 0]
+    if missing or launches["sym_run"]:
+        raise AssertionError(f"meshed main path: launches {launches} "
+                             f"(none of {missing}; the unsharded K1 "
+                             f"{launches['sym_run']})")
+    if n_mesh != n_one or (host_open is not None and n_mesh != host_open) \
+            or n_mesh != paths:
+        raise AssertionError(f"meshed main path: {n_mesh} open states, "
+                             f"unsharded {n_one}, host-only {host_open}")
+    log(f"meshed main path k={MAIN_K} at {MAIN_LANES} lanes over "
+        f"{MESH_SHARDS} shards of this card: {n_mesh} open states (the "
+        f"unsharded engine's {n_one}, host-only {host_open}), "
+        f"{stats['windows']} windows, {stats['forks']} forks, "
+        f"{stats['device_steps']} device steps; explore {wall:.3f} s "
+        f"({paths / wall:.1f} paths/s), unsharded {wall_one:.3f} s "
+        f"({paths / wall_one:.1f} paths/s) on {card}; launches "
+        f"{ {k: launches[k] for k in new} }")
+    report["mesh_explore_s"] = round(wall, 3)
+    report["one_explore_s"] = round(wall_one, 3)
+    mesh_phase_times(spy, report, launches)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the concolic command
+# ---------------------------------------------------------------------------
+
+def branchy_code():
+    """if calldata[0:32] == 42: storage[1] = 1 else storage[1] = 2 (the
+    contract of tests/test_concolic.py): (runtime hex, the JUMPI's
+    address, the then-branch's JUMPDEST)."""
+    from mythril_tpu_torch.support.opcodes import ADDRESS, OPCODES
+
+    op = {name: d[ADDRESS] for name, d in OPCODES.items()}
+
+    def push(v):
+        return bytes([op["PUSH1"], v])
+
+    c = bytearray(push(0) + bytes([op["CALLDATALOAD"]]))
+    c += push(42) + bytes([op["EQ"]])
+    at = len(c) + 1
+    c += push(0) + bytes([op["JUMPI"]])
+    jumpi = len(c) - 1
+    c += push(2) + push(1) + bytes([op["SSTORE"], op["STOP"]])
+    then = len(c)
+    c += bytes([op["JUMPDEST"]]) + push(1) + push(1)
+    c += bytes([op["SSTORE"], op["STOP"]])
+    c[at] = then
+    return c.hex(), jumpi, then
+
+
+def concrete_data(code_hex, tx_input="00" * 32):
+    contract = "0x" + "aa" * 20
+    return {"initialState": {"accounts": {contract: {
+        "balance": "0x0", "code": code_hex, "nonce": 0, "storage": {}}}},
+        "steps": [{"address": contract, "origin": "0x" + "bb" * 20,
+                   "input": tx_input, "gasLimit": "0x7ffffff"}]}
+
+
+def concolic_path(card):
+    """``python3 -m mythril_tpu_torch concolic FILE --branches JUMPI`` on
+    this card (the lane engine at its default width): it prints the one
+    flipped transaction sequence, whose solved input is 42, and that
+    input, replayed concretely (``concolic.find_trace``), takes the
+    branch the original input did not."""
+    import tempfile
+
+    from mythril_tpu_torch.concolic.find_trace import concrete_execution
+
+    code_hex, jumpi, then = branchy_code()
+    _, trace0 = concrete_execution(concrete_data(code_hex))
+    if then in trace0[0] or jumpi not in trace0[0]:
+        raise AssertionError(f"concolic: the original trace {trace0[0]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "concrete.json")
+        with open(path, "w") as f:
+            json.dump(concrete_data(code_hex), f)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "mythril_tpu_torch", "concolic", path,
+             "--branches", str(jumpi)], cwd=HERE, capture_output=True,
+            text=True, timeout=600)
+        wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"concolic exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout)
+    new_input = out[0]["steps"][-1]["input"] if len(out) == 1 else ""
+    if len(out) != 1 or int(new_input[2:66] or "0", 16) != 42:
+        raise AssertionError(f"concolic: the branch was not flipped: {out}")
+    _, trace1 = concrete_execution(concrete_data(code_hex, new_input[2:]))
+    if then not in trace1[0]:
+        raise AssertionError(f"concolic: the solved input {new_input} "
+                             f"replays {trace1[0]}")
+    log(f"concolic: python3 -m mythril_tpu_torch concolic flipped the "
+        f"JUMPI at {jumpi} in {wall:.1f} s; the solved input (42), "
+        f"replayed, takes the branch at {then} on {card}")
+
+
 def mesh_path(dev, card, report):
     """The scale-out path (``parallel/mesh.py``) at full width:
     ``bench_device``'s batch (32768 lanes of 1324 bytes) on a mesh of 8
@@ -4209,6 +4718,16 @@ ROWS = [
      "mythril_tpu/laser/lane_engine.py:1196"),
 ]
 
+#: the kernels the meshed engine adds to its main path (the window's
+#: phases a shard): (name, source, TPU kernel)
+MESH_ROWS = [
+    ("sym_decide", "symstep.cu", "mythril_tpu/ops/symstep.py:419"),
+    ("sym_exec", "symstep.cu", "mythril_tpu/ops/symstep.py:419"),
+    ("sym_fork_rows", "symstep.cu", "mythril_tpu/ops/symstep.py:1264"),
+    ("window_remap", "window.cu", "mythril_tpu/laser/lane_engine.py:771"),
+    ("window_rows", "window.cu", "mythril_tpu/laser/lane_engine.py:1196"),
+]
+
 #: the kernels of the screen path, with the run (propagation on or off)
 #: that launches them
 SCREEN_ROWS = [
@@ -4344,15 +4863,140 @@ def corpus_mode(card):
     return makespan
 
 
+def mesh_cards(devs):
+    """The meshed engine over every card (a shard a card, the fork rows
+    and the home's gathers peer copies) against the engine on card 0:
+    the k=12 contract's sweep at MAIN_LANES lanes, every window's
+    outputs equal, the same states and visited bitmap, both explores
+    timed; then ``sym_vis_or`` (the shards' bitmaps ORed on card 0, the
+    one kernel only distinct cards launch) on seeded bitmaps of the
+    sweep's length against its plain version, with its row of the
+    kernel table: call and device ms (card 1's bitmap into card 0's,
+    its peer copy included), the plain ``visited | src`` on the CPU,
+    the byte bound and ``bitwise_or_`` after the same copy."""
+    from copy import deepcopy
+
+    import numpy as np
+    import torch
+
+    from mythril_tpu_torch import _build
+    from mythril_tpu_torch.laser import lane_engine as le
+    from mythril_tpu_torch.ops import symstep as S
+    from mythril_tpu_torch.parallel.mesh import Mesh
+    from mythril_tpu_torch.support.contracts import build_symbolic_contract
+    from mythril_tpu_torch.support.runs import entry_states
+
+    code, _ = build_symbolic_contract(MAIN_K)
+    entries = entry_states(code.hex())
+    outs = {"mesh": [], "one": []}
+    orig = (le.window_exec_mesh, le.window_exec)
+
+    def spy(fn, key):
+        def call(*a, **kw):
+            r = fn(*a, **kw)
+            outs[key].append([x.cpu() for x in list(r[2])])
+            return r
+        return call
+
+    def sig(gs):
+        return (gs.mstate.pc, tuple(map(repr, gs.mstate.stack)),
+                tuple(map(repr, gs.world_state.constraints)))
+
+    le.window_exec_mesh = spy(orig[0], "mesh")
+    le.window_exec = spy(orig[1], "one")
+    try:
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        eng = le.LaneEngine(n_lanes=MAIN_LANES, mesh=Mesh(devs))
+        got = eng.explore(code, deepcopy(entries))
+        for d in devs:
+            torch.cuda.synchronize(d)
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        t0 = time.perf_counter()
+        one = le.LaneEngine(n_lanes=MAIN_LANES, device=devs[0])
+        want = one.explore(code, deepcopy(entries))
+        torch.cuda.synchronize(devs[0])
+        wall_one = time.perf_counter() - t0
+    finally:
+        le.window_exec_mesh, le.window_exec = orig
+    if len(outs["mesh"]) != len(outs["one"]) or not outs["mesh"]:
+        raise AssertionError(f"meshed engine over {len(devs)} cards: "
+                             f"{len(outs['mesh'])} windows, one card "
+                             f"{len(outs['one'])}")
+    for w, (a, b) in enumerate(zip(outs["mesh"], outs["one"])):
+        same_outputs(a, b, f"meshed window {w} over {len(devs)} cards")
+    if list(map(sig, got)) != list(map(sig, want)):
+        raise AssertionError("meshed engine over the cards: other states")
+    vis, vis_one = eng.visited_by_code[code], one.visited_by_code[code]
+    if not vis.any() or not np.array_equal(vis, vis_one):
+        raise AssertionError(f"meshed engine over the cards: visited "
+                             f"{int(vis.sum())} pcs, one card "
+                             f"{int(vis_one.sum())}, "
+                             f"{int((vis != vis_one).sum())} differ")
+    if launches.get("sym_vis_or", 0) < len(devs) - 1:
+        raise AssertionError(f"meshed engine over the cards: sym_vis_or "
+                             f"launched {launches.get('sym_vis_or', 0)} "
+                             f"times")
+    # sym_vis_or against its plain version: card 0's bitmap and each
+    # other card's, seeded, as long as the sweep's (its code's packed
+    # length, as explore allocates it)
+    g = torch.Generator().manual_seed(14)
+    length = eng._visited_dev[code].shape[0]
+    before = _build.LAUNCHES["sym_vis_or"]
+    err = 0
+    for d in devs[1:]:
+        a = torch.rand(length, generator=g) < 0.3
+        b = torch.rand(length, generator=g) < 0.3
+        got_or = S.vis_or(a.to(devs[0]), b.to(d)).cpu()
+        err = max(err, int((got_or != (a | b)).sum()))
+    if err or _build.LAUNCHES["sym_vis_or"] - before != len(devs) - 1:
+        raise AssertionError(f"sym_vis_or: {err} bytes differ from "
+                             f"visited | src")
+
+    def pair():
+        with torch.cuda.device(devs[0]):
+            return (a.to(devs[0]), b.to(devs[1]))
+
+    with torch.cuda.device(devs[0]):
+        ms = cuda_ms(lambda x: S.vis_or(*x), reps=5, setup=pair)
+        dms = queued_ms(lambda x: S.vis_or(*x), pair)
+        lib = cuda_ms(lambda x: x[0].bitwise_or_(x[1].to(devs[0])),
+                      reps=5, setup=pair)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        a | b
+    plain = (time.perf_counter() - t0) / 5 * 1e3
+    bnd, by = bound_ms(3 * length)
+    row = dict(name="sym_vis_or", route="cuda",
+               source="mythril_tpu_torch/csrc/symstep.cu",
+               replaces="mythril_tpu/laser/lane_engine.py:1807",
+               launches=launches.get("sym_vis_or", 0), max_abs_err=err,
+               ms=round(ms, 4), plain_ms=round(plain, 4),
+               device_ms=round(dms, 4), bound_ms=round(bnd, 6),
+               bound_by=by, library_ms=round(lib, 4))
+    log(f"cards: the meshed engine over {len(devs)} cards (k={MAIN_K} "
+        f"sweep, {MAIN_LANES} lanes): {len(outs['mesh'])} windows equal "
+        f"to the engine on {devs[0]}, {len(got)} states, the visited "
+        f"bitmap equal ({int(vis.sum())} pcs); explore {wall:.3f} s "
+        f"against {wall_one:.3f} s on one card; launches {launches}; "
+        f"sym_vis_or on {length}-byte bitmaps from "
+        f"{', '.join(map(str, devs[1:]))} into {devs[0]} equal to "
+        f"visited | src (max_abs_err {err})")
+    log(f"cards: {json.dumps(row)}")
+
+
 def check_cards() -> int:
-    """``--cards``: K10 and K9 on every card of a machine with two or
-    more, each card's first launch past 48 KB of shared memory included
-    (a kernel opts in to it once a device): ``sharded_run`` of
+    """``--cards``: K10, K9 and the meshed engine on every card of a
+    machine with two or more, each card's first launch past 48 KB of
+    shared memory included (a kernel opts in to it once a device):
+    ``sharded_run`` of
     CONCRETE_N lanes of the bench batch a card (57 KB blocks) on a mesh
     of every card, each shard a copy on its own card, equal on every
     plane to one K10 run on card 0; then on each card K9 on
     ``device_loop.k9_edge_cases`` (66 KB blocks at 600 and 4096 lanes)
-    against its plain version, with its plan's launches."""
+    against its plain version, with its plan's launches; then
+    ``mesh_cards``."""
     import torch
 
     from mythril_tpu_torch import _build
@@ -4388,6 +5032,7 @@ def check_cards() -> int:
     log(f"cards: sharded_run of {n} lanes over {cards} cards equal to one "
         f"K10 run on {devs[0]}; K9 equal to its plain version on "
         f"k9_edge_cases on {', '.join(edges)} ({smi()})")
+    mesh_cards(devs)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": cards}}))
@@ -4517,6 +5162,10 @@ def run() -> int:
     lap("merge rig")
     corpus_mode(card)
     lap("corpus mode")
+    mesh_engine_launches = check_mesh_engine(dev, card, report, host_open)
+    lap("meshed engine")
+    concolic_path(card)
+    lap("concolic")
 
     res, paths, wall, stats = explore(dev, MAIN_LANES, MAIN_K)
     if res["paths"] != paths or res["forks"] != paths - 1:
@@ -4613,7 +5262,14 @@ def run() -> int:
         entry(name, "mythril_tpu_torch/csrc/mesh.cu",
               f"mythril_tpu/parallel/mesh.py:{line}", mesh_launches)
         for name, line in (("lane_live", 110), ("lane_order", 138),
-                           ("lane_gather", 139))]
+                           ("lane_gather", 139))] + [
+        entry(name, f"mythril_tpu_torch/csrc/{src}", rep,
+              mesh_engine_launches)
+        for name, src, rep in MESH_ROWS]
+    for r in rows:  # the same kernels' launches in the meshed main path
+        if r["name"] in ("window_prologue", "window_dedup",
+                         "window_epilogue", "sym_init"):
+            r["mesh_launches"] = mesh_engine_launches[r["name"]]
     # every timed shape with its own bound: device_ms against bound_ms,
     # lanes64_device_ms against lanes64_bound_ms, ...
     fast = [f"{r['name']} {k}" for r in rows + [inlined] for k in r

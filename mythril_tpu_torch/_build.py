@@ -41,7 +41,9 @@ LAUNCHES = {"bv256": 0, "sym_init": 0, "sym_run": 0, "sym_run_packed": 0,
             "interval_level": 0, "prop_fwd_level": 0, "prop_back_round": 0,
             "prop_tables": 0, "merge_fingerprint": 0, "lane_run": 0,
             "prop_fixpoint": 0, "lane_live": 0, "lane_order": 0,
-            "lane_gather": 0}
+            "lane_gather": 0, "sym_decide": 0, "sym_exec": 0,
+            "sym_fork_rows": 0, "window_remap": 0, "window_rows": 0,
+            "sym_vis_or": 0}
 
 _LOCK = threading.Lock()
 _LIBS = {}

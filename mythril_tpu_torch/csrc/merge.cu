@@ -176,7 +176,7 @@ __device__ __forceinline__ uint32_t scalar_of(const Sym& s, long long L, int j) 
 // threads, and the 28 folds applied in the JAX order by one thread.
 __global__ void __launch_bounds__(FP_THREADS)
 fp_lanes(Sym s, const int32_t* __restrict__ pairs, int pv, const int32_t* __restrict__ dense,
-         int cap, int W, int vec, uint32_t* __restrict__ out) {
+         int cap, int W, int vec, int gn, uint32_t* __restrict__ out) {
   MTT_DYN_SMEM(fp_smem_buf);
   const int n = s.n, D = s.D, M = s.M, MR = s.MR, S = s.S, R = s.R;
   const int teams = FP_WARPS / W;
@@ -185,7 +185,7 @@ fp_lanes(Sym s, const int32_t* __restrict__ pairs, int pv, const int32_t* __rest
   int32_t* const stage_all = reinterpret_cast<int32_t*>(hash + cap);
   uint32_t* const red = reinterpret_cast<uint32_t*>(stage_all + teams * stage_w);
   uint32_t* const fin_all = red + FP_WARPS * N_SUMS;
-  const long long nr = (long long)n * R;
+  const long long nr = (long long)gn * R;
 
   if (cap) {
     for (int i = threadIdx.x; i < cap; i += FP_THREADS) hash[i] = EMPTY;
@@ -210,7 +210,7 @@ fp_lanes(Sym s, const int32_t* __restrict__ pairs, int pv, const int32_t* __rest
     }
     __syncthreads();
   }
-  const Prov pr{pairs, cap ? nullptr : dense, hash, cap, n, R};
+  const Prov pr{pairs, cap ? nullptr : dense, hash, cap, gn, R};
   const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
   const int team = warp / W, TS = 32 * W, tt = (warp % W) * 32 + wl;
   int32_t* const ssid_r = stage_all + team * stage_w;  // D
@@ -366,16 +366,19 @@ MTT_EXPORT int merge_fp_smem(int cap, int W, int D, int S) { return (int)fp_smem
 
 // planes/dims: ops/symstep.state_args; pairs: (pv, 2) int32 prov pairs;
 // plan: {blocks, warps a lane's team (1 or 8), hash entries (0: the
-// dense table), mkind and memory 16-byte readable}; dense: n * R int32
-// scratch (with no hash); out: (n, 4) uint32 (int32 bit patterns)
+// dense table), mkind and memory 16-byte readable, the lanes of the
+// batch the pairs' slots index (0: the state's n; a shard of a meshed
+// batch: the whole batch's)}; dense: that many lanes x R int32 scratch
+// (with no hash); out: (n, 4) uint32 (int32 bit patterns)
 MTT_EXPORT int merge_fingerprint(void** planes, const int* dims, const int32_t* pairs, int pv,
                                  const int* plan, int32_t* dense, uint32_t* out, void* stream) {
   Sym s = make_sym(planes, dims);
   cudaStream_t st = (cudaStream_t)stream;
   if (s.n == 0) return (int)cudaGetLastError();
   const int blocks = plan[0], W = plan[1], cap = plan[2], vec = plan[3];
+  const int gn = plan[4] > 0 ? plan[4] : s.n;
   if (!cap) {
-    const long long len = (long long)s.n * s.R;
+    const long long len = (long long)gn * s.R;
     fp_fill<<<nblocks_for(len, 256), 256, 0, st>>>(dense, len);
     if (pv > 0) fp_scatter<<<nblocks_for(pv, 256), 256, 0, st>>>(pairs, pv, dense, len);
   }
@@ -383,6 +386,6 @@ MTT_EXPORT int merge_fingerprint(void** planes, const int* dims, const int32_t* 
   static int opted[MAX_DEVICES];  // a device's dynamic shared bytes fp_lanes may take
   const cudaError_t rc = allow_smem((const void*)fp_lanes, smem, opted);
   if (rc != cudaSuccess) return (int)rc;
-  fp_lanes<<<blocks, FP_THREADS, smem, st>>>(s, pairs, pv, dense, cap, W, vec, out);
+  fp_lanes<<<blocks, FP_THREADS, smem, st>>>(s, pairs, pv, dense, cap, W, vec, gn, out);
   return (int)cudaGetLastError();
 }

@@ -515,13 +515,27 @@ struct ForkStash {
   int32_t *parent, *child, *fall_pc, *fentry;
 };
 
+// A shard's step (ops/symstep.sym_run_mesh): the global index of its
+// first lane, the global fork rank of its first request, and its fork
+// stash: a column a field (ops/symstep.STASH: parent, fall-through pc,
+// fentry, pc, sid, gmin, gmax, dest), a row a fork in fork order.
+struct ShardStep {
+  int base, off;
+  int32_t* col[8];
+};
+
 // One lane's step after its decisions `d` (the fork phase's row copy
 // excepted): forder is its rank among the step's fork requests in lane
 // order, navail the step's fork budget; free_count, step_no and
 // flog_count are the values before the step. Returns whether the lane
 // is RUNNING after it.
+// With SHARD the batch is a shard of a larger one (sh): provisional
+// sids and the fork stash carry global lane indices, and a forking
+// parent's fork-log fields go to the shard's stash, not the fork log.
+template <bool SHARD = false>
 __device__ bool exec_lane(const Env& e, int lane, const Dec& d, int forder, int navail,
-                          int free_count, int step_no, int flog_count, const ForkStash& fs) {
+                          int free_count, int step_no, int flog_count, const ForkStash& fs,
+                          const ShardStep* sh = nullptr) {
   const Sym& s = e.s;
   const int d_recs = s.R;
   bool fork_can = d.fork_req && forder < navail;
@@ -538,7 +552,8 @@ __device__ bool exec_lane(const Env& e, int lane, const Dec& d, int forder, int 
   const int pc_c = clampi(pc, 0, e.code_size);
   const int sp = s.sp[lane];
   const int dcount = s.dlog_count[lane];
-  const int prov_id = -(lane * d_recs + clampi(dcount, 0, d_recs - 1) + 1);
+  const int glane = SHARD ? sh->base + lane : lane;
+  const int prov_id = -(glane * d_recs + clampi(dcount, 0, d_recs - 1) + 1);
   const bool is_jump = op == OP_JUMP, is_jumpi = op == OP_JUMPI;
   const uint32_t pre_min = s.min_gas[lane], pre_max = s.max_gas[lane];
   const int pre_fentry = s.fentry[lane];
@@ -746,7 +761,19 @@ __device__ bool exec_lane(const Env& e, int lane, const Dec& d, int forder, int 
   if (d.running && park) s.status[lane] = NEEDS_HOST;
 
   // ---- fork bookkeeping: the row copy waits for the fork phase
-  if (fork_can) {
+  if constexpr (SHARD) {
+    if (fork_can) {
+      const int j = forder - sh->off;
+      sh->col[0][j] = glane;
+      sh->col[1][j] = next_pc;
+      sh->col[2][j] = pre_fentry;
+      sh->col[3][j] = pc;
+      sh->col[4][j] = d.sid_b;
+      sh->col[5][j] = (int32_t)pre_min;
+      sh->col[6][j] = (int32_t)pre_max;
+      sh->col[7][j] = d.dest;
+    }
+  } else if (fork_can) {
     int f = forder;
     int child = s.free_slots[clampi(free_count - 1 - f, 0, s.n - 1)];
     fs.parent[f] = lane;
@@ -1168,5 +1195,256 @@ MTT_EXPORT int sym_run(void** planes, const int* dims, const void* code, int cod
   rc = cudaLaunchCooperativeKernel((const void*)k_sym_run, dim3(blocks), dim3(RUN_THREADS), args,
                                    nl > 1 ? staging_bytes(lanes) : 0, (cudaStream_t)stream);
   if (rc != cudaSuccess) return (int)rc;
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- K1 a shard
+//
+// K1 over a batch placed on a mesh (ops/symstep.sym_run_mesh): the
+// same decide and exec_lane device functions, a step as two launches a
+// shard with the host between them, since the fork order (JAX's cumsum
+// over every lane's request, :859-877) and budget are the whole
+// batch's. sym_decide writes each lane's decisions to a scratch, each
+// block's fork requests and RUNNING lanes, and marks the visited
+// bitmap; the host reads the blocks' counts of every shard, stops at the
+// first step where no lane of any shard runs, and gives each shard the
+// global rank of its first request. sym_exec runs each lane at its
+// global rank (the counts of the blocks before it plus its rank in its
+// block), its forking parents into the shard's stash. A fork's child
+// row is its parent's post-step row: sym_fork_stage gathers the rows of
+// a shard's parents bound for one destination shard into a staging
+// buffer (a block a row), the host copies it to that shard's device
+// where it is another, and sym_fork_land writes each into its child
+// slot with the child's pc, fentry and empty record log. A simple
+// design: a lane a thread, 256 threads a block, ordinary launches.
+namespace {
+
+constexpr int SHARD_THREADS = 256;
+
+__global__ void __launch_bounds__(SHARD_THREADS)
+k_sym_decide(const __grid_constant__ Env e, Dec* dec, int32_t* counts, uint8_t* visited,
+             int vis_len) {
+  const Sym& s = e.s;
+  const int lane = blockIdx.x * SHARD_THREADS + threadIdx.x;
+  int f = 0, r = 0;
+  if (lane < s.n) {
+    Dec d;
+    decide(e, lane, d);
+    f = d.fork_req;
+    r = d.running;
+    if (visited && d.running) {
+      const int pc = s.pc[lane];
+      if (pc >= 0 && pc < vis_len) visited[pc] = 1;
+    }
+    dec[lane] = d;
+  }
+  f = block_sum(f);
+  r = block_sum(r);
+  if (threadIdx.x == 0) {
+    counts[blockIdx.x] = f;
+    counts[gridDim.x + blockIdx.x] = r;
+  }
+}
+
+struct ShardBudget {
+  int navail, free_count, flog_count, step_no;
+};
+
+__global__ void __launch_bounds__(SHARD_THREADS)
+k_sym_exec(const __grid_constant__ Env e, const Dec* dec, const int32_t* counts,
+           const __grid_constant__ ShardStep sh, ShardBudget b) {
+  const Sym& s = e.s;
+  const int lane = blockIdx.x * SHARD_THREADS + threadIdx.x;
+  int part = 0;
+  for (int i = threadIdx.x; i < (int)blockIdx.x; i += SHARD_THREADS) part += counts[i];
+  const int off = sh.off + block_sum(part);
+  const bool have = lane < s.n;
+  Dec d;
+  if (have) d = dec[lane];
+  const int forder = off + block_rank(have && d.fork_req);
+  if (have) {
+    const ForkStash none{nullptr, nullptr, nullptr, nullptr};
+    exec_lane<true>(e, lane, d, forder, b.navail, b.free_count, b.step_no, b.flog_count, none,
+                    &sh);
+  }
+}
+
+// the planes a child copies from its parent (ops/symstep.FORK_PLANES),
+// each at a 16-byte aligned offset of a staging row; the child's pc and
+// fentry follow them
+constexpr int FORK_MAX = 48;
+struct ForkRows {
+  char* base[FORK_MAX];
+  int bytes[FORK_MAX];
+  int off[FORK_MAX];
+  int n, tail, row;
+};
+
+inline ForkRows fork_rows(const Sym& s) {
+  ForkRows t;
+  t.n = 0;
+  int at = 0;
+  auto put = [&](void* p, long long bytes) {
+    t.base[t.n] = (char*)p;
+    t.bytes[t.n] = (int)bytes;
+    t.off[t.n++] = at;
+    at += (int)((bytes + 15) / 16 * 16);
+  };
+  for (int32_t* p : {s.sp, s.depth, s.group, s.last_jump, s.msize, s.mlog_count, s.s_mode,
+                     s.scount, s.sbase, s.cd_size, s.cd_sym, s.cd_size_sid, (int32_t*)s.min_gas,
+                     (int32_t*)s.max_gas, (int32_t*)s.gas_limit, s.status, s.steps})
+    put(p, 4);
+  put(s.stack, 32LL * s.D);
+  put(s.ssid, 4LL * s.D);
+  put(s.memory, s.M);
+  put(s.mkind, s.M);
+  put(s.mlog_off, 4LL * s.MR);
+  put(s.mlog_len, 4LL * s.MR);
+  put(s.mlog_sid, 4LL * s.MR);
+  put(s.skeys, 32LL * s.S);
+  put(s.svals, 32LL * s.S);
+  put(s.sval_sid, 4LL * s.S);
+  put(s.s_written, 4LL * s.S);
+  put(s.s_read, 4LL * s.S);
+  put(s.skey_sid, 4LL * s.S);
+  put(s.s_wstep, 4LL * s.S);
+  put(s.calldata, s.C);
+  put(s.env, 32LL * s.NENV);
+  put(s.env_sid, 4LL * s.NENV);
+  put(s.dlog_op, 4LL * s.R);
+  put(s.dlog_pc, 4LL * s.R);
+  put(s.dlog_step, 4LL * s.R);
+  put(s.dlog_fentry, 4LL * s.R);
+  put(s.dlog_sid, 12LL * s.R);
+  put(s.dlog_val, 96LL * s.R);
+  t.tail = at;
+  t.row = at + 16;
+  return t;
+}
+
+// bytes bytes from src to dst by the block's threads: 4-byte words where
+// both and the length allow, else bytes
+__device__ void block_copy(char* dst, const char* src, int bytes) {
+  if ((((uintptr_t)dst | (uintptr_t)src | (uintptr_t)bytes) & 3) == 0) {
+    const int32_t* a = (const int32_t*)src;
+    int32_t* b = (int32_t*)dst;
+    for (int w = threadIdx.x; w < bytes / 4; w += blockDim.x) b[w] = a[w];
+  } else {
+    for (int c = threadIdx.x; c < bytes; c += blockDim.x) dst[c] = src[c];
+  }
+}
+
+// row r of the staging: the post-step row of the parent of the shard's
+// fork idx[r] (stash column 0 holds its global lane), then its child's
+// pc and fentry (stash columns 1, 2)
+__global__ void k_fork_stage(const __grid_constant__ ForkRows t, const int32_t* stash, int cap,
+                             const int32_t* idx, int base, char* out) {
+  const int r = blockIdx.x, j = idx[r];
+  const int src = stash[j] - base;
+  char* row = out + (size_t)r * t.row;
+  for (int k = 0; k < t.n; ++k)
+    block_copy(row + t.off[k], t.base[k] + (size_t)src * t.bytes[k], t.bytes[k]);
+  if (threadIdx.x == 0) {
+    int32_t* tail = (int32_t*)(row + t.tail);
+    tail[0] = stash[cap + j];
+    tail[1] = stash[2 * cap + j];
+  }
+}
+
+// row r of the staging into the shard's slot child[r]
+__global__ void k_fork_land(const __grid_constant__ ForkRows t, int32_t* pc, int32_t* fentry,
+                            int32_t* dlog_count, const char* in, const int32_t* child) {
+  const int r = blockIdx.x, dst = child[r];
+  const char* row = in + (size_t)r * t.row;
+  for (int k = 0; k < t.n; ++k)
+    block_copy(t.base[k] + (size_t)dst * t.bytes[k], row + t.off[k], t.bytes[k]);
+  if (threadIdx.x == 0) {
+    const int32_t* tail = (const int32_t*)(row + t.tail);
+    pc[dst] = tail[0];
+    fentry[dst] = tail[1];
+    dlog_count[dst] = 0;
+  }
+}
+
+}  // namespace
+
+// bytes of one lane's decisions (dims null) or of one fork's staging row
+MTT_EXPORT int sym_fork_row_bytes(const int* dims) {
+  if (!dims) return (int)sizeof(Dec);
+  void* none[SYM_NFIELDS] = {};
+  return fork_rows(make_sym(none, dims)).row;
+}
+
+// K1's decide on a shard: dec (n decisions), counts (2 x blocks: each
+// block's fork requests, then its RUNNING lanes), visited (or null).
+MTT_EXPORT int sym_decide(void** planes, const int* dims, const void* code, int code_size,
+                          const void* optab, void* dec, void* counts, void* visited,
+                          int vis_len, void* stream) {
+  Sym s = make_sym(planes, dims);
+  if (s.n <= 0) return 0;
+  Env e{s, (const int32_t*)code, code_size, (const int32_t*)optab, nullptr, 0, nullptr, 0};
+  const int blocks = (s.n + SHARD_THREADS - 1) / SHARD_THREADS;
+  k_sym_decide<<<blocks, SHARD_THREADS, 0, (cudaStream_t)stream>>>(
+      e, (Dec*)dec, (int32_t*)counts, (uint8_t*)visited, vis_len);
+  return (int)cudaGetLastError();
+}
+
+// K1's exec on a shard after its decide: the shard's first lane is
+// global lane base, its first fork request global rank off; navail,
+// free_count, flog_count and step_no are the batch's before the step;
+// stash: 8 x cap int32 (ops/symstep.STASH).
+MTT_EXPORT int sym_exec(void** planes, const int* dims, const void* code, int code_size,
+                        const void* optab, const void* dec, const void* counts, void* stash,
+                        int cap, int base, int off, int navail, int free_count, int flog_count,
+                        int step_no, void* stream) {
+  Sym s = make_sym(planes, dims);
+  if (s.n <= 0) return 0;
+  Env e{s, (const int32_t*)code, code_size, (const int32_t*)optab, nullptr, 0, nullptr, 0};
+  ShardStep sh;
+  sh.base = base;
+  sh.off = off;
+  for (int c = 0; c < 8; ++c) sh.col[c] = (int32_t*)stash + (size_t)c * cap;
+  const int blocks = (s.n + SHARD_THREADS - 1) / SHARD_THREADS;
+  k_sym_exec<<<blocks, SHARD_THREADS, 0, (cudaStream_t)stream>>>(
+      e, (const Dec*)dec, (const int32_t*)counts, sh,
+      ShardBudget{navail, free_count, flog_count, step_no});
+  return (int)cudaGetLastError();
+}
+
+// the rows of the shard's forks idx[0..count) into out (count staging
+// rows of sym_fork_row_bytes)
+MTT_EXPORT int sym_fork_stage(void** planes, const int* dims, const void* stash, int cap,
+                              const void* idx, int count, int base, void* out, void* stream) {
+  if (count <= 0) return 0;
+  const ForkRows t = fork_rows(make_sym(planes, dims));
+  k_fork_stage<<<count, SHARD_THREADS, 0, (cudaStream_t)stream>>>(
+      t, (const int32_t*)stash, cap, (const int32_t*)idx, base, (char*)out);
+  return (int)cudaGetLastError();
+}
+
+// count staging rows into the shard's slots child[0..count)
+MTT_EXPORT int sym_fork_land(void** planes, const int* dims, const void* in, const void* child,
+                             int count, void* stream) {
+  if (count <= 0) return 0;
+  Sym s = make_sym(planes, dims);
+  const ForkRows t = fork_rows(s);
+  k_fork_land<<<count, SHARD_THREADS, 0, (cudaStream_t)stream>>>(
+      t, s.pc, s.fentry, s.dlog_count, (const char*)in, (const int32_t*)child);
+  return (int)cudaGetLastError();
+}
+
+namespace {
+__global__ void k_vis_or(uint8_t* dst, const uint8_t* src, int len) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < len && src[i]) dst[i] = 1;
+}
+}  // namespace
+
+// dst |= src over len bytes of visited bitmaps: a shard's bitmap on
+// another device than the batch's, after its copy to that device
+MTT_EXPORT int sym_vis_or(void* dst, const void* src, int len, void* stream) {
+  if (len <= 0) return 0;
+  k_vis_or<<<(len + 255) / 256, 256, 0, (cudaStream_t)stream>>>((uint8_t*)dst,
+                                                                (const uint8_t*)src, len);
   return (int)cudaGetLastError();
 }

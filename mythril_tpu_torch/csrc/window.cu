@@ -204,6 +204,9 @@ struct Pro {
   const uint32_t *u32p, *stack_v, *r_limbs;
   const uint8_t *u8p, *mem_v, *mem_k;
   int k, pv, sd, mc, ccw;
+  // the lanes of the batch the provisional slots index: the state's n,
+  // or on a shard of a meshed batch the whole batch's
+  int gn;
   int cap;  // the shared hash's entries; 0: the dense table
   uint32_t epoch;
   unsigned long long* dense;
@@ -289,7 +292,7 @@ __global__ void __launch_bounds__(WIN_THREADS)
 k_prologue(const __grid_constant__ Sym s, const __grid_constant__ Pro a) {
   extern __shared__ unsigned long long psm[];
   const int n = s.n, R = s.R;
-  const long long nr = (long long)n * R;
+  const long long nr = (long long)a.gn * R;
   const long long G = (long long)gridDim.x * blockDim.x;
   const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   unsigned long long* const hash = psm;
@@ -372,12 +375,12 @@ k_prologue(const __grid_constant__ Sym s, const __grid_constant__ Pro a) {
           int* w = &v[u].x;
 #pragma unroll
           for (int c = 0; c < 4; ++c)
-            if (w[c] < 0) p[4 * j + c] = prov_lookup(a, hash, w[c], n, R);
+            if (w[c] < 0) p[4 * j + c] = prov_lookup(a, hash, w[c], a.gn, R);
         }
       }
       for (long long i = 4 * n4 + g; i < len; i += G) {
         const int v = p[i];
-        if (v < 0) p[i] = prov_lookup(a, hash, v, n, R);
+        if (v < 0) p[i] = prov_lookup(a, hash, v, a.gn, R);
       }
     }
   }
@@ -876,6 +879,7 @@ struct Rows {
 struct RowSet {
   const int32_t* sel;
   int count, ci, cu, u8w;
+  int base;  // sel names lane base + l of the state's lane l (a shard's)
   bool resume, words, cg;  // cg: sel is written by other blocks
   Rows o;
 };
@@ -887,6 +891,7 @@ __host__ __device__ inline RowSet row_set(const Sym& s, const int32_t* sel, int 
   r.count = count;
   r.resume = resume;
   r.cg = false;
+  r.base = 0;
   r.o = o;
   r.ci = resume ? 7 + 3 * o.wl : 10 + 3 * o.wl + o.ws + 5 * o.wk;
   r.cu = resume ? 16 : 8 * (o.ws + 2 * o.wk);
@@ -973,7 +978,7 @@ __device__ __forceinline__ void row_store(const RowSet& r, int j, int c, uint32_
 // row j of set r by the 32 threads of a warp (lane: this thread's),
 // GATHER_WORDS words' loads a thread in flight before their stores
 __device__ void gather_row(const Sym& s, const RowSet& r, int j, int lane) {
-  const int l = clampi(r.cg ? __ldcg(r.sel + j) : r.sel[j], 0, s.n - 1);
+  const int l = clampi((r.cg ? __ldcg(r.sel + j) : r.sel[j]) - r.base, 0, s.n - 1);
   const size_t L = (size_t)l;
   size_t top = 0, sub = 0;
   if (r.resume) {
@@ -1328,6 +1333,24 @@ inline Rows retire_rows_of(const Sym& s, const int* floors, void* i32, void* u32
   return o;
 }
 
+// a shard's rows of a meshed window (laser/lane_engine.shard_rows): the
+// retire rows of r and the resume rows of h, a warp a row, each named
+// lane the state holds (base .. base + n - 1) of r marked DEAD by its
+// warp after the row; a lane of another shard, or the padding, gathers
+// the clamped lane as K4 does, and the caller keeps each row from the
+// shard that holds its lane
+__global__ void k_shard_rows(const __grid_constant__ Sym s, const __grid_constant__ RowSet r,
+                             const __grid_constant__ RowSet h) {
+  const long long w = gid() >> 5;
+  if (w < r.count) {
+    gather_row(s, r, (int)w, threadIdx.x & 31);
+    const int l = r.sel[w] - r.base;
+    if ((threadIdx.x & 31) == 0 && l >= 0 && l < s.n) s.status[l] = DEAD;
+  } else if (w < r.count + h.count) {
+    gather_row(s, h, (int)(w - r.count), threadIdx.x & 31);
+  }
+}
+
 // _retire_rows: a warp a row; each row's lane marked DEAD by its warp
 // after the row (no gather reads the status)
 __global__ void k_retire_rows(const __grid_constant__ Sym s, const __grid_constant__ RowSet r) {
@@ -1427,6 +1450,8 @@ MTT_EXPORT int window_prologue(void** planes, const int* dims, const void* i32bu
   a.sd = args[5];
   a.mc = args[6];
   a.ccw = args[7];
+  a.gn = args[20] > 0 ? args[20] : s.n;
+  if ((long long)a.gn * s.R > I32_MAX) return (int)cudaErrorInvalidValue;
   a.idx = b + off[0];
   a.i32p = b + off[1];
   a.u32p = (const uint32_t*)(b + off[2]);
@@ -1446,7 +1471,7 @@ MTT_EXPORT int window_prologue(void** planes, const int* dims, const void* i32bu
   a.epoch = epoch;
   unsigned long long* sc = (unsigned long long*)scratch;
   a.dense = a.cap ? nullptr : sc;
-  if (!a.cap) sc += (size_t)s.n * s.R;
+  if (!a.cap) sc += (size_t)a.gn * s.R;
   a.own = sc;
   a.killed = (uint32_t*)(sc + 2 * (size_t)s.n);
   const size_t smem = 8 * (size_t)a.cap + (mode == ONE ? 12 * (size_t)s.n : 0);
@@ -1750,5 +1775,53 @@ MTT_EXPORT int fork_table(void** flog, int fb, void* tab, void* stream) {
   if (fb > 0)
     k_fork_gather<<<nblocks_for(9LL * fb, 256), 256, 0, (cudaStream_t)stream>>>(f, fb,
                                                                               (int32_t*)tab);
+  return (int)cudaGetLastError();
+}
+
+// K3's remap on a shard of a meshed window (laser/lane_engine): the
+// shard's four persistent sid planes through the whole batch's canon
+// (gn lanes x R), one pass over their concatenation.
+MTT_EXPORT int window_remap(void** planes, const int* dims, const void* canon, int gn,
+                            void* stream) {
+  const Sym s = make_sym(planes, dims);
+  RemapPlanes rp;
+  int32_t* ps[5] = {s.ssid, s.sval_sid, s.skey_sid, s.mlog_sid, s.ssid};
+  long long lens[5] = {(long long)s.n * s.D, (long long)s.n * s.S, (long long)s.n * s.S,
+                       (long long)s.n * s.MR, 0};
+  long long total = 0;
+  for (int k = 0; k < 5; ++k) {
+    rp.p[k] = ps[k];
+    rp.len[k] = lens[k];
+    total += lens[k];
+  }
+  if (total > 0 && gn > 0 && s.R > 0)
+    k_canon_remap<<<std::min(nblocks_for(total, 256), 8192u), 256, 0, (cudaStream_t)stream>>>(
+        rp, total, (const int32_t*)canon, gn, s.R);
+  return (int)cudaGetLastError();
+}
+
+// K4's rows on a shard of a meshed window: the retire rows of
+// ridx[0..rk) under the floors (their lanes this shard holds marked
+// DEAD) and the resume rows of hidx[0..hk), the indices global (the
+// shard's first lane is base); out: r_i32, r_u32, r_u8, h_i32, h_u32,
+// h_u8 as K4 packs them. One launch.
+MTT_EXPORT int window_shard_rows(void** planes, const int* dims, int base, const void* ridx,
+                                 int rk, const int* floors, const void* hidx, int hk,
+                                 void** out, void* stream) {
+  const Sym s = make_sym(planes, dims);
+  if (s.n == 0 || rk + hk == 0) return 0;
+  RowSet r = row_set(s, (const int32_t*)ridx, rk, false,
+                     retire_rows_of(s, floors, out[0], out[1], out[2]));
+  Rows ho;
+  ho.i32 = (int32_t*)out[3];
+  ho.u32 = (uint32_t*)out[4];
+  ho.u8 = (uint8_t*)out[5];
+  ho.ws = 0;
+  ho.wk = 0;
+  ho.wl = min(RESUME_MLOG, s.MR);
+  ho.wm = min(RESUME_MEM, s.M);
+  RowSet h = row_set(s, (const int32_t*)hidx, hk, true, ho);
+  r.base = h.base = base;
+  k_shard_rows<<<nblocks_for(32LL * (rk + hk), 256), 256, 0, (cudaStream_t)stream>>>(s, r, h);
   return (int)cudaGetLastError();
 }

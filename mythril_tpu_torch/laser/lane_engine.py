@@ -47,11 +47,16 @@ and are rewritten to table ids at each drain.
 
 Unlike the JAX engine, nothing here falls back to the host: a kernel or
 device call that fails raises to the caller. Cross-tenant wave packing
-(``explore_packed``) is ported. Not ported: the XLA compile warm-up
-(``warm_variant``), the kernel-fault capacity autoprobe and the meshed
-engine: meshes and the sharded concrete batch are in
-``parallel/mesh.py``, but a window's programs are not partitioned over
-devices, so ``pick_mesh`` is None and ``LaneEngine(mesh=...)`` raises.
+(``explore_packed``) is ported, and so is the meshed engine
+(``LaneEngine(mesh=...)``, chosen by ``pick_mesh`` under
+``args.tpu_mesh`` as the JAX engine chooses it): the lane planes live a
+shard a device (``parallel/mesh.SymShards``) and every window runs its
+phases a shard (``window_exec_mesh``: K2 and K1's phases a shard, K3
+and K4 over the small planes gathered at the mesh's first device, K3's
+remap and K4's rows a shard; K9 a shard), with the same outputs as the
+JAX engine's window under GSPMD; a packed wave does not shard. Not
+ported: the XLA compile warm-up (``warm_variant``) and the
+kernel-fault capacity autoprobe.
 """
 
 import ctypes
@@ -73,6 +78,7 @@ from ..ops import bv256, symstep
 from ..ops.bv256 import NLIMBS
 from ..ops.stepper import CompiledCode, Status, compile_code
 from ..ops.symstep import DEAD, SymLaneState
+from ..parallel.mesh import _on
 from ..smt import (
     BitVec, Bool, Concat, Extract, If, Not, simplify, symbol_factory,
 )
@@ -176,13 +182,15 @@ def _seed_widths(st: SymLaneState):
 
 
 def pack_window(n, n_env, lane_kwargs, seeds, free, kill, prov,
-                calldata_cap, big=False, resumes=()):
+                calldata_cap, big=False, resumes=(), meshed=False):
     """The two flat host buffers (i32, u8) of one window dispatch, as
     the JAX engine's ``_pack_window`` packs them, from raw seed dicts
     (the form ``_seed_spec`` returns: group, sbase, calldata, cd_size,
     cd_sym, cd_size_sid, env, env_sid, gas_limit, pc, sp, msize, stack_v,
     stack_s, mem_v, mem_k). ``seeds`` is [(lane, seed dict)], ``prov``
-    {(lane, slot): oid}. Returns (i32buf, u8buf, k, pv) as numpy."""
+    {(lane, slot): oid}. A ``meshed`` engine's full bucket stays below
+    the plane width, as the JAX engine's does under a mesh. Returns
+    (i32buf, u8buf, k, pv) as numpy."""
     n_depth = lane_kwargs.get("stack_depth", 64)
     mem_cap = lane_kwargs.get("memory_bytes", 4096)
     d_recs = lane_kwargs.get("dlog_records", 64)
@@ -190,6 +198,8 @@ def pack_window(n, n_env, lane_kwargs, seeds, free, kill, prov,
     mc = min(SEED_MEM, mem_cap)
     ccw = min(SEED_CD, calldata_cap)
     k = n if big else min(16, n)
+    if meshed and k >= n and n > 1:
+        k = max(n // 2, 1)
     if len(seeds) > k or len(resumes) > k:
         raise ValueError(f"{len(seeds)} seeds / {len(resumes)} resumes "
                          f"exceed the seed bucket {k}")
@@ -262,14 +272,16 @@ def _lookup(table, plane, d_recs):
     return torch.where(negm, mapped.to(plane.dtype), plane)
 
 
-def prov_table(st: SymLaneState, prov_pairs):
+def prov_table(st: SymLaneState, prov_pairs, n=None):
     """The dense (lane, record slot) -> oid table of the sparse
     resolution pairs (int32 min where none), as the JAX
     ``.at[slot].set(oid, mode="drop")`` builds it: a negative slot
     counts from the end, a slot out of range either way is dropped, and
-    of the pairs naming one slot the last wins."""
+    of the pairs naming one slot the last wins. ``n``: the lanes of the
+    batch the slots index (the state's, or a meshed batch's for one of
+    its shards)."""
     d_recs = st.dlog_op.shape[1]
-    n = st.pc.shape[0]
+    n = st.pc.shape[0] if n is None else n
     size = n * d_recs
     dense = torch.full((size,), _I32_MIN, dtype=torch.int32,
                        device=st.device)
@@ -284,9 +296,9 @@ def prov_table(st: SymLaneState, prov_pairs):
     return dense.reshape(n, d_recs)
 
 
-def _remap_reset_core(st: SymLaneState, prov_pairs) -> SymLaneState:
+def _remap_reset_core(st: SymLaneState, prov_pairs, n=None) -> SymLaneState:
     d_recs = st.dlog_op.shape[1]
-    prov_arr = prov_table(st, prov_pairs)
+    prov_arr = prov_table(st, prov_pairs, n)
     return st.replace(
         ssid=_lookup(prov_arr, st.ssid, d_recs),
         sval_sid=_lookup(prov_arr, st.sval_sid, d_recs),
@@ -530,10 +542,13 @@ def _select(st: SymLaneState, cc: CompiledCode, budget, resume_on):
     return hold, parked & fits & ~hold
 
 
-def prologue_plain(st: SymLaneState, i32buf, u8buf, k: int, pv: int):
+def prologue_plain(st: SymLaneState, i32buf, u8buf, k: int, pv: int,
+                   gn=None):
     """Window stage 1 in plain PyTorch (K2's counterpart): remap the
     previous window's provisional sids and reset the logs, kill, apply
-    SHA3 resumes, seed the k rows, refresh the free-slot stack."""
+    SHA3 resumes, seed the k rows, refresh the free-slot stack. ``gn``:
+    the lanes the provisional slots index where ``st`` is a shard of a
+    meshed batch."""
     n = st.pc.shape[0]
     n_depth = st.stack.shape[1]
     sd, mc, ccw = _seed_widths(st)
@@ -543,7 +558,7 @@ def prologue_plain(st: SymLaneState, i32buf, u8buf, k: int, pv: int):
     mem_v = u8buf[k * ccw:k * (ccw + mc)].reshape(k, mc)
     mem_k = u8buf[k * (ccw + mc):k * (ccw + 2 * mc)].reshape(k, mc)
 
-    st = _remap_reset_core(st, a["prov"])
+    st = _remap_reset_core(st, a["prov"], gn)
     kl, _ = _rows(a["kill"], n)
     status = st.status.clone()
     status[kl] = DEAD
@@ -654,6 +669,8 @@ _WINDOW_SIGS = {
     "retire_rows": [_P, _P, _P, _I, _P, _P, _P, _P, _P],
     "unique_table": [_P, _P, _P, _I, _P, _P, _P, _P, _P],
     "fork_table": [_P, _I, _P, _P],
+    "window_remap": [_P, _P, _P, _I, _P],
+    "window_shard_rows": [_P, _P, _I, _P, _I, _P, _P, _I, _P, _P],
 }
 
 
@@ -737,13 +754,14 @@ def _k2_bytes(st, k):
         + k * (36 * d + 2 * m + c + 36 * e + 84 * s_)
 
 
-def _k2_plan(st, k, pv, shape):
-    """K2's argument block for these planes, k seeds and pv pairs:
-    (C int array, scratch bytes, i32 buffer length, u8 buffer length)."""
+def _k2_plan(st, k, pv, shape, gn=0):
+    """K2's argument block for these planes, k seeds and pv pairs (over
+    a batch of ``gn`` lanes, 0: the state's): (C int array, scratch
+    bytes, i32 buffer length, u8 buffer length)."""
     n, d_recs = st.pc.shape[0], st.dlog_op.shape[1]
     key = ("prologue", n, d_recs, st.stack.shape[1], st.memory.shape[1],
            st.calldata.shape[1], st.skeys.shape[1], st.env.shape[1],
-           st.mlog_off.shape[1], k, pv, st.device.index, shape)
+           st.mlog_off.shape[1], k, pv, st.device.index, shape, gn)
     plan = _WIN_PLANS.get(key)
     if plan is None:
         from .. import _build
@@ -753,22 +771,25 @@ def _k2_plan(st, k, pv, shape):
             _seed_sections(n, k, st.env.shape[1], sd, pv))
         blocks, threads, mode = shape or window_shape(
             "prologue", n, st.device, _k2_bytes(st, k))
-        dense = 8 * n * d_recs if pv > _K2_PROV_LOCAL else 0
+        dense = 8 * (gn or n) * d_recs if pv > _K2_PROV_LOCAL else 0
         scratch = dense + (20 * n if mode == 1 else 0)
         plan = _WIN_PLANS[key] = (
             _build.int_array([blocks, threads, mode, k, pv, sd, mc, ccw]
-                             + list(offs.values())),
-            scratch, total, k * (ccw + 2 * mc), (n, d_recs, bool(dense)))
+                             + list(offs.values()) + [gn]),
+            scratch, total, k * (ccw + 2 * mc),
+            (n, gn, d_recs, bool(dense)))
     return plan
 
 
-def prologue_kernel(st, i32buf, u8buf, k, pv, shape=None):
+def prologue_kernel(st, i32buf, u8buf, k, pv, shape=None, gn=0):
     """K2 on the card, one launch that does not wait on the card;
     updates the state's planes in place. ``shape`` (blocks, threads,
-    mode) overrides ``window_shape``'s."""
+    mode) overrides ``window_shape``'s; ``gn``: the lanes the
+    provisional slots index where ``st`` is a shard of a meshed
+    batch."""
     _build, lib = _kw()
     planes, dims = symstep.state_args(st)
-    args, nscratch, total, nu8, layout = _k2_plan(st, k, pv, shape)
+    args, nscratch, total, nu8, layout = _k2_plan(st, k, pv, shape, gn)
     if i32buf.numel() != total or u8buf.numel() != nu8:
         raise ValueError("seed buffers do not match the seed sections")
     for buf, dtype, name in ((i32buf, torch.int32, "i32buf"),
@@ -1076,6 +1097,277 @@ DISPATCH = {"window_exec": window_exec, "retire_rows": _retire_rows,
 
 
 # ---------------------------------------------------------------------------
+# the window over a mesh (the JAX engine's window under GSPMD)
+# ---------------------------------------------------------------------------
+
+def split_window(i32buf, n, d, k, n_env, sd, pv):
+    """Each shard's i32 seed buffer of one window's packed i32 buffer
+    (``pack_window``) over ``d`` shards of ``n / d`` lanes: the seed,
+    resume and kill entries name the shard's own lanes (JAX's drop rule
+    on the global index, then the shard's local index; every other
+    entry the padding), in their order, so a lane's last entry still
+    wins; the provisional pairs stay the batch's (K2 reads them over the
+    whole batch, ``gn``); the free-slot stack is the home batch's (an
+    empty section a shard). The u8 buffer is the same for every shard."""
+    buf = np.asarray(i32buf)
+    m = n // d
+    sec = _seed_sections(n, k, n_env, sd, pv)
+    a = _unpack_i32_sections(buf, sec)
+
+    def glob(idx):
+        g = idx.astype(np.int64)
+        return np.where(g < 0, g + n, g)
+
+    idx_g, ridx_g, kill_g = glob(a["idx"]), glob(a["r_idx"]), glob(a["kill"])
+    out = []
+    for i in range(d):
+        lo = i * m
+
+        def local(g):
+            return np.where((g >= lo) & (g < lo + m), g - lo, m
+                            ).astype(np.int32)
+
+        kl = kill_g[(kill_g >= lo) & (kill_g < lo + m)] - lo
+        kill = np.full(m, m, np.int32)
+        kill[:len(kl)] = kl[np.sort(np.unique(kl, return_index=True)[1])] \
+            if len(kl) else kl
+        parts = dict(a, idx=local(idx_g), r_idx=local(ridx_g), kill=kill,
+                     fs=np.zeros(m, np.int32), fcount=np.zeros((), np.int32))
+        out.append(np.concatenate([
+            np.asarray(parts[name], np.int32).reshape(-1)
+            for name, _, _ in _seed_sections(m, k, n_env, sd, pv)]))
+    return out, a
+
+
+def shard_rows_plain(st: SymLaneState, base: int, ridx, hidx,
+                     floors=RETIRE_FLOORS):
+    """A shard's part of K4's rows in plain PyTorch: the retire rows of
+    ``ridx`` (global lanes, the padding n) under ``floors``, their lanes
+    this shard holds marked DEAD, and the resume rows of ``hidx``; a
+    lane of another shard gathers the clamped lane. Returns (state,
+    (r_i32, r_u32, r_u8, h_i32, h_u32, h_u8))."""
+    m = st.pc.shape[0]
+    rl = ridx.long() - base
+    rows = _retire_gather_core(st, rl.clamp(0, m - 1), *floors)
+    hrows = _resume_gather_core(st, (hidx.long() - base).clamp(0, m - 1))
+    status = st.status.clone()
+    status[rl[(rl >= 0) & (rl < m)]] = DEAD
+    return st.replace(status=status), tuple(rows) + tuple(hrows)
+
+
+def shard_rows_kernel(st: SymLaneState, base: int, ridx, hidx,
+                      floors=RETIRE_FLOORS):
+    """``shard_rows_plain`` on the card (``csrc/window.cu``
+    ``window_shard_rows``): one launch, the six arrays sections of one
+    allocation, the retired lanes marked DEAD in place. ``hidx`` may be
+    empty (an escalation retire)."""
+    _build, lib = _kw()
+    planes, dims = symstep.state_args(st)
+    ridx = ridx.to(st.device).contiguous()
+    hidx = hidx.to(st.device).contiguous()
+    for t, name in ((ridx, "ridx"), (hidx, "hidx")):
+        _build.need_cuda(t, torch.int32, name)
+    wl = min(RESUME_MLOG, st.mlog_off.shape[1])
+    wm = min(RESUME_MEM, st.memory.shape[1])
+    rk, hk = ridx.shape[0], hidx.shape[0]
+    sections, nbytes = _layout(
+        _row_shapes(rk, *_retire_widths(st, *floors))
+        + [(torch.int32, (hk, 7 + 3 * wl)),
+           (torch.int32, (hk, 2 * NLIMBS)), (torch.uint8, (hk, 2 * wm))])
+    out = torch.empty(nbytes // 4, dtype=torch.int32, device=st.device)
+    ptrs = (ctypes.c_void_p * 6)(*[
+        out.data_ptr() + off * (1 if u8 else 4)
+        for u8, _, _, off in sections])
+    rc = lib.window_shard_rows(planes, dims, base, ridx.data_ptr(), rk,
+                               _build.int_array(floors), hidx.data_ptr(),
+                               hk, ptrs, _build.stream(st.device))
+    _build.LAUNCHES["window_rows"] += 1
+    _build.check(lib, rc, "window_shard_rows")
+    return st, Outputs(out, sections)
+
+
+def _shard_rows(st, base, ridx, hidx, floors=RETIRE_FLOORS):
+    fn = shard_rows_plain if st.device.type == "cpu" else shard_rows_kernel
+    return fn(st, base, ridx, hidx, floors)
+
+
+def remap_shard_plain(st: SymLaneState, canon) -> SymLaneState:
+    """K3's remap on a shard in plain PyTorch: its four persistent sid
+    planes through the whole batch's canon."""
+    d_recs = st.dlog_op.shape[1]
+    return st.replace(
+        ssid=_lookup(canon, st.ssid, d_recs),
+        sval_sid=_lookup(canon, st.sval_sid, d_recs),
+        skey_sid=_lookup(canon, st.skey_sid, d_recs),
+        mlog_sid=_lookup(canon, st.mlog_sid, d_recs))
+
+
+def remap_shard_kernel(st: SymLaneState, canon) -> SymLaneState:
+    """``remap_shard_plain`` on the card (``csrc/window.cu``
+    ``window_remap``), in place, one launch."""
+    _build, lib = _kw()
+    planes, dims = symstep.state_args(st)
+    canon = canon.to(st.device).contiguous()
+    _build.need_cuda(canon, torch.int32, "canon")
+    rc = lib.window_remap(planes, dims, canon.data_ptr(), canon.shape[0],
+                          _build.stream(st.device))
+    _build.LAUNCHES["window_remap"] += 1
+    _build.check(lib, rc, "window_remap")
+    return st
+
+
+def _pick_rows(idx, parts, m, d):
+    """Row j of each array from the shard that holds lane idx[j] (the
+    padding, n: the last shard's clamped row), ``parts`` each shard's
+    arrays (numpy)."""
+    owner = np.minimum(np.asarray(idx, np.int64) // m, d - 1)
+    out = []
+    for c in range(len(parts[0])):
+        arr = parts[0][c].copy()
+        for i in range(1, d):
+            sel = owner == i
+            if sel.any():
+                arr[sel] = parts[i][c][sel]
+        out.append(arr)
+    return out
+
+
+class MeshOutputs(Sequence):
+    """A meshed window's 12 outputs: K4's at home (``home``: misc,
+    scal, utab, ftab, ridx, ..., hidx, ...) and each shard's retire and
+    resume rows (``rows``), the rows of position j taken from the shard
+    that holds lane ridx[j] (hidx[j]) when read. ``start_pull`` starts
+    every copy to the host; indexing pulls at once (the CPU path)."""
+
+    def __init__(self, home, rows, m, d):
+        self.home, self.rows, self.m, self.d = home, rows, m, d
+
+    def __len__(self):
+        return 12
+
+    def _assemble(self, home, rows):
+        out = list(home)
+        out[5:8] = _pick_rows(home[4], [r[:3] for r in rows], self.m,
+                              self.d)
+        out[9:12] = _pick_rows(home[8], [r[3:] for r in rows], self.m,
+                               self.d)
+        return out
+
+    def start_pull(self):
+        home = _start_pull(self.home)
+        rows = [_start_pull(r) for r in self.rows]
+        return lambda: self._assemble(home(), [r() for r in rows])
+
+    def __getitem__(self, i):
+        return torch.from_numpy(np.ascontiguousarray(
+            self.start_pull()()[i]))
+
+
+class MeshRows(Sequence):
+    """An escalation retire's rows over a mesh: each shard's, row j
+    from the shard that holds lane idx[j]."""
+
+    def __init__(self, idx, rows, m, d):
+        self.idx, self.rows, self.m, self.d = idx, rows, m, d
+
+    def __len__(self):
+        return 3
+
+    def start_pull(self):
+        rows = [_start_pull(r) for r in self.rows]
+        return lambda: _pick_rows(self.idx, [r()[:3] for r in rows],
+                                  self.m, self.d)
+
+    def __getitem__(self, i):
+        return torch.from_numpy(np.ascontiguousarray(
+            self.start_pull()()[i]))
+
+
+def window_exec_mesh(ss, codes, i32buf, u8buf, exec_table, taint_table,
+                     window: int, k: int, budget: int, pv: int, visited,
+                     resume_on):
+    """One window dispatch over a batch placed on a mesh
+    (``parallel/mesh.SymShards``), the JAX ``_window_exec`` under GSPMD:
+    K2 a shard (the host splits the seed buffers, ``split_window``; the
+    free-slot stack and counts go to the home batch), ``sym_run_mesh``
+    (K1 a shard), K3 once at home over the record planes gathered there
+    (``mesh.gather_home``: its canon orders records by global step over
+    every lane) with the rewritten record sids copied back and each
+    shard's sid planes remapped through that canon (``window_remap`` a
+    shard), K4 at home over the gathered selection and counter planes
+    (the selections in global lane order, the counters, unique-record
+    and fork tables) and its rows a shard (``window_shard_rows``, which
+    marks the retired lanes DEAD). Each phase takes the plain version on
+    a CPU shard and the kernel on a CUDA one, on the shard's device.
+    ``codes``: {device: compiled code}; the buffers are host arrays.
+    Returns (ss, visited, MeshOutputs)."""
+    from ..parallel.mesh import gather_home, scatter_home
+
+    n, m, d = ss.n, ss.per, ss.mesh.size
+    st0 = ss.shards[0]
+    sd = min(SEED_STACK, st0.stack.shape[1])
+    parts, sec = split_window(i32buf, n, d, k, st0.env.shape[1], sd, pv)
+    u8 = torch.from_numpy(np.ascontiguousarray(np.asarray(u8buf)))
+    home = ss.home
+    home.free_slots.copy_(torch.from_numpy(np.asarray(sec["fs"], np.int32)))
+    home.free_count.copy_(torch.tensor(int(sec["fcount"]),
+                                       dtype=torch.int32))
+    home.flog_count.copy_(torch.tensor(0, dtype=torch.int32))
+    for i, st in enumerate(ss.shards):
+        buf = torch.from_numpy(parts[i])
+        if st.device.type == "cpu":
+            ss.shards[i] = prologue_plain(st, buf, u8, k, pv, gn=n)
+        else:
+            with _on(st.device):
+                prologue_kernel(st, buf.to(st.device), u8.to(st.device), k,
+                                pv, gn=n)
+    ss, visited = symstep.sym_run_mesh(codes, ss, window, exec_table,
+                                       taint_table, visited)
+    gather_home(ss)
+    if ss.home.device.type == "cpu":
+        ss.home, canon = dedup_plain(ss.home)
+    else:
+        with _on(ss.home.device):
+            canon = dedup_kernel(ss.home, write_sids=True)
+    scatter_home(ss, ("dlog_sid",))
+    for i, st in enumerate(ss.shards):
+        if st.device.type == "cpu":
+            ss.shards[i] = remap_shard_plain(st, canon)
+        else:
+            with _on(st.device):
+                remap_shard_kernel(st, canon)
+    cc = codes[ss.home.device]
+    if ss.home.device.type == "cpu":
+        ss.home, outs = epilogue_plain(ss.home, cc, canon, budget,
+                                       resume_on)
+    else:
+        with _on(ss.home.device):
+            outs = epilogue_kernel(ss.home, cc, canon, budget, resume_on)
+    ridx, hidx = outs[4], outs[8]
+    rows = []
+    for i, st in enumerate(ss.shards):
+        with _on(st.device):
+            ss.shards[i], r = _shard_rows(st, i * m, ridx, hidx)
+        rows.append(r)
+    return ss, visited, MeshOutputs(outs, rows, m, d)
+
+
+def retire_rows_mesh(ss, ridx, dstack, dmem, dmlog, dslot):
+    """``_retire_rows`` over a mesh: each shard gathers the rows of the
+    named lanes and marks its own DEAD; returns (ss, MeshRows)."""
+    m, d = ss.per, ss.mesh.size
+    rows = []
+    idx = ridx.cpu()
+    empty = torch.zeros(0, dtype=torch.int32)
+    for i, st in enumerate(ss.shards):
+        with _on(st.device):
+            ss.shards[i], r = _shard_rows(st, i * m, idx, empty,
+                                          (dstack, dmem, dmlog, dslot))
+        rows.append(r)
+    return ss, MeshRows(idx.numpy(), rows, m, d)
+
+
+# ---------------------------------------------------------------------------
 # the window-merge fingerprint: csrc/merge.cu (K9)
 # ---------------------------------------------------------------------------
 
@@ -1098,7 +1390,7 @@ def _sm32(x):
     return x ^ (x >> 16)
 
 
-def merge_fingerprint_plain(st: SymLaneState, prov_pairs):
+def merge_fingerprint_plain(st: SymLaneState, prov_pairs, gn=None):
     """Per-lane frontier fingerprint of the window-boundary merge pass
     in plain PyTorch (the JAX ``_merge_fingerprint``, fold for fold):
     two 32-bit multilinear hashes over pc, depth, fork group, fentry,
@@ -1106,13 +1398,14 @@ def merge_fingerprint_plain(st: SymLaneState, prov_pairs):
     memory kinds, concrete bytes and overlay records, the storage slot
     table with its write order as ranks, and the calldata shape; then
     the raw gas interval. Provisional sids resolve through
-    ``prov_pairs`` as the next dispatch will resolve them. Returns
+    ``prov_pairs`` as the next dispatch will resolve them (over a batch
+    of ``gn`` lanes where ``st`` is a shard of a meshed one). Returns
     (N, 4) int32 holding the uint32 columns (h1, h2, min_gas,
     max_gas)."""
     n = st.pc.shape[0]
     dev = st.device
     d_recs = st.dlog_op.shape[1]
-    prov_arr = prov_table(st, prov_pairs)
+    prov_arr = prov_table(st, prov_pairs, gn)
 
     def remap(plane):
         return _lookup(prov_arr, plane, d_recs)
@@ -1240,7 +1533,7 @@ _K9_SIGS = {"merge_fingerprint": [_P, _P, _P, _I, _P, _P, _P, _P],
 _K9_LAUNCH = {}
 
 
-def _k9_launch(lib, st: SymLaneState, pv: int):
+def _k9_launch(lib, st: SymLaneState, pv: int, gn: int = 0):
     """K9's plan for this state and pair count, and its C argument
     array: made and checked (the library's own shared-memory size, the
     card's limit) once for each shape."""
@@ -1250,7 +1543,7 @@ def _k9_launch(lib, st: SymLaneState, pv: int):
               and st.memory.data_ptr() % 16 == 0
               and st.mkind.data_ptr() % 16 == 0)
     n, depth, slots = st.pc.shape[0], st.stack.shape[1], st.skeys.shape[1]
-    key = (st.device, n, pv, depth, slots, vec)
+    key = (st.device, n, pv, depth, slots, vec, gn)
     hit = _K9_LAUNCH.get(key)
     if hit is None:
         smem_limit, sms = _build.device_limits(st.device)
@@ -1263,11 +1556,11 @@ def _k9_launch(lib, st: SymLaneState, pv: int):
             raise ValueError(f"K9: {plan['smem']} shared bytes a block for "
                              f"{depth} stack and {slots} storage slots")
         hit = _K9_LAUNCH[key] = (plan, _build.int_array(
-            [plan["blocks"], plan["team"], plan["cap"], vec]))
+            [plan["blocks"], plan["team"], plan["cap"], vec, gn]))
     return hit
 
 
-def merge_fingerprint_kernel(st: SymLaneState, prov_pairs):
+def merge_fingerprint_kernel(st: SymLaneState, prov_pairs, gn=None):
     """K9 on the card (``csrc/merge.cu``): ``merge_fingerprint_plain``
     of a CUDA state, in one launch where the pairs fit its shared hash
     (``merge_fp_plan``). Launches on the current stream of the state's
@@ -1285,9 +1578,9 @@ def merge_fingerprint_kernel(st: SymLaneState, prov_pairs):
     out = torch.empty((n, 4), dtype=torch.int32, device=st.device)
     if n == 0:
         return out
-    plan, args = _k9_launch(lib, st, pv)
+    plan, args = _k9_launch(lib, st, pv, gn or 0)
     dense = None if plan["cap"] else torch.empty(
-        n * d_recs, dtype=torch.int32, device=st.device)
+        (gn or n) * d_recs, dtype=torch.int32, device=st.device)
     rc = lib.merge_fingerprint(planes, dims, _build.ptr(pairs), pv, args,
                                None if dense is None else _build.ptr(dense),
                                _build.ptr(out), _build.stream(st.device))
@@ -1296,12 +1589,12 @@ def merge_fingerprint_kernel(st: SymLaneState, prov_pairs):
     return out
 
 
-def merge_fingerprint(st: SymLaneState, prov_pairs):
+def merge_fingerprint(st: SymLaneState, prov_pairs, gn=None):
     """The window-merge fingerprint: the plain version for a CPU state,
-    K9 for a CUDA state."""
+    K9 for a CUDA state (``gn``: see ``merge_fingerprint_plain``)."""
     if st.device.type == "cpu":
-        return merge_fingerprint_plain(st, prov_pairs)
-    return merge_fingerprint_kernel(st, prov_pairs)
+        return merge_fingerprint_plain(st, prov_pairs, gn)
+    return merge_fingerprint_kernel(st, prov_pairs, gn)
 
 
 def _prov_pairs(prov: dict, n: int, d_recs: int, device) -> torch.Tensor:
@@ -1701,7 +1994,11 @@ def _start_pull(tensors):
     back in one copy into one pinned buffer, each array a view of it;
     other tensors in a copy each. A pull on another thread (the
     retire ring's workers) never waits for, or races with, launches
-    made after this call. CPU tensors come back as they are."""
+    made after this call. CPU tensors come back as they are. A meshed
+    window's outputs (``MeshOutputs``, ``MeshRows``) pull each shard's
+    part and assemble them."""
+    if isinstance(tensors, (MeshOutputs, MeshRows)):
+        return tensors.start_pull()
     if isinstance(tensors, Outputs):
         dev = tensors.base.device
         raw, parts = _one_buffer(tensors)
@@ -2064,9 +2361,35 @@ FORCE_WIDTH: Optional[int] = None
 
 
 def pick_mesh(width: int):
-    """Device mesh for a sweep: None, single-device execution (the
-    multi-device lane engine is not ported yet)."""
-    return None
+    """Device mesh for a sweep under the args.tpu_mesh policy, or None
+    for single-device execution, as the JAX engine picks it: auto (-1)
+    shards over every card when more than one exists, N over at most N;
+    the width must divide evenly and leave at least 8 lanes a shard
+    (narrower shards pay the exchange for no batching win). The cards
+    are those of the analysis's device (``args.device``): a run on the
+    CPU or on a card named by its index is a one-device run, as is a
+    one-card host, and resolves to None under every setting."""
+    from ..support.devices import device_count
+    from ..support.support_args import args
+
+    setting = getattr(args, "tpu_mesh", -1)
+    if setting == 0:
+        return None
+    device = getattr(args, "device", None)
+    if device is not None:
+        device = torch.device(device)
+        if device.type != "cuda" or device.index is not None:
+            return None
+    nd = device_count()
+    if setting > 0:
+        nd = min(setting, nd)
+    while nd > 1 and (width % nd or width // nd < 8):
+        nd -= 1
+    if nd <= 1:
+        return None
+    from ..parallel.mesh import make_mesh
+
+    return make_mesh(nd)
 
 
 def pick_width(cap: int, n_entries: int,
@@ -2129,13 +2452,20 @@ class LaneEngine:
         #: at a top-level STOP materialize without the stack/memory
         #: rebuild the STOP transaction-end path never reads
         self.slim_stop = slim_stop
-        if mesh is not None:
-            raise NotImplementedError("the port runs one device per "
-                                      "lane engine")
-        self.mesh = None
-        #: the torch device of the lane planes: the caller's, else
+        # a mesh (parallel/mesh.Mesh) places the lane planes over its
+        # devices (parallel/mesh.SymShards) and runs every window's
+        # phases a shard, as the JAX engine runs its window SPMD over a
+        # `lanes` mesh (window_exec_mesh); the host bridge is the same
+        self.mesh = mesh
+        if mesh is not None and n_lanes % mesh.devices.size:
+            raise ValueError(
+                f"{n_lanes} lanes not divisible by "
+                f"{mesh.devices.size} mesh devices")
+        #: the torch device of the lane planes (a mesh's: its first,
+        #: where the batch's global planes live): the caller's, else
         #: args.device, else the card (support/devices.resolve)
-        self.device = resolve(device)
+        self.device = resolve(device) if mesh is None \
+            else mesh.devices[0]
         #: device-resident / host coverage bitmaps per code (see explore)
         self._visited_dev: Dict[bytes, object] = {}
         self.visited_by_code: Dict[bytes, np.ndarray] = {}
@@ -2256,8 +2586,11 @@ class LaneEngine:
         self._stats_lock = threading.Lock()
 
     def _full_bucket(self) -> int:
-        """Full-width seed bucket for backlog drains."""
-        return self.n_lanes
+        """Full-width seed bucket for backlog drains, kept strictly
+        below the plane width under a mesh, as the JAX engine keeps it
+        (its k == n seed scatter trips the SPMD partitioner)."""
+        return self.n_lanes if self.mesh is None \
+            else max(self.n_lanes // 2, 1)
 
     # -- seeding ------------------------------------------------------------
     # (eligibility is decided by the caller: svm._lane_engine_sweep)
@@ -2455,10 +2788,13 @@ class LaneEngine:
         i32buf, u8buf, k, pv = pack_window(
             self.n_lanes, symstep.N_ENV, self.lane_kwargs,
             list(zip(lanes, specs)), free, kill, self._prov,
-            calldata_cap, big=big, resumes=resumes)
+            calldata_cap, big=big, resumes=resumes,
+            meshed=self.mesh is not None)
         self.stats["seeded"] += len(entries)
         # mid-path re-entries (the spill/refill path) vs fresh tx seeds
         self.stats["reseeded"] += sum(1 for s in specs if s["pc"])
+        if self.mesh is not None:  # window_exec_mesh splits them
+            return i32buf, u8buf, k, pv
         return (torch.from_numpy(i32buf).to(self.device),
                 torch.from_numpy(u8buf).to(self.device), k, pv)
 
@@ -3411,10 +3747,20 @@ class LaneEngine:
             d_recs = self.lane_kwargs.get("dlog_records", 64)
             with _prof("merge_fp"), \
                     trace.span("merge.fingerprint", groups=groups):
-                pairs = _prov_pairs(self._prov, self.n_lanes, d_recs,
-                                    self.device)
-                fp = merge_fingerprint(st, pairs)
-                self._fp_boundary = _start_pull([fp])()[0].view(np.uint32)
+                if self.mesh is None:
+                    pairs = _prov_pairs(self._prov, self.n_lanes, d_recs,
+                                        self.device)
+                    fp = _start_pull([merge_fingerprint(st, pairs)])()[0]
+                else:  # K9 a shard, over the batch's pairs
+                    pulls = []
+                    for shard in st.shards:
+                        with _on(shard.device):
+                            pairs = _prov_pairs(self._prov, self.n_lanes,
+                                                d_recs, shard.device)
+                            pulls.append(_start_pull([merge_fingerprint(
+                                shard, pairs, self.n_lanes)]))
+                    fp = np.concatenate([p()[0] for p in pulls])
+                self._fp_boundary = fp.view(np.uint32)
         return self._fp_boundary
 
     def _collapse_twins(self, pre, fp, ctxs):
@@ -3577,7 +3923,9 @@ class LaneEngine:
             idx = np.full(kp, self.n_lanes, np.int32)
             idx[: len(part)] = part
             with _prof("retire_dispatch"):
-                st, rows = _retire_rows(
+                retire = _retire_rows if self.mesh is None \
+                    else retire_rows_mesh
+                st, rows = retire(
                     st, torch.from_numpy(idx).to(self.device), *floors)
                 pull = _start_pull(rows)
             chunks.append((part, pull, floors, time.perf_counter()))
@@ -3730,6 +4078,8 @@ class LaneEngine:
         owners = [owner for _c, _s, owner in members]
         if len(set(owners)) != len(owners):
             raise ValueError("packed members need distinct owner tags")
+        if self.mesh is not None:
+            raise ValueError("packed waves do not shard")
         return self._explore_members(tuple(members))
 
     def _explore_members(self, members) -> Dict[object, list]:
@@ -3738,6 +4088,7 @@ class LaneEngine:
         mems: List[Optional[_PackMember]] = []
         stats0 = dict(self.stats)  # engines persist across explores
         self._reset_explore_memos()
+        codes = {}
         if not packed:
             entry_states = members[0][1]
             self._func_names = dict(
@@ -3759,6 +4110,11 @@ class LaneEngine:
             cc = _compiled_code(code_bytes, self._func_names.keys(),
                                 self.device)
             mems.append(None)
+            # the code tensors once a device of the mesh (the JAX
+            # engine's replicated copy, _cc_rep)
+            codes = {dev: _compiled_code(code_bytes,
+                                         self._func_names.keys(), dev)
+                     for dev in (self.mesh.devices if self.mesh else ())}
         else:
             # packed wave: per-member function maps ride the lane
             # ctxs. The verified loop-summary park planes pack per
@@ -3833,12 +4189,17 @@ class LaneEngine:
             router = None
             sink = results
             deliver = lambda _owner, gs: results.append(gs)  # noqa: E731
-        calldata_cap = int(st.calldata.shape[1])
+        calldata_cap = int((st if self.mesh is None else st.shards[0])
+                           .calldata.shape[1])
         n = self.n_lanes
 
         kill: List[int] = []
         resumes: List[tuple] = []
         small = min(16, self.n_lanes)
+        if self.mesh is not None and small >= self.n_lanes:
+            # under a mesh the seed bucket stays below the plane width,
+            # as the JAX engine's does
+            small = max(self.n_lanes // 2, 1)
         peak_demand = len(queue)
         # streaming retire/materialize pipeline
         # (docs/drain_pipeline.md "streaming retire"): window k's
@@ -3970,14 +4331,22 @@ class LaneEngine:
                     self.stats["overlap_idle_ms"] += int(idle_ms)
                     _solver_stats.overlap_idle_ms += idle_ms
                     t_idle0 = None
-                with _prof("window_exec", sync=lambda: st.pc), \
+                with _prof("window_exec",
+                           sync=lambda: getattr(st, "home", st).pc), \
                         trace.span("lane.window_dispatch",
                                    seeds=k, window=self.window):
-                    st, visited, out = window_exec(
-                        st, cc, i32buf, u8buf, self.exec_table,
-                        self.taint_table, self.window, k,
-                        self.step_budget, pv, visited,
-                        self._resume_flag)
+                    if self.mesh is None:
+                        st, visited, out = window_exec(
+                            st, cc, i32buf, u8buf, self.exec_table,
+                            self.taint_table, self.window, k,
+                            self.step_budget, pv, visited,
+                            self._resume_flag)
+                    else:
+                        st, visited, out = window_exec_mesh(
+                            st, codes, i32buf, u8buf, self.exec_table,
+                            self.taint_table, self.window, k,
+                            self.step_budget, pv, visited,
+                            self._resume_flag)
                 # start the fused outputs' copies to the host now: the
                 # transfer overlaps the host work below instead of
                 # serializing into the blocking pull
@@ -4060,7 +4429,8 @@ class LaneEngine:
                         urb_big *= 2
                     urb_big = min(urb_big, cap)
                     with _prof("logs_escalate"):
-                        tab, uc2 = _unique_table_big(st, urb_big)
+                        tab, uc2 = _unique_table_big(
+                            getattr(st, "home", st), urb_big)
                         utab = tab.cpu().numpy()
                     ucount = int(uc2)
                     if ucount > utab.shape[0]:
@@ -4079,7 +4449,8 @@ class LaneEngine:
                     ))
                 if nf > ftab.shape[0]:
                     with _prof("flog_escalate"):
-                        ftab = _gather_full_flog(st).cpu().numpy()
+                        ftab = _gather_full_flog(
+                            getattr(st, "home", st)).cpu().numpy()
                 forks = []
                 for i in range(nf):
                     r = ftab[i]
@@ -4391,14 +4762,24 @@ class LaneEngine:
     # -- device-state pooling ------------------------------------------------
 
     def _shape_key(self) -> tuple:
-        return (self.n_lanes, str(self.device)) \
+        mesh_key = None
+        if self.mesh is not None:
+            mesh_key = tuple(str(d) for d in self.mesh.devices.flat)
+        return (self.n_lanes, str(self.device), mesh_key) \
             + tuple(sorted(self.lane_kwargs.items()))
 
-    def _acquire_state(self) -> SymLaneState:
+    def _acquire_state(self):
+        """A batch for an explore: pooled, else fresh; over the mesh a
+        ``parallel/mesh.SymShards`` (each shard on its device)."""
         pool = _STATE_POOL.get(self._shape_key())
         if pool:
             return pool.pop()
         with _prof("init_lanes"):
+            if self.mesh is not None:
+                from ..parallel.mesh import shard_sym_lanes
+
+                return shard_sym_lanes(self.mesh, self.n_lanes,
+                                       **self.lane_kwargs)
             return symstep.init_sym_lanes(self.n_lanes, device=self.device,
                                           **self.lane_kwargs)
 

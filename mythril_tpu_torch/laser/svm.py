@@ -590,6 +590,21 @@ class LaserEVM:
                 or any(_essential(h)
                        for h in self.instr_post_hook.values()):
             return
+        # a per-state hook sees only the states the host executes: one
+        # registered by a caller (the concolic trace recorder must see
+        # every step) disables the sweep as an essential instruction
+        # hook does; the engine's own plugins' (coverage, which merges
+        # the device's visited bitmap, and the benchmark's timing) stay
+        own = __package__ + ".plugin.plugins."
+        if any(not getattr(h, "__module__", "").startswith(own)
+               for h in _essential(self._execute_state_hooks)):
+            return
+        # the concolic strategy follows a recorded trace and flips the
+        # JUMPIs it names as the host executes them
+        from .strategy.concolic import ConcolicStrategy
+
+        if isinstance(self.strategy, ConcolicStrategy):
+            return
         try:
             from ..analysis.module.lane_adapters import get_adapter
         except Exception:  # pragma: no cover

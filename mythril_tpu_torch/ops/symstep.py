@@ -12,7 +12,12 @@ This module keeps the same ``SymLaneState`` planes, shapes and dtypes
 - ``sym_run``: up to ``max_steps`` steps (stopping once no lane is
   RUNNING), with the optional ``visited`` coverage bitmap. On a CPU
   state it loops ``sym_step``; on a CUDA state it runs kernel K1,
-  ``csrc/symstep.cu``, and never the plain version.
+  ``csrc/symstep.cu``, and never the plain version;
+- ``sym_run_mesh``: the same run over a batch placed on a mesh
+  (``parallel/mesh.SymShards``), each shard's step on its own device
+  (K1's shard phases on a CUDA shard, ``sym_step`` with a ``ShardStep``
+  on a CPU one) under one exchange of fork counts, fork-log rows and
+  child rows.
 
 The JAX stepper gates each expensive family behind a ``lax.cond`` over
 "any lane needs it"; per lane the result is the same whether or not a
@@ -368,11 +373,43 @@ def _take(plane, idx):
     return torch.gather(plane, 1, idx.long())
 
 
+class ShardStep:
+    """What one shard's step needs of the batch it belongs to
+    (``sym_run_mesh``): the global index of its first lane (``base``),
+    and for the execution phase the step's global fork rank of its
+    first request (``off``), the step's fork budget (``navail``), the
+    batch's free-slot count, fork-log count and step number before the
+    step. With ``decide`` set the step stops after each lane's fork
+    request and returns the requests."""
+
+    __slots__ = ("base", "off", "navail", "free_count", "flog_count",
+                 "step_no", "decide")
+
+    def __init__(self, base, off=0, navail=0, free_count=0, flog_count=0,
+                 step_no=0, decide=False):
+        self.base, self.off, self.navail = base, off, navail
+        self.free_count, self.flog_count = free_count, flog_count
+        self.step_no, self.decide = step_no, decide
+
+
+#: the columns of a shard's fork stash (``sym_step`` with a
+#: ``ShardStep``), a row a fork in the shard's fork order
+STASH = ("parent", "fall_pc", "fentry", "pc", "sid", "gmin", "gmax",
+         "dest")
+
+
 def sym_step(code: CompiledCode, st: SymLaneState, exec_table=None,
-             taint_table=None) -> SymLaneState:
+             taint_table=None, shard: "ShardStep" = None):
     """Advance every running lane by one instruction, in plain PyTorch
     (the JAX ``sym_step``, op for op). ``exec_table``/``taint_table`` are
-    optional (256,) bool tables with the meaning they have there."""
+    optional (256,) bool tables with the meaning they have there.
+
+    With ``shard`` the batch is one shard of a larger one
+    (``sym_run_mesh``): provisional sids and fork parents carry global
+    lane indices, the fork order and budget are the step's global ones,
+    and instead of forking the step returns (state, stash): a (forks,
+    8) int32 tensor of ``STASH`` columns for the shard's forking
+    parents in fork order (their child rows are copied by the caller)."""
     dev = st.pc.device
     tab = _tables(dev)
     exec_t = torch.as_tensor(
@@ -388,7 +425,8 @@ def sym_step(code: CompiledCode, st: SymLaneState, exec_table=None,
     s_slots = st.skeys.shape[1]
     d_recs = st.dlog_op.shape[1]
     lanes = torch.arange(n, device=dev)
-    step_no = int(st.step_no)
+    glanes = lanes if shard is None else lanes + shard.base
+    step_no = int(st.step_no) if shard is None else shard.step_no
 
     running = st.status == Status.RUNNING
     pc = st.pc.to(I64)
@@ -639,11 +677,17 @@ def sym_step(code: CompiledCode, st: SymLaneState, exec_table=None,
 
     # ---- fork request / slot allocation ----------------------------------------
     fork_req = running & is_jumpi & sym_b & ~sym_a & dest_ok & ~park0
+    if shard is not None and shard.decide:
+        return fork_req
     forder = torch.cumsum(fork_req.to(I64), 0) - 1
-    maxf = min(MAX_FORKS_PER_STEP, n)
-    free_count = int(st.free_count)
-    flog_count = int(st.flog_count)
-    navail = min(free_count, maxf, st.flog_parent.shape[0] - flog_count)
+    if shard is None:
+        maxf = min(MAX_FORKS_PER_STEP, n)
+        free_count = int(st.free_count)
+        flog_count = int(st.flog_count)
+        navail = min(free_count, maxf, st.flog_parent.shape[0] - flog_count)
+    else:
+        forder = forder + shard.off
+        free_count, navail = shard.free_count, shard.navail
     fork_can = fork_req & (forder < navail)
     fork_stall = fork_req & ~fork_can & (forder < free_count)
     fork_nocap = fork_req & ~fork_can & ~fork_stall
@@ -729,7 +773,8 @@ def sym_step(code: CompiledCode, st: SymLaneState, exec_table=None,
     msize_r = bv256.from_u32(msize2)
 
     # ---- storage execution ------------------------------------------------------------
-    prov_id = -(lanes * d_recs + st.dlog_count.to(I64).clamp(0, d_recs - 1) + 1)
+    prov_id = -(glanes * d_recs
+                + st.dlog_count.to(I64).clamp(0, d_recs - 1) + 1)
     skeys2, skey_sid2, s_wstep2 = st.skeys, st.skey_sid, st.s_wstep
     svals2, sval_sid2, s_written2 = st.svals, st.sval_sid, st.s_written
     s_read2, scount2, sload_r = st.s_read, st.scount, zero_w
@@ -893,6 +938,12 @@ def sym_step(code: CompiledCode, st: SymLaneState, exec_table=None,
         dlog_count=dlog[6],
         step_no=st.step_no + 1,
     )
+    if shard is not None:
+        cols = (glanes, next_pc, st.fentry, st.pc, sid_b, st.min_gas,
+                st.max_gas, dest)
+        stash = torch.stack([c[fork_can].to(torch.int32) for c in cols],
+                            dim=1)
+        return out, stash
     if not bool(fork_can.any()):
         return out
     return _do_forks(out, st, fork_can, forder, next_pc, dest, sid_b)
@@ -1176,3 +1227,342 @@ def sym_run(code: CompiledCode, st: SymLaneState, max_steps: int,
                              visited)
     return sym_run_kernel(code, st, max_steps, exec_table, taint_table,
                           visited)
+
+
+# ---------------------------------------------------------------------------
+# the run over a mesh: K1 a shard (parallel/mesh.SymShards)
+# ---------------------------------------------------------------------------
+
+#: the lane planes a fork's child copies from its parent (all but the
+#: batch's global planes, and pc, fentry and dlog_count, which the child
+#: gets from its parent's fork stash and 0), in ``csrc/symstep.cu``
+#: ``fork_rows``' order
+FORK_PLANES = tuple(f for f in FIELDS if f not in NO_COPY
+                    and f not in ("pc", "fentry", "dlog_count"))
+
+
+class _PlainShard:
+    """K1's phases on one CPU shard, in plain PyTorch (``sym_step`` with
+    a ``ShardStep``); the shard is replaced in ``ss.shards``."""
+
+    def __init__(self, ss, i, code, exec_table, taint_table, visited):
+        self.ss, self.i, self.code = ss, i, code
+        self.tabs = exec_table, taint_table
+        self.base = i * ss.per
+        self.vis = None if visited is None else torch.zeros_like(visited)
+        self.req = None
+
+    def visited(self, visited):
+        return vis_or(visited, self.vis)
+
+    def decide(self):
+        st = self.ss.shards[self.i]
+        running = st.status == Status.RUNNING
+        if self.vis is not None:
+            mark = st.pc.long()[running]
+            self.vis[mark[(mark >= 0) & (mark < self.vis.shape[0])]] = True
+        self.req = sym_step(self.code, st, *self.tabs,
+                            ShardStep(self.base, decide=True))
+        return lambda: (int(self.req.sum()), int(running.sum()))
+
+    def execute(self, off, navail, free_count, flog_count, step_no, nf):
+        st, stash = sym_step(self.code, self.ss.shards[self.i], *self.tabs,
+                             ShardStep(self.base, off, navail, free_count,
+                                       flog_count, step_no))
+        self.ss.shards[self.i] = st
+        return stash.t().contiguous()
+
+    def stage(self, stash, idx):
+        st = self.ss.shards[self.i]
+        idx = torch.as_tensor(idx, dtype=torch.int64)
+        rows = stash[0, idx].long() - self.base
+        out = {f: getattr(st, f)[rows].clone() for f in FORK_PLANES}
+        out["pc"], out["fentry"] = stash[1, idx], stash[2, idx]
+        return out
+
+    def land(self, staged, child):
+        st = self.ss.shards[self.i]
+        child = torch.as_tensor(child, dtype=torch.int64)
+        new = {}
+        for f in FORK_PLANES + ("pc", "fentry"):
+            y = getattr(st, f).clone()
+            y[child] = staged[f].to(y.device)
+            new[f] = y
+        new["dlog_count"] = st.dlog_count.clone()
+        new["dlog_count"][child] = 0
+        self.ss.shards[self.i] = st.replace(**new)
+
+
+_MESH_SIGS = {
+    "sym_decide": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p],
+    "sym_exec": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "sym_fork_row_bytes": [ctypes.c_void_p],
+    "sym_fork_stage": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+    "sym_fork_land": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+    "sym_vis_or": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p],
+}
+
+
+def _k1_mesh():
+    from .. import _build
+
+    lib = _k1()
+    for name, argtypes in _MESH_SIGS.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return lib
+
+
+#: threads a block of K1's shard phases (``csrc/symstep.cu``
+#: ``SHARD_THREADS``): a lane a thread
+SHARD_THREADS = 256
+
+
+class _CudaShard:
+    """K1's phases on one CUDA shard (``csrc/symstep.cu``): ``sym_decide``
+    (each lane's decisions into a scratch, the block's fork requests, the
+    shard's requests and running lanes, the visited bitmap), then
+    ``sym_exec`` (each lane's step at the global fork ranks, the forking
+    parents into the stash), and the fork rows' ``sym_fork_stage`` and
+    ``sym_fork_land``. Each launch on the current stream of the shard's
+    device, counted in ``LAUNCHES``."""
+
+    def __init__(self, ss, i, code, exec_table, taint_table, visited):
+        from .. import _build
+
+        self.b = _build
+        self.lib = _k1_mesh()
+        self.ss, self.i, self.code = ss, i, code
+        st = ss.shards[i]
+        self.dev = st.device
+        self.base = i * ss.per
+        self.planes, self.dims = state_args(st)
+        m = st.pc.shape[0]
+        self.blocks = max(1, -(-m // SHARD_THREADS))
+        self.optab = torch.from_numpy(
+            op_table(exec_table, taint_table)).to(self.dev)
+        _build.need_cuda(code.packed, torch.int32, "code.packed")
+        if code.seg_tab is not None:
+            raise ValueError("a packed arena does not run over a mesh")
+        dec_bytes = self.lib.sym_fork_row_bytes(None)
+        self.dec = torch.empty(m * dec_bytes, dtype=torch.uint8,
+                               device=self.dev)
+        # each block's fork requests, then its running lanes
+        self.counts = torch.empty(2 * self.blocks, dtype=torch.int32,
+                                  device=self.dev)
+        self.host = torch.empty(2 * self.blocks, dtype=torch.int32,
+                                pin_memory=True)
+        # the batch's bitmap where it lives on the shard's device, else
+        # the shard's own, ORed into it after the run
+        self.vis = None if visited is None \
+            else visited if visited.device == self.dev \
+            else torch.zeros(visited.shape[0], dtype=torch.bool,
+                             device=self.dev)
+        cap = min(MAX_FORKS_PER_STEP, ss.n)
+        self.stash = torch.empty((len(STASH), cap), dtype=torch.int32,
+                                 device=self.dev)
+        self.row_bytes = self.lib.sym_fork_row_bytes(self.dims)
+
+    def decide(self):
+        with torch.cuda.device(self.dev):
+            return self._decide()
+
+    def _decide(self):
+        b = self.b
+        rc = self.lib.sym_decide(
+            self.planes, self.dims, b.ptr(self.code.packed), self.code.size,
+            b.ptr(self.optab), b.ptr(self.dec), b.ptr(self.counts),
+            None if self.vis is None else b.ptr(self.vis),
+            0 if self.vis is None else self.vis.shape[0],
+            b.stream(self.dev))
+        b.LAUNCHES["sym_decide"] += 1
+        b.check(self.lib, rc, "sym_decide")
+        self.host.copy_(self.counts, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.dev))
+
+        def read():
+            done.synchronize()
+            c = self.host.numpy()
+            return int(c[:self.blocks].sum()), int(c[self.blocks:].sum())
+
+        return read
+
+    def visited(self, visited):
+        if self.vis is visited:
+            return visited
+        return vis_or(visited, self.vis)
+
+    def execute(self, off, navail, free_count, flog_count, step_no, nf):
+        with torch.cuda.device(self.dev):
+            return self._execute(off, navail, free_count, flog_count,
+                                 step_no)
+
+    def _execute(self, off, navail, free_count, flog_count, step_no):
+        b = self.b
+        rc = self.lib.sym_exec(
+            self.planes, self.dims, b.ptr(self.code.packed), self.code.size,
+            b.ptr(self.optab), b.ptr(self.dec), b.ptr(self.counts),
+            b.ptr(self.stash), self.stash.shape[1], self.base, off, navail,
+            free_count, flog_count, step_no, b.stream(self.dev))
+        b.LAUNCHES["sym_exec"] += 1
+        b.check(self.lib, rc, "sym_exec")
+        return self.stash
+
+    def stage(self, stash, idx):
+        with torch.cuda.device(self.dev):
+            return self._stage(stash, idx)
+
+    def _stage(self, stash, idx):
+        b = self.b
+        idx = torch.as_tensor(np.asarray(idx, np.int32)).to(self.dev)
+        out = torch.empty(len(idx) * self.row_bytes, dtype=torch.uint8,
+                          device=self.dev)
+        rc = self.lib.sym_fork_stage(
+            self.planes, self.dims, b.ptr(stash), stash.shape[1],
+            b.ptr(idx), len(idx), self.base, b.ptr(out), b.stream(self.dev))
+        b.LAUNCHES["sym_fork_rows"] += 1
+        b.check(self.lib, rc, "sym_fork_stage")
+        return out
+
+    def land(self, staged, child):
+        with torch.cuda.device(self.dev):
+            self._land(staged, child)
+
+    def _land(self, staged, child):
+        b = self.b
+        child = torch.as_tensor(np.asarray(child, np.int32)).to(self.dev)
+        staged = staged.to(self.dev)
+        rc = self.lib.sym_fork_land(
+            self.planes, self.dims, b.ptr(staged), b.ptr(child), len(child),
+            b.stream(self.dev))
+        b.LAUNCHES["sym_fork_rows"] += 1
+        b.check(self.lib, rc, "sym_fork_land")
+
+
+def vis_or(visited, src):
+    """``visited |= src`` for the bool bitmaps of two shards: ``src``
+    (a shard's own bitmap, on another card than the batch's) is copied
+    to ``visited``'s device and ORed in there by ``sym_vis_or``; on the
+    CPU the plain ``visited | src``. Returns ``visited``."""
+    if visited.device.type == "cpu":
+        return visited | src.to(visited.device)
+    from .. import _build as b
+
+    lib = _k1_mesh()
+    with torch.cuda.device(visited.device):
+        src = src.to(visited.device)
+        rc = lib.sym_vis_or(b.ptr(visited), b.ptr(src), visited.shape[0],
+                            b.stream(visited.device))
+    b.LAUNCHES["sym_vis_or"] += 1
+    b.check(lib, rc, "sym_vis_or")
+    return visited
+
+
+def shard_phases(code, ss, exec_table=None, taint_table=None,
+                 visited=None):
+    """K1's phases on each shard of ``ss`` (``_PlainShard`` on a CPU
+    shard, ``_CudaShard`` on a CUDA one); ``code`` is {device: compiled
+    code}."""
+    return [(_PlainShard if st.device.type == "cpu" else _CudaShard)(
+        ss, i, code[st.device], exec_table, taint_table, visited)
+        for i, st in enumerate(ss.shards)]
+
+
+def fork_rows(shards, stashes, child, m):
+    """A forking step's child rows: ``stashes`` is each shard's (stash,
+    global rank of its first fork, forks), ``child`` the step's child
+    slots in fork order (global lanes); each parent's row is staged on
+    its shard and landed in its child's, once a (source, destination)
+    pair."""
+    for sh, (stash, o, k) in zip(shards, stashes):
+        mine = child[o:o + k]
+        for dst in np.unique(mine // m):
+            sel = np.nonzero(mine // m == dst)[0]
+            shards[dst].land(sh.stage(stash, sel), mine[sel] - dst * m)
+
+
+def sym_run_mesh(code, ss, max_steps: int, exec_table=None,
+                 taint_table=None, visited=None):
+    """``sym_run`` over a batch placed on a mesh
+    (``parallel/mesh.SymShards``), each shard's work on the device that
+    holds it: per step every shard decides (K1's ``sym_decide`` on a
+    CUDA shard, ``sym_step``'s first half on a CPU one), the shards'
+    fork requests and running lanes come to the host, which stops at
+    the first step where no lane of any shard runs and gives each shard
+    the global rank of its first request and the step's fork budget
+    (from the batch's free-slot and fork-log counts, as the JAX cumsum
+    over every lane does); every shard then executes (``sym_exec``), its
+    forking parents into a stash in fork order; the fork log's rows are
+    copied into the home device's planes, each child's slot taken from
+    the top of the batch's free-slot stack (read once a run), and each
+    parent's post-step row is staged on its shard (``sym_fork_stage``),
+    copied to the child's shard's device when that is another, and
+    landed in the child's slot (``sym_fork_land``): once a (source,
+    destination) pair a forking step. ``code`` is {device: compiled
+    code}. Updates ``ss`` (CUDA shards in place) and returns (ss,
+    visited): the visited bitmap ORs every shard's."""
+    home = ss.home
+    n, m = ss.n, ss.per
+    free_slots = home.free_slots.cpu().numpy()
+    free_count = int(home.free_count)
+    flog_count = int(home.flog_count)
+    step_no = int(home.step_no)
+    F = home.flog_parent.shape[0]
+    maxf = min(MAX_FORKS_PER_STEP, n)
+    if visited is not None and visited.device.type == "cpu":
+        visited = visited.clone()
+    shards = shard_phases(code, ss, exec_table, taint_table, visited)
+    flog = [getattr(home, f) for f in (
+        "flog_parent", "flog_pc", "flog_fentry", "flog_sid", "flog_gmin",
+        "flog_gmax", "flog_dest")]
+    # stash column of each of those planes
+    flog_col = [0, 3, 2, 4, 5, 6, 7]
+    for _ in range(max_steps):
+        reads = [sh.decide() for sh in shards]
+        counts = [r() for r in reads]
+        if not sum(c[1] for c in counts):
+            break
+        navail = min(free_count, maxf, F - flog_count)
+        off, stashes = 0, []
+        for sh, (req, _) in zip(shards, counts):
+            nf_i = max(0, min(req, navail - off))
+            stashes.append((sh.execute(off, navail, free_count, flog_count,
+                                       step_no, nf_i), off, nf_i))
+            off += req
+        nf = max(0, min(off, navail))
+        if nf:
+            child = free_slots[np.clip(free_count - 1 - np.arange(nf), 0,
+                                       n - 1)]
+            at = flog_count
+            for sh, (stash, o, k) in zip(shards, stashes):
+                if not k:
+                    continue
+                for plane, c in zip(flog, flog_col):
+                    plane[at + o:at + o + k].copy_(stash[c, :k])
+            home.flog_child[at:at + nf].copy_(
+                torch.from_numpy(child.astype(np.int32)))
+            home.flog_step[at:at + nf].copy_(
+                torch.full((nf,), step_no, dtype=torch.int32))
+            fork_rows(shards, stashes, child, m)
+        free_count -= nf
+        flog_count += nf
+        step_no += 1
+    home.step_no.copy_(torch.tensor(step_no, dtype=torch.int32))
+    home.flog_count.copy_(torch.tensor(flog_count, dtype=torch.int32))
+    home.free_count.copy_(torch.tensor(free_count, dtype=torch.int32))
+    if visited is not None:
+        for sh in shards:
+            visited = sh.visited(visited)
+    return ss, visited

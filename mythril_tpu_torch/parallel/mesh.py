@@ -34,6 +34,12 @@ Each kernel's wrapper (``lane_live``, ``lane_order``, ``lane_gather``)
 runs its plain PyTorch version (``*_plain``) on a CPU tensor and
 launches its kernel on a CUDA one, counting the launch in
 ``_build.LAUNCHES``; a failed build or launch raises.
+
+The meshed lane engine's batch is here too: ``SymShards`` (a symbolic
+batch a shard a device, each shard its own allocation, and the batch's
+global planes on the first device), made by ``shard_sym_lanes``, with
+``gather_home``/``scatter_home`` to move planes between the shards and
+the first device.
 """
 
 import contextlib
@@ -51,18 +57,31 @@ from ..ops.stepper import LANE_FIELDS, CompiledCode, LaneState, Status
 LANES_AXIS = "lanes"
 
 
+class Devices(tuple):
+    """A mesh's devices in order: a tuple that also answers ``size`` and
+    ``flat``, as the JAX mesh's array of devices does."""
+
+    @property
+    def size(self) -> int:
+        return len(self)
+
+    @property
+    def flat(self):
+        return iter(self)
+
+
 @dataclass(frozen=True, init=False)
 class Mesh:
     """A 1-D mesh: ``devices`` in order along ``axis_names[0]``."""
 
-    devices: Tuple[torch.device, ...]
+    devices: Devices
     axis_names: Tuple[str, ...]
 
     def __init__(self, devices: Sequence, axis_names=(LANES_AXIS,)):
         devs = tuple(torch.device(d) for d in devices)
-        devs = tuple(torch.device("cuda", torch.cuda.current_device())
-                     if d.type == "cuda" and d.index is None else d
-                     for d in devs)
+        devs = Devices(torch.device("cuda", torch.cuda.current_device())
+                       if d.type == "cuda" and d.index is None else d
+                       for d in devs)
         if not devs:
             raise ValueError("a mesh needs at least one device")
         object.__setattr__(self, "devices", devs)
@@ -743,3 +762,111 @@ def lane_gather(state: LaneState, order: torch.Tensor) -> LaneState:
     _build.LAUNCHES["lane_gather"] += 1
     _build.check(lib, rc, "lane_gather")
     return out
+
+
+# ---------------------------------------------------------------------------
+# a symbolic lane batch over a mesh (the meshed lane engine)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class SymShards:
+    """A symbolic batch (``ops/symstep.SymLaneState``) of ``n`` lanes
+    placed over ``mesh``, as the JAX engine places its lane planes over
+    the ``lanes`` axis: ``shards[i]`` holds lanes ``[i * per, (i + 1) *
+    per)`` on ``mesh.devices[i]``, an allocation of its own also where
+    a device repeats (so one exchange serves shards of one card and
+    distinct cards alike). ``home``, on ``mesh.devices[0]``, is a batch
+    of ``n`` lanes whose row planes are one slot wide: its fork log,
+    free-slot stack and step counters are the batch's, and the window's
+    cross-lane phases gather into its small per-lane planes and record
+    planes what they read (``laser/lane_engine.window_exec_mesh``); the
+    shards' own copies of those global planes are unused."""
+
+    mesh: Mesh
+    shards: list
+    home: object
+
+    @property
+    def n(self) -> int:
+        return self.home.pc.shape[0]
+
+    @property
+    def per(self) -> int:
+        return self.shards[0].pc.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.devices[0]
+
+    def owner(self, lanes):
+        """(shard, local lane) of global lanes (numpy)."""
+        lanes = np.asarray(lanes, np.int64)
+        return lanes // self.per, lanes % self.per
+
+    def lanes(self):
+        """The global batch on the home device (a copy): every lane
+        plane the shards' in order, the batch's global planes home's."""
+        from ..ops import symstep
+
+        planes = {}
+        for f in symstep.FIELDS:
+            if f in symstep.NO_COPY:
+                planes[f] = getattr(self.home, f).clone()
+            else:
+                planes[f] = torch.cat([getattr(s, f).to(self.device)
+                                       for s in self.shards])
+        return symstep.SymLaneState(**planes)
+
+
+#: the per-lane planes the window's cross-lane phases read at home: the
+#: selections' and counters' (K4) and the records' (K3, K4's unique
+#: table)
+HOME_PLANES = ("pc", "sp", "msize", "mlog_count", "scount", "status",
+               "steps", "dlog_count", "group", "dlog_op", "dlog_pc",
+               "dlog_step", "dlog_fentry", "dlog_sid", "dlog_val")
+
+
+def shard_sym_lanes(mesh: Mesh, n: int, gas_limit: int = 8_000_000,
+                    **lane_kwargs) -> SymShards:
+    """A fresh ``SymShards`` of ``n`` lanes (every lane DEAD, every slot
+    on the batch's free stack) over ``mesh``: each shard made on its
+    device as ``init_sym_lanes`` makes a batch (kernel K0 on a card),
+    the home batch likewise with its row planes one slot wide (what K4
+    gathers of them there is never read: each row comes from its
+    shard). Raises where ``n`` does not divide over the mesh."""
+    from ..ops import symstep
+
+    per = _per_shard(n, mesh.size)
+    shards = []
+    for dev in mesh.devices:
+        with _on(dev):
+            shards.append(symstep.init_sym_lanes(
+                per, device=dev, gas_limit=gas_limit, **lane_kwargs))
+    narrow = dict(stack_depth=1, memory_bytes=16, mem_records=1,
+                  storage_slots=1, calldata_bytes=16)
+    kw = {**lane_kwargs, **narrow}
+    with _on(mesh.devices[0]):
+        home = symstep.init_sym_lanes(n, device=mesh.devices[0],
+                                      gas_limit=gas_limit, **kw)
+    return SymShards(mesh, shards, home)
+
+
+def gather_home(ss: SymShards, names=HOME_PLANES) -> None:
+    """Copy the shards' ``names`` planes into the home batch's, shard
+    ``i`` into lanes ``[i * per, (i + 1) * per)``: a device copy, a peer
+    copy from another card."""
+    per = ss.per
+    for f in names:
+        dst = getattr(ss.home, f)
+        for i, st in enumerate(ss.shards):
+            dst[i * per:(i + 1) * per].copy_(getattr(st, f))
+
+
+def scatter_home(ss: SymShards, names) -> None:
+    """The inverse of ``gather_home``: the home batch's ``names`` planes
+    back into the shards'."""
+    per = ss.per
+    for f in names:
+        src = getattr(ss.home, f)
+        for i, st in enumerate(ss.shards):
+            getattr(st, f).copy_(src[i * per:(i + 1) * per])

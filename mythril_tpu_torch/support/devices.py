@@ -101,3 +101,11 @@ def effective_tpu_lanes() -> int:
         lanes = default_tpu_lanes()
         args.tpu_lanes = lanes
     return lanes
+
+
+def device_count() -> int:
+    """The devices a lane engine may shard over (``pick_mesh``): the
+    cards (``torch.cuda.device_count()``), or one where there is none,
+    as the JAX package counts its one CPU device."""
+    return max(torch.cuda.device_count(), 1) \
+        if torch.cuda.is_available() else 1
