@@ -98,9 +98,10 @@ Phases (any failure exits non-zero and prints no result):
    version and K9 over the gathered batch, then every path of the k=12
    contract through SymExecWrapper at 4096 lanes with the engine
    meshed (its launches, counted from a reset, are the meshed main
-   path's: K1's shard phases, its fork rows, K2-K4, K3's remap and
-   K4's rows a shard), its open states equal to the unsharded engine's
-   and the host-only run's, both explores timed, and the new kernels'
+   path's: K1's phases, one ``sym_decide`` and one ``sym_exec`` launch
+   a K1 step on the card, its fork rows, K2-K4, K3's remap and K4's
+   rows a shard), its open states equal to the unsharded engine's and
+   the host-only run's, both explores timed, and the new kernels'
    times; the concolic command: ``python3 -m mythril_tpu_torch
    concolic`` flips the branch of tests/test_concolic.py's contract
    and the solved input, replayed concretely, takes it;
@@ -3175,6 +3176,7 @@ class MeshSpy:
     def __init__(self, hold=False, keep=False):
         self.hold, self.keep = hold, keep
         self.windows = self.retires = self.err = 0
+        self.k1_steps = self.k1_decides = 0
         self.first = self.k1 = None
 
     def __enter__(self):
@@ -3195,7 +3197,13 @@ class MeshSpy:
     def run(self, codes, ss, *a, **kw):
         if self.keep and self.k1 is None:
             self.k1 = (codes, mesh_clone(ss), a, kw)
-        return self.orig[2](codes, ss, *a, **kw)
+        step0 = int(ss.home.step_no)
+        out = self.orig[2](codes, ss, *a, **kw)
+        steps = int(ss.home.step_no) - step0
+        # a decide a step, and one more where the run stopped early
+        self.k1_steps += steps
+        self.k1_decides += steps + (steps < a[0])
+        return out
 
     def window(self, ss, codes, i32b, u8b, *rest):
         import torch
@@ -3257,14 +3265,16 @@ def mesh_engine(mesh):
 
 
 def mesh_phase_times(spy, report, launches):
-    """Each new kernel of the meshed window (K1's shard phases, its fork
-    rows, K3's remap and K4's rows a shard) on the main path's first
-    window (K1's phases at its first forking step), all shards of a
-    call together: wrapper call (CUDA events), device (queued behind a
+    """Each new kernel of the meshed window (K1's phases a device, its
+    fork rows, K3's remap and K4's rows a shard) on the main path's
+    first window (K1's phases at its first forking step), all shards of
+    a call together: wrapper call (CUDA events), device (queued behind a
     spin kernel), plain version (the same exchange on a CPU copy) and a
-    byte bound; exact against the plain version. Fails where the window
-    has no step that forks, or a kernel is not launched in its timed
-    calls."""
+    byte bound; exact against the plain version. ``sym_decide`` is timed
+    as the step's whole call (the launch, the one wait and the read of
+    the counts: ``ms``) and as its launch alone (``launch_ms``; its
+    device time is the kernel's alone). Fails where the window has no
+    step that forks, or a kernel is not launched in its timed calls."""
     import numpy as np
     import torch
 
@@ -3274,18 +3284,24 @@ def mesh_phase_times(spy, report, launches):
 
     codes, k1_in = spy.k1[0], spy.k1[1]
     ex, ta = spy.k1[2][1:3]
-    cpu_codes = {torch.device("cpu"): code_to_cpu(codes[k1_in.device])}
+    dev = k1_in.device
+    cpu_codes = {torch.device("cpu"): code_to_cpu(codes[dev])}
+    d = k1_in.mesh.size
 
-    def phases(state):
-        return S.shard_phases(codes if state.device.type == "cuda"
+    def groups(state):
+        return S.shard_groups(codes if state.device.type == "cuda"
                               else cpu_codes, state, ex, ta)
 
-    def decide_all(sh):
-        return [r() for r in [p.decide() for p in sh]]
+    def shards(gs):
+        out = [None] * d
+        for g in gs:
+            for i, sh in zip(g.idx, g.shards):
+                out[i] = sh
+        return out
 
     # from K1's first input, the first step at which lanes fork
     for _ in range(spy.k1[2][0]):
-        if sum(c[0] for c in decide_all(phases(k1_in))):
+        if any(S.decide_groups(groups(k1_in), d)[0]):
             break
         S.sym_run_mesh(codes, k1_in, 1, ex, ta)
     else:
@@ -3295,72 +3311,81 @@ def mesh_phase_times(spy, report, launches):
     home = ss.home
     free_count, flog_count = int(home.free_count), int(home.flog_count)
     step_no = int(home.step_no)
-    navail = min(free_count, min(S.MAX_FORKS_PER_STEP, n), n - flog_count)
+    F = home.flog_parent.shape[0]
 
-    def exec_all(sh, counts):
-        off, st = 0, []
-        for p, (req, _) in zip(sh, counts):
-            k = max(0, min(req, navail - off))
-            st.append((p.execute(off, navail, free_count, flog_count,
-                                 step_no, k), off, k))
-            off += req
-        return st, max(0, min(off, navail))
+    def exec_all(gs, counts):
+        navail, off, forks, nf = S.fork_budget(counts[0], free_count,
+                                               flog_count, F, n)
+        return S.execute_groups(gs, d, off, forks, navail, free_count,
+                                flog_count, step_no, nf), nf
 
     def ready():
-        """the input restored, its shards' phases and decisions made"""
+        """the input restored, its groups made and decided"""
         mesh_restore(ss, k1_in)
-        sh = phases(ss)
-        return sh, decide_all(sh)
+        gs = groups(ss)
+        return gs, S.decide_groups(gs, d)
 
-    sh, counts = ready()
-    running = sum(c[1] for c in counts)
-    dec_bytes = sh[0].dec.numel() // m
+    gs, counts = ready()
+    running = sum(counts[1])
+    dec_bytes = S._k1_mesh()[2]
     cpu = mesh_to_cpu(k1_in)
     t0 = time.perf_counter()
-    csh = phases(cpu)
-    ccounts = decide_all(csh)
+    cgs = groups(cpu)
+    ccounts = S.decide_groups(cgs, d)
     plain_decide = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
-    cstash, cnf = exec_all(csh, ccounts)
+    cstash, cnf = exec_all(cgs, ccounts)
     plain_exec = (time.perf_counter() - t0) * 1e3
-    if ccounts != counts:
+    if counts != ccounts:
         raise AssertionError(f"sym_decide: counts {counts} != {ccounts}")
-    stashes, nf = exec_all(sh, counts)
-    if not nf:
+    stashes, nf = exec_all(gs, counts)
+    if not nf or nf != cnf:
         raise AssertionError(f"meshed window: the forking step forks "
-                             f"nothing (requests {counts}, {navail} "
-                             f"slots)")
+                             f"{nf} (plain {cnf}; requests {counts[0]})")
     child = k1_in.home.free_slots.cpu().numpy()[
         np.clip(free_count - 1 - np.arange(nf), 0, n - 1)]
     t0 = time.perf_counter()
-    S.fork_rows(csh, cstash, child, m)
+    S.fork_rows(shards(cgs), cstash, child, m)
     plain_forks = (time.perf_counter() - t0) * 1e3
-    S.fork_rows(sh, stashes, child, m)
+    S.fork_rows(shards(gs), stashes, child, m)
     torch.cuda.synchronize()
-    err = same_state(to_cpu(ss.lanes()), cpu.lanes(), "K1 a shard, a step")
+    err = same_state(to_cpu(ss.lanes()), cpu.lanes(), "K1 a device, a step")
     for (a, _, k), (b, _, _) in zip(stashes, cstash):
         err = max(err, max_err(a[:, :k].cpu(), b[:, :k]))
-    row_bytes = sh[0].row_bytes - 16
+    row_bytes = shards(gs)[0].row_bytes - 16
 
     def timed_exec(x):
         exec_all(*x)
 
     def timed_forks(x):
-        S.fork_rows(x[0], x[1], child, m)
+        S.fork_rows(shards(x[0]), x[1], child, m)
 
     def forks_setup():
-        s, c = ready()
-        return s, exec_all(s, c)[0]
+        g, c = ready()
+        return g, exec_all(g, c)[0]
 
     mesh_restore(ss, k1_in)
-    decided = phases(ss)
+    decided = groups(ss)
+    stream = _build.stream(dev)
+
+    def launch_decide(_=None):
+        with torch.cuda.device(dev):
+            for g in decided:
+                g.launch_decide(stream)
+
+    # the launch alone, on CUDA events and queued (the kernel's time)
+    before = _build.LAUNCHES["sym_decide"]
+    launch = cuda_ms(launch_decide, reps=5)
+    kernel = queued_ms(launch_decide, lambda: None, reps=5)
+    if _build.LAUNCHES["sym_decide"] <= before:
+        raise AssertionError("sym_decide: not launched in its timed calls")
     rows = {
-        "sym_decide": (lambda: decide_all(decided), None, plain_decide,
-                       n * (4 + dec_bytes)),
+        "sym_decide": (lambda: S.decide_groups(decided, d), None,
+                       plain_decide, n * (4 + dec_bytes), kernel, None),
         "sym_exec": (timed_exec, ready, plain_exec,
-                     n * dec_bytes + running * 16),
+                     n * (dec_bytes + 96) + running * 16, None, None),
         "sym_fork_rows": (timed_forks, forks_setup, plain_forks,
-                          2 * nf * row_bytes),
+                          2 * nf * row_bytes, None, None),
     }
     # K3's remap and K4's rows a shard, on the first window's end state
     before, wcodes, i32b, u8b, rest, out = spy.first
@@ -3400,26 +3425,67 @@ def mesh_phase_times(spy, report, launches):
         for i, st in enumerate(end.shards):
             le.shard_rows_kernel(st, i * m, ridx, hidx)
 
+    # the library's K4 rows a shard, as row 7 times them: index_select of
+    # each plane's columns a row reads (the retired rows' clipped ones,
+    # the resumed rows' whole stack and ssid rows), index_fill_ of the
+    # shard's retired lanes' status; the indices made beforehand
+    ws, wm, wl, wk = le._retire_widths(st0, *le.RETIRE_FLOORS)
+    hl = min(le.RESUME_MLOG, st0.mlog_off.shape[1])
+    hm = min(le.RESUME_MEM, st0.memory.shape[1])
+    lib_idx = []
+    for i in range(d):
+        rl = ridx.long() - i * m
+        lib_idx.append((rl.clamp(0, m - 1), rl[(rl >= 0) & (rl < m)],
+                        (hidx.long() - i * m).clamp(0, m - 1)))
+
+    def rows_library(_=None):
+        for st, (rc, real, hc) in zip(end.shards, lib_idx):
+            for x, w in ((st.pc, 0), (st.sp, 0), (st.depth, 0),
+                         (st.fentry, 0), (st.last_jump, 0), (st.msize, 0),
+                         (st.mlog_count, 0), (st.scount, 0),
+                         (st.min_gas, 0), (st.max_gas, 0),
+                         (st.mlog_off, wl), (st.mlog_len, wl),
+                         (st.mlog_sid, wl), (st.ssid, ws),
+                         (st.sval_sid, wk), (st.s_written, wk),
+                         (st.s_read, wk), (st.skey_sid, wk),
+                         (st.s_wstep, wk), (st.stack, ws), (st.skeys, wk),
+                         (st.svals, wk), (st.memory, wm), (st.mkind, wm)):
+                (x.narrow(1, 0, w) if w else x).index_select(0, rc)
+            for x, w in ((st.msize, 0), (st.min_gas, 0), (st.max_gas, 0),
+                         (st.gas_limit, 0), (st.mlog_count, 0),
+                         (st.ssid, 0), (st.stack, 0), (st.mlog_off, hl),
+                         (st.mlog_len, hl), (st.mlog_sid, hl),
+                         (st.memory, hm), (st.mkind, hm)):
+                (x.narrow(1, 0, w) if w else x).index_select(0, hc)
+            st.status.index_fill_(0, real, S.DEAD)
+
     rows.update({
-        "window_remap": (remap_all, None, plain_remap, sid_bytes),
-        "window_rows": (rows_all, None, plain_rows, 2 * row_out),
+        "window_remap": (remap_all, None, plain_remap, sid_bytes, None,
+                         None),
+        "window_rows": (rows_all, None, plain_rows, 2 * row_out, None,
+                        rows_library),
     })
-    for name, (fn, setup, plain, nbytes) in rows.items():
+    for name, (fn, setup, plain, nbytes, dms, lib) in rows.items():
         before = _build.LAUNCHES[name]
         ms = cuda_ms(fn, reps=3, setup=setup)
-        dms = queued_ms(fn if setup else (lambda _: fn()),
-                        setup or (lambda: None))
+        if dms is None:
+            dms = queued_ms(fn if setup else (lambda _: fn()),
+                            setup or (lambda: None))
         if _build.LAUNCHES[name] <= before:
             raise AssertionError(f"{name}: not launched in its timed calls")
         b, by = bound_ms(nbytes)
+        lib_ms = None if lib is None else round(cuda_ms(lib, reps=3), 4)
         report[name] = dict(max_abs_err=err, ms=round(ms, 4),
                             plain_ms=round(plain, 2),
                             device_ms=round(dms, 4), bound_ms=round(b, 6),
-                            bound_by=by, library_ms=None)
+                            bound_by=by, library_ms=lib_ms)
         log(f"  {name} (all {len(ss.shards)} shards, main path's first "
             f"window): call {ms:.4f} ms, device {dms:.4f} ms, plain "
-            f"{plain:.2f} ms, bound {b:.6f} ms ({by}), {launches[name]} "
-            f"launches on the main path")
+            f"{plain:.2f} ms, bound {b:.6f} ms ({by}), library {lib_ms} "
+            f"ms, {launches[name]} launches on the main path")
+    report["sym_decide"]["launch_ms"] = round(launch, 4)
+    log(f"  sym_decide's launch alone (no wait, no read): call "
+        f"{launch:.4f} ms; its call above is the step's whole decide")
     return err
 
 
@@ -3432,11 +3498,11 @@ def check_mesh_engine(dev, card, report, host_open=None):
     K9 over the gathered batch; then the main path: every path of the
     k=12 contract through the port's SymExecWrapper at MAIN_LANES lanes
     with the engine over MESH_SHARDS shards (counts reset before, read
-    after: K1's shard phases, its fork rows, K2, K3 and its remap, K4
-    and its rows, each launched), its open states equal to the unsharded
-    engine's (run just before it, timed) and to the host-only run's;
-    then the new kernels' times on its first window. Returns the main
-    path's launches."""
+    after: K1's phases, a launch each a K1 step, its fork rows, K2, K3
+    and its remap, K4 and its rows, each launched), its open states
+    equal to the unsharded engine's (run just before it, timed) and to
+    the host-only run's; then the new kernels' times on its first
+    window. Returns the main path's launches."""
     from copy import deepcopy
 
     import torch
@@ -3520,6 +3586,14 @@ def check_mesh_engine(dev, card, report, host_open=None):
            "window_rows", "window_prologue", "window_dedup",
            "window_epilogue", "sym_init")
     missing = [k for k in new if launches[k] <= 0]
+    # one launch a device a step (the card is one device): a decide a
+    # step and at the step that finds no lane running, an exec a step
+    if launches["sym_decide"] != spy.k1_decides \
+            or launches["sym_exec"] != spy.k1_steps:
+        raise AssertionError(f"meshed main path: {launches['sym_decide']} "
+                             f"sym_decide and {launches['sym_exec']} "
+                             f"sym_exec launches for {spy.k1_steps} K1 "
+                             f"steps ({spy.k1_decides} decides)")
     if missing or launches["sym_run"]:
         raise AssertionError(f"meshed main path: launches {launches} "
                              f"(none of {missing}; the unsharded K1 "
@@ -3532,7 +3606,9 @@ def check_mesh_engine(dev, card, report, host_open=None):
         f"{MESH_SHARDS} shards of this card: {n_mesh} open states (the "
         f"unsharded engine's {n_one}, host-only {host_open}), "
         f"{stats['windows']} windows, {stats['forks']} forks, "
-        f"{stats['device_steps']} device steps; explore {wall:.3f} s "
+        f"{stats['device_steps']} device steps, {spy.k1_steps} K1 steps "
+        f"(one sym_decide and one sym_exec launch a step); explore "
+        f"{wall:.3f} s "
         f"({paths / wall:.1f} paths/s), unsharded {wall_one:.3f} s "
         f"({paths / wall_one:.1f} paths/s) on {card}; launches "
         f"{ {k: launches[k] for k in new} }")
@@ -4868,12 +4944,15 @@ def mesh_cards(devs):
     and the home's gathers peer copies) against the engine on card 0:
     the k=12 contract's sweep at MAIN_LANES lanes, every window's
     outputs equal, the same states and visited bitmap, both explores
-    timed; then ``sym_vis_or`` (the shards' bitmaps ORed on card 0, the
-    one kernel only distinct cards launch) on seeded bitmaps of the
-    sweep's length against its plain version, with its row of the
-    kernel table: call and device ms (card 1's bitmap into card 0's,
-    its peer copy included), the plain ``visited | src`` on the CPU,
-    the byte bound and ``bitwise_or_`` after the same copy."""
+    timed, ``sym_vis_or`` launched once a K1 run; then ``sym_vis_or``
+    (every other card's bitmap ORed into card 0's in one launch, read in
+    place over peer access where the pair has it, the one kernel only
+    distinct cards launch) on seeded bitmaps of the sweep's length
+    against its plain version (the OR on the CPU, itself held to
+    numpy's), with its row of the kernel table: call and device ms
+    (every other card's bitmap, and card 1's alone: ``one_*``), the
+    plain OR, the byte bound and ``bitwise_or_`` after a copy of each
+    source; the route of each pair is logged."""
     from copy import deepcopy
 
     import numpy as np
@@ -4934,55 +5013,75 @@ def mesh_cards(devs):
                              f"{int(vis.sum())} pcs, one card "
                              f"{int(vis_one.sum())}, "
                              f"{int((vis != vis_one).sum())} differ")
-    if launches.get("sym_vis_or", 0) < len(devs) - 1:
+    if launches.get("sym_vis_or", 0) != len(outs["mesh"]):
         raise AssertionError(f"meshed engine over the cards: sym_vis_or "
                              f"launched {launches.get('sym_vis_or', 0)} "
-                             f"times")
-    # sym_vis_or against its plain version: card 0's bitmap and each
+                             f"times for {len(outs['mesh'])} K1 runs (one "
+                             f"a run)")
+    # sym_vis_or against its plain version: card 0's bitmap and every
     # other card's, seeded, as long as the sweep's (its code's packed
-    # length, as explore allocates it)
-    g = torch.Generator().manual_seed(14)
+    # length, as explore allocates it), in one launch
+    g = torch.Generator().manual_seed(15)
     length = eng._visited_dev[code].shape[0]
+    maps = [torch.rand(length, generator=g) < 0.3 for _ in devs]
+    routes = {str(d): S.vis_route(devs[0], d) for d in devs[1:]}
     before = _build.LAUNCHES["sym_vis_or"]
-    err = 0
-    for d in devs[1:]:
-        a = torch.rand(length, generator=g) < 0.3
-        b = torch.rand(length, generator=g) < 0.3
-        got_or = S.vis_or(a.to(devs[0]), b.to(d)).cpu()
-        err = max(err, int((got_or != (a | b)).sum()))
-    if err or _build.LAUNCHES["sym_vis_or"] - before != len(devs) - 1:
-        raise AssertionError(f"sym_vis_or: {err} bytes differ from "
-                             f"visited | src")
+    got_or = S.vis_or(maps[0].to(devs[0]),
+                      [x.to(d) for x, d in zip(maps[1:], devs[1:])]).cpu()
+    want_or = S.vis_or(maps[0].clone(), maps[1:])
+    err = int((got_or != want_or).sum())
+    np_or = np.logical_or.reduce([x.numpy() for x in maps], axis=0)
+    if err or not np.array_equal(want_or.numpy(), np_or) \
+            or _build.LAUNCHES["sym_vis_or"] - before != 1:
+        raise AssertionError(f"sym_vis_or: {err} bytes differ from the "
+                             f"plain OR")
 
-    def pair():
-        with torch.cuda.device(devs[0]):
-            return (a.to(devs[0]), b.to(devs[1]))
+    def inputs(k):
+        """card 0's bitmap and k other cards' (their writes done)"""
+        def make():
+            out = (maps[0].to(devs[0]), [x.to(d) for x, d in
+                                         zip(maps[1:k + 1], devs[1:k + 1])])
+            for d in devs[:k + 1]:
+                torch.cuda.synchronize(d)
+            return out
+        return make
 
+    def library(x):
+        for src in x[1]:
+            x[0].bitwise_or_(src.to(devs[0]))
+
+    times = {}
     with torch.cuda.device(devs[0]):
-        ms = cuda_ms(lambda x: S.vis_or(*x), reps=5, setup=pair)
-        dms = queued_ms(lambda x: S.vis_or(*x), pair)
-        lib = cuda_ms(lambda x: x[0].bitwise_or_(x[1].to(devs[0])),
-                      reps=5, setup=pair)
+        for k in (len(devs) - 1, 1):
+            times[k] = (
+                cuda_ms(lambda x: S.vis_or(*x), reps=5, setup=inputs(k)),
+                queued_ms(lambda x: S.vis_or(*x), inputs(k)),
+                cuda_ms(library, reps=5, setup=inputs(k)))
     t0 = time.perf_counter()
     for _ in range(5):
-        a | b
+        S.vis_or(maps[0].clone(), maps[1:])
     plain = (time.perf_counter() - t0) / 5 * 1e3
-    bnd, by = bound_ms(3 * length)
+    ms, dms, lib = times[len(devs) - 1]
+    bnd, by = bound_ms((len(devs) + 1) * length)
     row = dict(name="sym_vis_or", route="cuda",
                source="mythril_tpu_torch/csrc/symstep.cu",
                replaces="mythril_tpu/laser/lane_engine.py:1807",
                launches=launches.get("sym_vis_or", 0), max_abs_err=err,
                ms=round(ms, 4), plain_ms=round(plain, 4),
                device_ms=round(dms, 4), bound_ms=round(bnd, 6),
-               bound_by=by, library_ms=round(lib, 4))
+               bound_by=by, library_ms=round(lib, 4),
+               one_ms=round(times[1][0], 4),
+               one_device_ms=round(times[1][1], 4),
+               one_library_ms=round(times[1][2], 4), routes=routes)
     log(f"cards: the meshed engine over {len(devs)} cards (k={MAIN_K} "
         f"sweep, {MAIN_LANES} lanes): {len(outs['mesh'])} windows equal "
         f"to the engine on {devs[0]}, {len(got)} states, the visited "
         f"bitmap equal ({int(vis.sum())} pcs); explore {wall:.3f} s "
         f"against {wall_one:.3f} s on one card; launches {launches}; "
         f"sym_vis_or on {length}-byte bitmaps from "
-        f"{', '.join(map(str, devs[1:]))} into {devs[0]} equal to "
-        f"visited | src (max_abs_err {err})")
+        f"{', '.join(map(str, devs[1:]))} into {devs[0]} in one launch "
+        f"(routes {routes}) equal to the plain OR (max_abs_err {err}), "
+        f"{ms:.4f} ms against bitwise_or_ after the copies {lib:.4f} ms")
     log(f"cards: {json.dumps(row)}")
 
 
@@ -5236,6 +5335,7 @@ def run() -> int:
                                                        "loop_",
                                                        "copy_",
                                                        "counts_",
+                                                       "launch_",
                                                        "floor_",
                                                        "bound_rows_",
                                                        "levels_"))}}

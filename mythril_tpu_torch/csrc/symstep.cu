@@ -66,6 +66,7 @@
 // stores.
 // Bound: bytes (each plane written once, nothing read).
 #include <algorithm>
+#include <cstddef>
 
 #include <cooperative_groups.h>
 
@@ -1198,74 +1199,186 @@ MTT_EXPORT int sym_run(void** planes, const int* dims, const void* code, int cod
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------- K1 a shard
+// ---------------------------------------------------------------- K1 over a mesh
 //
 // K1 over a batch placed on a mesh (ops/symstep.sym_run_mesh): the
 // same decide and exec_lane device functions, a step as two launches a
-// shard with the host between them, since the fork order (JAX's cumsum
+// device with the host between them, since the fork order (JAX's cumsum
 // over every lane's request, :859-877) and budget are the whole
-// batch's. sym_decide writes each lane's decisions to a scratch, each
-// block's fork requests and RUNNING lanes, and marks the visited
-// bitmap; the host reads the blocks' counts of every shard, stops at the
-// first step where no lane of any shard runs, and gives each shard the
-// global rank of its first request. sym_exec runs each lane at its
-// global rank (the counts of the blocks before it plus its rank in its
-// block), its forking parents into the shard's stash. A fork's child
-// row is its parent's post-step row: sym_fork_stage gathers the rows of
-// a shard's parents bound for one destination shard into a staging
-// buffer (a block a row), the host copies it to that shard's device
-// where it is another, and sym_fork_land writes each into its child
-// slot with the child's pc, fentry and empty record log. A simple
-// design: a lane a thread, 256 threads a block, ordinary launches.
+// batch's. Each launch takes every shard the device holds, up to
+// MAX_MESH_SHARDS (a table of MeshShard in device memory, built once a
+// run; block b of the grid serves shard b / bps, bps blocks of
+// MESH_THREADS a shard), so a device steps its shards in two launches.
+// sym_decide writes each lane's decisions to a
+// scratch, each block's fork requests and RUNNING lanes to a device
+// array and to a pinned host array mapped into the card's address space
+// (no copy: the host waits for the launch once and reads them in
+// place), and marks the visited bitmap; the host stops at the first
+// step where no lane of any shard runs and gives each shard the global
+// rank of its first request. sym_exec runs each lane at its global rank
+// (its shard's rank, the counts of the shard's blocks before it, its
+// rank in its block: never a racing atomic), its forking parents into
+// the shard's stash; the launch on the batch's home device also writes
+// the step's fork-log child slots (the top of the free stack) and step
+// numbers. A fork's child row is its parent's post-step row:
+// sym_fork_stage gathers the rows of a shard's parents bound for one
+// destination shard into a staging buffer (a block a row), the host
+// copies it to that shard's device where it is another, and
+// sym_fork_land writes each into its child slot with the child's pc,
+// fentry and empty record log.
+//
+// Bound: bytes, each lane's decisions written (decide) and read (exec).
+// A lane's decide and exec are chains of dependent loads in one thread,
+// so a step's time is latency: blocks of MESH_THREADS spread a shard
+// over many SMs (a 512-lane shard 8 blocks, was 2); the scratch holds a
+// 16-byte word of every lane of the shard, then the next word
+// (neighbouring lanes store and load neighbouring words), and leaves out
+// the three stack words a, b, c, which exec rereads from the stack
+// (unchanged between the two launches).
 namespace {
 
 constexpr int SHARD_THREADS = 256;
+constexpr int MESH_THREADS = 64;
+constexpr int MAX_MESH_SHARDS = 64;
+constexpr int MAX_VIS_SRCS = 64;
 
-__global__ void __launch_bounds__(SHARD_THREADS)
-k_sym_decide(const __grid_constant__ Env e, Dec* dec, int32_t* counts, uint8_t* visited,
-             int vis_len) {
-  const Sym& s = e.s;
-  const int lane = blockIdx.x * SHARD_THREADS + threadIdx.x;
+// a shard of a device's launch: its planes (with the device's code and
+// op table), the global index of its first lane, its fork stash (8 x
+// cap int32, a column a field of ops/symstep.STASH)
+struct MeshShard {
+  Env e;
+  int32_t* stash;
+  int base;
+};
+
+// the scratch's 16-byte words of a Dec: all but those of a, b, c
+constexpr int DEC_WORDS = (int)(sizeof(Dec) / 16);
+constexpr int ABC_W0 = (int)(offsetof(Dec, a) / 16);
+constexpr int ABC_W1 = (int)((offsetof(Dec, c) + sizeof(W)) / 16);
+constexpr int DEC_KEPT = DEC_WORDS - (ABC_W1 - ABC_W0);
+static_assert(sizeof(Dec) % 16 == 0, "Dec is a whole number of 16-byte words");
+static_assert(offsetof(Dec, a) % 16 == 0 && offsetof(Dec, b) == offsetof(Dec, a) + sizeof(W) &&
+                  offsetof(Dec, c) == offsetof(Dec, b) + sizeof(W) &&
+                  (offsetof(Dec, c) + sizeof(W)) % 16 == 0,
+              "a, b, c are whole 16-byte words of Dec, in a row");
+
+// lane's decisions into its shard's scratch (word k of lane i at
+// k * per + i)
+__device__ __forceinline__ void put_dec(int4* dec, int per, int lane, const Dec& d) {
+  const int4* w = reinterpret_cast<const int4*>(&d);
+  int k = 0;
+#pragma unroll
+  for (int i = 0; i < DEC_WORDS; ++i)
+    if (i < ABC_W0 || i >= ABC_W1) dec[(size_t)(k++) * per + lane] = w[i];
+}
+
+// lane's decisions back, a, b, c reread from the stack as decide read them
+__device__ __forceinline__ void get_dec(const int4* dec, int per, int lane, const Sym& s,
+                                        Dec& d) {
+  int4* w = reinterpret_cast<int4*>(&d);
+  int k = 0;
+#pragma unroll
+  for (int i = 0; i < DEC_WORDS; ++i)
+    if (i < ABC_W0 || i >= ABC_W1) w[i] = dec[(size_t)(k++) * per + lane];
+  const int sp = s.sp[lane];
+  d.a = stack_at(s, lane, clampi(sp - 1, 0, s.D - 1));
+  d.b = stack_at(s, lane, clampi(sp - 2, 0, s.D - 1));
+  d.c = stack_at(s, lane, clampi(sp - 3, 0, s.D - 1));
+}
+
+// the block's shard's Env into shared memory (every thread calls it; the
+// caller's next barrier publishes it)
+__device__ __forceinline__ void load_env(Env& to, const Env& from) {
+  static_assert(sizeof(Env) % 4 == 0, "Env is a whole number of words");
+  const int* a = reinterpret_cast<const int*>(&from);
+  int* b = reinterpret_cast<int*>(&to);
+  for (int i = threadIdx.x; i < (int)(sizeof(Env) / 4); i += blockDim.x) b[i] = a[i];
+}
+
+struct MeshDecide {
+  const MeshShard* tab;
+  int4* dec;        // shards x DEC_KEPT x per words
+  int32_t* counts;  // 2 x blocks: each block's fork requests, then its RUNNING lanes
+  int32_t* host;    // the same, pinned host memory mapped into the card
+  uint8_t* visited;
+  int vis_len, per, bps;
+};
+
+__global__ void __launch_bounds__(MESH_THREADS) k_sym_decide(const __grid_constant__ MeshDecide p) {
+  __shared__ Env env;
+  const int q = blockIdx.x / p.bps;
+  const int lane = (blockIdx.x - q * p.bps) * MESH_THREADS + threadIdx.x;
+  load_env(env, p.tab[q].e);
+  __syncthreads();
+  const Sym& s = env.s;
   int f = 0, r = 0;
-  if (lane < s.n) {
+  if (lane < p.per) {
     Dec d;
-    decide(e, lane, d);
+    decide(env, lane, d);
     f = d.fork_req;
     r = d.running;
-    if (visited && d.running) {
+    if (p.visited && d.running) {
       const int pc = s.pc[lane];
-      if (pc >= 0 && pc < vis_len) visited[pc] = 1;
+      if (pc >= 0 && pc < p.vis_len) p.visited[pc] = 1;
     }
-    dec[lane] = d;
+    put_dec(p.dec + (size_t)q * DEC_KEPT * p.per, p.per, lane, d);
   }
   f = block_sum(f);
   r = block_sum(r);
   if (threadIdx.x == 0) {
-    counts[blockIdx.x] = f;
-    counts[gridDim.x + blockIdx.x] = r;
+    p.counts[blockIdx.x] = f;
+    p.counts[gridDim.x + blockIdx.x] = r;
+    p.host[blockIdx.x] = f;
+    p.host[gridDim.x + blockIdx.x] = r;
   }
 }
 
-struct ShardBudget {
+struct MeshExec {
+  const MeshShard* tab;
+  const int4* dec;
+  const int32_t* counts;  // sym_decide's
+  int per, bps, cap;
+  // the step's fork budget; the batch's free-slot count, fork-log count
+  // and step number before the step
   int navail, free_count, flog_count, step_no;
+  // on the home device: the batch's fork log and free stack, the step's
+  // forks nf and the batch's lanes n; elsewhere flog_child is null
+  int32_t* flog_child;
+  int32_t* flog_step;
+  const int32_t* free_slots;
+  int nf, n;
+  int off[MAX_MESH_SHARDS];  // each shard's global rank of its first request
 };
 
-__global__ void __launch_bounds__(SHARD_THREADS)
-k_sym_exec(const __grid_constant__ Env e, const Dec* dec, const int32_t* counts,
-           const __grid_constant__ ShardStep sh, ShardBudget b) {
-  const Sym& s = e.s;
-  const int lane = blockIdx.x * SHARD_THREADS + threadIdx.x;
+__global__ void __launch_bounds__(MESH_THREADS) k_sym_exec(const __grid_constant__ MeshExec p) {
+  __shared__ Env env;
+  __shared__ ShardStep sh;
+  const int q = blockIdx.x / p.bps, b = blockIdx.x - q * p.bps;
+  const int lane = b * MESH_THREADS + threadIdx.x;
+  const MeshShard& t = p.tab[q];
+  load_env(env, t.e);
+  if (threadIdx.x == 0) {
+    sh.base = t.base;
+    sh.off = p.off[q];
+    for (int c = 0; c < 8; ++c) sh.col[c] = t.stash + (size_t)c * p.cap;
+  }
   int part = 0;
-  for (int i = threadIdx.x; i < (int)blockIdx.x; i += SHARD_THREADS) part += counts[i];
-  const int off = sh.off + block_sum(part);
-  const bool have = lane < s.n;
+  for (int i = threadIdx.x; i < b; i += MESH_THREADS) part += p.counts[q * p.bps + i];
+  const int off = p.off[q] + block_sum(part);  // (its barrier publishes env and sh)
+  const bool have = lane < p.per;
   Dec d;
-  if (have) d = dec[lane];
+  if (have) get_dec(p.dec + (size_t)q * DEC_KEPT * p.per, p.per, lane, env.s, d);
   const int forder = off + block_rank(have && d.fork_req);
   if (have) {
     const ForkStash none{nullptr, nullptr, nullptr, nullptr};
-    exec_lane<true>(e, lane, d, forder, b.navail, b.free_count, b.step_no, b.flog_count, none,
+    exec_lane<true>(env, lane, d, forder, p.navail, p.free_count, p.step_no, p.flog_count, none,
                     &sh);
+  }
+  if (p.flog_child) {
+    for (int f = blockIdx.x * MESH_THREADS + threadIdx.x; f < p.nf; f += gridDim.x * MESH_THREADS) {
+      p.flog_child[p.flog_count + f] = p.free_slots[clampi(p.free_count - 1 - f, 0, p.n - 1)];
+      p.flog_step[p.flog_count + f] = p.step_no;
+    }
   }
 }
 
@@ -1368,46 +1481,98 @@ __global__ void k_fork_land(const __grid_constant__ ForkRows t, int32_t* pc, int
 
 }  // namespace
 
-// bytes of one lane's decisions (dims null) or of one fork's staging row
+// bytes of one fork's staging row
 MTT_EXPORT int sym_fork_row_bytes(const int* dims) {
-  if (!dims) return (int)sizeof(Dec);
   void* none[SYM_NFIELDS] = {};
   return fork_rows(make_sym(none, dims)).row;
 }
 
-// K1's decide on a shard: dec (n decisions), counts (2 x blocks: each
-// block's fork requests, then its RUNNING lanes), visited (or null).
-MTT_EXPORT int sym_decide(void** planes, const int* dims, const void* code, int code_size,
-                          const void* optab, void* dec, void* counts, void* visited,
-                          int vis_len, void* stream) {
-  Sym s = make_sym(planes, dims);
-  if (s.n <= 0) return 0;
-  Env e{s, (const int32_t*)code, code_size, (const int32_t*)optab, nullptr, 0, nullptr, 0};
-  const int blocks = (s.n + SHARD_THREADS - 1) / SHARD_THREADS;
-  k_sym_decide<<<blocks, SHARD_THREADS, 0, (cudaStream_t)stream>>>(
-      e, (Dec*)dec, (int32_t*)counts, (uint8_t*)visited, vis_len);
+// K1 over a mesh's constants: bytes of a MeshShard, scratch bytes a
+// lane, threads a block, shards a launch, bitmaps a sym_vis_or launch
+MTT_EXPORT void sym_mesh_sizes(int* out) {
+  out[0] = (int)sizeof(MeshShard);
+  out[1] = DEC_KEPT * 16;
+  out[2] = MESH_THREADS;
+  out[3] = MAX_MESH_SHARDS;
+  out[4] = MAX_VIS_SRCS;
+}
+
+// the table of a device's shards for sym_decide and sym_exec into host
+// (shards MeshShards): planes, shards x SYM_NFIELDS plane pointers;
+// dims, every shard's (n the shard's lanes); base, each shard's first
+// global lane; stash, shards x 8 x cap int32 on the device.
+MTT_EXPORT int sym_mesh_table(void* const* planes, int shards, const int* dims, const void* code,
+                              int code_size, const void* optab, const int* base, void* stash,
+                              int cap, void* host) {
+  if (shards < 1 || shards > MAX_MESH_SHARDS) return (int)cudaErrorInvalidValue;
+  MeshShard* t = (MeshShard*)host;
+  for (int q = 0; q < shards; ++q) {
+    Sym s = make_sym((void**)planes + (size_t)q * SYM_NFIELDS, dims);
+    t[q].e = Env{s, (const int32_t*)code, code_size, (const int32_t*)optab, nullptr, 0, nullptr, 0};
+    t[q].stash = (int32_t*)stash + (size_t)q * 8 * cap;
+    t[q].base = base[q];
+  }
+  return 0;
+}
+
+// n ints of pinned host memory mapped into every card's address space
+// (*dev: its device address); sym_decide writes its counts there
+MTT_EXPORT int sym_host_alloc(int n, void** host, void** dev) {
+  cudaError_t rc = cudaHostAlloc(host, sizeof(int32_t) * (size_t)(n > 0 ? n : 1),
+                                 cudaHostAllocMapped | cudaHostAllocPortable);
+  if (rc == cudaSuccess) rc = cudaHostGetDevicePointer(dev, *host, 0);
+  return (int)rc;
+}
+
+MTT_EXPORT int sym_sync(void* stream) {
+  return (int)cudaStreamSynchronize((cudaStream_t)stream);
+}
+
+// K1's decide over a device's shards (tab: sym_mesh_table's, on the
+// device), per lanes each, one launch: dec (shards x sym_mesh_sizes[1]
+// x per bytes), counts (device) and host (mapped) 2 x shards x bps
+// ints: each block's fork requests, then its RUNNING lanes; visited (or
+// null) marked.
+MTT_EXPORT int sym_decide(const void* tab, int shards, int per, void* dec, void* counts,
+                          void* host, void* visited, int vis_len, void* stream) {
+  if (shards < 1 || shards > MAX_MESH_SHARDS || per < 0) return (int)cudaErrorInvalidValue;
+  if (per == 0) return 0;
+  const int bps = (per + MESH_THREADS - 1) / MESH_THREADS;
+  MeshDecide p{(const MeshShard*)tab, (int4*)dec, (int32_t*)counts, (int32_t*)host,
+               (uint8_t*)visited, vis_len, per, bps};
+  k_sym_decide<<<shards * bps, MESH_THREADS, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-// K1's exec on a shard after its decide: the shard's first lane is
-// global lane base, its first fork request global rank off; navail,
-// free_count, flog_count and step_no are the batch's before the step;
-// stash: 8 x cap int32 (ops/symstep.STASH).
-MTT_EXPORT int sym_exec(void** planes, const int* dims, const void* code, int code_size,
-                        const void* optab, const void* dec, const void* counts, void* stash,
-                        int cap, int base, int off, int navail, int free_count, int flog_count,
-                        int step_no, void* stream) {
-  Sym s = make_sym(planes, dims);
-  if (s.n <= 0) return 0;
-  Env e{s, (const int32_t*)code, code_size, (const int32_t*)optab, nullptr, 0, nullptr, 0};
-  ShardStep sh;
-  sh.base = base;
-  sh.off = off;
-  for (int c = 0; c < 8; ++c) sh.col[c] = (int32_t*)stash + (size_t)c * cap;
-  const int blocks = (s.n + SHARD_THREADS - 1) / SHARD_THREADS;
-  k_sym_exec<<<blocks, SHARD_THREADS, 0, (cudaStream_t)stream>>>(
-      e, (const Dec*)dec, (const int32_t*)counts, sh,
-      ShardBudget{navail, free_count, flog_count, step_no});
+// K1's exec over the same shards after their decide: off, each shard's
+// global rank of its first request; navail, free_count, flog_count and
+// step_no the batch's before the step; on the batch's home device
+// flog_child, flog_step and free_slots are the home batch's planes (nf
+// the step's forks, n the batch's lanes), elsewhere null.
+MTT_EXPORT int sym_exec(const void* tab, int shards, int per, int cap, const void* dec,
+                        const void* counts, const int* off, int navail, int free_count,
+                        int flog_count, int step_no, void* flog_child, void* flog_step,
+                        const void* free_slots, int nf, int n, void* stream) {
+  if (shards < 1 || shards > MAX_MESH_SHARDS || per < 0) return (int)cudaErrorInvalidValue;
+  if (per == 0) return 0;
+  MeshExec p;
+  p.tab = (const MeshShard*)tab;
+  p.dec = (const int4*)dec;
+  p.counts = (const int32_t*)counts;
+  p.per = per;
+  p.bps = (per + MESH_THREADS - 1) / MESH_THREADS;
+  p.cap = cap;
+  p.navail = navail;
+  p.free_count = free_count;
+  p.flog_count = flog_count;
+  p.step_no = step_no;
+  p.flog_child = (int32_t*)flog_child;
+  p.flog_step = (int32_t*)flog_step;
+  p.free_slots = (const int32_t*)free_slots;
+  p.nf = nf;
+  p.n = n;
+  for (int q = 0; q < MAX_MESH_SHARDS; ++q) p.off[q] = q < shards ? off[q] : 0;
+  k_sym_exec<<<shards * p.bps, MESH_THREADS, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -1433,18 +1598,75 @@ MTT_EXPORT int sym_fork_land(void** planes, const int* dims, const void* in, con
   return (int)cudaGetLastError();
 }
 
+// The visited bitmaps of a mesh's other devices ORed into the batch's
+// (lane_engine.py:1807-1823: GSPMD combines the shards' marks), one
+// launch on the batch's device: each source read in place over peer
+// access (or a copy on the batch's device where a pair has none), a
+// 16-byte word a thread where every bitmap is 16-byte aligned, bytes
+// otherwise. Bound: bytes, every bitmap read once and the batch's
+// written once.
 namespace {
-__global__ void k_vis_or(uint8_t* dst, const uint8_t* src, int len) {
+struct VisSrcs {
+  const uint8_t* p[MAX_VIS_SRCS];
+};
+
+__global__ void k_vis_or(uint8_t* dst, const __grid_constant__ VisSrcs v, int count, int len,
+                         int vec) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < len && src[i]) dst[i] = 1;
+  if (!vec) {
+    if (i >= len) return;
+    uint8_t x = dst[i];
+    for (int j = 0; j < count; ++j) x |= v.p[j][i];
+    dst[i] = x;
+    return;
+  }
+  const int words = len / 16, tail = len - 16 * words;
+  if (i < words) {
+    int4 x = reinterpret_cast<const int4*>(dst)[i];
+    for (int j = 0; j < count; ++j) {
+      const int4 y = reinterpret_cast<const int4*>(v.p[j])[i];
+      x.x |= y.x;
+      x.y |= y.y;
+      x.z |= y.z;
+      x.w |= y.w;
+    }
+    reinterpret_cast<int4*>(dst)[i] = x;
+  }
+  if (i < tail) {
+    const int k = 16 * words + i;
+    uint8_t x = dst[k];
+    for (int j = 0; j < count; ++j) x |= v.p[j][k];
+    dst[k] = x;
+  }
 }
 }  // namespace
 
-// dst |= src over len bytes of visited bitmaps: a shard's bitmap on
-// another device than the batch's, after its copy to that device
-MTT_EXPORT int sym_vis_or(void* dst, const void* src, int len, void* stream) {
-  if (len <= 0) return 0;
-  k_vis_or<<<(len + 255) / 256, 256, 0, (cudaStream_t)stream>>>((uint8_t*)dst,
-                                                                (const uint8_t*)src, len);
+// dst |= every srcs[j] (j < count) over len bytes, one launch on the
+// current device; each source is device memory the current device may
+// read (its own, or a peer's with access enabled: peer_access)
+MTT_EXPORT int sym_vis_or(void* dst, void* const* srcs, int count, int len, void* stream) {
+  if (count < 0 || count > MAX_VIS_SRCS) return (int)cudaErrorInvalidValue;
+  if (len <= 0 || count == 0) return 0;
+  VisSrcs v;
+  uintptr_t bits = (uintptr_t)dst;
+  for (int j = 0; j < MAX_VIS_SRCS; ++j) {
+    v.p[j] = j < count ? (const uint8_t*)srcs[j] : nullptr;
+    if (j < count) bits |= (uintptr_t)srcs[j];
+  }
+  const int vec = (bits & 15) == 0;
+  const int items = vec ? std::max(len / 16, len % 16) : len;
+  k_vis_or<<<(items + 255) / 256, 256, 0, (cudaStream_t)stream>>>((uint8_t*)dst, v, count, len,
+                                                                  vec);
   return (int)cudaGetLastError();
+}
+
+// lets the current device read device `peer`'s memory (once a pair;
+// access already enabled, by this or by PyTorch, is success)
+MTT_EXPORT int peer_access(int peer) {
+  cudaError_t rc = cudaDeviceEnablePeerAccess(peer, 0);
+  if (rc == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();
+    rc = cudaSuccess;
+  }
+  return (int)rc;
 }

@@ -15,17 +15,19 @@ This module keeps the same ``SymLaneState`` planes, shapes and dtypes
   ``csrc/symstep.cu``, and never the plain version;
 - ``sym_run_mesh``: the same run over a batch placed on a mesh
   (``parallel/mesh.SymShards``), each shard's step on its own device
-  (K1's shard phases on a CUDA shard, ``sym_step`` with a ``ShardStep``
-  on a CPU one) under one exchange of fork counts, fork-log rows and
-  child rows.
+  (K1's phases, a launch a device over its shards, on a card;
+  ``sym_step`` with a ``ShardStep`` a CPU shard) under one exchange of
+  fork counts, fork-log rows and child rows.
 
 The JAX stepper gates each expensive family behind a ``lax.cond`` over
 "any lane needs it"; per lane the result is the same whether or not a
 gate ran, which is what lets K1 compute each lane on its own.
 """
 
+import contextlib
 import ctypes
 import operator
+import threading
 import weakref
 from dataclasses import dataclass, fields, replace
 
@@ -1252,9 +1254,6 @@ class _PlainShard:
         self.vis = None if visited is None else torch.zeros_like(visited)
         self.req = None
 
-    def visited(self, visited):
-        return vis_or(visited, self.vis)
-
     def decide(self):
         st = self.ss.shards[self.i]
         running = st.status == Status.RUNNING
@@ -1294,14 +1293,20 @@ class _PlainShard:
 
 
 _MESH_SIGS = {
-    "sym_decide": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p],
-    "sym_exec": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    "sym_mesh_sizes": [ctypes.c_void_p],
+    "sym_mesh_table": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_void_p],
+    "sym_host_alloc": [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+    "sym_sync": [ctypes.c_void_p],
+    "sym_decide": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+    "sym_exec": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                  ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     "sym_fork_row_bytes": [ctypes.c_void_p],
     "sym_fork_stage": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -1310,115 +1315,117 @@ _MESH_SIGS = {
     "sym_fork_land": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
     "sym_vis_or": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p],
+                   ctypes.c_int, ctypes.c_void_p],
+    "peer_access": [ctypes.c_int],
 }
+
+#: threads a block of K1's meshed phases (a lane a thread), shards a
+#: launch and bitmaps a ``sym_vis_or`` launch (``csrc/symstep.cu``
+#: ``MESH_THREADS``, ``MAX_MESH_SHARDS``, ``MAX_VIS_SRCS``)
+MESH_THREADS = 64
+MAX_MESH_SHARDS = 64
+MAX_VIS_SRCS = 64
 
 
 def _k1_mesh():
-    from .. import _build
+    """K1's library with its meshed entries bound; its constants checked
+    once against this module's: (library, bytes of a shard's table
+    entry, scratch bytes a lane)."""
+    global _MESH_LIB
+    if _MESH_LIB is None:
+        lib = _k1()
+        for name, argtypes in _MESH_SIGS.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        lib.sym_mesh_sizes.restype = None
+        out = (ctypes.c_int * 5)()
+        lib.sym_mesh_sizes(out)
+        if tuple(out[2:]) != (MESH_THREADS, MAX_MESH_SHARDS, MAX_VIS_SRCS):
+            raise RuntimeError("csrc/symstep.cu's mesh constants differ "
+                               "from ops/symstep.py's")
+        _MESH_LIB = (lib, out[0], out[1])
+    return _MESH_LIB
 
-    lib = _k1()
-    for name, argtypes in _MESH_SIGS.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return lib
+
+_MESH_LIB = None
+
+#: mapped pinned host buffers of ``sym_decide``'s counts by (thread,
+#: group of a run, ints): (an int32 numpy view, its device address)
+_MESH_HOST = {}
 
 
-#: threads a block of K1's shard phases (``csrc/symstep.cu``
-#: ``SHARD_THREADS``): a lane a thread
-SHARD_THREADS = 256
+def _mesh_host(slot: int, n: int):
+    """A pinned host buffer of ``n`` ints mapped into every card's
+    address space, made once for (this thread, ``slot``, ``n``): a run's
+    groups take slots 0, 1, ... so their counts never share one."""
+    key = (threading.get_ident(), slot, n)
+    if key not in _MESH_HOST:
+        from .. import _build
+
+        lib = _k1_mesh()[0]
+        host, dev = ctypes.c_void_p(), ctypes.c_void_p()
+        _build.check(lib, lib.sym_host_alloc(n, ctypes.byref(host),
+                                             ctypes.byref(dev)),
+                     "sym_host_alloc")
+        view = np.ctypeslib.as_array(
+            (ctypes.c_int32 * max(n, 1)).from_address(host.value))
+        _MESH_HOST[key] = (view, dev.value)
+    return _MESH_HOST[key]
+
+
+class _PlainGroup:
+    """K1's phases on the CPU shards ``idx`` of a mesh, each shard's in
+    plain PyTorch (``_PlainShard``); the group holding shard 0 also
+    writes the step's fork-log child slots and step numbers at home, as
+    ``sym_exec`` does on the home device."""
+
+    def __init__(self, ss, idx, slot, code, exec_table, taint_table,
+                 visited):
+        self.ss, self.idx = ss, list(idx)
+        self.shards = [_PlainShard(ss, i, code, exec_table, taint_table,
+                                   visited) for i in self.idx]
+        self.home = 0 in self.idx
+
+    def decide(self):
+        reads = [sh.decide() for sh in self.shards]
+
+        def read():
+            c = [r() for r in reads]
+            return [x[0] for x in c], [x[1] for x in c]
+
+        return read
+
+    def execute(self, off, navail, free_count, flog_count, step_no, nf):
+        out = [sh.execute(o, navail, free_count, flog_count, step_no, 0)
+               for sh, o in zip(self.shards, off)]
+        if self.home and nf:
+            home = self.ss.home
+            top = (free_count - 1 - torch.arange(nf)).clamp(0, self.ss.n - 1)
+            home.flog_child[flog_count:flog_count + nf] = home.free_slots[top]
+            home.flog_step[flog_count:flog_count + nf] = step_no
+        return out
+
+    def bitmaps(self, visited):
+        """The group's own visited bitmaps (not ``visited``)."""
+        return [sh.vis for sh in self.shards]
 
 
 class _CudaShard:
-    """K1's phases on one CUDA shard (``csrc/symstep.cu``): ``sym_decide``
-    (each lane's decisions into a scratch, the block's fork requests, the
-    shard's requests and running lanes, the visited bitmap), then
-    ``sym_exec`` (each lane's step at the global fork ranks, the forking
-    parents into the stash), and the fork rows' ``sym_fork_stage`` and
-    ``sym_fork_land``. Each launch on the current stream of the shard's
-    device, counted in ``LAUNCHES``."""
+    """A CUDA shard's fork rows (``csrc/symstep.cu``): ``sym_fork_stage``
+    gathers its forking parents' rows, ``sym_fork_land`` writes staged
+    rows into its child slots; each launch on the current stream of the
+    shard's device, counted in ``LAUNCHES``."""
 
-    def __init__(self, ss, i, code, exec_table, taint_table, visited):
+    def __init__(self, ss, i):
         from .. import _build
 
         self.b = _build
-        self.lib = _k1_mesh()
-        self.ss, self.i, self.code = ss, i, code
+        self.lib = _k1_mesh()[0]
         st = ss.shards[i]
         self.dev = st.device
         self.base = i * ss.per
         self.planes, self.dims = state_args(st)
-        m = st.pc.shape[0]
-        self.blocks = max(1, -(-m // SHARD_THREADS))
-        self.optab = torch.from_numpy(
-            op_table(exec_table, taint_table)).to(self.dev)
-        _build.need_cuda(code.packed, torch.int32, "code.packed")
-        if code.seg_tab is not None:
-            raise ValueError("a packed arena does not run over a mesh")
-        dec_bytes = self.lib.sym_fork_row_bytes(None)
-        self.dec = torch.empty(m * dec_bytes, dtype=torch.uint8,
-                               device=self.dev)
-        # each block's fork requests, then its running lanes
-        self.counts = torch.empty(2 * self.blocks, dtype=torch.int32,
-                                  device=self.dev)
-        self.host = torch.empty(2 * self.blocks, dtype=torch.int32,
-                                pin_memory=True)
-        # the batch's bitmap where it lives on the shard's device, else
-        # the shard's own, ORed into it after the run
-        self.vis = None if visited is None \
-            else visited if visited.device == self.dev \
-            else torch.zeros(visited.shape[0], dtype=torch.bool,
-                             device=self.dev)
-        cap = min(MAX_FORKS_PER_STEP, ss.n)
-        self.stash = torch.empty((len(STASH), cap), dtype=torch.int32,
-                                 device=self.dev)
         self.row_bytes = self.lib.sym_fork_row_bytes(self.dims)
-
-    def decide(self):
-        with torch.cuda.device(self.dev):
-            return self._decide()
-
-    def _decide(self):
-        b = self.b
-        rc = self.lib.sym_decide(
-            self.planes, self.dims, b.ptr(self.code.packed), self.code.size,
-            b.ptr(self.optab), b.ptr(self.dec), b.ptr(self.counts),
-            None if self.vis is None else b.ptr(self.vis),
-            0 if self.vis is None else self.vis.shape[0],
-            b.stream(self.dev))
-        b.LAUNCHES["sym_decide"] += 1
-        b.check(self.lib, rc, "sym_decide")
-        self.host.copy_(self.counts, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self.dev))
-
-        def read():
-            done.synchronize()
-            c = self.host.numpy()
-            return int(c[:self.blocks].sum()), int(c[self.blocks:].sum())
-
-        return read
-
-    def visited(self, visited):
-        if self.vis is visited:
-            return visited
-        return vis_or(visited, self.vis)
-
-    def execute(self, off, navail, free_count, flog_count, step_no, nf):
-        with torch.cuda.device(self.dev):
-            return self._execute(off, navail, free_count, flog_count,
-                                 step_no)
-
-    def _execute(self, off, navail, free_count, flog_count, step_no):
-        b = self.b
-        rc = self.lib.sym_exec(
-            self.planes, self.dims, b.ptr(self.code.packed), self.code.size,
-            b.ptr(self.optab), b.ptr(self.dec), b.ptr(self.counts),
-            b.ptr(self.stash), self.stash.shape[1], self.base, off, navail,
-            free_count, flog_count, step_no, b.stream(self.dev))
-        b.LAUNCHES["sym_exec"] += 1
-        b.check(self.lib, rc, "sym_exec")
-        return self.stash
 
     def stage(self, stash, idx):
         with torch.cuda.device(self.dev):
@@ -1451,33 +1458,243 @@ class _CudaShard:
         b.check(self.lib, rc, "sym_fork_land")
 
 
-def vis_or(visited, src):
-    """``visited |= src`` for the bool bitmaps of two shards: ``src``
-    (a shard's own bitmap, on another card than the batch's) is copied
-    to ``visited``'s device and ORed in there by ``sym_vis_or``; on the
-    CPU the plain ``visited | src``. Returns ``visited``."""
+class _CudaGroup:
+    """K1's phases over the CUDA shards ``idx`` of one device
+    (``csrc/symstep.cu``), each one launch over all of them:
+    ``sym_decide`` (each lane's decisions into the group's scratch, each
+    block's fork requests and running lanes into a mapped host buffer,
+    the visited bitmap; ``decide`` returns the read, which waits for the
+    launch once), then ``sym_exec`` (each lane's step at the global fork
+    ranks, the forking parents into each shard's stash; on the home
+    device also the step's fork-log child slots and step numbers). The
+    shards' table (``sym_mesh_table``) is built and copied once a run.
+    Each launch on the current stream of the device, counted in
+    ``LAUNCHES``."""
+
+    def __init__(self, ss, idx, slot, code, exec_table, taint_table,
+                 visited):
+        from .. import _build
+
+        self.b = _build
+        self.lib, entry, dec_bytes = _k1_mesh()
+        self.ss, self.idx = ss, list(idx)
+        self.dev = ss.shards[self.idx[0]].device
+        per = self.per = ss.per
+        q = len(self.idx)
+        self.bps = max(1, -(-per // MESH_THREADS))
+        self.blocks = q * self.bps
+        self.shards = [_CudaShard(ss, i) for i in self.idx]
+        _build.need_cuda(code.packed, torch.int32, "code.packed")
+        if code.seg_tab is not None:
+            raise ValueError("a packed arena does not run over a mesh")
+        cap = min(MAX_FORKS_PER_STEP, ss.n)
+        with torch.cuda.device(self.dev):
+            self.optab = torch.from_numpy(
+                op_table(exec_table, taint_table)).to(self.dev)
+            self.stash = torch.empty((q, len(STASH), cap),
+                                     dtype=torch.int32, device=self.dev)
+            self.dec = torch.empty(q * per * dec_bytes, dtype=torch.uint8,
+                                   device=self.dev)
+            self.counts = torch.empty(2 * self.blocks, dtype=torch.int32,
+                                      device=self.dev)
+            # the batch's bitmap where it lives on this device, else the
+            # group's own, ORed into it after the run
+            self.vis = None if visited is None \
+                else visited if visited.device == self.dev \
+                else torch.zeros(visited.shape[0], dtype=torch.bool,
+                                 device=self.dev)
+            args = [state_args(ss.shards[i]) for i in self.idx]
+            planes = (ctypes.c_void_p * (q * len(FIELDS)))()
+            for j, (p, _) in enumerate(args):
+                planes[j * len(FIELDS):(j + 1) * len(FIELDS)] = list(p)
+            self.host_tab = torch.empty(q * entry, dtype=torch.uint8,
+                                        pin_memory=True)
+            _build.check(self.lib, self.lib.sym_mesh_table(
+                planes, q, args[0][1], _build.ptr(code.packed), code.size,
+                _build.ptr(self.optab),
+                _build.int_array([i * per for i in self.idx]),
+                _build.ptr(self.stash), cap, _build.ptr(self.host_tab)),
+                "sym_mesh_table")
+            self.tab = self.host_tab.to(self.dev, non_blocking=True)
+        view, host = _mesh_host(slot, 2 * self.blocks)
+        self.counts_host = view[:2 * self.blocks].reshape(2, q, self.bps)
+        # each launch's arguments but the step's, made once
+        ptr = _build.ptr
+        self.decide_args = (
+            ptr(self.tab), q, per, ptr(self.dec), ptr(self.counts), host,
+            None if self.vis is None else ptr(self.vis),
+            0 if self.vis is None else self.vis.shape[0])
+        self.exec_args = (ptr(self.tab), q, per, cap, ptr(self.dec),
+                          ptr(self.counts))
+        home = ss.home
+        self.home_args = tuple(ptr(t) for t in (
+            home.flog_child, home.flog_step, home.free_slots)) \
+            if 0 in self.idx else (None, None, None)
+        self.off = (ctypes.c_int * q)()
+        self.stashes = list(self.stash)
+
+    def decide(self):
+        """Launch ``sym_decide``; returns the read of its counts:
+        (requests, running lanes) a shard."""
+        stream = self.b.stream(self.dev)
+        with _current(self.dev):
+            self.launch_decide(stream)
+
+        def read():
+            self.b.check(self.lib, self.lib.sym_sync(stream), "sym_decide")
+            c = self.counts_host.sum(axis=2).tolist()
+            return c[0], c[1]
+
+        return read
+
+    def launch_decide(self, stream):
+        rc = self.lib.sym_decide(*self.decide_args, stream)
+        self.b.LAUNCHES["sym_decide"] += 1
+        self.b.check(self.lib, rc, "sym_decide")
+
+    def execute(self, off, navail, free_count, flog_count, step_no, nf):
+        b = self.b
+        self.off[:] = off
+        with _current(self.dev):
+            rc = self.lib.sym_exec(
+                *self.exec_args, self.off, navail, free_count, flog_count,
+                step_no, *self.home_args, nf, self.ss.n, b.stream(self.dev))
+        b.LAUNCHES["sym_exec"] += 1
+        b.check(self.lib, rc, "sym_exec")
+        return self.stashes
+
+    def bitmaps(self, visited):
+        """The group's own visited bitmap, where it is not ``visited``."""
+        return [] if self.vis is None or self.vis is visited else [self.vis]
+
+
+def _current(dev: torch.device):
+    """``dev`` made the current device for a launch on it, where it is
+    not already."""
+    if torch.cuda.current_device() == dev.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+#: the route of each (batch device, source device) pair of ``vis_or``:
+#: "local", "peer" (read in place, access enabled once) or "copy"
+_VIS_ROUTES = {}
+
+
+def vis_route(dst: torch.device, src: torch.device) -> str:
+    """How ``vis_or`` reads a bitmap on ``src`` into one on ``dst``, by
+    the cards' topology: in place where it is the same device or the
+    pair has peer access (enabled here, once a pair), else through a
+    copy to ``dst``."""
+    key = (dst.index, src.index)
+    if key not in _VIS_ROUTES:
+        if dst == src:
+            route = "local"
+        elif torch.cuda.can_device_access_peer(dst, src):
+            from .. import _build
+
+            lib = _k1_mesh()[0]
+            with torch.cuda.device(dst):
+                _build.check(lib, lib.peer_access(src.index), "peer_access")
+            route = "peer"
+        else:
+            route = "copy"
+        _VIS_ROUTES[key] = route
+    return _VIS_ROUTES[key]
+
+
+def vis_or(visited, srcs):
+    """``visited |= src`` for every bitmap of ``srcs`` (the shards' own
+    visited bitmaps, each as long as ``visited``): on a card one
+    ``sym_vis_or`` launch on ``visited``'s device reads every source in
+    place (``vis_route``; a source whose pair has no peer access is
+    copied first), whose writes must have completed; on the CPU the
+    plain ``visited | src`` of each. Returns ``visited``."""
+    srcs = list(srcs)
     if visited.device.type == "cpu":
-        return visited | src.to(visited.device)
+        for src in srcs:
+            visited = visited | src.to(visited.device)
+        return visited
     from .. import _build as b
 
-    lib = _k1_mesh()
-    with torch.cuda.device(visited.device):
-        src = src.to(visited.device)
-        rc = lib.sym_vis_or(b.ptr(visited), b.ptr(src), visited.shape[0],
-                            b.stream(visited.device))
+    lib = _k1_mesh()[0]
+    dev = visited.device
+    if len(srcs) > MAX_VIS_SRCS:
+        raise ValueError(f"vis_or: {len(srcs)} bitmaps, at most "
+                         f"{MAX_VIS_SRCS}")
+    held = []
+    with _current(dev):
+        for src in [visited] + srcs:
+            if not (src.is_cuda and src.dtype is torch.bool
+                    and src.is_contiguous() and src.shape == visited.shape):
+                raise ValueError(f"vis_or: {tuple(src.shape)} {src.dtype} "
+                                 f"on {src.device}: a contiguous CUDA bool "
+                                 f"bitmap of {tuple(visited.shape)} wanted")
+        for src in srcs:
+            held.append(src if vis_route(dev, src.device) != "copy"
+                        else src.to(dev))
+        rc = lib.sym_vis_or(b.ptr(visited), b.ptr_array(held), len(held),
+                            visited.shape[0], b.stream(dev))
     b.LAUNCHES["sym_vis_or"] += 1
     b.check(lib, rc, "sym_vis_or")
     return visited
 
 
-def shard_phases(code, ss, exec_table=None, taint_table=None,
+def shard_groups(code, ss, exec_table=None, taint_table=None,
                  visited=None):
-    """K1's phases on each shard of ``ss`` (``_PlainShard`` on a CPU
-    shard, ``_CudaShard`` on a CUDA one); ``code`` is {device: compiled
-    code}."""
-    return [(_PlainShard if st.device.type == "cpu" else _CudaShard)(
-        ss, i, code[st.device], exec_table, taint_table, visited)
-        for i, st in enumerate(ss.shards)]
+    """K1's phases over the shards of ``ss``, a group a device (at most
+    ``MAX_MESH_SHARDS`` shards a group), the devices in the order they
+    first appear: ``_PlainGroup`` on the CPU, ``_CudaGroup`` on a card;
+    ``code`` is {device: compiled code}."""
+    from ..parallel.mesh import device_groups
+
+    groups = []
+    for dev, idx in device_groups(ss.mesh):
+        for lo in range(0, len(idx), MAX_MESH_SHARDS):
+            cls = _PlainGroup if dev.type == "cpu" else _CudaGroup
+            groups.append(cls(ss, idx[lo:lo + MAX_MESH_SHARDS],
+                              len(groups), code[dev], exec_table,
+                              taint_table, visited))
+    return groups
+
+
+def decide_groups(groups, d: int):
+    """Every group's decide launched, then each read: (fork requests,
+    running lanes) of each of the ``d`` shards, lists of ints in mesh
+    order."""
+    reads = [g.decide() for g in groups]
+    req, run = [0] * d, [0] * d
+    for g, read in zip(groups, reads):
+        for i, r, u in zip(g.idx, *read()):
+            req[i], run[i] = r, u
+    return req, run
+
+
+def fork_budget(req, free_count: int, flog_count: int, F: int, n: int):
+    """A step's fork budget from each shard's requests (mesh order), as
+    the JAX cumsum over every lane: (navail, each shard's global rank of
+    its first request, each shard's forks, the step's forks)."""
+    navail = min(free_count, MAX_FORKS_PER_STEP, n, F - flog_count)
+    off, forks, at = [], [], 0
+    for r in req:
+        off.append(at)
+        forks.append(max(0, min(r, navail - at)))
+        at += r
+    return navail, off, forks, max(0, min(at, navail))
+
+
+def execute_groups(groups, d: int, off, forks, navail: int,
+                   free_count: int, flog_count: int, step_no: int,
+                   nf: int):
+    """Every group's execute: [(stash, global rank of its first fork,
+    forks)] a shard, mesh order."""
+    out = [None] * d
+    for g in groups:
+        stashes = g.execute([off[i] for i in g.idx], navail, free_count,
+                            flog_count, step_no, nf)
+        for i, stash in zip(g.idx, stashes):
+            out[i] = (stash, off[i], forks[i])
+    return out
 
 
 def fork_rows(shards, stashes, child, m):
@@ -1497,64 +1714,61 @@ def sym_run_mesh(code, ss, max_steps: int, exec_table=None,
                  taint_table=None, visited=None):
     """``sym_run`` over a batch placed on a mesh
     (``parallel/mesh.SymShards``), each shard's work on the device that
-    holds it: per step every shard decides (K1's ``sym_decide`` on a
-    CUDA shard, ``sym_step``'s first half on a CPU one), the shards'
-    fork requests and running lanes come to the host, which stops at
-    the first step where no lane of any shard runs and gives each shard
-    the global rank of its first request and the step's fork budget
-    (from the batch's free-slot and fork-log counts, as the JAX cumsum
-    over every lane does); every shard then executes (``sym_exec``), its
-    forking parents into a stash in fork order; the fork log's rows are
-    copied into the home device's planes, each child's slot taken from
-    the top of the batch's free-slot stack (read once a run), and each
-    parent's post-step row is staged on its shard (``sym_fork_stage``),
-    copied to the child's shard's device when that is another, and
-    landed in the child's slot (``sym_fork_land``): once a (source,
-    destination) pair a forking step. ``code`` is {device: compiled
-    code}. Updates ``ss`` (CUDA shards in place) and returns (ss,
-    visited): the visited bitmap ORs every shard's."""
+    holds it, a group of shards a device (``shard_groups``): per step
+    every group decides (K1's ``sym_decide``, one launch over a card's
+    shards; ``sym_step``'s first half a CPU shard), the shards' fork
+    requests and running lanes come to the host (one wait a device),
+    which stops at the first step where no lane of any shard runs and
+    gives each shard the global rank of its first request and the
+    step's fork budget (from the batch's free-slot and fork-log counts,
+    as the JAX cumsum over every lane does); every group then executes
+    (``sym_exec``), its forking parents into each shard's stash in fork
+    order, the group on the home device also writing the step's fork-log
+    child slots and step numbers; the other fork-log rows are copied
+    from the stashes into the home device's planes, each child's slot is
+    taken from the top of the batch's free-slot stack (read once a run),
+    and each parent's post-step row is staged on its shard
+    (``sym_fork_stage``), copied to the child's shard's device when that
+    is another, and landed in the child's slot (``sym_fork_land``): once
+    a (source, destination) pair a forking step. ``code`` is {device:
+    compiled code}. Updates ``ss`` (CUDA shards in place) and returns
+    (ss, visited): the visited bitmap ORs every shard's (``vis_or``)."""
     home = ss.home
-    n, m = ss.n, ss.per
+    n, m, d = ss.n, ss.per, ss.mesh.size
     free_slots = home.free_slots.cpu().numpy()
     free_count = int(home.free_count)
     flog_count = int(home.flog_count)
     step_no = int(home.step_no)
     F = home.flog_parent.shape[0]
-    maxf = min(MAX_FORKS_PER_STEP, n)
     if visited is not None and visited.device.type == "cpu":
         visited = visited.clone()
-    shards = shard_phases(code, ss, exec_table, taint_table, visited)
+    groups = shard_groups(code, ss, exec_table, taint_table, visited)
+    shards = [None] * d
+    for g in groups:
+        for i, sh in zip(g.idx, g.shards):
+            shards[i] = sh
     flog = [getattr(home, f) for f in (
         "flog_parent", "flog_pc", "flog_fentry", "flog_sid", "flog_gmin",
         "flog_gmax", "flog_dest")]
     # stash column of each of those planes
     flog_col = [0, 3, 2, 4, 5, 6, 7]
     for _ in range(max_steps):
-        reads = [sh.decide() for sh in shards]
-        counts = [r() for r in reads]
-        if not sum(c[1] for c in counts):
+        req, run = decide_groups(groups, d)
+        if not any(run):
             break
-        navail = min(free_count, maxf, F - flog_count)
-        off, stashes = 0, []
-        for sh, (req, _) in zip(shards, counts):
-            nf_i = max(0, min(req, navail - off))
-            stashes.append((sh.execute(off, navail, free_count, flog_count,
-                                       step_no, nf_i), off, nf_i))
-            off += req
-        nf = max(0, min(off, navail))
+        navail, off, forks, nf = fork_budget(req, free_count, flog_count,
+                                             F, n)
+        stashes = execute_groups(groups, d, off, forks, navail, free_count,
+                                 flog_count, step_no, nf)
         if nf:
             child = free_slots[np.clip(free_count - 1 - np.arange(nf), 0,
                                        n - 1)]
             at = flog_count
-            for sh, (stash, o, k) in zip(shards, stashes):
+            for stash, o, k in stashes:
                 if not k:
                     continue
                 for plane, c in zip(flog, flog_col):
                     plane[at + o:at + o + k].copy_(stash[c, :k])
-            home.flog_child[at:at + nf].copy_(
-                torch.from_numpy(child.astype(np.int32)))
-            home.flog_step[at:at + nf].copy_(
-                torch.full((nf,), step_no, dtype=torch.int32))
             fork_rows(shards, stashes, child, m)
         free_count -= nf
         flog_count += nf
@@ -1563,6 +1777,6 @@ def sym_run_mesh(code, ss, max_steps: int, exec_table=None,
     home.flog_count.copy_(torch.tensor(flog_count, dtype=torch.int32))
     home.free_count.copy_(torch.tensor(free_count, dtype=torch.int32))
     if visited is not None:
-        for sh in shards:
-            visited = sh.visited(visited)
+        visited = vis_or(visited, [v for g in groups
+                                   for v in g.bitmaps(visited)])
     return ss, visited

@@ -1,8 +1,8 @@
 """One kernel group's call and device times of one tree of this repo, to
 compare two commits in turns on one card.
 
-    python3 tools/window_turns.py [window|k9k10|k5k13|k12k6|k6fault|e2e]
-        [--tree DIR]
+    python3 tools/window_turns.py
+        [window|k9k10|k5k13|k12k6|k6fault|e2e|mesh|vis] [--tree DIR]
 
 Imports ``mythril_tpu_torch`` from ``DIR`` (default: this checkout; an
 older commit unpacked with ``git archive`` works the same way, as long
@@ -57,6 +57,18 @@ as the group's functions take the arguments they take here) and
   once-swept tables; on a tree whose edited encodings dropped their
   host arrays, those of a fresh ``linearize`` of the wave, which
   numbers its rows the same): every word that differs;
+- ``mesh``: rows 2m and 2v. K1 over a mesh on the k=12 main path's
+  first window at 4096 lanes, at its first forking step, over 8 shards
+  of 512 lanes and over 4 of 1024 (the card's shards of ``chip_smoke.py``
+  and a card's shard of ``--cards``): ``sym_decide`` launched alone
+  (every shard, and shard 0 alone: the launch of a card that holds one
+  shard), the step's whole decide (launch, wait, the counts read) and
+  every shard's ``sym_exec``; in a tree with the launch a shard each of
+  these is its 8 or 4 launches (a copy and an event a shard in the
+  whole decide). Then ``sym_vis_or`` ORing three bitmaps of the other
+  cards (of card 0 on a one-card machine) into card 0's, and
+  ``bitwise_or_`` after a copy of each (that part alone: ``vis``, for a
+  machine of four cards). Means of 20 (exec, OR: of 10);
 - ``e2e``: ``chip_smoke.py``'s end-to-end phases that run neither K5
   nor K13, with the tree's own ``chip_smoke.py``: the symbolic path
   (k=12 contract at 4096 lanes through ``support/runs.explore``) and
@@ -337,6 +349,170 @@ def k6fault_diffs(cs, dev, timed) -> dict:
     return {"reads_own_level": [list(d) for d in diffs]}
 
 
+class MeshK1:
+    """K1's meshed phases in either form a tree has: a launch a shard
+    (``shard_phases``, ``_CudaShard``) or a launch a device
+    (``shard_groups``, ``_CudaGroup``)."""
+
+    def __init__(self, S, codes, ex, ta, dev):
+        self.S, self.codes, self.ex, self.ta, self.dev = S, codes, ex, ta, dev
+        self.grouped = hasattr(S, "shard_groups")
+
+    def make(self, ss, first=False):
+        """Phase objects over ``ss``'s shards (``first``: shard 0's alone,
+        one card's launch where each card holds one shard)."""
+        S = self.S
+        if self.grouped:
+            if first:
+                return [S._CudaGroup(ss, [0], 0, self.codes[self.dev],
+                                     self.ex, self.ta, None)]
+            return S.shard_groups(self.codes, ss, self.ex, self.ta)
+        out = S.shard_phases(self.codes, ss, self.ex, self.ta)
+        return out[:1] if first else out
+
+    def launch(self, objs):
+        """The decide kernels alone: no copy, no wait, no read."""
+        import torch
+
+        from mythril_tpu_torch import _build as b
+
+        stream = b.stream(self.dev)
+        with torch.cuda.device(self.dev):
+            for o in objs:
+                if self.grouped:
+                    o.launch_decide(stream)
+                    continue
+                rc = o.lib.sym_decide(
+                    o.planes, o.dims, b.ptr(o.code.packed), o.code.size,
+                    b.ptr(o.optab), b.ptr(o.dec), b.ptr(o.counts), None, 0,
+                    stream)
+                b.LAUNCHES["sym_decide"] += 1
+                b.check(o.lib, rc, "sym_decide")
+
+    def decide(self, objs):
+        """The step's whole decide: (requests, running) a shard."""
+        if self.grouped:
+            return self.S.decide_groups(objs, sum(len(g.idx) for g in objs))
+        c = [r() for r in [o.decide() for o in objs]]
+        return [x[0] for x in c], [x[1] for x in c]
+
+    def execute(self, objs, counts, scalars):
+        """Every shard's exec at the step's fork ranks and budget, from
+        the batch's (free count, fork-log count, step, fork-log rows,
+        lanes) read beforehand."""
+        S = self.S
+        free_count, flog_count, step_no, F, n = scalars
+        if self.grouped:
+            navail, off, forks, nf = S.fork_budget(counts[0], free_count,
+                                                   flog_count, F, n)
+            return S.execute_groups(objs, len(counts[0]), off, forks,
+                                    navail, free_count, flog_count,
+                                    step_no, nf)
+        navail = min(free_count, min(S.MAX_FORKS_PER_STEP, n),
+                     F - flog_count)
+        off = 0
+        for o, req in zip(objs, counts[0]):
+            o.execute(off, navail, free_count, flog_count, step_no,
+                      max(0, min(int(req), navail - off)))
+            off += int(req)
+        return off
+
+
+def mesh_times(cs, dev, timed) -> None:
+    """Rows 2m's K1 phases and 2v's ``sym_vis_or`` (the ``mesh`` group)."""
+    import torch
+
+    from mythril_tpu_torch.laser import lane_engine as le
+    from mythril_tpu_torch.ops import symstep as S
+    from mythril_tpu_torch.parallel.mesh import Mesh
+    from mythril_tpu_torch.support import runs
+    from mythril_tpu_torch.support.contracts import build_symbolic_contract
+    from mythril_tpu_torch.support.support_args import args
+
+    code, paths = build_symbolic_contract(cs.MAIN_K)
+    lanes = args.tpu_lanes
+    for shards in (8, 4):
+        le._STATE_POOL.clear()
+        le.PATH_HISTORY[code] = paths
+        with cs.mesh_engine(Mesh([dev] * shards)), \
+                cs.MeshSpy(keep=True) as spy:
+            runs.explore(code, cs.MAIN_LANES)
+        args.tpu_lanes = lanes
+        codes, k1_in = spy.k1[0], spy.k1[1]
+        steps, ex, ta = spy.k1[2][:3]
+        k1 = MeshK1(S, codes, ex, ta, dev)
+        for _ in range(steps):  # the first step at which lanes fork
+            if any(k1.decide(k1.make(k1_in))[0]):
+                break
+            S.sym_run_mesh(codes, k1_in, 1, ex, ta)
+        else:
+            raise AssertionError("the first window forks at no step")
+        ss = cs.mesh_clone(k1_in)
+        per = ss.per
+        what = f"{shards} shards of {per} lanes"
+        objs = k1.make(ss)
+        first = k1.make(ss, first=True)
+        timed(f"sym_decide launched alone, {what}",
+              lambda _=None, o=objs: k1.launch(o), lambda: None, reps=20)
+        timed(f"sym_decide launched alone, shard 0 ({per} lanes: a "
+              f"card's launch where a card holds one shard), {what}",
+              lambda _=None, o=first: k1.launch(o), lambda: None, reps=20)
+        timed(f"sym_decide, the step's whole call (launch, wait, read), "
+              f"{what}", lambda _=None, o=objs: k1.decide(o), lambda: None,
+              reps=20, device=False)
+
+        def ready(s=ss):
+            cs.mesh_restore(s, k1_in)
+            o = k1.make(s)
+            h = s.home
+            return o, k1.decide(o), (
+                int(h.free_count), int(h.flog_count), int(h.step_no),
+                h.flog_parent.shape[0], s.n)
+
+        timed(f"sym_exec, every shard, {what}",
+              lambda x: k1.execute(*x), ready, reps=10)
+        torch.cuda.empty_cache()
+    vis_times(cs, dev, timed)
+
+
+def vis_times(cs, dev, timed) -> None:
+    """Row 2v (the ``vis`` group, the end of ``mesh``): the visited
+    bitmaps of three other cards (three of card 0 where it is the only
+    one) ORed into card 0's, as long as the k=12 contract's."""
+    import torch
+
+    from mythril_tpu_torch.ops import symstep as S
+    from mythril_tpu_torch.ops.stepper import compile_code
+    from mythril_tpu_torch.support.contracts import build_symbolic_contract
+
+    cards = torch.cuda.device_count()
+    srcs = [torch.device("cuda", i % cards) for i in range(1, 4)]
+    length = compile_code(build_symbolic_contract(cs.MAIN_K)[0],
+                          device=dev).packed.shape[0]
+    g = torch.Generator().manual_seed(15)
+    maps = [torch.rand(length, generator=g) < 0.3 for _ in range(4)]
+
+    def pair():
+        out = (maps[0].to(dev), [x.to(d) for x, d in zip(maps[1:], srcs)])
+        for d in set(srcs) | {dev}:
+            torch.cuda.synchronize(d)
+        return out
+
+    if hasattr(S, "vis_route"):
+        def vis(x):
+            S.vis_or(x[0], x[1])
+    else:
+        def vis(x):
+            for src in x[1]:
+                S.vis_or(x[0], src)
+    where = "cards 1-3" if cards > 1 else "card 0"
+    timed(f"sym_vis_or, three bitmaps of {where} into card 0's", vis, pair,
+          reps=10)
+    timed(f"bitwise_or_ after a copy of each, three bitmaps of {where}",
+          lambda x: [x[0].bitwise_or_(s.to(dev)) for s in x[1]], pair,
+          reps=10)
+
+
 def e2e_walls(cs, dev, timed) -> dict:
     """The ``e2e`` group's walls (s), with the tree's ``chip_smoke.py``
     (``cs``; ``timed`` unused)."""
@@ -368,7 +544,8 @@ def e2e_walls(cs, dev, timed) -> dict:
 
 #: each group times through ``timed``, or returns its numbers
 GROUPS = {"window": window_times, "k9k10": k9k10_times, "k5k13": k5k13_times,
-          "k12k6": k12k6_times, "k6fault": k6fault_diffs, "e2e": e2e_walls}
+          "k12k6": k12k6_times, "k6fault": k6fault_diffs, "e2e": e2e_walls,
+          "mesh": mesh_times, "vis": vis_times}
 
 
 def main(argv=None) -> int:
