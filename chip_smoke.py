@@ -214,6 +214,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -242,8 +243,9 @@ def smi() -> str:
 
 def cuda_ms(fn, reps=1, setup=None):
     """Mean milliseconds of one call of fn on the card over reps calls,
-    after one warm-up call. With setup, each call is fn(setup()), the
-    setup untimed."""
+    after one warm-up call where reps > 1 (a plain version timed once
+    follows its check's own run, which warmed it). With setup, each call
+    is fn(setup()), the setup untimed."""
     import torch
 
     def once():
@@ -257,8 +259,24 @@ def cuda_ms(fn, reps=1, setup=None):
         torch.cuda.synchronize()
         return a.elapsed_time(b)
 
-    once()
+    if reps > 1:
+        once()
     return sum(once() for _ in range(reps)) / reps
+
+
+def timed_once(fn, *args):
+    """(fn(*args), its milliseconds on CUDA events): one call, the card
+    idle before it."""
+    import torch
+
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn(*args)
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
 
 
 def device_ms(fn, reps=3, setup=None, tries=3):
@@ -554,7 +572,8 @@ def hold_k1(cc, st, steps, what, syncs=None):
     """K1 against sym_run_plain from ``st`` (both on the card, on clones),
     with each of ``syncs`` steps a read window (SYNC_EVERY by default):
     every plane and the visited bitmap equal, and one launch a read window
-    (``LAUNCHES["sym_run"]``). Returns (plain's state, steps run)."""
+    (``LAUNCHES["sym_run"]``). Returns (plain's state, steps run, the
+    plain run's milliseconds)."""
     import torch
 
     from mythril_tpu_torch import _build
@@ -562,8 +581,9 @@ def hold_k1(cc, st, steps, what, syncs=None):
 
     vis0 = torch.zeros(cc.packed.shape[0], dtype=torch.bool,
                        device=st.pc.device)
-    s_p, v_p = symstep.sym_run_plain(cc, clone_state(st), steps, None,
-                                     None, vis0.clone())
+    (s_p, v_p), plain_ms = timed_once(
+        symstep.sym_run_plain, cc, clone_state(st), steps, None, None,
+        vis0.clone())
     ran = int(s_p.step_no) - int(st.step_no)
     for every in syncs or (symstep.SYNC_EVERY,):
         before = _build.LAUNCHES["sym_run"]
@@ -580,7 +600,7 @@ def hold_k1(cc, st, steps, what, syncs=None):
             raise AssertionError(f"K1 {what}: {launched} launches for {ran} "
                                  f"steps at {every} a window, want {want}")
         del s_k, v_k
-    return s_p, ran
+    return s_p, ran, plain_ms
 
 
 def check_k1(dev, report):
@@ -595,11 +615,11 @@ def check_k1(dev, report):
 
     st, cc = k1_state(dev)
     steps = 64
-    s_p, ran = hold_k1(cc, st, steps, "4096 lanes", K1_SYNC)
+    s_p, ran, plain_ms = hold_k1(cc, st, steps, "4096 lanes", K1_SYNC)
     err = 0
     for case in device_loop.k1_edge_cases(st.calldata.shape[1], scale=64):
         cst, ccc = device_loop.k1_case_state(case, dev)
-        out, cran = hold_k1(ccc, cst, case.steps, case.name)
+        out, cran, _ = hold_k1(ccc, cst, case.steps, case.name)
         note = ""
         if case.name == "mid_window_stop":
             if cran >= case.steps or cran % symstep.SYNC_EVERY == 0 \
@@ -624,13 +644,12 @@ def check_k1(dev, report):
         return None if ms is None else ms / n_ran
 
     narrow, ncc = k1_state(dev, 64)
-    _, nran = hold_k1(ncc, narrow, steps, "64 lanes")
+    _, nran, _ = hold_k1(ncc, narrow, steps, "64 lanes")
     k_ms = per_step(cuda_ms, cc, st, ran)
     d_ms = per_step(device_ms, cc, st, ran)
     n_ms = per_step(cuda_ms, ncc, narrow, nran)
     n_dms = per_step(device_ms, ncc, narrow, nran)
-    p_ms = cuda_ms(lambda c: symstep.sym_run_plain(cc, c, steps),
-                   reps=1, setup=lambda: clone_state(st)) / ran
+    p_ms = plain_ms / ran  # the check's own plain run
     # the host's read of the running count between K1 launches
     sync = {e: per_step(cuda_ms, cc, st, ran, sync_every=e)
             for e in (1, 32)}
@@ -716,7 +735,7 @@ def check_k1_wide(dev, n_lanes, k, steps=32):
     if per < 2 or not later:
         raise AssertionError(f"wide run: {per} lanes a thread, {later} "
                              f"lanes running past the first round")
-    out, ran = hold_k1(cc, peak, steps, f"{n_lanes} lanes")
+    out, ran, _ = hold_k1(cc, peak, steps, f"{n_lanes} lanes")
     log(f"K1 at {n_lanes} lanes (the k={k} device loop's first window "
         f"after {advanced} steps, at its most lanes running: {at}, {later} "
         f"of them past the first {lanes * blocks}): {ran} steps equal to "
@@ -739,7 +758,7 @@ def check_k1_packed(dev, report):
     n = MAIN_LANES
     st, cc, codes, bases, probes = packed_state(dev, n)
     steps = 64
-    s_p, ran = hold_k1(cc, st, steps, "packed", K1_SYNC)
+    s_p, ran, plain_ms = hold_k1(cc, st, steps, "packed", K1_SYNC)
     err = 0
     forks = int(s_p.flog_count)
     fork_seg = cc.seg_of[s_p.flog_pc[:forks].long()].tolist()
@@ -773,8 +792,7 @@ def check_k1_packed(dev, report):
 
     k_ms, d_ms, u_ms, u_dms = mean("k", 0), mean("k", 1), mean("u", 0), \
         mean("u", 1)
-    p_ms = cuda_ms(lambda c: symstep.sym_run_plain(cc, c, steps),
-                   reps=1, setup=lambda: clone_state(st)) / ran
+    p_ms = plain_ms / ran  # the check's own plain run
     # as K1 (check_k1), with the two segment-table reads (4 + 8 bytes)
     # of each executed instruction
     bms, by = bound_ms((executed * (320 + 12) + forks * 2 * lane_bytes)
@@ -1860,9 +1878,9 @@ def check_tables(name, core, start, interval_start, accs=None):
         PRs 4-8); untimed, only its bytes are summed (``levels_bytes``);
         returns the kernel's output."""
         a, b = clone_all(x), clone_all(x)
-        out_k, out_p = kern(a), plain(b)
+        out_k = kern(a)
+        out_p, plain_ms = timed_once(plain, b)
         out_k, out_p = (a, b) if out_k is None else (out_k, out_p)
-        torch.cuda.synchronize()
         err[key] = max(err[key], same_outputs(out_k, out_p, f"{name}: {what}"))
         if accs is not None and not timed:
             accs[key]["levels_bytes"] += nbytes(x, out_k)
@@ -1870,8 +1888,7 @@ def check_tables(name, core, start, interval_start, accs=None):
             acc = accs[key]
             acc["ms"] += cuda_ms(kern, reps=3, setup=lambda: clone_all(x))
             acc["device_ms"] += queued_ms(kern, lambda: clone_all(x))
-            acc["plain_ms"] += cuda_ms(plain, reps=1,
-                                       setup=lambda: clone_all(x))
+            acc["plain_ms"] += plain_ms  # the check's own run
             acc["bytes"] += nbytes(x, out_k)
             acc["rows_bytes"] += (rows_nbytes or nbytes)(x, out_k)
         return out_k
@@ -2601,14 +2618,19 @@ def lane_footprint(code, st, max_steps):
     lanes = torch.arange(n, device=dev)
     cols = torch.arange(c, device=dev)
     env_slot = torch.as_tensor(S.ENV_TABLE, device=dev).long()
-    op_ = {k: S._OP[k] for k in ("MLOAD", "MSTORE", "MSTORE8", "MSIZE",
-                                 "SLOAD", "SSTORE", "CALLDATALOAD",
-                                 "CALLDATASIZE")}
     fams = dict(memory=("MLOAD", "MSTORE", "MSTORE8", "MSIZE"),
                 storage=("SLOAD", "SSTORE"),
                 calldata=("CALLDATALOAD", "CALLDATASIZE"))
-    fp = {k: torch.zeros(n, dtype=torch.bool, device=dev) for k in fams}
-    fp.update(env=torch.zeros((n, S.N_ENV), dtype=torch.bool, device=dev),
+    # each opcode's families (a column each) in one table: a lookup a
+    # step instead of a compare an opcode name
+    fam_of = torch.zeros((256, len(fams)), dtype=torch.bool)
+    for j, names in enumerate(fams.values()):
+        for name in names:
+            fam_of[S._OP[name], j] = True
+    fam_of = fam_of.to(dev)
+    cdload = S._OP["CALLDATALOAD"]
+    fam = torch.zeros((n, len(fams)), dtype=torch.bool, device=dev)
+    fp = dict(env=torch.zeros((n, S.N_ENV), dtype=torch.bool, device=dev),
               cd_bytes=torch.zeros((n, c), dtype=torch.bool, device=dev),
               rows=torch.zeros(code.size + 1, dtype=torch.bool, device=dev),
               ops=torch.zeros(256, dtype=torch.bool, device=dev))
@@ -2623,19 +2645,18 @@ def lane_footprint(code, st, max_steps):
         slot = env_slot[op]
         hit = live & (slot >= 0)
         fp["env"][lanes[hit], slot[hit]] = True
-        for fam, names in fams.items():
-            for name in names:
-                fp[fam] |= live & (op == op_[name])
+        fam |= live[:, None] & fam_of[op]
         # CALLDATALOAD reads [top, top + 32) below cd_size
         top = x.stack[lanes, (x.sp.long() - 1).clamp(0, x.stack.shape[1]
                                                      - 1)]
         off = top[:, 0].long() & 0xFFFFFFFF
         small = ~(top[:, 1:] != 0).any(dim=1) & (off < 1 << 30)
-        cdl = live & (op == op_["CALLDATALOAD"]) & (x.sp > 0) & small
+        cdl = live & (op == cdload) & (x.sp > 0) & small
         fp["cd_bytes"] |= (cdl[:, None] & (cols >= off[:, None])
                            & (cols < off[:, None] + 32)
                            & (cols < x.cd_size.long()[:, None]))
         x = S.step(code, x)
+    fp.update({k: fam[:, j] for j, k in enumerate(fams)})
     fp["final"] = x
     return fp
 
@@ -2671,13 +2692,20 @@ def lane_run_bound(before, after, code, fp):
     return bms, by, nbytes, nops
 
 
+#: a K10 edge case of at most this many lanes runs its plain reference
+#: on the CPU (the same inputs, made from the case's numpy planes): its
+#: steps are tiny ops, which the card runs one launch (and each gate one
+#: wait) at a time
+PLAIN_CPU_LANES = 64
+
+
 def check_k10_edges(dev):
     """K10 on ``device_loop.k10_edge_cases(full=True)`` against
     ``run_plain``, bit for bit on every plane: the whole batch, or the
-    case's shard view of it (the lanes around the view unchanged). The
-    cases must take each of the kernel's four branches (the code's rows
-    in shared memory or in place, the lanes' rows on chip or in
-    place)."""
+    case's shard view of it (the lanes around the view unchanged); the
+    plain run on the CPU up to PLAIN_CPU_LANES lanes. The cases must
+    take each of the kernel's four branches (the code's rows in shared
+    memory or in place, the lanes' rows on chip or in place)."""
     import torch
 
     from mythril_tpu_torch import _build
@@ -2693,18 +2721,22 @@ def check_k10_edges(dev):
                                *_build.device_limits(st.device))
         branches.add((plan["code_shared"], plan["local"]))
         del v
-        want = S.clone_lanes(st)
+        on_cpu = st.pc.shape[0] <= PLAIN_CPU_LANES
+        pcc, want = dl.k10_case_inputs(case, "cpu") if on_cpu \
+            else (cc, S.clone_lanes(st))
         x = dl.view_of(want, case.view)
-        ran = S.run_plain(cc, S.clone_lanes(x), case.max_steps)
+        ran = S.run_plain(pcc, S.clone_lanes(x), case.max_steps)
         for f in S.LANE_FIELDS:
             getattr(x, f).copy_(getattr(ran, f))
         S.run_kernel(cc, dl.view_of(st, case.view), case.max_steps)
         torch.cuda.synchronize()
-        same_lanes(st, want, f"K10 edge case {case.name}")
+        got = S.LaneState(**{f: getattr(st, f).to(want.pc.device)
+                             for f in S.LANE_FIELDS})
+        same_lanes(got, want, f"K10 edge case {case.name}")
         names.append(f"{case.name} ({st.pc.shape[0]} lanes, code "
                      f"{'shared' if plan['code_shared'] else 'in place'}, "
                      f"rows {'on chip' if plan['local'] else 'in place'})")
-        del st, want, x, ran
+        del st, want, x, ran, got
     torch.cuda.empty_cache()
     if branches != {(0, 0), (0, 1), (1, 0), (1, 1)}:
         raise AssertionError(f"K10 edge cases took the branches {branches} "
@@ -2719,7 +2751,8 @@ def concrete_path(dev, card, report):
     one warm run and three timed, every lane's status, steps and slot 0
     held against the closed form; K10 held bit for bit against
     ``run_plain`` at 1024 lanes through a whole run and over single
-    steps at full width; the device's busy share under torch.profiler
+    steps at full width (its edge cases: ``check_k10_edges``, run
+    beside the corpus mode); the device's busy share under torch.profiler
     (or the stream-interval share between CUDA events, an upper bound);
     K10's bound from what the timed inputs need (``lane_footprint``);
     then 131072 lanes at init_lanes' default planes on the dispatcher
@@ -2758,7 +2791,6 @@ def concrete_path(dev, card, report):
     log(f"K10 lane_run: equal to run_plain on every plane at "
         f"{CONCRETE_PLAIN_N} lanes through a whole run (plain {plain_s:.3f}"
         f" s) and over 9 single steps at {CONCRETE_N} lanes")
-    check_k10_edges(dev)
 
     # the main path: counts reset, one warm run, three timed
     _build.reset_launches()
@@ -3176,7 +3208,7 @@ class MeshSpy:
     def __init__(self, hold=False, keep=False):
         self.hold, self.keep = hold, keep
         self.windows = self.retires = self.err = 0
-        self.k1_steps = self.k1_decides = 0
+        self.k1_steps = self.k1_decides = self.k1_fork_steps = 0
         self.first = self.k1 = None
 
     def __enter__(self):
@@ -3198,11 +3230,15 @@ class MeshSpy:
         if self.keep and self.k1 is None:
             self.k1 = (codes, mesh_clone(ss), a, kw)
         step0 = int(ss.home.step_no)
+        flog0 = int(ss.home.flog_count)
         out = self.orig[2](codes, ss, *a, **kw)
         steps = int(ss.home.step_no) - step0
-        # a decide a step, and one more where the run stopped early
+        # a decide a step, and one more where the run stopped early; the
+        # forking steps are the distinct steps of the run's fork-log rows
         self.k1_steps += steps
         self.k1_decides += steps + (steps < a[0])
+        flog = ss.home.flog_step[flog0:int(ss.home.flog_count)]
+        self.k1_fork_steps += int(flog.unique().numel())
         return out
 
     def window(self, ss, codes, i32b, u8b, *rest):
@@ -3265,17 +3301,24 @@ def mesh_engine(mesh):
 
 
 def mesh_phase_times(spy, report, launches):
-    """Each new kernel of the meshed window (K1's phases a device, its
-    fork rows, K3's remap and K4's rows a shard) on the main path's
-    first window (K1's phases at its first forking step), all shards of
-    a call together: wrapper call (CUDA events), device (queued behind a
-    spin kernel), plain version (the same exchange on a CPU copy) and a
-    byte bound; exact against the plain version. ``sym_decide`` is timed
-    as the step's whole call (the launch, the one wait and the read of
-    the counts: ``ms``) and as its launch alone (``launch_ms``; its
-    device time is the kernel's alone). Fails where the window has no
-    step that forks, or a kernel is not launched in its timed calls."""
-    import numpy as np
+    """Each new kernel of the meshed window (K1's phases and its fork
+    rows a device, K3's remap a shard, K4's rows a device) on the main
+    path's first window (K1's phases at its first forking step), each
+    timed as one whole call over all shards: wrapper call (CUDA events),
+    device (queued behind a spin kernel), plain version (the same
+    exchange on a CPU copy) and a byte bound; exact against the plain
+    version, the fork rows also through the stage and the land of the
+    route a pair without peer access takes (forced on this card, which
+    has no copy between cards: ``mesh_cards`` forces that route on
+    every pair of cards). ``sym_decide`` is timed as the
+    step's whole call (the launch, the one wait and the read of the
+    counts: ``ms``) and as its launch alone (``launch_ms``; its device
+    time is the kernel's alone). The host's pull and assembly of the
+    window's 12 outputs is timed too (``pull_ms``). Fails where the
+    window has no step that forks, or a kernel is not launched in its
+    timed calls."""
+    import statistics
+
     import torch
 
     from mythril_tpu_torch import _build
@@ -3291,13 +3334,6 @@ def mesh_phase_times(spy, report, launches):
     def groups(state):
         return S.shard_groups(codes if state.device.type == "cuda"
                               else cpu_codes, state, ex, ta)
-
-    def shards(gs):
-        out = [None] * d
-        for g in gs:
-            for i, sh in zip(g.idx, g.shards):
-                out[i] = sh
-        return out
 
     # from K1's first input, the first step at which lanes fork
     for _ in range(spy.k1[2][0]):
@@ -3342,27 +3378,45 @@ def mesh_phase_times(spy, report, launches):
     if not nf or nf != cnf:
         raise AssertionError(f"meshed window: the forking step forks "
                              f"{nf} (plain {cnf}; requests {counts[0]})")
-    child = k1_in.home.free_slots.cpu().numpy()[
-        np.clip(free_count - 1 - np.arange(nf), 0, n - 1)]
     t0 = time.perf_counter()
-    S.fork_rows(shards(cgs), cstash, child, m)
+    S._PlainForks(cpu, cgs).run(cstash, cnf, free_count, flog_count)
     plain_forks = (time.perf_counter() - t0) * 1e3
-    S.fork_rows(shards(gs), stashes, child, m)
+    forker = S._CudaForks(ss, gs)
+    forker.run(stashes, nf, free_count, flog_count)
     torch.cuda.synchronize()
     err = same_state(to_cpu(ss.lanes()), cpu.lanes(), "K1 a device, a step")
     for (a, _, k), (b, _, _) in zip(stashes, cstash):
         err = max(err, max_err(a[:, :k].cpu(), b[:, :k]))
-    row_bytes = shards(gs)[0].row_bytes - 16
+    # the stage and land of the route a pair without peer access takes,
+    # forced on this card: the same planes
+    gs2, counts2 = ready()
+    stashes2, _ = exec_all(gs2, counts2)
+    staged = S._CudaForks(ss, gs2, route=lambda dst, src: "copy")
+    staged.run(stashes2, nf, free_count, flog_count)
+    torch.cuda.synchronize()
+    err = max(err, same_state(to_cpu(ss.lanes()), cpu.lanes(),
+                              "the fork rows staged (no peer access)"))
+    st0 = ss.shards[0]
+    row_bytes = sum(getattr(st0, f)[0].nbytes for f in S.FORK_PLANES)
+    # each fork: its parent's row read and its child's written, the
+    # child's pc, fentry and record count, 8 stash words read, 7 fork-log
+    # words written, a free slot read
+    fork_bytes = nf * (2 * row_bytes + 12 + 32 + 28 + 4)
+    child = S.child_slots(k1_in.home.free_slots.cpu(), free_count, nf, n)
+    log(f"  sym_fork_rows at the first forking step: {nf} forks of "
+        f"{row_bytes} bytes a row, children in shards "
+        f"{sorted(set((child // m).tolist()))}; equal to the plain "
+        f"version, also staged")
 
     def timed_exec(x):
         exec_all(*x)
 
     def timed_forks(x):
-        S.fork_rows(shards(x[0]), x[1], child, m)
+        x[0].run(x[1], nf, free_count, flog_count)
 
     def forks_setup():
         g, c = ready()
-        return g, exec_all(g, c)[0]
+        return S._CudaForks(ss, g), exec_all(g, c)[0]
 
     mesh_restore(ss, k1_in)
     decided = groups(ss)
@@ -3385,7 +3439,7 @@ def mesh_phase_times(spy, report, launches):
         "sym_exec": (timed_exec, ready, plain_exec,
                      n * (dec_bytes + 96) + running * 16, None, None),
         "sym_fork_rows": (timed_forks, forks_setup, plain_forks,
-                          2 * nf * row_bytes, None, None),
+                          fork_bytes, None, None),
     }
     # K3's remap and K4's rows a shard, on the first window's end state
     before, wcodes, i32b, u8b, rest, out = spy.first
@@ -3403,27 +3457,43 @@ def mesh_phase_times(spy, report, launches):
         le.remap_shard_kernel(st, canon)
     err = max(err, same_state(to_cpu(end.lanes()), cend.lanes(),
                               "K3's remap a shard"))
+    plain_in = mesh_to_cpu(end)
     t0 = time.perf_counter()
-    prow = [le.shard_rows_plain(st, i * m, ridx.cpu(), hidx.cpu())[1]
-            for i, st in enumerate(cend.shards)]
+    plain_end, prow = le.mesh_rows_plain(plain_in, ridx.cpu(), hidx.cpu())
+    prow = prow.start_pull()()
     plain_rows = (time.perf_counter() - t0) * 1e3
-    krow = [le.shard_rows_kernel(st, i * m, ridx, hidx)[1]
-            for i, st in enumerate(end.shards)]
-    for a, b in zip(krow, prow):
-        err = max(err, same_outputs([x.cpu() for x in a], list(b),
-                                    "K4's rows a shard"))
+    rows_in = mesh_clone(end)
+    _, krow = le.mesh_rows_kernel(end, ridx, hidx)
+    err = max(err, same_outputs([torch.from_numpy(x) for x in
+                                 krow.start_pull()()],
+                                [torch.from_numpy(x) for x in prow],
+                                "K4's rows, a launch a device"),
+              same_state(to_cpu(end.lanes()), plain_end.lanes(),
+                         "K4's rows, a launch a device"))
+    # the host's pull and assembly of the window's 12 outputs
+    pulls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[2].start_pull()()
+        pulls.append((time.perf_counter() - t0) * 1e3)
+    pull_ms = statistics.median(pulls)
+    log(f"  a meshed window's 12 outputs pulled and assembled on the host "
+        f"(MeshOutputs.start_pull()()): median {pull_ms:.4f} ms of 5")
     st0 = end.shards[0]
     sid_bytes = 4 * n * (st0.stack.shape[1] + 2 * st0.skeys.shape[1]
                          + st0.mlog_off.shape[1])
-    row_out = sum(x.numel() * x.element_size() for x in krow[0])
+    row_out = sum(x.nbytes for x in prow)
 
     def remap_all(_=None):
         for st in end.shards:
             le.remap_shard_kernel(st, canon)
 
-    def rows_all(_=None):
-        for i, st in enumerate(end.shards):
-            le.shard_rows_kernel(st, i * m, ridx, hidx)
+    def rows_all(x):
+        le.mesh_rows_kernel(x, ridx, hidx)
+
+    def rows_setup():
+        return mesh_restore(end, rows_in)
 
     # the library's K4 rows a shard, as row 7 times them: index_select of
     # each plane's columns a row reads (the retired rows' clipped ones,
@@ -3462,8 +3532,8 @@ def mesh_phase_times(spy, report, launches):
     rows.update({
         "window_remap": (remap_all, None, plain_remap, sid_bytes, None,
                          None),
-        "window_rows": (rows_all, None, plain_rows, 2 * row_out, None,
-                        rows_library),
+        "window_rows": (rows_all, rows_setup, plain_rows, 2 * row_out,
+                        None, rows_library),
     })
     for name, (fn, setup, plain, nbytes, dms, lib) in rows.items():
         before = _build.LAUNCHES[name]
@@ -3483,6 +3553,7 @@ def mesh_phase_times(spy, report, launches):
             f"window): call {ms:.4f} ms, device {dms:.4f} ms, plain "
             f"{plain:.2f} ms, bound {b:.6f} ms ({by}), library {lib_ms} "
             f"ms, {launches[name]} launches on the main path")
+    report["window_rows"]["pull_ms"] = round(pull_ms, 4)
     report["sym_decide"]["launch_ms"] = round(launch, 4)
     log(f"  sym_decide's launch alone (no wait, no read): call "
         f"{launch:.4f} ms; its call above is the step's whole decide")
@@ -3498,8 +3569,9 @@ def check_mesh_engine(dev, card, report, host_open=None):
     K9 over the gathered batch; then the main path: every path of the
     k=12 contract through the port's SymExecWrapper at MAIN_LANES lanes
     with the engine over MESH_SHARDS shards (counts reset before, read
-    after: K1's phases, a launch each a K1 step, its fork rows, K2, K3
-    and its remap, K4 and its rows, each launched), its open states
+    after: K1's phases, a launch each a K1 step, its fork rows a launch
+    a forking step, K2, K3 and its remap, K4, its rows a launch a window
+    or escalation retire, each launched), its open states
     equal to the unsharded engine's (run just before it, timed) and to
     the host-only run's; then the new kernels' times on its first
     window. Returns the main path's launches."""
@@ -3594,6 +3666,16 @@ def check_mesh_engine(dev, card, report, host_open=None):
                              f"sym_decide and {launches['sym_exec']} "
                              f"sym_exec launches for {spy.k1_steps} K1 "
                              f"steps ({spy.k1_decides} decides)")
+    # and one fork-rows launch a forking K1 step, one rows launch a
+    # window or escalation retire
+    if launches["sym_fork_rows"] != spy.k1_fork_steps \
+            or launches["window_rows"] != spy.windows + spy.retires:
+        raise AssertionError(f"meshed main path: {launches['sym_fork_rows']}"
+                             f" sym_fork_rows launches for "
+                             f"{spy.k1_fork_steps} forking K1 steps, "
+                             f"{launches['window_rows']} window_rows for "
+                             f"{spy.windows} windows and {spy.retires} "
+                             f"escalation retires")
     if missing or launches["sym_run"]:
         raise AssertionError(f"meshed main path: launches {launches} "
                              f"(none of {missing}; the unsharded K1 "
@@ -3607,7 +3689,10 @@ def check_mesh_engine(dev, card, report, host_open=None):
         f"unsharded engine's {n_one}, host-only {host_open}), "
         f"{stats['windows']} windows, {stats['forks']} forks, "
         f"{stats['device_steps']} device steps, {spy.k1_steps} K1 steps "
-        f"(one sym_decide and one sym_exec launch a step); explore "
+        f"(one sym_decide and one sym_exec launch a step), "
+        f"{spy.k1_fork_steps} forking (one sym_fork_rows launch each), "
+        f"{spy.windows} windows and {spy.retires} escalation retires "
+        f"(one window_rows launch each); explore "
         f"{wall:.3f} s "
         f"({paths / wall:.1f} paths/s), unsharded {wall_one:.3f} s "
         f"({paths / wall_one:.1f} paths/s) on {card}; launches "
@@ -4346,6 +4431,38 @@ def analyze_process(name, stats, held=False):
     return run, time.perf_counter() - t0
 
 
+def host_explore_start():
+    """Start the symbolic path's host-only reference (``runs.explore``
+    of the k=12 contract with no lanes) in a process of its own
+    (``--host-explore``); ``host_explore_finish`` reads its result."""
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+         "--host-explore"], cwd=HERE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    DAEMONS.append(proc)  # stopped at exit if it still runs
+    return proc
+
+
+def host_explore_finish(proc):
+    """(open states, wall in s) of ``host_explore_start``'s process."""
+    out, err = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"symbolic path host-only: exit "
+                             f"{proc.returncode}\n{err[-3000:]}")
+    got = json.loads(out.strip().splitlines()[-1])
+    return got["open"], got["wall"]
+
+
+def host_explore() -> int:
+    """``--host-explore``: the host-only run, its result as JSON."""
+    from mythril_tpu_torch.support import runs
+    from mythril_tpu_torch.support.contracts import build_symbolic_contract
+
+    n_open, _, wall = runs.explore(build_symbolic_contract(MAIN_K)[0], 0)
+    print(json.dumps({"open": n_open, "wall": wall}))
+    return 0
+
+
 def analysis_result(name, run, stats_path):
     """(report, stats) of a finished ``--analyze`` process; fails on a
     run that exited with an error or printed one, or whose analysis
@@ -4583,7 +4700,8 @@ def serve_one(out_dir, stats_path):
     return 0
 
 
-#: the daemon processes started, each stopped or killed before exit
+#: the daemon processes started (and the host-only explore's), each
+#: stopped or killed before exit
 DAEMONS = []
 
 
@@ -4729,7 +4847,8 @@ def daemon_corpus_finish(h, d, oneshot_windows, card):
         f"{delta['pack_members']}, dispatches_saved "
         f"{delta['dispatches_saved']}, lane_windows "
         f"{delta['lane_windows']} (one-shot corpus: {oneshot_windows} "
-        f"windows); makespan {makespan:.1f} s on {card}")
+        f"windows); makespan {makespan:.1f} s (edge checks beside) on "
+        f"{card}")
     return delta, makespan
 
 
@@ -4851,14 +4970,16 @@ def corpus_rank(stats_path, argv):
     return 0
 
 
-def corpus_mode(card):
+def corpus_mode(card, during):
     """CORPUS_RANKS ranks of the port's corpus mode on this card
     (``--corpus-rank``), meeting at a TCPStore on localhost, stealing
     on, over the 18 fixtures: every rank exits 0, the merged report has
     no error and, fixture by fixture, the JAX package's corpus-mode
     issues (``tests/torch_data/corpus_issues.json``), every fixture is
     analysed by exactly one rank, and the ranks' lane engines launched
-    K1. Returns the makespan in seconds."""
+    K1. ``during()`` (untimed work of this process) runs while the ranks
+    do; the makespan is taken when the last rank ends. Returns the
+    makespan in seconds."""
     import socket
     import tempfile
 
@@ -4886,8 +5007,21 @@ def corpus_mode(card):
                 + CORPUS_MODE_FLAGS + files, cwd=HERE,
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
                 stats))
-        outs = [p.communicate(timeout=900) for p, _ in procs]
-        makespan = time.perf_counter() - t0
+        ended = {}
+
+        def wait():
+            ended["outs"] = [p.communicate(timeout=900) for p, _ in procs]
+            ended["makespan"] = time.perf_counter() - t0
+
+        waiter = threading.Thread(target=wait)
+        waiter.start()
+        try:
+            during()
+        finally:
+            waiter.join()
+        if "outs" not in ended:
+            raise AssertionError("corpus mode: the ranks did not end")
+        outs, makespan = ended["outs"], ended["makespan"]
         for rank, ((p, _), (_, err)) in enumerate(zip(procs, outs)):
             if p.returncode != 0:
                 raise AssertionError(f"corpus mode: rank {rank} exited "
@@ -4933,7 +5067,7 @@ def corpus_mode(card):
         f"{merged['total_issues']} issues over {len(got)} fixtures, each "
         f"fixture's issues and SWC ids equal to the JAX package's corpus "
         f"mode, each analysed by one rank, {merged['stolen']} stolen; "
-        f"makespan {makespan:.1f} s (rank walls "
+        f"makespan {makespan:.1f} s with the K10 edges beside (rank walls "
         f"{', '.join(f'{w:.1f}' for w in walls)} s); launches "
         f"{ {k: v for k, v in launches.items() if v} } on {card}")
     return makespan
@@ -4941,7 +5075,8 @@ def corpus_mode(card):
 
 def mesh_cards(devs):
     """The meshed engine over every card (a shard a card, the fork rows
-    and the home's gathers peer copies) against the engine on card 0:
+    read in place over peer access, the home's gathers peer copies)
+    against the engine on card 0:
     the k=12 contract's sweep at MAIN_LANES lanes, every window's
     outputs equal, the same states and visited bitmap, both explores
     timed, ``sym_vis_or`` launched once a K1 run; then ``sym_vis_or``
@@ -4952,7 +5087,11 @@ def mesh_cards(devs):
     numpy's), with its row of the kernel table: call and device ms
     (every other card's bitmap, and card 1's alone: ``one_*``), the
     plain OR, the byte bound and ``bitwise_or_`` after a copy of each
-    source; the route of each pair is logged."""
+    source; the route of each pair is logged, the fork rows' too. The
+    sweep runs once more with the fork rows' route of a pair without
+    peer access (stage, copy, land) forced on every pair, each window
+    and retire held against the plain versions on a CPU copy of its
+    input (``MeshSpy``), its states and bitmap against card 0's."""
     from copy import deepcopy
 
     import numpy as np
@@ -4969,6 +5108,7 @@ def mesh_cards(devs):
     entries = entry_states(code.hex())
     outs = {"mesh": [], "one": []}
     orig = (le.window_exec_mesh, le.window_exec)
+    vis_route = S.vis_route
 
     def spy(fn, key):
         def call(*a, **kw):
@@ -5013,6 +5153,42 @@ def mesh_cards(devs):
                              f"{int(vis.sum())} pcs, one card "
                              f"{int(vis_one.sum())}, "
                              f"{int((vis != vis_one).sum())} differ")
+    # the route each (destination, source) pair of cards took for the
+    # fork rows (vis_route, by topology: a source read in place over
+    # peer access, or staged and copied)
+    fork_routes = {f"cuda:{dst}<-cuda:{src}": r
+                   for (dst, src), r in sorted(S._VIS_ROUTES.items())}
+    log(f"cards: fork rows over {len(devs)} cards: "
+        f"{launches.get('sym_fork_rows', 0)} sym_fork_rows launches, the "
+        f"route of each pair {fork_routes}")
+    # the route of a pair with no peer access, forced on every pair of
+    # distinct cards: each source card stages its forks' rows, each
+    # destination card gets them in one copy a run of ranks (vis_or's
+    # bitmaps copied too); every window and retire held bit for bit
+    # against the plain versions on a CPU copy of its input (MeshSpy),
+    # the states and the visited bitmap the one card's
+    S.vis_route = lambda dst, src: "local" if dst == src else "copy"
+    try:
+        _build.reset_launches()
+        with MeshSpy(hold=True) as held:
+            eng_st = le.LaneEngine(n_lanes=MAIN_LANES, mesh=Mesh(devs))
+            got_st = eng_st.explore(code, deepcopy(entries))
+        staged = _build.LAUNCHES["sym_fork_rows"]
+    finally:
+        S.vis_route = vis_route
+    if list(map(sig, got_st)) != list(map(sig, want)) or not np.array_equal(
+            eng_st.visited_by_code[code], vis_one):
+        raise AssertionError("meshed engine, fork rows staged: other "
+                             "states or visited bitmap than one card's")
+    if staged <= launches.get("sym_fork_rows", 0):
+        raise AssertionError(f"fork rows staged: {staged} launches, not "
+                             f"above the peer route's "
+                             f"{launches.get('sym_fork_rows')}: no stage")
+    log(f"cards: fork rows staged and copied on every pair of distinct "
+        f"cards: {held.windows} windows and {held.retires} retires equal "
+        f"to the plain versions on CPU copies, the states and the visited "
+        f"bitmap the engine's on {devs[0]}; {staged} sym_fork_rows "
+        f"launches (stage and land)")
     if launches.get("sym_vis_or", 0) != len(outs["mesh"]):
         raise AssertionError(f"meshed engine over the cards: sym_vis_or "
                              f"launched {launches.get('sym_vis_or', 0)} "
@@ -5157,6 +5333,8 @@ def run() -> int:
                            held=sys.argv[1] == "--analyze-held")
     if len(sys.argv) == 4 and sys.argv[1] == "--serve":
         return serve_one(sys.argv[2], sys.argv[3])
+    if sys.argv[1:] == ["--host-explore"]:
+        return host_explore()
     if len(sys.argv) > 3 and sys.argv[1] == "--corpus-rank":
         return corpus_rank(sys.argv[2], sys.argv[3:])
     if not torch.cuda.is_available():
@@ -5170,9 +5348,26 @@ def run() -> int:
     dev = torch.device("cuda", 0)
     card = smi()
     t_run = t0 = time.perf_counter()
+    # the native solver library builds (make) beside the kernels (nvcc)
+    from mythril_tpu_torch import native
+
+    fresh = not os.path.exists(native._LIB_PATH)
+    made = {}
+
+    def make_native():
+        t = time.perf_counter()
+        try:
+            native.get_lib()  # raises with make's output on a failed build
+        except BaseException as e:  # re-raised below, in this thread
+            made["error"] = e
+        made["s"] = time.perf_counter() - t
+
+    maker = threading.Thread(target=make_native)
+    maker.start()
     built = _build.build_all()
     log(f"build: {len(built)} sources in {time.perf_counter() - t0:.1f} s "
-        f"({', '.join(sorted(built))}) on {card}")
+        f"({', '.join(f'{k} {v:.1f}' for k, v in sorted(built.items()))})"
+        f" on {card}")
     for src in sorted(os.listdir(_build.CSRC)):
         if src.endswith(".cu"):
             for line in _build.build_log(src).splitlines():
@@ -5180,13 +5375,11 @@ def run() -> int:
                         or "Function properties" in line:
                     log(f"  {src}: {line.strip()}")
 
-    from mythril_tpu_torch import native
-
-    t0 = time.perf_counter()
-    fresh = not os.path.exists(native._LIB_PATH)
-    native.get_lib()  # raises with make's output on a failed build
+    maker.join()
+    if "error" in made:
+        raise made["error"]
     log(f"native solver library: {'built' if fresh else 'loaded'} in "
-        f"{time.perf_counter() - t0:.1f} s ({native._LIB_PATH})")
+        f"{made['s']:.1f} s beside the kernels' build ({native._LIB_PATH})")
 
     from mythril_tpu_torch.ops.symstep import lane_bytes
     from mythril_tpu_torch.support.devices import default_lanes
@@ -5197,9 +5390,11 @@ def run() -> int:
     laps, last = [], [time.perf_counter()]
 
     def lap(name):
-        """Seconds since the last lap, kept for the closing line."""
+        """Seconds since the last lap, on a line of its own and kept for
+        the closing line."""
         now = time.perf_counter()
         laps.append(f"{name} {now - last[0]:.1f}")
+        log(f"phase: {name} {now - last[0]:.1f} s")
         last[0] = now
 
     lap("build and set-up")
@@ -5213,35 +5408,62 @@ def run() -> int:
     n_open, launches = symbolic_path(dev, card)
     lap("symbolic path")
 
-    # the corpus, each fixture its own process, while this process runs
-    # the symbolic path's host-only reference (no card work here, so the
-    # timed phases below run alone)
-    from mythril_tpu_torch.support import runs
-    from mythril_tpu_torch.support.contracts import build_symbolic_contract
+    # the corpus, each fixture its own process, beside the symbolic
+    # path's host-only reference (a process too) and the daemons; this
+    # process meanwhile runs the screens' edge checks, which time
+    # nothing, while a thread waits on the others (the timed phases
+    # below run alone)
+    def beside(name, check):
+        t0 = time.perf_counter()
+        check(dev)
+        log(f"phase: {name} {time.perf_counter() - t0:.1f} s (beside the "
+            f"corpus processes)")
 
-    # the daemon serves the 18 fixtures packed beside the corpus phase
+    # the daemon serves the 18 fixtures packed beside the corpus phase;
+    # the unpacked one starts now to be ready for its queue
     daemon = daemon_start(pack=True)
+    unpacked = daemon_start(pack=False)
     corpus = corpus_start()
+    host = host_explore_start()
     daemon_corpus = daemon_corpus_start(daemon)
-    t0 = time.perf_counter()
-    host_open, _, host_wall = runs.explore(
-        build_symbolic_contract(MAIN_K)[0], 0)
+    tail = {}
+
+    def corpus_tail():
+        """The corpus's and the daemons' results, then the four-code
+        queue packed and unpacked: waits on other processes, in a thread
+        of its own while this one runs the edge checks."""
+        try:
+            windows = corpus_finish(corpus, card)
+            daemon_corpus_finish(daemon_corpus, daemon, windows, card)
+            tail["on"] = daemon_queue(daemon)
+            tail["launches"] = daemon_stop(daemon)
+            daemon_ready(unpacked)
+            tail["off"] = daemon_queue(unpacked)
+            daemon_stop(unpacked)
+        except BaseException as e:  # re-raised below, in this thread
+            tail["error"] = e
+
+    waiter = threading.Thread(target=corpus_tail)
+    waiter.start()
+    try:
+        beside("screen edges", check_screen_edges)
+        beside("K5 edges", check_k5_edges)
+        beside("K6 and K11 edges", check_prop_edges)
+        host_open, host_wall = host_explore_finish(host)
+    finally:
+        waiter.join()
+    if "error" in tail:
+        raise tail["error"]
     if host_open != n_open:
         raise AssertionError(f"symbolic path: {n_open} open states, the "
                              f"host-only run {host_open}")
     log(f"symbolic path host-only: {host_open} open states (equal), "
-        f"{host_wall:.3f} s")
-    oneshot_windows = corpus_finish(corpus, card)
-    daemon_corpus_finish(daemon_corpus, daemon, oneshot_windows, card)
-    queue_on, delta_on = daemon_queue(daemon)
-    daemon_launches = daemon_stop(daemon)
+        f"{host_wall:.3f} s (its own process, edge checks beside)")
+    (queue_on, delta_on), daemon_launches = tail["on"], tail["launches"]
+    queue_off, delta_off = tail["off"]
     if daemon_launches["sym_step_packed"] <= 0:
         raise AssertionError(f"daemon: K1's packed branch never launched "
                              f"({daemon_launches})")
-    unpacked = daemon_start(pack=False)
-    daemon_ready(unpacked)
-    queue_off, delta_off = daemon_queue(unpacked)
-    daemon_stop(unpacked)
     if queue_on != queue_off or delta_on["waves_packed"] < 1 \
             or delta_off["waves_packed"] != 0 \
             or delta_on["lane_windows"] >= delta_off["lane_windows"]:
@@ -5259,7 +5481,8 @@ def run() -> int:
     lap("resume and spill")
     k9_launches = merge_path(card)
     lap("merge rig")
-    corpus_mode(card)
+    # K10's edge cases (untimed) while the corpus mode's ranks run
+    corpus_mode(card, during=lambda: beside("K10 edges", check_k10_edges))
     lap("corpus mode")
     mesh_engine_launches = check_mesh_engine(dev, card, report, host_open)
     lap("meshed engine")
@@ -5298,12 +5521,6 @@ def run() -> int:
     wave = screen_wave(dev)
     check_screens(dev, report, wave)
     lap("screen kernels")
-    check_screen_edges(dev)
-    lap("screen edges")
-    check_k5_edges(dev)
-    lap("K5 edges")
-    check_prop_edges(dev)
-    lap("K6 and K11 edges")
     screen_launches = screen_path(dev, wave, card)
     lap("screen path")
     screen_mix(dev)

@@ -1221,11 +1221,8 @@ MTT_EXPORT int sym_run(void** planes, const int* dims, const void* code, int cod
 // the shard's stash; the launch on the batch's home device also writes
 // the step's fork-log child slots (the top of the free stack) and step
 // numbers. A fork's child row is its parent's post-step row:
-// sym_fork_stage gathers the rows of a shard's parents bound for one
-// destination shard into a staging buffer (a block a row), the host
-// copies it to that shard's device where it is another, and
-// sym_fork_land writes each into its child slot with the child's pc,
-// fentry and empty record log.
+// sym_fork_rows (below) copies every fork's row into its child's slot,
+// one launch a device.
 //
 // Bound: bytes, each lane's decisions written (decide) and read (exec).
 // A lane's decide and exec are chains of dependent loads in one thread,
@@ -1382,35 +1379,168 @@ __global__ void __launch_bounds__(MESH_THREADS) k_sym_exec(const __grid_constant
   }
 }
 
-// the planes a child copies from its parent (ops/symstep.FORK_PLANES),
-// each at a 16-byte aligned offset of a staging row; the child's pc and
-// fentry follow them
+// The fork rows of a step over a mesh (ops/symstep._CudaForks), one
+// launch a device that holds a child's shard, FORK_BLOCKS blocks a
+// fork: fork f (global rank) is the (f - off[q])-th of the shard q with
+// off[q] <= f < off[q] + forks[q] (its stash row); its child is the
+// batch's free-stack slot free_slots[clamp(free_count - 1 - f, 0, n - 1)]
+// (the home sym_exec wrote the same into flog_child). Where this device
+// holds the child's shard, its blocks copy the parent's post-step row
+// from the source planes into the child's, a plane a warp (the widest
+// word that divides the plane's rows, four words a lane in flight, every
+// plane's loads in flight together: a row's copy is latency-bound),
+// and writes the child's pc, fentry and an empty record log; on the home
+// device it also writes the fork's seven fork-log words from the stash.
+// A source shard on another card is read in place over peer access;
+// where a pair has none, the source's device first stages its forks'
+// rows and stash words by rank (the same launch with stage set), the
+// host copies them to the destination's stage buffer once, and the
+// destination reads them there. Children are free slots and parents are
+// running lanes, so no block writes a row another reads.
+//
+// Bound: bytes, each fork's row read once and written once.
 constexpr int FORK_MAX = 48;
-struct ForkRows {
-  char* base[FORK_MAX];
-  int bytes[FORK_MAX];
-  int off[FORK_MAX];
-  int n, tail, row;
+// a fork's blocks and their threads: its planes over 32 warps
+constexpr int FORK_BLOCKS = 4;
+constexpr int FORK_THREADS = 256;
+constexpr int FORK_WARPS = FORK_BLOCKS * FORK_THREADS / 32;
+
+// a shard of a fork plan: its planes (in fork-plane order), stash,
+// pc/fentry/dlog_count planes and first global lane; whether the plan's
+// device holds it, and whether its forks' rows come through the plan's
+// stage buffer
+struct ForkShard {
+  char* row[FORK_MAX];
+  const int32_t* stash;
+  int32_t *pc, *fentry, *dlog_count;
+  int lane0, mine, staged;
 };
 
-inline ForkRows fork_rows(const Sym& s) {
-  ForkRows t;
-  t.n = 0;
-  int at = 0;
-  auto put = [&](void* p, long long bytes) {
-    t.base[t.n] = (char*)p;
-    t.bytes[t.n] = (int)bytes;
-    t.off[t.n++] = at;
-    at += (int)((bytes + 15) / 16 * 16);
+// a device's plan of a run's fork rows, in its memory (sym_fork_plan):
+// each fork plane's row bytes, copy word and offset in a stage row; the
+// batch's free stack (on the device), its fork-log planes (the home
+// device's; else null: flog_parent, flog_pc, flog_fentry, flog_sid,
+// flog_gmin, flog_gmax, flog_dest), the stage buffer (cap rows, or
+// null), then a ForkShard for each of the mesh's d shards of m lanes
+struct ForkPlan {
+  int bytes[FORK_MAX], vec[FORK_MAX], off[FORK_MAX];
+  int planes, scalar, row, tail, cap, m, n, d;
+  const int32_t* free_slots;
+  int32_t* flog[7];
+  char* stage;
+  ForkShard shard[1];
+};
+
+struct ForkStep {
+  const ForkPlan* plan;
+  int nf, free_count, flog_count, stage;
+  int off[MAX_MESH_SHARDS], forks[MAX_MESH_SHARDS];
+};
+
+template <typename V>
+__device__ __forceinline__ void warp_words(char* dst, const char* src, int bytes, int lane) {
+  const V* a = (const V*)src;
+  V* b = (V*)dst;
+  const int words = bytes / (int)sizeof(V);
+  int w = lane;
+  for (; w + 96 < words; w += 128) {
+    V v0 = a[w], v1 = a[w + 32], v2 = a[w + 64], v3 = a[w + 96];
+    b[w] = v0;
+    b[w + 32] = v1;
+    b[w + 64] = v2;
+    b[w + 96] = v3;
+  }
+  for (; w < words; w += 32) b[w] = a[w];
+}
+
+// a fork's row from (src_at(k)) to (dst_at(k)) by its FORK_BLOCKS
+// blocks: unit 0 (the scalar planes, a lane each) and each other plane
+// are dealt to the fork's warps in turn, so the planes' loads are in
+// flight together (a warp four words a lane)
+template <class S, class D>
+__device__ __forceinline__ void copy_row(const ForkPlan& t, int slot, S src_at, D dst_at) {
+  const int lane = threadIdx.x & 31;
+  const int units = 1 + t.planes - t.scalar;
+  for (int u = slot; u < units; u += FORK_WARPS) {
+    if (u == 0) {
+      if (lane < t.scalar) *(int32_t*)dst_at(lane) = *(const int32_t*)src_at(lane);
+      continue;
+    }
+    const int k = t.scalar + u - 1;
+    char* d = dst_at(k);
+    const char* s = src_at(k);
+    switch (t.vec[k]) {
+      case 16: warp_words<int4>(d, s, t.bytes[k], lane); break;
+      case 8: warp_words<int2>(d, s, t.bytes[k], lane); break;
+      case 4: warp_words<int>(d, s, t.bytes[k], lane); break;
+      case 2: warp_words<short>(d, s, t.bytes[k], lane); break;
+      default: warp_words<char>(d, s, t.bytes[k], lane); break;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(FORK_THREADS) k_fork_rows(const __grid_constant__ ForkStep p) {
+  const ForkPlan& t = *p.plan;
+  const int f = blockIdx.x / FORK_BLOCKS, part = blockIdx.x % FORK_BLOCKS;
+  const int slot = part * (FORK_THREADS / 32) + (int)(threadIdx.x >> 5);
+  const bool head = part == 0;  // its first block writes the fork's words
+  int q = 0;
+  while (q < t.d && !(p.forks[q] > 0 && f >= p.off[q] && f < p.off[q] + p.forks[q])) ++q;
+  if (q == t.d) return;
+  const int j = f - p.off[q];
+  const ForkShard& src = t.shard[q];
+  char* srow = t.stage ? t.stage + (size_t)f * t.row : nullptr;
+  if (p.stage) {  // the source side of a pair with no peer access
+    if (!src.mine) return;
+    const size_t par = (size_t)(src.stash[j] - src.lane0);
+    copy_row(t, slot, [&](int k) { return (const char*)src.row[k] + par * t.bytes[k]; },
+             [&](int k) { return srow + t.off[k]; });
+    if (head && threadIdx.x < 8)
+      ((int32_t*)(srow + t.tail))[threadIdx.x] = src.stash[threadIdx.x * t.cap + j];
+    return;
+  }
+  auto stash = [&](int c) {
+    return src.staged ? ((const int32_t*)(srow + t.tail))[c] : src.stash[c * t.cap + j];
   };
+  if (head && t.flog[0] && threadIdx.x < 7) {  // stash columns 0, 3, 2, 4, 5, 6, 7
+    const int c = threadIdx.x == 1 ? 3 : threadIdx.x == 2 ? 2 : threadIdx.x ? threadIdx.x + 1 : 0;
+    t.flog[threadIdx.x][p.flog_count + f] = stash(c);
+  }
+  const int child = t.free_slots[clampi(p.free_count - 1 - f, 0, t.n - 1)];
+  const int dq = child / t.m;
+  if (child < 0 || dq >= t.d || !t.shard[dq].mine) return;
+  const ForkShard& dst = t.shard[dq];
+  const size_t dl = (size_t)(child - dq * t.m);
+  if (src.staged) {
+    copy_row(t, slot, [&](int k) { return (const char*)srow + t.off[k]; },
+             [&](int k) { return dst.row[k] + dl * t.bytes[k]; });
+  } else {
+    const size_t par = (size_t)(src.stash[j] - src.lane0);
+    copy_row(t, slot, [&](int k) { return (const char*)src.row[k] + par * t.bytes[k]; },
+             [&](int k) { return dst.row[k] + dl * t.bytes[k]; });
+  }
+  if (head && threadIdx.x == 0) {
+    dst.pc[dl] = stash(1);
+    dst.fentry[dl] = stash(2);
+    dst.dlog_count[dl] = 0;
+  }
+}
+
+// the fork planes of a shard (ops/symstep.FORK_PLANES' order): put(p,
+// bytes) for each, the scalar planes first; returns how many are scalar
+template <class F>
+inline int fork_planes(const Sym& s, F put) {
+  int k = 0;
   for (int32_t* p : {s.sp, s.depth, s.group, s.last_jump, s.msize, s.mlog_count, s.s_mode,
                      s.scount, s.sbase, s.cd_size, s.cd_sym, s.cd_size_sid, (int32_t*)s.min_gas,
-                     (int32_t*)s.max_gas, (int32_t*)s.gas_limit, s.status, s.steps})
-    put(p, 4);
+                     (int32_t*)s.max_gas, (int32_t*)s.gas_limit, s.status, s.steps}) {
+    put(p, 4LL);
+    ++k;
+  }
   put(s.stack, 32LL * s.D);
   put(s.ssid, 4LL * s.D);
-  put(s.memory, s.M);
-  put(s.mkind, s.M);
+  put(s.memory, (long long)s.M);
+  put(s.mkind, (long long)s.M);
   put(s.mlog_off, 4LL * s.MR);
   put(s.mlog_len, 4LL * s.MR);
   put(s.mlog_sid, 4LL * s.MR);
@@ -1421,7 +1551,7 @@ inline ForkRows fork_rows(const Sym& s) {
   put(s.s_read, 4LL * s.S);
   put(s.skey_sid, 4LL * s.S);
   put(s.s_wstep, 4LL * s.S);
-  put(s.calldata, s.C);
+  put(s.calldata, (long long)s.C);
   put(s.env, 32LL * s.NENV);
   put(s.env_sid, 4LL * s.NENV);
   put(s.dlog_op, 4LL * s.R);
@@ -1430,61 +1560,102 @@ inline ForkRows fork_rows(const Sym& s) {
   put(s.dlog_fentry, 4LL * s.R);
   put(s.dlog_sid, 12LL * s.R);
   put(s.dlog_val, 96LL * s.R);
-  t.tail = at;
-  t.row = at + 16;
-  return t;
+  return k;
 }
 
-// bytes bytes from src to dst by the block's threads: 4-byte words where
-// both and the length allow, else bytes
-__device__ void block_copy(char* dst, const char* src, int bytes) {
-  if ((((uintptr_t)dst | (uintptr_t)src | (uintptr_t)bytes) & 3) == 0) {
-    const int32_t* a = (const int32_t*)src;
-    int32_t* b = (int32_t*)dst;
-    for (int w = threadIdx.x; w < bytes / 4; w += blockDim.x) b[w] = a[w];
-  } else {
-    for (int c = threadIdx.x; c < bytes; c += blockDim.x) dst[c] = src[c];
-  }
-}
-
-// row r of the staging: the post-step row of the parent of the shard's
-// fork idx[r] (stash column 0 holds its global lane), then its child's
-// pc and fentry (stash columns 1, 2)
-__global__ void k_fork_stage(const __grid_constant__ ForkRows t, const int32_t* stash, int cap,
-                             const int32_t* idx, int base, char* out) {
-  const int r = blockIdx.x, j = idx[r];
-  const int src = stash[j] - base;
-  char* row = out + (size_t)r * t.row;
-  for (int k = 0; k < t.n; ++k)
-    block_copy(row + t.off[k], t.base[k] + (size_t)src * t.bytes[k], t.bytes[k]);
-  if (threadIdx.x == 0) {
-    int32_t* tail = (int32_t*)(row + t.tail);
-    tail[0] = stash[cap + j];
-    tail[1] = stash[2 * cap + j];
-  }
-}
-
-// row r of the staging into the shard's slot child[r]
-__global__ void k_fork_land(const __grid_constant__ ForkRows t, int32_t* pc, int32_t* fentry,
-                            int32_t* dlog_count, const char* in, const int32_t* child) {
-  const int r = blockIdx.x, dst = child[r];
-  const char* row = in + (size_t)r * t.row;
-  for (int k = 0; k < t.n; ++k)
-    block_copy(t.base[k] + (size_t)dst * t.bytes[k], row + t.off[k], t.bytes[k]);
-  if (threadIdx.x == 0) {
-    const int32_t* tail = (const int32_t*)(row + t.tail);
-    pc[dst] = tail[0];
-    fentry[dst] = tail[1];
-    dlog_count[dst] = 0;
-  }
+// a stage row's layout: each fork plane at a 16-byte aligned offset,
+// then the fork's 8 stash words; returns the row's bytes
+inline int stage_layout(const Sym& s, ForkPlan* t) {
+  int at = 0, k = 0;
+  t->scalar = fork_planes(s, [&](void*, long long bytes) {
+    t->bytes[k] = (int)bytes;
+    t->off[k++] = at;
+    at += (int)((bytes + 15) / 16 * 16);
+  });
+  t->planes = k;
+  t->tail = at;
+  t->row = at + 32;
+  return t->row;
 }
 
 }  // namespace
 
-// bytes of one fork's staging row
+// bytes of one fork's stage row
 MTT_EXPORT int sym_fork_row_bytes(const int* dims) {
   void* none[SYM_NFIELDS] = {};
-  return fork_rows(make_sym(none, dims)).row;
+  ForkPlan t;
+  return stage_layout(make_sym(none, dims), &t);
+}
+
+// bytes of a fork plan over d shards
+MTT_EXPORT int sym_fork_plan_bytes(int d) {
+  return (int)(sizeof(ForkPlan) + (size_t)(d > 1 ? d - 1 : 0) * sizeof(ForkShard));
+}
+
+// a device's fork plan (sym_fork_plan_bytes(d)) into host: planes, d x
+// SYM_NFIELDS plane pointers (every shard's, on its own device); dims,
+// the shards' (n: lanes a shard); stash, each shard's (8 x cap int32);
+// mine and staged, each shard's flags for this device; n the batch's
+// lanes; free_slots on this device; flog, the home batch's seven fork-log
+// planes on the home device, else null; stage, cap stage rows or null.
+MTT_EXPORT int sym_fork_plan(void* const* planes, int d, const int* dims, void* const* stash,
+                             const int* mine, const int* staged, int cap, int n,
+                             const void* free_slots, void* const* flog, void* stage, void* host) {
+  if (d < 1 || d > MAX_MESH_SHARDS) return (int)cudaErrorInvalidValue;
+  ForkPlan* t = (ForkPlan*)host;
+  const Sym s0 = make_sym((void**)planes, dims);
+  stage_layout(s0, t);
+  if (t->planes > FORK_MAX) return (int)cudaErrorInvalidValue;
+  t->cap = cap;
+  t->m = s0.n;
+  t->n = n;
+  t->d = d;
+  t->free_slots = (const int32_t*)free_slots;
+  for (int c = 0; c < 7; ++c) t->flog[c] = flog ? (int32_t*)flog[c] : nullptr;
+  t->stage = (char*)stage;
+  for (int k = 0; k < t->planes; ++k) t->vec[k] = 16;
+  for (int q = 0; q < d; ++q) {
+    const Sym s = make_sym((void**)planes + (size_t)q * SYM_NFIELDS, dims);
+    ForkShard& sh = t->shard[q];
+    int k = 0;
+    fork_planes(s, [&](void* p, long long bytes) {
+      sh.row[k] = (char*)p;
+      int& v = t->vec[k++];
+      while (v > 1 && (bytes % v || (uintptr_t)p % v)) v >>= 1;
+    });
+    sh.stash = (const int32_t*)stash[q];
+    sh.pc = s.pc;
+    sh.fentry = s.fentry;
+    sh.dlog_count = s.dlog_count;
+    sh.lane0 = q * s0.n;
+    sh.mine = mine[q];
+    sh.staged = staged[q];
+  }
+  return 0;
+}
+
+// a step's fork rows on the current device (plan: its sym_fork_plan, in
+// its memory): off and forks, each of the d shards' global rank of its
+// first request and forks (ops/symstep.fork_budget); nf the step's
+// forks; free_count and flog_count the batch's before the step; stage:
+// only stage the rows of this device's source shards for a pair with no
+// peer access. One launch.
+MTT_EXPORT int sym_fork_rows(const void* plan, int d, const int* off, const int* forks, int nf,
+                             int free_count, int flog_count, int stage, void* stream) {
+  if (d < 1 || d > MAX_MESH_SHARDS) return (int)cudaErrorInvalidValue;
+  if (nf <= 0) return 0;
+  ForkStep p;
+  p.plan = (const ForkPlan*)plan;
+  p.nf = nf;
+  p.free_count = free_count;
+  p.flog_count = flog_count;
+  p.stage = stage;
+  for (int q = 0; q < MAX_MESH_SHARDS; ++q) {
+    p.off[q] = q < d ? off[q] : 0;
+    p.forks[q] = q < d ? forks[q] : 0;
+  }
+  k_fork_rows<<<nf * FORK_BLOCKS, FORK_THREADS, 0, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 // K1 over a mesh's constants: bytes of a MeshShard, scratch bytes a
@@ -1573,28 +1744,6 @@ MTT_EXPORT int sym_exec(const void* tab, int shards, int per, int cap, const voi
   p.n = n;
   for (int q = 0; q < MAX_MESH_SHARDS; ++q) p.off[q] = q < shards ? off[q] : 0;
   k_sym_exec<<<shards * p.bps, MESH_THREADS, 0, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
-// the rows of the shard's forks idx[0..count) into out (count staging
-// rows of sym_fork_row_bytes)
-MTT_EXPORT int sym_fork_stage(void** planes, const int* dims, const void* stash, int cap,
-                              const void* idx, int count, int base, void* out, void* stream) {
-  if (count <= 0) return 0;
-  const ForkRows t = fork_rows(make_sym(planes, dims));
-  k_fork_stage<<<count, SHARD_THREADS, 0, (cudaStream_t)stream>>>(
-      t, (const int32_t*)stash, cap, (const int32_t*)idx, base, (char*)out);
-  return (int)cudaGetLastError();
-}
-
-// count staging rows into the shard's slots child[0..count)
-MTT_EXPORT int sym_fork_land(void** planes, const int* dims, const void* in, const void* child,
-                             int count, void* stream) {
-  if (count <= 0) return 0;
-  Sym s = make_sym(planes, dims);
-  const ForkRows t = fork_rows(s);
-  k_fork_land<<<count, SHARD_THREADS, 0, (cudaStream_t)stream>>>(
-      t, s.pc, s.fentry, s.dlog_count, (const char*)in, (const int32_t*)child);
   return (int)cudaGetLastError();
 }
 

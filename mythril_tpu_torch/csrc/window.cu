@@ -879,7 +879,6 @@ struct Rows {
 struct RowSet {
   const int32_t* sel;
   int count, ci, cu, u8w;
-  int base;  // sel names lane base + l of the state's lane l (a shard's)
   bool resume, words, cg;  // cg: sel is written by other blocks
   Rows o;
 };
@@ -891,7 +890,6 @@ __host__ __device__ inline RowSet row_set(const Sym& s, const int32_t* sel, int 
   r.count = count;
   r.resume = resume;
   r.cg = false;
-  r.base = 0;
   r.o = o;
   r.ci = resume ? 7 + 3 * o.wl : 10 + 3 * o.wl + o.ws + 5 * o.wk;
   r.cu = resume ? 16 : 8 * (o.ws + 2 * o.wk);
@@ -975,10 +973,10 @@ __device__ __forceinline__ void row_store(const RowSet& r, int j, int c, uint32_
   }
 }
 
-// row j of set r by the 32 threads of a warp (lane: this thread's),
-// GATHER_WORDS words' loads a thread in flight before their stores
-__device__ void gather_row(const Sym& s, const RowSet& r, int j, int lane) {
-  const int l = clampi((r.cg ? __ldcg(r.sel + j) : r.sel[j]) - r.base, 0, s.n - 1);
+// row j of set r, from the state's lane l, by the 32 threads of a warp
+// (lane: this thread's), GATHER_WORDS words' loads a thread in flight
+// before their stores
+__device__ void gather_lane(const Sym& s, const RowSet& r, int j, int l, int lane) {
   const size_t L = (size_t)l;
   size_t top = 0, sub = 0;
   if (r.resume) {
@@ -996,6 +994,12 @@ __device__ void gather_row(const Sym& s, const RowSet& r, int j, int lane) {
     for (int q = 0; q < GATHER_WORDS; ++q)
       if (c0 + 32 * q < w) row_store(r, j, c0 + 32 * q, v[q]);
   }
+}
+
+// row j of set r from its lane sel[j], clamped
+__device__ void gather_row(const Sym& s, const RowSet& r, int j, int lane) {
+  const int l = clampi(r.cg ? __ldcg(r.sel + j) : r.sel[j], 0, s.n - 1);
+  gather_lane(s, r, j, l, lane);
 }
 
 // the fork table's nine columns, in its column order (_fork_table)
@@ -1333,21 +1337,36 @@ inline Rows retire_rows_of(const Sym& s, const int* floors, void* i32, void* u32
   return o;
 }
 
-// a shard's rows of a meshed window (laser/lane_engine.shard_rows): the
-// retire rows of r and the resume rows of h, a warp a row, each named
-// lane the state holds (base .. base + n - 1) of r marked DEAD by its
-// warp after the row; a lane of another shard, or the padding, gathers
-// the clamped lane as K4 does, and the caller keeps each row from the
-// shard that holds its lane
-__global__ void k_shard_rows(const __grid_constant__ Sym s, const __grid_constant__ RowSet r,
-                             const __grid_constant__ RowSet h) {
+// K4's rows over a meshed batch (laser/lane_engine.mesh_rows), one launch
+// a device: tab holds a Sym for each of the d shards of m lanes (null
+// planes for a shard this device does not hold), the batch n = d * m
+// lanes. Warp w takes row w of r (the retire rows), then of h (the
+// resume rows): the shard that holds its lane at JAX's clip (a negative
+// index lane 0, one past the batch lane n - 1) gathers it where this
+// device holds that shard, its lane clamped into the shard as K4 clamps;
+// a retire row's lane, wrapped and dropped by JAX's rule (drop_row), is
+// marked DEAD by the device that holds it, after the row (no gather
+// reads the status). Each row is gathered once over all devices.
+// row j of set r over a meshed batch: gathered where this device holds
+// the shard of its lane at JAX's clip
+__device__ __forceinline__ void mesh_row(const Sym* tab, const RowSet& r, int j, int d, int m,
+                                         int lane) {
+  const int idx = r.sel[j];
+  const int o = idx < 0 ? 0 : min(idx / m, d - 1);
+  const Sym& s = tab[o];
+  if (s.pc) gather_lane(s, r, j, clampi(idx - o * m, 0, m - 1), lane);
+}
+
+__global__ void k_mesh_rows(const Sym* __restrict__ tab, const __grid_constant__ RowSet r,
+                            const __grid_constant__ RowSet h, int d, int m, int n) {
   const long long w = gid() >> 5;
+  const int lane = threadIdx.x & 31;
   if (w < r.count) {
-    gather_row(s, r, (int)w, threadIdx.x & 31);
-    const int l = r.sel[w] - r.base;
-    if ((threadIdx.x & 31) == 0 && l >= 0 && l < s.n) s.status[l] = DEAD;
+    mesh_row(tab, r, (int)w, d, m, lane);
+    const int l = drop_row(r.sel[w], n);
+    if (lane == 0 && l >= 0 && tab[l / m].status) tab[l / m].status[l % m] = DEAD;
   } else if (w < r.count + h.count) {
-    gather_row(s, h, (int)(w - r.count), threadIdx.x & 31);
+    mesh_row(tab, h, (int)(w - r.count), d, m, lane);
   }
 }
 
@@ -1800,16 +1819,29 @@ MTT_EXPORT int window_remap(void** planes, const int* dims, const void* canon, i
   return (int)cudaGetLastError();
 }
 
-// K4's rows on a shard of a meshed window: the retire rows of
-// ridx[0..rk) under the floors (their lanes this shard holds marked
-// DEAD) and the resume rows of hidx[0..hk), the indices global (the
-// shard's first lane is base); out: r_i32, r_u32, r_u8, h_i32, h_u32,
-// h_u8 as K4 packs them. One launch.
-MTT_EXPORT int window_shard_rows(void** planes, const int* dims, int base, const void* ridx,
-                                 int rk, const int* floors, const void* hidx, int hk,
-                                 void** out, void* stream) {
-  const Sym s = make_sym(planes, dims);
-  if (s.n == 0 || rk + hk == 0) return 0;
+// the table of a meshed batch's d shards for window_mesh_rows into host
+// (d Syms): planes, d x SYM_NFIELDS plane pointers, null for a shard
+// the table's device does not hold; dims, the shards' (n: lanes a shard)
+MTT_EXPORT int window_mesh_table(void* const* planes, int d, const int* dims, void* host) {
+  Sym* t = (Sym*)host;
+  for (int q = 0; q < d; ++q) t[q] = make_sym((void**)planes + (size_t)q * SYM_NFIELDS, dims);
+  return 0;
+}
+
+MTT_EXPORT int window_sym_bytes() { return (int)sizeof(Sym); }
+
+// K4's rows over a meshed batch of d shards (tab: window_mesh_table's,
+// on the current device) and n lanes: the retire rows of ridx[0..rk)
+// under the floors, the lanes this device holds marked DEAD, and the
+// resume rows of hidx[0..hk), the indices global; out: r_i32, r_u32,
+// r_u8, h_i32, h_u32, h_u8 as K4 packs them, written at the rows whose
+// lanes this device holds. One launch.
+MTT_EXPORT int window_mesh_rows(const void* tab, int d, int n, const int* dims, const void* ridx,
+                                int rk, const int* floors, const void* hidx, int hk, void** out,
+                                void* stream) {
+  void* none[SYM_NFIELDS] = {};
+  const Sym s = make_sym(none, dims);
+  if (s.n <= 0 || d <= 0 || rk + hk == 0) return 0;
   RowSet r = row_set(s, (const int32_t*)ridx, rk, false,
                      retire_rows_of(s, floors, out[0], out[1], out[2]));
   Rows ho;
@@ -1821,7 +1853,7 @@ MTT_EXPORT int window_shard_rows(void** planes, const int* dims, int base, const
   ho.wl = min(RESUME_MLOG, s.MR);
   ho.wm = min(RESUME_MEM, s.M);
   RowSet h = row_set(s, (const int32_t*)hidx, hk, true, ho);
-  r.base = h.base = base;
-  k_shard_rows<<<nblocks_for(32LL * (rk + hk), 256), 256, 0, (cudaStream_t)stream>>>(s, r, h);
+  k_mesh_rows<<<nblocks_for(32LL * (rk + hk), 256), 256, 0, (cudaStream_t)stream>>>(
+      (const Sym*)tab, r, h, d, s.n, n);
   return (int)cudaGetLastError();
 }

@@ -53,8 +53,8 @@ device call that fails raises to the caller. Cross-tenant wave packing
 shard a device (``parallel/mesh.SymShards``) and every window runs its
 phases a shard (``window_exec_mesh``: K2 and K1's phases a shard, K3
 and K4 over the small planes gathered at the mesh's first device, K3's
-remap and K4's rows a shard; K9 a shard), with the same outputs as the
-JAX engine's window under GSPMD; a packed wave does not shard. Not
+remap a shard, K4's rows a device; K9 a shard), with the same outputs
+as the JAX engine's window under GSPMD; a packed wave does not shard. Not
 ported: the XLA compile warm-up (``warm_variant``) and the
 kernel-fault capacity autoprobe.
 """
@@ -670,7 +670,9 @@ _WINDOW_SIGS = {
     "unique_table": [_P, _P, _P, _I, _P, _P, _P, _P, _P],
     "fork_table": [_P, _I, _P, _P],
     "window_remap": [_P, _P, _P, _I, _P],
-    "window_shard_rows": [_P, _P, _I, _P, _I, _P, _P, _I, _P, _P],
+    "window_sym_bytes": [],
+    "window_mesh_table": [_P, _I, _P, _P],
+    "window_mesh_rows": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P],
 }
 
 
@@ -1139,56 +1141,140 @@ def split_window(i32buf, n, d, k, n_env, sd, pv):
     return out, a
 
 
-def shard_rows_plain(st: SymLaneState, base: int, ridx, hidx,
-                     floors=RETIRE_FLOORS):
-    """A shard's part of K4's rows in plain PyTorch: the retire rows of
-    ``ridx`` (global lanes, the padding n) under ``floors``, their lanes
-    this shard holds marked DEAD, and the resume rows of ``hidx``; a
-    lane of another shard gathers the clamped lane. Returns (state,
-    (r_i32, r_u32, r_u8, h_i32, h_u32, h_u8))."""
-    m = st.pc.shape[0]
-    rl = ridx.long() - base
-    rows = _retire_gather_core(st, rl.clamp(0, m - 1), *floors)
-    hrows = _resume_gather_core(st, (hidx.long() - base).clamp(0, m - 1))
-    status = st.status.clone()
-    status[rl[(rl >= 0) & (rl < m)]] = DEAD
-    return st.replace(status=status), tuple(rows) + tuple(hrows)
+def _owners(idx, m: int, d: int):
+    """(the shard whose row a gather of each global lane of ``idx``
+    reads, its local lane), int64 tensors: JAX's clip, so a negative
+    index reads lane 0 and the padding n lane n-1 (of the last shard)."""
+    g = idx.long()
+    o = torch.div(g, m, rounding_mode="floor").clamp(0, d - 1)
+    return o, (g - o * m).clamp(0, m - 1)
 
 
-def shard_rows_kernel(st: SymLaneState, base: int, ridx, hidx,
-                      floors=RETIRE_FLOORS):
-    """``shard_rows_plain`` on the card (``csrc/window.cu``
-    ``window_shard_rows``): one launch, the six arrays sections of one
-    allocation, the retired lanes marked DEAD in place. ``hidx`` may be
-    empty (an escalation retire)."""
+def mesh_rows_plain(ss, ridx, hidx, floors=RETIRE_FLOORS):
+    """K4's rows over a batch on CPU shards (``parallel/mesh.SymShards``)
+    in plain PyTorch, one call: the retire rows of ``ridx`` (global
+    lanes, the padding n) under ``floors`` and the resume rows of
+    ``hidx``, row j gathered once, from the shard that holds lane
+    ridx[j] (hidx[j]) at JAX's clip (``_owners``); the retired lanes
+    marked DEAD by JAX's drop rule (``_rows``: a negative index wraps
+    once, one still out of range is dropped). Returns (ss, MeshRows)."""
+    n, m, d = ss.n, ss.per, ss.mesh.size
+
+    def gather(idx, core):
+        o, local = _owners(idx, m, d)
+        out = [x.new_empty((idx.shape[0],) + tuple(x.shape[1:]))
+               for x in core(ss.shards[0], local.new_zeros(1))]
+        for i in o.unique().tolist():
+            sel = o == i
+            for x, y in zip(out, core(ss.shards[i], local[sel])):
+                x[sel] = y
+        return out
+
+    rows = gather(ridx, lambda st, rc: _retire_gather_core(st, rc, *floors))
+    rows += gather(hidx, _resume_gather_core)
+    dead = _rows(ridx, n)[0]
+    for i, st in enumerate(ss.shards):
+        mine = dead[(dead >= i * m) & (dead < (i + 1) * m)] - i * m
+        if mine.numel():
+            status = st.status.clone()
+            status[mine] = DEAD
+            ss.shards[i] = st.replace(status=status)
+    return ss, MeshRows([rows], [0] * d, ridx, hidx, m)
+
+
+class _RowsPlan:
+    """``window_mesh_rows``' arguments over a meshed batch, held by the
+    batch (``SymShards.rows_plan``) for its life: a table a device
+    (``csrc/window.cu`` ``window_mesh_table``: a ``Sym`` a shard of the
+    mesh, null for one the device does not hold; built and copied
+    once), the shards' dims, the part (device) of each shard, and by
+    call shape the output's sections, bytes and the floors' C array."""
+
+    def __init__(self, ss):
+        from ..parallel.mesh import device_groups
+
+        _build, lib = _kw()
+        d = len(ss.shards)
+        nf = len(symstep.FIELDS)
+        args = [symstep.state_args(st) for st in ss.shards]
+        self.dims, self.groups, self.part_of = args[0][1], [], [0] * d
+        for dev, idx in device_groups(ss.mesh):
+            planes = (ctypes.c_void_p * (d * nf))()
+            for i in idx:
+                planes[i * nf:(i + 1) * nf] = list(args[i][0])
+                self.part_of[i] = len(self.groups)
+            host = torch.empty(d * lib.window_sym_bytes(), dtype=torch.uint8,
+                               pin_memory=True)
+            _build.check(lib, lib.window_mesh_table(planes, d, self.dims,
+                                                    host.data_ptr()),
+                         "window_mesh_table")
+            tab = host.to(dev, non_blocking=True)
+            self.groups.append((dev, tab, ctypes.c_void_p(tab.data_ptr()),
+                                host))
+        st0 = ss.shards[0]
+        self.resume = (min(RESUME_MLOG, st0.mlog_off.shape[1]),
+                       min(RESUME_MEM, st0.memory.shape[1]))
+        self.st0, self.shapes = st0, {}
+
+    def shape(self, rk, hk, floors):
+        """(byte offsets of the six arrays, sections, bytes, floors)"""
+        key = (rk, hk, floors)
+        if key not in self.shapes:
+            from .. import _build
+
+            sections, nbytes = _layout(
+                _row_shapes(rk, *_retire_widths(self.st0, *floors))
+                + [(torch.int32, (hk, 7 + 3 * self.resume[0])),
+                   (torch.int32, (hk, 2 * NLIMBS)),
+                   (torch.uint8, (hk, 2 * self.resume[1]))])
+            self.shapes[key] = (
+                [off * (1 if u8 else 4) for u8, _, _, off in sections],
+                sections, nbytes, _build.int_array(floors))
+        return self.shapes[key]
+
+
+def mesh_rows_kernel(ss, ridx, hidx, floors=RETIRE_FLOORS):
+    """``mesh_rows_plain`` on the card (``csrc/window.cu``
+    ``window_mesh_rows``): one launch a device over the shards it holds,
+    a warp a row, each row gathered by the device that holds its lane
+    and each retired lane marked DEAD in place by the device that holds
+    it; the six arrays sections of one allocation a device. ``ridx`` and
+    ``hidx`` stay on the card (a device that is not theirs reads a copy
+    made there); ``hidx`` may be empty (an escalation retire)."""
     _build, lib = _kw()
-    planes, dims = symstep.state_args(st)
-    ridx = ridx.to(st.device).contiguous()
-    hidx = hidx.to(st.device).contiguous()
-    for t, name in ((ridx, "ridx"), (hidx, "hidx")):
-        _build.need_cuda(t, torch.int32, name)
-    wl = min(RESUME_MLOG, st.mlog_off.shape[1])
-    wm = min(RESUME_MEM, st.memory.shape[1])
+    if ss.rows_plan is None:
+        ss.rows_plan = _RowsPlan(ss)
+    plan = ss.rows_plan
     rk, hk = ridx.shape[0], hidx.shape[0]
-    sections, nbytes = _layout(
-        _row_shapes(rk, *_retire_widths(st, *floors))
-        + [(torch.int32, (hk, 7 + 3 * wl)),
-           (torch.int32, (hk, 2 * NLIMBS)), (torch.uint8, (hk, 2 * wm))])
-    out = torch.empty(nbytes // 4, dtype=torch.int32, device=st.device)
-    ptrs = (ctypes.c_void_p * 6)(*[
-        out.data_ptr() + off * (1 if u8 else 4)
-        for u8, _, _, off in sections])
-    rc = lib.window_shard_rows(planes, dims, base, ridx.data_ptr(), rk,
-                               _build.int_array(floors), hidx.data_ptr(),
-                               hk, ptrs, _build.stream(st.device))
-    _build.LAUNCHES["window_rows"] += 1
-    _build.check(lib, rc, "window_shard_rows")
-    return st, Outputs(out, sections)
+    offs, sections, nbytes, fl = plan.shape(rk, hk, tuple(floors))
+    d, n = len(ss.shards), ss.n
+    parts = []
+    for dev, _, tab, _ in plan.groups:
+        r = ridx if ridx.device == dev else ridx.to(dev)
+        h = hidx if hidx.device == dev else hidx.to(dev)
+        for t, name in ((r, "ridx"), (h, "hidx")):
+            if not (t.is_cuda and t.dtype is torch.int32
+                    and t.is_contiguous()):
+                _build.need_cuda(t, torch.int32, name)
+        out = torch.empty(nbytes // 4, dtype=torch.int32, device=dev)
+        base = out.data_ptr()
+        with symstep._current(dev):
+            rc = lib.window_mesh_rows(
+                tab, d, n, plan.dims, r.data_ptr(), rk, fl, h.data_ptr(), hk,
+                (ctypes.c_void_p * 6)(*[base + o for o in offs]),
+                _build.stream(dev))
+        _build.LAUNCHES["window_rows"] += 1
+        _build.check(lib, rc, "window_mesh_rows")
+        parts.append(Outputs(out, sections))
+    return ss, MeshRows(parts, plan.part_of, ridx, hidx, ss.per)
 
 
-def _shard_rows(st, base, ridx, hidx, floors=RETIRE_FLOORS):
-    fn = shard_rows_plain if st.device.type == "cpu" else shard_rows_kernel
-    return fn(st, base, ridx, hidx, floors)
+def mesh_rows(ss, ridx, hidx, floors=RETIRE_FLOORS):
+    """K4's rows over a meshed batch: the plain version on CPU shards,
+    the kernel on a card's. Returns (ss, MeshRows)."""
+    fn = mesh_rows_plain if ss.home.device.type == "cpu" \
+        else mesh_rows_kernel
+    return fn(ss, ridx, hidx, floors)
 
 
 def remap_shard_plain(st: SymLaneState, canon) -> SymLaneState:
@@ -1216,67 +1302,78 @@ def remap_shard_kernel(st: SymLaneState, canon) -> SymLaneState:
     return st
 
 
-def _pick_rows(idx, parts, m, d):
-    """Row j of each array from the shard that holds lane idx[j] (the
-    padding, n: the last shard's clamped row), ``parts`` each shard's
-    arrays (numpy)."""
-    owner = np.minimum(np.asarray(idx, np.int64) // m, d - 1)
-    out = []
-    for c in range(len(parts[0])):
-        arr = parts[0][c].copy()
-        for i in range(1, d):
-            sel = owner == i
-            if sel.any():
-                arr[sel] = parts[i][c][sel]
-        out.append(arr)
-    return out
+class MeshRows(Sequence):
+    """A meshed rows call's arrays (``mesh_rows``): the retire rows of
+    ``ridx``, then the resume rows of ``hidx`` (``width`` 6; an
+    escalation retire's ``width`` 3: the retire rows alone). ``parts``
+    holds each device's six arrays, ``part_of`` the part of each shard;
+    row j comes from the part whose shard holds lane ridx[j] (hidx[j])
+    at JAX's clip. With one part (one card, or CPU shards) its arrays
+    are the rows; with several the host merges them by device, the
+    indices pulled beside them. ``start_pull`` starts every copy to the
+    host; indexing pulls at once (the CPU path)."""
 
-
-class MeshOutputs(Sequence):
-    """A meshed window's 12 outputs: K4's at home (``home``: misc,
-    scal, utab, ftab, ridx, ..., hidx, ...) and each shard's retire and
-    resume rows (``rows``), the rows of position j taken from the shard
-    that holds lane ridx[j] (hidx[j]) when read. ``start_pull`` starts
-    every copy to the host; indexing pulls at once (the CPU path)."""
-
-    def __init__(self, home, rows, m, d):
-        self.home, self.rows, self.m, self.d = home, rows, m, d
+    def __init__(self, parts, part_of, ridx, hidx, m, width=6):
+        self.parts, self.part_of = parts, part_of
+        self.ridx, self.hidx, self.m, self.width = ridx, hidx, m, width
 
     def __len__(self):
-        return 12
-
-    def _assemble(self, home, rows):
-        out = list(home)
-        out[5:8] = _pick_rows(home[4], [r[:3] for r in rows], self.m,
-                              self.d)
-        out[9:12] = _pick_rows(home[8], [r[3:] for r in rows], self.m,
-                               self.d)
-        return out
+        return self.width
 
     def start_pull(self):
-        home = _start_pull(self.home)
-        rows = [_start_pull(r) for r in self.rows]
-        return lambda: self._assemble(home(), [r() for r in rows])
+        pulls = [_start_pull(p) for p in self.parts]
+        if len(pulls) == 1:
+            return lambda: list(pulls[0]())[:self.width]
+        idx = _start_pull([self.ridx, self.hidx])
+        part_of = np.asarray(self.part_of)
+
+        def merged():
+            got = [list(p()) for p in pulls]
+            out = []
+            for c, sel in enumerate(idx()):
+                if c and self.width == 3:
+                    break
+                o = np.clip(np.asarray(sel, np.int64) // self.m, 0,
+                            len(part_of) - 1)
+                where = part_of[o]
+                for k in range(3 * c, 3 * c + 3):
+                    arr = np.array(got[0][k])
+                    for p in range(1, len(got)):
+                        arr[where == p] = got[p][k][where == p]
+                    out.append(arr)
+            return out
+
+        return merged
 
     def __getitem__(self, i):
         return torch.from_numpy(np.ascontiguousarray(
             self.start_pull()()[i]))
 
 
-class MeshRows(Sequence):
-    """An escalation retire's rows over a mesh: each shard's, row j
-    from the shard that holds lane idx[j]."""
+class MeshOutputs(Sequence):
+    """A meshed window's 12 outputs: K4's at home (``home``: misc,
+    scal, utab, ftab, ridx, ..., hidx, ...) with its retire and resume
+    rows those of the meshed rows call (``rows``, a ``MeshRows``).
+    ``start_pull`` starts every copy to the host; indexing pulls at once
+    (the CPU path)."""
 
-    def __init__(self, idx, rows, m, d):
-        self.idx, self.rows, self.m, self.d = idx, rows, m, d
+    def __init__(self, home, rows):
+        self.home, self.rows = home, rows
 
     def __len__(self):
-        return 3
+        return 12
 
     def start_pull(self):
-        rows = [_start_pull(r) for r in self.rows]
-        return lambda: _pick_rows(self.idx, [r()[:3] for r in rows],
-                                  self.m, self.d)
+        home = _start_pull(self.home)
+        rows = _start_pull(self.rows)
+
+        def assemble():
+            out = list(home())
+            got = rows()
+            out[5:8], out[9:12] = got[:3], got[3:]
+            return out
+
+        return assemble
 
     def __getitem__(self, i):
         return torch.from_numpy(np.ascontiguousarray(
@@ -1296,9 +1393,10 @@ def window_exec_mesh(ss, codes, i32buf, u8buf, exec_table, taint_table,
     shard's sid planes remapped through that canon (``window_remap`` a
     shard), K4 at home over the gathered selection and counter planes
     (the selections in global lane order, the counters, unique-record
-    and fork tables) and its rows a shard (``window_shard_rows``, which
-    marks the retired lanes DEAD). Each phase takes the plain version on
-    a CPU shard and the kernel on a CUDA one, on the shard's device.
+    and fork tables) and its retire and resume rows in one meshed rows
+    call (``mesh_rows``: a launch a device, which also marks the retired
+    lanes DEAD). Each phase takes the plain version on a CPU shard and
+    the kernel on a CUDA one, on the shard's device.
     ``codes``: {device: compiled code}; the buffers are host arrays.
     Returns (ss, visited, MeshOutputs)."""
     from ..parallel.mesh import gather_home, scatter_home
@@ -1343,28 +1441,17 @@ def window_exec_mesh(ss, codes, i32buf, u8buf, exec_table, taint_table,
     else:
         with _on(ss.home.device):
             outs = epilogue_kernel(ss.home, cc, canon, budget, resume_on)
-    ridx, hidx = outs[4], outs[8]
-    rows = []
-    for i, st in enumerate(ss.shards):
-        with _on(st.device):
-            ss.shards[i], r = _shard_rows(st, i * m, ridx, hidx)
-        rows.append(r)
-    return ss, visited, MeshOutputs(outs, rows, m, d)
+    ss, rows = mesh_rows(ss, outs[4], outs[8])
+    return ss, visited, MeshOutputs(outs, rows)
 
 
 def retire_rows_mesh(ss, ridx, dstack, dmem, dmlog, dslot):
-    """``_retire_rows`` over a mesh: each shard gathers the rows of the
-    named lanes and marks its own DEAD; returns (ss, MeshRows)."""
-    m, d = ss.per, ss.mesh.size
-    rows = []
-    idx = ridx.cpu()
-    empty = torch.zeros(0, dtype=torch.int32)
-    for i, st in enumerate(ss.shards):
-        with _on(st.device):
-            ss.shards[i], r = _shard_rows(st, i * m, idx, empty,
-                                          (dstack, dmem, dmlog, dslot))
-        rows.append(r)
-    return ss, MeshRows(idx.numpy(), rows, m, d)
+    """``_retire_rows`` over a mesh: one meshed rows call (``mesh_rows``)
+    with no resume rows gathers the named lanes' rows and marks them
+    DEAD; returns (ss, MeshRows of the three retire arrays)."""
+    ss, rows = mesh_rows(ss, ridx, ridx[:0], (dstack, dmem, dmlog, dslot))
+    rows.width = 3
+    return ss, rows
 
 
 # ---------------------------------------------------------------------------

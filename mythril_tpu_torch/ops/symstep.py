@@ -1237,8 +1237,8 @@ def sym_run(code: CompiledCode, st: SymLaneState, max_steps: int,
 
 #: the lane planes a fork's child copies from its parent (all but the
 #: batch's global planes, and pc, fentry and dlog_count, which the child
-#: gets from its parent's fork stash and 0), in ``csrc/symstep.cu``
-#: ``fork_rows``' order
+#: gets from its parent's fork stash and 0); ``csrc/symstep.cu``
+#: ``fork_planes`` lists the same planes, its 4-byte ones first
 FORK_PLANES = tuple(f for f in FIELDS if f not in NO_COPY
                     and f not in ("pc", "fentry", "dlog_count"))
 
@@ -1271,26 +1271,6 @@ class _PlainShard:
         self.ss.shards[self.i] = st
         return stash.t().contiguous()
 
-    def stage(self, stash, idx):
-        st = self.ss.shards[self.i]
-        idx = torch.as_tensor(idx, dtype=torch.int64)
-        rows = stash[0, idx].long() - self.base
-        out = {f: getattr(st, f)[rows].clone() for f in FORK_PLANES}
-        out["pc"], out["fentry"] = stash[1, idx], stash[2, idx]
-        return out
-
-    def land(self, staged, child):
-        st = self.ss.shards[self.i]
-        child = torch.as_tensor(child, dtype=torch.int64)
-        new = {}
-        for f in FORK_PLANES + ("pc", "fentry"):
-            y = getattr(st, f).clone()
-            y[child] = staged[f].to(y.device)
-            new[f] = y
-        new["dlog_count"] = st.dlog_count.clone()
-        new["dlog_count"][child] = 0
-        self.ss.shards[self.i] = st.replace(**new)
-
 
 _MESH_SIGS = {
     "sym_mesh_sizes": [ctypes.c_void_p],
@@ -1309,11 +1289,14 @@ _MESH_SIGS = {
                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                  ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     "sym_fork_row_bytes": [ctypes.c_void_p],
-    "sym_fork_stage": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
-    "sym_fork_land": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+    "sym_fork_plan_bytes": [ctypes.c_int],
+    "sym_fork_plan": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+    "sym_fork_rows": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     "sym_vis_or": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_void_p],
     "peer_access": [ctypes.c_int],
@@ -1410,54 +1393,6 @@ class _PlainGroup:
         return [sh.vis for sh in self.shards]
 
 
-class _CudaShard:
-    """A CUDA shard's fork rows (``csrc/symstep.cu``): ``sym_fork_stage``
-    gathers its forking parents' rows, ``sym_fork_land`` writes staged
-    rows into its child slots; each launch on the current stream of the
-    shard's device, counted in ``LAUNCHES``."""
-
-    def __init__(self, ss, i):
-        from .. import _build
-
-        self.b = _build
-        self.lib = _k1_mesh()[0]
-        st = ss.shards[i]
-        self.dev = st.device
-        self.base = i * ss.per
-        self.planes, self.dims = state_args(st)
-        self.row_bytes = self.lib.sym_fork_row_bytes(self.dims)
-
-    def stage(self, stash, idx):
-        with torch.cuda.device(self.dev):
-            return self._stage(stash, idx)
-
-    def _stage(self, stash, idx):
-        b = self.b
-        idx = torch.as_tensor(np.asarray(idx, np.int32)).to(self.dev)
-        out = torch.empty(len(idx) * self.row_bytes, dtype=torch.uint8,
-                          device=self.dev)
-        rc = self.lib.sym_fork_stage(
-            self.planes, self.dims, b.ptr(stash), stash.shape[1],
-            b.ptr(idx), len(idx), self.base, b.ptr(out), b.stream(self.dev))
-        b.LAUNCHES["sym_fork_rows"] += 1
-        b.check(self.lib, rc, "sym_fork_stage")
-        return out
-
-    def land(self, staged, child):
-        with torch.cuda.device(self.dev):
-            self._land(staged, child)
-
-    def _land(self, staged, child):
-        b = self.b
-        child = torch.as_tensor(np.asarray(child, np.int32)).to(self.dev)
-        staged = staged.to(self.dev)
-        rc = self.lib.sym_fork_land(
-            self.planes, self.dims, b.ptr(staged), b.ptr(child), len(child),
-            b.stream(self.dev))
-        b.LAUNCHES["sym_fork_rows"] += 1
-        b.check(self.lib, rc, "sym_fork_land")
-
-
 class _CudaGroup:
     """K1's phases over the CUDA shards ``idx`` of one device
     (``csrc/symstep.cu``), each one launch over all of them:
@@ -1483,7 +1418,6 @@ class _CudaGroup:
         q = len(self.idx)
         self.bps = max(1, -(-per // MESH_THREADS))
         self.blocks = q * self.bps
-        self.shards = [_CudaShard(ss, i) for i in self.idx]
         _build.need_cuda(code.packed, torch.int32, "code.packed")
         if code.seg_tab is not None:
             raise ValueError("a packed arena does not run over a mesh")
@@ -1541,7 +1475,11 @@ class _CudaGroup:
             self.launch_decide(stream)
 
         def read():
-            self.b.check(self.lib, self.lib.sym_sync(stream), "sym_decide")
+            # the stream's handle may be a device's default stream, which
+            # names the current device's: wait with this one current
+            with _current(self.dev):
+                self.b.check(self.lib, self.lib.sym_sync(stream),
+                             "sym_decide")
             c = self.counts_host.sum(axis=2).tolist()
             return c[0], c[1]
 
@@ -1697,17 +1635,203 @@ def execute_groups(groups, d: int, off, forks, navail: int,
     return out
 
 
-def fork_rows(shards, stashes, child, m):
-    """A forking step's child rows: ``stashes`` is each shard's (stash,
-    global rank of its first fork, forks), ``child`` the step's child
-    slots in fork order (global lanes); each parent's row is staged on
-    its shard and landed in its child's, once a (source, destination)
-    pair."""
-    for sh, (stash, o, k) in zip(shards, stashes):
-        mine = child[o:o + k]
-        for dst in np.unique(mine // m):
-            sel = np.nonzero(mine // m == dst)[0]
-            shards[dst].land(sh.stage(stash, sel), mine[sel] - dst * m)
+#: the home batch's fork-log planes a fork's stash fills (the child's
+#: slot and the step come from ``sym_exec``), and their stash columns
+FLOG_PLANES = ("flog_parent", "flog_pc", "flog_fentry", "flog_sid",
+               "flog_gmin", "flog_gmax", "flog_dest")
+FLOG_COLS = (0, 3, 2, 4, 5, 6, 7)
+
+
+def child_slots(free_slots, free_count: int, nf: int, n: int):
+    """The step's child slots in fork order (global lanes): the top of
+    the batch's free stack, ``free_slots[clip(free_count - 1 - rank, 0,
+    n - 1)]`` (as the home ``sym_exec`` writes them into the fork
+    log)."""
+    if isinstance(free_slots, np.ndarray):
+        return free_slots[np.clip(free_count - 1 - np.arange(nf), 0, n - 1)]
+    return free_slots[(free_count - 1 - torch.arange(nf)).clamp(0, n - 1)]
+
+
+class _PlainForks:
+    """A forking step's fork rows on CPU shards in plain PyTorch, a
+    source shard at a time: each fork's seven fork-log words from its
+    shard's stash into the home batch at ``flog_count`` + its global
+    rank, and its parent's post-step row (``FORK_PLANES``, then the
+    stash's pc and fentry and an empty record log) into its child's
+    slot (``child_slots``), gathered and scattered once a (source,
+    destination) pair of shards."""
+
+    def __init__(self, ss, groups):
+        self.ss = ss
+
+    def run(self, stashes, nf, free_count, flog_count):
+        """``stashes``: ``execute_groups``' [(stash, global rank of the
+        shard's first fork, forks)] a shard."""
+        ss = self.ss
+        home, m = ss.home, ss.per
+        child = child_slots(home.free_slots, free_count, nf, ss.n).long()
+        for q, (stash, o, k) in enumerate(stashes):
+            if not k:
+                continue
+            at = slice(flog_count + o, flog_count + o + k)
+            for plane, c in zip(FLOG_PLANES, FLOG_COLS):
+                getattr(home, plane)[at] = stash[c, :k]
+            src = ss.shards[q]
+            par = stash[0, :k].long() - q * m
+            mine = child[o:o + k]
+            for dq in (mine // m).unique().tolist():
+                sel = mine // m == dq
+                dst, dl = ss.shards[dq], mine[sel] - dq * m
+                new = {}
+                for f in FORK_PLANES:
+                    y = getattr(dst, f).clone()
+                    y[dl] = getattr(src, f)[par[sel]]
+                    new[f] = y
+                for f, col in (("pc", stash[1, :k]), ("fentry", stash[2, :k]),
+                               ("dlog_count", torch.zeros_like(stash[0, :k]))):
+                    y = getattr(dst, f).clone()
+                    y[dl] = col[sel]
+                    new[f] = y
+                ss.shards[dq] = dst.replace(**new)
+
+
+class _CudaForks:
+    """A forking step's fork rows over a mesh's CUDA shards
+    (``csrc/symstep.cu`` ``sym_fork_rows``): one launch on each device
+    that holds a child's shard, and on the home device, which also
+    writes the fork-log words; no index passes through the host. A plan
+    a device (every shard's planes and stash, the batch's free stack
+    copied there once, the home fork-log planes, flags) is built and
+    copied once a run. Each source device is read in place over peer
+    access where ``route`` (``vis_route``: by topology) gives "local" or
+    "peer"; where it gives "copy" the source's device stages its forks'
+    rows (the same kernel, a launch) and each such destination gets them
+    in one copy. A destination's launch waits on an event recorded on
+    each other source device after its ``sym_exec``. Each launch on the
+    current stream of its device, counted in ``LAUNCHES``."""
+
+    def __init__(self, ss, groups, route=None):
+        from .. import _build
+
+        route = route or vis_route
+        self.b = _build
+        self.lib = _k1_mesh()[0]
+        d = ss.mesh.size
+        if d > MAX_MESH_SHARDS:
+            raise ValueError(f"fork rows over {d} shards, at most "
+                             f"{MAX_MESH_SHARDS}")
+        self.d, self.m, self.n = d, ss.per, ss.n
+        home = ss.home
+        stash = [None] * d
+        for g in groups:
+            for i, x in zip(g.idx, g.stashes):
+                stash[i] = x
+        cap = stash[0].shape[1]
+        self.shard_dev = [st.device for st in ss.shards]
+        self.devs = list(dict.fromkeys(g.dev for g in groups))
+        self.home_dev = home.device
+        nfield = len(FIELDS)
+        planes = (ctypes.c_void_p * (d * nfield))()
+        for i, st in enumerate(ss.shards):
+            planes[i * nfield:(i + 1) * nfield] = list(state_args(st)[0])
+        dims = state_args(ss.shards[0])[1]
+        self.row = self.lib.sym_fork_row_bytes(dims)
+        self.routes = {(dst, src): route(dst, src)
+                       for dst in self.devs for src in self.devs}
+        copied = {x for pair, r in self.routes.items() if r == "copy"
+                  for x in pair}
+        self.stagers = [src for src in self.devs
+                        if any(self.routes[(dst, src)] == "copy"
+                               for dst in self.devs)]
+        self.plans, self.keep = {}, []
+        stash_ptrs = _build.ptr_array(stash)
+        for dev in self.devs:
+            with torch.cuda.device(dev):
+                stage = torch.empty(cap * self.row, dtype=torch.uint8,
+                                    device=dev) if dev in copied else None
+                free = home.free_slots if home.device == dev \
+                    else home.free_slots.to(dev)
+                flog = _build.ptr_array([getattr(home, f) for f in
+                                         FLOG_PLANES]) \
+                    if home.device == dev else None
+                host = torch.empty(self.lib.sym_fork_plan_bytes(d),
+                                   dtype=torch.uint8, pin_memory=True)
+                _build.check(self.lib, self.lib.sym_fork_plan(
+                    planes, d, dims, stash_ptrs,
+                    _build.int_array([x == dev for x in self.shard_dev]),
+                    _build.int_array([self.routes[(dev, x)] == "copy"
+                                      for x in self.shard_dev]),
+                    cap, self.n, _build.ptr(free), flog,
+                    None if stage is None else _build.ptr(stage),
+                    _build.ptr(host)), "sym_fork_plan")
+                plan = host.to(dev, non_blocking=True)
+            self.plans[dev] = (_build.ptr(plan), stage)
+            self.keep += [plan, free, host]
+        self.events = {dev: torch.cuda.Event() for dev in self.devs} \
+            if len(self.devs) > 1 else None
+        self.free = home.free_slots.cpu().numpy() if self.events else None
+        self.off, self.forks = (ctypes.c_int * d)(), (ctypes.c_int * d)()
+
+    def launch(self, dev, nf, free_count, flog_count, stage=0):
+        with _current(dev):
+            rc = self.lib.sym_fork_rows(
+                self.plans[dev][0], self.d, self.off, self.forks, nf,
+                free_count, flog_count, stage, self.b.stream(dev))
+        self.b.LAUNCHES["sym_fork_rows"] += 1
+        self.b.check(self.lib, rc, "sym_fork_rows")
+
+    def run(self, stashes, nf, free_count, flog_count):
+        """``stashes``: ``execute_groups``' [(stash, global rank of the
+        shard's first fork, forks)] a shard (the stashes themselves are
+        in the plans)."""
+        for q, (_, o, k) in enumerate(stashes):
+            self.off[q], self.forks[q] = o, k
+        if self.events is None:  # one device
+            dev = self.devs[0]
+            if self.stagers:
+                self.launch(dev, nf, free_count, flog_count, stage=1)
+            self.launch(dev, nf, free_count, flog_count)
+            return
+        m = self.m
+        srcs = list(dict.fromkeys(self.shard_dev[q] for q, (_, _, k)
+                                  in enumerate(stashes) if k))
+        child = child_slots(self.free, free_count, nf, self.n)
+        dests = {self.shard_dev[q] for q in np.unique(child // m)}
+        dests = [x for x in self.devs if x in dests or x == self.home_dev]
+        for src in srcs:
+            self.events[src].record(torch.cuda.current_stream(src))
+        for src in srcs:
+            to = [dst for dst in dests if self.routes[(dst, src)] == "copy"]
+            if not to:
+                continue
+            self.launch(src, nf, free_count, flog_count, stage=1)
+            runs = _rank_runs([(o, k) for q, (_, o, k) in enumerate(stashes)
+                               if k and self.shard_dev[q] == src])
+            for dst in to:
+                if dst == src:
+                    continue
+                a, b = self.plans[dst][1], self.plans[src][1]
+                for lo, hi in runs:
+                    a[lo * self.row:hi * self.row].copy_(
+                        b[lo * self.row:hi * self.row])
+        for dst in dests:
+            stream = torch.cuda.current_stream(dst)
+            for src in srcs:
+                if src != dst and self.routes[(dst, src)] == "peer":
+                    stream.wait_event(self.events[src])
+            self.launch(dst, nf, free_count, flog_count)
+
+
+def _rank_runs(spans):
+    """The (first, end) rank ranges of (first, count) spans, ascending,
+    neighbours merged."""
+    out = []
+    for o, k in sorted(spans):
+        if out and out[-1][1] == o:
+            out[-1] = (out[-1][0], o + k)
+        else:
+            out.append((o, o + k))
+    return out
 
 
 def sym_run_mesh(code, ss, max_steps: int, exec_table=None,
@@ -1724,18 +1848,16 @@ def sym_run_mesh(code, ss, max_steps: int, exec_table=None,
     as the JAX cumsum over every lane does); every group then executes
     (``sym_exec``), its forking parents into each shard's stash in fork
     order, the group on the home device also writing the step's fork-log
-    child slots and step numbers; the other fork-log rows are copied
-    from the stashes into the home device's planes, each child's slot is
-    taken from the top of the batch's free-slot stack (read once a run),
-    and each parent's post-step row is staged on its shard
-    (``sym_fork_stage``), copied to the child's shard's device when that
-    is another, and landed in the child's slot (``sym_fork_land``): once
-    a (source, destination) pair a forking step. ``code`` is {device:
-    compiled code}. Updates ``ss`` (CUDA shards in place) and returns
-    (ss, visited): the visited bitmap ORs every shard's (``vis_or``)."""
+    child slots and step numbers; then the step's fork rows
+    (``_CudaForks``: one ``sym_fork_rows`` launch a device that holds a
+    child, or the home device, which also writes the other fork-log
+    words; ``_PlainForks`` on CPU shards): each child's slot is the top
+    of the batch's free-slot stack, and each parent's post-step row is
+    copied into it. ``code`` is {device: compiled code}. Updates ``ss``
+    (CUDA shards in place) and returns (ss, visited): the visited bitmap
+    ORs every shard's (``vis_or``)."""
     home = ss.home
-    n, m, d = ss.n, ss.per, ss.mesh.size
-    free_slots = home.free_slots.cpu().numpy()
+    n, d = ss.n, ss.mesh.size
     free_count = int(home.free_count)
     flog_count = int(home.flog_count)
     step_no = int(home.step_no)
@@ -1743,15 +1865,8 @@ def sym_run_mesh(code, ss, max_steps: int, exec_table=None,
     if visited is not None and visited.device.type == "cpu":
         visited = visited.clone()
     groups = shard_groups(code, ss, exec_table, taint_table, visited)
-    shards = [None] * d
-    for g in groups:
-        for i, sh in zip(g.idx, g.shards):
-            shards[i] = sh
-    flog = [getattr(home, f) for f in (
-        "flog_parent", "flog_pc", "flog_fentry", "flog_sid", "flog_gmin",
-        "flog_gmax", "flog_dest")]
-    # stash column of each of those planes
-    flog_col = [0, 3, 2, 4, 5, 6, 7]
+    forks_of = _PlainForks if home.device.type == "cpu" else _CudaForks
+    forker = None
     for _ in range(max_steps):
         req, run = decide_groups(groups, d)
         if not any(run):
@@ -1761,15 +1876,8 @@ def sym_run_mesh(code, ss, max_steps: int, exec_table=None,
         stashes = execute_groups(groups, d, off, forks, navail, free_count,
                                  flog_count, step_no, nf)
         if nf:
-            child = free_slots[np.clip(free_count - 1 - np.arange(nf), 0,
-                                       n - 1)]
-            at = flog_count
-            for stash, o, k in stashes:
-                if not k:
-                    continue
-                for plane, c in zip(flog, flog_col):
-                    plane[at + o:at + o + k].copy_(stash[c, :k])
-            fork_rows(shards, stashes, child, m)
+            forker = forker or forks_of(ss, groups)
+            forker.run(stashes, nf, free_count, flog_count)
         free_count -= nf
         flog_count += nf
         step_no += 1

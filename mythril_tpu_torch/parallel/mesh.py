@@ -45,7 +45,7 @@ the first device.
 import contextlib
 import ctypes
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -780,11 +780,16 @@ class SymShards:
     free-slot stack and step counters are the batch's, and the window's
     cross-lane phases gather into its small per-lane planes and record
     planes what they read (``laser/lane_engine.window_exec_mesh``); the
-    shards' own copies of those global planes are unused."""
+    shards' own copies of those global planes are unused. A card's
+    shards are written in place for the batch's life, never rebound, so
+    ``rows_plan`` (the meshed rows call's table of their planes,
+    ``lane_engine._RowsPlan``) is made at that call's first use and
+    kept."""
 
     mesh: Mesh
     shards: list
     home: object
+    rows_plan: object = field(default=None, repr=False, compare=False)
 
     @property
     def n(self) -> int:

@@ -7,10 +7,12 @@ Each case's batch runs three ways from the same planes, and every plane
 and the visited bitmap must agree bit for bit: the JAX ``sym_run`` over
 the gathered batch placed over the 8 virtual CPU devices (lane planes
 sharded, as the JAX meshed engine places them), the port's grouped
-driver over 8 CPU shards, and the one-shard-at-a-time driver the port
-had before the grouping (``one_shard_at_a_time`` below, over the same
-``_PlainShard`` phases). The plain OR of the shards' visited bitmaps is
-held to numpy's."""
+driver over 8 CPU shards (its fork rows ``_PlainForks``, under the rank,
+child-slot and budget code the card's ``_CudaForks`` runs), and the
+one-shard-at-a-time driver the port had before the grouping
+(``one_shard_at_a_time`` below, over the same ``_PlainShard`` phases,
+its fork rows copied a pair of shards at a time). The plain OR of the
+shards' visited bitmaps is held to numpy's."""
 
 import jax
 import jax.numpy as jnp
@@ -115,7 +117,7 @@ def one_shard_at_a_time(cc, ss, max_steps, visited):
                 torch.from_numpy(child.astype(np.int32)))
             home.flog_step[at:at + nf].copy_(
                 torch.full((nf,), step_no, dtype=torch.int32))
-            TS.fork_rows(shards, stashes, child, m)
+            pairwise_fork_rows(ss, stashes, child, m)
         free_count -= nf
         flog_count += nf
         step_no += 1
@@ -125,6 +127,32 @@ def one_shard_at_a_time(cc, ss, max_steps, visited):
     for sh in shards:
         visited = TS.vis_or(visited, [sh.vis])
     return ss, visited
+
+
+def pairwise_fork_rows(ss, stashes, child, m):
+    """A forking step's child rows as the port copied them before one
+    launch a device: for each (source, destination) pair of shards, the
+    source's parents' post-step rows staged (``FORK_PLANES``, the
+    stash's pc and fentry), then landed in the children's slots with an
+    empty record log."""
+    for q, (stash, o, k) in enumerate(stashes):
+        mine = child[o:o + k]
+        for dst in np.unique(mine // m):
+            sel = torch.from_numpy(np.nonzero(mine // m == dst)[0])
+            rows = stash[0, sel].long() - q * m
+            staged = {f: getattr(ss.shards[q], f)[rows].clone()
+                      for f in TS.FORK_PLANES}
+            staged["pc"], staged["fentry"] = stash[1, sel], stash[2, sel]
+            land = torch.from_numpy(mine[sel.numpy()] - dst * m).long()
+            st = ss.shards[dst]
+            new = {}
+            for f in TS.FORK_PLANES + ("pc", "fentry"):
+                y = getattr(st, f).clone()
+                y[land] = staged[f]
+                new[f] = y
+            new["dlog_count"] = st.dlog_count.clone()
+            new["dlog_count"][land] = 0
+            ss.shards[dst] = st.replace(**new)
 
 
 def jax_run(planes, cc):
@@ -227,6 +255,62 @@ def test_forks_that_land_in_another_shard():
     assert len(set(children.tolist())) > 1
 
 
+def first_forks(got):
+    """The first forking step's (parents, children) as global lanes."""
+    nf = int(got["flog_count"])
+    step = got["flog_step"][:nf]
+    first = step == step.min()
+    return got["flog_parent"][:nf][first], got["flog_child"][:nf][first]
+
+
+def test_forks_of_several_shards_that_land_in_one_shard():
+    """Two running lanes in each of shards 0-2 fork at one step: their
+    six children take the top of the free stack, all in shard 3."""
+    _needs_the_virtual_mesh()
+    per = LANES // SHARDS
+
+    def edit(p):
+        for i in range(3):
+            p["status"][i * per + 2:(i + 1) * per] = TS.DEAD
+
+    got, _ = run_three(24, edit)
+    parents, children = first_forks(got)
+    assert sorted(set((parents // per).tolist())) == [0, 1, 2]
+    assert set((children // per).tolist()) == {3}
+    assert len(children) == 6
+
+
+def test_one_shards_forks_that_land_in_four_shards():
+    """Shard 0's eight lanes fork at one step while the free stack's top
+    alternates over shards 2-5: its children land in four shards, and
+    every fork-log plane (``run_three``: parent, child, step, pc, sid,
+    gas bounds, fentry, destination) agrees with JAX's and the pairwise
+    copy's."""
+    _needs_the_virtual_mesh()
+    per = LANES // SHARDS
+    want = [16, 24, 32, 40, 17, 25, 33, 41]
+
+    def edit(p):
+        fc = int(p["free_count"])
+        stack = [x for x in p["free_slots"][:fc].tolist() if x not in want]
+        p["free_slots"][:fc] = stack + want[::-1]
+
+    got, planes = run_three(8, edit)
+    parents, children = first_forks(got)
+    assert set((parents // per).tolist()) == {0}
+    assert children.tolist() == want[:len(children)]
+    assert len(set((children // per).tolist())) >= 3
+    # the seven words each fork's stash gives the fork log, at its rank
+    k = len(children)
+    assert got["flog_parent"][:k].tolist() == list(range(k))
+    assert len(set(got["flog_pc"][:k].tolist())) == 1 and got["flog_pc"][0]
+    assert len(set(got["flog_dest"][:k].tolist())) == 1 \
+        and got["flog_dest"][0]
+    assert (got["flog_sid"][:k] < 0).all()
+    assert (got["flog_gmin"][:k] <= got["flog_gmax"][:k]).all()
+    assert (got["flog_fentry"][:k] == planes["fentry"][:k]).all()
+
+
 def test_every_lane_stopped_at_the_first_step():
     """No lane runs: the run stops at its first decide, every plane and
     the step counter as they were, nothing visited."""
@@ -260,3 +344,20 @@ def test_the_budget_offsets_follow_the_global_lane_order():
     assert navail == 6 and nf == 6
     assert off == [0, 3, 3, 8]
     assert forks == [3, 0, 3, 0]
+
+
+@pytest.mark.parametrize("spans", [
+    [], [(4, 2)], [(3, 2), (0, 3)], [(0, 3), (5, 1), (6, 4)],
+    [(9, 1), (2, 2), (0, 1), (4, 5)]])
+def test_the_staged_rank_runs_merge_neighbouring_spans(spans):
+    """``_rank_runs`` (the rank ranges in which a card's staged fork rows
+    are copied to another card, a copy a range): ascending, neighbours
+    merged, every rank of the (first, count) spans in one range, as a
+    walk over the ranks gives them."""
+    want = []
+    for r in sorted(r for o, k in spans for r in range(o, o + k)):
+        if want and want[-1][1] == r:
+            want[-1] = (want[-1][0], r + 1)
+        else:
+            want.append((r, r + 1))
+    assert TS._rank_runs(spans) == want

@@ -57,15 +57,21 @@ as the group's functions take the arguments they take here) and
   once-swept tables; on a tree whose edited encodings dropped their
   host arrays, those of a fresh ``linearize`` of the wave, which
   numbers its rows the same): every word that differs;
-- ``mesh``: rows 2m and 2v. K1 over a mesh on the k=12 main path's
+- ``mesh``: rows 2m, 6m and 2v. K1 over a mesh on the k=12 main path's
   first window at 4096 lanes, at its first forking step, over 8 shards
   of 512 lanes and over 4 of 1024 (the card's shards of ``chip_smoke.py``
   and a card's shard of ``--cards``): ``sym_decide`` launched alone
   (every shard, and shard 0 alone: the launch of a card that holds one
-  shard), the step's whole decide (launch, wait, the counts read) and
-  every shard's ``sym_exec``; in a tree with the launch a shard each of
-  these is its 8 or 4 launches (a copy and an event a shard in the
-  whole decide). Then ``sym_vis_or`` ORing three bitmaps of the other
+  shard), the step's whole decide (launch, wait, the counts read),
+  every shard's ``sym_exec`` and the step's fork rows
+  (``sym_fork_rows``: one call, in a tree with one launch a device,
+  or the fork-log copies a shard and a stage and a land a pair of
+  shards); in a tree with the launch a shard each of the first three
+  is its 8 or 4 launches (a copy and an event a shard in the whole
+  decide). K4's rows on the first window's end state (``window_rows``:
+  one call over the shards, or a launch a shard) and the host's pull
+  and assembly of that window's 12 outputs (``MeshOutputs``, a call
+  time only). Then ``sym_vis_or`` ORing three bitmaps of the other
   cards (of card 0 on a one-card machine) into card 0's, and
   ``bitwise_or_`` after a copy of each (that part alone: ``vis``, for a
   machine of four cards). Means of 20 (exec, OR: of 10);
@@ -417,6 +423,40 @@ class MeshK1:
             off += int(req)
         return off
 
+    def fork_step(self, ss, groups, stashes, counts, scalars):
+        """The step's fork rows after its exec as one call, in the
+        tree's form: one ``_CudaForks.run`` (its plan, built once a run,
+        made here), or the fork-log words copied a shard and the rows
+        staged and landed a pair of shards (``fork_rows``). Grouped
+        trees only."""
+        import numpy as np
+
+        S = self.S
+        free_count, flog_count, _, F, n = scalars
+        nf = S.fork_budget(counts[0], free_count, flog_count, F, n)[3]
+        if hasattr(S, "_CudaForks"):
+            forker = S._CudaForks(ss, groups)
+            return lambda: forker.run(stashes, nf, free_count, flog_count)
+        shards = [None] * len(counts[0])
+        for g in groups:
+            for i, sh in zip(g.idx, g.shards):
+                shards[i] = sh
+        child = ss.home.free_slots.cpu().numpy()[
+            np.clip(free_count - 1 - np.arange(nf), 0, n - 1)]
+        flog = [getattr(ss.home, f) for f in (
+            "flog_parent", "flog_pc", "flog_fentry", "flog_sid",
+            "flog_gmin", "flog_gmax", "flog_dest")]
+
+        def call():
+            for stash, o, k in stashes:
+                if k:
+                    for plane, c in zip(flog, [0, 3, 2, 4, 5, 6, 7]):
+                        plane[flog_count + o:flog_count + o + k].copy_(
+                            stash[c, :k])
+            S.fork_rows(shards, stashes, child, ss.per)
+
+        return call
+
 
 def mesh_times(cs, dev, timed) -> None:
     """Rows 2m's K1 phases and 2v's ``sym_vis_or`` (the ``mesh`` group)."""
@@ -471,6 +511,32 @@ def mesh_times(cs, dev, timed) -> None:
 
         timed(f"sym_exec, every shard, {what}",
               lambda x: k1.execute(*x), ready, reps=10)
+        if k1.grouped:
+            def forks_ready(s=ss):
+                o, counts, sc = ready(s)
+                return k1.fork_step(s, o, k1.execute(o, counts, sc),
+                                    counts, sc)
+
+            timed(f"sym_fork_rows, the forking step's fork rows, {what}",
+                  lambda call: call(), forks_ready, reps=10)
+        # K4's rows on the first window's end state: one call over the
+        # shards (a launch a device), or a launch a shard
+        out = spy.first[5]
+        ridx, hidx = out[2].home[4], out[2].home[8]
+        end = cs.mesh_clone(out[0])
+        snap = cs.mesh_clone(end)
+        if hasattr(le, "mesh_rows_kernel"):
+            def rows(x):
+                le.mesh_rows_kernel(x, ridx, hidx)
+        else:
+            def rows(x):
+                for i, st in enumerate(x.shards):
+                    le.shard_rows_kernel(st, i * x.per, ridx, hidx)
+        timed(f"window_rows, the first window's rows, {what}", rows,
+              lambda: cs.mesh_restore(end, snap), reps=10)
+        timed(f"the first window's 12 outputs pulled and assembled, "
+              f"{what}", lambda _=None: out[2].start_pull()(), lambda: None,
+              reps=10, device=False)
         torch.cuda.empty_cache()
     vis_times(cs, dev, timed)
 
