@@ -15,7 +15,9 @@ process the corpus phase starts, ``--analyze-held FIXTURE STATS`` the
 same with K6 and K7 held against their plain versions, ``--serve DIR
 STATS`` the daemon process of the daemon phase, ``--corpus-rank STATS
 ARGS`` a rank of the corpus-mode phase. ``--cards``, on a machine with
-two or more cards, is ``check_cards`` alone.)
+two or more cards, is ``check_cards`` alone; ``--sigterm`` is
+``check_sigterm`` alone: the daemon's SIGTERM drain and resume, mid-
+request and mid-pack, with ``myth serve`` on the card.)
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -99,8 +101,8 @@ Phases (any failure exits non-zero and prints no result):
    contract through SymExecWrapper at 4096 lanes with the engine
    meshed (its launches, counted from a reset, are the meshed main
    path's: K1's phases, one ``sym_decide`` and one ``sym_exec`` launch
-   a K1 step on the card, its fork rows, K2-K4, K3's remap and K4's
-   rows a shard), its open states equal to the unsharded engine's and
+   a K1 step on the card, its fork rows, K2-K4, K3's remap a window and
+   K4's rows, each a launch a device), its open states equal to the unsharded engine's and
    the host-only run's, both explores timed, and the new kernels'
    times; the concolic command: ``python3 -m mythril_tpu_torch
    concolic`` flips the branch of tests/test_concolic.py's contract
@@ -3202,29 +3204,50 @@ class MeshSpy:
     and escalation retires; with ``hold`` each is held bit for bit (its
     outputs, the whole batch after it, the visited bitmap) against the
     same exchange over a CPU copy of its input, every phase there the
-    plain version; with ``keep`` the first window's input and outputs
-    and K1's first input are kept (device copies) for the timings."""
+    plain version; with ``keep`` the first window's input and outputs,
+    K1's first input and K3's remap's first input (the shards with their
+    provisional sids, and the canon) are kept (device copies) for the
+    timings."""
 
     def __init__(self, hold=False, keep=False):
         self.hold, self.keep = hold, keep
         self.windows = self.retires = self.err = 0
         self.k1_steps = self.k1_decides = self.k1_fork_steps = 0
-        self.first = self.k1 = None
+        self.first = self.k1 = self.remap_in = self.canon = None
 
     def __enter__(self):
         from mythril_tpu_torch.laser import lane_engine as le
         from mythril_tpu_torch.ops import symstep
+        from mythril_tpu_torch.parallel import mesh
 
-        self.le, self.sym = le, symstep
+        self.le, self.sym, self.mesh = le, symstep, mesh
+        # K3's remap input is caught in every tree's form
+        # (tools/window_turns.py imports older ones): the shards once
+        # the window has copied its record sids back (mesh.scatter_home,
+        # which the window imports at each call), and K3's canon
         self.orig = (le.window_exec_mesh, le.retire_rows_mesh,
-                     symstep.sym_run_mesh)
+                     symstep.sym_run_mesh, le.dedup_kernel,
+                     mesh.scatter_home)
         le.window_exec_mesh, le.retire_rows_mesh = self.window, self.retire
         symstep.sym_run_mesh = self.run
+        le.dedup_kernel, mesh.scatter_home = self.dedup, self.scatter
         return self
 
     def __exit__(self, *exc):
         (self.le.window_exec_mesh, self.le.retire_rows_mesh,
-         self.sym.sym_run_mesh) = self.orig
+         self.sym.sym_run_mesh, self.le.dedup_kernel,
+         self.mesh.scatter_home) = self.orig
+
+    def dedup(self, *a, **kw):
+        canon = self.orig[3](*a, **kw)
+        if self.keep and self.remap_in is None:
+            self.canon = canon.clone()
+        return canon
+
+    def scatter(self, ss, names):
+        self.orig[4](ss, names)
+        if self.keep and self.remap_in is None and "dlog_sid" in names:
+            self.remap_in = (mesh_clone(ss), self.canon)
 
     def run(self, codes, ss, *a, **kw):
         if self.keep and self.k1 is None:
@@ -3280,6 +3303,45 @@ class MeshSpy:
         return out
 
 
+class RemapHold:
+    """While installed (``with``): every meshed window's K3 remap
+    (``lane_engine.mesh_remap``) held bit for bit against its plain
+    version on CPU copies of its input (each shard's four sid planes and
+    the canon, copied before the call); counts the calls and the
+    provisional sids they met."""
+
+    def __enter__(self):
+        from mythril_tpu_torch.laser import lane_engine as le
+
+        self.le, self.orig = le, le.mesh_remap
+        self.calls = self.prov = 0
+        le.mesh_remap = self.remap
+        return self
+
+    def __exit__(self, *exc):
+        self.le.mesh_remap = self.orig
+
+    def remap(self, ss, canon):
+        import torch
+
+        le = self.le
+        before = [{f: getattr(st, f).cpu() for f in le.REMAP_PLANES}
+                  for st in ss.shards]
+        table = canon.cpu()
+        out = self.orig(ss, canon)
+        for i, (st, planes) in enumerate(zip(ss.shards, before)):
+            d_recs = st.dlog_op.shape[1]
+            for f, x in planes.items():
+                self.prov += int((x < 0).sum())
+                if not torch.equal(getattr(st, f).cpu(),
+                                   le._lookup(table, x, d_recs)):
+                    raise AssertionError(f"K3's remap, window "
+                                         f"{self.calls}: shard {i} ({st.device}) "
+                                         f"{f} differs from the plain version")
+        self.calls += 1
+        return out
+
+
 def mesh_engine(mesh):
     """``pick_mesh`` answering ``mesh`` (None: the policy's answer):
     the card has one device, so the meshed engine's sweeps are asked
@@ -3302,7 +3364,7 @@ def mesh_engine(mesh):
 
 def mesh_phase_times(spy, report, launches):
     """Each new kernel of the meshed window (K1's phases and its fork
-    rows a device, K3's remap a shard, K4's rows a device) on the main
+    rows a device, K3's remap and K4's rows a device) on the main
     path's first window (K1's phases at its first forking step), each
     timed as one whole call over all shards: wrapper call (CUDA events),
     device (queued behind a spin kernel), plain version (the same
@@ -3441,22 +3503,36 @@ def mesh_phase_times(spy, report, launches):
         "sym_fork_rows": (timed_forks, forks_setup, plain_forks,
                           fork_bytes, None, None),
     }
-    # K3's remap and K4's rows a shard, on the first window's end state
+    # K3's remap (a launch a device) on the main path's first window's
+    # input to it, whose sid planes still hold this window's provisional
+    # sids; K4's rows on that window's end state
     before, wcodes, i32b, u8b, rest, out = spy.first
     ss_end = out[0]
-    home_end = ss_end.home
-    canon = le.dedup_kernel(home_end, write_sids=False)
     ridx, hidx = out[2].home[4], out[2].home[8]
     end = mesh_clone(ss_end)
-    cend = mesh_to_cpu(end)
+    remap_src, canon = spy.remap_in
+    sids = [getattr(st, f) for st in remap_src.shards
+            for f in le.REMAP_PLANES]
+    prov = torch.cat([x[x < 0] for x in sids])
+    if not prov.numel():
+        raise AssertionError("K3's remap: the first window's input holds "
+                             "no provisional sid")
+    remap_in = mesh_clone(remap_src)
+    cpu_in = mesh_to_cpu(remap_in)
     t0 = time.perf_counter()
-    for i, st in enumerate(cend.shards):
-        cend.shards[i] = le.remap_shard_plain(st, canon.cpu())
+    le.mesh_remap_plain(cpu_in, canon.cpu())
     plain_remap = (time.perf_counter() - t0) * 1e3
-    for st in end.shards:
-        le.remap_shard_kernel(st, canon)
-    err = max(err, same_state(to_cpu(end.lanes()), cend.lanes(),
-                              "K3's remap a shard"))
+    before_remap = _build.LAUNCHES["window_remap"]
+    le.mesh_remap_kernel(remap_in, canon)
+    if _build.LAUNCHES["window_remap"] - before_remap != 1:
+        raise AssertionError("K3's remap over one card's shards: not one "
+                             "launch")
+    err = max(err, same_state(to_cpu(remap_in.lanes()), cpu_in.lanes(),
+                              "K3's remap, a launch a device"))
+    log(f"  window_remap on the first window's input: {prov.numel()} "
+        f"provisional sids ({prov.unique().numel()} distinct) in "
+        f"{sum(x.numel() for x in sids)} words, one launch, equal to the "
+        f"plain version")
     plain_in = mesh_to_cpu(end)
     t0 = time.perf_counter()
     plain_end, prow = le.mesh_rows_plain(plain_in, ridx.cpu(), hidx.cpu())
@@ -3481,13 +3557,21 @@ def mesh_phase_times(spy, report, launches):
     log(f"  a meshed window's 12 outputs pulled and assembled on the host "
         f"(MeshOutputs.start_pull()()): median {pull_ms:.4f} ms of 5")
     st0 = end.shards[0]
-    sid_bytes = 4 * n * (st0.stack.shape[1] + 2 * st0.skeys.shape[1]
-                         + st0.mlog_off.shape[1])
+    # the four sid planes read once, each provisional sid written, the
+    # canon's entry of each distinct one read
+    remap_bytes = 4 * (sum(x.numel() for x in sids) + prov.numel()
+                       + prov.unique().numel())
     row_out = sum(x.nbytes for x in prow)
 
-    def remap_all(_=None):
-        for st in end.shards:
-            le.remap_shard_kernel(st, canon)
+    def remap_all(x):
+        le.mesh_remap_kernel(x, canon)
+
+    def remap_setup():
+        """the input restored: the provisional sids back in place"""
+        for a, b in zip(remap_in.shards, remap_src.shards):
+            for f in le.REMAP_PLANES:
+                getattr(a, f).copy_(getattr(b, f))
+        return remap_in
 
     def rows_all(x):
         le.mesh_rows_kernel(x, ridx, hidx)
@@ -3530,8 +3614,8 @@ def mesh_phase_times(spy, report, launches):
             st.status.index_fill_(0, real, S.DEAD)
 
     rows.update({
-        "window_remap": (remap_all, None, plain_remap, sid_bytes, None,
-                         None),
+        "window_remap": (remap_all, remap_setup, plain_remap, remap_bytes,
+                         None, None),
         "window_rows": (rows_all, rows_setup, plain_rows, 2 * row_out,
                         None, rows_library),
     })
@@ -3570,8 +3654,8 @@ def check_mesh_engine(dev, card, report, host_open=None):
     k=12 contract through the port's SymExecWrapper at MAIN_LANES lanes
     with the engine over MESH_SHARDS shards (counts reset before, read
     after: K1's phases, a launch each a K1 step, its fork rows a launch
-    a forking step, K2, K3 and its remap, K4, its rows a launch a window
-    or escalation retire, each launched), its open states
+    a forking step, K2, K3, its remap a launch a window, K4, its rows a
+    launch a window or escalation retire, each launched), its open states
     equal to the unsharded engine's (run just before it, timed) and to
     the host-only run's; then the new kernels' times on its first
     window. Returns the main path's launches."""
@@ -3666,13 +3750,15 @@ def check_mesh_engine(dev, card, report, host_open=None):
                              f"sym_decide and {launches['sym_exec']} "
                              f"sym_exec launches for {spy.k1_steps} K1 "
                              f"steps ({spy.k1_decides} decides)")
-    # and one fork-rows launch a forking K1 step, one rows launch a
-    # window or escalation retire
+    # and one fork-rows launch a forking K1 step, one remap launch a
+    # window, one rows launch a window or escalation retire
     if launches["sym_fork_rows"] != spy.k1_fork_steps \
+            or launches["window_remap"] != spy.windows \
             or launches["window_rows"] != spy.windows + spy.retires:
         raise AssertionError(f"meshed main path: {launches['sym_fork_rows']}"
                              f" sym_fork_rows launches for "
                              f"{spy.k1_fork_steps} forking K1 steps, "
+                             f"{launches['window_remap']} window_remap and "
                              f"{launches['window_rows']} window_rows for "
                              f"{spy.windows} windows and {spy.retires} "
                              f"escalation retires")
@@ -3691,8 +3777,9 @@ def check_mesh_engine(dev, card, report, host_open=None):
         f"{stats['device_steps']} device steps, {spy.k1_steps} K1 steps "
         f"(one sym_decide and one sym_exec launch a step), "
         f"{spy.k1_fork_steps} forking (one sym_fork_rows launch each), "
-        f"{spy.windows} windows and {spy.retires} escalation retires "
-        f"(one window_rows launch each); explore "
+        f"{spy.windows} windows (one window_remap launch each) and "
+        f"{spy.retires} escalation retires (one window_rows launch each "
+        f"and a window's); explore "
         f"{wall:.3f} s "
         f"({paths / wall:.1f} paths/s), unsharded {wall_one:.3f} s "
         f"({paths / wall_one:.1f} paths/s) on {card}; launches "
@@ -5087,11 +5174,16 @@ def mesh_cards(devs):
     numpy's), with its row of the kernel table: call and device ms
     (every other card's bitmap, and card 1's alone: ``one_*``), the
     plain OR, the byte bound and ``bitwise_or_`` after a copy of each
-    source; the route of each pair is logged, the fork rows' too. The
-    sweep runs once more with the fork rows' route of a pair without
-    peer access (stage, copy, land) forced on every pair, each window
-    and retire held against the plain versions on a CPU copy of its
-    input (``MeshSpy``), its states and bitmap against card 0's."""
+    source; the route of each pair is logged, the fork rows' too; K3's
+    remap launched once a card a window. The sweep runs twice more, each
+    on a fresh batch (the pool emptied, so its windows compare with the
+    one card's fresh ones bit for bit): with K3's remap held in every
+    window against its plain version on CPU copies of its input
+    (``RemapHold``; the canon read over peer access), and with the route
+    of a pair without peer access (the fork rows staged, copied and
+    landed; the canon copied once a card) forced on every pair, each
+    window and retire held against the plain versions on a CPU copy of
+    its input (``MeshSpy``), its states and bitmap against card 0's."""
     from copy import deepcopy
 
     import numpy as np
@@ -5123,6 +5215,7 @@ def mesh_cards(devs):
 
     le.window_exec_mesh = spy(orig[0], "mesh")
     le.window_exec = spy(orig[1], "one")
+    le._STATE_POOL.clear()
     try:
         _build.reset_launches()
         t0 = time.perf_counter()
@@ -5147,6 +5240,12 @@ def mesh_cards(devs):
         same_outputs(a, b, f"meshed window {w} over {len(devs)} cards")
     if list(map(sig, got)) != list(map(sig, want)):
         raise AssertionError("meshed engine over the cards: other states")
+    remaps = launches.get("window_remap", 0)
+    if remaps != len(devs) * len(outs["mesh"]):
+        raise AssertionError(f"meshed engine over {len(devs)} cards: "
+                             f"{remaps} window_remap launches for "
+                             f"{len(outs['mesh'])} windows (one a card a "
+                             f"window)")
     vis, vis_one = eng.visited_by_code[code], one.visited_by_code[code]
     if not vis.any() or not np.array_equal(vis, vis_one):
         raise AssertionError(f"meshed engine over the cards: visited "
@@ -5160,7 +5259,51 @@ def mesh_cards(devs):
                    for (dst, src), r in sorted(S._VIS_ROUTES.items())}
     log(f"cards: fork rows over {len(devs)} cards: "
         f"{launches.get('sym_fork_rows', 0)} sym_fork_rows launches, the "
-        f"route of each pair {fork_routes}")
+        f"route of each pair {fork_routes}; window_remap {remaps} "
+        f"launches, one a card a window, the canon read by the same "
+        f"routes")
+
+    def fresh_sweep(key, hold):
+        """The sweep again on a fresh batch (the pool emptied: a pooled
+        batch carries the first sweep's steps in its step columns, as
+        the JAX package's does), its windows recorded under ``key`` and
+        held to the one card's, which ran on a fresh batch too; returns
+        (engine, states, launches)."""
+        le._STATE_POOL.clear()
+        _build.reset_launches()
+        with hold:
+            inner = le.window_exec_mesh
+            le.window_exec_mesh = spy(inner, key)
+            try:
+                e = le.LaneEngine(n_lanes=MAIN_LANES, mesh=Mesh(devs))
+                states = e.explore(code, deepcopy(entries))
+            finally:
+                le.window_exec_mesh = inner
+        if len(outs[key]) != len(outs["one"]):
+            raise AssertionError(f"{key}: {len(outs[key])} windows, one "
+                                 f"card {len(outs['one'])}")
+        for w, (a, b) in enumerate(zip(outs[key], outs["one"])):
+            same_outputs(a, b, f"{key} window {w} over {len(devs)} cards")
+        got_launches = dict(_build.LAUNCHES)
+        if got_launches["window_remap"] != len(devs) * len(outs[key]):
+            raise AssertionError(f"{key}: {got_launches['window_remap']} "
+                                 f"window_remap launches for "
+                                 f"{len(outs[key])} windows")
+        return e, states, got_launches
+
+    # K3's remap in every window held against its plain version, the
+    # canon read over peer access where the pair has it
+    outs["held"] = []
+    rh = RemapHold()
+    _, got_h, _ = fresh_sweep("held", rh)
+    if list(map(sig, got_h)) != list(map(sig, want)) or rh.calls != len(
+            outs["held"]) or not rh.prov:
+        raise AssertionError(f"remap held: {rh.calls} calls for "
+                             f"{len(outs['held'])} windows, {rh.prov} "
+                             f"provisional sids, or other states")
+    log(f"cards: window_remap held in each of {rh.calls} windows "
+        f"({rh.prov} provisional sids) against its plain version on CPU "
+        f"copies, one launch a card a window, the windows the one card's")
     # the route of a pair with no peer access, forced on every pair of
     # distinct cards: each source card stages its forks' rows, each
     # destination card gets them in one copy a run of ranks (vis_or's
@@ -5168,12 +5311,11 @@ def mesh_cards(devs):
     # against the plain versions on a CPU copy of its input (MeshSpy),
     # the states and the visited bitmap the one card's
     S.vis_route = lambda dst, src: "local" if dst == src else "copy"
+    outs["staged"] = []
+    held = MeshSpy(hold=True)
     try:
-        _build.reset_launches()
-        with MeshSpy(hold=True) as held:
-            eng_st = le.LaneEngine(n_lanes=MAIN_LANES, mesh=Mesh(devs))
-            got_st = eng_st.explore(code, deepcopy(entries))
-        staged = _build.LAUNCHES["sym_fork_rows"]
+        eng_st, got_st, staged_launches = fresh_sweep("staged", held)
+        staged = staged_launches["sym_fork_rows"]
     finally:
         S.vis_route = vis_route
     if list(map(sig, got_st)) != list(map(sig, want)) or not np.array_equal(
@@ -5261,6 +5403,282 @@ def mesh_cards(devs):
     log(f"cards: {json.dumps(row)}")
 
 
+# ---------------------------------------------------------------------------
+# --sigterm: the daemon's SIGTERM drain and resume on the card
+# ---------------------------------------------------------------------------
+
+def fork_tree_code(k=4):
+    """tests/test_checkpoint_live.py's ``_fork_tree_code``: k
+    sequential symbolic branches with SSTOREs and an assert-style
+    INVALID tail (the exceptions module flags the INVALID)."""
+    import random
+
+    from mythril_tpu_torch.support.contracts import _OP as op, _push
+
+    rng = random.Random(0)
+    c = bytearray(_push(0))
+    for i in range(k):
+        c += _push(i) + bytes([op["CALLDATALOAD"]])
+        c += _push(1) + bytes([op["AND"], op["ISZERO"]])
+        j = len(c)
+        c += _push(0, 2) + bytes([op["JUMPI"]])
+        c += _push(rng.randrange(1, 200)) + bytes([op["ADD"], op["DUP1"]])
+        c += _push(i) + bytes([op["SSTORE"]])
+        c[j + 1:j + 3] = len(c).to_bytes(2, "big")
+        c += bytes([op["JUMPDEST"]])
+    c += bytes([op["POP"]])
+    c += _push(31) + bytes([op["CALLDATALOAD"]])
+    c += _push(0xDEADBEEF, 4) + bytes([op["EQ"]])
+    j = len(c)
+    c += _push(0, 2) + bytes([op["JUMPI"]])
+    c += bytes([op["STOP"]])
+    c[j + 1:j + 3] = len(c).to_bytes(2, "big")
+    c += bytes([op["JUMPDEST"], 0xFE])
+    return bytes(c)
+
+
+def sigterm_resume(tmp, name, env, requests, settle_s):
+    """A daemon drained by SIGTERM and restarted, as the slow CPU tests
+    drive it, with ``myth serve`` on the card (``--serve``, a process
+    each, their output into one log): ``requests`` ({id: request
+    fields}) each submitted from a thread of its own, 0.2 s apart;
+    ``settle_s`` after every one has started, SIGTERM, which must end
+    the daemon with a non-zero exit (it re-raises the signal once its
+    queue is persisted); then a second daemon on the same directory with
+    ``MTPU_PATH_DELAY=0`` until every request has its report, its
+    counters read, shut down. Returns (the persisted queue, the ids of
+    the interrupted requests whose checkpoint (``resume.ckpt``) was on
+    disk after the SIGTERM, {id: report row}, the restarted daemon's
+    counters, the SIGTERM exit, seconds)."""
+    import signal
+    import threading
+
+    from mythril_tpu_torch.daemon import SOCKET_NAME
+    from mythril_tpu_torch.daemon.client import (
+        DaemonClient, DaemonError, wait_ready,
+    )
+
+    out = os.path.join(tmp, name, "serve")
+    os.makedirs(out)
+    log_path = os.path.join(tmp, name, "daemon.log")
+    sock = os.path.join(out, SOCKET_NAME)
+    t0 = time.perf_counter()
+
+    def served_log():
+        with open(log_path, errors="replace") as f:
+            return f.read()[-3000:]
+
+    def serve(delay):
+        with open(log_path, "a") as logf:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                 "--serve", out, os.path.join(tmp, name, "launches.json")],
+                cwd=HERE, stdout=logf, stderr=subprocess.STDOUT,
+                env=dict(env, MTPU_PATH_DELAY=delay))
+        DAEMONS.append(proc)
+        if not wait_ready(sock, 300):
+            raise AssertionError(f"{name}: daemon never ready:\n"
+                                 f"{served_log()}")
+        return proc
+
+    proc = serve(env["MTPU_PATH_DELAY"])
+    events = {rid: [] for rid in requests}
+
+    def submit(rid):
+        try:
+            for ev in DaemonClient(sock).submit(id=rid, **requests[rid]):
+                events[rid].append(ev)
+        except (DaemonError, OSError) as e:
+            events[rid].append({"event": "hangup", "error": str(e)})
+
+    threads = [threading.Thread(target=submit, args=(rid,))
+               for rid in requests]
+    for t in threads:
+        t.start()
+        time.sleep(0.2)
+    deadline = time.monotonic() + 180
+    while not all(any(e.get("event") == "started" for e in evs)
+                  for evs in events.values()):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{name}: requests never all started: "
+                                 f"{events}")
+        time.sleep(0.05)
+    time.sleep(settle_s)
+    proc.send_signal(signal.SIGTERM)
+    rc = proc.wait(timeout=120)
+    for t in threads:
+        t.join(timeout=30)
+    if rc == 0:
+        raise AssertionError(f"{name}: daemon exited 0 on SIGTERM:\n"
+                             f"{served_log()}")
+    with open(os.path.join(out, "daemon_queue.json")) as f:
+        queue = json.load(f)
+    ckpts = [r["id"] for r in queue["interrupted"] if os.path.exists(
+        os.path.join(out, "requests", r["id"], "resume.ckpt"))]
+    proc2 = serve("0")
+    client = DaemonClient(sock)
+    rows, deadline = {}, time.monotonic() + 300
+    while len(rows) < len(requests):
+        for rid in requests:
+            if rid not in rows:
+                row = client.result(rid)
+                if row.get("event") == "report":
+                    rows[rid] = row
+                elif row.get("event") not in ("pending", "unknown"):
+                    raise AssertionError(f"{name}: request {rid}: {row}")
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{name}: no report for "
+                                 f"{sorted(set(requests) - set(rows))}")
+        time.sleep(0.25)
+    counters = client.ping()["counters"]
+    client.shutdown()
+    if proc2.wait(timeout=120) != 0:
+        raise AssertionError(f"{name}: restarted daemon exit "
+                             f"{proc2.returncode}:\n{served_log()}")
+    return queue, ckpts, rows, counters, rc, time.perf_counter() - t0
+
+
+def sigterm_mid_request(tmp):
+    """tests/test_torch_daemon.py's ``TestSigtermDrainResume`` on the
+    card: SIGTERM 2.5 s after a request started (0.25 s a finished
+    path); the persisted queue holds it interrupted with its checkpoint;
+    the restarted daemon resumes it from the checkpoint, with the
+    uninterrupted one-shot run's issues (in this process, on the card).
+    Returns a summary."""
+    from mythril_tpu_torch.orchestration.mythril_analyzer import (
+        MythrilAnalyzer, reset_analysis_state,
+    )
+    from mythril_tpu_torch.orchestration.mythril_disassembler import (
+        MythrilDisassembler,
+    )
+    from mythril_tpu_torch.support.analysis_args import make_cmd_args
+
+    code_hex = fork_tree_code(k=4).hex()
+    queue, ckpts, rows, counters, rc, wall = sigterm_resume(
+        tmp, "request", dict(os.environ, MTPU_PATH_DELAY="0.25"),
+        {"tree": dict(code=code_hex, bin_runtime=True, timeout=300)}, 2.5)
+    if [r["id"] for r in queue["interrupted"]] != ["tree"] \
+            or ckpts != ["tree"]:
+        raise AssertionError(f"persisted queue {queue}, checkpoints "
+                             f"{ckpts}")
+    reset_analysis_state()
+    dis = MythrilDisassembler(eth=None)
+    address, _ = dis.load_from_bytecode(code_hex, bin_runtime=True)
+    base = MythrilAnalyzer(
+        disassembler=dis, cmd_args=make_cmd_args(execution_timeout=300),
+        strategy="bfs", address=address).fire_lasers(
+            modules=None, transaction_count=2)
+    row = rows["tree"]
+    got = sorted((i["swc-id"], i.get("address"), i.get("function"))
+                 for i in row["issues"])
+    want = sorted((i.swc_id, i.address, i.function)
+                  for i in base.issues.values())
+    resumed = counters.get("requests_resumed", 0)
+    if row.get("resumed") is not True or resumed < 1 or got != want \
+            or not want:
+        raise AssertionError(f"resumed request: resumed "
+                             f"{row.get('resumed')}, requests_resumed "
+                             f"{resumed}, issues {got} against the one-shot "
+                             f"run's {want}")
+    return dict(sigterm_exit=rc, issues=len(got), requests_resumed=resumed,
+                wall_s=round(wall, 1))
+
+
+def sigterm_mid_pack(tmp):
+    """tests/test_torch_wave_pack.py's ``TestSigtermMidPack`` on the
+    card: three requests packed into one wave (``MTPU_PACK=1``, 64
+    lanes, one transaction, 1 s a finished path), SIGTERM half a second
+    after all three started; the restarted daemon resumes each
+    interrupted member on its own, every member with its solo lane
+    analysis' issues (in this process, on the card). Returns a
+    summary."""
+    from mythril_tpu_torch.analysis.module.loader import ModuleLoader
+    from mythril_tpu_torch.laser import lane_engine as le
+    from mythril_tpu_torch.orchestration.mythril_analyzer import (
+        MythrilAnalyzer,
+    )
+    from mythril_tpu_torch.orchestration.mythril_disassembler import (
+        MythrilDisassembler,
+    )
+    from mythril_tpu_torch.support import contracts
+    from mythril_tpu_torch.support.analysis_args import make_cmd_args
+
+    codes = {"ra": contracts.build_fork_tree_contract(4, 1).hex(),
+             "rb": contracts.build_diamond_contract(5, dup_levels=0).hex(),
+             "rc": contracts.build_diamond_contract(3, dup_levels=0).hex()}
+    queue, ckpts, rows, _, rc, wall = sigterm_resume(
+        tmp, "pack", dict(os.environ, MTPU_PACK="1", MTPU_PATH_DELAY="1.0"),
+        {rid: dict(code=c, bin_runtime=True, timeout=300, tpu_lanes=64,
+                   transaction_count=1) for rid, c in codes.items()}, 0.5)
+    interrupted = {r["id"] for r in queue["interrupted"]}
+    if not interrupted or not interrupted <= set(codes):
+        raise AssertionError(f"persisted queue: {queue}")
+    issues = {}
+    for rid, code_hex in codes.items():
+        for m in ModuleLoader().get_detection_modules(None, None):
+            m.reset_module()
+            m.cache.clear()
+        dis = MythrilDisassembler(eth=None)
+        address, _ = dis.load_from_bytecode(code_hex, bin_runtime=True)
+        analyzer = MythrilAnalyzer(
+            disassembler=dis,
+            cmd_args=make_cmd_args(execution_timeout=120, tpu_lanes=64),
+            strategy="bfs", address=address)
+        le.PATH_HISTORY[bytes.fromhex(code_hex)] = 64
+        report = analyzer.fire_lasers(modules=None, transaction_count=1)
+        want = sorted((i.swc_id, i.title, i.address)
+                      for i in report.issues.values())
+        got = sorted((i["swc-id"], i.get("title"), i.get("address"))
+                     for i in rows[rid]["issues"])
+        if got != want or (rid in interrupted
+                           and rows[rid].get("resumed") is not True):
+            raise AssertionError(f"request {rid}: issues {got} against "
+                                 f"the solo analysis' {want}, resumed "
+                                 f"{rows[rid].get('resumed')}")
+        issues[rid] = len(got)
+    return dict(interrupted=sorted(interrupted), checkpoints=ckpts,
+                sigterm_exit=rc,
+                packed_on_resume=sorted(r for r in rows
+                                        if rows[r].get("packed")),
+                issues=issues, wall_s=round(wall, 1))
+
+
+def check_sigterm() -> int:
+    """``--sigterm``: the daemon's two SIGTERM scenarios of the slow CPU
+    tests with ``myth serve`` on the card (``sigterm_mid_request``,
+    ``sigterm_mid_pack``), each daemon a process of its own."""
+    import tempfile
+
+    import torch
+
+    from mythril_tpu_torch import _build, native
+
+    card = smi()
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    native.get_lib()
+    log(f"sigterm: {len(built)} sources and the native library built in "
+        f"{time.perf_counter() - t0:.1f} s on {card}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sigterm_")
+    try:
+        t = time.perf_counter()
+        one = sigterm_mid_request(tmp)
+        log(f"sigterm: mid-request drain and resume on the card: {one} "
+            f"({time.perf_counter() - t:.1f} s)")
+        t = time.perf_counter()
+        pack = sigterm_mid_pack(tmp)
+        log(f"sigterm: mid-pack drain and per-member resume on the card: "
+            f"{pack} ({time.perf_counter() - t:.1f} s)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(json.dumps({"sigterm": {"mid_request": one, "mid_pack": pack}}))
+    log(card)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def check_cards() -> int:
     """``--cards``: K10, K9 and the meshed engine on every card of a
     machine with two or more, each card's first launch past 48 KB of
@@ -5343,6 +5761,8 @@ def run() -> int:
     sys.path.insert(0, HERE)
     if sys.argv[1:] == ["--cards"]:
         return check_cards()
+    if sys.argv[1:] == ["--sigterm"]:
+        return check_sigterm()
     from mythril_tpu_torch import _build
 
     dev = torch.device("cuda", 0)

@@ -1370,6 +1370,76 @@ __global__ void k_mesh_rows(const Sym* __restrict__ tab, const __grid_constant__
   }
 }
 
+// K3's remap over a meshed batch (laser/lane_engine.mesh_remap): the
+// four persistent sid planes (ssid, sval_sid, skey_sid, mlog_sid) of
+// every shard this device holds through the batch's canon, one launch a
+// device. Block b takes shard held[b / first[4]] and, by the prefix
+// first[], plane k and tile t of it: REMAP_TILE 16-byte words, REMAP_VEC
+// a thread, their loads issued together before any lookup; the plane's
+// last tile also takes its 1-3 words past its last whole 16-byte word,
+// one a thread. A 16-byte word is stored back whole where one of its words is
+// provisional, and not at all otherwise: it was just read, so its sector
+// is in L2 and the store merges there without a read from HBM, and a
+// sector with no provisional sid stays clean. The table's planes are
+// 16-byte aligned (the wrapper checks it); the canon lookup clamps the
+// row as JAX's gather does (lookup).
+constexpr int REMAP_THREADS = 256;
+constexpr int REMAP_VEC = 4;
+constexpr int REMAP_TILE = REMAP_THREADS * REMAP_VEC;
+constexpr int MAX_REMAP_SHARDS = 64;
+
+struct MeshRemap {
+  int held[MAX_REMAP_SHARDS];
+  int first[5];  // each plane's first block in a shard's run; first[4]: a shard's blocks
+  long long len[4];  // each plane's words a shard
+};
+
+__device__ __forceinline__ int32_t* remap_plane(const Sym& s, int k) {
+  switch (k) {
+    case 0: return s.ssid;
+    case 1: return s.sval_sid;
+    case 2: return s.skey_sid;
+    default: return s.mlog_sid;
+  }
+}
+
+__global__ void __launch_bounds__(REMAP_THREADS)
+    k_mesh_remap(const Sym* __restrict__ tab, const __grid_constant__ MeshRemap a,
+                 const int32_t* __restrict__ canon, int gn, int R) {
+  const int per = a.first[4];
+  const int j = blockIdx.x / per;
+  const int r = blockIdx.x - j * per;
+  const int k = r < a.first[1] ? 0 : r < a.first[2] ? 1 : r < a.first[3] ? 2 : 3;
+  const long long t = r - a.first[k];
+  int32_t* p = remap_plane(tab[a.held[j]], k);
+  const long long len = a.len[k], nv = len / 4;
+  int4* pv = reinterpret_cast<int4*>(p);
+  const long long base = t * REMAP_TILE + threadIdx.x;
+  int4 w[REMAP_VEC];
+#pragma unroll
+  for (int u = 0; u < REMAP_VEC; ++u) {
+    const long long i = base + (long long)u * REMAP_THREADS;
+    if (i < nv) w[u] = pv[i];
+  }
+#pragma unroll
+  for (int u = 0; u < REMAP_VEC; ++u) {
+    const long long i = base + (long long)u * REMAP_THREADS;
+    if (i < nv && (w[u].x | w[u].y | w[u].z | w[u].w) < 0) {
+      w[u].x = lookup(canon, w[u].x, gn, R);
+      w[u].y = lookup(canon, w[u].y, gn, R);
+      w[u].z = lookup(canon, w[u].z, gn, R);
+      w[u].w = lookup(canon, w[u].w, gn, R);
+      pv[i] = w[u];
+    }
+  }
+  // the plane's 1-3 words past its last whole 16-byte word: its last tile's
+  if (r == a.first[k + 1] - 1 && threadIdx.x < len - 4 * nv) {
+    const long long i = 4 * nv + threadIdx.x;
+    const int v = p[i];
+    if (v < 0) p[i] = lookup(canon, v, gn, R);
+  }
+}
+
 // _retire_rows: a warp a row; each row's lane marked DEAD by its warp
 // after the row (no gather reads the status)
 __global__ void k_retire_rows(const __grid_constant__ Sym s, const __grid_constant__ RowSet r) {
@@ -1797,25 +1867,29 @@ MTT_EXPORT int fork_table(void** flog, int fb, void* tab, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// K3's remap on a shard of a meshed window (laser/lane_engine): the
-// shard's four persistent sid planes through the whole batch's canon
-// (gn lanes x R), one pass over their concatenation.
-MTT_EXPORT int window_remap(void** planes, const int* dims, const void* canon, int gn,
-                            void* stream) {
-  const Sym s = make_sym(planes, dims);
-  RemapPlanes rp;
-  int32_t* ps[5] = {s.ssid, s.sval_sid, s.skey_sid, s.mlog_sid, s.ssid};
-  long long lens[5] = {(long long)s.n * s.D, (long long)s.n * s.S, (long long)s.n * s.S,
-                       (long long)s.n * s.MR, 0};
-  long long total = 0;
-  for (int k = 0; k < 5; ++k) {
-    rp.p[k] = ps[k];
-    rp.len[k] = lens[k];
-    total += lens[k];
+// K3's remap over a meshed batch (laser/lane_engine.mesh_remap), one
+// launch a device: tab, window_mesh_table's table on the current device;
+// held[0..nheld), the shards this device holds; dims, a shard's; canon,
+// the batch's (gn lanes x R), on this device or read over peer access.
+MTT_EXPORT int window_mesh_remap(const void* tab, const int* held, int nheld, const int* dims,
+                                 const void* canon, int gn, void* stream) {
+  if (nheld < 0 || nheld > MAX_REMAP_SHARDS) return (int)cudaErrorInvalidValue;
+  void* none[SYM_NFIELDS] = {};
+  const Sym s = make_sym(none, dims);
+  if (nheld == 0 || s.n <= 0 || gn <= 0 || s.R <= 0) return 0;
+  MeshRemap a;
+  for (int j = 0; j < nheld; ++j) a.held[j] = held[j];
+  const long long len[4] = {(long long)s.n * s.D, (long long)s.n * s.S, (long long)s.n * s.S,
+                            (long long)s.n * s.MR};
+  a.first[0] = 0;
+  for (int k = 0; k < 4; ++k) {
+    a.len[k] = len[k];
+    const long long tiles = (len[k] / 4 + REMAP_TILE - 1) / REMAP_TILE;
+    a.first[k + 1] = a.first[k] + (int)(len[k] > 0 ? std::max(tiles, 1LL) : 0);
   }
-  if (total > 0 && gn > 0 && s.R > 0)
-    k_canon_remap<<<std::min(nblocks_for(total, 256), 8192u), 256, 0, (cudaStream_t)stream>>>(
-        rp, total, (const int32_t*)canon, gn, s.R);
+  if (a.first[4] == 0) return 0;
+  k_mesh_remap<<<(unsigned)nheld * a.first[4], REMAP_THREADS, 0, (cudaStream_t)stream>>>(
+      (const Sym*)tab, a, (const int32_t*)canon, gn, s.R);
   return (int)cudaGetLastError();
 }
 

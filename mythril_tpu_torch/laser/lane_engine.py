@@ -669,7 +669,7 @@ _WINDOW_SIGS = {
     "retire_rows": [_P, _P, _P, _I, _P, _P, _P, _P, _P],
     "unique_table": [_P, _P, _P, _I, _P, _P, _P, _P, _P],
     "fork_table": [_P, _I, _P, _P],
-    "window_remap": [_P, _P, _P, _I, _P],
+    "window_mesh_remap": [_P, _P, _I, _P, _P, _I, _P],
     "window_sym_bytes": [],
     "window_mesh_table": [_P, _I, _P, _P],
     "window_mesh_rows": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P],
@@ -1182,13 +1182,15 @@ def mesh_rows_plain(ss, ridx, hidx, floors=RETIRE_FLOORS):
     return ss, MeshRows([rows], [0] * d, ridx, hidx, m)
 
 
-class _RowsPlan:
-    """``window_mesh_rows``' arguments over a meshed batch, held by the
-    batch (``SymShards.rows_plan``) for its life: a table a device
-    (``csrc/window.cu`` ``window_mesh_table``: a ``Sym`` a shard of the
-    mesh, null for one the device does not hold; built and copied
-    once), the shards' dims, the part (device) of each shard, and by
-    call shape the output's sections, bytes and the floors' C array."""
+class _BatchPlan:
+    """The meshed batch's kernel arguments, held by the batch
+    (``SymShards.plan``) for its life: a table a device (``csrc/window.cu``
+    ``window_mesh_table``: a ``Sym`` a shard of the mesh, null for one
+    the device does not hold; built and copied once) with the shards
+    that device holds, the shards' dims, the part (device) of each shard,
+    and for ``window_mesh_rows`` by call shape the output's sections,
+    bytes and the floors' C array. ``mesh_rows_kernel`` and
+    ``mesh_remap_kernel`` launch over it."""
 
     def __init__(self, ss):
         from ..parallel.mesh import device_groups
@@ -1210,11 +1212,20 @@ class _RowsPlan:
                          "window_mesh_table")
             tab = host.to(dev, non_blocking=True)
             self.groups.append((dev, tab, ctypes.c_void_p(tab.data_ptr()),
-                                host))
+                                host, _build.int_array(idx)))
         st0 = ss.shards[0]
         self.resume = (min(RESUME_MLOG, st0.mlog_off.shape[1]),
                        min(RESUME_MEM, st0.memory.shape[1]))
         self.st0, self.shapes = st0, {}
+        bad = [f"{f} of shard {i}" for i, st in enumerate(ss.shards)
+               for f in REMAP_PLANES if getattr(st, f).data_ptr() % 16]
+        if bad:
+            raise ValueError(f"window_mesh_remap: {bad} not 16-byte "
+                             f"aligned")
+        # the home device's event after K3, and each other card's after
+        # its remap (``mesh_remap_kernel``)
+        self.events = {dev: torch.cuda.Event() for dev, *_ in self.groups} \
+            if len(self.groups) > 1 else None
 
     def shape(self, rk, hk, floors):
         """(byte offsets of the six arrays, sections, bytes, floors)"""
@@ -1233,6 +1244,13 @@ class _RowsPlan:
         return self.shapes[key]
 
 
+def batch_plan(ss) -> _BatchPlan:
+    """The batch's plan (``SymShards.plan``), made at its first use."""
+    if ss.plan is None:
+        ss.plan = _BatchPlan(ss)
+    return ss.plan
+
+
 def mesh_rows_kernel(ss, ridx, hidx, floors=RETIRE_FLOORS):
     """``mesh_rows_plain`` on the card (``csrc/window.cu``
     ``window_mesh_rows``): one launch a device over the shards it holds,
@@ -1242,14 +1260,12 @@ def mesh_rows_kernel(ss, ridx, hidx, floors=RETIRE_FLOORS):
     ``hidx`` stay on the card (a device that is not theirs reads a copy
     made there); ``hidx`` may be empty (an escalation retire)."""
     _build, lib = _kw()
-    if ss.rows_plan is None:
-        ss.rows_plan = _RowsPlan(ss)
-    plan = ss.rows_plan
+    plan = batch_plan(ss)
     rk, hk = ridx.shape[0], hidx.shape[0]
     offs, sections, nbytes, fl = plan.shape(rk, hk, tuple(floors))
     d, n = len(ss.shards), ss.n
     parts = []
-    for dev, _, tab, _ in plan.groups:
+    for dev, _, tab, _, _ in plan.groups:
         r = ridx if ridx.device == dev else ridx.to(dev)
         h = hidx if hidx.device == dev else hidx.to(dev)
         for t, name in ((r, "ridx"), (h, "hidx")):
@@ -1277,29 +1293,73 @@ def mesh_rows(ss, ridx, hidx, floors=RETIRE_FLOORS):
     return fn(ss, ridx, hidx, floors)
 
 
+#: a shard's persistent sid planes, which K3's remap rewrites
+REMAP_PLANES = ("ssid", "sval_sid", "skey_sid", "mlog_sid")
+
+
 def remap_shard_plain(st: SymLaneState, canon) -> SymLaneState:
     """K3's remap on a shard in plain PyTorch: its four persistent sid
     planes through the whole batch's canon."""
     d_recs = st.dlog_op.shape[1]
-    return st.replace(
-        ssid=_lookup(canon, st.ssid, d_recs),
-        sval_sid=_lookup(canon, st.sval_sid, d_recs),
-        skey_sid=_lookup(canon, st.skey_sid, d_recs),
-        mlog_sid=_lookup(canon, st.mlog_sid, d_recs))
+    return st.replace(**{f: _lookup(canon, getattr(st, f), d_recs)
+                         for f in REMAP_PLANES})
 
 
-def remap_shard_kernel(st: SymLaneState, canon) -> SymLaneState:
-    """``remap_shard_plain`` on the card (``csrc/window.cu``
-    ``window_remap``), in place, one launch."""
+def mesh_remap_plain(ss, canon):
+    """K3's remap over a meshed batch in plain PyTorch: each shard's four
+    persistent sid planes through the whole batch's canon
+    (``remap_shard_plain``). Returns ss."""
+    for i, st in enumerate(ss.shards):
+        ss.shards[i] = remap_shard_plain(st, canon)
+    return ss
+
+
+def mesh_remap_kernel(ss, canon):
+    """``mesh_remap_plain`` on the card (``csrc/window.cu``
+    ``window_mesh_remap``), in place: one launch a device over the
+    shards it holds, through the batch's plan. ``canon`` is K3's, on the
+    home device: across cards each other card's stream waits on an
+    event recorded on the home device's after K3, and reads it in place
+    over peer access (``symstep.vis_route``) or from one copy a card;
+    the home device's stream then waits on each other card's remap (the
+    canon stays live until they have read it). Returns ss."""
     _build, lib = _kw()
-    planes, dims = symstep.state_args(st)
-    canon = canon.to(st.device).contiguous()
+    plan = batch_plan(ss)
+    home = ss.home.device
+    if not (canon.device == home and canon.dim() == 2
+            and canon.shape == (ss.n, plan.dims[6])):
+        raise ValueError(f"mesh_remap: canon {tuple(canon.shape)} on "
+                         f"{canon.device}, ({ss.n}, {plan.dims[6]}) on "
+                         f"{home} wanted")
     _build.need_cuda(canon, torch.int32, "canon")
-    rc = lib.window_remap(planes, dims, canon.data_ptr(), canon.shape[0],
-                          _build.stream(st.device))
-    _build.LAUNCHES["window_remap"] += 1
-    _build.check(lib, rc, "window_remap")
-    return st
+    ev = plan.events
+    if ev is not None:
+        ev[home].record(torch.cuda.current_stream(home))
+    for dev, _, tab, _, held in plan.groups:
+        src = canon
+        if dev != home:
+            if symstep.vis_route(dev, home) == "copy":
+                src = canon.to(dev)
+            else:
+                torch.cuda.current_stream(dev).wait_event(ev[home])
+        with symstep._current(dev):
+            rc = lib.window_mesh_remap(tab, held, len(held), plan.dims,
+                                       src.data_ptr(), ss.n,
+                                       _build.stream(dev))
+        _build.LAUNCHES["window_remap"] += 1
+        _build.check(lib, rc, "window_mesh_remap")
+        if dev != home:
+            ev[dev].record(torch.cuda.current_stream(dev))
+            torch.cuda.current_stream(home).wait_event(ev[dev])
+    return ss
+
+
+def mesh_remap(ss, canon):
+    """K3's remap over a meshed batch: the plain version on CPU shards,
+    the kernel on a card's. Returns ss."""
+    fn = mesh_remap_plain if ss.home.device.type == "cpu" \
+        else mesh_remap_kernel
+    return fn(ss, canon)
 
 
 class MeshRows(Sequence):
@@ -1389,14 +1449,14 @@ def window_exec_mesh(ss, codes, i32buf, u8buf, exec_table, taint_table,
     free-slot stack and counts go to the home batch), ``sym_run_mesh``
     (K1 a shard), K3 once at home over the record planes gathered there
     (``mesh.gather_home``: its canon orders records by global step over
-    every lane) with the rewritten record sids copied back and each
-    shard's sid planes remapped through that canon (``window_remap`` a
-    shard), K4 at home over the gathered selection and counter planes
-    (the selections in global lane order, the counters, unique-record
-    and fork tables) and its retire and resume rows in one meshed rows
-    call (``mesh_rows``: a launch a device, which also marks the retired
-    lanes DEAD). Each phase takes the plain version on a CPU shard and
-    the kernel on a CUDA one, on the shard's device.
+    every lane) with the rewritten record sids copied back and every
+    shard's sid planes remapped through that canon (``mesh_remap``: a
+    launch a device), K4 at home over the gathered selection and counter
+    planes (the selections in global lane order, the counters,
+    unique-record and fork tables) and its retire and resume rows in one
+    meshed rows call (``mesh_rows``: a launch a device, which also marks
+    the retired lanes DEAD). Each phase takes the plain version on a CPU
+    shard and the kernel on a CUDA one, on the shard's device.
     ``codes``: {device: compiled code}; the buffers are host arrays.
     Returns (ss, visited, MeshOutputs)."""
     from ..parallel.mesh import gather_home, scatter_home
@@ -1428,12 +1488,7 @@ def window_exec_mesh(ss, codes, i32buf, u8buf, exec_table, taint_table,
         with _on(ss.home.device):
             canon = dedup_kernel(ss.home, write_sids=True)
     scatter_home(ss, ("dlog_sid",))
-    for i, st in enumerate(ss.shards):
-        if st.device.type == "cpu":
-            ss.shards[i] = remap_shard_plain(st, canon)
-        else:
-            with _on(st.device):
-                remap_shard_kernel(st, canon)
+    mesh_remap(ss, canon)
     cc = codes[ss.home.device]
     if ss.home.device.type == "cpu":
         ss.home, outs = epilogue_plain(ss.home, cc, canon, budget,

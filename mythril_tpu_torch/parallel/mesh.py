@@ -782,14 +782,14 @@ class SymShards:
     planes what they read (``laser/lane_engine.window_exec_mesh``); the
     shards' own copies of those global planes are unused. A card's
     shards are written in place for the batch's life, never rebound, so
-    ``rows_plan`` (the meshed rows call's table of their planes,
-    ``lane_engine._RowsPlan``) is made at that call's first use and
-    kept."""
+    ``plan`` (the meshed kernels' table of their planes a device,
+    ``lane_engine._BatchPlan``: K3's remap and K4's rows) is made at its
+    first use and kept."""
 
     mesh: Mesh
     shards: list
     home: object
-    rows_plan: object = field(default=None, repr=False, compare=False)
+    plan: object = field(default=None, repr=False, compare=False)
 
     @property
     def n(self) -> int:

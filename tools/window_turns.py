@@ -68,8 +68,11 @@ as the group's functions take the arguments they take here) and
   or the fork-log copies a shard and a stage and a land a pair of
   shards); in a tree with the launch a shard each of the first three
   is its 8 or 4 launches (a copy and an event a shard in the whole
-  decide). K4's rows on the first window's end state (``window_rows``:
-  one call over the shards, or a launch a shard) and the host's pull
+  decide). K3's remap on the first window's input to it, its
+  provisional sids restored before each call (``window_remap``: one call
+  over the shards, a launch a device, or a launch a shard); K4's rows on
+  the first window's end state (``window_rows``: one call over the
+  shards, or a launch a shard) and the host's pull
   and assembly of that window's 12 outputs (``MeshOutputs``, a call
   time only). Then ``sym_vis_or`` ORing three bitmaps of the other
   cards (of card 0 on a one-card machine) into card 0's, and
@@ -519,6 +522,27 @@ def mesh_times(cs, dev, timed) -> None:
 
             timed(f"sym_fork_rows, the forking step's fork rows, {what}",
                   lambda call: call(), forks_ready, reps=10)
+        # K3's remap on the first window's input to it, its provisional
+        # sids restored before each call: one call over the shards (a
+        # launch a device), or a launch a shard
+        src, canon = spy.remap_in
+        rin = cs.mesh_clone(src)
+        if hasattr(le, "mesh_remap_kernel"):
+            def remap(x):
+                le.mesh_remap_kernel(x, canon)
+        else:
+            def remap(x):
+                for st in x.shards:
+                    le.remap_shard_kernel(st, canon)
+
+        def remap_ready(s=src, r=rin):
+            for a, b in zip(r.shards, s.shards):
+                for f in ("ssid", "sval_sid", "skey_sid", "mlog_sid"):
+                    getattr(a, f).copy_(getattr(b, f))
+            return r
+
+        timed(f"window_remap, the first window's remap, {what}", remap,
+              remap_ready, reps=20)
         # K4's rows on the first window's end state: one call over the
         # shards (a launch a device), or a launch a shard
         out = spy.first[5]
