@@ -25,7 +25,8 @@ Phases (any failure exits non-zero and prints no result):
    native solver library (``make``), print the card's name and power
    limit and the compiler's register/spill lines;
 2. kernel checks, bit for bit against the plain versions on the card:
-   ``bv256_apply`` for every op on seeded random and edge words; K0 over
+   ``bv256_apply`` for every op on ``bv256.DIV_EDGES`` (every path of
+   the division core) and on seeded random and edge words; K0 over
    a 4096-lane batch whose planes hold junk (and its library
    counterpart, a fill a plane); K1 over 64 steps of a seeded 4096-lane
    state with 1, 8 and 32 steps a read window, one launch a window, and
@@ -352,14 +353,70 @@ def same_outputs(o1, o2, what):
 # phase 2: kernel checks
 # ---------------------------------------------------------------------------
 
-#: rough 32-bit integer operations per word of each bv256 op (restoring
-#: division: 256 or 512 rounds of ~40 limb ops; exp: up to 512 products)
-_BV_OPS = {"div": 10240, "mod": 10240, "sdiv": 10400, "smod": 10400,
-           "addmod": 20480, "mulmod": 20600, "exp": 512 * 200,
-           "mul": 200, "mul_hi": 200}
+#: the least 32-bit integer operations a word of each bv256 op needs,
+#: whatever implements it (``bv_ops``): one a limb for the limb-wise
+#: ops (add, sub, neg, the compares, the bitwise ops; a shift or
+#: signextend one funnel shift or select a result limb), 1 for byte;
+#: a 32x32->64 digit product counts 2 (its low and high halves), so the
+#: low-half product is 36 of them, the low half of a square 20 (the 16
+#: cross products below 2^256 once, the 4 squares) and the full product 64
+_BV_LIMBWISE = 8
+_BV_MUL, _BV_SQR, _BV_MUL_FULL = 2 * 36, 2 * 20, 2 * 64
 
 
-def check_bv256(dev, report):
+def _digits32(x):
+    return (x.bit_length() + 31) // 32
+
+
+def _reduce_ops(num, d):
+    """Least work of num // d and num % d (num up to 512 bits): a compare
+    where d is 0 or above num, a shift and a mask where d is 2^k, else
+    schoolbook division's digit products, one a quotient digit and
+    divisor digit (a Knuth-D step's estimate and its multiply and
+    subtract), 2 operations each."""
+    if d == 0 or num < d:
+        return _BV_LIMBWISE
+    if d & (d - 1) == 0:
+        return 2 * _BV_LIMBWISE
+    n = _digits32(d)
+    return 2 * n * (_digits32(num) - n + 1)
+
+
+def bv_ops(op, a, b, c):
+    """The least integer operations of ``op`` on the words a, b, c
+    (Python ints), as the header's comment counts them."""
+    m = (1 << 256) - 1
+    if op == "mul":
+        return _BV_MUL
+    if op == "mul_hi":
+        return _BV_MUL_FULL
+    if op in ("div", "mod"):
+        return _reduce_ops(a, b)
+    if op in ("sdiv", "smod"):
+        sa, sb = a >> 255, b >> 255
+        negs = sa + sb + (sa != sb if op == "sdiv" else sa)
+        return _reduce_ops(-a & m if sa else a, -b & m if sb else b) + \
+            _BV_LIMBWISE * negs
+    if op == "addmod":
+        return _BV_LIMBWISE + _reduce_ops(a + b, c)
+    if op == "mulmod":
+        return _BV_MUL_FULL + _reduce_ops(a * b, c)
+    if op == "exp":
+        # 1 for e = 0, a shift for a base 0, 1 or 2^k; else square and
+        # multiply: bitlen(e) - 1 squarings, popcount(e) - 1 products
+        if b == 0:
+            return 1
+        if a & (a - 1) == 0:
+            return _BV_LIMBWISE
+        return _BV_SQR * (b.bit_length() - 1) + \
+            _BV_MUL * (bin(b).count("1") - 1)
+    return 1 if op == "byte" else _BV_LIMBWISE
+
+
+def bv256_words(dev):
+    """check_bv256's timed operands: three seeded (4096, 8) int32 limb
+    planes of random words, 30% of them one limb wide, every 7th an
+    edge value."""
     import numpy as np
     import torch
 
@@ -377,10 +434,31 @@ def check_bv256(dev, report):
             w[i] = bv256.int_to_limbs(edge[(i // 7) % len(edge)])
         return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(dev)
 
-    a, b, c = words(), words(), words()
-    total_k = total_p = total_d = nbytes = nops = 0.0
+    return words(), words(), words()
+
+
+def check_bv256(dev, report):
+    """Every bv256 op's test launch bit for bit against the plain
+    version on ``bv256.DIV_EDGES`` (untimed) and on ``bv256_words``;
+    each op's kernel, plain and device times there beside its bound
+    (``bv_ops`` of each word, or 4 words of bytes a word)."""
+    import torch
+
+    from mythril_tpu_torch.ops import bv256
+
+    edges = bv256.div_edge_planes(dev)
+    for op, (arity, _) in bv256.OPS.items():
+        args = edges[:arity]
+        if max_err(bv256.bv256_apply(op, *args),
+                   bv256.bv256_plain(op, *args)):
+            raise AssertionError(f"bv256 {op}: kernel differs from plain "
+                                 f"on DIV_EDGES")
+    a, b, c = bv256_words(dev)
+    ints = [[bv256.limbs_to_int(w) for w in x.cpu().numpy().view("uint32")]
+            for x in (a, b, c)]
+    total_k = total_p = total_d = total_b = 0.0
     err = 0
-    per_op = {}
+    per_op, by_ops = {}, 0.0
     for op, (arity, _) in bv256.OPS.items():
         args = (a, b, c)[:arity]
         got = bv256.bv256_apply(op, *args)
@@ -393,18 +471,21 @@ def check_bv256(dev, report):
         k_ms = cuda_ms(lambda: bv256.bv256_apply(op, *args), reps=5)
         p_ms = cuda_ms(lambda: bv256.bv256_plain(op, *args), reps=1)
         d_ms = device_ms(lambda: bv256.bv256_apply(op, *args))
-        per_op[op] = [round(k_ms, 4), round(p_ms, 3), d_ms]
+        nops = sum(bv_ops(op, *w) for w in zip(*ints))
+        b_ms, by = bound_ms(a.shape[0] * 32 * (arity + 1), nops)
+        per_op[op] = [round(k_ms, 4), round(p_ms, 3), d_ms, b_ms]
         total_d = None if d_ms is None or total_d is None else total_d + d_ms
         total_k += k_ms
         total_p += p_ms
-        nbytes += n * 32 * (arity + 1)
-        nops += n * _BV_OPS.get(op, 24)
-    bms, by = bound_ms(nbytes, nops)
-    log("bv256 per op [kernel ms, plain ms, device ms] at 4096 words:",
-        json.dumps(per_op))
+        total_b += b_ms
+        by_ops += b_ms if by == "operations" else 0.0
+    by = "operations" if by_ops >= total_b / 2 else "bytes"
+    log("bv256 per op [kernel ms, plain ms, device ms, bound ms] at "
+        f"{a.shape[0]} words:", json.dumps(per_op))
     report["bv256"] = dict(max_abs_err=err, ms=total_k, plain_ms=total_p,
-                           device_ms=total_d, bound_ms=bms, bound_by=by)
-    log(f"bv256: {len(per_op)} ops equal; kernel {total_k:.3f} ms, "
+                           device_ms=total_d, bound_ms=total_b, bound_by=by)
+    log(f"bv256: {len(per_op)} ops equal on {len(bv256.DIV_EDGES)} "
+        f"division edges and {a.shape[0]} words; kernel {total_k:.3f} ms, "
         f"plain {total_p:.1f} ms for all ops")
 
 

@@ -4,8 +4,11 @@
 // the inlined mythril_tpu/ops/bv256.py:93-539): chip_smoke.py calls it
 // on seeded random and edge operands and holds each op against the
 // plain PyTorch version, ops/bv256.bv256_plain. Op codes follow
-// ops/bv256.OPS. Bound: integer operations (the division ops run 256
-// or 512 restoring rounds per word); the bytes moved are 4 words/lane.
+// ops/bv256.OPS. Bound: integer operations (a division a few hundred
+// dependent ones a word, an exp ~100 a product); the bytes moved are
+// at most 4 words a thread. The six division ops go through one call of
+// bv::divide, as the stepper kernels route them, so the core is inlined
+// once here too.
 #include "common.cuh"
 #include "bv256.cuh"
 
@@ -16,19 +19,20 @@ __global__ void bv256_kernel(int op, const uint32_t* a, const uint32_t* b,
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   W x = bv::load(a + 8 * i), y = bv::load(b + 8 * i), z = bv::load(c + 8 * i);
-  W r, t;
+  W r, lo;
+  int kind = -1;  // the division family: one bv::divide after the switch
   switch (op) {
     case 0: r = bv::add(x, y); break;
     case 1: r = bv::sub(x, y); break;
     case 2: r = bv::neg(x); break;
     case 3: r = bv::mul(x, y); break;
-    case 4: bv::mul_full(x, y, t, r); break;
-    case 5: r = bv::div(x, y); break;
-    case 6: r = bv::mod(x, y); break;
-    case 7: bv::sdivmod(x, y, r, t); break;
-    case 8: bv::sdivmod(x, y, t, r); break;
-    case 9: r = bv::addmod(x, y, z); break;
-    case 10: r = bv::mulmod(x, y, z); break;
+    case 4: bv::mul_full(x, y, lo, r); break;
+    case 5: kind = bv::DIV; break;
+    case 6: kind = bv::MOD; break;
+    case 7: kind = bv::SDIV; break;
+    case 8: kind = bv::SMOD; break;
+    case 9: kind = bv::ADDMOD; break;
+    case 10: kind = bv::MULMOD; break;
     case 11: r = bv::exp(x, y); break;
     case 12: r = bv::shl(x, y); break;
     case 13: r = bv::shr(x, y); break;
@@ -47,6 +51,7 @@ __global__ void bv256_kernel(int op, const uint32_t* a, const uint32_t* b,
     case 26: r = bv::bnot(x); break;
     default: r = bv::zero(); break;
   }
+  if (kind >= 0) r = bv::divide(kind, x, y, z);
   bv::store(out + 8 * i, r);
 }
 

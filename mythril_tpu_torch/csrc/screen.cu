@@ -99,7 +99,8 @@
 // reads on the round's data (chip_smoke.py: rule_parts); a table-wide
 // pass reads and writes every row. Rows are 32-byte aligned and loaded as two 16-byte vectors. The
 // transfer arithmetic (a few dozen 8-limb ops; 512-bit MUL and
-// 256-round division where a node needs them) stays in registers.
+// bv256.cuh's digit division where a node needs them) stays in
+// registers.
 //
 // The "changed" flag: the JAX driver compares a sweep's start tables
 // with its end tables. Refinement is monotone (max-lo, min-hi, bit

@@ -58,12 +58,11 @@
 //    device (common.cuh allow_smem), so one process may run lanes on
 //    several cards (parallel/mesh.py sharded_run);
 //  - no limb is indexed by a runtime value (a register array indexed so
-//    would live in local memory): shifts, BYTE and SIGNEXTEND select
-//    limbs, MLOAD/MSTORE/CALLDATALOAD move fixed limbs; the division
-//    family, ADDMOD/MULMOD and EXP run out of line on the stack's words
-//    into a word of shared scratch, DIV/MOD/SDIV/SMOD with a fast path
-//    for a one-limb divisor (8 steps of 64-by-32 division, not 256
-//    rounds).
+//    would live in local memory): the word ops are bv256.cuh's, whose
+//    shifts, BYTE and SIGNEXTEND select limbs; MLOAD/MSTORE/
+//    CALLDATALOAD move fixed limbs; the division family (bv::divide,
+//    the header's one core) and EXP run out of line on the stack's
+//    words into a word of shared scratch.
 // A split of a lane over 8 threads (a limb each: carries by ballot,
 // MUL by shuffles) was built, held exact and measured slower at every
 // width (PERF.md §6): it repeats the step's control 8 times.
@@ -75,8 +74,7 @@ using bv::W;
 namespace {
 
 constexpr int CODE_COLS = 14;
-constexpr int OP_STOP = 0x00, OP_DIV = 0x04, OP_SDIV = 0x05, OP_MOD = 0x06,
-              OP_SMOD = 0x07, OP_ADDMOD = 0x08, OP_MULMOD = 0x09,
+constexpr int OP_STOP = 0x00, OP_DIV = 0x04, OP_EXP = 0x0A,
               OP_CALLDATALOAD = 0x35, OP_MLOAD = 0x51, OP_MSTORE = 0x52,
               OP_MSTORE8 = 0x53, OP_SLOAD = 0x54, OP_SSTORE = 0x55,
               OP_JUMP = 0x56, OP_JUMPI = 0x57, OP_RETURN = 0xF3,
@@ -144,42 +142,9 @@ struct Plan {
   int lpb, stack_w, store_w, mem_b, head_b, vec;
 };
 
-// bv::divmod_u with a fast path for a divisor of one limb: long
-// division from the top limb, 8 steps of 64-by-32 bits
-__device__ __forceinline__ void divmod_k10(const W& a, const W& b, W& q, W& r) {
-  uint32_t rest = 0;
-#pragma unroll
-  for (int i = 1; i < bv::NL; ++i) rest |= b.l[i];
-  if (rest != 0 || b.l[0] == 0) {
-    bv::divmod_u(a, b, q, r);
-    return;
-  }
-  const uint64_t d = b.l[0];
-  uint64_t rem = 0;
-#pragma unroll
-  for (int i = bv::NL - 1; i >= 0; --i) {
-    const uint64_t cur = (rem << 32) | a.l[i];
-    q.l[i] = (uint32_t)(cur / d);
-    rem = cur % d;
-  }
-  r = bv::from_u32((uint32_t)rem);
-}
-
 __device__ __forceinline__ W heavy(int op, const W& a, const W& b, const W& c) {
-  W q, r;
-  switch (op) {
-    case OP_DIV: divmod_k10(a, b, q, r); return q;
-    case OP_MOD: divmod_k10(a, b, q, r); return r;
-    case OP_SDIV: case OP_SMOD: {
-      const bool sa = bv::sign_bit(a), sb = bv::sign_bit(b);
-      divmod_k10(sa ? bv::neg(a) : a, sb ? bv::neg(b) : b, q, r);
-      if (op == OP_SDIV) return sa != sb ? bv::neg(q) : q;
-      return sa ? bv::neg(r) : r;
-    }
-    case OP_ADDMOD: return bv::addmod(a, b, c);
-    case OP_MULMOD: return bv::mulmod(a, b, c);
-    default: return bv::exp(a, b);
-  }
+  // DIV .. MULMOD (0x04-0x09) are bv::divide's kinds in opcode order
+  return op == OP_EXP ? bv::exp(a, b) : bv::divide(op - OP_DIV, a, b, c);
 }
 
 #ifndef MTT_DYN_SMEM
@@ -299,91 +264,6 @@ __device__ __forceinline__ uint32_t low32w(const W& w, bool* hi) {
   return w.l[0];
 }
 
-// ---- whole-word helpers that index no limb by a runtime value (a
-// register array indexed so would live in local memory): limb i of w,
-// 0 past the word
-__device__ __forceinline__ uint32_t sel(const W& w, int i) {
-  uint32_t r = 0;
-#pragma unroll
-  for (int j = 0; j < bv::NL; ++j) r = i == j ? w.l[j] : r;
-  return r;
-}
-
-__device__ __forceinline__ bool w_ult(const W& a, const W& b) {
-  bool lt = false, done = false;
-#pragma unroll
-  for (int i = bv::NL - 1; i >= 0; --i) {
-    const bool ne = a.l[i] != b.l[i];
-    lt = (!done && ne) ? a.l[i] < b.l[i] : lt;
-    done = done || ne;
-  }
-  return lt;
-}
-
-__device__ __forceinline__ bool w_slt(const W& a, const W& b) {
-  const bool sa = bv::sign_bit(a), sb = bv::sign_bit(b);
-  return sa == sb ? w_ult(a, b) : (sa && !sb);
-}
-
-__device__ __forceinline__ W w_shl(const W& a, const W& shift) {
-  if (bv::shift_oob(shift)) return bv::zero();
-  const int ls = (int)(shift.l[0] >> 5);
-  const uint32_t bs = shift.l[0] & 31u;
-  W r;
-#pragma unroll
-  for (int i = 0; i < bv::NL; ++i) {
-    const uint32_t lo = sel(a, i - ls), lo2 = sel(a, i - ls - 1);
-    r.l[i] = (lo << bs) | (bs ? lo2 >> (32u - bs) : 0u);
-  }
-  return r;
-}
-
-__device__ __forceinline__ W w_shr(const W& a, const W& shift) {
-  if (bv::shift_oob(shift)) return bv::zero();
-  const int ls = (int)(shift.l[0] >> 5);
-  const uint32_t bs = shift.l[0] & 31u;
-  W r;
-#pragma unroll
-  for (int i = 0; i < bv::NL; ++i) {
-    const uint32_t lo = sel(a, i + ls), hi = sel(a, i + ls + 1);
-    r.l[i] = (lo >> bs) | (bs ? hi << (32u - bs) : 0u);
-  }
-  return r;
-}
-
-__device__ __forceinline__ W w_sar(const W& a, const W& shift) {
-  const W logical = w_shr(a, shift);
-  if (!bv::sign_bit(a)) return logical;
-  W ones;
-#pragma unroll
-  for (int i = 0; i < bv::NL; ++i) ones.l[i] = 0xFFFFFFFFu;
-  return bv::bor(logical, bv::bnot(w_shr(ones, shift)));
-}
-
-__device__ __forceinline__ W w_byte(const W& pos, const W& x) {
-  if (bv::shift_oob(pos) || pos.l[0] >= 32u) return bv::zero();
-  const int bi = 31 - (int)pos.l[0];
-  return bv::from_u32((sel(x, bi >> 2) >> ((bi & 3) * 8)) & 0xFFu);
-}
-
-__device__ __forceinline__ W w_signextend(const W& k, const W& x) {
-  if (bv::shift_oob(k) || k.l[0] >= 31u) return x;
-  const int top = (int)k.l[0] * 8 + 7;
-  const int limb = top >> 5;
-  const uint32_t off = (uint32_t)(top & 31);
-  const uint32_t sign = (sel(x, limb) >> off) & 1u;
-  W r;
-#pragma unroll
-  for (int i = 0; i < bv::NL; ++i) {
-    uint32_t keep;
-    if (i < limb) keep = 0xFFFFFFFFu;
-    else if (i == limb) keep = off == 31u ? 0xFFFFFFFFu : ((1u << (off + 1u)) - 1u);
-    else keep = 0u;
-    r.l[i] = (x.l[i] & keep) | (sign ? ~keep : 0u);
-  }
-  return r;
-}
-
 // the heavy families on the stack's words a, b, c (shared or global),
 // the result into out (a lane's shared scratch), out of line
 __device__ __noinline__ void heavy_sh(int op, const uint32_t* a, const uint32_t* b,
@@ -478,21 +358,21 @@ k_lane_run(Lanes s, const int32_t* __restrict__ code, int code_size,
                    stk + 8 * clampi(sp - 3, 0, D - 1), mine);
           res = ld_sh(mine);
           break;
-        case RC_SIGNEXTEND: res = w_signextend(a, b); break;
-        case RC_LT: res = bv::bool_word(w_ult(a, b)); break;
-        case RC_GT: res = bv::bool_word(w_ult(b, a)); break;
-        case RC_SLT: res = bv::bool_word(w_slt(a, b)); break;
-        case RC_SGT: res = bv::bool_word(w_slt(b, a)); break;
+        case RC_SIGNEXTEND: res = bv::signextend(a, b); break;
+        case RC_LT: res = bv::bool_word(bv::ult(a, b)); break;
+        case RC_GT: res = bv::bool_word(bv::ult(b, a)); break;
+        case RC_SLT: res = bv::bool_word(bv::slt(a, b)); break;
+        case RC_SGT: res = bv::bool_word(bv::slt(b, a)); break;
         case RC_EQ: res = bv::bool_word(bv::eq(a, b)); break;
         case RC_ISZERO: res = bv::bool_word(bv::is_zero(a)); break;
         case RC_AND: res = bv::band(a, b); break;
         case RC_OR: res = bv::bor(a, b); break;
         case RC_XOR: res = bv::bxor(a, b); break;
         case RC_NOT: res = bv::bnot(a); break;
-        case RC_BYTE: res = w_byte(a, b); break;
-        case RC_SHL: res = w_shl(b, a); break;
-        case RC_SHR: res = w_shr(b, a); break;
-        case RC_SAR: res = w_sar(b, a); break;
+        case RC_BYTE: res = bv::byte_op(a, b); break;
+        case RC_SHL: res = bv::shl(b, a); break;
+        case RC_SHR: res = bv::shr(b, a); break;
+        case RC_SAR: res = bv::sar(b, a); break;
         case RC_PC: res = bv::from_u32((uint32_t)pc); break;
         case RC_MSIZE: res = bv::from_u32((uint32_t)msize); break;
         case RC_GAS: res = bv::from_u32(gas_limit - gas_used); break;

@@ -566,17 +566,14 @@ __device__ bool exec_lane(const Env& e, int lane, const Dec& d, int forder, int 
   if (live_alu && d.npush == 1) {
     const W& a = d.a;
     const W& b = d.b;
-    W q, r;
     switch (d.rclass) {
       case RC_ADD: result = bv::add(a, b); break;
       case RC_MUL: result = bv::mul(a, b); break;
       case RC_SUB: result = bv::sub(a, b); break;
-      case RC_DIV: result = bv::div(a, b); break;
-      case RC_SDIV: bv::sdivmod(a, b, result, r); break;
-      case RC_MOD: result = bv::mod(a, b); break;
-      case RC_SMOD: bv::sdivmod(a, b, q, result); break;
-      case RC_ADDMOD: result = bv::addmod(a, b, d.c); break;
-      case RC_MULMOD: result = bv::mulmod(a, b, d.c); break;
+      case RC_DIV: case RC_SDIV: case RC_MOD: case RC_SMOD:
+      case RC_ADDMOD: case RC_MULMOD:  // one division core, in opcode order
+        result = bv::divide(d.rclass - RC_DIV, a, b, d.c);
+        break;
       case RC_EXP: result = bv::exp(a, b); break;
       case RC_SIGNEXTEND: result = bv::signextend(a, b); break;
       case RC_LT: result = bv::bool_word(bv::ult(a, b)); break;

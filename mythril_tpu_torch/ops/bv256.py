@@ -393,6 +393,74 @@ OPS = {
 OP_CODES = {name: i for i, name in enumerate(OPS)}
 
 
+_W = (1 << 256) - 1
+
+#: (a, b, m) word triples that take every path of the card's division
+#: core (``csrc/bv256.cuh`` ``divrem``): DIV, MOD, SDIV and SMOD divide a
+#: by b, ADDMOD and MULMOD reduce a + b and a * b modulo m. The fast
+#: paths (a zero divisor, a dividend below it, a divisor 2^k, one limb),
+#: a divisor of each length 1-8 limbs, a top limb normalised by 0 and by
+#: 31 bits, and pairs whose quotient digits algorithm D corrects once,
+#: twice, caps at 2^32 - 1 and adds back, for 256-bit dividends and for
+#: addmod's and mulmod's 512-bit ones (tests/test_torch_bv256.py replays
+#: the core on them and checks each branch is reached).
+DIV_EDGES = (
+    # divisor and modulus 0 and 1
+    (_W, 0, 0), (12345, 0, 1), (_W, 1, 0), (1 << 255, 1, 1),
+    # a below b, a equal to b
+    (5, 7, 7), ((1 << 200) + 3, (1 << 201) + 1, (1 << 201) + 1),
+    (0xDEADBEEF << 100, 0xDEADBEEF << 100, 0xDEADBEEF << 100),
+    # SDIV(-2**255, -1) = -2**255 and its neighbours
+    (1 << 255, _W, _W), (_W, 1 << 255, 1 << 255), (1 << 255, 1 << 255, 3),
+    (_W - 6, 3, _W - 2),
+    # one set bit: solc's selector DIV by 2**224, 0x100**k, 2**255, 2**31
+    (0x12345678 << 224 | 0xABCDEF, 1 << 224, 1 << 224),
+    (_W // 3, 0x100 ** 5, 0x100 ** 5), (_W, 1 << 255, 1 << 31),
+    (_W - (1 << 77), 1 << 31, 1 << 32),
+    # a divisor (and modulus) of each length, 1-8 limbs
+    *((_W - (1 << 129), (0x9E3779B9 << (32 * (n - 1))) | 0x7F4A7C15,
+       (0x9E3779B9 << (32 * (n - 1))) | 0x7F4A7C15) for n in range(1, 9)),
+    # top limbs 0xFFFFFFFF (shift 0) and 1 (shift 31), one limb and more
+    (_W, 0xFFFFFFFF, 0xFFFFFFFF), (_W, 3, 3),
+    (_W, (0xFFFFFFFF << 96) | 1, (0xFFFFFFFF << 96) | 1),
+    (_W, (1 << 160) + 5, (1 << 160) + 5),
+    # algorithm D on a 256-bit dividend: a correction, two, the cap, the
+    # add-back (2**96 by 2**95 + 2**32 - 1: the estimate 2 passes the
+    # digit test, the product does not)
+    (0xFFFFFFFE18072E8CFFFFFFFEFFFFFFFF00000001C386BBC4,
+     0x13A90293180000000, 0xFFFFFFFE619699CF0000000000000000),
+    (0x1FFFFFFFF5F221DFC800000007FFFFFFF, 0x80000000FFFFFFFEF5C7B9AA,
+     0xA0E2004500000001000000000000000280000001),
+    (0x100000000000000020000000180000001FFFFFFFE800000017FFFFFFF,
+     0x1000000007FFFFFFF1A6BF371, 0x1A36CBFA75F3F23F3),
+    (1 << 96, (1 << 95) + (1 << 32) - 1, (1 << 95) + (1 << 32) - 1),
+    # algorithm D on 512-bit dividends (ADDMOD's carry, MULMOD's product)
+    (0x2FFFFFFFE055455E86E80FA487FFFFFFF4227DE21FFFFFFFE80000000,
+     0x843FDDA7A17A43407FFFFFFFFFFFFFFE,
+     0x4E6F5A947FFFFFFF80000000FFFFFFFE80000001),
+    (0x80000000CE9244CB42A305D5502E50560EE3BDCB000000008000000180000000,
+     0x958A3855FFFFFFFE800000017FFFFFFF7FFFFFFF,
+     0x80000001BE40F38ED4E4DB0300000000FFFFFFFF),
+    (0xFFFFFFFE00000002CD9454E3FFFFFFFFC545FF88B520566000000002FFFFFFFE,
+     0x8000000000000002800000019F3E07EE00000002426B7D575C285D6D7ED224ED,
+     0x7FFFFFFF39D5976400000002FFFFFFFF),
+    (0xFFFFFFFE00000000FFFFFFFF7FFFFFFF7FFFFFFF8000000077EE074600000000,
+     0x268BA1D72FFFFFFFE91833EF07FFFFFFFFFFFFFFE00000001,
+     0x8000000000000001FFFFFFFE00000001FFFFFFFF80000000699A474A),
+    (0x8000000100000000F874D59A769F54CD00000001659892AE0000000280000001,
+     0x8000000000000001800000015CDD21437FFFFFFF0EB24A5FFFFFFFFF80000000,
+     0x8000000100000002800000000000000000000002FFFFFFFF),
+)
+
+
+def div_edge_planes(device=None):
+    """``DIV_EDGES`` as three (N, 8) int32 limb planes (a, b, m)."""
+    cols = zip(*DIV_EDGES)
+    return tuple(torch.from_numpy(np.stack([int_to_limbs(v) for v in col])
+                                  .view(np.int32)).to(device)
+                 for col in cols)
+
+
 def bv256_plain(op: str, a, b=None, c=None) -> torch.Tensor:
     """``op`` over (N, 8) int32 limb planes, in plain PyTorch."""
     arity, fn = OPS[op]

@@ -2,7 +2,8 @@
 compare two commits in turns on one card.
 
     python3 tools/window_turns.py
-        [window|k9k10|k5k13|k12k6|k6fault|e2e|mesh|vis] [--tree DIR]
+        [window|k9k10|k5k13|k12k6|k6fault|e2e|mesh|vis|bv256|k10plain]
+        [--tree DIR]
 
 Imports ``mythril_tpu_torch`` from ``DIR`` (default: this checkout; an
 older commit unpacked with ``git archive`` works the same way, as long
@@ -37,7 +38,8 @@ as the group's functions take the arguments they take here) and
   the wave, its call only); K13's ``lane_order`` on 131072 seeded
   statuses of every kind (those of ``device_loop.k13_edge_cases``
   ``mixed_131072``), and their first 32768, with 1 and 8 shards. Means
-  of 5;
+  of 5; and ``screen.cu``'s registers, stack and spills (``ptxas``),
+  and K5's device time by kernel under torch.profiler;
 - ``k12k6``: K12 on 32768 and 131072 seeded statuses of every kind
   (those of ``k13_edge_cases``' ``mixed_131072``) over 8 shards of the
   card: ``lane_live`` (a device tensor), the library's per-shard sum,
@@ -84,7 +86,17 @@ as the group's functions take the arguments they take here) and
   its host-only run, the device loop alone (k=12 at 4096 lanes, k=17
   at 131072), the corpus mode (its four ranks, the tree's
   ``corpus_mode``), each once, after a warm-up explore at 64 lanes;
-  walls in seconds.
+  walls in seconds;
+- ``bv256``: row 1 and the kernels that inline ``csrc/bv256.cuh``: each
+  of the 27 ops' test launch (``bv256_apply``) on ``check_bv256``'s
+  4096 seeded words (means of 10), K1's run of 64 steps on
+  ``check_k1``'s 4096-lane state (5) and of 32 steps on
+  ``check_k1_wide``'s 131072 lanes (3), K10's run of ``bench_device``'s
+  32768 lanes (3), and every kernel's registers, stack frame and spill
+  bytes in ``bv256.cu``, ``symstep.cu``, ``stepper.cu`` and
+  ``screen.cu`` (``ptxas``, from the tree's ``-Xptxas -v`` logs);
+- ``k10plain``: the plain K10 on ``chip_smoke.py``'s concrete path
+  input (1024 lanes through a whole run), its call after a warm-up.
 
 For each kernel time: the call on CUDA events and, unless the group
 says otherwise, the device time queued behind a spin kernel after an L2
@@ -164,8 +176,28 @@ def k9k10_times(cs, dev, timed) -> None:
               lambda: None, reps=5)
 
 
-def k5k13_times(cs, dev, timed) -> None:
-    """K5's, the screen path's and K13's times (the ``k5k13`` group)."""
+def kernel_ms(fn, setup, reps=5) -> dict:
+    """{kernel: device ms a call} of fn(setup()) under torch.profiler,
+    the setups made before it starts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    args = [setup() for _ in range(reps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for a in args:
+            fn(a)
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / reps
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total}
+
+
+def k5k13_times(cs, dev, timed) -> dict:
+    """K5's, the screen path's and K13's times (the ``k5k13`` group).
+    Returns the registers, stack and spills of ``screen.cu``'s kernels
+    and K5's device time by kernel (an op class a kernel)."""
     import numpy as np
     import torch
 
@@ -187,7 +219,10 @@ def k5k13_times(cs, dev, timed) -> None:
 
         timed("interval_level, screen wave, every level",
               lambda x: I.eval_levels_kernel(lay, *x), fresh, reps=5)
+        by_kernel = kernel_ms(lambda x: I.eval_levels_kernel(lay, *x),
+                              fresh, reps=5)
     else:
+        by_kernel = {}
         levels = [I.level_to_device(lv, dev) for lv in enc.levels]
         parts = [I.words_to_device(enc.init_lo, dev),
                  I.words_to_device(enc.init_hi, dev),
@@ -248,6 +283,8 @@ def k5k13_times(cs, dev, timed) -> None:
             timed(f"lane_order, {n} lanes, {n_dev} shards",
                   lambda _=None, s=status, d=n_dev: M.lane_order(s, d),
                   lambda: None, reps=5)
+    return {"ptxas": ptxas_table(["screen.cu"]),
+            "interval_level by kernel": by_kernel}
 
 
 def k12k6_times(cs, dev, timed) -> None:
@@ -632,10 +669,96 @@ def e2e_walls(cs, dev, timed) -> dict:
     return out
 
 
+def ptxas_table(sources) -> dict:
+    """{kernel: [registers, stack frame, spill stores, spill loads]} of
+    the tree's current builds of ``sources``, from their ``-Xptxas -v``
+    logs (mangled names, the anonymous namespace's per-build hash cut
+    out so that two trees' names match)."""
+    import re
+
+    from mythril_tpu_torch import _build
+
+    anon = re.compile(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+")
+    out = {}
+    for src in sources:
+        name = None
+        for line in _build.build_log(src).splitlines():
+            line = anon.sub("anon", line)
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                name = f"{src}:{m.group(1)}"
+                out[name] = [None, None, None, None]
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m and name:
+                out[name][1:] = [int(x) for x in m.groups()]
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                name = f"{src}:{m.group(1)}"
+                out.setdefault(name, [None, None, None, None])
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                out[name][0] = int(m.group(1))
+    return out
+
+
+def bv256_times(cs, dev, timed) -> dict:
+    """Row 1 (the ``bv256`` group): every op's test launch on
+    ``check_bv256``'s 4096 words, K1's step (``check_k1``'s 4096-lane
+    state, 64 steps a run; ``check_k1_wide``'s 131072 lanes, 32 steps)
+    and K10's run (``bench_device``'s 32768 lanes, to the end); means of
+    10 (K1: 5 and 3, K10: 3). Returns the registers, stack and spills of
+    the word arithmetic's kernels."""
+    from mythril_tpu_torch.ops import bv256
+    from mythril_tpu_torch.ops import stepper as S
+    from mythril_tpu_torch.ops import symstep
+    from mythril_tpu_torch.support import contracts as C
+
+    words = cs.bv256_words(dev)
+    for op, (arity, _) in bv256.OPS.items():
+        args = words[:arity]
+        timed(f"bv256 {op}, 4096 words",
+              lambda _=None, o=op, x=args: bv256.bv256_apply(o, *x),
+              lambda: None, reps=10)
+    st, cc = cs.k1_state(dev)
+    probe, _ = symstep.sym_run_kernel(cc, cs.clone_state(st), 64)
+    ran = int(probe.step_no) - int(st.step_no)
+    timed(f"sym_run, 4096 lanes, a run of {ran} steps",
+          lambda x: symstep.sym_run_kernel(cc, x, 64),
+          lambda: cs.clone_state(st), reps=5)
+    wcc, wide, running, _ = cs.k1_wide_state(dev)
+    timed(f"sym_run, {wide.pc.shape[0]} lanes ({running} running), "
+          f"a run of 32 steps", lambda x: symstep.sym_run_kernel(wcc, x, 32),
+          lambda: cs.clone_state(wide), reps=3)
+    del wcc, wide
+    bcc = S.compile_code(C.build_bench_contract(), device=dev)
+    timed(f"lane_run, {cs.CONCRETE_N} lanes (bench batch)",
+          lambda x: S.run_kernel(bcc, x, C.BENCH_MAX_STEPS),
+          lambda: C.bench_batch(cs.CONCRETE_N, dev))
+    return {"ptxas": ptxas_table(["bv256.cu", "symstep.cu", "stepper.cu",
+                                  "screen.cu"])}
+
+
+def k10plain_times(cs, dev, timed) -> None:
+    """The plain K10 (``run_plain``, PyTorch ops launched from the host)
+    on ``chip_smoke.py``'s concrete path input: ``bench_batch`` of
+    ``CONCRETE_PLAIN_N`` lanes through a whole run, after one warm-up
+    run; its call only."""
+    from mythril_tpu_torch.ops import stepper as S
+    from mythril_tpu_torch.support import contracts as C
+
+    cc = S.compile_code(C.build_bench_contract(), device=dev)
+    small = C.bench_batch(cs.CONCRETE_PLAIN_N, dev)
+    timed(f"lane_run plain, {cs.CONCRETE_PLAIN_N} lanes, a whole run",
+          lambda: S.run_plain(cc, small, C.BENCH_MAX_STEPS), None, reps=2,
+          device=False)
+
+
 #: each group times through ``timed``, or returns its numbers
 GROUPS = {"window": window_times, "k9k10": k9k10_times, "k5k13": k5k13_times,
           "k12k6": k12k6_times, "k6fault": k6fault_diffs, "e2e": e2e_walls,
-          "mesh": mesh_times, "vis": vis_times}
+          "mesh": mesh_times, "vis": vis_times, "bv256": bv256_times,
+          "k10plain": k10plain_times}
 
 
 def main(argv=None) -> int:
